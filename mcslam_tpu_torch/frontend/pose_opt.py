@@ -1,0 +1,58 @@
+"""Motion-only pose optimization: robust LM on SE(3) with chi2 re-gating
+rounds (counterpart of mcslam_tpu/frontend/pose_opt.py). The refine
+always goes through the one-launch LM of pose_opt_cuda, as on the TPU."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mcslam_tpu_torch.frontend import pose_opt_cuda
+
+CHI2_2DOF = pose_opt_cuda.CHI2_2DOF
+
+
+class PoseOptResult(NamedTuple):
+    world_T_ref: torch.Tensor  # (..., 4, 4)
+    inliers: torch.Tensor  # (..., M) bool
+    num_inliers: torch.Tensor  # (...,) int32
+    final_cost: torch.Tensor  # (...,) float32
+
+
+def optimize_pose(T_init: torch.Tensor, X_world: torch.Tensor,
+                  uv: torch.Tensor, cam_T_ref: torch.Tensor,
+                  fxycxy: torch.Tensor, mask: torch.Tensor,
+                  sigma2: torch.Tensor | None = None,
+                  iters: int | tuple = 8, rounds: int = 2,
+                  huber_px: float = 2.5, chi2_thresh: float = CHI2_2DOF,
+                  lm_lambda: float = 1e-3) -> PoseOptResult:
+    """Refine T_init (4, 4) — or a batch (B, 4, 4) with masks (B, M), in
+    one launch — against M observations: X_world (M, 3), uv (M, 2),
+    per-observation cam_T_ref (M, 4, 4) and fxycxy (M, 4). `iters` is a
+    per-round schedule tuple or an int repeated `rounds` times."""
+    single = T_init.ndim == 2
+    T0 = T_init[None] if single else T_init
+    m = mask[None] if mask.ndim == 1 else mask
+    if sigma2 is None:
+        sigma2 = torch.ones(X_world.shape[0], dtype=torch.float32,
+                            device=X_world.device)
+    inv_sig2 = 1.0 / sigma2
+    sched = iters if isinstance(iters, tuple) else (iters,) * rounds
+    data = pose_opt_cuda._pack_obs(X_world, uv, cam_T_ref, fxycxy, inv_sig2)
+    T, chi2 = pose_opt_cuda.pose_lm(
+        T0.to(torch.float32).contiguous(), data,
+        m.to(torch.float32).contiguous(), sched, huber_px=huber_px,
+        chi2_thresh=chi2_thresh, lm_lambda=lm_lambda,
+    )
+    inl = m.bool() & (chi2 < chi2_thresh)
+    res = PoseOptResult(
+        world_T_ref=T,
+        inliers=inl,
+        num_inliers=torch.sum(inl, dim=-1).to(torch.int32),
+        final_cost=torch.sum(torch.where(inl, chi2, torch.zeros_like(chi2)),
+                             dim=-1),
+    )
+    if single:
+        res = PoseOptResult(*(x[0] for x in res))
+    return res

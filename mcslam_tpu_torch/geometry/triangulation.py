@@ -1,0 +1,139 @@
+"""Batched multi-view triangulation: midpoint initialization, per-point
+Gauss-Newton refine and chi2/cheirality gating (counterpart of
+triangulate_and_refine in mcslam_tpu/geometry/triangulation.py).
+
+Computed in the same transposed component form: every scalar component
+is an (R, M) tensor with the point axis minor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mcslam_tpu_torch.geometry.linalg3 import safe_det
+
+
+def _solve3_elem(A, b, damping=0.0):
+    """Cofactor solve of a 3x3 system given as nested lists of (...,)
+    component tensors. Returns ([x0, x1, x2], det)."""
+    a00, a01, a02 = A[0][0] + damping, A[0][1], A[0][2]
+    a10, a11, a12 = A[1][0], A[1][1] + damping, A[1][2]
+    a20, a21, a22 = A[2][0], A[2][1], A[2][2] + damping
+    c00 = a11 * a22 - a12 * a21
+    c01 = a12 * a20 - a10 * a22
+    c02 = a10 * a21 - a11 * a20
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    inv_det = 1.0 / safe_det(det)
+    c10 = a02 * a21 - a01 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a01 * a20 - a00 * a21
+    c20 = a01 * a12 - a02 * a11
+    c21 = a02 * a10 - a00 * a12
+    c22 = a00 * a11 - a01 * a10
+    b0, b1, b2 = b
+    x0 = (c00 * b0 + c10 * b1 + c20 * b2) * inv_det
+    x1 = (c01 * b0 + c11 * b1 + c21 * b2) * inv_det
+    x2 = (c02 * b0 + c12 * b1 + c22 * b2) * inv_det
+    return [x0, x1, x2], det
+
+
+def triangulate_and_refine(
+    world_T_cam: torch.Tensor,
+    uv: torch.Tensor,
+    fxycxy: torch.Tensor,
+    mask: torch.Tensor,
+    sigma: torch.Tensor | float = 1.0,
+    chi2_thresh: float = 5.991,
+    min_z: float = 0.1,
+    max_z: float = 40.0,
+    gn_iters: int = 5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """world_T_cam (..., R, 4, 4); uv (..., R, 2) undistorted pixels;
+    fxycxy (..., R, 4); mask (..., R). -> (X (..., 3), ok (...,))."""
+    batch_shape = mask.shape[:-1]
+    R = mask.shape[-1]
+    M = 1
+    for s in batch_shape:
+        M *= s
+    f32 = torch.float32
+
+    def t2(x):  # (..., R) -> (R, M)
+        return x.reshape(M, R).transpose(0, 1).to(f32)
+
+    T = [[t2(world_T_cam[..., i, j]) for j in range(4)] for i in range(3)]
+    u = t2(uv[..., 0])
+    v = t2(uv[..., 1])
+    fx = t2(fxycxy[..., 0])
+    fy = t2(fxycxy[..., 1])
+    cx = t2(fxycxy[..., 2])
+    cy = t2(fxycxy[..., 3])
+    m = t2(mask)
+
+    xn = (u - cx) / fx
+    yn = (v - cy) / fy
+    inv_n = torch.rsqrt(xn * xn + yn * yn + 1.0)
+    dc = [xn * inv_n, yn * inv_n, inv_n]
+    d = [T[i][0] * dc[0] + T[i][1] * dc[1] + T[i][2] * dc[2]
+         for i in range(3)]
+    o = [T[i][3] for i in range(3)]
+
+    A = [[None] * 3 for _ in range(3)]
+    b = [None] * 3
+    for i in range(3):
+        for j in range(3):
+            eye = 1.0 if i == j else 0.0
+            A[i][j] = torch.sum(m * (eye - d[i] * d[j]), dim=0)
+    for i in range(3):
+        acc = 0.0
+        for j in range(3):
+            eye = 1.0 if i == j else 0.0
+            acc = acc + m * (eye - d[i] * d[j]) * o[j]
+        b[i] = torch.sum(acc, dim=0)
+    X0, det = _solve3_elem(A, b, damping=1e-6)
+    n_valid = torch.sum(mask, dim=-1).reshape(M)
+    ok0 = (n_valid >= 2) & (det > 1e-9)
+    ok0 = ok0 & torch.isfinite(X0[0]) & torch.isfinite(X0[1]) \
+        & torch.isfinite(X0[2])
+
+    Rcw = [[T[j][i] for j in range(3)] for i in range(3)]
+    tcw = [-(T[0][i] * T[0][3] + T[1][i] * T[1][3] + T[2][i] * T[2][3])
+           for i in range(3)]
+
+    def project(X):
+        return [Rcw[i][0] * X[0] + Rcw[i][1] * X[1] + Rcw[i][2] * X[2]
+                + tcw[i] for i in range(3)]
+
+    X = X0
+    for _ in range(gn_iters):
+        p = project(X)
+        z = torch.clamp(p[2], min=1e-3)
+        inv_z = 1.0 / z
+        ru = (p[0] * inv_z * fx + cx - u) * m
+        rv = (p[1] * inv_z * fy + cy - v) * m
+        gx = fx * inv_z
+        gy = fy * inv_z
+        hx = -gx * p[0] * inv_z
+        hy = -gy * p[1] * inv_z
+        Jc = [[(gx * Rcw[0][i] + hx * Rcw[2][i]) * m for i in range(3)],
+              [(gy * Rcw[1][i] + hy * Rcw[2][i]) * m for i in range(3)]]
+        H = [[torch.sum(Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j], dim=0)
+              for j in range(3)] for i in range(3)]
+        g = [torch.sum(Jc[0][i] * ru + Jc[1][i] * rv, dim=0)
+             for i in range(3)]
+        dX, _ = _solve3_elem(H, g, damping=1e-3)
+        X = [X[i] - dX[i] for i in range(3)]
+    fin = torch.isfinite(X[0]) & torch.isfinite(X[1]) & torch.isfinite(X[2])
+    X = [torch.where(fin, X[i], X0[i]) for i in range(3)]
+
+    p = project(X)
+    z = p[2]
+    zs = torch.clamp(z, min=1e-6)
+    ru = p[0] / zs * fx + cx - u
+    rv = p[1] / zs * fy + cy - v
+    sig = torch.as_tensor(sigma, dtype=f32, device=mask.device)
+    sig = t2(torch.broadcast_to(sig, mask.shape))
+    chi2 = (ru * ru + rv * rv) / (sig * sig)
+    ray_ok = (m > 0.5) & (chi2 < chi2_thresh) & (z > min_z) & (z < max_z)
+    ok = ok0 & (torch.sum(ray_ok, dim=0) >= 2)
+    Xout = torch.stack(X, dim=-1).reshape(*batch_shape, 3)
+    return Xout, ok.reshape(batch_shape)

@@ -1,0 +1,105 @@
+"""Dense image ops: separable Gaussian blur, antialiased bilinear resize,
+pyramids (counterpart of mcslam_tpu/ops/image.py). Images are
+(..., H, W) float32 in [0, 1], batched over leading dims.
+
+The resize reproduces jax.image.resize(method="bilinear") — which
+antialiases when downsampling (a triangle filter widened by the scale) —
+as two f32 matmuls with (h_out, h_in) and (w_out, w_in) weight matrices
+built in numpy the way jax/_src/image/scale.py builds them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _np_gaussian_taps(ksize: int, sigma: float) -> tuple:
+    r = (ksize - 1) / 2
+    x = np.arange(ksize, dtype=np.float64) - r
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    k = k / k.sum()
+    return tuple(float(v) for v in k)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7,
+                  sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur with reflect padding (vertical pass, then
+    horizontal)."""
+    taps = torch.tensor(_np_gaussian_taps(ksize, sigma), dtype=torch.float32)
+    pad = ksize // 2
+    h, w = img.shape[-2:]
+    x = img.reshape(-1, 1, h, w)
+    x = torch.nn.functional.pad(x, (pad, pad, pad, pad), mode="reflect")
+    acc = None
+    for t in range(ksize):
+        term = x[:, :, t:t + h, :] * taps[t]
+        acc = term if acc is None else acc + term
+    out = None
+    for t in range(ksize):
+        term = acc[:, :, :, t:t + w] * taps[t]
+        out = term if out is None else out + term
+    return out.reshape(img.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) f32 antialiased-linear weights as jax.image's
+    compute_weight_mat gives them inside a jitted resize (scale = out/in,
+    translation 0, triangle kernel). The compiled program contracts the
+    sample position (i + 0.5) * inv_scale - 0.5 into one FMA and divides
+    by multiplying with reciprocals, so that is how they are computed
+    here (to within 1-2 f32 ulp of JAX's)."""
+    f32 = np.float32
+    scale = n_out / n_in
+    inv_scale = f32(1.0 / scale)
+    kernel_scale = max(inv_scale, f32(1.0))
+    s = np.arange(n_out, dtype=f32) + f32(0.5)
+    sample_f = (s.astype(np.float64) * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        * (f32(1.0) / kernel_scale)
+    weights = np.maximum(f32(0.0), f32(1.0) - x).astype(f32)
+    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
+    ok = np.abs(total) > f32(1000.0 * float(np.finfo(np.float32).eps))
+    inv_total = f32(1.0) / np.where(total != 0, total, f32(1.0))
+    weights = np.where(ok, weights * inv_total, f32(0.0)).astype(f32)
+    inside = (sample_f >= f32(-0.5)) & (sample_f <= f32(n_in - 0.5))
+    weights = np.where(inside[None, :], weights, f32(0.0)).astype(f32)
+    return np.ascontiguousarray(weights.T)
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Antialiased bilinear resize of (..., H, W) to (..., h, w)."""
+    h, w = img.shape[-2:]
+    oh, ow = out_hw
+    x = img
+    if oh != h:
+        Wh = torch.from_numpy(_resize_matrix(h, oh)).to(img.device)
+        x = Wh @ x
+    if ow != w:
+        Ww = torch.from_numpy(_resize_matrix(w, ow)).to(img.device)
+        x = x @ Ww.T
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_shapes(h: int, w: int, num_levels: int, scale: float) -> tuple:
+    out = []
+    for lvl in range(num_levels):
+        s = scale**lvl
+        out.append((max(8, int(round(h / s))), max(8, int(round(w / s)))))
+    return tuple(out)
+
+
+def build_pyramid(img: torch.Tensor, num_levels: int = 8,
+                  scale: float = 1.2) -> list[torch.Tensor]:
+    """List of (..., h_l, w_l) images, level 0 = input; each level is
+    resized from the previous one."""
+    h, w = img.shape[-2:]
+    shapes = pyramid_shapes(h, w, num_levels, scale)
+    levels = [img]
+    for lvl in range(1, num_levels):
+        levels.append(resize_bilinear(levels[-1], shapes[lvl]))
+    return levels

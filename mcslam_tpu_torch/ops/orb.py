@@ -1,0 +1,287 @@
+"""Oriented-BRIEF (ORB-class) feature extraction over the whole rig
+(counterpart of mcslam_tpu/ops/orb.py, early-compaction path).
+
+Pyramid -> all levels edge-padded to level 0's shape and stacked into one
+(L*C, H, W) batch -> one fast_select launch (FAST + NMS + blur + per-cell
+top-4) -> global top-N per image -> per-level quota and edge margin ->
+cross-level compaction to num_points per camera -> patch gather ->
+intensity-centroid orientation -> steered BRIEF-256.
+
+Selection is exact (stable sorts everywhere): the JAX package's
+approx_topk option lowers to exact top-k on the CPU, and the port keeps
+that exact semantics on every device.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mcslam_tpu_torch.ops import hamming, image as image_ops
+from mcslam_tpu_torch.ops.fast_cuda import fast_select
+from mcslam_tpu_torch.ops.patch_cuda import PATCH, PATCH_R, patch_gather
+from mcslam_tpu_torch.ops.topk_grid import topk_stable
+
+PATCH_RADIUS = 15  # IC-angle circular patch radius (31x31 patch)
+EDGE = 19  # keep-out border for orientation/descriptor sampling
+ANGLE_BINS = 32  # steering quantization: 11.25 deg granularity
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pattern(seed: int = 7, bits: int = 256) -> np.ndarray:
+    """(bits, 2, 2) int32 array of (p, q) offsets, each (dx, dy) in [-13, 13].
+
+    13 = PATCH_RADIUS - 2 keeps rotated samples inside the 31x31 patch for
+    any angle (13 * sqrt(2) < 19-edge margin handles the rest).
+    """
+    rng = np.random.RandomState(seed)
+    sigma = PATCH_RADIUS / 5.0 * 2.0
+    pts = np.clip(np.round(rng.randn(bits, 2, 2) * sigma), -13, 13)
+    return pts.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _circle_weights() -> tuple[np.ndarray, np.ndarray]:
+    """(PATCH, PATCH) x/y weight masks of the IC-angle circular patch."""
+    r = PATCH_RADIUS
+    ys, xs = np.mgrid[-PATCH_R : PATCH_R + 1, -PATCH_R : PATCH_R + 1]
+    circle = (xs * xs + ys * ys) <= r * r
+    return (
+        (xs * circle).astype(np.float32),
+        (ys * circle).astype(np.float32),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _moment_weight_matrix() -> np.ndarray:
+    """(PATCH*PATCH, 2) [kx | ky] stacked circular-moment weights."""
+    kx, ky = _circle_weights()
+    return np.stack([kx.reshape(-1), ky.reshape(-1)], axis=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _steered_bit_matrices(bins: int = ANGLE_BINS) -> np.ndarray:
+    """(bins * 256, PATCH*PATCH) sparse ±1 matrices: row (b*256+s) has +1 at
+    the rotated q-sample position and -1 at the p position for angle bin b,
+    so bit = (D @ patch_flat) > 0. Turns steered-BRIEF sampling into one
+    dense matmul on the MXU instead of 2M random gathers (~20x faster on
+    v5e than the gather formulation)."""
+    pat = brief_pattern().astype(np.float64)  # (256, 2, 2) (dx, dy)
+    D = np.zeros((bins * 256, PATCH * PATCH), np.float32)
+    c0 = PATCH_R
+    for b in range(bins):
+        a = 2.0 * np.pi * b / bins
+        ca, sa = np.cos(a), np.sin(a)
+        dx = pat[..., 0]
+        dy = pat[..., 1]
+        rx = np.round(ca * dx - sa * dy).astype(int)  # (256, 2)
+        ry = np.round(sa * dx + ca * dy).astype(int)
+        rx = np.clip(rx + c0, 0, PATCH - 1)
+        ry = np.clip(ry + c0, 0, PATCH - 1)
+        for s in range(256):
+            row = b * 256 + s
+            D[row, ry[s, 0] * PATCH + rx[s, 0]] += -1.0  # p sample
+            D[row, ry[s, 1] * PATCH + rx[s, 1]] += 1.0  # q sample
+    return D
+
+
+@functools.lru_cache(maxsize=None)
+def _steered_sample_index(bins: int = ANGLE_BINS) -> np.ndarray:
+    """(bins, 256, 2) flat patch positions of the (p, q) samples of each
+    steered pair — the nonzero columns of _steered_bit_matrices' rows."""
+    pat = brief_pattern().astype(np.float64)
+    out = np.zeros((bins, 256, 2), np.int64)
+    for b in range(bins):
+        a = 2.0 * np.pi * b / bins
+        ca, sa = np.cos(a), np.sin(a)
+        rx = np.round(ca * pat[..., 0] - sa * pat[..., 1]).astype(int)
+        ry = np.round(sa * pat[..., 0] + ca * pat[..., 1]).astype(int)
+        rx = np.clip(rx + PATCH_R, 0, PATCH - 1)
+        ry = np.clip(ry + PATCH_R, 0, PATCH - 1)
+        out[b] = ry * PATCH + rx
+    return out
+
+
+def patch_orientation(patches: torch.Tensor) -> torch.Tensor:
+    """IC angle atan2(m01, m10) of (N, P, P) patches from one f32
+    (N, P^2) @ (P^2, 2) product (TF32 is off: a flipped steering bin
+    decorrelates the descriptor)."""
+    W = torch.from_numpy(_moment_weight_matrix()).to(patches.device)
+    m = patches.reshape(patches.shape[0], PATCH * PATCH) @ W
+    return torch.atan2(m[:, 1], m[:, 0])
+
+
+def compute_descriptors_patch(patches: torch.Tensor, angle: torch.Tensor,
+                              angle_bins: int = ANGLE_BINS) -> torch.Tensor:
+    """Steered BRIEF-256 -> (N, 8) int32 words. Patches are rounded to
+    bf16 (nearest-even) as the JAX package's bf16 matmul rounds them; each
+    bit is sign(q - p) of two samples, and the difference of two bf16
+    values is exact in f32, so the bits equal the matmul form's."""
+    n = patches.shape[0]
+    dev = patches.device
+    flat = patches.reshape(n, PATCH * PATCH).to(torch.bfloat16).to(
+        torch.float32)
+    two_pi = torch.tensor(2.0 * np.pi, dtype=torch.float32, device=dev)
+    b = torch.round((torch.remainder(angle, two_pi) / two_pi) * angle_bins)
+    b = b.to(torch.int64) % angle_bins
+    idx = torch.from_numpy(_steered_sample_index(angle_bins)).to(dev)[b]
+    p = torch.gather(flat, 1, idx[..., 0])
+    q = torch.gather(flat, 1, idx[..., 1])
+    return hamming.pack_bits((q - p) > 0)
+
+
+class Keypoints(NamedTuple):
+    """Fixed-capacity keypoint set per camera (padded + masked)."""
+
+    xy: torch.Tensor  # (C, N, 2) float32, level-0 pixel coords (x, y)
+    response: torch.Tensor  # (C, N) float32
+    angle: torch.Tensor  # (C, N) float32 radians
+    octave: torch.Tensor  # (C, N) int32 pyramid level
+    sigma2: torch.Tensor  # (C, N) float32 scale^(2*octave)
+    desc: torch.Tensor  # (C, N, 8) int32 packed BRIEF-256
+    valid: torch.Tensor  # (C, N) bool
+
+
+@functools.lru_cache(maxsize=None)
+def _level_budget(total: int, num_levels: int, scale: float) -> tuple:
+    """Per-level keypoint budget, geometric decay like the reference."""
+    inv = 1.0 / scale
+    raw = np.array([inv**l for l in range(num_levels)])
+    raw = raw / raw.sum() * total
+    counts = np.maximum(8, np.round(raw).astype(int))
+    counts[0] += total - counts.sum()
+    return tuple(int(c) for c in counts)
+
+
+def _select_from_cells(cand_v, cand_rid, maxb: int, *, per_cell: int,
+                       cell: int, ncx: int):
+    """Global top-maxb per image over fast_select's per-cell candidates
+    (cell raster-major, round-minor) -> (yx (LC, maxb, 2) int32, resp,
+    valid)."""
+    LC = cand_v.shape[0]
+    flat_v = cand_v.reshape(LC, -1)
+    flat_r = cand_rid.reshape(LC, -1)
+    n = min(maxb, flat_v.shape[1])
+    resp, arg = topk_stable(flat_v, n)
+    g = arg // per_cell
+    rid = torch.gather(flat_r, 1, arg).to(torch.int64)
+    valid = resp > 0.0
+    zero = torch.zeros_like(g)
+    ys = torch.where(valid, (g // ncx) * cell + rid // cell, zero)
+    xs = torch.where(valid, (g % ncx) * cell + rid % cell, zero)
+    yx = torch.stack([ys, xs], dim=-1).to(torch.int32)
+    if n < maxb:
+        pad = maxb - n
+        yx = F.pad(yx, (0, 0, 0, pad))
+        resp = F.pad(resp, (0, pad))
+        valid = torch.cat([valid, torch.zeros(LC, pad, dtype=torch.bool,
+                                              device=valid.device)], 1)
+    return yx, resp, valid
+
+
+def extract_orb_rig(imgs: torch.Tensor, num_points: int = 1024,
+                    num_levels: int = 8, scale: float = 1.2,
+                    fast_threshold: float = 20.0 / 255.0,
+                    min_threshold: float = 7.0 / 255.0,
+                    angle_bins: int = ANGLE_BINS) -> Keypoints:
+    """Camera-batched multi-scale ORB: imgs (C, H, W) float32 in [0, 1]
+    -> Keypoints with a leading camera axis and num_points slots (cells
+    of 16x16 pixels, 4 candidates per cell: the selection kernel's
+    build)."""
+    levels = image_ops.build_pyramid(imgs, num_levels, scale)
+    return extract_orb_levels(levels, num_points, scale, fast_threshold,
+                              min_threshold, angle_bins)
+
+
+def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
+                       scale: float = 1.2,
+                       fast_threshold: float = 20.0 / 255.0,
+                       min_threshold: float = 7.0 / 255.0,
+                       angle_bins: int = ANGLE_BINS) -> Keypoints:
+    """extract_orb_rig from an already built pyramid: levels[l] is the
+    (C, h_l, w_l) image stack of level l."""
+    cell, per_cell = 16, 4
+    dev = levels[0].device
+    L = len(levels)
+    C = levels[0].shape[0]
+    budgets = _level_budget(num_points, L, scale)
+    maxb = max(budgets)
+    H0, W0 = levels[0].shape[-2:]
+    hw = [(lv.shape[-2], lv.shape[-1]) for lv in levels]
+
+    # every level edge-padded to level 0's shape, stacked (L*C, H0, W0)
+    stacked = torch.cat(
+        [F.pad(lv[None], (0, W0 - w, 0, H0 - h), mode="replicate")[0]
+         for lv, (h, w) in zip(levels, hw)], dim=0,
+    ).contiguous()
+    h_l = torch.tensor([h for h, _ in hw], dtype=torch.int32,
+                       device=dev).repeat_interleave(C)
+    w_l = torch.tensor([w for _, w in hw], dtype=torch.int32,
+                       device=dev).repeat_interleave(C)
+    blurred, cand_v, cand_rid = fast_select(
+        stacked, min_threshold, fast_threshold, h_l, w_l,
+        taps=image_ops._np_gaussian_taps(7, 2.0),
+    )
+    yx, resp, valid = _select_from_cells(
+        cand_v, cand_rid, maxb, per_cell=per_cell, cell=cell,
+        ncx=(-(-W0 // 128) * 128) // cell,
+    )
+    resp = torch.where(resp > 1.0, resp - 1.0, resp)  # undo rank bonus
+    budget_arr = torch.tensor(budgets, dtype=torch.int64,
+                              device=dev).repeat_interleave(C)
+    valid = valid & (torch.arange(maxb, device=dev)[None, :]
+                     < budget_arr[:, None])
+    hl, wl = h_l.long()[:, None], w_l.long()[:, None]
+    inb = ((yx[..., 0] >= EDGE) & (yx[..., 0] < hl - EDGE)
+           & (yx[..., 1] >= EDGE) & (yx[..., 1] < wl - EDGE))
+    valid = valid & inb
+
+    s_lvl = torch.tensor([scale**lvl for lvl in range(L)],
+                         dtype=torch.float32, device=dev)
+    xy_lvl = torch.stack([yx[..., 1], yx[..., 0]], dim=-1).to(torch.float32)
+    xy0 = (xy_lvl.reshape(L, C, maxb, 2)
+           * s_lvl[:, None, None, None]).reshape(L * C, maxb, 2)
+    octv = torch.arange(L, dtype=torch.int32, device=dev)[:, None, None] \
+        .expand(L, C, maxb).reshape(L * C, maxb)
+    sigma2 = (s_lvl**2)[:, None, None].expand(L, C, maxb).reshape(L * C, maxb)
+    img_idx = torch.arange(L * C, dtype=torch.int32, device=dev)[:, None] \
+        .expand(L * C, maxb)
+
+    def merge(x):
+        # (L*C, maxb, ...) -> (C, L*maxb, ...), level-major slot order
+        x = x.reshape(L, C, maxb, *x.shape[2:])
+        return x.movedim(1, 0).reshape(C, L * maxb, *x.shape[3:])
+
+    yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
+        merge(yx), merge(resp), merge(valid), merge(img_idx), merge(octv),
+        merge(sigma2), merge(xy0))
+    # early cross-level compaction: keep the num_points best per camera
+    n_out = min(num_points, L * maxb)
+    if L * maxb > n_out:
+        prio = torch.where(valid_m, resp_m + 1e3,
+                           torch.full_like(resp_m, -1.0))
+        _, top = topk_stable(prio, n_out)
+
+        def take(a):
+            idx = top.reshape(C, n_out, *([1] * (a.ndim - 2)))
+            return torch.take_along_dim(a, idx, dim=1)
+
+        yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
+            take(yxm), take(resp_m), take(valid_m), take(img_m),
+            take(octv_m), take(sig2_m), take(xy0_m))
+
+    T = C * n_out
+    patches, _origin = patch_gather(
+        blurred, yxm.reshape(T, 2).contiguous(),
+        img_m.reshape(T).contiguous())
+    ang = patch_orientation(patches)
+    desc = compute_descriptors_patch(patches, ang, angle_bins)
+    return Keypoints(
+        xy=xy0_m, response=resp_m, angle=ang.reshape(C, n_out),
+        octave=octv_m, sigma2=sig2_m, desc=desc.reshape(C, n_out, 8),
+        valid=valid_m,
+    )
