@@ -4,24 +4,42 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. build: compile the four CUDA kernels from mcslam_tpu_torch/csrc
-     (nvcc, sm_90a) and print the build time and ptxas' resource report;
+  1. build: compile the five CUDA kernels from mcslam_tpu_torch/csrc
+     (one nvcc per source, in parallel, sm_90a) and print the build time
+     and ptxas' resource report;
   2. kernels: call every kernel on the card at the shapes the 4-camera
-     VGA frame gives it and hold it against its plain PyTorch version on
-     the same inputs (stated tolerances), printing each maximum error;
-     then track one frame of a small 2-camera scene on the kernels (CUDA)
-     and on the plain versions (CPU) and hold the two poses to 1e-3;
+     VGA frame and the window BA give it and hold it against its plain
+     PyTorch version on the same inputs (stated tolerances), printing
+     each maximum error; ba_linearize also bitwise equal across two runs;
+     track one frame of a small 2-camera scene on the kernels (CUDA) and
+     on the plain versions (CPU) and hold the two poses to 1e-3; solve a
+     stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with the warm
+     (1 x 2) and the cold (8 x 2) LM budget on the card, under
+     torch.cuda.set_sync_debug_mode("error") (the solve must queue with no
+     host sync), and hold its poses to the plain solve on the CPU (1e-3);
   3. slice: render the bench.py scene (4 cameras, 640x480, 3000 blob
-     landmarks at 4-15 m, 0.02 rad per frame) for 8 frames, build frame 0
-     with build_frame, seed the map mirror from its triangulated points,
-     and track frames 1-7 with _build_and_track_step against that frame
-     under the constant-velocity prediction — once with the production
+     landmarks at 4-15 m, 0.02 rad per frame), build frame 0 with
+     build_frame, seed the map mirror from its triangulated points, and
+     track frames 1-7 with _build_and_track_step against that frame
+     under the constant-velocity prediction - once with the production
      fast path and once with the portfolio forced (fastpath_frac=2.0).
      Every frame must pass the driver's acceptance gates and stay within
-     0.1 m / 0.02 rad of ground truth; every kernel's launch counter must
-     be > 0 after this phase (counters are reset right before it);
-  4. timing: CUDA-event times of each kernel and of its plain version at
-     the same shapes, and the per-frame build+track time on both paths.
+     0.1 m / 0.02 rad of ground truth; each of the four frame kernels'
+     launch counters must be > 0 after this phase (counters are reset
+     right before it);
+  4. session: all 24 frames of the scene through
+     MultiCameraSLAM(rig, SlamConfig(), device=cuda).process_image with
+     bench.py's extraction settings (the vision-only driver: rig-depth
+     bootstrap, fused frame program, keyframes, window BA on every
+     keyframe with deferred write-back). It must end INITIALIZED with no
+     failure, >= 7 keyframes and ATE <= 0.1 m after finalize(), and all
+     five launch counters must be > 0 (reset right before it);
+  5. timing: CUDA-event times of each kernel and of its plain version at
+     the same shapes, the warm and cold window solves (CUDA events, plus
+     device time and device-op count from one torch.profiler run each),
+     the per-frame build+track time on both paths, and the per-frame
+     process_image wall time of a second session, keyframe frames and
+     the others apart.
 The last three lines are the card's name and power limit (nvidia-smi),
 the kernels JSON record and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
@@ -45,6 +63,9 @@ STEP = dict(num_hyp=512, px=5.0, max_dist=64, ratio=0.85, lm_radius=18.0,
 FASTPATH_FRAC = 0.6
 N_FRAMES = 8
 MAX_T_ERR, MAX_R_ERR = 0.1, 0.02  # metres, radians vs ground truth
+SESSION_FRAMES = 24
+MIN_KEYFRAMES, MAX_ATE = 7, 0.1  # the session's gates (keyframes, metres)
+BA_ITERS = (("warm", 1), ("cold", 8))  # SlamConfig ba_iters / _cold
 
 
 def check(cond, msg):
@@ -95,11 +116,12 @@ class Scene:
         self.rig = synthetic.make_synthetic_rig(
             synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
             device=dev)
-        self.poses = synthetic.smooth_trajectory(N_FRAMES, step_angle=0.02)
+        self.poses = synthetic.smooth_trajectory(SESSION_FRAMES,
+                                                 step_angle=0.02)
         lms = synthetic.make_landmarks(3000, depth_range=(4.0, 15.0))
         imgs = synthetic.render_blob_images(self.rig, self.poses, lms)
         self.imgs = [torch.from_numpy(imgs[k]).to(dev)
-                     for k in range(N_FRAMES)]
+                     for k in range(SESSION_FRAMES)]
         self.dev = dev
 
     def frame_kwargs(self):
@@ -194,8 +216,10 @@ def main() -> int:
         return 2
     import mcslam_tpu_torch  # noqa: F401  (sets the f32 matmul policy)
     from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.data import synthetic
     from mcslam_tpu_torch.frontend import frame, pose_opt_cuda
-    from mcslam_tpu_torch.ops import (fast_cuda, image as image_ops,
+    from mcslam_tpu_torch.ops import (ba_cuda, fast_cuda, image as image_ops,
                                       match_cuda, patch_cuda)
 
     dev = torch.device("cuda", 0)
@@ -214,6 +238,9 @@ def main() -> int:
     for line in _build.BUILD_LOG.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             print("#   " + line.strip())
+
+    from mcslam_tpu_torch.slam import INITIALIZED
+    from mcslam_tpu_torch.utils import metrics
 
     scene = Scene(dev)
     rng = np.random.RandomState(0)
@@ -303,6 +330,41 @@ def main() -> int:
         plain=lambda: pose_opt_cuda.pose_lm_reference(T_init, data, mask,
                                                       (8, 8)))
 
+    lin_args = ba.linearize_inputs(ba.problem_from_numpy(
+        **synthetic.random_window_ba_problem(scene.rig.to("cpu")),
+        device=dev))
+    klin = ba_cuda.ba_linearize(*lin_args)
+    klin2 = ba_cuda.ba_linearize(*lin_args)
+    plin = ba_cuda.ba_linearize_reference(*lin_args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(klin, klin2)),
+          "ba_linearize: two runs of the kernel differ")
+    rel = {n: float((klin[i] - plin[i]).abs().max() / plin[i].abs().max())
+           for i, n in ((0, "payload"), (3, "Hpp"), (4, "gp"))}
+    check(max(rel.values()) <= 1e-5, f"ba_linearize: relative errors {rel}")
+    H36 = klin[3].reshape(-1, 6, 6)
+    check(torch.equal(H36, H36.transpose(1, 2)), "ba_linearize: Hpp asymmetric")
+    check(bool(((klin[1] - plin[1]).abs()
+                <= 1e-4 + 1e-6 * plin[1].abs()).all()),
+          "ba_linearize: residuals off by more than 1e-4 + 1e-6 |r|")
+    err_w = float((klin[2] - plin[2]).abs().max())
+    check(err_w <= 1e-5, f"ba_linearize: weight error {err_w} > 1e-5")
+    abs_errs = {n: (float((a - b).abs().max()), float(b.abs().max()))
+                for n, a, b in zip(("payload", "r", "w", "Hpp", "gp"), klin,
+                                   plin)}
+    err_lin = max(e for e, _ in abs_errs.values())
+    print(f"# kernel ba_linearize K=6 Ok=1365 L=2048 C=4: bitwise equal "
+          f"across two runs; max abs err (largest magnitude) per output: "
+          + ", ".join(f"{n} {e:.3g} ({m:.3g})"
+                      for n, (e, m) in abs_errs.items()))
+    kernels["ba_linearize"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/ba_linearize.cu",
+        replaces="mcslam_tpu/ops/ba_pallas.py:136", max_abs_err=err_lin,
+        fn=lambda: ba_cuda.ba_linearize(*lin_args),
+        plain=lambda: ba_cuda.ba_linearize_reference(*lin_args))
+
+    solve_problem = _window_solves(scene, dev)
+
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
           f"vs the plain versions (CPU): pose max abs err {err_small:.3g}")
@@ -335,18 +397,73 @@ def main() -> int:
     launches = {n: m.LAUNCHES for n, m in mods.items()}
     print(f"# launches during the slice: {launches}")
     for n, c in launches.items():
+        check(c > 0, f"kernel {n} was not launched on the slice's path")
+
+    # ---- phase 4: the vision-only session, launches counted ----
+    mods["ba_linearize"] = ba_cuda
+    for m in mods.values():
+        m.LAUNCHES = 0
+    slam, _ = run_session(scene, dev)
+    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    _, est = slam.trajectory_arrays()
+    ate = metrics.ate_rmse(est, scene.poses)
+    print(f"# session: {SESSION_FRAMES} frames, state {slam.state}, "
+          f"keyframes {slam.stats['keyframes']}, failures "
+          f"{slam.stats['failures']}, window solves "
+          f"{slam.stats.get('window_ba', 0)}, fast-path frames "
+          f"{slam.stats.get('track_fastpath', 0)}/"
+          f"{slam.stats.get('track_dispatch', 0)}, ATE {ate:.4f} m")
+    for line in slam.timers.report().splitlines():
+        print("#   " + line)
+    print(f"# launches during the session: {launches}")
+    check(slam.state == INITIALIZED, "session: not INITIALIZED at the end")
+    check(slam.stats["failures"] == 0,
+          f"session: {slam.stats['failures']} tracking failures")
+    check(slam.stats["keyframes"] >= MIN_KEYFRAMES,
+          f"session: {slam.stats['keyframes']} keyframes < {MIN_KEYFRAMES}")
+    check(np.all(np.isfinite(est)) and est.shape == (SESSION_FRAMES, 4, 4),
+          "session: trajectory malformed or non-finite")
+    check(ate <= MAX_ATE, f"session: ATE {ate:.4f} m > {MAX_ATE}")
+    for n, c in launches.items():
         check(c > 0, f"kernel {n} was not launched on the main path")
         kernels[n]["launches"] = c
 
-    # ---- phase 4: timing ----
+    # ---- phase 5: timing ----
     for n, k in kernels.items():
-        k["ms"] = cuda_ms(k.pop("fn"))
+        fn = k.pop("fn")
+        k["ms"] = cuda_ms(fn)
         k["plain_ms"] = cuda_ms(k.pop("plain"), reps=5, warmup=1)
+        dev_ms, n_ops = device_profile(fn)
         print(f"# time {n}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f}"
-              f" ms ({smi})")
+              f" ms by CUDA events; profiler: the wrapper's call is "
+              f"{dev_ms:.4f} ms of device time in {n_ops} device ops ({smi})")
+    for name, iters in BA_ITERS:
+        def solve():
+            return ba.ba_solve(solve_problem, iters=iters, gate_rounds=2)
+        ms = cuda_ms(solve, reps=5, warmup=1)
+        dev_ms, n_ops = device_profile(solve)
+        print(f"# time ba_solve {name} ({iters} x 2): {ms:.3f} ms by CUDA "
+              f"events; profiler: {dev_ms:.3f} ms device time in {n_ops} "
+              f"device ops ({smi})")
     for name, frac in (("fast path", FASTPATH_FRAC), ("full path", 2.0)):
         ms = _frame_ms(scene, ff0, mapstate, frac)
         print(f"# per-frame build+track, {name}: {ms:.3f} ms ({smi})")
+    _, times = run_session(scene, dev)
+    wall_ms = sum(t for t, _ in times) * 1e3
+    dev_ms, n_ops = device_profile(lambda: run_session(scene, dev))
+    print(f"# session of {SESSION_FRAMES} frames: {wall_ms:.1f} ms wall; a "
+          f"profiled repeat: {dev_ms:.1f} ms device time in {n_ops} device "
+          f"ops, device busy {100 * dev_ms / wall_ms:.1f} % of the "
+          f"unprofiled wall time ({smi})")
+    for name, sel in (("init frame", [0]),
+                      ("keyframe frames", [k for k, (_, kf) in
+                                           enumerate(times) if kf]),
+                      ("other frames", [k for k, (_, kf) in
+                                        enumerate(times) if k and not kf])):
+        ms = [times[k][0] * 1e3 for k in sel]
+        print(f"# per-frame process_image wall, {name} (n={len(ms)}): mean "
+              f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f} ms, max "
+              f"{np.max(ms):.3f} ms ({smi})")
 
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
@@ -355,6 +472,78 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_session(scene, dev):
+    """All SESSION_FRAMES frames through the driver's entry point ->
+    (slam, [(wall seconds, keyframe?) per frame]); finalize()d."""
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    slam = MultiCameraSLAM(scene.rig, SlamConfig(), device=dev)
+    times = []
+    for k in range(SESSION_FRAMES):
+        t0 = time.perf_counter()
+        info = slam.process_image(scene.imgs[k], k / 20.0,
+                                  extract_cfg=scene.frame_kwargs())
+        times.append((time.perf_counter() - t0, info["keyframe"]))
+    slam.finalize()
+    return slam, times
+
+
+def _window_solves(scene, dev):
+    """A consistent window problem at the stage C shape (K=6, Ok=1365,
+    L=2048, C=4; 0.5 px noise, 5 % outliers, perturbed poses) solved with
+    the warm and the cold budget on the card - with host syncs turned into
+    errors - and by the plain path on the CPU: poses within 1e-3.
+    Returns the problem on the card."""
+    import torch
+
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.data import synthetic
+
+    f = synthetic.random_window_ba_problem(scene.rig.to("cpu"), px_noise=0.5)
+    p_cpu = ba.problem_from_numpy(**f)
+    p_dev = ba.problem_from_numpy(**f, device=dev)
+    for name, iters in BA_ITERS:
+        ref = ba.ba_solve(p_cpu, iters=iters, gate_rounds=2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            res = ba.ba_solve(p_dev, iters=iters, gate_rounds=2)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        poses = res.poses.cpu()
+        check(bool(torch.isfinite(poses).all()), f"ba_solve {name}: non-finite")
+        err = float((poses - ref.poses).abs().max())
+        moved = float((ref.poses - p_cpu.poses).abs().max())
+        check(err <= 1e-3, f"ba_solve {name}: card vs CPU pose error {err}")
+        print(f"# ba_solve {name} ({iters} x 2) K=6 Ok=1365 L=2048: queued "
+              f"with no host sync in {enqueue_ms:.2f} ms, then {wait_ms:.2f} "
+              f"ms to finish; poses vs the CPU plain solve max abs err "
+              f"{err:.3g} (the solve moved them {moved:.3g}); inliers "
+              f"{int(res.num_inliers)} card, {int(ref.num_inliers)} CPU")
+    return p_dev
+
+
+def device_profile(fn):
+    """(device ms, device ops) of one fn() from a torch.profiler CUDA
+    trace: the summed duration and count of the device-side events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
 
 
 def _match_problem(rng, M, N, thr, want_cols, dev, C_=4):

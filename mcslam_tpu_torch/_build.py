@@ -1,12 +1,14 @@
 """Build and bind the port's CUDA kernels.
 
-All sources under `csrc/` are compiled at first use, with nvcc, into ONE
-shared library with a plain C interface:
+All sources under `csrc/` are compiled at first use, one nvcc process per
+source, all started together:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libmcslam_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <obj>/<name>.o csrc/<name>.cu
 
-and loaded with ctypes. The file name carries a hash of the sources and
+then linked into ONE shared library with a plain C interface
+(`nvcc -shared -o _build/libmcslam_<hash>.so <obj>/*.o`) and loaded with
+ctypes. The file name carries a hash of the sources and
 flags, so editing a source rebuilds it. Nothing here runs at import time:
 `library()` is called by a kernel wrapper right before its first launch.
 Every exported function takes its pointers and the CUDA stream as
@@ -30,7 +32,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -49,6 +51,9 @@ SIGNATURES = {
     # T_init, data, mask, sched, T_out, chi2, B, M, n_rounds, huber,
     # chi2_thresh, lm_lambda, stream
     "mc_pose_lm": [P, P, P, P, P, P, I, I, I, F, F, F, P],
+    # rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf, Rc9, tc, f4,
+    # payload, r, w, Hpp, gp, partials, K, Ok, L, C, huber, stream
+    "mc_ba_linearize": [P] * 16 + [I, I, I, I, F, P],
 }
 
 _LIB = None
@@ -93,20 +98,37 @@ def build(verbose: bool = False) -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-o", tmp,
-           *[str(s) for s in _sources()]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{BUILD_LOG}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = pathlib.Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-c", "-o",
+                   str(obj), str(src)]
+            objs.append(str(obj))
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{logs[-1]}")
+        tmp_so = pathlib.Path(tmp) / out.name
+        if not failed:
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so), *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{logs[-1]}")
+        BUILD_SECONDS = time.perf_counter() - t0
+        BUILD_LOG = "".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(tmp_so, out)
     return out
 
 

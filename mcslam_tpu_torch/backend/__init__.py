@@ -1,0 +1,1 @@
+"""backend of the PyTorch port (see mcslam_tpu_torch/__init__.py)."""

@@ -113,3 +113,61 @@ def render_blob_images(rig: cam_ops.CameraRig, poses: np.ndarray,
                     max(x - s, 0):min(x + s + 1, w)] = blob_intensity[i]
             out[k, c] = img
     return out
+
+
+def random_window_ba_problem(rig: cam_ops.CameraRig, num_kfs: int = 6,
+                             num_lms: int = 2048, obs_capacity: int = 8192,
+                             seed: int = 0, px_noise: float | None = None,
+                             pose_noise: float = 0.01,
+                             outlier_frac: float = 0.05) -> dict:
+    """A window-BA problem at bench.py's stage C shape, as numpy fields of
+    backend.ba.problem_from_numpy: K keyframes, L landmarks in a slab
+    2-14 m ahead, a kf-blocked table of obs_capacity // K observations per
+    keyframe with random cameras and landmarks, unit sigma2, all valid,
+    and the cold gauge prior (1e6 on pose 0).
+
+    px_noise=None gives bench.py's own problem: identity poses and uniform
+    random pixels. A float gives a consistent one: keyframes along
+    smooth_trajectory, pixels the projections plus N(0, px_noise) noise
+    with outlier_frac of them moved 30-120 px, and every pose but the
+    first perturbed by pose_noise (per tangent component)."""
+    from mcslam_tpu_torch.backend.ba import BAObservations
+    from mcslam_tpu_torch.geometry import lie
+
+    rng = np.random.RandomState(seed)
+    K, L = num_kfs, num_lms
+    Ok = obs_capacity // K
+    O = Ok * K
+    lms = (rng.uniform(-6, 6, (L, 3)) + [0, 0, 8]).astype(np.float32)
+    kf = np.repeat(np.arange(K, dtype=np.int32), Ok)
+    cam = rng.randint(0, rig.num_cams, O).astype(np.int32)
+    lm = rng.randint(0, L, O).astype(np.int32)
+    if px_noise is None:
+        poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+        uv = rng.uniform(0, rig.image_size[0], (O, 2)).astype(np.float32)
+    else:
+        gt = smooth_trajectory(K, step_angle=0.02, seed=seed).astype(
+            np.float64)
+        gt[:, :3, 3] += [0.0, 0.0, 4.0]  # start at the world origin
+        cTw = rig.cam_T_ref.cpu().double().numpy()[cam] @ np.linalg.inv(
+            gt)[kf]
+        p = np.einsum("oij,oj->oi", cTw[:, :3, :3], lms[lm]) + cTw[:, :3, 3]
+        f = rig.fxycxy.cpu().double().numpy()[cam]
+        uv = p[:, :2] / p[:, 2:] * f[:, :2] + f[:, 2:]
+        uv += rng.randn(O, 2) * px_noise
+        bad = rng.rand(O) < outlier_frac
+        uv[bad] += rng.uniform(30, 120, (int(bad.sum()), 2))
+        uv = uv.astype(np.float32)
+        xi = rng.randn(K, 6) * pose_noise
+        xi[0] = 0.0
+        poses = (torch.from_numpy(gt) @ lie.se3_exp(torch.from_numpy(xi))
+                 ).float().numpy()
+    prior_H = np.zeros((K * 6, K * 6), np.float32)
+    prior_H[:6, :6] = np.eye(6) * 1e6
+    return dict(
+        poses=poses, landmarks=lms, lm_valid=np.ones(L, bool),
+        obs=BAObservations(kf=kf, cam=cam, lm=lm, uv=uv,
+                     sigma2=np.ones(O, np.float32), valid=np.ones(O, bool)),
+        cam_T_ref=rig.cam_T_ref.cpu().numpy(),
+        fxycxy=rig.fxycxy.cpu().numpy(), prior_H=prior_H,
+        prior_b=np.zeros(K * 6, np.float32), kf_valid=np.ones(K, bool))

@@ -1,11 +1,44 @@
-"""SVD-free batched absolute orientation (counterpart of
-mcslam_tpu/geometry/alignment.py: kabsch_quat and _dominant_eigvec4)."""
+"""Point-set alignment (counterpart of mcslam_tpu/geometry/alignment.py:
+kabsch with SE(3) / Sim(3) alignment, and the SVD-free batched absolute
+orientation kabsch_quat with _dominant_eigvec4)."""
 
 from __future__ import annotations
 
 import torch
 
 from mcslam_tpu_torch.geometry import lie, linalg3
+
+
+def kabsch(src: torch.Tensor, dst: torch.Tensor,
+           weights: torch.Tensor | None = None,
+           estimate_scale: bool = False):
+    """(R, t, s) minimizing sum_i w_i || dst_i - (s R src_i + t) ||^2 by
+    SVD of the weighted cross-covariance (Umeyama's scale when
+    estimate_scale, else s = 1). src, dst (..., M, 3); weights (..., M)
+    -> R (..., 3, 3), t (..., 3), s (...,)."""
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype,
+                             device=src.device)
+    w = weights[..., None]
+    wsum = torch.clamp(torch.sum(w, dim=-2), min=1e-12)
+    mu_src = torch.sum(src * w, dim=-2) / wsum
+    mu_dst = torch.sum(dst * w, dim=-2) / wsum
+    xs = src - mu_src[..., None, :]
+    xd = dst - mu_dst[..., None, :]
+    C = torch.einsum("...mi,...mj->...ij", xd * w, xs)
+    U, S, Vt = torch.linalg.svd(C)
+    # proper rotation: flip the last singular vector if det < 0
+    det = torch.linalg.det(U @ Vt)
+    D = torch.ones(*C.shape[:-2], 3, dtype=C.dtype, device=C.device)
+    D[..., 2] = torch.sign(det) + (det == 0).to(C.dtype)
+    R = U @ (D[..., :, None] * Vt)
+    if estimate_scale:
+        var_src = torch.sum(torch.sum(xs * xs, dim=-1) * weights, dim=-1)
+        s = torch.sum(S * D, dim=-1) / torch.clamp(var_src, min=1e-12)
+    else:
+        s = torch.ones(C.shape[:-2], dtype=C.dtype, device=C.device)
+    t = mu_dst - s[..., None] * (R @ mu_src.unsqueeze(-1)).squeeze(-1)
+    return R, t, s
 
 
 def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,

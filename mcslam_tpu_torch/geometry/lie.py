@@ -178,6 +178,40 @@ def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return T @ se3_exp(xi)
 
 
+def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) quaternion (x, y, z, w), TUM order, w >= 0.
+    Branchless Shepperd's method: all four pivot candidates, the one with
+    the largest pivot selected."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def piv(x):
+        h = torch.sqrt(torch.clamp(x, min=0.0)) * 0.5
+        return h, 4.0 * torch.clamp(h, min=1e-12)
+
+    qw0, d0 = piv(1.0 + tr)
+    qx1, d1 = piv(1.0 + m00 - m11 - m22)
+    qy2, d2 = piv(1.0 - m00 + m11 - m22)
+    qz3, d3 = piv(1.0 - m00 - m11 + m22)
+    cands = torch.stack([
+        torch.stack([(m21 - m12) / d0, (m02 - m20) / d0, (m10 - m01) / d0,
+                     qw0], -1),
+        torch.stack([qx1, (m01 + m10) / d1, (m02 + m20) / d1,
+                     (m21 - m12) / d1], -1),
+        torch.stack([(m01 + m10) / d2, qy2, (m12 + m21) / d2,
+                     (m02 - m20) / d2], -1),
+        torch.stack([(m02 + m20) / d3, (m12 + m21) / d3, qz3,
+                     (m10 - m01) / d3], -1),
+    ], dim=-2)  # (..., 4, 4)
+    idx = torch.argmax(torch.stack(
+        [tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], -1), -1)
+    q = torch.take_along_dim(
+        cands, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
 def rot_from_quat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) quaternion (x, y, z, w) -> (..., 3, 3)."""
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

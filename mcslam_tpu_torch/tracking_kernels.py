@@ -8,6 +8,9 @@ every pose refine through the one-launch LM (frontend/pose_opt_cuda), as
 on the TPU. The fast-path decision is read on the host once per frame
 (one device sync); the JAX program makes it with a device-side lax.cond.
 
+`_triangulate_pairs` is the two-view triangulation of keyframe
+insertion.
+
 Packed layout of `_track_and_map_step` / `_build_and_track_step`
 (M = intra slots): [pose (16), n_uniform, n_matches, n_with_lm, rr_ok,
 fastpath, ok (M), match idx (M), lm id (M), local-map pose (16),
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch.frontend import pose_opt, ransac
-from mcslam_tpu_torch.geometry import lie
+from mcslam_tpu_torch.geometry import lie, triangulation
 from mcslam_tpu_torch.ops import hamming, match as match_ops, match_cuda
 
 _GATE_BIG = 1e12
@@ -272,3 +275,12 @@ def _build_and_track_step(gen, imgs, rig, prev_desc, prev_valid, prev_lm_id,
         rig.fxycxy, pred_T_wr, num_hyp, px, max_dist, ratio, image_wh,
         lm_radius, lm_max_dist, gate_px, fastpath_frac, fastpath_min)
     return kps, xy_ud, groups, tri, packed
+
+
+def _triangulate_pairs(wTc_rays, uv_rays, f_rays, mask_rays, sigma_rays):
+    """Two-view triangulation of the new landmarks at keyframe insertion:
+    wTc (M, 2, 4, 4), uv (M, 2, 2), f (M, 2, 4), mask and sigma (M, 2) ->
+    (X (M, 3), ok (M,)), depth gate 0.1-100 m."""
+    return triangulation.triangulate_and_refine(
+        wTc_rays, uv_rays, f_rays, mask_rays, sigma=sigma_rays,
+        min_z=0.1, max_z=100.0)

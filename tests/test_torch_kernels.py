@@ -1,4 +1,4 @@
-"""The port's four kernel wrappers: their dispatch rule on the CPU, and each
+"""The port's five kernel wrappers: their dispatch rule on the CPU, and each
 CUDA kernel against its plain PyTorch version on the card (`gpu` marker;
 these skip without a card).
 
@@ -10,18 +10,22 @@ card and without JAX it runs with the suite's conftest left out:
 Tolerances on the card: candidates, patches and integer outputs exact;
 blur 1e-6; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
 the gate threshold are excluded (f32 summation order); pose 2e-3 and
-inlier sets equal away from the chi2 threshold (f32 reduction order)."""
+inlier sets equal away from the chi2 threshold (f32 reduction order);
+ba_linearize's payload, Hpp and gp to 1e-5 of their largest magnitude,
+r atol 1e-4 + rtol 1e-6 (pixel residuals up to ~1000 px on the random
+stage C problem), w atol 1e-5, and bitwise equal across two runs."""
 
 import numpy as np
 import pytest
 import torch
 
 from mcslam_tpu_torch import tracking_kernels as tk
+from mcslam_tpu_torch.backend import ba
 from mcslam_tpu_torch.data import synthetic
 from mcslam_tpu_torch.frontend import frame, pose_opt_cuda
 from mcslam_tpu_torch.geometry import lie
-from mcslam_tpu_torch.ops import fast_cuda, hamming, image, match_cuda
-from mcslam_tpu_torch.ops import patch_cuda
+from mcslam_tpu_torch.ops import ba_cuda, fast_cuda, hamming, image
+from mcslam_tpu_torch.ops import match_cuda, patch_cuda
 
 TAPS = image._np_gaussian_taps(7, 2.0)
 CHI2 = pose_opt_cuda.CHI2_2DOF
@@ -89,7 +93,7 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     """CPU tensors run the plain version and launch nothing; a device
     that is neither CPU nor CUDA is refused."""
     before = (fast_cuda.LAUNCHES, patch_cuda.LAUNCHES, match_cuda.LAUNCHES,
-              pose_opt_cuda.LAUNCHES)
+              pose_opt_cuda.LAUNCHES, ba_cuda.LAUNCHES)
     img, h, w = _plateau_stack(0, 40, 64, [40, 33], [64, 50])
     out = fast_cuda.fast_select(img, 0.04, 0.12, h, w, TAPS)
     ref = fast_cuda.fast_select_reference(img, 0.04, 0.12, h, w, TAPS)
@@ -105,8 +109,13 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     T0, data, mask = _pose_problem(2, 64)
     T, chi2 = pose_opt_cuda.pose_lm(T0, data, mask, (2, 2))
     assert T.shape == (2, 4, 4) and chi2.shape == (2, 64)
+    lin = ba.linearize_inputs(ba.problem_from_numpy(
+        **synthetic.random_window_ba_problem(
+            synthetic.make_synthetic_rig(), num_lms=64, obs_capacity=600)))
+    payload, _, _, Hpp, _ = ba_cuda.ba_linearize(*lin)
+    assert payload.shape == (6, 30, 100) and Hpp.shape == (6, 36)
     after = (fast_cuda.LAUNCHES, patch_cuda.LAUNCHES, match_cuda.LAUNCHES,
-             pose_opt_cuda.LAUNCHES)
+             pose_opt_cuda.LAUNCHES, ba_cuda.LAUNCHES)
     assert after == before
     with pytest.raises(ValueError, match="unsupported device"):
         fast_cuda.fast_select(img.to("meta"), 0.04, 0.12, h, w, TAPS)
@@ -174,6 +183,29 @@ def test_pose_lm_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+def test_ba_linearize_kernel_matches_plain(cuda):
+    """bench.py's stage C problem: K=6, Ok=1365, L=2048, C=4."""
+    f = synthetic.random_window_ba_problem(synthetic.make_synthetic_rig())
+    args = ba.linearize_inputs(ba.problem_from_numpy(**f, device=cuda))
+    n0 = ba_cuda.LAUNCHES
+    kout = ba_cuda.ba_linearize(*args)
+    again = ba_cuda.ba_linearize(*args)
+    pout = ba_cuda.ba_linearize_reference(*args)
+    assert ba_cuda.LAUNCHES == n0 + 2
+    for x, y in zip(kout, again):
+        assert torch.equal(x, y)  # fixed reduction order: bitwise
+    for i in (0, 3, 4):  # payload, Hpp, gp
+        err = (kout[i] - pout[i]).abs().max() / pout[i].abs().max()
+        assert float(err) <= 1e-5, i
+    H = kout[3].reshape(-1, 6, 6)
+    assert torch.equal(H, H.transpose(1, 2))
+    torch.testing.assert_close(kout[1], pout[1], atol=1e-4, rtol=1e-6)
+    torch.testing.assert_close(kout[2], pout[2], atol=1e-5, rtol=0)
+    with pytest.raises(ValueError):
+        ba_cuda.ba_linearize(args[0].double(), *args[1:])
+
+
+@pytest.mark.gpu
 def test_slice_on_cuda_matches_cpu(cuda):
     """The kernels' path (CUDA) against the plain path (CPU) on one frame
     of the small 2-camera scene (1 pyramid level: the resize matmuls of
@@ -213,3 +245,37 @@ def test_slice_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(gpu[off:off + 16], cpu[off:off + 16],
                                atol=1e-3, rtol=0)
     np.testing.assert_allclose(gpu[16:19], cpu[16:19], rtol=0.02, atol=0)
+
+
+@pytest.mark.gpu
+def test_session_on_cuda_matches_cpu(cuda):
+    """The vision-only driver on the card (the kernels, the window solve on
+    its side stream, deferred landing) against the same driver on the CPU
+    (plain versions): the 3-camera 320x240 scene of tests/test_torch_slam.py
+    at one pyramid level; per-frame positions within 0.005 m, the bound
+    of the JAX-against-port session test."""
+    from mcslam_tpu_torch.slam import INITIALIZED, MultiCameraSLAM, SlamConfig
+
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=3, baseline=0.2, image_size=(320, 240), focal=260.0))
+    poses = synthetic.smooth_trajectory(8, radius=5.0, step_angle=0.03)
+    imgs = synthetic.render_blob_images(rig, poses, synthetic.make_landmarks(
+        700, seed=1, depth_range=(4.0, 12.0)), seed=2)
+    cfg = SlamConfig(window_size=4, ba_obs_capacity=8192, ba_lm_capacity=1024,
+                     local_map_landmarks=1024, kf_translation=0.2,
+                     kf_rotation=0.1, min_inter_matches=40)
+    runs = []
+    for dev in ("cpu", cuda):
+        n0 = ba_cuda.LAUNCHES
+        slam = MultiCameraSLAM(rig, cfg, device=dev)
+        for k in range(len(poses)):
+            slam.process_image(imgs[k], k / 20.0, extract_cfg=dict(
+                num_points=512, num_levels=1, max_intra=768))
+        _, est = slam.trajectory_arrays()
+        assert slam.state == INITIALIZED and slam.stats["failures"] == 0
+        runs.append((slam.stats, est, ba_cuda.LAUNCHES - n0))
+    (cpu_stats, cpu_est, cpu_n), (gpu_stats, gpu_est, gpu_n) = runs
+    assert cpu_n == 0 and gpu_n > 0
+    assert abs(cpu_stats["keyframes"] - gpu_stats["keyframes"]) <= 1
+    gap = np.linalg.norm(gpu_est[:, :3, 3] - cpu_est[:, :3, 3], axis=-1)
+    assert gap.max() <= 0.005, gap

@@ -108,6 +108,10 @@ def test_port_imports_no_jax():
             " 'mcslam_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import chip_smoke\n"
+            "for m in ('slam', 'driver_window', 'keyframe', 'backend.ba',\n"
+            "          'ops.ba_cuda', 'mapping.landmarks', 'mapping.device_map',\n"
+            "          'utils.metrics', 'utils.tum', 'utils.profiling'):\n"
+            "    assert 'mcslam_tpu_torch.' + m in sys.modules, m\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or"
             " k.startswith(('jax.', 'mcslam_tpu.')))\n"
             "assert not bad, bad\n")
