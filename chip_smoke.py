@@ -4,17 +4,22 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. build: compile the five CUDA kernels from mcslam_tpu_torch/csrc
-     (one nvcc per source, in parallel, sm_90a) and print the build time
-     and ptxas' resource report;
+  1. build: compile the nine CUDA kernels' five sources from
+     mcslam_tpu_torch/csrc (one nvcc per source, in parallel, sm_90a) and
+     print the build time and ptxas' resource report;
   2. kernels: call every kernel on the card at the shapes the 4-camera
      VGA frame and the window BA give it and hold it against its plain
      PyTorch version on the same inputs (stated tolerances), printing
-     each maximum error; ba_linearize also bitwise equal across two runs;
-     track one frame of a small 2-camera scene on the kernels (CUDA) and
-     on the plain versions (CPU) and hold the two poses to 1e-3; solve a
-     stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with the warm
-     (1 x 2) and the cold (8 x 2) LM budget on the card, under
+     each maximum error: fast_select and fast_corners in its four modes
+     ({hskip, full} x {blur, no blur}; scores and blur exact, the blur
+     also equal to fast_select's), the three patch gathers (patches and
+     origins exact; oriented: bf16 patches exact, moments within 1e-5 of
+     the sum of their |products|, angles within 1e-4 rad), the gated
+     matcher, the pose LM and ba_linearize (also bitwise equal across two
+     runs); track one frame of a small 2-camera scene on the kernels
+     (CUDA) and on the plain versions (CPU) and hold the two poses to
+     1e-3; solve a stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with
+     the warm (1 x 2) and the cold (8 x 2) LM budget on the card, under
      torch.cuda.set_sync_debug_mode("error") (the solve must queue with no
      host sync), and hold its poses to the plain solve on the CPU (1e-3);
   3. slice: render the bench.py scene (4 cameras, 640x480, 3000 blob
@@ -27,19 +32,40 @@ Phases, each of which raises (non-zero exit) on failure:
      0.1 m / 0.02 rad of ground truth; each of the four frame kernels'
      launch counters must be > 0 after this phase (counters are reset
      right before it);
-  4. session: all 24 frames of the scene through
-     MultiCameraSLAM(rig, SlamConfig(), device=cuda).process_image with
-     bench.py's extraction settings (the vision-only driver: rig-depth
-     bootstrap, fused frame program, keyframes, window BA on every
-     keyframe with deferred write-back). It must end INITIALIZED with no
-     failure, >= 7 keyframes and ATE <= 0.1 m after finalize(), and all
-     five launch counters must be > 0 (reset right before it);
-  5. timing: CUDA-event times of each kernel and of its plain version at
-     the same shapes, the warm and cold window solves (CUDA events, plus
-     device time and device-op count from one torch.profiler run each),
-     the per-frame build+track time on both paths, and the per-frame
-     process_image wall time of a second session, keyframe frames and
-     the others apart.
+  4. routes: the same 8-frame drive on the fast path under the two other
+     extraction routes (ops.orb.OrbRoute): route A (score map with blur,
+     selection outside the kernel, late compaction: fast_corners in mode
+     hskip and patch_gather_batched) and route B (standalone blur, score
+     map without the skip, oriented gather: fast_corners in mode full and
+     patch_gather_oriented), counters reset before each; both must track
+     7/7 frames within the same gates and launch their kernels, and not
+     fast_select. Frame 0 under route A must have the default route's
+     keypoints and descriptors (a descriptor may differ only at a
+     keypoint within 1e-4 rad of a steering-bin boundary); under route B
+     also where its BRIEF samples reach the stacked image's 3-px border
+     (the standalone blur reflects there, the fused one clamps rows and
+     wraps columns as the TPU kernel's lane roll does); the counts are
+     printed;
+  5. sessions: all 24 frames of the scene through
+     MultiCameraSLAM(rig, SlamConfig()).process_image (the rig, and so
+     the session, on the card by default) with bench.py's extraction
+     settings (the vision-only driver: rig-depth bootstrap, fused frame
+     program, keyframes, window BA on every keyframe with deferred
+     write-back). It must end INITIALIZED with no failure, >= 7 keyframes
+     and ATE <= 0.1 m after finalize(), and all five default-route launch
+     counters must be > 0 (reset right before it); then 12 frames under
+     route B: INITIALIZED, no failure, ATE <= 0.1 m;
+  6. timing: for each kernel the CUDA-event time of its wrapper call, of
+     its plain version and, where one exists, of the one PyTorch call
+     that computes the same function (the advanced-indexing gather for
+     the two plain patch gathers); its device time and the wrapper's
+     from torch.profiler; and the least time the card could take for the
+     work (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger);
+     the warm and cold window solves (CUDA events, plus device time and
+     device-op count from one torch.profiler run each), the per-frame
+     build+track time on both paths and both routes, and the per-frame
+     process_image wall time of a second session, keyframe frames and the
+     others apart.
 The last three lines are the card's name and power limit (nvidia-smi),
 the kernels JSON record and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
@@ -57,15 +83,37 @@ import numpy as np
 # production shape (bench.py) and SlamConfig defaults of the tracking step
 C, W, H = 4, 640, 480
 NPTS, NLVL, MAXI, BINS = 768, 4, 2048, 16
+MIN_THR, FAST_THR = 7.0 / 255.0, 20.0 / 255.0
 MAP_CAP, LML = 65536, 4096
 STEP = dict(num_hyp=512, px=5.0, max_dist=64, ratio=0.85, lm_radius=18.0,
             lm_max_dist=60, gate_px=100.0, fastpath_min=30)
 FASTPATH_FRAC = 0.6
 N_FRAMES = 8
 MAX_T_ERR, MAX_R_ERR = 0.1, 0.02  # metres, radians vs ground truth
-SESSION_FRAMES = 24
+SESSION_FRAMES, ROUTE_B_FRAMES = 24, 12
 MIN_KEYFRAMES, MAX_ATE = 7, 0.1  # the session's gates (keyframes, metres)
 BA_ITERS = (("warm", 1), ("cold", 8))  # SlamConfig ba_iters / _cold
+PATCH_PX = 39 * 39
+
+# The least time of a kernel's work: bytes over the H100 SXM's 3.35 TB/s,
+# operations over its 67 TFLOP/s float32 outside the tensor cores (each
+# scalar operation counted as one; the published peak counts an FMA as
+# two, so this bound is optimistic for the compare-heavy kernels).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per unit of work, counted from the algorithms:
+FAST_OPS = 192  # per pixel: 16 differences + 16 negations + 2 polarities
+#                 x (64 min of the doubling tree + 15 max) + max + threshold
+NMS_OPS = 11  # per pixel: 8 max + 2 compares + select
+BLUR_OPS = 26  # per pixel: 2 passes x (7 multiplies + 6 adds)
+SEL_OPS = 12  # per pixel: true-bounds mask + rank bonus + 4 argmax rounds
+HAMMING_OPS = 29  # per pair: 8 xor + 8 popcount + 7 adds + 6 compare/select,
+#                   plus 2 per gate factor (the gate's dot product)
+POSE_OPS = 260  # per observation and LM iteration: projection through rig
+#                 and camera, residual, Huber weight, 2x6 Jacobian, the
+#                 JtJ / Jtr sums, and the trial step's cost
+BA_OPS = 300  # per observation: projection, 2x6 and 2x3 Jacobians, weight,
+#               the 30 payload channels and 27 Hpp / gp sums
 
 
 def check(cond, msg):
@@ -100,13 +148,56 @@ def cuda_ms(fn, reps=20, warmup=3):
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes: float, nops: float):
+    """(bound_ms, bound_by) of work that moves nbytes and does nops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = nops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_pixels(heights, skip_offset=0) -> int:
+    """Pixels of the (LC, H, W) stack in the 16-row bands a kernel with
+    the height skip computes (bands starting below height - offset)."""
+    rows = [min(H, 16 * -(-max(int(h) - skip_offset, 0) // 16))
+            for h in heights]
+    return sum(rows) * W
+
+
 def rot_err(Ra, Rb) -> float:
     c = (np.trace(Ra.T @ Rb) - 1.0) * 0.5
     return float(np.arccos(np.clip(c, -1.0, 1.0)))
 
 
+def bin_edge_distance(angle, bins=BINS):
+    """Radians from each angle to the nearest steering-bin boundary."""
+    import torch
+
+    x = (torch.remainder(angle, 2 * np.pi) / (2 * np.pi)) * bins
+    return (x - torch.floor(x) - 0.5).abs() * (2 * np.pi / bins)
+
+
+def near_stack_border(ff):
+    """Keypoints whose BRIEF samples (up to 18 px from the keypoint) can
+    reach the 3-px border of the (H, W) stacked image, in level pixels."""
+    import torch
+
+    s = 1.2 ** ff.kp_octave.to(torch.float32)
+    x = torch.round(ff.kp_xy[..., 0] / s)
+    y = torch.round(ff.kp_xy[..., 1] / s)
+    m = 18 + 3
+    return (x < m) | (y < m) | (x >= W - m) | (y >= H - m)
+
+
+def angle_diff(a, b):
+    import torch
+
+    return torch.remainder(a - b + np.pi, 2 * np.pi) - np.pi
+
+
 class Scene:
-    """The bench.py scene rendered with the port's generator."""
+    """The bench.py scene rendered with the port's generator; the rig is
+    built with the port's default device (the card)."""
 
     def __init__(self, dev):
         import torch
@@ -114,8 +205,8 @@ class Scene:
         from mcslam_tpu_torch.data import synthetic
 
         self.rig = synthetic.make_synthetic_rig(
-            synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
-            device=dev)
+            synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)))
+        check(self.rig.device.type == "cuda", "the rig is not on the card")
         self.poses = synthetic.smooth_trajectory(SESSION_FRAMES,
                                                  step_angle=0.02)
         lms = synthetic.make_landmarks(3000, depth_range=(4.0, 15.0))
@@ -124,15 +215,21 @@ class Scene:
                      for k in range(SESSION_FRAMES)]
         self.dev = dev
 
-    def frame_kwargs(self):
-        return dict(num_points=NPTS, num_levels=NLVL, max_intra=MAXI,
-                    angle_bins=BINS)
+    def frame_kwargs(self, route=None):
+        kw = dict(num_points=NPTS, num_levels=NLVL, max_intra=MAXI,
+                  angle_bins=BINS)
+        if route is not None:
+            kw["route"] = route
+        return kw
 
-    def step_kwargs(self, frac):
-        return dict(num_points=NPTS, num_levels=NLVL,
-                    fast_threshold=20.0 / 255.0, min_threshold=7.0 / 255.0,
-                    max_intra=MAXI, min_z=0.5, max_z=40.0, angle_bins=BINS,
-                    image_wh=self.rig.image_size, fastpath_frac=frac, **STEP)
+    def step_kwargs(self, frac, route=None):
+        kw = dict(num_points=NPTS, num_levels=NLVL,
+                  fast_threshold=FAST_THR, min_threshold=MIN_THR,
+                  max_intra=MAXI, min_z=0.5, max_z=40.0, angle_bins=BINS,
+                  image_wh=self.rig.image_size, fastpath_frac=frac, **STEP)
+        if route is not None:
+            kw["route"] = route
+        return kw
 
 
 def seed_map(ff0, dev):
@@ -175,7 +272,7 @@ def parse_packed(v: np.ndarray, M: int) -> dict:
                 lm_inliers=int((v[off + 16 + M:] > 0.5).sum()))
 
 
-def drive(scene, ff0, mapstate, frac, gen_seed=0):
+def drive(scene, ff0, mapstate, frac, gen_seed=0, route=None):
     """Track frames 1..N-1 against frame 0; returns per-frame records."""
     import torch
 
@@ -192,7 +289,7 @@ def drive(scene, ff0, mapstate, frac, gen_seed=0):
         *_, packed = tk._build_and_track_step(
             gen, scene.imgs[k], scene.rig, ff0.im_desc, ff0.im_valid,
             *mapstate, torch.from_numpy(pred).to(dev),
-            **scene.step_kwargs(frac))
+            **scene.step_kwargs(frac, route))
         v = packed.cpu().numpy()
         check(v.shape == (21 + 3 * M + 16 + 2 * M,) and np.all(np.isfinite(v)),
               f"frame {k}: packed buffer malformed or non-finite")
@@ -207,46 +304,53 @@ def drive(scene, ff0, mapstate, frac, gen_seed=0):
     return out
 
 
-def main() -> int:
+def check_drive(name, recs):
+    """Every frame of a drive tracked within the pose gates."""
+    for k, r in enumerate(recs, start=1):
+        print(f"#   {name} frame {k}: tracked={r['ok']} fastpath={r['fast']} "
+              f"matches={r['n_matches']} with_lm={r['n_lm']} "
+              f"inliers={r['n_inl']} localmap_inliers={r['lm_inliers']} "
+              f"t_err={r['t_err']:.4f} m r_err={r['r_err']:.5f} rad")
+        check(r["ok"], f"{name} frame {k}: not tracked")
+        check(r["t_err"] <= MAX_T_ERR and r["r_err"] <= MAX_R_ERR,
+              f"{name} frame {k}: pose error {r['t_err']:.4f} m / "
+              f"{r['r_err']:.5f} rad over {MAX_T_ERR} / {MAX_R_ERR}")
+
+
+def window_pixels(imgs, org, img_idx) -> int:
+    """Distinct pixels of imgs that the 39x39 windows at (T, 2) origins of
+    images img_idx cover: what a patch gather must read."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "runs only on a CUDA card", file=sys.stderr)
-        return 2
-    import mcslam_tpu_torch  # noqa: F401  (sets the f32 matmul policy)
-    from mcslam_tpu_torch import _build
-    from mcslam_tpu_torch.backend import ba
-    from mcslam_tpu_torch.data import synthetic
-    from mcslam_tpu_torch.frontend import frame, pose_opt_cuda
-    from mcslam_tpu_torch.ops import (ba_cuda, fast_cuda, image as image_ops,
-                                      match_cuda, patch_cuda)
+    mask = torch.zeros(imgs.shape, dtype=torch.bool, device=imgs.device)
+    ar = torch.arange(39, device=imgs.device)
+    org = org.long()
+    mask[img_idx.long()[:, None, None], (org[:, 0, None] + ar)[:, :, None],
+         (org[:, 1, None] + ar)[:, None, :]] = True
+    return int(mask.sum())
 
-    dev = torch.device("cuda", 0)
-    smi = nvidia_smi_line()
-    print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} ({smi})")
-    check(not torch.backends.cuda.matmul.allow_tf32
-          and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
 
-    # ---- phase 1: build ----
-    t0 = time.perf_counter()
-    _build.library(verbose=True)
-    nvcc_s = _build.BUILD_SECONDS or 0.0
-    print(f"# build: nvcc {nvcc_s:.2f} s, build + load "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_LOG.splitlines():
-        if "Used" in line or "Compiling entry" in line or "spill" in line:
-            print("#   " + line.strip())
+def index_gather(imgs, org, img_idx):
+    """The one PyTorch call that computes a patch gather: advanced indexing
+    with the window indices built beforehand (not timed)."""
+    import torch
 
-    from mcslam_tpu_torch.slam import INITIALIZED
-    from mcslam_tpu_torch.utils import metrics
+    ar = torch.arange(39, device=imgs.device)
+    org = org.long()
+    b = img_idx.long()[:, None, None]
+    rows = (org[:, 0, None] + ar)[:, :, None]
+    cols = (org[:, 1, None] + ar)[:, None, :]
+    return lambda: imgs[b, rows, cols]
 
-    scene = Scene(dev)
-    rng = np.random.RandomState(0)
-    kernels = {}
 
-    # ---- phase 2: kernels against their plain versions ----
+def frame_kernels(scene, rng, dev, kernels):
+    """Phase 2, the six frame-build kernels at the 4-camera VGA shapes.
+    Returns the stacked pyramid batch's blur (the patch gathers' input)."""
+    import torch
+
+    from mcslam_tpu_torch.ops import fast_cuda, image as image_ops, orb
+    from mcslam_tpu_torch.ops import patch_cuda
+
     levels = image_ops.build_pyramid(scene.imgs[0], NLVL, 1.2)
     hw = [(lv.shape[-2], lv.shape[-1]) for lv in levels]
     stacked = torch.cat([torch.nn.functional.pad(
@@ -256,8 +360,11 @@ def main() -> int:
                        device=dev).repeat_interleave(C)
     w_l = torch.tensor([w for _, w in hw], dtype=torch.int32,
                        device=dev).repeat_interleave(C)
+    heights = h_l.tolist()
+    LC = NLVL * C
+    npix = LC * H * W
     taps = image_ops._np_gaussian_taps(7, 2.0)
-    fs_args = (stacked, 7.0 / 255.0, 20.0 / 255.0, h_l, w_l, taps)
+    fs_args = (stacked, MIN_THR, FAST_THR, h_l, w_l, taps)
     kb, kv, kr = fast_cuda.fast_select(*fs_args)
     pb, pv, pr = fast_cuda.fast_select_reference(*fs_args)
     torch.cuda.synchronize()
@@ -267,16 +374,63 @@ def main() -> int:
     check(err_blur <= 1e-6, f"fast_select: blur error {err_blur} > 1e-6")
     print(f"# kernel fast_select {tuple(stacked.shape)}: candidates exact "
           f"({kv.shape[1]} cells x 4), blur max abs err {err_blur:.3g}")
+    live = live_pixels(heights)
     kernels["fast_select"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/fast_select.cu",
         replaces="mcslam_tpu/ops/fast_pallas.py:283", max_abs_err=err_blur,
         fn=lambda: fast_cuda.fast_select(*fs_args),
-        plain=lambda: fast_cuda.fast_select_reference(*fs_args))
+        plain=lambda: fast_cuda.fast_select_reference(*fs_args),
+        symbols=("fast_select_kernel",),
+        nbytes=4 * live + 4 * npix + 8 * kv.numel() + 8 * LC,
+        nops=(FAST_OPS + NMS_OPS + BLUR_OPS + SEL_OPS) * live)
+
+    errs = {}
+    for hskip in (True, False):
+        for blur in (True, False):
+            args = (stacked, MIN_THR, h_l if hskip else None,
+                    taps if blur else None)
+            kout = fast_cuda.fast_corners(*args)
+            pout = fast_cuda.fast_corners_reference(*args)
+            if not blur:
+                kout, pout = (kout,), (pout,)
+            torch.cuda.synchronize()
+            mode = ("hskip" if hskip else "full") + ("+blur" if blur else "")
+            check(all(torch.equal(a, b) for a, b in zip(kout, pout)),
+                  f"fast_corners {mode}: differs from the plain version")
+            if hskip and blur:
+                check(torch.equal(kout[1], kb),
+                      "fast_corners hskip+blur: blur differs from "
+                      "fast_select's")
+            errs[mode] = max(float((a - b).abs().max())
+                             for a, b in zip(kout, pout))
+    print(f"# kernel fast_corners {tuple(stacked.shape)}, modes "
+          f"{sorted(errs)}: score maps and blurs exact (max abs err "
+          f"{max(errs.values()):.3g}); the blur equals fast_select's bit "
+          f"for bit")
+    live_b = live_pixels(heights)
+    kernels["fast_corners_hskip"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/fast_select.cu",
+        replaces="mcslam_tpu/ops/fast_pallas.py:422",
+        max_abs_err=max(errs["hskip+blur"], errs["hskip"]),
+        fn=lambda: fast_cuda.fast_corners(stacked, MIN_THR, h_l, taps),
+        plain=lambda: fast_cuda.fast_corners_reference(stacked, MIN_THR,
+                                                       h_l, taps),
+        symbols=("fast_corners_kernel",),
+        nbytes=4 * live_b + 8 * npix + 4 * LC,
+        nops=(FAST_OPS + NMS_OPS + BLUR_OPS) * live_b)
+    kernels["fast_corners_full"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/fast_select.cu",
+        replaces="mcslam_tpu/ops/fast_pallas.py:398",
+        max_abs_err=max(errs["full+blur"], errs["full"]),
+        fn=lambda: fast_cuda.fast_corners(stacked, MIN_THR),
+        plain=lambda: fast_cuda.fast_corners_reference(stacked, MIN_THR),
+        symbols=("fast_corners_kernel",),
+        nbytes=8 * npix, nops=(FAST_OPS + NMS_OPS) * npix)
 
     T = C * NPTS
     yx = torch.from_numpy(np.stack([rng.randint(0, H, T), rng.randint(0, W, T)],
                                    -1).astype(np.int32)).to(dev)
-    idx = torch.from_numpy(rng.randint(0, NLVL * C, T).astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.randint(0, LC, T).astype(np.int32)).to(dev)
     pg_args = (kb, yx, idx)
     kp, ko = patch_cuda.patch_gather(*pg_args)
     pp, po = patch_cuda.patch_gather_reference(*pg_args)
@@ -287,9 +441,78 @@ def main() -> int:
         route="cuda", source="mcslam_tpu_torch/csrc/patch_gather.cu",
         replaces="mcslam_tpu/ops/patch_pallas.py:282", max_abs_err=0.0,
         fn=lambda: patch_cuda.patch_gather(*pg_args),
-        plain=lambda: patch_cuda.patch_gather_reference(*pg_args))
+        plain=lambda: patch_cuda.patch_gather_reference(*pg_args),
+        library=index_gather(kb, ko, idx), symbols=("patch_gather_kernel",),
+        nbytes=4 * window_pixels(kb, ko, idx) + 12 * T
+        + T * (4 * PATCH_PX + 8), nops=0)
+
+    maxb = max(orb._level_budget(NPTS, NLVL, 1.2))
+    yxb = torch.from_numpy(np.stack([rng.randint(0, H, (LC, maxb)),
+                                     rng.randint(0, W, (LC, maxb))], -1)
+                           .astype(np.int32)).to(dev)
+    kp, ko = patch_cuda.patch_gather_batched(kb, yxb)
+    pp, po = patch_cuda.patch_gather_batched_reference(kb, yxb)
+    check(torch.equal(kp, pp) and torch.equal(ko, po),
+          "patch_gather_batched: patches or origins differ from the plain "
+          "version")
+    print(f"# kernel patch_gather_batched C={LC} N={maxb}: patches and "
+          f"origins exact")
+    Tb = LC * maxb
+    img_b = torch.arange(LC, device=dev).repeat_interleave(maxb)
+    org_b = ko.reshape(Tb, 2)
+    kernels["patch_gather_batched"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/patch_gather.cu",
+        replaces="mcslam_tpu/ops/patch_pallas.py:65", max_abs_err=0.0,
+        fn=lambda: patch_cuda.patch_gather_batched(kb, yxb),
+        plain=lambda: patch_cuda.patch_gather_batched_reference(kb, yxb),
+        library=index_gather(kb, org_b, img_b),
+        symbols=("patch_gather_kernel",),
+        nbytes=4 * window_pixels(kb, org_b, img_b) + 8 * Tb
+        + Tb * (4 * PATCH_PX + 8), nops=0)
+
+    kp, km, ko = patch_cuda.patch_gather_oriented(*pg_args)
+    pp, pm, po = patch_cuda.patch_gather_oriented_reference(*pg_args)
+    torch.cuda.synchronize()
+    check(kp.dtype == torch.bfloat16 and torch.equal(kp, pp)
+          and torch.equal(ko, po),
+          "patch_gather_oriented: bf16 patches or origins differ from the "
+          "plain version")
+    win, _ = patch_cuda.patch_gather_reference(*pg_args)
+    scale = (win.reshape(T, 1, PATCH_PX).abs()
+             * patch_cuda.circle_weights(dev).abs()).sum(-1)
+    # (a window inside a zeroed band has zero moments and zero scale)
+    err_m = float(((km - pm).abs() / scale.clamp_min(1e-30)).max())
+    err_a = float(angle_diff(torch.atan2(km[:, 1], km[:, 0]),
+                             torch.atan2(pm[:, 1], pm[:, 0])).abs().max())
+    check(err_m <= 1e-5, f"patch_gather_oriented: moment error {err_m} of "
+          f"the |product| sum > 1e-5")
+    check(err_a <= 1e-4, f"patch_gather_oriented: angle error {err_a} rad")
+    print(f"# kernel patch_gather_oriented T={T}: bf16 patches and origins "
+          f"exact, moments max err {err_m:.3g} of their |product| sums "
+          f"(bitwise equal: {torch.equal(km, pm)}), angles max abs err "
+          f"{err_a:.3g} rad")
+    kernels["patch_gather_oriented"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/patch_gather.cu",
+        replaces="mcslam_tpu/ops/patch_pallas.py:208",
+        max_abs_err=float((km - pm).abs().max()),
+        fn=lambda: patch_cuda.patch_gather_oriented(*pg_args),
+        plain=lambda: patch_cuda.patch_gather_oriented_reference(*pg_args),
+        symbols=("patch_oriented_kernel",),
+        nbytes=4 * window_pixels(kb, ko, idx) + 12 * T
+        + T * (2 * PATCH_PX + 16), nops=4 * PATCH_PX * T)
+
+
+def solver_kernels(scene, rng, dev, kernels):
+    """Phase 2, the matcher, pose LM and BA linearization kernels."""
+    import torch
+
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.frontend import pose_opt_cuda
+    from mcslam_tpu_torch.ops import ba_cuda, match_cuda
 
     ham_errs, ham_calls = [], []
+    ham_bytes = ham_ops = 0
     for (M, N, thr, want_cols) in ((MAXI, MAXI, 100.0, True),
                                    (MAXI, LML, 18.0, False)):
         args = _match_problem(rng, M, N, thr, want_cols, dev)
@@ -299,6 +522,9 @@ def main() -> int:
         err = _compare_match(kout, pout, rows, cols, want_cols)
         ham_errs.append(err)
         ham_calls.append(args)
+        ham_bytes += sum(a.nbytes for a in args[:4]) + 12 * M + (
+            8 * N if want_cols else 0)
+        ham_ops += M * N * (HAMMING_OPS + 2 * args[2].shape[1])
         print(f"# kernel hamming_argmin2 {M}x{N} want_cols={want_cols}: "
               f"indices and distances exact on {int((~rows).sum())}/{M} rows "
               f"away from the gate boundary, max abs err {err:.3g}")
@@ -308,11 +534,13 @@ def main() -> int:
         max_abs_err=max(ham_errs),
         fn=lambda: [match_cuda.hamming_argmin2(*a) for a in ham_calls],
         plain=lambda: [match_cuda.hamming_argmin2_reference(*a)
-                       for a in ham_calls])
+                       for a in ham_calls],
+        symbols=("hamming_argmin2_kernel",), nbytes=ham_bytes, nops=ham_ops)
 
+    sched = (8, 8)
     T_init, data, mask = _pose_problem(rng, 2, MAXI, dev)
-    kT, kc = pose_opt_cuda.pose_lm(T_init, data, mask, (8, 8))
-    pT, pc = pose_opt_cuda.pose_lm_reference(T_init, data, mask, (8, 8))
+    kT, kc = pose_opt_cuda.pose_lm(T_init, data, mask, sched)
+    pT, pc = pose_opt_cuda.pose_lm_reference(T_init, data, mask, sched)
     err_pose = float((kT - pT).abs().max())
     inl_k = (mask > 0.5) & (kc < pose_opt_cuda.CHI2_2DOF)
     inl_p = (mask > 0.5) & (pc < pose_opt_cuda.CHI2_2DOF)
@@ -326,13 +554,18 @@ def main() -> int:
         route="cuda", source="mcslam_tpu_torch/csrc/pose_lm.cu",
         replaces="mcslam_tpu/frontend/pose_opt_pallas.py:262",
         max_abs_err=err_pose,
-        fn=lambda: pose_opt_cuda.pose_lm(T_init, data, mask, (8, 8)),
+        fn=lambda: pose_opt_cuda.pose_lm(T_init, data, mask, sched),
         plain=lambda: pose_opt_cuda.pose_lm_reference(T_init, data, mask,
-                                                      (8, 8)))
+                                                      sched),
+        symbols=("pose_lm_kernel",),
+        nbytes=T_init.nbytes + data.nbytes + mask.nbytes + kT.nbytes
+        + kc.nbytes,
+        nops=mask.numel() * sum(sched) * POSE_OPS)
 
     lin_args = ba.linearize_inputs(ba.problem_from_numpy(
-        **synthetic.random_window_ba_problem(scene.rig.to("cpu")),
-        device=dev))
+        **synthetic.random_window_ba_problem(scene.rig)))
+    check(lin_args[0].device.type == "cuda",
+          "random_window_ba_problem did not follow the rig to the card")
     klin = ba_cuda.ba_linearize(*lin_args)
     klin2 = ba_cuda.ba_linearize(*lin_args)
     plin = ba_cuda.ba_linearize_reference(*lin_args)
@@ -361,19 +594,59 @@ def main() -> int:
         route="cuda", source="mcslam_tpu_torch/csrc/ba_linearize.cu",
         replaces="mcslam_tpu/ops/ba_pallas.py:136", max_abs_err=err_lin,
         fn=lambda: ba_cuda.ba_linearize(*lin_args),
-        plain=lambda: ba_cuda.ba_linearize_reference(*lin_args))
+        plain=lambda: ba_cuda.ba_linearize_reference(*lin_args),
+        symbols=("linearize_kernel", "finish_kernel"),
+        nbytes=sum(a.nbytes for a in lin_args) + sum(o.nbytes for o in klin),
+        nops=lin_args[2].numel() * BA_OPS)
 
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA card", file=sys.stderr)
+        return 2
+    import mcslam_tpu_torch  # noqa: F401  (sets the f32 matmul policy)
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.ops import orb
+
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} ({smi})")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
+
+    # ---- phase 1: build ----
+    t0 = time.perf_counter()
+    _build.library(verbose=True)
+    nvcc_s = _build.BUILD_SECONDS or 0.0
+    print(f"# build: nvcc {nvcc_s:.2f} s, build + load "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in _build.BUILD_LOG.splitlines():
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
+            print("#   " + line.strip())
+
+    from mcslam_tpu_torch.slam import INITIALIZED
+    from mcslam_tpu_torch.utils import metrics
+
+    scene = Scene(dev)
+    rng = np.random.RandomState(0)
+    kernels = {}
+
+    # ---- phase 2: kernels against their plain versions ----
+    frame_kernels(scene, rng, dev, kernels)
+    solver_kernels(scene, rng, dev, kernels)
     solve_problem = _window_solves(scene, dev)
-
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
           f"vs the plain versions (CPU): pose max abs err {err_small:.3g}")
 
     # ---- phase 3: the slice, launches counted ----
-    mods = {"fast_select": fast_cuda, "patch_gather": patch_cuda,
-            "hamming_argmin2": match_cuda, "pose_lm": pose_opt_cuda}
-    for m in mods.values():
-        m.LAUNCHES = 0
+    _build.LAUNCHES.clear()
     ff0 = frame.build_frame(scene.imgs[0], scene.rig, **scene.frame_kwargs())
     mapstate, n_seed = seed_map(ff0, dev)
     check(n_seed >= 200, f"frame 0 seeded only {n_seed} landmarks")
@@ -381,34 +654,77 @@ def main() -> int:
           f"groups {int(ff0.im_valid.sum())}, seeded landmarks {n_seed}")
     results = {}
     for name, frac in (("fast", FASTPATH_FRAC), ("portfolio", 2.0)):
-        recs = drive(scene, ff0, mapstate, frac)
-        results[name] = recs
-        for k, r in enumerate(recs, start=1):
-            print(f"#   {name} frame {k}: tracked={r['ok']} fastpath={r['fast']} "
-                  f"matches={r['n_matches']} with_lm={r['n_lm']} "
-                  f"inliers={r['n_inl']} localmap_inliers={r['lm_inliers']} "
-                  f"t_err={r['t_err']:.4f} m r_err={r['r_err']:.5f} rad")
-            check(r["ok"], f"{name} frame {k}: not tracked")
-            check(r["t_err"] <= MAX_T_ERR and r["r_err"] <= MAX_R_ERR,
-                  f"{name} frame {k}: pose error {r['t_err']:.4f} m / "
-                  f"{r['r_err']:.5f} rad over {MAX_T_ERR} / {MAX_R_ERR}")
+        results[name] = drive(scene, ff0, mapstate, frac)
+        check_drive(name, results[name])
     check(not any(r["fast"] for r in results["portfolio"]),
           "forced-portfolio drive took the fast path")
-    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    launches = dict(_build.LAUNCHES)
     print(f"# launches during the slice: {launches}")
-    for n, c in launches.items():
-        check(c > 0, f"kernel {n} was not launched on the slice's path")
+    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm"):
+        check(launches.get(n, 0) > 0,
+              f"kernel {n} was not launched on the slice's path")
 
-    # ---- phase 4: the vision-only session, launches counted ----
-    mods["ba_linearize"] = ba_cuda
-    for m in mods.values():
-        m.LAUNCHES = 0
-    slam, _ = run_session(scene, dev)
-    launches = {n: m.LAUNCHES for n, m in mods.items()}
+    # ---- phase 4: the other extraction routes, launches counted ----
+    routes = {
+        "A": (orb.OrbRoute(select_in_kernel=False, late_compact=True),
+              ("fast_corners_hskip", "patch_gather_batched")),
+        "B": (orb.OrbRoute(fused_blur=False, hskip=False, fused_orient=True),
+              ("fast_corners_full", "patch_gather_oriented")),
+    }
+    route_state = {}
+    for rname, (route, names) in routes.items():
+        _build.LAUNCHES.clear()
+        ffr = frame.build_frame(scene.imgs[0], scene.rig,
+                                **scene.frame_kwargs(route))
+        mstate, n_seed_r = seed_map(ffr, dev)
+        recs = drive(scene, ffr, mstate, FASTPATH_FRAC, route=route)
+        launches = dict(_build.LAUNCHES)
+        print(f"# route {rname} ({route}): frame 0 keypoints "
+              f"{int(ffr.kp_valid.sum())}, seeded landmarks {n_seed_r}")
+        check_drive(f"route {rname}", recs)
+        print(f"# launches during the route {rname} drive ({N_FRAMES} frame "
+              f"builds): {launches}")
+        for n in names:
+            check(launches.get(n, 0) > 0,
+                  f"kernel {n} was not launched on route {rname}")
+            kernels[n]["launches"] = launches.get(n, 0)
+        check(launches.get("fast_select", 0) == 0,
+              f"route {rname} launched fast_select")
+        route_state[rname] = (route, ffr, mstate)
+        # frame 0 against the default route
+        for f in ("kp_xy", "kp_valid", "kp_response", "kp_octave"):
+            check(torch.equal(getattr(ffr, f), getattr(ff0, f)),
+                  f"route {rname}: frame 0 {f} differs from the default "
+                  f"route's")
+        differ = ~torch.all(ffr.kp_desc == ff0.kp_desc, dim=-1) & ff0.kp_valid
+        near = ((bin_edge_distance(ff0.kp_angle) < 1e-4)
+                | (bin_edge_distance(ffr.kp_angle) < 1e-4))
+        border = near_stack_border(ff0)
+        n_diff, n_near = int(differ.sum()), int((differ & near).sum())
+        n_border = int((differ & ~near & border).sum())
+        d_ang = float(angle_diff(ffr.kp_angle, ff0.kp_angle)[
+            ff0.kp_valid].abs().max())
+        print(f"# frame 0, route {rname} vs the default route: the same "
+              f"{int(ff0.kp_valid.sum())} keypoints; {n_diff} descriptors "
+              f"differ: {n_near} at a keypoint within 1e-4 rad of a "
+              f"steering-bin boundary (the orientation moments are summed "
+              f"in another order), {n_border} with BRIEF samples within 3 px "
+              f"of the stacked image's border (route B's standalone blur "
+              f"reflects there, the fused blur clamps rows and wraps "
+              f"columns), {n_diff - n_near - n_border} elsewhere; max angle "
+              f"difference {d_ang:.3g} rad")
+        check(n_diff == n_near + (n_border if rname == "B" else 0),
+              f"route {rname}: descriptors differ from the default route's "
+              f"for another reason")
+
+    # ---- phase 5: the sessions, launches counted ----
+    _build.LAUNCHES.clear()
+    slam, _ = run_session(scene)
+    launches = dict(_build.LAUNCHES)
     _, est = slam.trajectory_arrays()
     ate = metrics.ate_rmse(est, scene.poses)
-    print(f"# session: {SESSION_FRAMES} frames, state {slam.state}, "
-          f"keyframes {slam.stats['keyframes']}, failures "
+    print(f"# session: {SESSION_FRAMES} frames on {slam.device}, state "
+          f"{slam.state}, keyframes {slam.stats['keyframes']}, failures "
           f"{slam.stats['failures']}, window solves "
           f"{slam.stats.get('window_ba', 0)}, fast-path frames "
           f"{slam.stats.get('track_fastpath', 0)}/"
@@ -416,6 +732,7 @@ def main() -> int:
     for line in slam.timers.report().splitlines():
         print("#   " + line)
     print(f"# launches during the session: {launches}")
+    check(slam.device.type == "cuda", "session: the driver is not on the card")
     check(slam.state == INITIALIZED, "session: not INITIALIZED at the end")
     check(slam.stats["failures"] == 0,
           f"session: {slam.stats['failures']} tracking failures")
@@ -424,36 +741,73 @@ def main() -> int:
     check(np.all(np.isfinite(est)) and est.shape == (SESSION_FRAMES, 4, 4),
           "session: trajectory malformed or non-finite")
     check(ate <= MAX_ATE, f"session: ATE {ate:.4f} m > {MAX_ATE}")
-    for n, c in launches.items():
-        check(c > 0, f"kernel {n} was not launched on the main path")
-        kernels[n]["launches"] = c
+    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
+              "ba_linearize"):
+        check(launches.get(n, 0) > 0,
+              f"kernel {n} was not launched on the main path")
+        kernels[n]["launches"] = launches.get(n, 0)
 
-    # ---- phase 5: timing ----
+    _build.LAUNCHES.clear()
+    slam_b, _ = run_session(scene, ROUTE_B_FRAMES, routes["B"][0])
+    launches = dict(_build.LAUNCHES)
+    _, est_b = slam_b.trajectory_arrays()
+    ate_b = metrics.ate_rmse(est_b, scene.poses[:ROUTE_B_FRAMES])
+    print(f"# route B session: {ROUTE_B_FRAMES} frames, state "
+          f"{slam_b.state}, keyframes {slam_b.stats['keyframes']}, failures "
+          f"{slam_b.stats['failures']}, ATE {ate_b:.4f} m; launches "
+          f"{launches}")
+    check(slam_b.state == INITIALIZED, "route B session: not INITIALIZED")
+    check(slam_b.stats["failures"] == 0,
+          f"route B session: {slam_b.stats['failures']} tracking failures")
+    check(np.all(np.isfinite(est_b)), "route B session: non-finite poses")
+    check(ate_b <= MAX_ATE, f"route B session: ATE {ate_b:.4f} m > {MAX_ATE}")
+    for n in routes["B"][1]:
+        check(launches.get(n, 0) > 0,
+              f"kernel {n} was not launched in the route B session")
+
+    # ---- phase 6: timing ----
     for n, k in kernels.items():
-        fn = k.pop("fn")
+        fn, plain = k.pop("fn"), k.pop("plain")
+        library = k.pop("library", None)
+        names = k.pop("symbols")
+        k["bound_ms"], k["bound_by"] = bound(k.pop("nbytes"), k.pop("nops"))
         k["ms"] = cuda_ms(fn)
-        k["plain_ms"] = cuda_ms(k.pop("plain"), reps=5, warmup=1)
-        dev_ms, n_ops = device_profile(fn)
-        print(f"# time {n}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f}"
-              f" ms by CUDA events; profiler: the wrapper's call is "
-              f"{dev_ms:.4f} ms of device time in {n_ops} device ops ({smi})")
+        k["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+        k["library_ms"] = cuda_ms(library) if library is not None else None
+        wrap_ms, n_ops, kern_ms = device_profile(fn, reps=10, names=names)
+        k["device_ms"] = kern_ms
+        lib = (f", library call {k['library_ms']:.4f} ms"
+               if library is not None else "")
+        print(f"# time {n}: wrapper {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms{lib} by CUDA events; profiler: the "
+              f"kernel {kern_ms:.4f} ms of device time, the wrapper's call "
+              f"{wrap_ms:.4f} ms in {n_ops:.1f} device ops; bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}) ({smi})")
     for name, iters in BA_ITERS:
         def solve():
             return ba.ba_solve(solve_problem, iters=iters, gate_rounds=2)
         ms = cuda_ms(solve, reps=5, warmup=1)
-        dev_ms, n_ops = device_profile(solve)
+        dev_ms, n_ops, _ = device_profile(solve)
         print(f"# time ba_solve {name} ({iters} x 2): {ms:.3f} ms by CUDA "
-              f"events; profiler: {dev_ms:.3f} ms device time in {n_ops} "
-              f"device ops ({smi})")
-    for name, frac in (("fast path", FASTPATH_FRAC), ("full path", 2.0)):
-        ms = _frame_ms(scene, ff0, mapstate, frac)
-        print(f"# per-frame build+track, {name}: {ms:.3f} ms ({smi})")
-    _, times = run_session(scene, dev)
+              f"events; profiler: {dev_ms:.3f} ms device time in "
+              f"{n_ops:.0f} device ops ({smi})")
+    route_state["default"] = (None, ff0, mapstate)
+    for rname, frac in (("default", FASTPATH_FRAC), ("default", 2.0),
+                        ("A", FASTPATH_FRAC), ("B", FASTPATH_FRAC)):
+        route, ffr, mstate = route_state[rname]
+        ms = _frame_ms(scene, ffr, mstate, frac, route)
+        dev_ms, n_ops, _ = device_profile(lambda: _frame_ms(
+            scene, ffr, mstate, frac, route, n=1, warm=False))
+        path = "fast path" if frac < 1.0 else "full path"
+        print(f"# per-frame build+track, route {rname}, {path}: {ms:.3f} ms; "
+              f"profiler: {dev_ms:.3f} ms device time in {n_ops:.0f} device "
+              f"ops per frame ({smi})")
+    _, times = run_session(scene)
     wall_ms = sum(t for t, _ in times) * 1e3
-    dev_ms, n_ops = device_profile(lambda: run_session(scene, dev))
+    dev_ms, n_ops, _ = device_profile(lambda: run_session(scene))
     print(f"# session of {SESSION_FRAMES} frames: {wall_ms:.1f} ms wall; a "
-          f"profiled repeat: {dev_ms:.1f} ms device time in {n_ops} device "
-          f"ops, device busy {100 * dev_ms / wall_ms:.1f} % of the "
+          f"profiled repeat: {dev_ms:.1f} ms device time in {n_ops:.0f} "
+          f"device ops, device busy {100 * dev_ms / wall_ms:.1f} % of the "
           f"unprofiled wall time ({smi})")
     for name, sel in (("init frame", [0]),
                       ("keyframe frames", [k for k, (_, kf) in
@@ -474,17 +828,18 @@ def main() -> int:
     return 0
 
 
-def run_session(scene, dev):
-    """All SESSION_FRAMES frames through the driver's entry point ->
-    (slam, [(wall seconds, keyframe?) per frame]); finalize()d."""
+def run_session(scene, frames=SESSION_FRAMES, route=None):
+    """The first `frames` frames through the driver's entry point, on the
+    rig's device -> (slam, [(wall seconds, keyframe?) per frame]);
+    finalize()d."""
     from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
 
-    slam = MultiCameraSLAM(scene.rig, SlamConfig(), device=dev)
+    slam = MultiCameraSLAM(scene.rig, SlamConfig())
     times = []
-    for k in range(SESSION_FRAMES):
+    for k in range(frames):
         t0 = time.perf_counter()
         info = slam.process_image(scene.imgs[k], k / 20.0,
-                                  extract_cfg=scene.frame_kwargs())
+                                  extract_cfg=scene.frame_kwargs(route))
         times.append((time.perf_counter() - t0, info["keyframe"]))
     slam.finalize()
     return slam, times
@@ -501,9 +856,10 @@ def _window_solves(scene, dev):
     from mcslam_tpu_torch.backend import ba
     from mcslam_tpu_torch.data import synthetic
 
-    f = synthetic.random_window_ba_problem(scene.rig.to("cpu"), px_noise=0.5)
-    p_cpu = ba.problem_from_numpy(**f)
-    p_dev = ba.problem_from_numpy(**f, device=dev)
+    f = synthetic.random_window_ba_problem(scene.rig, px_noise=0.5)
+    p_cpu = ba.problem_from_numpy(**dict(f, device="cpu"))
+    p_dev = ba.problem_from_numpy(**f)
+    check(p_dev.poses.device == dev, "the window problem is not on the card")
     for name, iters in BA_ITERS:
         ref = ba.ba_solve(p_cpu, iters=iters, gate_rounds=2)
         torch.cuda.synchronize()
@@ -530,9 +886,11 @@ def _window_solves(scene, dev):
     return p_dev
 
 
-def device_profile(fn):
-    """(device ms, device ops) of one fn() from a torch.profiler CUDA
-    trace: the summed duration and count of the device-side events."""
+def device_profile(fn, reps=1, names=()):
+    """(device ms, device ops, device ms of the kernels named) per fn()
+    call, over `reps` calls, from a torch.profiler CUDA trace: the summed
+    duration and count of the device-side events, and the summed duration
+    of those whose name contains one of `names`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -540,10 +898,14 @@ def device_profile(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
+    named = [e for e in evs if any(n in e.name for n in names)]
+    us = sum(e.time_range.elapsed_us() for e in evs)
+    named_us = sum(e.time_range.elapsed_us() for e in named)
+    return us / 1e3 / reps, len(evs) / reps, named_us / 1e3 / reps
 
 
 def _match_problem(rng, M, N, thr, want_cols, dev, C_=4):
@@ -677,9 +1039,11 @@ def _small_scene_cpu_vs_cuda(dev) -> float:
     return err
 
 
-def _frame_ms(scene, ff0, mapstate, frac, n=6) -> float:
-    """Host-clock ms per frame of _build_and_track_step (warm), ending in
-    a synchronize; frames cycle through the drive."""
+def _frame_ms(scene, ff0, mapstate, frac, route=None, n=6,
+              warm=True) -> float:
+    """Host-clock ms per frame of _build_and_track_step (after one warm-up
+    frame unless warm=False), ending in a synchronize; frames cycle
+    through the drive."""
     import torch
 
     from mcslam_tpu_torch import tracking_kernels as tk
@@ -690,10 +1054,11 @@ def _frame_ms(scene, ff0, mapstate, frac, n=6) -> float:
     def one(k):
         *_, packed = tk._build_and_track_step(
             gen, scene.imgs[k], scene.rig, ff0.im_desc, ff0.im_valid,
-            *mapstate, eye, **scene.step_kwargs(frac))
+            *mapstate, eye, **scene.step_kwargs(frac, route))
         return packed
 
-    one(1)
+    if warm:
+        one(1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(n):

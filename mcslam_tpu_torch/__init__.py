@@ -1,12 +1,15 @@
 """mcslam_tpu_torch — the PyTorch + CUDA port of mcslam_tpu.
 
-The per-frame tracking path of the JAX package (frame build: ORB
-extraction, intra-rig matching, rig triangulation; tracking: projection-
-gated matching, the pose-candidate portfolio, robust motion-only LM and
-local-map tracking) rebuilt on torch tensors. The four Pallas kernels of
-that path are CUDA C++ kernels for Hopper (`csrc/`, built at first use by
+The vision-only path of the JAX package (frame build: ORB extraction by
+any of its routes, intra-rig matching, rig triangulation; tracking:
+projection-gated matching, the pose-candidate portfolio, robust
+motion-only LM and local-map tracking; keyframes and window bundle
+adjustment) rebuilt on torch tensors. Every Pallas kernel of the JAX
+package is a CUDA C++ kernel for Hopper (`csrc/`, built at first use by
 `_build.py`); every kernel wrapper also carries a plain PyTorch version
-of the same function, which is what runs for tensors on the CPU.
+of the same function, which is what runs for tensors on the CPU. The
+entry points put their tensors on the card unless the caller passes
+device="cpu".
 
 Modules keep the JAX package's paths and names, so `mcslam_tpu.X.Y` has
 its counterpart at `mcslam_tpu_torch.X.Y`.

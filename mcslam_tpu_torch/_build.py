@@ -17,6 +17,7 @@ Every exported function takes its pointers and the CUDA stream as
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -43,8 +44,15 @@ SIGNATURES = {
     # img, heights, widths, taps[7], blur, cand_v, cand_rid,
     # LC, H, W, min_thr, fast_thr, stream
     "mc_fast_select": [P, P, P, P, P, P, P, I, I, I, F, F, P],
+    # img, heights (NULL: mode full), taps, score, blur (NULL: no blur),
+    # LC, H, W, min_thr, stream
+    "mc_fast_corners": [P, P, P, P, P, I, I, I, F, P],
     # imgs, yx, img_idx, patches, origins, B, H, W, T, stream
     "mc_patch_gather": [P, P, P, P, P, I, I, I, I, P],
+    # imgs, yx, patches, origins, C, H, W, N, stream
+    "mc_patch_gather_batched": [P, P, P, P, I, I, I, I, P],
+    # imgs, yx, img_idx, patches (bf16), moments, origins, B, H, W, T, stream
+    "mc_patch_gather_oriented": [P, P, P, P, P, P, I, I, I, I, P],
     # a, b, ahat, bhat, row_best, row_second, row_idx, col_key,
     # M, N, DG, thr2, want_cols, stream
     "mc_hamming_argmin2": [P, P, P, P, P, P, P, P, I, I, I, F, I, P],
@@ -55,6 +63,10 @@ SIGNATURES = {
     # payload, r, w, Hpp, gp, partials, K, Ok, L, C, huber, stream
     "mc_ba_linearize": [P] * 16 + [I, I, I, I, F, P],
 }
+
+# Kernel launches by kernel name since the last reset: each wrapper adds
+# one right before it launches its kernel (plain-version calls add none).
+LAUNCHES: collections.Counter = collections.Counter()
 
 _LIB = None
 BUILD_SECONDS = None  # wall time of the nvcc run of this process, if any

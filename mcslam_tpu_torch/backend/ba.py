@@ -74,7 +74,7 @@ def _field(x, dtype, device) -> torch.Tensor:
 
 
 def problem_from_numpy(poses, landmarks, lm_valid, obs, cam_T_ref, fxycxy,
-                       prior_H, prior_b, kf_valid, device="cpu") -> BAProblem:
+                       prior_H, prior_b, kf_valid, device="cuda") -> BAProblem:
     """A BAProblem on `device` from arrays of the same fields (numpy, or
     anything np.asarray takes, e.g. the fields of a JAX BAProblem; tensors
     are moved). `obs` is any object with the BAObservations fields."""

@@ -23,7 +23,7 @@ class SyntheticRigSpec(NamedTuple):
 
 
 def make_synthetic_rig(spec: SyntheticRigSpec = SyntheticRigSpec(),
-                       device="cpu") -> cam_ops.CameraRig:
+                       device="cuda") -> cam_ops.CameraRig:
     n = spec.num_cams
     w, h = spec.image_size
     fxycxy = np.tile(
@@ -120,11 +120,12 @@ def random_window_ba_problem(rig: cam_ops.CameraRig, num_kfs: int = 6,
                              seed: int = 0, px_noise: float | None = None,
                              pose_noise: float = 0.01,
                              outlier_frac: float = 0.05) -> dict:
-    """A window-BA problem at bench.py's stage C shape, as numpy fields of
-    backend.ba.problem_from_numpy: K keyframes, L landmarks in a slab
-    2-14 m ahead, a kf-blocked table of obs_capacity // K observations per
-    keyframe with random cameras and landmarks, unit sigma2, all valid,
-    and the cold gauge prior (1e6 on pose 0).
+    """A window-BA problem at bench.py's stage C shape, as the keyword
+    arguments of backend.ba.problem_from_numpy (numpy fields, and the
+    rig's device): K keyframes, L landmarks in a slab 2-14 m ahead, a
+    kf-blocked table of obs_capacity // K observations per keyframe with
+    random cameras and landmarks, unit sigma2, all valid, and the cold
+    gauge prior (1e6 on pose 0).
 
     px_noise=None gives bench.py's own problem: identity poses and uniform
     random pixels. A float gives a consistent one: keyframes along
@@ -170,4 +171,5 @@ def random_window_ba_problem(rig: cam_ops.CameraRig, num_kfs: int = 6,
                      sigma2=np.ones(O, np.float32), valid=np.ones(O, bool)),
         cam_T_ref=rig.cam_T_ref.cpu().numpy(),
         fxycxy=rig.fxycxy.cpu().numpy(), prior_H=prior_H,
-        prior_b=np.zeros(K * 6, np.float32), kf_valid=np.ones(K, bool))
+        prior_b=np.zeros(K * 6, np.float32), kf_valid=np.ones(K, bool),
+        device=rig.device)

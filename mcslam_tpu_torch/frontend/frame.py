@@ -51,7 +51,7 @@ class FrameFeatures(NamedTuple):
 _DESC_FIELDS = ("kp_desc", "im_desc")
 
 
-def frame_from_numpy(arrays, device="cpu") -> FrameFeatures:
+def frame_from_numpy(arrays, device="cuda") -> FrameFeatures:
     """Build a FrameFeatures from numpy arrays of the same fields (e.g.
     np.asarray of each field of a JAX FrameFeatures); uint32 descriptors
     become int32 words with identical bits."""
@@ -103,14 +103,14 @@ def _triangulate_stage(groups, xy_ud, kp_sigma2, rig, min_z, max_z):
 
 def _fused_stage(imgs, rig, num_points, num_levels, fast_threshold,
                  min_threshold, max_intra, min_z, max_z,
-                 angle_bins=orb.ANGLE_BINS):
-    """extract + undistort + intra-match + triangulate."""
+                 angle_bins=orb.ANGLE_BINS, route=orb.OrbRoute()):
+    """extract (by `route`) + undistort + intra-match + triangulate."""
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) * (1.0 / 255.0)
     kps = orb.extract_orb_rig(
         imgs, num_points=num_points, num_levels=num_levels,
         fast_threshold=fast_threshold, min_threshold=min_threshold,
-        angle_bins=angle_bins,
+        angle_bins=angle_bins, route=route,
     )
     xy_ud = undistort_keypoints(kps.xy, kps.valid, rig)
     groups = intra_ops.intra_match(
@@ -138,12 +138,13 @@ def build_frame(imgs: torch.Tensor, rig, num_points: int = 1024,
                 num_levels: int = 8, max_intra: int = 2048,
                 fast_threshold: float = 20.0 / 255.0,
                 min_threshold: float = 7.0 / 255.0, min_z: float = 0.5,
-                max_z: float = 40.0,
-                angle_bins: int = orb.ANGLE_BINS) -> FrameFeatures:
+                max_z: float = 40.0, angle_bins: int = orb.ANGLE_BINS,
+                route: orb.OrbRoute = orb.OrbRoute()) -> FrameFeatures:
     """(C, H, W) float images in [0, 1] (or uint8) on the rig's device ->
-    FrameFeatures. ORB per camera (batched) -> undistort -> cross-camera
-    intra-matching -> rig triangulation of multi-view groups."""
+    FrameFeatures. ORB per camera (batched, by the extraction `route`) ->
+    undistort -> cross-camera intra-matching -> rig triangulation of
+    multi-view groups."""
     return assemble_frame(*_fused_stage(
         imgs, rig, num_points, num_levels, fast_threshold, min_threshold,
-        max_intra, min_z, max_z, angle_bins,
+        max_intra, min_z, max_z, angle_bins, route,
     ))

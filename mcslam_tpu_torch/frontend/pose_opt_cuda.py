@@ -18,7 +18,6 @@ from mcslam_tpu_torch import _build
 
 CHI2_2DOF = 5.991
 _EPS = 1e-8
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def _pack_obs(X_world, uv, cam_T_obs, fxycxy_obs, inv_sig2) -> torch.Tensor:
@@ -224,8 +223,7 @@ def pose_lm(T_init, data, mask, sched, huber_px=2.5, chi2_thresh=CHI2_2DOF,
     T_out = torch.empty(B, 4, 4, dtype=torch.float32, device=dev)
     chi2 = torch.empty(B, M, dtype=torch.float32, device=dev)
     lib = _build.library()
-    global LAUNCHES
-    LAUNCHES += 1
+    _build.LAUNCHES["pose_lm"] += 1
     _build.check(lib.mc_pose_lm(
         T_init.data_ptr(), data.data_ptr(), mask.data_ptr(),
         sched_t.data_ptr(), T_out.data_ptr(), chi2.data_ptr(), B, M,

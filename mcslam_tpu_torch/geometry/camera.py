@@ -57,7 +57,7 @@ class CameraRig:
 
 def make_rig(fxycxy, dist=None, cam_T_ref=None, body_T_cam=None,
              image_size=(640, 480), dist_model=DIST_RADTAN,
-             device="cpu") -> CameraRig:
+             device="cuda") -> CameraRig:
     f32 = dict(dtype=torch.float32, device=device)
     fxycxy = torch.as_tensor(np.asarray(fxycxy, np.float32), **f32)
     if fxycxy.ndim == 1:
@@ -84,7 +84,7 @@ def make_rig(fxycxy, dist=None, cam_T_ref=None, body_T_cam=None,
 
 
 def rig_from_numpy(fxycxy, dist, cam_T_ref, body_T_cam, image_size,
-                   dist_model, device="cpu") -> CameraRig:
+                   dist_model, device="cuda") -> CameraRig:
     """Build the port's rig from a JAX rig's fields taken with np.asarray
     (bit-identical f32 values)."""
     def t(x):

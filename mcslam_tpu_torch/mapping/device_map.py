@@ -20,7 +20,7 @@ import torch
 
 
 class DeviceMap:
-    def __init__(self, capacity: int = 65536, device="cpu"):
+    def __init__(self, capacity: int = 65536, device="cuda"):
         self.capacity = capacity
         self.device = torch.device(device)
         self.pos = torch.zeros(capacity, 3, dtype=torch.float32,

@@ -27,7 +27,6 @@ THREADS = 128  # threads per block of the kernel (one per observation)
 NPAY = 30  # payload channels: W (18) | Hll (9) | gl (3)
 NSUM = 27  # per-keyframe sums: 21 Hpp (upper triangle) + 6 gp
 MAX_CAMS = 8  # rig tables held in the kernel's shared memory
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def ba_linearize_reference(rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf,
@@ -129,8 +128,7 @@ def ba_linearize(rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf, Rc9, tc,
     gp = torch.empty(K, 6, dtype=f32, device=dev)
     partials = torch.empty(K * nblk * NSUM, dtype=f32, device=dev)
     lib = _build.library()
-    global LAUNCHES
-    LAUNCHES += 1
+    _build.LAUNCHES["ba_linearize"] += 1
     _build.check(lib.mc_ba_linearize(
         rTw12.data_ptr(), lm_pos.data_ptr(), obs_lm.data_ptr(),
         obs_cam.data_ptr(), uv.data_ptr(), sigma2.data_ptr(),

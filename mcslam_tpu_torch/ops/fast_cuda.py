@@ -1,13 +1,26 @@
-"""FAST + NMS + blur + per-cell top-k selection in one CUDA launch
-(counterpart of mcslam_tpu/ops/fast_pallas.py fast_select_pallas; kernel
-source csrc/fast_select.cu).
+"""FAST + NMS (+ blur) over 16-row bands, two CUDA entries (kernel
+source csrc/fast_select.cu):
 
-`fast_select` launches the kernel for CUDA tensors and runs
-`fast_select_reference`, the plain PyTorch version of the same function,
-for CPU tensors. Both compute with 16-row bands and the same boundary
-rule (rows clamp to the image, columns wrap modulo the 128-rounded width
-and then clamp to the last column), so they agree bit for bit — and with
-fast_select_pallas(..., tile_h=16).
+* `fast_select`: FAST + NMS + blur + per-cell top-k selection in one
+  launch (counterpart of mcslam_tpu/ops/fast_pallas.py
+  fast_select_pallas);
+* `fast_corners`: the NMS'd score map, optionally with the blur, with or
+  without the per-image height skip (counterpart of fast_corners_pallas,
+  both branches).
+
+Each launches its kernel for CUDA tensors and runs its `_reference`, the
+plain PyTorch version of the same function, for CPU tensors. All compute
+with 16-row bands and one boundary rule (rows clamp to the image, columns
+wrap modulo the 128-rounded width and then clamp to the last column), so
+kernel and plain version agree bit for bit, and the two blurs with each
+other. Against the Pallas kernels at tile_h=16 the scores, candidates and
+zeroed bands are exact; the blur differs by the multiply-add contraction
+of the Pallas kernel as XLA compiles it on the CPU (a few f32 ulps). The
+JAX package calls fast_corners_pallas at its default tile_h=64 (orb.py
+366-373) and fast_select_pallas at 96 (orb.py:359): the tile height moves
+only the rows the height skip zeroes, which the caller masks (scores at or
+beyond h - 3) or no descriptor samples (blur rows at or beyond h),
+fast_pallas.py:66-78.
 """
 
 from __future__ import annotations
@@ -19,11 +32,41 @@ from mcslam_tpu_torch.ops import fast as fast_ops
 
 CELL = 16  # cell size and band height of the kernel
 K = 4  # candidates per cell
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def _round128(w: int) -> int:
     return -(-w // 128) * 128
+
+
+def _blur(img: torch.Tensor, taps: tuple) -> torch.Tensor:
+    """The kernels' separable blur of (LC, H, W): vertical then horizontal,
+    taps in order, multiply and add rounded apart; rows clamp to the
+    image, columns wrap modulo ceil128(W) and then clamp to W - 1."""
+    _, H, W = img.shape
+    dev = img.device
+    t = torch.tensor(taps, dtype=torch.float32, device=dev)
+    r = len(taps) // 2
+    offs = torch.arange(-r, r + 1, device=dev)
+    rows = torch.clamp(torch.arange(H, device=dev)[:, None] + offs, 0, H - 1)
+    cols = torch.remainder(torch.arange(W, device=dev)[:, None] + offs,
+                           _round128(W))
+    cols = torch.clamp(cols, max=W - 1)
+    acc = img[:, rows[:, 0], :] * t[0]
+    for k in range(1, len(taps)):
+        acc = acc + img[:, rows[:, k], :] * t[k]
+    out = acc[:, :, cols[:, 0]] * t[0]
+    for k in range(1, len(taps)):
+        out = out + acc[:, :, cols[:, k]] * t[k]
+    return out
+
+
+def _zero_skipped(x: torch.Tensor, skip_from: torch.Tensor) -> torch.Tensor:
+    """Zero the rows of every 16-row band of x (LC, H, W) that starts at or
+    beyond skip_from[c] (the kernels' band skip)."""
+    H = x.shape[1]
+    band_start = (torch.arange(H, device=x.device) // CELL) * CELL
+    live = band_start[None, :] < skip_from.to(x.device)[:, None]  # (LC, H)
+    return torch.where(live[:, :, None], x, torch.zeros_like(x))
 
 
 def fast_select_reference(img: torch.Tensor, min_threshold: float,
@@ -42,23 +85,7 @@ def fast_select_reference(img: torch.Tensor, min_threshold: float,
     heights = heights.to(device=dev, dtype=torch.int64)
     widths = widths.to(device=dev, dtype=torch.int64)
     f32 = torch.float32
-    t = torch.tensor(taps, dtype=f32, device=dev)
-    r = len(taps) // 2
-
-    # blur: vertical then horizontal, taps in order, mul and add separate
-    offs = torch.arange(-r, r + 1, device=dev)
-    rows = torch.clamp(torch.arange(H, device=dev)[:, None] + offs, 0, H - 1)
-    cols = torch.remainder(torch.arange(W, device=dev)[:, None] + offs, Wp)
-    cols = torch.clamp(cols, max=W - 1)
-    acc = img[:, rows[:, 0], :] * t[0]
-    for k in range(1, len(taps)):
-        acc = acc + img[:, rows[:, k], :] * t[k]
-    blur = acc[:, :, cols[:, 0]] * t[0]
-    for k in range(1, len(taps)):
-        blur = blur + acc[:, :, cols[:, k]] * t[k]
-    band_start = (torch.arange(H, device=dev) // CELL) * CELL
-    live_row = band_start[None, :] < heights[:, None]  # (LC, H)
-    blur = torch.where(live_row[:, :, None], blur, torch.zeros_like(blur))
+    blur = _zero_skipped(_blur(img, taps), heights)
 
     # score -> true-bounds mask -> rank bonus, on the (nb*16, Wp) grid
     score = fast_ops.fast_corners(img, min_threshold)
@@ -123,8 +150,7 @@ def fast_select(img: torch.Tensor, min_threshold: float,
     cand_r = torch.empty(LC, G, K, dtype=torch.int32, device=img.device)
     t = torch.tensor(taps, dtype=torch.float32, device=img.device)
     lib = _build.library()
-    global LAUNCHES
-    LAUNCHES += 1
+    _build.LAUNCHES["fast_select"] += 1
     _build.check(lib.mc_fast_select(
         img.data_ptr(), heights.data_ptr(), widths.data_ptr(), t.data_ptr(),
         blur.data_ptr(), cand_v.data_ptr(), cand_r.data_ptr(), LC, H, W,
@@ -132,3 +158,62 @@ def fast_select(img: torch.Tensor, min_threshold: float,
         _build.stream_ptr(img.device),
     ), "mc_fast_select")
     return blur, cand_v, cand_r
+
+
+def fast_corners_reference(img: torch.Tensor, threshold: float,
+                           heights: torch.Tensor | None = None,
+                           taps: tuple | None = None):
+    """Plain PyTorch version of mc_fast_corners. img (LC, H, W) f32 ->
+    the (LC, H, W) NMS'd FAST score map at `threshold`, and with `taps`
+    also the 7-tap blur: (score, blurred). With `heights` (mode hskip)
+    every 16-row band starting at or beyond heights[c] (with the blur) or
+    heights[c] - 3 (without) is zero in both outputs."""
+    score = fast_ops.fast_corners(img, threshold)
+    blur = _blur(img, taps) if taps is not None else None
+    if heights is not None:
+        h = heights.to(device=img.device, dtype=torch.int64)
+        score = _zero_skipped(score, h if taps is not None
+                              else h - fast_ops.BORDER)
+        if blur is not None:
+            blur = _zero_skipped(blur, h)
+    return score if blur is None else (score, blur)
+
+
+def fast_corners(img: torch.Tensor, threshold: float,
+                 heights: torch.Tensor | None = None,
+                 taps: tuple | None = None):
+    """(LC, H, W) f32 -> score, or (score, blurred) with `taps`; see
+    fast_corners_reference. `heights` ((LC,) int32) selects mode hskip,
+    None mode full. CUDA tensors launch the kernel; CPU tensors take the
+    plain version."""
+    if img.device.type == "cpu":
+        return fast_corners_reference(img, threshold, heights, taps)
+    if img.device.type != "cuda":
+        raise ValueError(f"fast_corners: unsupported device {img.device}")
+    if img.dtype != torch.float32 or img.ndim != 3 or not img.is_contiguous():
+        raise ValueError("fast_corners: img must be a contiguous (LC, H, W) "
+                         f"float32 tensor, got {img.dtype} {tuple(img.shape)}")
+    LC, H, W = img.shape
+    if heights is not None and (
+            heights.device != img.device or heights.dtype != torch.int32
+            or heights.shape != (LC,) or not heights.is_contiguous()):
+        raise ValueError("fast_corners: heights must be a contiguous "
+                         f"({LC},) int32 tensor on {img.device}")
+    if taps is not None and len(taps) != 7:
+        raise ValueError("fast_corners: the kernel takes 7 blur taps")
+    if H < 8 or W < 8:
+        raise ValueError("fast_corners: image smaller than 8x8")
+    score = torch.empty_like(img)
+    blur = torch.empty_like(img) if taps is not None else None
+    t = (torch.tensor(taps, dtype=torch.float32, device=img.device)
+         if taps is not None else None)
+    lib = _build.library()
+    _build.LAUNCHES["fast_corners_hskip" if heights is not None
+                    else "fast_corners_full"] += 1
+    _build.check(lib.mc_fast_corners(
+        img.data_ptr(), heights.data_ptr() if heights is not None else None,
+        t.data_ptr() if t is not None else None, score.data_ptr(),
+        blur.data_ptr() if blur is not None else None, LC, H, W,
+        float(threshold), _build.stream_ptr(img.device),
+    ), "mc_fast_corners")
+    return score if blur is None else (score, blur)

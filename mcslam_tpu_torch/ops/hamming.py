@@ -17,7 +17,7 @@ WORDS = BITS // 32
 _SHIFTS = tuple(range(32))
 
 
-def desc_to_torch(desc_u32, device="cpu") -> torch.Tensor:
+def desc_to_torch(desc_u32, device="cuda") -> torch.Tensor:
     """(..., 8) uint32 array (e.g. np.asarray of a JAX descriptor array)
     -> (..., 8) int32 tensor with identical bits."""
     arr = np.ascontiguousarray(np.asarray(desc_u32, np.uint32))

@@ -23,7 +23,6 @@ BIGF = float(1 << 20)  # matches ops/match.BIG
 # behind-camera penalty already inside the gate factors
 PASS_BIAS = 1e13
 DG_MAX = 16  # gate factors the kernel holds in registers
-LAUNCHES = 0  # kernel launches since the last reset
 
 
 def hamming_argmin2_reference(a_desc: torch.Tensor, b_desc: torch.Tensor,
@@ -80,8 +79,7 @@ def hamming_argmin2(a_desc: torch.Tensor, b_desc: torch.Tensor,
     col_key = torch.full((N if want_cols else 1,), -1, dtype=torch.int64,
                          device=dev)
     lib = _build.library()
-    global LAUNCHES
-    LAUNCHES += 1
+    _build.LAUNCHES["hamming_argmin2"] += 1
     _build.check(lib.mc_hamming_argmin2(
         a_desc.data_ptr(), b_desc.data_ptr(), ahat.data_ptr(),
         bhat.data_ptr(), best.data_ptr(), second.data_ptr(), idx.data_ptr(),

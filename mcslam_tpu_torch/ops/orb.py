@@ -1,11 +1,16 @@
 """Oriented-BRIEF (ORB-class) feature extraction over the whole rig
-(counterpart of mcslam_tpu/ops/orb.py, early-compaction path).
+(counterpart of mcslam_tpu/ops/orb.py).
 
-Pyramid -> all levels edge-padded to level 0's shape and stacked into one
-(L*C, H, W) batch -> one fast_select launch (FAST + NMS + blur + per-cell
-top-4) -> global top-N per image -> per-level quota and edge margin ->
-cross-level compaction to num_points per camera -> patch gather ->
-intensity-centroid orientation -> steered BRIEF-256.
+The production route: pyramid -> all levels edge-padded to level 0's
+shape and stacked into one (L*C, H, W) batch -> one fast_select launch
+(FAST + NMS + blur + per-cell top-4) -> global top-N per image ->
+per-level quota and edge margin -> cross-level compaction to num_points
+per camera -> patch gather -> intensity-centroid orientation -> steered
+BRIEF-256. `OrbRoute` selects the JAX package's other routes (its
+environment switches) as explicit arguments: the score map with the
+selection chain outside the kernel, the standalone blur, no height skip,
+the subcell selection, compaction after the descriptors, and the patch
+gather that also computes the orientation moments.
 
 Selection is exact (stable sorts everywhere): the JAX package's
 approx_topk option lowers to exact top-k on the CPU, and the port keeps
@@ -14,6 +19,7 @@ that exact semantics on every device.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -21,9 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mcslam_tpu_torch.ops import hamming, image as image_ops
-from mcslam_tpu_torch.ops.fast_cuda import fast_select
-from mcslam_tpu_torch.ops.patch_cuda import PATCH, PATCH_R, patch_gather
+from mcslam_tpu_torch.ops import fast as fast_ops
+from mcslam_tpu_torch.ops import hamming, image as image_ops, topk_grid
+from mcslam_tpu_torch.ops.fast_cuda import fast_corners, fast_select
+from mcslam_tpu_torch.ops.patch_cuda import (
+    PATCH, PATCH_R, patch_gather, patch_gather_batched, patch_gather_oriented)
 from mcslam_tpu_torch.ops.topk_grid import topk_stable
 
 PATCH_RADIUS = 15  # IC-angle circular patch radius (31x31 patch)
@@ -146,6 +154,37 @@ class Keypoints(NamedTuple):
     valid: torch.Tensor  # (C, N) bool
 
 
+@dataclasses.dataclass(frozen=True)
+class OrbRoute:
+    """The extraction route of extract_orb_rig: one field per environment
+    switch that the JAX package reads at trace time (mcslam_tpu/ops/
+    orb.py); the defaults are its production route.
+
+    select_in_kernel: per-cell selection inside the FAST launch
+        (fast_select); False (MCSLAM_NO_SEL_INKERNEL=1) writes the score
+        map (fast_corners) and selects from it outside. Needs fused_blur.
+    fused_blur: the FAST launch also writes the 7-tap blur; False
+        (MCSLAM_NO_FUSED_BLUR=1) blurs in a separate pass
+        (image.gaussian_blur).
+    hskip: the score-map kernel skips the bands below each level's true
+        height; False is MCSLAM_FAST_NO_HSKIP=1.
+    sel_subcell: the score-map selection takes 2 candidates per 8x8
+        subcell (MCSLAM_SEL_SUBCELL=1) instead of 4 per 16x16 cell.
+    late_compact: descriptors for every per-level slot, cross-level
+        compaction after (MCSLAM_LATE_COMPACT=1; takes precedence over
+        fused_orient).
+    fused_orient: the patch gather also sums the orientation moments and
+        writes bf16 patches (MCSLAM_FUSED_ORIENT=1).
+    """
+
+    select_in_kernel: bool = True
+    fused_blur: bool = True
+    hskip: bool = True
+    sel_subcell: bool = False
+    late_compact: bool = False
+    fused_orient: bool = False
+
+
 @functools.lru_cache(maxsize=None)
 def _level_budget(total: int, num_levels: int, scale: float) -> tuple:
     """Per-level keypoint budget, geometric decay like the reference."""
@@ -183,25 +222,62 @@ def _select_from_cells(cand_v, cand_rid, maxb: int, *, per_cell: int,
     return yx, resp, valid
 
 
+def _compaction(valid, resp, n: int):
+    """Cross-level compaction of (C, M) slots to the n best per camera
+    (valid ones first, by response, ties to the lower slot): -> a function
+    that takes those n slots of any (C, M, ...) tensor."""
+    prio = torch.where(valid, resp + 1e3, torch.full_like(resp, -1.0))
+    _, top = topk_stable(prio, n)
+
+    def take(a):
+        idx = top.reshape(*top.shape, *([1] * (a.ndim - 2)))
+        return torch.take_along_dim(a, idx, dim=1)
+
+    return take
+
+
+def _select_from_score(score, h_l, w_l, fast_threshold, maxb: int, *,
+                       cell: int, per_cell: int, subcell: bool):
+    """The selection chain over dense (LC, H, W) score maps: each image's
+    true-bounds interior mask, the +1 rank bonus above fast_threshold,
+    then the grid selection of all images at once -> (yx (LC, maxb, 2)
+    int32, resp, valid)."""
+    _, H, W = score.shape
+    dev = score.device
+    yy = torch.arange(H, device=dev)[None, :, None]
+    xx = torch.arange(W, device=dev)[None, None, :]
+    interior = ((yy < h_l.long()[:, None, None] - fast_ops.BORDER)
+                & (xx < w_l.long()[:, None, None] - fast_ops.BORDER))
+    score = torch.where(interior, score, torch.zeros_like(score))
+    thr = torch.tensor(fast_threshold, dtype=torch.float32, device=dev)
+    score = torch.where(score > thr, score + 1.0, score)
+    if subcell:
+        return topk_grid.select_keypoints_subcell(score, maxb,
+                                                  sub=max(4, cell // 2))
+    return topk_grid.select_keypoints(score, maxb, cell=cell,
+                                      per_cell=per_cell)
+
+
 def extract_orb_rig(imgs: torch.Tensor, num_points: int = 1024,
                     num_levels: int = 8, scale: float = 1.2,
                     fast_threshold: float = 20.0 / 255.0,
                     min_threshold: float = 7.0 / 255.0,
-                    angle_bins: int = ANGLE_BINS) -> Keypoints:
+                    angle_bins: int = ANGLE_BINS,
+                    route: OrbRoute = OrbRoute()) -> Keypoints:
     """Camera-batched multi-scale ORB: imgs (C, H, W) float32 in [0, 1]
     -> Keypoints with a leading camera axis and num_points slots (cells
-    of 16x16 pixels, 4 candidates per cell: the selection kernel's
-    build)."""
+    of 16x16 pixels, 4 candidates per cell), by the given route."""
     levels = image_ops.build_pyramid(imgs, num_levels, scale)
     return extract_orb_levels(levels, num_points, scale, fast_threshold,
-                              min_threshold, angle_bins)
+                              min_threshold, angle_bins, route)
 
 
 def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
                        scale: float = 1.2,
                        fast_threshold: float = 20.0 / 255.0,
                        min_threshold: float = 7.0 / 255.0,
-                       angle_bins: int = ANGLE_BINS) -> Keypoints:
+                       angle_bins: int = ANGLE_BINS,
+                       route: OrbRoute = OrbRoute()) -> Keypoints:
     """extract_orb_rig from an already built pyramid: levels[l] is the
     (C, h_l, w_l) image stack of level l."""
     cell, per_cell = 16, 4
@@ -222,14 +298,25 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
                        device=dev).repeat_interleave(C)
     w_l = torch.tensor([w for _, w in hw], dtype=torch.int32,
                        device=dev).repeat_interleave(C)
-    blurred, cand_v, cand_rid = fast_select(
-        stacked, min_threshold, fast_threshold, h_l, w_l,
-        taps=image_ops._np_gaussian_taps(7, 2.0),
-    )
-    yx, resp, valid = _select_from_cells(
-        cand_v, cand_rid, maxb, per_cell=per_cell, cell=cell,
-        ncx=(-(-W0 // 128) * 128) // cell,
-    )
+    taps = image_ops._np_gaussian_taps(7, 2.0)
+    if route.fused_blur and route.select_in_kernel:
+        blurred, cand_v, cand_rid = fast_select(
+            stacked, min_threshold, fast_threshold, h_l, w_l, taps=taps)
+        yx, resp, valid = _select_from_cells(
+            cand_v, cand_rid, maxb, per_cell=per_cell, cell=cell,
+            ncx=(-(-W0 // 128) * 128) // cell,
+        )
+    else:
+        heights = h_l if route.hskip else None
+        if route.fused_blur:
+            score, blurred = fast_corners(stacked, min_threshold, heights,
+                                          taps)
+        else:
+            blurred = image_ops.gaussian_blur(stacked, 7, 2.0)
+            score = fast_corners(stacked, min_threshold, heights)
+        yx, resp, valid = _select_from_score(
+            score, h_l, w_l, fast_threshold, maxb, cell=cell,
+            per_cell=per_cell, subcell=route.sel_subcell)
     resp = torch.where(resp > 1.0, resp - 1.0, resp)  # undo rank bonus
     budget_arr = torch.tensor(budgets, dtype=torch.int64,
                               device=dev).repeat_interleave(C)
@@ -256,32 +343,55 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
         x = x.reshape(L, C, maxb, *x.shape[2:])
         return x.movedim(1, 0).reshape(C, L * maxb, *x.shape[3:])
 
+    if route.late_compact:
+        return _finish_late_compact(blurred, yx, resp, valid, xy0, octv,
+                                    sigma2, merge, num_points, angle_bins)
+
     yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
         merge(yx), merge(resp), merge(valid), merge(img_idx), merge(octv),
         merge(sigma2), merge(xy0))
     # early cross-level compaction: keep the num_points best per camera
     n_out = min(num_points, L * maxb)
     if L * maxb > n_out:
-        prio = torch.where(valid_m, resp_m + 1e3,
-                           torch.full_like(resp_m, -1.0))
-        _, top = topk_stable(prio, n_out)
-
-        def take(a):
-            idx = top.reshape(C, n_out, *([1] * (a.ndim - 2)))
-            return torch.take_along_dim(a, idx, dim=1)
-
+        take = _compaction(valid_m, resp_m, n_out)
         yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
             take(yxm), take(resp_m), take(valid_m), take(img_m),
             take(octv_m), take(sig2_m), take(xy0_m))
 
     T = C * n_out
-    patches, _origin = patch_gather(
-        blurred, yxm.reshape(T, 2).contiguous(),
-        img_m.reshape(T).contiguous())
-    ang = patch_orientation(patches)
+    flat_yx = yxm.reshape(T, 2).contiguous()
+    flat_img = img_m.reshape(T).contiguous()
+    if route.fused_orient:
+        patches, m, _origin = patch_gather_oriented(blurred, flat_yx,
+                                                    flat_img)
+        ang = torch.atan2(m[:, 1], m[:, 0])
+    else:
+        patches, _origin = patch_gather(blurred, flat_yx, flat_img)
+        ang = patch_orientation(patches)
     desc = compute_descriptors_patch(patches, ang, angle_bins)
     return Keypoints(
         xy=xy0_m, response=resp_m, angle=ang.reshape(C, n_out),
         octave=octv_m, sigma2=sig2_m, desc=desc.reshape(C, n_out, 8),
         valid=valid_m,
     )
+
+
+def _finish_late_compact(blurred, yx, resp, valid, xy0, octv, sigma2, merge,
+                         num_points, angle_bins) -> Keypoints:
+    """Descriptors for all L*maxb slots of every camera, then the same
+    cross-level compaction as the early route (the same keypoint set)."""
+    LC, maxb = yx.shape[:2]
+    patches, _origin = patch_gather_batched(blurred, yx.contiguous())
+    patches = patches.reshape(LC * maxb, PATCH, PATCH)
+    ang = patch_orientation(patches)
+    desc = compute_descriptors_patch(patches, ang, angle_bins)
+    kp = Keypoints(
+        xy=merge(xy0), response=merge(resp),
+        angle=merge(ang.reshape(LC, maxb)), octave=merge(octv),
+        sigma2=merge(sigma2), desc=merge(desc.reshape(LC, maxb, 8)),
+        valid=merge(valid),
+    )
+    if kp.valid.shape[1] > num_points:
+        take = _compaction(kp.valid, kp.response, num_points)
+        kp = Keypoints(*(take(a) for a in kp))
+    return kp

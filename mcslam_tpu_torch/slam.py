@@ -139,7 +139,8 @@ class MultiCameraSLAM(WindowBAMixin):
     def __init__(self, rig, config: SlamConfig = None, seed: int = 0,
                  device=None, vocab=None, loop_config=None, imu_params=None,
                  gps_lever_arm=None, mesh=None):
-        """`device`: where the device programs run (default: the rig's);
+        """`device`: where the device programs run (default: the rig's,
+        which is the card unless the rig was built with device="cpu");
         the rig is moved there. `seed` seeds the torch.Generator the
         RANSAC stages draw from."""
         for name, v in (("vocab (loop closure)", vocab),
@@ -396,7 +397,7 @@ class MultiCameraSLAM(WindowBAMixin):
         build and the tracking step run as one fused device program with
         one packed fetch (_build_and_track_step); otherwise build_frame +
         process_frame. extract_cfg: build_frame keyword overrides
-        (num_points, num_levels, max_intra, ...)."""
+        (num_points, num_levels, max_intra, angle_bins, route, ...)."""
         if seg_masks is not None:
             raise NotImplementedError(
                 "process_image: segmentation masks are not ported to "
@@ -437,6 +438,7 @@ class MultiCameraSLAM(WindowBAMixin):
                 gate_px=cfg.track_match_radius_px,
                 fastpath_frac=self._fastpath_frac,
                 fastpath_min=cfg.track_fastpath_min_inliers,
+                route=kw["route"],
             )
         frame = assemble_frame(kps, xy_ud, groups, tri)
         return self.process_frame(frame, timestamp, _packed=packed)

@@ -24,13 +24,13 @@ import torch
 
 from mcslam_tpu_torch.frontend import pose_opt, ransac
 from mcslam_tpu_torch.geometry import lie, triangulation
-from mcslam_tpu_torch.ops import hamming, match as match_ops, match_cuda
+from mcslam_tpu_torch.ops import hamming, match as match_ops, match_cuda, orb
 
 _GATE_BIG = 1e12
 LM_SCHED = (8, 8)  # per-round LM schedule of every refine on this path
 
 
-def map_mirror_from_numpy(pos, valid, desc_u32, normal, device="cpu"):
+def map_mirror_from_numpy(pos, valid, desc_u32, normal, device="cuda"):
     """(pos (L, 3), valid (L,), desc (L, 8) int32 words, normal (L, 3))
     tensors from numpy map-mirror arrays (uint32 descriptors)."""
     return (
@@ -255,18 +255,19 @@ def _build_and_track_step(gen, imgs, rig, prev_desc, prev_valid, prev_lm_id,
                           max_z: float, angle_bins: int, num_hyp: int,
                           px: float, max_dist: int, ratio: float, image_wh,
                           lm_radius: float, lm_max_dist: int, gate_px: float,
-                          fastpath_frac: float, fastpath_min: int):
+                          fastpath_frac: float, fastpath_min: int,
+                          route: orb.OrbRoute = orb.OrbRoute()):
     """Frame build + inter-frame/local-map tracking of one frame:
     extraction -> intra-match -> triangulate -> projection-gated match ->
     pose portfolio -> local-map track. `gen` is the torch.Generator (on
-    the images' device) the RANSAC stages draw from. Returns (kps, xy_ud,
-    groups, tri, packed); frame.assemble_frame turns the first four into
-    a FrameFeatures."""
+    the images' device) the RANSAC stages draw from; `route` is the
+    extraction route. Returns (kps, xy_ud, groups, tri, packed);
+    frame.assemble_frame turns the first four into a FrameFeatures."""
     from mcslam_tpu_torch.frontend import frame as frame_mod
 
     kps, xy_ud, groups, tri = frame_mod._fused_stage(
         imgs, rig, num_points, num_levels, fast_threshold, min_threshold,
-        max_intra, min_z, max_z, angle_bins)
+        max_intra, min_z, max_z, angle_bins, route)
     X, has_depth, anchor_cam, uv_ref, anchor_sigma2, _n_rays = tri
     packed = _track_and_map_step(
         gen, groups.desc, groups.valid, uv_ref, anchor_cam, anchor_sigma2, X,

@@ -25,6 +25,7 @@ from mcslam_tpu.backend import ba as jba
 from mcslam_tpu.data import synthetic as jsyn
 from mcslam_tpu.geometry import lie as jlie
 from mcslam_tpu.ops.ba_pallas import linearize_payload_pallas
+from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.backend import ba as tba
 from mcslam_tpu_torch.geometry import lie as tlie
 from mcslam_tpu_torch.ops import ba_cuda
@@ -94,7 +95,7 @@ def _blocked(problem):
 
 def test_ba_linearize_reference_matches_pallas():
     jp = _random_blocked_problem()
-    tp = tba.problem_from_numpy(*jp)
+    tp = tba.problem_from_numpy(*jp, device="cpu")
     args = tba.linearize_inputs(tp)
     C = np.asarray(jp.cam_T_ref).shape[0]
     cam = np.asarray(jp.obs.cam)
@@ -104,9 +105,9 @@ def test_ba_linearize_reference_matches_pallas():
         jnp.asarray(ctr[:, :3, :3].reshape(C, 9)[cam]),
         jnp.asarray(ctr[:, :3, 3][cam]), jnp.asarray(np.asarray(jp.fxycxy)[cam]),
         jp.obs.sigma2, jnp.asarray(args[6].numpy()), tile=256, interpret=True)
-    n0 = ba_cuda.LAUNCHES
+    n0 = _build.LAUNCHES["ba_linearize"]
     payload, r, w, Hpp, gp = ba_cuda.ba_linearize(*args)
-    assert ba_cuda.LAUNCHES == n0  # CPU tensors take the plain version
+    assert _build.LAUNCHES["ba_linearize"] == n0  # CPU: the plain version
     assert payload.shape == (4, 30, 300) and Hpp.shape == (4, 36)
     for name, a, b in (("payload", payload, jout[0]), ("Hpp", Hpp, jout[3]),
                        ("gp", gp, jout[4])):
@@ -125,7 +126,7 @@ def test_assemble_from_payload_matches_jax():
     jp = _random_blocked_problem()
     r, Jp, Jl, w = jba._residuals_and_jacobians_blocked(jp, 2.5)
     jsys = jba._assemble(jp, r, Jp, Jl, w, jba._make_onehots(jp, True), True)
-    tp = tba.problem_from_numpy(*jp)
+    tp = tba.problem_from_numpy(*jp, device="cpu")
     payload, _, _, Hpp, gp = ba_cuda.ba_linearize(*tba.linearize_inputs(tp))
     tsys = tba._assemble_from_payload(tp, payload, Hpp, gp,
                                       tba._landmark_onehot(tp))
@@ -205,7 +206,7 @@ def _near_gate(tp, res) -> np.ndarray:
 
 def _solve_both(jp, **kw):
     jres = jba.ba_solve(jp, kf_blocked=True, **kw)
-    tp = tba.problem_from_numpy(*jp)
+    tp = tba.problem_from_numpy(*jp, device="cpu")
     tres = tba.ba_solve(tp, kf_blocked=True, **kw)
     np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses),
                                atol=1e-3, rtol=0)
@@ -240,7 +241,7 @@ def test_ba_solve_converges_like_jax():
     _assert_near_truth(tres.poses, poses_gt)
     # the solution fits the noisy measurements at least as well as the
     # ground truth does (tests/test_backend.py's optimality check)
-    tp = tba.problem_from_numpy(*jp)
+    tp = tba.problem_from_numpy(*jp, device="cpu")
     gt_cost = float(tba._total_cost(tp._replace(
         poses=torch.from_numpy(poses_gt), landmarks=torch.from_numpy(lms_gt)),
         2.5))
@@ -270,4 +271,4 @@ def test_ba_solve_rejects_outliers_like_jax():
 def test_ba_solve_refuses_generic_layout():
     jp = _random_blocked_problem()
     with pytest.raises(NotImplementedError, match="kf-blocked"):
-        tba.ba_solve(tba.problem_from_numpy(*jp), kf_blocked=False)
+        tba.ba_solve(tba.problem_from_numpy(*jp, device="cpu"), kf_blocked=False)

@@ -131,8 +131,9 @@ def test_rig_from_numpy_matches_jax_rig():
     jrig = jsyn.make_synthetic_rig(jsyn.SyntheticRigSpec(num_cams=3))
     trig = tcam.rig_from_numpy(jrig.fxycxy, jrig.dist, jrig.cam_T_ref,
                                jrig.body_T_cam, jrig.image_size,
-                               jrig.dist_model)
-    own = tsyn.make_synthetic_rig(tsyn.SyntheticRigSpec(num_cams=3))
+                               jrig.dist_model, device="cpu")
+    own = tsyn.make_synthetic_rig(tsyn.SyntheticRigSpec(num_cams=3),
+                                  device="cpu")
     for r in (trig, own):
         for name in ("fxycxy", "dist", "cam_T_ref", "body_T_cam"):
             np.testing.assert_array_equal(getattr(r, name).numpy(),
@@ -193,7 +194,8 @@ def test_synthetic_generators_match_jax():
 def test_render_blob_images_matches_jax(dist):
     spec = dict(num_cams=2, image_size=(160, 120), focal=110.0, dist=dist)
     jrig = jsyn.make_synthetic_rig(jsyn.SyntheticRigSpec(**spec))
-    trig = tsyn.make_synthetic_rig(tsyn.SyntheticRigSpec(**spec))
+    trig = tsyn.make_synthetic_rig(tsyn.SyntheticRigSpec(**spec),
+                                   device="cpu")
     poses = jsyn.smooth_trajectory(2)
     lms = jsyn.make_landmarks(400, depth_range=(4.0, 15.0))
     np.testing.assert_allclose(tsyn.render_blob_images(trig, poses, lms),

@@ -1,4 +1,4 @@
-"""The port's five kernel wrappers: their dispatch rule on the CPU, and each
+"""The port's nine kernel wrappers: their dispatch rule on the CPU, and each
 CUDA kernel against its plain PyTorch version on the card (`gpu` marker;
 these skip without a card).
 
@@ -7,25 +7,29 @@ card and without JAX it runs with the suite's conftest left out:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
 
-Tolerances on the card: candidates, patches and integer outputs exact;
-blur 1e-6; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
+Tolerances on the card: candidates, FAST score maps, patches (f32 and
+bf16), the orientation moments and integer outputs exact; blur 1e-6; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
 the gate threshold are excluded (f32 summation order); pose 2e-3 and
 inlier sets equal away from the chi2 threshold (f32 reduction order);
 ba_linearize's payload, Hpp and gp to 1e-5 of their largest magnitude,
 r atol 1e-4 + rtol 1e-6 (pixel residuals up to ~1000 px on the random
-stage C problem), w atol 1e-5, and bitwise equal across two runs."""
+stage C problem), w atol 1e-5, and bitwise equal across two runs. The
+frame build on the card against the CPU under the extraction routes A and
+B: keypoints exact, descriptors equal except at keypoints whose angle
+lies within 1e-4 rad of a steering-bin boundary."""
 
 import numpy as np
 import pytest
 import torch
 
+from mcslam_tpu_torch import _build
 from mcslam_tpu_torch import tracking_kernels as tk
 from mcslam_tpu_torch.backend import ba
 from mcslam_tpu_torch.data import synthetic
 from mcslam_tpu_torch.frontend import frame, pose_opt_cuda
 from mcslam_tpu_torch.geometry import lie
 from mcslam_tpu_torch.ops import ba_cuda, fast_cuda, hamming, image
-from mcslam_tpu_torch.ops import match_cuda, patch_cuda
+from mcslam_tpu_torch.ops import match_cuda, orb, patch_cuda
 
 TAPS = image._np_gaussian_taps(7, 2.0)
 CHI2 = pose_opt_cuda.CHI2_2DOF
@@ -64,7 +68,8 @@ def _match_problem(seed, M, N, want_cols, C=3):
         torch.from_numpy(rng.rand(M) < 0.1),
         torch.from_numpy(rng.rand(N) < 0.1),
         col_pass=torch.from_numpy(rng.rand(N) < 0.3) if want_cols else None)
-    return hamming.desc_to_torch(a), hamming.desc_to_torch(b), ahat, bhat
+    return (hamming.desc_to_torch(a, "cpu"), hamming.desc_to_torch(b, "cpu"),
+            ahat, bhat)
 
 
 def _pose_problem(seed, M, B=2):
@@ -92,8 +97,7 @@ def _pose_problem(seed, M, B=2):
 def test_wrappers_take_plain_versions_for_cpu_tensors():
     """CPU tensors run the plain version and launch nothing; a device
     that is neither CPU nor CUDA is refused."""
-    before = (fast_cuda.LAUNCHES, patch_cuda.LAUNCHES, match_cuda.LAUNCHES,
-              pose_opt_cuda.LAUNCHES, ba_cuda.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     img, h, w = _plateau_stack(0, 40, 64, [40, 33], [64, 50])
     out = fast_cuda.fast_select(img, 0.04, 0.12, h, w, TAPS)
     ref = fast_cuda.fast_select_reference(img, 0.04, 0.12, h, w, TAPS)
@@ -102,6 +106,16 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     idx = torch.tensor([1, 0], dtype=torch.int32)
     p, o = patch_cuda.patch_gather(img, yx, idx)
     assert p.shape == (2, 39, 39) and o.tolist() == [[1, 11], [0, 0]]
+    score, blur = fast_cuda.fast_corners(img, 0.04, h, TAPS)
+    assert torch.equal(score, fast_cuda.fast_corners_reference(img, 0.04, h,
+                                                               TAPS)[0])
+    assert torch.equal(blur, out[0])  # the two blurs agree bit for bit
+    assert fast_cuda.fast_corners(img, 0.04).shape == img.shape
+    pb, ob = patch_cuda.patch_gather_batched(img, yx[None].expand(2, 2, 2))
+    assert pb.shape == (2, 2, 39, 39) and torch.equal(pb[1, 0], p[0])
+    po, m, oo = patch_cuda.patch_gather_oriented(img, yx, idx)
+    assert po.dtype == torch.bfloat16 and m.shape == (2, 2)
+    assert torch.equal(oo, o)
     a, b, ahat, bhat = _match_problem(1, 40, 50, True)
     best, second, ridx, cidx = match_cuda.hamming_argmin2(a, b, ahat, bhat,
                                                           1600.0)
@@ -111,12 +125,11 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
     assert T.shape == (2, 4, 4) and chi2.shape == (2, 64)
     lin = ba.linearize_inputs(ba.problem_from_numpy(
         **synthetic.random_window_ba_problem(
-            synthetic.make_synthetic_rig(), num_lms=64, obs_capacity=600)))
+            synthetic.make_synthetic_rig(device="cpu"), num_lms=64,
+            obs_capacity=600)))
     payload, _, _, Hpp, _ = ba_cuda.ba_linearize(*lin)
     assert payload.shape == (6, 30, 100) and Hpp.shape == (6, 36)
-    after = (fast_cuda.LAUNCHES, patch_cuda.LAUNCHES, match_cuda.LAUNCHES,
-             pose_opt_cuda.LAUNCHES, ba_cuda.LAUNCHES)
-    assert after == before
+    assert dict(_build.LAUNCHES) == before
     with pytest.raises(ValueError, match="unsupported device"):
         fast_cuda.fast_select(img.to("meta"), 0.04, 0.12, h, w, TAPS)
 
@@ -129,10 +142,10 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
 def test_fast_select_kernel_matches_plain(cuda, H, W, heights, widths):
     img, h, w = (x.to(cuda) for x in _plateau_stack(7, H, W, heights,
                                                      widths))
-    n0 = fast_cuda.LAUNCHES
+    n0 = _build.LAUNCHES["fast_select"]
     kb, kv, kr = fast_cuda.fast_select(img, 0.04, 0.12, h, w, TAPS)
     pb, pv, pr = fast_cuda.fast_select_reference(img, 0.04, 0.12, h, w, TAPS)
-    assert fast_cuda.LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["fast_select"] == n0 + 1
     assert torch.equal(kv, pv) and torch.equal(kr, pr)
     assert float((kb - pb).abs().max()) <= 1e-6
     with pytest.raises(ValueError):
@@ -186,12 +199,13 @@ def test_pose_lm_kernel_matches_plain(cuda):
 def test_ba_linearize_kernel_matches_plain(cuda):
     """bench.py's stage C problem: K=6, Ok=1365, L=2048, C=4."""
     f = synthetic.random_window_ba_problem(synthetic.make_synthetic_rig())
-    args = ba.linearize_inputs(ba.problem_from_numpy(**f, device=cuda))
-    n0 = ba_cuda.LAUNCHES
+    args = ba.linearize_inputs(ba.problem_from_numpy(**f))  # on the card
+    assert args[0].device.type == "cuda"
+    n0 = _build.LAUNCHES["ba_linearize"]
     kout = ba_cuda.ba_linearize(*args)
     again = ba_cuda.ba_linearize(*args)
     pout = ba_cuda.ba_linearize_reference(*args)
-    assert ba_cuda.LAUNCHES == n0 + 2
+    assert _build.LAUNCHES["ba_linearize"] == n0 + 2
     for x, y in zip(kout, again):
         assert torch.equal(x, y)  # fixed reduction order: bitwise
     for i in (0, 3, 4):  # payload, Hpp, gp
@@ -211,7 +225,7 @@ def test_slice_on_cuda_matches_cpu(cuda):
     of the small 2-camera scene (1 pyramid level: the resize matmuls of
     further levels round differently on the two devices)."""
     rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
-        num_cams=2, image_size=(192, 144), focal=130.0))
+        num_cams=2, image_size=(192, 144), focal=130.0), device="cpu")
     poses = synthetic.smooth_trajectory(2, step_angle=0.02)
     imgs = synthetic.render_blob_images(
         rig, poses, synthetic.make_landmarks(600, depth_range=(4.0, 15.0)))
@@ -257,7 +271,8 @@ def test_session_on_cuda_matches_cpu(cuda):
     from mcslam_tpu_torch.slam import INITIALIZED, MultiCameraSLAM, SlamConfig
 
     rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
-        num_cams=3, baseline=0.2, image_size=(320, 240), focal=260.0))
+        num_cams=3, baseline=0.2, image_size=(320, 240), focal=260.0),
+        device="cpu")
     poses = synthetic.smooth_trajectory(8, radius=5.0, step_angle=0.03)
     imgs = synthetic.render_blob_images(rig, poses, synthetic.make_landmarks(
         700, seed=1, depth_range=(4.0, 12.0)), seed=2)
@@ -266,16 +281,102 @@ def test_session_on_cuda_matches_cpu(cuda):
                      kf_rotation=0.1, min_inter_matches=40)
     runs = []
     for dev in ("cpu", cuda):
-        n0 = ba_cuda.LAUNCHES
+        n0 = _build.LAUNCHES["ba_linearize"]
         slam = MultiCameraSLAM(rig, cfg, device=dev)
         for k in range(len(poses)):
             slam.process_image(imgs[k], k / 20.0, extract_cfg=dict(
                 num_points=512, num_levels=1, max_intra=768))
         _, est = slam.trajectory_arrays()
         assert slam.state == INITIALIZED and slam.stats["failures"] == 0
-        runs.append((slam.stats, est, ba_cuda.LAUNCHES - n0))
+        runs.append((slam.stats, est, _build.LAUNCHES["ba_linearize"] - n0))
     (cpu_stats, cpu_est, cpu_n), (gpu_stats, gpu_est, gpu_n) = runs
     assert cpu_n == 0 and gpu_n > 0
     assert abs(cpu_stats["keyframes"] - gpu_stats["keyframes"]) <= 1
     gap = np.linalg.norm(gpu_est[:, :3, 3] - cpu_est[:, :3, 3], axis=-1)
     assert gap.max() <= 0.005, gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hskip", [True, False], ids=["hskip", "full"])
+@pytest.mark.parametrize("blur", [True, False], ids=["blur", "noblur"])
+def test_fast_corners_kernel_matches_plain(cuda, hskip, blur):
+    img, h, _ = (x.to(cuda) for x in _plateau_stack(
+        7, 90, 200, [90, 61, 40], [200, 170, 120]))
+    name = "fast_corners_hskip" if hskip else "fast_corners_full"
+    args = (img, 0.04, h if hskip else None, TAPS if blur else None)
+    n0 = _build.LAUNCHES[name]
+    kout = fast_cuda.fast_corners(*args)
+    pout = fast_cuda.fast_corners_reference(*args)
+    assert _build.LAUNCHES[name] == n0 + 1
+    if not blur:
+        kout, pout = (kout,), (pout,)
+    for k, p in zip(kout, pout):
+        assert torch.equal(k, p)
+    with pytest.raises(ValueError):
+        fast_cuda.fast_corners(img, 0.04, h.long(), None)
+
+
+@pytest.mark.gpu
+def test_patch_gather_batched_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(1)
+    imgs = torch.from_numpy(rng.rand(4, 96, 200).astype(np.float32)).to(cuda)
+    yx = torch.from_numpy(np.stack([rng.randint(0, 96, (4, 130)),
+                                    rng.randint(0, 200, (4, 130))], -1)
+                          .astype(np.int32)).to(cuda)
+    n0 = _build.LAUNCHES["patch_gather_batched"]
+    kp, ko = patch_cuda.patch_gather_batched(imgs, yx)
+    pp, po = patch_cuda.patch_gather_batched_reference(imgs, yx)
+    assert _build.LAUNCHES["patch_gather_batched"] == n0 + 1
+    assert torch.equal(kp, pp) and torch.equal(ko, po)
+    with pytest.raises(ValueError):
+        patch_cuda.patch_gather_batched(imgs, yx[:3])
+
+
+@pytest.mark.gpu
+def test_patch_gather_oriented_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(2)
+    imgs = torch.from_numpy(rng.rand(5, 96, 200).astype(np.float32)).to(cuda)
+    yx = torch.from_numpy(np.stack([rng.randint(0, 96, 500),
+                                    rng.randint(0, 200, 500)], -1)
+                          .astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.randint(0, 5, 500).astype(np.int32)).to(cuda)
+    n0 = _build.LAUNCHES["patch_gather_oriented"]
+    kout = patch_cuda.patch_gather_oriented(imgs, yx, idx)
+    pout = patch_cuda.patch_gather_oriented_reference(imgs, yx, idx)
+    assert _build.LAUNCHES["patch_gather_oriented"] == n0 + 1
+    for k, p in zip(kout, pout):  # moments in the same fixed order
+        assert torch.equal(k, p)
+    with pytest.raises(ValueError):
+        patch_cuda.patch_gather_oriented(imgs, yx, idx.long())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["A", "B"])
+def test_build_frame_routes_on_cuda_match_cpu(cuda, route):
+    """build_frame under route A (score map with blur, late compaction) and
+    route B (standalone blur, full score map, oriented gather) on the
+    kernels (CUDA) against the plain versions (CPU), 1 pyramid level."""
+    r = (orb.OrbRoute(select_in_kernel=False, late_compact=True)
+         if route == "A" else
+         orb.OrbRoute(fused_blur=False, hskip=False, fused_orient=True))
+    names = (("fast_corners_hskip", "patch_gather_batched") if route == "A"
+             else ("fast_corners_full", "patch_gather_oriented"))
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=2, image_size=(192, 144), focal=130.0), device="cpu")
+    imgs = synthetic.render_blob_images(
+        rig, synthetic.smooth_trajectory(1, step_angle=0.02),
+        synthetic.make_landmarks(600, depth_range=(4.0, 15.0)))
+    kw = dict(num_points=128, num_levels=1, max_intra=256, angle_bins=16,
+              route=r)
+    n0 = {n: _build.LAUNCHES[n] for n in names}
+    ffs = [frame.build_frame(torch.from_numpy(imgs[0]).to(dev), rig.to(dev),
+                             **kw) for dev in ("cpu", cuda)]
+    assert all(_build.LAUNCHES[n] == n0[n] + 1 for n in names)
+    cpu, gpu = ffs
+    for name in ("kp_xy", "kp_response", "kp_octave", "kp_valid"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+    differ = ~torch.all(gpu.kp_desc.cpu() == cpu.kp_desc, dim=-1) \
+        & cpu.kp_valid
+    x = torch.remainder(cpu.kp_angle, 2 * np.pi) / (2 * np.pi) * 16
+    near = (x - torch.floor(x) - 0.5).abs() * (2 * np.pi / 16) < 1e-4
+    assert not bool((differ & ~near).any())

@@ -35,7 +35,7 @@ def test_descriptor_words_and_hamming_match_jax():
     rng = np.random.RandomState(0)
     a, b = _desc(rng, 70), _desc(rng, 90)
     a[0] = 0xFFFFFFFF  # all-ones words: the int32 sign bit is data too
-    ta, tb = tham.desc_to_torch(a), tham.desc_to_torch(b)
+    ta, tb = tham.desc_to_torch(a, "cpu"), tham.desc_to_torch(b, "cpu")
     assert ta.dtype == torch.int32
     np.testing.assert_array_equal(tham.desc_to_numpy_u32(ta), a)
     np.testing.assert_array_equal(tham.unpack_bits(ta).numpy(),
@@ -122,9 +122,9 @@ def test_gated_matcher_plain_matches_pallas(seed, M, N, want_cols):
     ref = match_pallas.hamming_argmin2(
         jham.to_planes(jnp.asarray(a)), jham.to_planes(jnp.asarray(b)).T,
         ahat, bhat, thr * thr, want_cols=want_cols, interpret=True)
-    got = match_cuda.hamming_argmin2(tham.desc_to_torch(a),
-                                     tham.desc_to_torch(b), t_ahat, t_bhat,
-                                     thr * thr, want_cols=want_cols)
+    got = match_cuda.hamming_argmin2(tham.desc_to_torch(a, "cpu"),
+                                     tham.desc_to_torch(b, "cpu"), t_ahat,
+                                     t_bhat, thr * thr, want_cols=want_cols)
     rows, cols = _near(ahat, bhat, thr * thr)
     keep = ~rows
     for x, y in zip(ref[:3], got[:3]):

@@ -28,13 +28,14 @@ from mcslam_tpu.slam import INITIALIZED as J_INIT
 from mcslam_tpu.slam import MultiCameraSLAM as JSLAM
 from mcslam_tpu.slam import SlamConfig as JConfig
 from mcslam_tpu.utils import metrics as jmetrics
+from mcslam_tpu_torch import _build
 from mcslam_tpu_torch import slam as tslam
 from mcslam_tpu_torch import tracking_kernels as ttk
 from mcslam_tpu_torch.backend import ba as tba
 from mcslam_tpu_torch.geometry import camera as tcam
 from mcslam_tpu_torch.mapping import device_map as tdm
 from mcslam_tpu_torch.mapping import landmarks as tlm
-from mcslam_tpu_torch.ops import ba_cuda, hamming
+from mcslam_tpu_torch.ops import hamming
 from mcslam_tpu_torch.utils import metrics as tmetrics
 
 ECFG = dict(num_points=512, num_levels=1, max_intra=768)
@@ -78,7 +79,7 @@ def _map_ops(m, dm, rng, desc_of):
 
 def test_landmark_map_and_device_map_match_jax():
     jm, tm = jlm.LandmarkMap(512), tlm.LandmarkMap(512)
-    jd, td = jdm.DeviceMap(512), tdm.DeviceMap(512)
+    jd, td = jdm.DeviceMap(512), tdm.DeviceMap(512, device="cpu")
     ok_j = _map_ops(jm, jd, np.random.RandomState(0), lambda d: d)
     ok_t = _map_ops(tm, td, np.random.RandomState(0), lambda d: d)
     assert not ok_t[3] and ok_t.sum() == 19
@@ -127,7 +128,7 @@ def _scene():
         num_cams=3, baseline=0.2, image_size=(320, 240), focal=260.0))
     trig = tcam.rig_from_numpy(jrig.fxycxy, jrig.dist, jrig.cam_T_ref,
                                jrig.body_T_cam, jrig.image_size,
-                               jrig.dist_model)
+                               jrig.dist_model, device="cpu")
     poses = jsyn.smooth_trajectory(8, radius=5.0, step_angle=0.03, seed=0)
     lms = jsyn.make_landmarks(700, seed=1, depth_range=(4.0, 12.0))
     return jrig, trig, poses, jsyn.render_blob_images(jrig, poses, lms,
@@ -162,10 +163,10 @@ def sessions():
         mp.setattr(jba, "ba_solve", recording)
         js = JSLAM(jrig, JConfig(**CFG))
         j_init = _drive(js, imgs, jnp.asarray)
-    n0 = ba_cuda.LAUNCHES
+    n0 = _build.LAUNCHES["ba_linearize"]
     ts = tslam.MultiCameraSLAM(trig, tslam.SlamConfig(**CFG))
     t_init = _drive(ts, imgs, torch.from_numpy)
-    assert ba_cuda.LAUNCHES == n0  # the CPU session runs the plain versions
+    assert _build.LAUNCHES["ba_linearize"] == n0  # CPU: the plain versions
     return dict(poses=poses, js=js, ts=ts, j_init=j_init, t_init=t_init,
                 solves=solves)
 
@@ -176,7 +177,7 @@ def test_driver_window_ba_matches_jax(sessions):
     assert warm, "the JAX session ran no warm window solve"
     jp, kw, jres = warm[-1]
     assert kw["kf_blocked"]
-    tp = tba.problem_from_numpy(*jp)
+    tp = tba.problem_from_numpy(*jp, device="cpu")
     tres = tba.ba_solve(tp, **kw)
     np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses),
                                atol=1e-3, rtol=0)

@@ -47,7 +47,7 @@ def scene():
         num_cams=2, image_size=(192, 144), focal=130.0))
     trig = tcam.rig_from_numpy(jrig.fxycxy, jrig.dist, jrig.cam_T_ref,
                                jrig.body_T_cam, jrig.image_size,
-                               jrig.dist_model)
+                               jrig.dist_model, device="cpu")
     poses = jsyn.smooth_trajectory(2, step_angle=0.02)
     lms = jsyn.make_landmarks(600, depth_range=(4.0, 15.0))
     return jrig, trig, poses, jsyn.render_blob_images(jrig, poses, lms)
@@ -84,9 +84,10 @@ def _jax_inputs(jf, mp):
 
 def _torch_inputs(jf, mp):
     prev_lm, pos, mvalid, mdesc, nrm, cand_ids, cand_valid = mp
-    tf = tframe.frame_from_numpy(jf)
+    tf = tframe.frame_from_numpy(jf, device="cpu")
     return (tf.im_desc, tf.im_valid, torch.from_numpy(prev_lm),
-            *ttk.map_mirror_from_numpy(pos, mvalid, mdesc, nrm),
+            *ttk.map_mirror_from_numpy(pos, mvalid, mdesc, nrm,
+                                       device="cpu"),
             torch.from_numpy(cand_ids), torch.from_numpy(cand_valid))
 
 
@@ -119,6 +120,32 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """The port's constructors put their tensors on the card unless the
+    caller asks for the CPU (the signatures alone; nothing is built), and
+    the driver takes its rig's device."""
+    import inspect
+
+    from mcslam_tpu_torch import slam as tslam
+    from mcslam_tpu_torch.backend import ba as tba
+    from mcslam_tpu_torch.data import synthetic as tsyn
+    from mcslam_tpu_torch.mapping import device_map as tdm
+
+    for fn in (tcam.make_rig, tcam.rig_from_numpy, tsyn.make_synthetic_rig,
+               tframe.frame_from_numpy, tdm.DeviceMap,
+               ttk.map_mirror_from_numpy, tba.problem_from_numpy,
+               tham.desc_to_torch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+    assert inspect.signature(tslam.MultiCameraSLAM).parameters[
+        "device"].default is None
+    rig = tsyn.make_synthetic_rig(device="cpu")
+    f = tsyn.random_window_ba_problem(rig, num_lms=8, obs_capacity=60)
+    assert f["device"] == rig.device
+    slam = tslam.MultiCameraSLAM(rig)
+    assert slam.device == rig.device and slam.dmap.pos.device == rig.device
 
 
 def test_build_frame_matches_jax(scene):
@@ -186,7 +213,7 @@ def test_track_and_map_step_on_pyramid_frames_matches_jax(scene):
     jf0, jf1 = (jframe.build_frame(jnp.asarray(im), jrig, num_levels=2, **KW)
                 for im in imgs[:2])
     mp = _seed_map(jf0)
-    tf1 = tframe.frame_from_numpy(jf1)
+    tf1 = tframe.frame_from_numpy(jf1, device="cpu")
     fields = ("im_desc", "im_valid", "im_uv_ref", "im_anchor_cam",
               "im_sigma2", "im_point3d", "im_has_depth")
     args = dict(num_hyp=64, px=5.0, max_dist=64, ratio=0.85, lm_radius=18.0,
