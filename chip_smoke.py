@@ -6,7 +6,10 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. build: compile the nine CUDA kernels' five sources from
      mcslam_tpu_torch/csrc (one nvcc per source, in parallel, sm_90a) and
-     print the build time and ptxas' resource report;
+     print the build time and ptxas' resource report, then registers,
+     shared memory, stack and spills of the redesigned kernels (the pose
+     LM's cluster kernel must use no local memory and spill nothing) and
+     the pose LM's cluster size (more than one CTA per candidate);
   2. kernels: call every kernel on the card at the shapes the 4-camera
      VGA frame and the window BA give it and hold it against its plain
      PyTorch version on the same inputs (stated tolerances), printing
@@ -15,8 +18,9 @@ Phases, each of which raises (non-zero exit) on failure:
      also equal to fast_select's), the three patch gathers (patches and
      origins exact; oriented: bf16 patches exact, moments within 1e-5 of
      the sum of their |products|, angles within 1e-4 rad), the gated
-     matcher, the pose LM and ba_linearize (also bitwise equal across two
-     runs); track one frame of a small 2-camera scene on the kernels
+     matcher, the pose LM at B = 1 and B = 2, and ba_linearize (these
+     three also bitwise equal across two runs); track one frame of a
+     small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
      1e-3; solve a stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with
      the warm (1 x 2) and the cold (8 x 2) LM budget on the card, under
@@ -60,7 +64,8 @@ Phases, each of which raises (non-zero exit) on failure:
      that computes the same function (the advanced-indexing gather for
      the two plain patch gathers); its device time and the wrapper's
      from torch.profiler; and the least time the card could take for the
-     work (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger);
+     work (bytes at 3.35 TB/s or operations at 67 TFLOP/s, the larger),
+     the pose LM at B = 2 and at B = 1 (the record's "at_b1");
      the warm and cold window solves (CUDA events, plus device time and
      device-op count from one torch.profiler run each), the per-frame
      build+track time on both paths and both routes, and the per-frame
@@ -74,6 +79,7 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +125,42 @@ BA_OPS = 300  # per observation: projection, 2x6 and 2x3 Jacobians, weight,
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+# kernels redesigned for Hopper whose ptxas report phase 1 prints: name ->
+# a piece of the mangled symbol (the tile kernel at production's DG = 14)
+REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
+              "hamming_tile_kernel<14>": "hamming_tile_kernelILi14E",
+              "hamming_merge_kernel": "hamming_merge_kernel"}
+
+
+def ptxas_report(log: str, names: dict) -> dict:
+    """{name: registers, smem, stack, spill stores / loads (bytes)} of the
+    kernels whose mangled symbol contains names[name], from `ptxas -v`."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = next((n for n, piece in names.items()
+                        if piece in m.group(1)), None)
+            if cur is not None:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur].update(registers=int(m.group(1)),
+                            smem=int(smem.group(1)) if smem else 0)
+            cur = None
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -517,7 +559,12 @@ def solver_kernels(scene, rng, dev, kernels):
                                    (MAXI, LML, 18.0, False)):
         args = _match_problem(rng, M, N, thr, want_cols, dev)
         kout = match_cuda.hamming_argmin2(*args)
+        again = match_cuda.hamming_argmin2(*args)
         pout = match_cuda.hamming_argmin2_reference(*args)
+        torch.cuda.synchronize()
+        check(all((x is None and y is None) or torch.equal(x, y)
+                  for x, y in zip(kout, again)),
+              "hamming_argmin2: two runs of the kernel differ")
         rows, cols = _near_gate(args[2], args[3], thr * thr)
         err = _compare_match(kout, pout, rows, cols, want_cols)
         ham_errs.append(err)
@@ -527,7 +574,8 @@ def solver_kernels(scene, rng, dev, kernels):
         ham_ops += M * N * (HAMMING_OPS + 2 * args[2].shape[1])
         print(f"# kernel hamming_argmin2 {M}x{N} want_cols={want_cols}: "
               f"indices and distances exact on {int((~rows).sum())}/{M} rows "
-              f"away from the gate boundary, max abs err {err:.3g}")
+              f"away from the gate boundary, max abs err {err:.3g}; bitwise "
+              f"equal across two runs")
     kernels["hamming_argmin2"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/hamming_argmin2.cu",
         replaces="mcslam_tpu/ops/match_pallas.py:121",
@@ -535,32 +583,44 @@ def solver_kernels(scene, rng, dev, kernels):
         fn=lambda: [match_cuda.hamming_argmin2(*a) for a in ham_calls],
         plain=lambda: [match_cuda.hamming_argmin2_reference(*a)
                        for a in ham_calls],
-        symbols=("hamming_argmin2_kernel",), nbytes=ham_bytes, nops=ham_ops)
+        symbols=("hamming_tile_kernel", "hamming_merge_kernel"),
+        nbytes=ham_bytes, nops=ham_ops)
 
+    # B = 2 (the portfolio's refine, the shape timed first) is the table's
+    # entry; B = 1 (the fast path's two refines per frame) rides along
     sched = (8, 8)
-    T_init, data, mask = _pose_problem(rng, 2, MAXI, dev)
-    kT, kc = pose_opt_cuda.pose_lm(T_init, data, mask, sched)
-    pT, pc = pose_opt_cuda.pose_lm_reference(T_init, data, mask, sched)
-    err_pose = float((kT - pT).abs().max())
-    inl_k = (mask > 0.5) & (kc < pose_opt_cuda.CHI2_2DOF)
-    inl_p = (mask > 0.5) & (pc < pose_opt_cuda.CHI2_2DOF)
-    edge = (pc - pose_opt_cuda.CHI2_2DOF).abs() < 1e-3
-    check(err_pose <= 2e-3, f"pose_lm: pose error {err_pose} > 2e-3")
-    check(bool(torch.all((inl_k == inl_p) | edge)),
-          "pose_lm: inlier sets differ away from the chi2 threshold")
-    print(f"# kernel pose_lm B=2 M={MAXI}: pose max abs err {err_pose:.3g}, "
-          f"inliers equal away from the chi2 edge")
+    pose = {}
+    for B in (1, 2):
+        T_init, data, mask = _pose_problem(rng, B, MAXI, dev)
+        kT, kc = pose_opt_cuda.pose_lm(T_init, data, mask, sched)
+        kT2, kc2 = pose_opt_cuda.pose_lm(T_init, data, mask, sched)
+        pT, pc = pose_opt_cuda.pose_lm_reference(T_init, data, mask, sched)
+        torch.cuda.synchronize()
+        check(torch.equal(kT, kT2) and torch.equal(kc, kc2),
+              f"pose_lm B={B}: two runs of the kernel differ")
+        err_pose = float((kT - pT).abs().max())
+        inl_k = (mask > 0.5) & (kc < pose_opt_cuda.CHI2_2DOF)
+        inl_p = (mask > 0.5) & (pc < pose_opt_cuda.CHI2_2DOF)
+        edge = (pc - pose_opt_cuda.CHI2_2DOF).abs() < 1e-3
+        check(err_pose <= 2e-3, f"pose_lm B={B}: pose error {err_pose} > 2e-3")
+        check(bool(torch.all((inl_k == inl_p) | edge)),
+              f"pose_lm B={B}: inlier sets differ away from the chi2 threshold")
+        print(f"# kernel pose_lm B={B} M={MAXI}: pose max abs err "
+              f"{err_pose:.3g}, inliers equal away from the chi2 edge, "
+              f"bitwise equal across two runs")
+        args = (T_init, data, mask, sched)
+        pose[B] = dict(
+            max_abs_err=err_pose,
+            fn=lambda a=args: pose_opt_cuda.pose_lm(*a),
+            plain=lambda a=args: pose_opt_cuda.pose_lm_reference(*a),
+            symbols=("pose_lm_cluster_kernel",),
+            nbytes=T_init.nbytes + data.nbytes + mask.nbytes + kT.nbytes
+            + kc.nbytes,
+            nops=mask.numel() * sum(sched) * POSE_OPS)
     kernels["pose_lm"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/pose_lm.cu",
         replaces="mcslam_tpu/frontend/pose_opt_pallas.py:262",
-        max_abs_err=err_pose,
-        fn=lambda: pose_opt_cuda.pose_lm(T_init, data, mask, sched),
-        plain=lambda: pose_opt_cuda.pose_lm_reference(T_init, data, mask,
-                                                      sched),
-        symbols=("pose_lm_kernel",),
-        nbytes=T_init.nbytes + data.nbytes + mask.nbytes + kT.nbytes
-        + kc.nbytes,
-        nops=mask.numel() * sum(sched) * POSE_OPS)
+        at_b1=pose[1], **pose[2])
 
     lin_args = ba.linearize_inputs(ba.problem_from_numpy(
         **synthetic.random_window_ba_problem(scene.rig)))
@@ -629,6 +689,18 @@ def main() -> int:
     for line in _build.BUILD_LOG.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             print("#   " + line.strip())
+    report = ptxas_report(_build.BUILD_LOG, REDESIGNED)
+    for name in REDESIGNED:
+        check(name in report, f"ptxas reported nothing for {name}")
+        print(f"# ptxas {name}: {report[name]}")
+    pose = report["pose_lm_cluster_kernel"]
+    check(pose["stack"] == 0 and pose["spill_stores"] == 0
+          and pose["spill_loads"] == 0,
+          f"pose_lm_cluster_kernel uses local memory or spills: {pose}")
+    cluster = _build.library().mc_pose_lm_cluster()
+    check(cluster > 1, f"pose_lm runs {cluster} block(s) per candidate")
+    print(f"# pose_lm: a cluster of {cluster} CTAs per candidate (grid = B x "
+          f"{cluster})")
 
     from mcslam_tpu_torch.slam import INITIALIZED
     from mcslam_tpu_torch.utils import metrics
@@ -767,22 +839,9 @@ def main() -> int:
 
     # ---- phase 6: timing ----
     for n, k in kernels.items():
-        fn, plain = k.pop("fn"), k.pop("plain")
-        library = k.pop("library", None)
-        names = k.pop("symbols")
-        k["bound_ms"], k["bound_by"] = bound(k.pop("nbytes"), k.pop("nops"))
-        k["ms"] = cuda_ms(fn)
-        k["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
-        k["library_ms"] = cuda_ms(library) if library is not None else None
-        wrap_ms, n_ops, kern_ms = device_profile(fn, reps=10, names=names)
-        k["device_ms"] = kern_ms
-        lib = (f", library call {k['library_ms']:.4f} ms"
-               if library is not None else "")
-        print(f"# time {n}: wrapper {k['ms']:.4f} ms, plain "
-              f"{k['plain_ms']:.4f} ms{lib} by CUDA events; profiler: the "
-              f"kernel {kern_ms:.4f} ms of device time, the wrapper's call "
-              f"{wrap_ms:.4f} ms in {n_ops:.1f} device ops; bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}) ({smi})")
+        time_kernel(n, k, smi)
+        if "at_b1" in k:
+            time_kernel(f"{n} B=1", k["at_b1"], smi)
     for name, iters in BA_ITERS:
         def solve():
             return ba.ba_solve(solve_problem, iters=iters, gate_rounds=2)
@@ -826,6 +885,27 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def time_kernel(n, k, smi):
+    """Phase 6 for one kernel record: replaces its callables and counts in
+    k by the times and the bound, and prints them."""
+    fn, plain = k.pop("fn"), k.pop("plain")
+    library = k.pop("library", None)
+    names = k.pop("symbols")
+    k["bound_ms"], k["bound_by"] = bound(k.pop("nbytes"), k.pop("nops"))
+    k["ms"] = cuda_ms(fn)
+    k["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+    k["library_ms"] = cuda_ms(library) if library is not None else None
+    wrap_ms, n_ops, kern_ms = device_profile(fn, reps=10, names=names)
+    k["device_ms"] = kern_ms
+    lib = (f", library call {k['library_ms']:.4f} ms"
+           if library is not None else "")
+    print(f"# time {n}: wrapper {k['ms']:.4f} ms, plain "
+          f"{k['plain_ms']:.4f} ms{lib} by CUDA events; profiler: the "
+          f"kernel {kern_ms:.4f} ms of device time, the wrapper's call "
+          f"{wrap_ms:.4f} ms in {n_ops:.1f} device ops; bound "
+          f"{k['bound_ms']:.4f} ms ({k['bound_by']}) ({smi})")
 
 
 def run_session(scene, frames=SESSION_FRAMES, route=None):
@@ -960,8 +1040,9 @@ def _compare_match(kout, pout, rows, cols, want_cols) -> float:
 
 
 def _pose_problem(rng, B, M, dev):
-    """Two initial poses against one noisy 4-camera resectioning problem
-    with outliers (as tests/test_pose_opt_pallas.py builds it)."""
+    """B initial poses against one noisy 4-camera resectioning problem
+    with outliers (as tests/test_pose_opt_pallas.py builds it); every
+    candidate after the first sees half of the observations."""
     import torch
 
     from mcslam_tpu_torch.frontend import pose_opt_cuda
@@ -987,7 +1068,7 @@ def _pose_problem(rng, B, M, dev):
                                    t(np.tile(f, (M, 1))), t(1.0 / sig2))
     T_init = t(np.stack([np.eye(4, dtype=np.float32)] * B))
     mask = np.ones((B, M), np.float32)
-    mask[1, ::2] = 0.0
+    mask[1:, ::2] = 0.0
     return T_init, data, t(mask)
 
 

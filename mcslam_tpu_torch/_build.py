@@ -53,12 +53,19 @@ SIGNATURES = {
     "mc_patch_gather_batched": [P, P, P, P, I, I, I, I, P],
     # imgs, yx, img_idx, patches (bf16), moments, origins, B, H, W, T, stream
     "mc_patch_gather_oriented": [P, P, P, P, P, P, I, I, I, I, P],
-    # a, b, ahat, bhat, row_best, row_second, row_idx, col_key,
-    # M, N, DG, thr2, want_cols, stream
-    "mc_hamming_argmin2": [P, P, P, P, P, P, P, P, I, I, I, F, I, P],
-    # T_init, data, mask, sched, T_out, chi2, B, M, n_rounds, huber,
-    # chi2_thresh, lm_lambda, stream
-    "mc_pose_lm": [P, P, P, P, P, P, I, I, I, F, F, F, P],
+    # a, b, ahat, bhat, row_best, row_second, row_idx, col_idx (NULL: no
+    # column argmin), fscratch, iscratch, M, N, DG, thr2, stream
+    "mc_hamming_argmin2": [P] * 10 + [I, I, I, F, P],
+    # M, N -> floats / ints of the scratch a call needs
+    "mc_hamming_scratch_floats": [I, I],
+    "mc_hamming_scratch_ints": [I, I],
+    # T_init, data, mask, T_out, chi2, B, M, n_rounds, sched[4] (by
+    # value), huber, chi2_thresh, lm_lambda, stream
+    "mc_pose_lm": [P] * 5 + [I] * 7 + [F, F, F, P],
+    # M -> dynamic shared memory bytes of a launch, -1 if it cannot fit
+    "mc_pose_lm_smem": [I],
+    # -> CTAs per candidate (the cluster size)
+    "mc_pose_lm_cluster": [],
     # rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf, Rc9, tc, f4,
     # payload, r, w, Hpp, gp, partials, K, Ok, L, C, huber, stream
     "mc_ba_linearize": [P] * 16 + [I, I, I, I, F, P],
@@ -70,7 +77,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _LIB = None
 BUILD_SECONDS = None  # wall time of the nvcc run of this process, if any
-BUILD_LOG = ""  # nvcc's output of that run (ptxas info when verbose)
+BUILD_LOG = ""  # nvcc's output of the library's build (ptxas info when verbose)
 
 
 def _nvcc() -> str:
@@ -103,11 +110,16 @@ def _digest(extra: list[str]) -> str:
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile csrc/*.cu into the hashed library unless it exists; return
     its path. verbose=True adds `-Xptxas -v` (registers, shared memory,
-    spills per kernel) and keeps nvcc's output in BUILD_LOG."""
+    spills per kernel). nvcc's output is kept beside the library
+    (`<name>.log`) and in BUILD_LOG, also when an earlier process built
+    it."""
     global BUILD_SECONDS, BUILD_LOG
     extra = ["-Xptxas", "-v"] if verbose else []
     out = BUILD_DIR / f"libmcslam_{_digest(extra)}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        if log.exists():
+            BUILD_LOG = log.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -140,6 +152,7 @@ def build(verbose: bool = False) -> pathlib.Path:
         BUILD_LOG = "".join(logs)
         if failed:
             raise RuntimeError("\n".join(failed))
+        log.write_text(BUILD_LOG)
         os.replace(tmp_so, out)
     return out
 

@@ -17,6 +17,7 @@ import torch
 from mcslam_tpu_torch import _build
 
 CHI2_2DOF = 5.991
+MAX_ROUNDS = 4  # schedule rounds the kernel takes by value
 _EPS = 1e-8
 
 
@@ -200,9 +201,10 @@ def pose_lm_reference(T_init, data, mask, sched, huber_px=2.5,
 def pose_lm(T_init, data, mask, sched, huber_px=2.5, chi2_thresh=CHI2_2DOF,
             lm_lambda=1e-3):
     """T_init (B, 4, 4), data (22, M) from _pack_obs, mask (B, M) f32 0/1,
-    sched a tuple of per-round iteration counts -> (T (B, 4, 4), chi2
-    (B, M)). CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    sched a tuple of at most MAX_ROUNDS per-round iteration counts -> (T
+    (B, 4, 4), chi2 (B, M)). CUDA tensors launch the kernel (one cluster
+    of CTAs per candidate; the schedule goes by value); CPU tensors take
+    the plain version."""
     if T_init.device.type == "cpu":
         return pose_lm_reference(T_init, data, mask, sched, huber_px,
                                  chi2_thresh, lm_lambda)
@@ -218,16 +220,21 @@ def pose_lm(T_init, data, mask, sched, huber_px=2.5, chi2_thresh=CHI2_2DOF,
             raise ValueError(f"pose_lm: {name} must be a contiguous {shape} "
                              f"float32 tensor on {dev}, got "
                              f"{tuple(v.shape)} {v.dtype} {v.device}")
-    sched_t = torch.tensor([int(n) for n in sched], dtype=torch.int32,
-                           device=dev)
+    iters = [int(n) for n in sched]
+    if len(iters) > MAX_ROUNDS or min(iters, default=0) < 0:
+        raise ValueError(f"pose_lm: schedule {tuple(sched)} must have at most "
+                         f"{MAX_ROUNDS} non-negative round lengths")
+    lib = _build.library()
+    if lib.mc_pose_lm_smem(M) < 0:
+        raise ValueError(f"pose_lm: M={M} observations do not fit one "
+                         f"cluster's shared memory")
     T_out = torch.empty(B, 4, 4, dtype=torch.float32, device=dev)
     chi2 = torch.empty(B, M, dtype=torch.float32, device=dev)
-    lib = _build.library()
     _build.LAUNCHES["pose_lm"] += 1
     _build.check(lib.mc_pose_lm(
         T_init.data_ptr(), data.data_ptr(), mask.data_ptr(),
-        sched_t.data_ptr(), T_out.data_ptr(), chi2.data_ptr(), B, M,
-        len(sched), float(huber_px), float(chi2_thresh), float(lm_lambda),
-        _build.stream_ptr(dev),
+        T_out.data_ptr(), chi2.data_ptr(), B, M, len(iters),
+        *(iters + [0] * (MAX_ROUNDS - len(iters))), float(huber_px),
+        float(chi2_thresh), float(lm_lambda), _build.stream_ptr(dev),
     ), "mc_pose_lm")
     return T_out, chi2

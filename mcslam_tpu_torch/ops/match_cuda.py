@@ -1,6 +1,7 @@
-"""Gated descriptor matching in one CUDA launch (counterpart of
+"""Gated descriptor matching on the card (counterpart of
 mcslam_tpu/ops/match_pallas.py hamming_argmin2; kernel source
-csrc/hamming_argmin2.cu).
+csrc/hamming_argmin2.cu: a tensor-core tile launch and a fixed-order
+merge launch, no atomics).
 
 `hamming_argmin2` launches the kernel for CUDA tensors and runs
 `hamming_argmin2_reference`, the plain PyTorch version, for CPU tensors.
@@ -23,6 +24,7 @@ BIGF = float(1 << 20)  # matches ops/match.BIG
 # behind-camera penalty already inside the gate factors
 PASS_BIAS = 1e13
 DG_MAX = 16  # gate factors the kernel holds in registers
+MAX_ROWS = (1 << 22) - 1  # query rows a column key can name
 
 
 def hamming_argmin2_reference(a_desc: torch.Tensor, b_desc: torch.Tensor,
@@ -72,19 +74,25 @@ def hamming_argmin2(a_desc: torch.Tensor, b_desc: torch.Tensor,
         raise ValueError(f"hamming_argmin2: DG={DG} outside [1, {DG_MAX}]")
     if N == 0:
         raise ValueError("hamming_argmin2: no target columns")
+    if M > MAX_ROWS:
+        raise ValueError(f"hamming_argmin2: M={M} rows over {MAX_ROWS}")
     best = torch.empty(M, dtype=torch.float32, device=dev)
     second = torch.empty(M, dtype=torch.float32, device=dev)
     idx = torch.empty(M, dtype=torch.int32, device=dev)
-    # (value bits << 32 | row) keys; all ones = +inf before the atomics
-    col_key = torch.full((N if want_cols else 1,), -1, dtype=torch.int64,
-                         device=dev)
+    col_idx = (torch.empty(N, dtype=torch.int32, device=dev) if want_cols
+               else None)
     lib = _build.library()
+    # per-split row and per-tile column partials, merged by the kernel's
+    # second launch
+    fscratch = torch.empty(lib.mc_hamming_scratch_floats(M, N),
+                           dtype=torch.float32, device=dev)
+    iscratch = torch.empty(lib.mc_hamming_scratch_ints(M, N),
+                           dtype=torch.int32, device=dev)
     _build.LAUNCHES["hamming_argmin2"] += 1
     _build.check(lib.mc_hamming_argmin2(
         a_desc.data_ptr(), b_desc.data_ptr(), ahat.data_ptr(),
         bhat.data_ptr(), best.data_ptr(), second.data_ptr(), idx.data_ptr(),
-        col_key.data_ptr(), M, N, DG, float(thr2), int(bool(want_cols)),
-        _build.stream_ptr(dev),
+        col_idx.data_ptr() if want_cols else None, fscratch.data_ptr(),
+        iscratch.data_ptr(), M, N, DG, float(thr2), _build.stream_ptr(dev),
     ), "mc_hamming_argmin2")
-    col_idx = (col_key & 0xFFFFFFFF).to(torch.int32) if want_cols else None
     return best, second, idx, col_idx

@@ -11,6 +11,7 @@ Tolerances on the card: candidates, FAST score maps, patches (f32 and
 bf16), the orientation moments and integer outputs exact; blur 1e-6; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
 the gate threshold are excluded (f32 summation order); pose 2e-3 and
 inlier sets equal away from the chi2 threshold (f32 reduction order);
+the gated matcher and the pose LM bitwise equal across two runs;
 ba_linearize's payload, Hpp and gp to 1e-5 of their largest magnitude,
 r atol 1e-4 + rtol 1e-6 (pixel residuals up to ~1000 px on the random
 stage C problem), w atol 1e-5, and bitwise equal across two runs. The
@@ -53,21 +54,55 @@ def _plateau_stack(seed, H, W, heights, widths):
             torch.tensor(widths, dtype=torch.int32))
 
 
+def _plant_edges(a, b, uv, anchor, proj, pen, row_inv, col_inv):
+    """Ties and gated rows in a gated-matching problem (numpy, in place):
+    row 0's descriptor at columns 5, 133 and N - 1 (three 128-column
+    splits where N allows), all passing row 0's gate; rows 3, 70 and 140
+    (three 64-row tiles where M allows) sharing a descriptor, pixel and
+    camera, with column 7 holding that descriptor on top of them; rows
+    10-13 invalid, so every pair of theirs is gated out."""
+    M, N = len(a), len(b)
+    cols = [j for j in (5, 133, N - 1) if j < N]
+    rows = [i for i in (3, 70, 140) if i < M]
+    b[cols] = a[0]
+    proj[:, cols] = uv[0]
+    a[rows], uv[rows], anchor[rows] = a[3], uv[3], anchor[3]
+    b[7], proj[:, 7] = a[3], uv[3]
+    pen[:, cols + [7]] = False
+    col_inv[cols + [7]] = False
+    row_inv[[0] + rows] = False
+    row_inv[10:14] = True
+
+
+def _check_edges(out, want_cols):
+    """The planted ties resolve to the first index; gated rows give BIGF
+    at column 0."""
+    best, _, idx = (x.cpu() for x in out[:3])
+    assert int(idx[0]) == 5 and float(best[0]) == 0.0
+    assert torch.all(best[10:14] == match_cuda.BIGF)
+    assert torch.all(idx[10:14] == 0)
+    if want_cols:
+        assert int(out[3][7]) == 3
+
+
 def _match_problem(seed, M, N, want_cols, C=3):
     rng = np.random.RandomState(seed)
     a = rng.randint(0, 2**32, (M, 8), dtype=np.uint64).astype(np.uint32)
     b = rng.randint(0, 2**32, (N, 8), dtype=np.uint64).astype(np.uint32)
     b[N // 2] = b[N // 2 + 1] = a[0]
-    uv = torch.from_numpy(rng.rand(M, 2).astype(np.float32) * 400.0)
+    uv = rng.rand(M, 2).astype(np.float32) * 400.0
     proj = rng.rand(C, N, 2).astype(np.float32) * 400.0
-    proj[:, : N // 2] = uv.numpy()[rng.randint(0, M, N // 2)][None] \
+    proj[:, : N // 2] = uv[rng.randint(0, M, N // 2)][None] \
         + rng.randn(C, N // 2, 2).astype(np.float32) * 10.0
+    anchor = rng.randint(0, C, M)
+    pen, row_inv, col_inv = (rng.rand(C, N) < 0.1, rng.rand(M) < 0.1,
+                             rng.rand(N) < 0.1)
+    col_pass = rng.rand(N) < 0.3
+    _plant_edges(a, b, uv, anchor, proj, pen, row_inv, col_inv)
     ahat, bhat = tk._gate_factors(
-        uv, torch.from_numpy(rng.randint(0, C, M)), torch.from_numpy(proj),
-        torch.from_numpy(rng.rand(C, N) < 0.1),
-        torch.from_numpy(rng.rand(M) < 0.1),
-        torch.from_numpy(rng.rand(N) < 0.1),
-        col_pass=torch.from_numpy(rng.rand(N) < 0.3) if want_cols else None)
+        *(torch.from_numpy(x) for x in (uv, anchor, proj, pen, row_inv,
+                                        col_inv)),
+        col_pass=torch.from_numpy(col_pass) if want_cols else None)
     return (hamming.desc_to_torch(a, "cpu"), hamming.desc_to_torch(b, "cpu"),
             ahat, bhat)
 
@@ -90,8 +125,13 @@ def _pose_problem(seed, M, B=2):
     data = pose_opt_cuda._pack_obs(*(torch.from_numpy(x) for x in (
         X, uv, cam, f, isig2)))
     mask = torch.ones(B, M)
-    mask[1, ::2] = 0.0
-    return torch.eye(4).expand(B, 4, 4).contiguous(), data, mask
+    T0 = torch.eye(4).expand(B, 4, 4).contiguous()
+    if B > 1:
+        mask[1, ::2] = 0.0
+    if B > 2:
+        mask[2, 1::3] = 0.0
+        T0[2, :3, 3] = torch.tensor([0.05, -0.03, 0.04])
+    return T0, data, mask
 
 
 def test_wrappers_take_plain_versions_for_cpu_tensors():
@@ -169,13 +209,22 @@ def test_patch_gather_kernel_matches_plain(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed,M,N,want_cols", [
-    (0, 300, 700, True), (2, 257, 1000, False), (3, 2048, 2048, True)])
+    (0, 300, 700, True), (2, 257, 1000, False), (3, 2048, 2048, True),
+    (4, 64, 100, True), (5, 2048, 4096, False), (6, 257, 300, True)])
 def test_hamming_argmin2_kernel_matches_plain(cuda, seed, M, N, want_cols):
+    """Ragged row tiles (M = 257, 300), fewer columns than one split
+    (N = 100), the production shapes, ties across column splits and row
+    tiles, and rows whose every pair is gated out (_plant_edges)."""
     a, b, ahat, bhat = (x.to(cuda) for x in _match_problem(seed, M, N,
                                                            want_cols))
+    n0 = _build.LAUNCHES["hamming_argmin2"]
     kout = match_cuda.hamming_argmin2(a, b, ahat, bhat, 1600.0, want_cols)
+    again = match_cuda.hamming_argmin2(a, b, ahat, bhat, 1600.0, want_cols)
     pout = match_cuda.hamming_argmin2_reference(a, b, ahat, bhat, 1600.0,
                                                 want_cols)
+    assert _build.LAUNCHES["hamming_argmin2"] == n0 + 2
+    for x, y in zip(kout, again):
+        assert (x is None and y is None) or torch.equal(x, y)  # no atomics
     near = ((ahat.double() @ bhat.double()) - 1600.0).abs() < 1.6
     keep = ~near.any(1)
     for x, y in zip(kout[:3], pout[:3]):
@@ -183,16 +232,46 @@ def test_hamming_argmin2_kernel_matches_plain(cuda, seed, M, N, want_cols):
     if want_cols:
         kc = ~near.any(0)
         assert torch.equal(kout[3][kc], pout[3][kc])
+    else:
+        assert kout[3] is None
+    _check_edges(kout, want_cols)
+    _check_edges(pout, want_cols)
+    with pytest.raises(ValueError):
+        match_cuda.hamming_argmin2(a, b, ahat.repeat(1, 2)[:, :17].contiguous(),
+                                   bhat.repeat(2, 1)[:17].contiguous(),
+                                   1600.0)
 
 
 @pytest.mark.gpu
-def test_pose_lm_kernel_matches_plain(cuda):
-    T0, data, mask = (x.to(cuda) for x in _pose_problem(0, 2048))
+@pytest.mark.parametrize("M", [333, 2048])
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_pose_lm_kernel_matches_plain(cuda, B, M):
+    """One cluster of CTAs per candidate: B = 1 (the fast path's refines),
+    2 (the portfolio's), 3; M = 333 leaves the cluster's last slice
+    short."""
+    T0, data, mask = (x.to(cuda) for x in _pose_problem(0, M, B))
+    n0 = _build.LAUNCHES["pose_lm"]
     kT, kc = pose_opt_cuda.pose_lm(T0, data, mask, (8, 8))
+    kT2, kc2 = pose_opt_cuda.pose_lm(T0, data, mask, (8, 8))
     pT, pc = pose_opt_cuda.pose_lm_reference(T0, data, mask, (8, 8))
+    assert _build.LAUNCHES["pose_lm"] == n0 + 2
+    assert torch.equal(kT, kT2) and torch.equal(kc, kc2)  # fixed order
     assert float((kT - pT).abs().max()) <= 2e-3
     edge = (pc - CHI2).abs() < 1e-3
     assert bool(torch.all(((kc < CHI2) == (pc < CHI2)) | edge | (mask < 0.5)))
+
+
+@pytest.mark.gpu
+def test_pose_lm_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    T0, data, mask = (x.to(cuda) for x in _pose_problem(0, 64))
+    with pytest.raises(ValueError, match="schedule"):
+        pose_opt_cuda.pose_lm(T0, data, mask, (1, 1, 1, 1, 1))
+    big = torch.zeros(22, 40000, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pose_opt_cuda.pose_lm(T0, big, torch.ones(2, 40000, device=cuda),
+                              (1,))
+    assert pose_opt_cuda.pose_lm(T0[:0], data, mask[:0], (8, 8))[0].shape \
+        == (0, 4, 4)
 
 
 @pytest.mark.gpu

@@ -86,19 +86,50 @@ def _problem(seed, M, N, C=3, with_pass=True):
     return a, b, uv, anchor, proj, pen, rv, cv, cp
 
 
+def _plant_edges(edge, a, b, uv, anchor, proj, pen, rv, cv):
+    """In place. "ties": row 0's descriptor at columns 5, 133 and N - 1
+    (three 128-column blocks), all passing row 0's gate; rows 3, 70 and 140
+    share a descriptor, pixel and camera, with column 7 holding that
+    descriptor on top of them (a column tie across row tiles). "gated":
+    rows 10-29 invalid and rows 30-39 far from every projection, so every
+    pair of theirs is gated out."""
+    if edge == "ties":
+        N = len(b)
+        cols, rows = [5, 133, N - 1], [3, 70, 140]
+        b[cols] = a[0]
+        proj[:, cols] = uv[0]
+        a[rows], uv[rows], anchor[rows] = a[3], uv[3], anchor[3]
+        b[7], proj[:, 7] = a[3], uv[3]
+        pen[:, cols + [7]] = False
+        cv[cols + [7]] = True
+        rv[[0] + rows] = True
+    elif edge == "gated":
+        rv[10:30] = False
+        rv[30:40] = True
+        uv[30:40] = 1e4
+
+
 def _near(ahat, bhat, thr2):
     d2 = np.asarray(ahat, np.float64) @ np.asarray(bhat, np.float64)
     near = np.abs(d2 - thr2) < 1e-3 * thr2
     return near.any(1), near.any(0)
 
 
-@pytest.mark.parametrize("seed,M,N,want_cols", [
-    (0, 128, 256, True), (1, 200, 300, True),  # mutual (tracking) encoding
-    (2, 128, 512, False), (3, 160, 130, False),  # one-way (local map)
+@pytest.mark.parametrize("seed,M,N,want_cols,edge", [
+    # mutual (tracking) encoding
+    pytest.param(0, 128, 256, True, None, id="0-128-256-True"),
+    pytest.param(1, 200, 300, True, None, id="1-200-300-True"),
+    # one-way (local map)
+    pytest.param(2, 128, 512, False, None, id="2-128-512-False"),
+    pytest.param(3, 160, 130, False, None, id="3-160-130-False"),
+    # ties across column blocks and row tiles; all-gated rows
+    pytest.param(4, 200, 300, True, "ties", id="4-200-300-True-ties"),
+    pytest.param(5, 160, 300, False, "gated", id="5-160-300-False-gated"),
 ])
-def test_gated_matcher_plain_matches_pallas(seed, M, N, want_cols):
+def test_gated_matcher_plain_matches_pallas(seed, M, N, want_cols, edge):
     a, b, uv, anchor, proj, pen, rv, cv, cp = _problem(seed, M, N,
                                                         with_pass=want_cols)
+    _plant_edges(edge, a, b, uv, anchor, proj, pen, rv, cv)
     thr = 40.0 if want_cols else 30.0
     jargs = [jnp.asarray(x) for x in (uv, anchor, proj, pen)]
     ahat, bhat = jtk._gate_factors(
@@ -134,3 +165,9 @@ def test_gated_matcher_plain_matches_pallas(seed, M, N, want_cols):
                                       np.asarray(ref[3])[~cols])
     else:
         assert got[3] is None
+    best, idx = got[0].numpy(), got[2].numpy()
+    if edge == "ties":  # the first index wins, in both packages
+        assert idx[0] == 5 and best[0] == 0.0 and got[3][7] == 3
+    if edge == "gated":  # BIGF at column 0
+        assert np.all(best[10:40] == match_cuda.BIGF)
+        assert np.all(idx[10:40] == 0)

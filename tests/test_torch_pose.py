@@ -87,19 +87,31 @@ def test_pose_lm_plain_matches_pallas(seed):
     _assert_inliers_agree(np.asarray(chi2_ref), chi2[0].numpy(), mask)
 
 
-def test_pose_lm_batch_and_mask_match_pallas():
-    """A batch of 2 candidates in one call (the portfolio's refine), one
-    with half the observations masked off."""
-    P = _problem(5)
-    masks = np.stack([np.ones(512, bool), np.arange(512) % 2 == 0])
-    inits = np.stack([np.eye(4, dtype=np.float32)] * 2)
-    # the JAX side refines the two candidates one call each (what its
-    # vmap computes), reusing the compiled M=512 program
-    ref = [_pallas(P, inits[b], masks[b]) for b in range(2)]
+@pytest.mark.parametrize("B,M", [(2, 512), (3, 333)],
+                         ids=["B2-M512", "B3-M333"])
+def test_pose_lm_batch_and_mask_match_pallas(B, M):
+    """A batch of candidates in one call (2: the portfolio's refine), one
+    with half the observations masked off; B = 3 at an M that is no
+    multiple of 128 (nor of the kernel's cluster slice) adds a candidate
+    with every third observation off and a shifted start."""
+    P = _problem(5, M=M)
+    ar = np.arange(M)
+    masks = np.stack([np.ones(M, bool), ar % 2 == 0, ar % 3 != 1][:B])
+    inits = np.stack([np.eye(4, dtype=np.float32)] * B)
+    if B > 2:
+        inits[2, :3, 3] = [0.05, -0.03, 0.04]
+    # the JAX side refines the candidates one call each (what its vmap
+    # computes), reusing the compiled M=512 program: shorter problems are
+    # padded with masked-off copies of their last observation, which add
+    # nothing to the sums
+    pad = {k: np.concatenate([v, np.repeat(v[-1:], 512 - M, 0)])
+           for k, v in P.items() if k != "T_true"}
+    ref = [_pallas(pad, inits[b], np.pad(masks[b], (0, 512 - M)))
+           for b in range(B)]
     Ts_ref = [r[0] for r in ref]
-    chi2_ref = [r[1] for r in ref]
+    chi2_ref = [np.asarray(r[1])[:M] for r in ref]
     Ts, chi2 = _plain(P, inits, masks)
-    for b in range(2):
+    for b in range(B):
         np.testing.assert_allclose(Ts[b].numpy(), np.asarray(Ts_ref[b]),
                                    atol=2e-3, rtol=0)
         _assert_inliers_agree(np.asarray(chi2_ref[b]), chi2[b].numpy(),
