@@ -41,12 +41,12 @@ F = ctypes.c_float
 
 # C signature of every exported launcher: (argtypes); restype is int.
 SIGNATURES = {
-    # img, heights, widths, taps[7], blur, cand_v, cand_rid,
-    # LC, H, W, min_thr, fast_thr, stream
-    "mc_fast_select": [P, P, P, P, P, P, P, I, I, I, F, F, P],
-    # img, heights (NULL: mode full), taps, score, blur (NULL: no blur),
-    # LC, H, W, min_thr, stream
-    "mc_fast_corners": [P, P, P, P, P, I, I, I, F, P],
+    # img, heights, widths, blur, cand_v, cand_rid, LC, H, W, min_thr,
+    # fast_thr, taps[7] (by value), stream
+    "mc_fast_select": [P] * 6 + [I] * 3 + [F] * 2 + [F] * 7 + [P],
+    # img, heights (NULL: mode full), score, blur (NULL: no blur), LC, H, W,
+    # min_thr, taps[7] (by value; not read without the blur), stream
+    "mc_fast_corners": [P] * 4 + [I] * 3 + [F] + [F] * 7 + [P],
     # imgs, yx, img_idx, patches, origins, B, H, W, T, stream
     "mc_patch_gather": [P, P, P, P, P, I, I, I, I, P],
     # imgs, yx, patches, origins, C, H, W, N, stream

@@ -1,4 +1,4 @@
-"""FAST + NMS (+ blur) over 16-row bands, two CUDA entries (kernel
+"""FAST + NMS (+ blur) with a 16-row band skip, two CUDA entries (kernel
 source csrc/fast_select.cu):
 
 * `fast_select`: FAST + NMS + blur + per-cell top-k selection in one
@@ -9,11 +9,11 @@ source csrc/fast_select.cu):
   both branches).
 
 Each launches its kernel for CUDA tensors and runs its `_reference`, the
-plain PyTorch version of the same function, for CPU tensors. All compute
-with 16-row bands and one boundary rule (rows clamp to the image, columns
-wrap modulo the 128-rounded width and then clamp to the last column), so
-kernel and plain version agree bit for bit, and the two blurs with each
-other. Against the Pallas kernels at tile_h=16 the scores, candidates and
+plain PyTorch version of the same function, for CPU tensors; the kernels
+take the 7 blur taps by value. All skip in 16-row bands and share one
+boundary rule (rows clamp to the image, columns wrap modulo the
+128-rounded width and then clamp to the last column), so kernel and plain
+version agree bit for bit, and the two blurs with each other. Against the Pallas kernels at tile_h=16 the scores, candidates and
 zeroed bands are exact; the blur differs by the multiply-add contraction
 of the Pallas kernel as XLA compiles it on the CPU (a few f32 ulps). The
 JAX package calls fast_corners_pallas at its default tile_h=64 (orb.py
@@ -30,8 +30,9 @@ import torch
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import fast as fast_ops
 
-CELL = 16  # cell size and band height of the kernel
+CELL = 16  # cell size and height of a skipped band
 K = 4  # candidates per cell
+NO_TAPS = (0.0,) * 7  # the by-value taps of a launch without the blur
 
 
 def _round128(w: int) -> int:
@@ -148,13 +149,12 @@ def fast_select(img: torch.Tensor, min_threshold: float,
     blur = torch.empty_like(img)
     cand_v = torch.empty(LC, G, K, dtype=torch.float32, device=img.device)
     cand_r = torch.empty(LC, G, K, dtype=torch.int32, device=img.device)
-    t = torch.tensor(taps, dtype=torch.float32, device=img.device)
     lib = _build.library()
     _build.LAUNCHES["fast_select"] += 1
     _build.check(lib.mc_fast_select(
-        img.data_ptr(), heights.data_ptr(), widths.data_ptr(), t.data_ptr(),
+        img.data_ptr(), heights.data_ptr(), widths.data_ptr(),
         blur.data_ptr(), cand_v.data_ptr(), cand_r.data_ptr(), LC, H, W,
-        float(min_threshold), float(fast_threshold),
+        float(min_threshold), float(fast_threshold), *map(float, taps),
         _build.stream_ptr(img.device),
     ), "mc_fast_select")
     return blur, cand_v, cand_r
@@ -205,15 +205,13 @@ def fast_corners(img: torch.Tensor, threshold: float,
         raise ValueError("fast_corners: image smaller than 8x8")
     score = torch.empty_like(img)
     blur = torch.empty_like(img) if taps is not None else None
-    t = (torch.tensor(taps, dtype=torch.float32, device=img.device)
-         if taps is not None else None)
     lib = _build.library()
     _build.LAUNCHES["fast_corners_hskip" if heights is not None
                     else "fast_corners_full"] += 1
     _build.check(lib.mc_fast_corners(
         img.data_ptr(), heights.data_ptr() if heights is not None else None,
-        t.data_ptr() if t is not None else None, score.data_ptr(),
-        blur.data_ptr() if blur is not None else None, LC, H, W,
-        float(threshold), _build.stream_ptr(img.device),
+        score.data_ptr(), blur.data_ptr() if blur is not None else None,
+        LC, H, W, float(threshold), *map(float, taps or NO_TAPS),
+        _build.stream_ptr(img.device),
     ), "mc_fast_corners")
     return score if blur is None else (score, blur)

@@ -8,7 +8,9 @@ card and without JAX it runs with the suite's conftest left out:
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
 
 Tolerances on the card: candidates, FAST score maps, patches (f32 and
-bf16), the orientation moments and integer outputs exact; blur 1e-6; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
+bf16), the orientation moments and integer outputs exact; blur 1e-6
+(fast_select) or exact (fast_corners); both FAST kernels bitwise equal
+across two runs; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
 the gate threshold are excluded (f32 summation order); pose 2e-3 and
 inlier sets equal away from the chi2 threshold (f32 reduction order);
 the gated matcher and the pose LM bitwise equal across two runs;
@@ -174,20 +176,59 @@ def test_wrappers_take_plain_versions_for_cpu_tensors():
         fast_cuda.fast_select(img.to("meta"), 0.04, 0.12, h, w, TAPS)
 
 
+# FAST kernel inputs: (kind, H, W, true heights, true widths). The kernels
+# compute 32-row blocks and skip 16-row bands: H = 90 and 100 end inside
+# a block, and the heights 61, 40, 77, 333 and 278 put the skip boundary
+# inside one. W = 640 stages with 16-byte copies, W = 200 with 4-byte
+# ones, and so does "misaligned" (a W = 640 view 4 bytes off a 16-byte
+# boundary). "flat" is one value (every warp skips the arc trees),
+# "noise" uniform noise (none does).
+FAST_INPUTS = [
+    ("plateau", 90, 200, [90, 61, 40], [200, 170, 120]),
+    ("plateau", 480, 640, [480, 400, 333, 278], [640, 533, 444, 370]),
+    ("plateau", 100, 640, [100, 61, 40, 77], [640, 600, 300, 500]),
+    ("misaligned", 100, 640, [100, 77], [640, 500]),
+    ("flat", 96, 640, [96, 61], [640, 500]),
+    ("noise", 480, 640, [480, 400, 333, 278], [640, 533, 444, 370]),
+    ("noise", 90, 200, [90, 61, 40], [200, 170, 120]),
+]
+FAST_IDS = [f"{k}-{H}x{W}" for k, H, W, _, _ in FAST_INPUTS]
+
+
+def _fast_stack(kind, H, W, heights, widths, dev):
+    """A FAST kernel input of FAST_INPUTS on dev."""
+    if kind in ("plateau", "misaligned"):
+        img, h, w = _plateau_stack(7, H, W, heights, widths)
+    else:
+        rng = np.random.RandomState(11)
+        img = (torch.full((len(heights), H, W), 0.375) if kind == "flat"
+               else torch.from_numpy(rng.rand(len(heights), H, W)
+                                     .astype(np.float32)))
+        h = torch.tensor(heights, dtype=torch.int32)
+        w = torch.tensor(widths, dtype=torch.int32)
+    img, h, w = img.to(dev), h.to(dev), w.to(dev)
+    if kind == "misaligned":
+        buf = torch.empty(img.numel() + 1, device=dev)
+        img = buf[1:].view(img.shape).copy_(img)
+        assert img.data_ptr() % 16 == 4
+    return img, h, w
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,heights,widths", [
-    (90, 200, [90, 61, 40], [200, 170, 120]),
-    (480, 640, [480, 400, 333, 278], [640, 533, 444, 370]),
-])
-def test_fast_select_kernel_matches_plain(cuda, H, W, heights, widths):
-    img, h, w = (x.to(cuda) for x in _plateau_stack(7, H, W, heights,
-                                                     widths))
+@pytest.mark.parametrize("kind,H,W,heights,widths", FAST_INPUTS, ids=FAST_IDS)
+def test_fast_select_kernel_matches_plain(cuda, kind, H, W, heights, widths):
+    img, h, w = _fast_stack(kind, H, W, heights, widths, cuda)
     n0 = _build.LAUNCHES["fast_select"]
-    kb, kv, kr = fast_cuda.fast_select(img, 0.04, 0.12, h, w, TAPS)
+    kout = fast_cuda.fast_select(img, 0.04, 0.12, h, w, TAPS)
+    again = fast_cuda.fast_select(img, 0.04, 0.12, h, w, TAPS)
     pb, pv, pr = fast_cuda.fast_select_reference(img, 0.04, 0.12, h, w, TAPS)
-    assert _build.LAUNCHES["fast_select"] == n0 + 1
+    assert _build.LAUNCHES["fast_select"] == n0 + 2
+    assert all(torch.equal(x, y) for x, y in zip(kout, again))
+    kb, kv, kr = kout
     assert torch.equal(kv, pv) and torch.equal(kr, pr)
     assert float((kb - pb).abs().max()) <= 1e-6
+    if kind == "noise":
+        assert int((kv > 0).sum()) > kv.shape[1]  # the trees ran
     with pytest.raises(ValueError):
         fast_cuda.fast_select(img.double(), 0.04, 0.12, h, w, TAPS)
 
@@ -376,20 +417,23 @@ def test_session_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind,H,W,heights,widths", FAST_INPUTS, ids=FAST_IDS)
 @pytest.mark.parametrize("hskip", [True, False], ids=["hskip", "full"])
 @pytest.mark.parametrize("blur", [True, False], ids=["blur", "noblur"])
-def test_fast_corners_kernel_matches_plain(cuda, hskip, blur):
-    img, h, _ = (x.to(cuda) for x in _plateau_stack(
-        7, 90, 200, [90, 61, 40], [200, 170, 120]))
+def test_fast_corners_kernel_matches_plain(cuda, hskip, blur, kind, H, W,
+                                           heights, widths):
+    img, h, _ = _fast_stack(kind, H, W, heights, widths, cuda)
     name = "fast_corners_hskip" if hskip else "fast_corners_full"
     args = (img, 0.04, h if hskip else None, TAPS if blur else None)
     n0 = _build.LAUNCHES[name]
     kout = fast_cuda.fast_corners(*args)
+    again = fast_cuda.fast_corners(*args)
     pout = fast_cuda.fast_corners_reference(*args)
-    assert _build.LAUNCHES[name] == n0 + 1
+    assert _build.LAUNCHES[name] == n0 + 2
     if not blur:
-        kout, pout = (kout,), (pout,)
-    for k, p in zip(kout, pout):
+        kout, again, pout = (kout,), (again,), (pout,)
+    for k, k2, p in zip(kout, again, pout):
+        assert torch.equal(k, k2)
         assert torch.equal(k, p)
     with pytest.raises(ValueError):
         fast_cuda.fast_corners(img, 0.04, h.long(), None)
