@@ -8,9 +8,10 @@ Phases, each of which raises (non-zero exit) on failure:
      mcslam_tpu_torch/csrc (one nvcc per source, in parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
-     LM's cluster kernel and the three FAST kernels must use no local
-     memory and spill nothing) and the pose LM's cluster size (more than
-     one CTA per candidate);
+     LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
+     kernel and the oriented patch gather must use no local memory and
+     spill nothing) and the cluster sizes of the pose LM (per candidate)
+     and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
      VGA frame and the window BA give it and hold it against its plain
      PyTorch version on the same inputs (stated tolerances), printing
@@ -19,9 +20,9 @@ Phases, each of which raises (non-zero exit) on failure:
      fast_corners in its four modes
      ({hskip, full} x {blur, no blur}; scores and blur exact, the blur
      also equal to fast_select's), the three patch gathers (patches and
-     origins exact; oriented: bf16 patches exact, moments within 1e-5 of
-     the sum of their |products|, angles within 1e-4 rad), the gated
-     matcher, the pose LM at B = 1 and B = 2, and ba_linearize (these
+     origins exact; oriented: bf16 patches, moments and origins bitwise
+     equal, also across two runs), the gated matcher, the pose LM at B = 1
+     and B = 2, and ba_linearize through the solve's prepared call (these
      three also bitwise equal across two runs); track one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -62,7 +63,20 @@ Phases, each of which raises (non-zero exit) on failure:
      and ATE <= 0.1 m after finalize(), and all five default-route launch
      counters must be > 0 (reset right before it); then 12 frames under
      route B: INITIALIZED, no failure, ATE <= 0.1 m;
-  6. timing: for each kernel the CUDA-event time of its wrapper call, of
+  6. bootstraps: (a) 2 blank frames, then 12 bench frames through
+     process_image: NOT_INITIALIZED on the blank frames (pending 17-point
+     anchors), INITIALIZED on frame 2, no failure, ATE <= 0.1 m; (b) a
+     1-camera 640x480 session of 16 frames through process_image: the
+     monocular bootstrap, >= 3 keyframes, Sim(3) ATE from the init frame
+     <= 0.15 m (calibrated on the CPU); (c) a distant 4-camera scene at
+     VGA (the rig of tests/test_seventeen.py, landmarks at 100-200 m)
+     through build_frame_from_keypoints + process_frame: init_17pt >= 1,
+     no failure, and that test's gates: Sim(3) ATE < 0.40 m, path length
+     within 0.2-5x the truth; each with its launch counters reset
+     right before it (ba_linearize, the matcher and the pose LM launched in
+     all three, the extraction kernels in (a) and (b)), printing the
+     host-clock time of the frames up to the init;
+  7. timing: for each kernel the CUDA-event time of its wrapper call, of
      its plain version and, where one exists, of the one PyTorch call
      that computes the same function (the advanced-indexing gather for
      the two plain patch gathers); its device time and the wrapper's
@@ -72,7 +86,8 @@ Phases, each of which raises (non-zero exit) on failure:
      by instruction class, counting the arc trees only where this run's
      data passes the compass pre-test),
      the pose LM at B = 2 and at B = 1 (the record's "at_b1"), fast_select
-     on uniform noise (the record's "on_noise");
+     on uniform noise (the record's "on_noise"), ba_linearize's wrapper the
+     solve's prepared call (one device op per call, checked);
      the warm and cold window solves (CUDA events, plus device time and
      device-op count from one torch.profiler run each), the per-frame
      build+track time on both paths and both routes, and the per-frame
@@ -106,6 +121,19 @@ MAX_T_ERR, MAX_R_ERR = 0.1, 0.02  # metres, radians vs ground truth
 SESSION_FRAMES, ROUTE_B_FRAMES = 24, 12
 MIN_KEYFRAMES, MAX_ATE = 7, 0.1  # the session's gates (keyframes, metres)
 BA_ITERS = (("warm", 1), ("cold", 8))  # SlamConfig ba_iters / _cold
+# the bootstrap phase: (a) blank frames before the bench frames; (b) a
+# 1-camera VGA session (mono_session), its Sim(3)-aligned ATE from the
+# initializing frame on held to MONO_MAX_ATE; (c) a distant 4-camera
+# scene (far_session) at FAR_DEPTH metres, where rig depth at max_z 60 m
+# stays below 30 points, held to tests/test_seventeen.py's gates (Sim(3)
+# ATE < 0.40 m, path length 0.2-5x the truth). At the JAX test's
+# 150-300 m the metric scale is observed so weakly at this size that the
+# spread over RANSAC draws comes close to or past those gates.
+# scripts/bootstrap_calibration.py runs (b) and (c) over RANSAC seeds on
+# the CPU and prints the spread the gates are set against (PERF.md).
+BLANK_FRAMES, BOOT_FRAMES = 2, 12
+MONO_FRAMES, MONO_MIN_KEYFRAMES, MONO_MAX_ATE = 16, 3, 0.15
+FAR_FRAMES, FAR_MAX_ATE, FAR_DEPTH = 8, 0.40, (100.0, 200.0)
 PATCH_PX = 39 * 39
 
 # The least time of a kernel's work: bytes over the H100 SXM's 3.35 TB/s,
@@ -160,10 +188,13 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "hamming_merge_kernel": "hamming_merge_kernel",
               "fast_select_kernel": "fast_select_kernel",
               "fast_corners_kernel<true>": "fast_corners_kernelILb1E",
-              "fast_corners_kernel<false>": "fast_corners_kernelILb0E"}
+              "fast_corners_kernel<false>": "fast_corners_kernelILb0E",
+              "linearize_kernel": "linearize_kernel",
+              "patch_oriented_kernel": "patch_oriented_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
-            "fast_corners_kernel<true>", "fast_corners_kernel<false>")
+            "fast_corners_kernel<true>", "fast_corners_kernel<false>",
+            "linearize_kernel", "patch_oriented_kernel")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -637,20 +668,15 @@ def frame_kernels(scene, rng, dev, kernels):
           and torch.equal(ko, po),
           "patch_gather_oriented: bf16 patches or origins differ from the "
           "plain version")
-    win, _ = patch_cuda.patch_gather_reference(*pg_args)
-    scale = (win.reshape(T, 1, PATCH_PX).abs()
-             * patch_cuda.circle_weights(dev).abs()).sum(-1)
-    # (a window inside a zeroed band has zero moments and zero scale)
-    err_m = float(((km - pm).abs() / scale.clamp_min(1e-30)).max())
-    err_a = float(angle_diff(torch.atan2(km[:, 1], km[:, 0]),
-                             torch.atan2(pm[:, 1], pm[:, 0])).abs().max())
-    check(err_m <= 1e-5, f"patch_gather_oriented: moment error {err_m} of "
-          f"the |product| sum > 1e-5")
-    check(err_a <= 1e-4, f"patch_gather_oriented: angle error {err_a} rad")
-    print(f"# kernel patch_gather_oriented T={T}: bf16 patches and origins "
-          f"exact, moments max err {err_m:.3g} of their |product| sums "
-          f"(bitwise equal: {torch.equal(km, pm)}), angles max abs err "
-          f"{err_a:.3g} rad")
+    kp2, km2, ko2 = patch_cuda.patch_gather_oriented(*pg_args)
+    torch.cuda.synchronize()
+    check(torch.equal(km, pm), "patch_gather_oriented: moments differ from "
+          "the plain version's (summed in the same fixed order)")
+    check(torch.equal(kp, kp2) and torch.equal(km, km2)
+          and torch.equal(ko, ko2),
+          "patch_gather_oriented: two runs of the kernel differ")
+    print(f"# kernel patch_gather_oriented T={T}: bf16 patches, moments and "
+          f"origins bitwise equal to the plain version and across two runs")
     kernels["patch_gather_oriented"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/patch_gather.cu",
         replaces="mcslam_tpu/ops/patch_pallas.py:208",
@@ -745,8 +771,13 @@ def solver_kernels(scene, rng, dev, kernels):
         **synthetic.random_window_ba_problem(scene.rig)))
     check(lin_args[0].device.type == "cuda",
           "random_window_ba_problem did not follow the rig to the card")
+    # the solve's call: the constant tables checked once (Linearizer),
+    # then per call the pose rows, the landmarks and the validity
+    lin = ba_cuda.Linearizer(*lin_args[2:6], *lin_args[7:],
+                             lin_args[0].shape[0], lin_args[1].shape[0])
+    lin_call = (lin_args[0], lin_args[1], lin_args[6])
     klin = ba_cuda.ba_linearize(*lin_args)
-    klin2 = ba_cuda.ba_linearize(*lin_args)
+    klin2 = lin(*lin_call)
     plin = ba_cuda.ba_linearize_reference(*lin_args)
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(klin, klin2)),
@@ -765,16 +796,20 @@ def solver_kernels(scene, rng, dev, kernels):
                 for n, a, b in zip(("payload", "r", "w", "Hpp", "gp"), klin,
                                    plin)}
     err_lin = max(e for e, _ in abs_errs.values())
+    exact = [n for n, a, b in zip(("payload", "r", "w"), klin, plin)
+             if torch.equal(a, b)]
     print(f"# kernel ba_linearize K=6 Ok=1365 L=2048 C=4: bitwise equal "
-          f"across two runs; max abs err (largest magnitude) per output: "
+          f"across two runs (one-shot and prepared call); bitwise equal to "
+          f"the plain version: {exact or 'none'}; max abs err (largest "
+          f"magnitude) per output: "
           + ", ".join(f"{n} {e:.3g} ({m:.3g})"
                       for n, (e, m) in abs_errs.items()))
     kernels["ba_linearize"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/ba_linearize.cu",
         replaces="mcslam_tpu/ops/ba_pallas.py:136", max_abs_err=err_lin,
-        fn=lambda: ba_cuda.ba_linearize(*lin_args),
+        fn=lambda: lin(*lin_call),
         plain=lambda: ba_cuda.ba_linearize_reference(*lin_args),
-        symbols=("linearize_kernel", "finish_kernel"),
+        symbols=("linearize_kernel",), device_ops=1,
         nbytes=sum(a.nbytes for a in lin_args) + sum(o.nbytes for o in klin),
         ops_s=f32_ops_s(lin_args[2].numel() * BA_OPS))
 
@@ -821,6 +856,10 @@ def main() -> int:
     check(cluster > 1, f"pose_lm runs {cluster} block(s) per candidate")
     print(f"# pose_lm: a cluster of {cluster} CTAs per candidate (grid = B x "
           f"{cluster})")
+    cluster = _build.library().mc_ba_linearize_cluster()
+    check(cluster > 1, f"ba_linearize runs {cluster} block(s) per keyframe")
+    print(f"# ba_linearize: one launch, a cluster of {cluster} CTAs per "
+          f"keyframe (grid = K x {cluster})")
 
     from mcslam_tpu_torch.slam import INITIALIZED
     from mcslam_tpu_torch.utils import metrics
@@ -957,7 +996,10 @@ def main() -> int:
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched in the route B session")
 
-    # ---- phase 6: timing ----
+    # ---- phase 6: the vision-only bootstraps, launches counted ----
+    bootstrap_phase(scene, dev, kernels)
+
+    # ---- phase 7: timing ----
     for n, k in kernels.items():
         time_kernel(n, k, smi)
         if "at_b1" in k:
@@ -1009,6 +1051,200 @@ def main() -> int:
     return 0
 
 
+def run_frames(slam, inputs, step):
+    """step(slam, k, x) over the inputs, then finalize() -> (index of the
+    initializing frame, host ms of each frame before the first tracked
+    one, each ending in a synchronize on the card)."""
+    import torch
+
+    from mcslam_tpu_torch.slam import INITIALIZED
+
+    init_at, boot_ms = None, []
+    for k, x in enumerate(inputs):
+        was = slam.state
+        t0 = time.perf_counter()
+        info = step(slam, k, x)
+        if was != INITIALIZED:
+            if slam.device.type == "cuda":
+                torch.cuda.synchronize()
+            boot_ms.append((time.perf_counter() - t0) * 1e3)
+        if info.get("initialized") and init_at is None:
+            init_at = k
+    slam.finalize()
+    return init_at, boot_ms
+
+
+def mono_session(dev, seed=0):
+    """Bootstrap (b): MONO_FRAMES frames of a 1-camera VGA blob scene
+    (6000 landmarks at 4-15 m, 0.03 rad per frame) through process_image
+    with bench.py's extraction settings -> (slam, true poses, init frame,
+    host ms up to the init)."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=1, image_size=(W, H)), device=dev)
+    poses = synthetic.smooth_trajectory(MONO_FRAMES, step_angle=0.03)
+    imgs = synthetic.render_blob_images(
+        rig, poses, synthetic.make_landmarks(6000, depth_range=(4.0, 15.0)))
+    imgs = [torch.from_numpy(im).to(dev) for im in imgs]
+    slam = MultiCameraSLAM(rig, SlamConfig(), seed=seed)
+    ecfg = dict(num_points=NPTS, num_levels=NLVL, max_intra=MAXI,
+                angle_bins=BINS)
+    init_at, boot_ms = run_frames(slam, imgs, lambda s, k, img: (
+        s.process_image(img, k / 20.0, extract_cfg=ecfg)))
+    return slam, poses, init_at, boot_ms
+
+
+def far_session(dev, depth=FAR_DEPTH, seed=0):
+    """Bootstrap (c): FAR_FRAMES feature-level frames of a 4-camera VGA
+    rig with 0.3 m camera spacing (the rig of tests/test_seventeen.py) and
+    3000 landmarks at `depth` metres, NPTS features per camera, 0.03 rad
+    per frame, through build_frame_from_keypoints + process_frame ->
+    (slam, true poses, init frame, host ms up to the init)."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.ops import hamming
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=C, image_size=(W, H), baseline=0.3), device=dev)
+    poses = synthetic.smooth_trajectory(FAR_FRAMES, radius=5.0,
+                                        step_angle=0.03)
+    lms = synthetic.make_landmarks(3000, seed=5, depth_range=depth,
+                                   spread=(120.0, 60.0))
+    feats = synthetic.render_feature_frames(
+        rig, poses, lms, synthetic.make_descriptors(3000, seed=6),
+        kps_per_cam=NPTS, px_noise=0.3, desc_bit_noise=4, seed=7)
+    slam = MultiCameraSLAM(rig, SlamConfig(max_z=60.0), seed=seed)
+
+    def step(s, k, f):
+        ff = frame.build_frame_from_keypoints(
+            torch.from_numpy(f.uv).to(dev), hamming.desc_to_torch(f.desc, dev),
+            torch.from_numpy(f.valid).to(dev), rig, max_intra=MAXI,
+            max_z=60.0)
+        return s.process_frame(ff, f.timestamp)
+
+    init_at, boot_ms = run_frames(slam, feats, step)
+    return slam, poses, init_at, boot_ms
+
+
+def path_ratio(est, poses) -> float:
+    """Length of the estimated path over the true one's."""
+    def length(p):
+        return sum(np.linalg.norm(p[i + 1][:3, 3] - p[i][:3, 3])
+                   for i in range(len(p) - 1))
+
+    return float(length(est) / length(poses))
+
+
+def bootstrap_phase(scene, dev, kernels):
+    """Phase 6: the driver on frames with too little rig depth, each path
+    with the launch counters reset right before it and read right after.
+    (a) BLANK_FRAMES blank frames, then BOOT_FRAMES bench frames through
+    process_image: pending 17-point anchors, then the rig-depth bootstrap
+    on the first bench frame; (b) mono_session: the monocular bootstrap
+    and its two-view BA; (c) far_session: the 17-point bootstrap. Prints
+    each gate and the host-clock time of the frames up to the init."""
+    import torch
+
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.slam import (
+        INITIALIZED, NOT_INITIALIZED, MultiCameraSLAM, SlamConfig)
+    from mcslam_tpu_torch.utils import metrics
+
+    def counted(name, expect, fn):
+        _build.LAUNCHES.clear()
+        out = fn()
+        launches = dict(_build.LAUNCHES)
+        print(f"# launches during bootstrap {name}: {launches}")
+        for n in expect:
+            check(launches.get(n, 0) > 0,
+                  f"bootstrap {name}: kernel {n} was not launched")
+        return out
+
+    ecfg = scene.frame_kwargs()
+    main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
+                 "ba_linearize")
+
+    # (a) blank frames, then the bench frames
+    blank = torch.zeros_like(scene.imgs[0])
+    imgs = [blank] * BLANK_FRAMES + scene.imgs[:BOOT_FRAMES]
+    slam = MultiCameraSLAM(scene.rig, SlamConfig())
+    states = []
+
+    def step_a(s, k, img):
+        info = s.process_image(img, k / 20.0, extract_cfg=ecfg)
+        states.append(s.state)
+        return info
+
+    init_at, boot_ms = counted("(a) blank frames", main_path,
+                               lambda: run_frames(slam, imgs, step_a))
+    _, est = slam.trajectory_arrays()
+    ate = metrics.ate_rmse(est[BLANK_FRAMES:], scene.poses[:BOOT_FRAMES])
+    print(f"# bootstrap (a) {BLANK_FRAMES} blank + {BOOT_FRAMES} bench "
+          f"frames: states {states[:BLANK_FRAMES + 1]}..., initialized on "
+          f"frame {init_at}, state {slam.state}, keyframes "
+          f"{slam.stats['keyframes']}, failures {slam.stats['failures']}, "
+          f"ATE {ate:.4f} m; host ms of the frames up to the init "
+          f"{[round(m, 3) for m in boot_ms]}")
+    check(all(st == NOT_INITIALIZED for st in states[:BLANK_FRAMES]),
+          "bootstrap (a): a blank frame changed the state")
+    check(init_at == BLANK_FRAMES, f"bootstrap (a): initialized on frame "
+          f"{init_at}, not {BLANK_FRAMES}")
+    check(slam.state == INITIALIZED and slam.stats["failures"] == 0,
+          "bootstrap (a): not INITIALIZED at the end, or failures")
+    check(np.all(np.isfinite(est)) and ate <= MAX_ATE,
+          f"bootstrap (a): ATE {ate:.4f} m > {MAX_ATE}")
+
+    # (b) the monocular bootstrap through process_image
+    slam, poses1, init_at, boot_ms = counted("(b) mono", main_path,
+                                             lambda: mono_session(dev))
+    _, est = slam.trajectory_arrays()
+    check(init_at is not None, "bootstrap (b): the mono session never "
+          "initialized")
+    ate = metrics.ate_rmse(est[init_at:], poses1[init_at:], with_scale=True)
+    print(f"# bootstrap (b) 1-camera {W}x{H}, {MONO_FRAMES} frames: "
+          f"initialized on frame {init_at}, state {slam.state}, keyframes "
+          f"{slam.stats['keyframes']}, window solves "
+          f"{slam.stats.get('window_ba', 0)}, failures "
+          f"{slam.stats['failures']}, Sim(3) ATE from the init frame "
+          f"{ate:.4f} m; host ms of the frames up to the init "
+          f"{[round(m, 3) for m in boot_ms]}")
+    check(slam.state == INITIALIZED, "bootstrap (b): not INITIALIZED")
+    check(slam.stats["keyframes"] >= MONO_MIN_KEYFRAMES,
+          f"bootstrap (b): {slam.stats['keyframes']} keyframes")
+    check(np.all(np.isfinite(est)) and ate <= MONO_MAX_ATE,
+          f"bootstrap (b): Sim(3) ATE {ate:.4f} m > {MONO_MAX_ATE}")
+
+    # (c) the 17-point bootstrap on the distant scene, feature level
+    slam, poses4, init_at, boot_ms = counted(
+        "(c) 17-point", ("hamming_argmin2", "pose_lm", "ba_linearize"),
+        lambda: far_session(dev))
+    _, est = slam.trajectory_arrays()
+    ate_s = metrics.ate_rmse(est, poses4, with_scale=True)
+    ratio = path_ratio(est, poses4)
+    print(f"# bootstrap (c) distant 4-camera scene, {FAR_FRAMES} frames: "
+          f"initialized on frame {init_at}, init_17pt "
+          f"{slam.stats.get('init_17pt', 0)}, state {slam.state}, keyframes "
+          f"{slam.stats['keyframes']}, failures {slam.stats['failures']}, "
+          f"Sim(3) ATE {ate_s:.4f} m, path length {ratio:.3f} x the truth; "
+          f"host ms of the frames up to the init "
+          f"{[round(m, 3) for m in boot_ms]}")
+    check(slam.state == INITIALIZED, "bootstrap (c): not INITIALIZED")
+    check(slam.stats.get("init_17pt", 0) >= 1,
+          "bootstrap (c): the 17-point bootstrap did not run")
+    check(slam.stats["failures"] == 0, "bootstrap (c): tracking failures")
+    check(np.all(np.isfinite(est)) and ate_s < FAR_MAX_ATE,
+          f"bootstrap (c): Sim(3) ATE {ate_s:.4f} m >= {FAR_MAX_ATE}")
+    check(0.2 < ratio < 5.0, f"bootstrap (c): path length {ratio:.3f} x the "
+          f"truth, outside (0.2, 5)")
+
+
 def time_kernel(n, k, smi):
     """Phase 6 for one kernel record: replaces its callables and counts in
     k by the times and the bound, and prints them."""
@@ -1019,8 +1255,11 @@ def time_kernel(n, k, smi):
     k["ms"] = cuda_ms(fn)
     k["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
     k["library_ms"] = cuda_ms(library) if library is not None else None
+    want_ops = k.pop("device_ops", None)
     wrap_ms, n_ops, kern_ms = device_profile(fn, reps=10, names=names)
     k["device_ms"] = kern_ms
+    check(want_ops is None or n_ops == want_ops,
+          f"{n}: the wrapper's call is {n_ops} device ops, not {want_ops}")
     lib = (f", library call {k['library_ms']:.4f} ms"
            if library is not None else "")
     print(f"# time {n}: wrapper {k['ms']:.4f} ms, plain "

@@ -4,7 +4,7 @@ All sources under `csrc/` are compiled at first use, one nvcc process per
 source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -c -o <obj>/<name>.o csrc/<name>.cu
+         -Xcompiler -fPIC [SOURCE_FLAGS] -c -o <obj>/<name>.o csrc/<name>.cu
 
 then linked into ONE shared library with a plain C interface
 (`nvcc -shared -o _build/libmcslam_<hash>.so <obj>/*.o`) and loaded with
@@ -34,6 +34,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# flags of one source only: ba_linearize rounds every multiply and add on
+# its own, as its plain version does (no contraction into FMAs)
+SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -67,8 +70,10 @@ SIGNATURES = {
     # -> CTAs per candidate (the cluster size)
     "mc_pose_lm_cluster": [],
     # rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf, Rc9, tc, f4,
-    # payload, r, w, Hpp, gp, partials, K, Ok, L, C, huber, stream
-    "mc_ba_linearize": [P] * 16 + [I, I, I, I, F, P],
+    # payload, r, w, Hpp, gp, K, Ok, L, C, huber, stream
+    "mc_ba_linearize": [P] * 15 + [I, I, I, I, F, P],
+    # -> CTAs per keyframe (the cluster size)
+    "mc_ba_linearize_cluster": [],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds
@@ -104,6 +109,7 @@ def _digest(extra: list[str]) -> str:
             h.update(p.name.encode())
             h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + extra).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -128,7 +134,8 @@ def build(verbose: bool = False) -> pathlib.Path:
         objs, procs = [], []
         for src in _sources():
             obj = pathlib.Path(tmp) / f"{src.stem}.o"
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *extra, "-c", "-o",
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS,
+                   *SOURCE_FLAGS.get(src.stem, []), *extra, "-c", "-o",
                    str(obj), str(src)]
             objs.append(str(obj))
             procs.append((cmd, subprocess.Popen(

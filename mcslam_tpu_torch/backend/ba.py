@@ -259,11 +259,13 @@ def ba_solve(problem: BAProblem, iters: int = 10, huber_px: float = 2.5,
     oh_l = _landmark_onehot(problem)
     c = _lin_constants(problem)
 
+    lin = ba_cuda.Linearizer(c["obs_lm"], c["obs_cam"], c["uv"],
+                             c["sigma2"], c["Rc9"], c["tc"], c["f4"], K,
+                             problem.landmarks.shape[0], huber_px)
+
     def system(poses, lms, obs_valid):
-        payload, r, w, Hpp36, gp6 = ba_cuda.ba_linearize(
-            _rtw12(poses), lms.contiguous(), c["obs_lm"], c["obs_cam"],
-            c["uv"], c["sigma2"], c["lm_vf"] * obs_valid.to(f32), c["Rc9"],
-            c["tc"], c["f4"], huber_px=huber_px)
+        payload, r, w, Hpp36, gp6 = lin(
+            _rtw12(poses), lms.contiguous(), c["lm_vf"] * obs_valid.to(f32))
         sys_ = _assemble_from_payload(problem, payload, Hpp36, gp6, oh_l)
         return sys_, torch.sum(w * torch.sum(r * r, dim=-1)), r
 

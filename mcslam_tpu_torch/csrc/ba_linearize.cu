@@ -18,79 +18,111 @@
 //
 // Bound on the card: launch and latency. At the stage C shape (K = 6,
 // Ok = 1365, C = 4) the kernel reads ~50 B and writes ~130 B per
-// observation, ~1.5 MB in all: a few microseconds of HBM time, and
-// ~1 MFLOP. Design: one thread per observation, grid (ceil(Ok/128), K),
-// so the whole table is one wave on 132 SMs. Each thread gathers its own
-// landmark row and reads its camera row from a shared-memory copy of the
-// rig tables (the TPU kernel took pre-gathered per-observation rows
-// because its row gathers lower poorly; a gather equals the one-hot row
-// product exactly). The payload is written straight to the layout the
-// landmark one-hot product consumes, consecutive threads on consecutive
-// observations (coalesced). The per-keyframe sums are a fixed-order
-// warp-shuffle + shared-memory reduction into per-block partials, which a
-// second small kernel adds up in block order: no float atomics, so the
-// result is bitwise the same from run to run and the LM's accept/reject
-// on costs stays reproducible. The ragged tail (o >= Ok) is a bounds
-// check in place of the TPU's lane padding.
+// observation, ~1.5 MB in all, a fraction of a microsecond of HBM time,
+// and ~1 MFLOP: below the latency of one launch. What a call costs is the
+// chain of dependent steps of one observation (obs_lm -> lm_pos ->
+// arithmetic -> stores) plus the reduction of the 27 per-keyframe sums,
+// so the design keeps that chain short and runs it once:
+//  - ONE launch per linearization: one thread-block cluster of CLUSTER
+//    CTAs per keyframe (grid = K x CLUSTER), THREADS threads each. The
+//    keyframe's observations are strided over the cluster's
+//    CLUSTER x THREADS threads (2048: the stage C keyframe is one
+//    observation per thread; the two-view init pair's 8192 four), so
+//    every Ok is served by the same launch.
+//  - Each thread reads its camera row and the keyframe pose from the
+//    small rig tables in global memory (cached; no shared-memory fill or
+//    barrier delays the observation loads) and gathers its own landmark
+//    row; the payload goes straight to the layout the landmark one-hot
+//    product consumes, consecutive threads on consecutive observations
+//    (coalesced).
+//  - The 27 sums: per thread over its observations in order, a
+//    reduce-scatter in each warp (31 shuffles where a butterfly of the 27
+//    values takes 135), the warps in index order, and each CTA's vector
+//    written into rank 0's shared memory through distributed shared
+//    memory; after the one cluster.sync() rank 0 adds them in rank order
+//    and writes Hpp (mirrored) and gp, and the other CTAs are done. No
+//    partials buffer, no second kernel and no float atomics: the result
+//    is bitwise the same from run to run, which the LM's accept/reject on
+//    costs depends on.
+//  - Built with -fmad=false (_build.SOURCE_FLAGS): every multiply and add
+//    is rounded on its own, in the order of the plain version
+//    (ops/ba_cuda.ba_linearize_reference), so the per-observation outputs
+//    do not move by contraction into FMAs, which the Jacobians' cancelling
+//    differences would amplify.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int CLUSTER = 8;  // CTAs per keyframe (the portable cluster size)
+constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int MAXC = 8;    // rig cameras held in shared memory
 constexpr int NPAY = 30;   // payload channels
 constexpr int NSUM = 27;   // 21 Hpp upper triangle + 6 gp
 
-__global__ void __launch_bounds__(THREADS)
+// One level of the warp reduce-scatter: the lane keeps v[j + H] (its lane
+// bit H set) or v[j], and adds its partner's copy of the same value.
+template <int H>
+__device__ __forceinline__ void scatter_level(float (&v)[32], int lane) {
+  const bool up = lane & H;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = up ? v[j] : v[j + H];
+    const float keep = up ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 linearize_kernel(const float* __restrict__ rTw12, const float* __restrict__ lm_pos,
                  const int* __restrict__ obs_lm, const int* __restrict__ obs_cam,
                  const float* __restrict__ uv, const float* __restrict__ sigma2,
                  const float* __restrict__ validf, const float* __restrict__ Rc9,
                  const float* __restrict__ tc3, const float* __restrict__ f4,
                  float* __restrict__ payload, float* __restrict__ r_out,
-                 float* __restrict__ w_out, float* __restrict__ partials,
-                 int Ok, int L, int C, float huber) {
-  __shared__ float s_pose[12];
-  __shared__ float s_Rc[MAXC * 9];
-  __shared__ float s_tc[MAXC * 3];
-  __shared__ float s_f[MAXC * 4];
+                 float* __restrict__ w_out, float* __restrict__ Hpp,
+                 float* __restrict__ gp, int Ok, int L, int C, float huber) {
   __shared__ float s_red[NWARPS][NSUM];
+  __shared__ float s_cta[CLUSTER][NSUM];  // rank 0's: every CTA's sums
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  // a cluster barrier split around the work: every CTA of the cluster has
+  // started (so rank 0's shared memory exists) before any writes into it
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   const int tid = threadIdx.x;
-  const int k = blockIdx.y;
-  const int nblk = gridDim.x;
-  if (tid < 12) s_pose[tid] = rTw12[k * 12 + tid];
-  for (int i = tid; i < C * 9; i += THREADS) s_Rc[i] = Rc9[i];
-  for (int i = tid; i < C * 3; i += THREADS) s_tc[i] = tc3[i];
-  for (int i = tid; i < C * 4; i += THREADS) s_f[i] = f4[i];
-  __syncthreads();
+  const int k = blockIdx.x / CLUSTER;
 
   float acc[NSUM];
 #pragma unroll
   for (int v = 0; v < NSUM; ++v) acc[v] = 0.0f;
 
-  const int i_loc = blockIdx.x * THREADS + tid;
-  if (i_loc < Ok) {
+  // the pose and rig rows straight from global memory (a few hundred
+  // bytes, cached): no shared-memory fill and barrier ahead of the
+  // observation loads
+  const float* __restrict__ pose = rTw12 + 12 * k;  // ref_T_world [R | t]
+  const float* __restrict__ R = pose;
+  for (int i_loc = rank * THREADS + tid; i_loc < Ok; i_loc += CLUSTER * THREADS) {
     const size_t o = (size_t)k * Ok + i_loc;
     const int l = min(max(obs_lm[o], 0), L - 1);
     const int c = min(max(obs_cam[o], 0), C - 1);
-    const float* R = s_pose;  // ref_T_world rotation, row-major
     const float X0 = lm_pos[3 * (size_t)l + 0];
     const float X1 = lm_pos[3 * (size_t)l + 1];
     const float X2 = lm_pos[3 * (size_t)l + 2];
     float q[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      q[a] = R[3 * a] * X0 + R[3 * a + 1] * X1 + R[3 * a + 2] * X2 + s_pose[9 + a];
-    const float* Rc = s_Rc + 9 * c;
+      q[a] = R[3 * a] * X0 + R[3 * a + 1] * X1 + R[3 * a + 2] * X2 + pose[9 + a];
+    const float* __restrict__ Rc = Rc9 + 9 * c;
     float p[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      p[a] = Rc[3 * a] * q[0] + Rc[3 * a + 1] * q[1] + Rc[3 * a + 2] * q[2] + s_tc[3 * c + a];
-    const float fx = s_f[4 * c], fy = s_f[4 * c + 1];
-    const float cx = s_f[4 * c + 2], cy = s_f[4 * c + 3];
+      p[a] = Rc[3 * a] * q[0] + Rc[3 * a + 1] * q[1] + Rc[3 * a + 2] * q[2] + tc3[3 * c + a];
+    const float fx = f4[4 * c], fy = f4[4 * c + 1];
+    const float cx = f4[4 * c + 2], cy = f4[4 * c + 3];
     const float inv_z = 1.0f / fmaxf(p[2], 1e-3f);
     const float r0 = p[0] * inv_z * fx + cx - uv[2 * o];
     const float r1 = p[1] * inv_z * fy + cy - uv[2 * o + 1];
@@ -119,7 +151,8 @@ linearize_kernel(const float* __restrict__ rTw12, const float* __restrict__ lm_p
         Jl[a][cc] = A[a][0] * R[cc] + A[a][1] * R[3 + cc] + A[a][2] * R[6 + cc];
     }
     const float rn = sqrtf(r0 * r0 + r1 * r1);
-    const float wh = rn <= huber ? 1.0f : huber / fmaxf(rn, 1e-9f);
+    // huber * (1 / x): the plain version's `huber / tensor` rounds so
+    const float wh = rn <= huber ? 1.0f : huber * (1.0f / fmaxf(rn, 1e-9f));
     const float w = wh / fmaxf(sigma2[o], 1e-6f) * validf[o];
 
     float* pay = payload + (size_t)k * NPAY * Ok + i_loc;
@@ -147,54 +180,59 @@ linearize_kernel(const float* __restrict__ rTw12, const float* __restrict__ lm_p
     for (int i = 0; i < 6; ++i) {
       const float a0 = w * Jp[0][i], a1 = w * Jp[1][i];
 #pragma unroll
-      for (int j = i; j < 6; ++j) acc[v++] = a0 * Jp[0][j] + a1 * Jp[1][j];
-      acc[21 + i] = a0 * r0 + a1 * r1;
+      for (int j = i; j < 6; ++j) acc[v++] += a0 * Jp[0][j] + a1 * Jp[1][j];
+      acc[21 + i] += a0 * r0 + a1 * r1;
     }
   }
 
-  // fixed-order block reduction: butterfly within each warp, then warps
-  // in index order
+  // fixed-order CTA reduction. In each warp a reduce-scatter over the 27
+  // sums (padded to 32): at each xor offset a lane keeps the half of its
+  // values that its lane bit selects and sends the other half, so after
+  // 16 + 8 + 4 + 2 + 1 shuffles lane l holds the warp's sum of value l.
   const int lane = tid & 31, warp = tid >> 5;
+  float v[32];
 #pragma unroll
-  for (int v = 0; v < NSUM; ++v) {
-    float s = acc[v];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) s_red[warp][v] = s;
-  }
+  for (int j = 0; j < 32; ++j) v[j] = j < NSUM ? acc[j] : 0.0f;
+  // one level per offset, written out: a `h >>= 1` loop leaves v in
+  // local memory
+  scatter_level<16>(v, lane);
+  scatter_level<8>(v, lane);
+  scatter_level<4>(v, lane);
+  scatter_level<2>(v, lane);
+  scatter_level<1>(v, lane);
+  if (lane < NSUM) s_red[warp][lane] = v[0];
   __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // the warps in index order, and each CTA's vector pushed into rank 0's
+  // shared memory (slot = rank) before the one cluster barrier
   if (tid < NSUM) {
-    float s = s_red[0][tid];
+    float sum = s_red[0][tid];
 #pragma unroll
-    for (int wi = 1; wi < NWARPS; ++wi) s += s_red[wi][tid];
-    partials[((size_t)k * nblk + blockIdx.x) * NSUM + tid] = s;
+    for (int wi = 1; wi < NWARPS; ++wi) sum += s_red[wi][tid];
+    *cluster.map_shared_rank(&s_cta[rank][tid], 0) = sum;
   }
-}
-
-// Sums the per-block partials of each keyframe in block order and writes
-// Hpp (36, upper triangle mirrored) and gp (6).
-__global__ void finish_kernel(const float* __restrict__ partials, int nblk,
-                              float* __restrict__ Hpp, float* __restrict__ gp) {
-  const int k = blockIdx.x;
-  const int v = threadIdx.x;
-  if (v >= NSUM) return;
-  float s = 0.0f;
-  for (int b = 0; b < nblk; ++b) s += partials[((size_t)k * nblk + b) * NSUM + v];
-  if (v >= 21) {
-    gp[k * 6 + (v - 21)] = s;
+  cluster.sync();
+  if (rank != 0 || tid >= NSUM) return;
+  float sum = s_cta[0][tid];
+#pragma unroll
+  for (int q = 1; q < CLUSTER; ++q) sum += s_cta[q][tid];
+  if (tid >= 21) {
+    gp[k * 6 + (tid - 21)] = sum;
     return;
   }
-  int i = 0, rem = v;
+  int i = 0, rem = tid;
   while (rem >= 6 - i) {
     rem -= 6 - i;
     ++i;
   }
   const int j = i + rem;
-  Hpp[k * 36 + 6 * i + j] = s;
-  Hpp[k * 36 + 6 * j + i] = s;
+  Hpp[k * 36 + 6 * i + j] = sum;
+  Hpp[k * 36 + 6 * j + i] = sum;
 }
 
 }  // namespace
+
+extern "C" int mc_ba_linearize_cluster() { return CLUSTER; }
 
 extern "C" int mc_ba_linearize(const float* rTw12, const float* lm_pos,
                                const int* obs_lm, const int* obs_cam,
@@ -202,17 +240,12 @@ extern "C" int mc_ba_linearize(const float* rTw12, const float* lm_pos,
                                const float* validf, const float* Rc9,
                                const float* tc3, const float* f4,
                                float* payload, float* r, float* w, float* Hpp,
-                               float* gp, float* partials, int K, int Ok,
-                               int L, int C, float huber, void* stream) {
+                               float* gp, int K, int Ok, int L, int C,
+                               float huber, void* stream) {
   if (K == 0) return 0;
-  if (C < 1 || C > MAXC || L < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nblk = Ok > 0 ? (Ok + THREADS - 1) / THREADS : 1;
-  linearize_kernel<<<dim3(nblk, K), THREADS, 0, s>>>(
+  if (C < 1 || L < 1 || Ok < 0) return (int)cudaErrorInvalidValue;
+  linearize_kernel<<<K * CLUSTER, THREADS, 0, (cudaStream_t)stream>>>(
       rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf, Rc9, tc3, f4,
-      payload, r, w, partials, Ok, L, C, huber);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  finish_kernel<<<K, 32, 0, s>>>(partials, nblk, Hpp, gp);
+      payload, r, w, Hpp, gp, Ok, L, C, huber);
   return (int)cudaGetLastError();
 }

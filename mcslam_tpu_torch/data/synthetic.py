@@ -1,7 +1,7 @@
-"""Synthetic multi-camera rig, trajectory, landmarks and blob images
-(numpy counterpart of the generators in mcslam_tpu/data/synthetic.py,
-projecting through the port's camera model). Same seeds give the same
-scene as the JAX package's generators."""
+"""Synthetic multi-camera rig, trajectory, landmarks, blob images and
+feature-level frames (numpy counterpart of the generators in
+mcslam_tpu/data/synthetic.py, projecting through the port's camera
+model). Same seeds give the same scene as the JAX package's generators."""
 
 from __future__ import annotations
 
@@ -75,6 +75,80 @@ def make_landmarks(num: int, seed: int = 1, depth_range=(4.0, 14.0),
     y = rng.uniform(-spread[1] / 2, spread[1] / 2, num)
     z = rng.uniform(depth_range[0], depth_range[1], num)
     return np.stack([x, y, z], axis=-1).astype(np.float32)
+
+
+def make_descriptors(num: int, seed: int = 2) -> np.ndarray:
+    """(num, 8) uint32 random 256-bit descriptors."""
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, 1 << 32, (num, 8), dtype=np.uint64).astype(np.uint32)
+
+
+def corrupt_descriptors(desc: np.ndarray, bits_to_flip: int,
+                        rng) -> np.ndarray:
+    """Flip `bits_to_flip` random bits in each descriptor (observation
+    noise)."""
+    out = desc.copy()
+    n = desc.shape[0]
+    for _ in range(bits_to_flip):
+        word = rng.randint(0, 8, n)
+        bit = rng.randint(0, 32, n).astype(np.uint32)
+        out[np.arange(n), word] ^= (np.uint32(1) << bit)
+    return out
+
+
+class FeatureLevelFrame(NamedTuple):
+    """Per-camera synthetic observations for one multi-camera frame."""
+
+    uv: np.ndarray  # (C, K, 2) pixel observations (noisy)
+    desc: np.ndarray  # (C, K, 8) observed descriptors (bit-noisy), uint32
+    lm_id: np.ndarray  # (C, K) int32 true landmark id (for diagnostics)
+    valid: np.ndarray  # (C, K) bool
+    world_T_ref: np.ndarray  # (4, 4) ground-truth pose
+    timestamp: float
+
+
+def render_feature_frames(rig: cam_ops.CameraRig, poses: np.ndarray,
+                          landmarks: np.ndarray, descriptors: np.ndarray,
+                          kps_per_cam: int = 512, px_noise: float = 0.4,
+                          desc_bit_noise: int = 6, fps: float = 20.0,
+                          seed: int = 3, max_depth: float = float("inf")):
+    """A FeatureLevelFrame per pose: each camera observes up to
+    kps_per_cam visible landmarks (projected without distortion, 5 px
+    inside the image, nearer than max_depth) with pixel noise and flipped
+    descriptor bits. Same seeds, same frames as the JAX package."""
+    rng = np.random.RandomState(seed)
+    C = rig.num_cams
+    frames = []
+    fxycxy = rig.fxycxy.cpu().numpy()
+    cam_T_ref = rig.cam_T_ref.cpu().numpy()
+    w, h = rig.image_size
+    for k, wTr in enumerate(poses):
+        uv_all = np.zeros((C, kps_per_cam, 2), np.float32)
+        d_all = np.zeros((C, kps_per_cam, 8), np.uint32)
+        id_all = np.full((C, kps_per_cam), -1, np.int32)
+        v_all = np.zeros((C, kps_per_cam), bool)
+        rTw = np.linalg.inv(wTr)
+        for c in range(C):
+            cTw = cam_T_ref[c] @ rTw
+            p = landmarks @ cTw[:3, :3].T + cTw[:3, 3]
+            z = p[:, 2]
+            uv = p[:, :2] / np.maximum(z[:, None], 1e-6) * fxycxy[c, :2] \
+                + fxycxy[c, 2:]
+            vis = (z > 0.3) & (z < max_depth) & (uv[:, 0] >= 5) & \
+                (uv[:, 0] < w - 5) & (uv[:, 1] >= 5) & (uv[:, 1] < h - 5)
+            vis_idx = np.nonzero(vis)[0]
+            rng.shuffle(vis_idx)
+            take = vis_idx[:kps_per_cam]
+            nk = len(take)
+            uv_all[c, :nk] = uv[take] + rng.randn(nk, 2) * px_noise
+            d_all[c, :nk] = corrupt_descriptors(descriptors[take],
+                                                desc_bit_noise, rng)
+            id_all[c, :nk] = take
+            v_all[c, :nk] = True
+        frames.append(FeatureLevelFrame(
+            uv=uv_all, desc=d_all, lm_id=id_all, valid=v_all,
+            world_T_ref=wTr.astype(np.float32), timestamp=k / fps))
+    return frames
 
 
 def render_blob_images(rig: cam_ops.CameraRig, poses: np.ndarray,

@@ -148,3 +148,34 @@ def build_frame(imgs: torch.Tensor, rig, num_points: int = 1024,
         imgs, rig, num_points, num_levels, fast_threshold, min_threshold,
         max_intra, min_z, max_z, angle_bins, route,
     ))
+
+
+def build_frame_from_keypoints(kp_xy: torch.Tensor, kp_desc: torch.Tensor,
+                               kp_valid: torch.Tensor, rig,
+                               kp_response: torch.Tensor | None = None,
+                               kp_sigma2: torch.Tensor | None = None,
+                               max_intra: int = 2048, min_z: float = 0.5,
+                               max_z: float = 100.0) -> FrameFeatures:
+    """FrameFeatures from externally supplied keypoints (synthetic
+    feature-level data, replayed logs, or a foreign detector): raw pixels
+    (C, N, 2), descriptor words (C, N, 8) int32 and validity (C, N) on
+    the rig's device -> undistort -> intra-rig matching -> rig
+    triangulation. Angles and octaves are 0; response defaults to the
+    validity, sigma2 to 1."""
+    C, N = kp_valid.shape
+    dev = kp_xy.device
+    if kp_response is None:
+        kp_response = kp_valid.to(torch.float32)
+    if kp_sigma2 is None:
+        kp_sigma2 = torch.ones(C, N, dtype=torch.float32, device=dev)
+    xy_ud = undistort_keypoints(kp_xy, kp_valid, rig)
+    groups = intra_ops.intra_match(desc=kp_desc, xy_ud=xy_ud, valid=kp_valid,
+                                   response=kp_response, rig=rig,
+                                   max_out=max_intra)
+    tri = _triangulate_stage(groups, xy_ud, kp_sigma2, rig, min_z, max_z)
+    kps = orb.Keypoints(
+        xy=kp_xy, response=kp_response,
+        angle=torch.zeros(C, N, dtype=torch.float32, device=dev),
+        octave=torch.zeros(C, N, dtype=torch.int32, device=dev),
+        sigma2=kp_sigma2, desc=kp_desc, valid=kp_valid)
+    return assemble_frame(kps, xy_ud, groups, tri)

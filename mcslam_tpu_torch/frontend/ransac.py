@@ -1,7 +1,9 @@
-"""Vectorized RANSAC: fixed batches of minimal-solver hypotheses scored by
-generalized reprojection (counterpart of the Kabsch and PnP parts of
-mcslam_tpu/frontend/ransac.py). Sampling draws from an explicit
-torch.Generator; the solvers and the scoring are the JAX package's."""
+"""Vectorized RANSAC: fixed batches of minimal-solver hypotheses
+(counterpart of mcslam_tpu/frontend/ransac.py): Kabsch and PnP scored by
+generalized reprojection, and the 8-point essential of the monocular
+bootstrap scored by the Sampson distance. Sampling draws from an explicit
+torch.Generator; the solvers and the scoring are the JAX package's, and
+each RANSAC takes its sample indices as `idx` instead."""
 
 from __future__ import annotations
 
@@ -210,3 +212,102 @@ def ransac_pnp(gen, X_world, uv, obs_cam_T_ref, obs_fxycxy, mask,
     counts, inl = _score_reprojection(hyp, X_world, uv, obs_cam_T_ref,
                                       obs_fxycxy, mask, px_thresh)
     return _best(hyp, counts, inl, min_inliers)
+
+
+class EssentialResult(NamedTuple):
+    E: torch.Tensor  # (3, 3)
+    rel_T: torch.Tensor  # (4, 4) cam1_T_cam0 with unit translation
+    inliers: torch.Tensor  # (M,)
+    num_inliers: torch.Tensor
+    ok: torch.Tensor
+
+
+def _eight_point(xn0: torch.Tensor, xn1: torch.Tensor) -> torch.Tensor:
+    """Batched 8-point essential: (K, 8, 2) x2 -> (K, 3, 3) with singular
+    values projected to (1, 1, 0). The nullspace takes 6 inverse
+    iterations (the mono bootstrap is gated directly by E)."""
+    x0, y0 = xn0[..., 0], xn0[..., 1]
+    x1, y1 = xn1[..., 0], xn1[..., 1]
+    ones = torch.ones_like(x0)
+    # epipolar constraint x1^T E x0 = 0
+    A = torch.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1, x0, y0,
+                     ones], dim=-1)  # (K, 8, 9)
+    E = _nullspace_vecs(A, iters=6).reshape(-1, 3, 3)
+    # a sample whose normal matrix fails its Cholesky gives NaN (which
+    # scores no inlier, as in the JAX package); the SVD refuses NaN
+    bad = ~torch.isfinite(E).all(dim=(-2, -1))[:, None, None]
+    U, S, Vt = torch.linalg.svd(torch.where(bad, torch.zeros_like(E), E))
+    S2 = torch.stack([torch.ones_like(S[..., 0]), torch.ones_like(S[..., 0]),
+                      torch.zeros_like(S[..., 0])], dim=-1)
+    return torch.where(bad, E, U @ (S2[..., :, None] * Vt))
+
+
+def _decompose_E(E: torch.Tensor, xn0: torch.Tensor, xn1: torch.Tensor,
+                 mask) -> torch.Tensor:
+    """Pick the (R, t) of the 4 decompositions with the most points in
+    front of both cameras (midpoint triangulation). E: (3, 3); xn: (M, 2).
+    Returns cam1_T_cam0 (4, 4), |t| = 1. Invariant to the signs of the
+    SVD's singular vectors."""
+    U, _, Vt = torch.linalg.svd(E)
+    U = U * torch.where(linalg3.det3(U) < 0, -1.0, 1.0)
+    Vt = Vt * torch.where(linalg3.det3(Vt) < 0, -1.0, 1.0)
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    R1 = U @ W @ Vt
+    R2 = U @ W.T @ Vt
+    t = U[:, 2]
+    cands = lie.se3_matrix(torch.stack([R1, R1, R2, R2]),
+                           torch.stack([t, -t, t, -t]))  # (4, 4, 4)
+
+    # midpoint triangulation cheirality for all matches, per candidate
+    d0 = torch.cat([xn0, torch.ones_like(xn0[..., :1])], dim=-1)
+    d0 = d0 / torch.linalg.vector_norm(d0, dim=-1, keepdim=True)
+    T01 = lie.se3_inverse(cands)
+    o1 = T01[:, :3, 3]  # (4, 3); o0 = 0
+    d1c = torch.cat([xn1, torch.ones_like(xn1[..., :1])], dim=-1)
+    d1 = torch.einsum("cij,mj->cmi", T01[:, :3, :3], d1c)
+    d1 = d1 / torch.linalg.vector_norm(d1, dim=-1, keepdim=True)
+    b = o1[:, None, :]
+    d0d1 = torch.sum(d0[None] * d1, dim=-1)
+    denom = torch.clamp(1.0 - d0d1 ** 2, min=1e-9)
+    bd0 = torch.sum(b * d0[None], dim=-1)
+    bd1 = torch.sum(b * d1, dim=-1)
+    s = (bd0 - d0d1 * bd1) / denom
+    u = (d0d1 * bd0 - bd1) / denom
+    X = s[..., None] * d0[None]  # (4, M, 3)
+    z1 = lie.se3_apply(cands[:, None], X)[..., 2]
+    scores = torch.sum((X[..., 2] > 0) & (z1 > 0) & (s > 0) & (u > 0)
+                       & mask[None], dim=-1)
+    return cands[torch.argmax(scores)]
+
+
+def essential_hypotheses(idx, xn0, xn1) -> torch.Tensor:
+    """(K, 8) sample indices -> (K, 3, 3) essential hypotheses."""
+    return _eight_point(xn0[idx], xn1[idx])
+
+
+def ransac_essential(gen, xn0, xn1, mask, num_hyp: int = 512,
+                     thresh_n: float = 2.0 / 400.0, min_inliers: int = 30,
+                     idx=None) -> EssentialResult:
+    """Monocular relative-pose bootstrap: 8-point hypotheses on normalized
+    coordinates (M, 2) of frames 0 and 1, scored by the Sampson distance.
+    `idx` (K, 8) overrides the sampling."""
+    if idx is None:
+        idx = _sample_idx(gen, num_hyp, 8, xn0.shape[0], mask.float())
+    E = essential_hypotheses(idx, xn0, xn1)  # (K, 3, 3)
+    h0 = torch.cat([xn0, torch.ones_like(xn0[..., :1])], dim=-1)  # (M, 3)
+    h1 = torch.cat([xn1, torch.ones_like(xn1[..., :1])], dim=-1)
+    Ex0 = torch.einsum("kij,mj->kmi", E, h0)  # (K, M, 3)
+    Eth1 = torch.einsum("kji,mj->kmi", E, h1)
+    num = torch.einsum("mi,kmi->km", h1, Ex0) ** 2
+    den = Ex0[..., 0] ** 2 + Ex0[..., 1] ** 2 + Eth1[..., 0] ** 2 \
+        + Eth1[..., 1] ** 2
+    d2 = num / torch.clamp(den, min=1e-12)
+    inl = (d2 < thresh_n ** 2) & mask[None]
+    counts = torch.sum(inl, dim=-1)
+    best = torch.argmax(counts)
+    n = counts[best]
+    return EssentialResult(E=E[best], rel_T=_decompose_E(E[best], xn0, xn1,
+                                                         inl[best]),
+                           inliers=inl[best], num_inliers=n.to(torch.int32),
+                           ok=n >= min_inliers)

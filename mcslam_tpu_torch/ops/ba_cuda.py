@@ -19,14 +19,12 @@ observation o belonging to keyframe o // Ok.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mcslam_tpu_torch import _build
 
-THREADS = 128  # threads per block of the kernel (one per observation)
 NPAY = 30  # payload channels: W (18) | Hll (9) | gl (3)
-NSUM = 27  # per-keyframe sums: 21 Hpp (upper triangle) + 6 gp
-MAX_CAMS = 8  # rig tables held in the kernel's shared memory
 
 
 def ba_linearize_reference(rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf,
@@ -89,52 +87,92 @@ def ba_linearize_reference(rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf,
             torch.stack(g, -1))
 
 
+class Linearizer:
+    """ba_linearize prepared for one solve: the constant tables (obs_lm,
+    obs_cam, uv, sigma2, Rc9, tc, f4) are checked once here, and each call
+    checks only rTw12, lm_pos and validf and allocates its five outputs as
+    views of one buffer. CUDA tables launch the kernel, on the CUDA stream
+    that was current when the call was prepared (ba_solve prepares it
+    under the stream it solves on); CPU tables take the plain version."""
+
+    def __init__(self, obs_lm, obs_cam, uv, sigma2, Rc9, tc, f4, K: int,
+                 L: int, huber_px: float = 2.5):
+        self.consts = (obs_lm, obs_cam, uv, sigma2, Rc9, tc, f4)
+        self.huber = float(huber_px)
+        dev = obs_lm.device
+        self.device = dev
+        if dev.type == "cpu":
+            return
+        if dev.type != "cuda":
+            raise ValueError(f"ba_linearize: unsupported device {dev}")
+        O, C = obs_lm.shape[0], Rc9.shape[0]
+        if K == 0 or O % K:
+            raise ValueError(f"ba_linearize: O ({O}) must be a positive "
+                             f"multiple of K ({K}) (kf-blocked layout)")
+        if C < 1 or L < 1:
+            raise ValueError(f"ba_linearize: needs C >= 1 cameras and L >= 1 "
+                             f"landmarks, got C={C}, L={L}")
+        f32, i32 = torch.float32, torch.int32
+        for name, v, shape, dt in (
+                ("obs_lm", obs_lm, (O,), i32), ("obs_cam", obs_cam, (O,), i32),
+                ("uv", uv, (O, 2), f32), ("sigma2", sigma2, (O,), f32),
+                ("Rc9", Rc9, (C, 9), f32), ("tc", tc, (C, 3), f32),
+                ("f4", f4, (C, 4), f32)):
+            _check(name, v, shape, dt, dev)
+        self.K, self.L, self.O, self.C, self.Ok = K, L, O, C, O // K
+        self.ptrs = tuple(v.data_ptr() for v in self.consts)
+        self.stream = _build.stream_ptr(dev)
+        Ok = self.Ok
+        # the outputs as (shape, stride, offset) views of one buffer:
+        # payload | r | w | Hpp | gp
+        views, off = [], 0
+        for shape in ((K, NPAY, Ok), (O, 2), (O,), (K, 36), (K, 6)):
+            stride = tuple(int(np.prod(shape[i + 1:]))
+                           for i in range(len(shape)))
+            views.append((shape, stride, off))
+            off += int(np.prod(shape))
+        self.views, self.numel = tuple(views), off
+
+    def __call__(self, rTw12, lm_pos, validf):
+        """(rTw12 (K, 12), lm_pos (L, 3), validf (O,)) -> (payload (K, 30,
+        Ok), r (O, 2), w (O,), Hpp (K, 36), gp (K, 6))."""
+        if self.device.type == "cpu":
+            return ba_linearize_reference(rTw12, lm_pos, *self.consts[:4],
+                                          validf, *self.consts[4:],
+                                          self.huber)
+        f32, dev = torch.float32, self.device
+        _check("rTw12", rTw12, (self.K, 12), f32, dev)
+        _check("lm_pos", lm_pos, (self.L, 3), f32, dev)
+        _check("validf", validf, (self.O,), f32, dev)
+        buf = torch.empty(self.numel, dtype=f32, device=dev)
+        outs = tuple(buf.as_strided(*v) for v in self.views)
+        base = buf.data_ptr()
+        lm, cam, uv, s2, Rc, tc, f4 = self.ptrs
+        lib = _build.library()
+        _build.LAUNCHES["ba_linearize"] += 1
+        _build.check(lib.mc_ba_linearize(
+            rTw12.data_ptr(), lm_pos.data_ptr(), lm, cam, uv, s2,
+            validf.data_ptr(), Rc, tc, f4, *(base + 4 * off for *_, off in
+                                              self.views),
+            self.K, self.Ok, self.L, self.C, self.huber, self.stream,
+        ), "mc_ba_linearize")
+        return outs
+
+
+def _check(name, v, shape, dt, dev):
+    if (v.device != dev or v.dtype != dt or tuple(v.shape) != shape
+            or not v.is_contiguous()):
+        raise ValueError(f"ba_linearize: {name} must be a contiguous "
+                         f"{shape} {dt} tensor on {dev}, got "
+                         f"{tuple(v.shape)} {v.dtype} {v.device}")
+
+
 def ba_linearize(rTw12, lm_pos, obs_lm, obs_cam, uv, sigma2, validf, Rc9, tc,
                  f4, huber_px: float = 2.5):
     """See ba_linearize_reference for shapes. CUDA tensors launch the
     kernel (float32 and int32, contiguous, one device); CPU tensors take
-    the plain version."""
-    if rTw12.device.type == "cpu":
-        return ba_linearize_reference(rTw12, lm_pos, obs_lm, obs_cam, uv,
-                                      sigma2, validf, Rc9, tc, f4, huber_px)
-    dev = rTw12.device
-    if dev.type != "cuda":
-        raise ValueError(f"ba_linearize: unsupported device {dev}")
-    K, L, O, C = rTw12.shape[0], lm_pos.shape[0], obs_lm.shape[0], Rc9.shape[0]
-    if K == 0 or O % K:
-        raise ValueError(f"ba_linearize: O ({O}) must be a positive multiple "
-                         f"of K ({K}) (kf-blocked layout)")
-    if not 1 <= C <= MAX_CAMS or L < 1:
-        raise ValueError(f"ba_linearize: needs 1 <= C <= {MAX_CAMS} cameras "
-                         f"and L >= 1 landmarks, got C={C}, L={L}")
-    f32, i32 = torch.float32, torch.int32
-    for name, v, shape, dt in (
-            ("rTw12", rTw12, (K, 12), f32), ("lm_pos", lm_pos, (L, 3), f32),
-            ("obs_lm", obs_lm, (O,), i32), ("obs_cam", obs_cam, (O,), i32),
-            ("uv", uv, (O, 2), f32), ("sigma2", sigma2, (O,), f32),
-            ("validf", validf, (O,), f32), ("Rc9", Rc9, (C, 9), f32),
-            ("tc", tc, (C, 3), f32), ("f4", f4, (C, 4), f32)):
-        if (v.device != dev or v.dtype != dt or tuple(v.shape) != shape
-                or not v.is_contiguous()):
-            raise ValueError(f"ba_linearize: {name} must be a contiguous "
-                             f"{shape} {dt} tensor on {dev}, got "
-                             f"{tuple(v.shape)} {v.dtype} {v.device}")
-    Ok = O // K
-    nblk = max(-(-Ok // THREADS), 1)
-    payload = torch.empty(K, NPAY, Ok, dtype=f32, device=dev)
-    r = torch.empty(O, 2, dtype=f32, device=dev)
-    w = torch.empty(O, dtype=f32, device=dev)
-    Hpp = torch.empty(K, 36, dtype=f32, device=dev)
-    gp = torch.empty(K, 6, dtype=f32, device=dev)
-    partials = torch.empty(K * nblk * NSUM, dtype=f32, device=dev)
-    lib = _build.library()
-    _build.LAUNCHES["ba_linearize"] += 1
-    _build.check(lib.mc_ba_linearize(
-        rTw12.data_ptr(), lm_pos.data_ptr(), obs_lm.data_ptr(),
-        obs_cam.data_ptr(), uv.data_ptr(), sigma2.data_ptr(),
-        validf.data_ptr(), Rc9.data_ptr(), tc.data_ptr(), f4.data_ptr(),
-        payload.data_ptr(), r.data_ptr(), w.data_ptr(), Hpp.data_ptr(),
-        gp.data_ptr(), partials.data_ptr(), K, Ok, L, C, float(huber_px),
-        _build.stream_ptr(dev),
-    ), "mc_ba_linearize")
-    return payload, r, w, Hpp, gp
+    the plain version. A solve that linearizes repeatedly prepares the
+    call once (Linearizer)."""
+    return Linearizer(obs_lm, obs_cam, uv, sigma2, Rc9, tc, f4,
+                      rTw12.shape[0], lm_pos.shape[0], huber_px)(
+        rTw12, lm_pos, validf)

@@ -4,15 +4,15 @@ build, fused frame build + tracking, window BA).
 
 A session is `MultiCameraSLAM(rig, config, device=...).process_image(...)`
 per frame, then `finalize()` / `trajectory_arrays()` / `write_trajectory()`.
-The port covers the rig-depth bootstrap, the fused per-frame program with
-its motion fast path, keyframe insertion (tracked landmarks, new
-landmarks from rig depth and from two-view matches) and window BA on every
-keyframe with deferred write-back. It raises NotImplementedError for
-what it does not port yet: loop closure (`vocab`), IMU (`imu_params`,
-`imu=`), GPS (`gps_lever_arm`, `gps=`), multi-device BA (`mesh`),
-segmentation masks, the final global BA, and the monocular / 17-point
-bootstraps that the JAX driver falls back to when a frame has too little
-intra-rig depth.
+The port covers the three vision-only bootstraps (rig depth; the 17-point
+non-central relative pose and the monocular essential matrix for frames
+with too little intra-rig depth, each holding a pending anchor frame),
+the fused per-frame program with its motion fast path, keyframe insertion
+(tracked landmarks, new landmarks from rig depth and from two-view
+matches) and window BA on every keyframe with deferred write-back. It
+raises NotImplementedError for what it does not port yet: loop closure
+(`vocab`), IMU (`imu_params`, `imu=`), GPS (`gps_lever_arm`, `gps=`),
+multi-device BA (`mesh`), segmentation masks and the final global BA.
 
 States: NOT_INITIALIZED -> INITIALIZED, with REINITIALIZING after
 `max_track_failures` consecutive tracking failures.
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch.driver_window import WindowBAMixin
+from mcslam_tpu_torch.frontend import ransac, seventeen
 from mcslam_tpu_torch.frontend.frame import (
     FrameFeatures, assemble_frame, build_frame,
 )
@@ -36,7 +37,8 @@ from mcslam_tpu_torch.keyframe import Keyframe
 from mcslam_tpu_torch.mapping.device_map import DeviceMap
 from mcslam_tpu_torch.mapping.landmarks import LandmarkMap
 from mcslam_tpu_torch.tracking_kernels import (
-    _build_and_track_step, _track_and_map_step, _triangulate_pairs,
+    _build_and_track_step, _match_descriptors, _mutual_match,
+    _track_and_map_step, _triangulate_pairs, _triangulate_pairs_far,
 )
 from mcslam_tpu_torch.utils.profiling import StageTimers
 
@@ -49,8 +51,8 @@ REINITIALIZING = 2
 class SlamConfig:
     """The JAX package's SlamConfig, field for field with the same
     defaults (see mcslam_tpu/slam.py for the rationale of each value).
-    Fields of unported paths (mono / 17-point init, loop closure, global
-    BA, IMU, GPS) are kept so that configurations carry over."""
+    Fields of unported paths (loop closure, global BA, IMU, GPS) are kept
+    so that configurations carry over."""
 
     # matching
     inter_max_dist: int = 64
@@ -79,10 +81,10 @@ class SlamConfig:
     new_lm_min_parallax_cos: float = 0.99998
     min_z: float = 0.5
     max_z: float = 60.0
-    # monocular bootstrap (not ported)
+    # monocular bootstrap
     mono_init_min_disparity_px: float = 25.0
     mono_init_scale: float = 4.0
-    # 17-point rig bootstrap (not ported)
+    # 17-point rig bootstrap
     init17_min_inliers: int = 40
     init17_min_landmarks: int = 30
     init17_max_z: float = 400.0
@@ -207,25 +209,20 @@ class MultiCameraSLAM(WindowBAMixin):
     # -- pipeline stages --------------------------------------------------
 
     def _initialize(self, frame: FrameFeatures, timestamp: float) -> bool:
-        """Bootstrap from rig depth: triangulated intra-rig matches become
-        the seed map, anchored at the current pose."""
-        pose = self.cur_pose  # identity or reinit seed
-        kf = Keyframe(self.kf_counter, timestamp, pose, frame)
-        n3d = int(kf.im_has_depth.sum())
+        """Bootstrap: a frame with >= 30 triangulated intra-rig matches
+        seeds the map from rig depth at the current pose; with fewer, a
+        rig with a lever arm takes the 17-point two-frame bootstrap and
+        any other rig the monocular one (mcslam_tpu/slam.py:331-353)."""
+        n3d = int(frame.im_has_depth.sum())
         if self.cfg.init_min_feats:
             if n3d <= 150:
                 return False
         elif n3d < 30:
-            lever = np.linalg.norm(
-                self.rig.ref_T_cam[:, :3, 3].cpu().numpy(), axis=-1)
-            path = ("17-point (non-central relative pose)"
-                    if self.rig.num_cams >= 2 and lever.max() > 1e-6
-                    else "monocular (essential-matrix)")
-            raise NotImplementedError(
-                f"MultiCameraSLAM: the frame has {n3d} triangulated intra-rig "
-                f"matches (< 30), so the JAX driver would bootstrap with the "
-                f"{path} initialization, which is not ported to "
-                f"mcslam_tpu_torch yet")
+            if self.rig.num_cams >= 2 and seventeen.is_noncentral(self.rig):
+                return self._initialize_rig_17pt(frame, timestamp)
+            return self._initialize_mono(frame, timestamp)
+        pose = self.cur_pose  # identity or reinit seed
+        kf = Keyframe(self.kf_counter, timestamp, pose, frame)
         sel = np.nonzero(kf.im_has_depth)[0]
         X_world = kf.im_point3d[sel] @ pose[:3, :3].T + pose[:3, 3]
         ids = self._map_insert(X_world, kf.im_desc[sel],
@@ -236,6 +233,169 @@ class MultiCameraSLAM(WindowBAMixin):
         self.kf_counter += 1
         self.state = INITIALIZED
         self.stats["keyframes"] += 1
+        return True
+
+    def _anchor_matches(self, frame: FrameFeatures, pf: FrameFeatures):
+        """Mutual descriptor matches of the current frame's intra groups
+        to the pending anchor's -> (ok (M,), idx (M,)) on the host."""
+        cfg = self.cfg
+        dist = _match_descriptors(frame.im_desc, frame.im_valid, pf.im_desc,
+                                  pf.im_valid)
+        res = _mutual_match(dist, frame.im_valid, pf.im_valid,
+                            cfg.inter_max_dist, cfg.inter_ratio)
+        v = torch.stack([res.ok.to(torch.int32), res.idx]).cpu().numpy()
+        return v[0] > 0, v[1]
+
+    def _seed_two_view(self, pf, pts_t, pose0, frame, timestamp, pose1, X,
+                       good, idx):
+        """Both frames of a two-view bootstrap become keyframes; the good
+        triangulated matches become landmarks seen by both; then the
+        two-view BA over the init pair polishes the seed map."""
+        kf0 = Keyframe(self.kf_counter, pts_t, pose0, pf)
+        self.kf_counter += 1
+        kf1 = Keyframe(self.kf_counter, timestamp, pose1, frame)
+        self.kf_counter += 1
+        sel = np.nonzero(good)[0]
+        ids = self._map_insert(X[sel], kf1.im_desc[sel],
+                               _unit_rows(X[sel] - pose1[:3, 3]), kf1.kf_id)
+        kf1.lm_id[sel] = ids
+        kf0.lm_id[idx[sel]] = ids
+        kf0.lm_dirty()
+        kf1.lm_dirty()
+        self.keyframes.extend([kf0, kf1])
+        self.state = INITIALIZED
+        self.stats["keyframes"] += 2
+        self.cur_pose = pose1.astype(np.float32)
+        self._run_window_ba()
+        self.cur_pose = kf1.world_T_ref.copy()
+
+    def _initialize_mono(self, frame: FrameFeatures, timestamp: float) -> bool:
+        """Two-view monocular bootstrap (mcslam_tpu/slam.py:376-477):
+        essential-matrix RANSAC between the pending anchor frame and the
+        current one, two-view triangulation of the inliers, median-depth
+        scale normalization. The anchor is kept while the parallax grows
+        and restarted from the current frame when matching or the
+        geometry fails."""
+        pending = getattr(self, "_mono_pending", None)
+        if pending is None:
+            self._mono_pending = (frame, timestamp, self.cur_pose.copy())
+            return False
+        pf, pts_t, p_pose = pending
+        ok, idx = self._anchor_matches(frame, pf)
+        if ok.sum() < 80:
+            # lost the anchor frame: restart from the current one
+            self._mono_pending = (frame, timestamp, self.cur_pose.copy())
+            return False
+        f0 = self.rig.fxycxy[0].cpu().numpy()
+        uv1 = frame.im_uv_ref.cpu().numpy()
+        uv0 = pf.im_uv_ref.cpu().numpy()[idx]
+        # baseline gate: keep the anchor until the parallax suffices
+        med_disp = float(np.median(np.linalg.norm((uv1 - uv0)[ok], axis=-1)))
+        if med_disp < self.cfg.mono_init_min_disparity_px:
+            return False
+        xn1 = (uv1 - f0[2:]) / f0[:2]
+        xn0 = (uv0 - f0[2:]) / f0[:2]
+        f32 = np.float32
+        er = ransac.ransac_essential(
+            self._gen, self._to_device(xn0.astype(f32)),
+            self._to_device(xn1.astype(f32)), self._to_device(ok),
+            thresh_n=2.0 / float(f0[0]), min_inliers=50)
+        if not bool(er.ok):
+            self._mono_pending = (frame, timestamp, self.cur_pose.copy())
+            return False
+        # cur_T_prev with unit translation; world frame anchored at prev
+        rel = er.rel_T.cpu().numpy()  # cam1_T_cam0
+        pose0 = p_pose
+        pose1 = pose0 @ np.linalg.inv(rel)
+        inl = er.inliers.cpu().numpy() & ok
+        M = len(ok)
+        wTc = np.stack([np.broadcast_to(pose0, (M, 4, 4)),
+                        np.broadcast_to(pose1, (M, 4, 4))], axis=1)
+        X, tri_ok = _triangulate_pairs(
+            torch.as_tensor(wTc, dtype=torch.float32),
+            torch.as_tensor(np.stack([uv0, uv1], axis=1), dtype=torch.float32),
+            torch.as_tensor(np.broadcast_to(f0, (M, 2, 4)).copy()),
+            torch.as_tensor(np.repeat(inl[:, None], 2, axis=1)),
+            torch.ones(M, 2))
+        X = X.numpy()
+        good = tri_ok.numpy() & inl
+        if good.sum() < 50:
+            self._mono_pending = (frame, timestamp, self.cur_pose.copy())
+            return False
+        # scale: median depth (in the prev camera) -> mono_init_scale units
+        depths = (np.linalg.inv(pose0) @ np.concatenate(
+            [X, np.ones((M, 1), np.float32)], axis=1).T).T[:, 2]
+        scale = self.cfg.mono_init_scale / max(np.median(depths[good]), 1e-6)
+        X = X * scale
+        pose1[:3, 3] = pose0[:3, 3] + (pose1[:3, 3] - pose0[:3, 3]) * scale
+        self._mono_pending = None
+        self._seed_two_view(pf, pts_t, pose0, frame, timestamp, pose1, X,
+                            good, idx)
+        return True
+
+    def _initialize_rig_17pt(self, frame: FrameFeatures,
+                             timestamp: float) -> bool:
+        """Two-frame rig bootstrap by non-central relative pose
+        (mcslam_tpu/slam.py:479-587): when the scene is too distant for
+        intra-rig triangulation, the 17-point family recovers prev_T_cur
+        with METRIC translation from 2D-2D matches, and the seed map comes
+        from two-frame triangulation with a relaxed depth ceiling. The
+        anchor is kept while the baseline grows and restarted from the
+        current frame when matching or the geometry fails."""
+        cfg = self.cfg
+        pending = getattr(self, "_pending17", None)
+        if pending is None:
+            self._pending17 = (frame, timestamp, self.cur_pose.copy())
+            return False
+        pf, pts_t, p_pose = pending
+        ok, idx = self._anchor_matches(frame, pf)
+        if ok.sum() < cfg.min_inter_matches:
+            self._pending17 = (frame, timestamp, self.cur_pose.copy())
+            return False
+        d_idx = self._to_device(idx).long()
+        f1, o1 = seventeen.plucker_rays(pf.im_uv_ref[d_idx],
+                                        pf.im_anchor_cam[d_idx], self.rig)
+        f2, o2 = seventeen.plucker_rays(frame.im_uv_ref, frame.im_anchor_cam,
+                                        self.rig)
+        fmat = self.rig.fxycxy.cpu().numpy()
+        thr = float(2.0 * (1.0 - np.cos(3.0 / float(np.mean(fmat[:, 0])))))
+        sr = seventeen.ransac_seventeen(
+            self._gen, f1, o1, f2, o2, self._to_device(ok),
+            angle_thresh=thr, min_inliers=cfg.init17_min_inliers,
+            scale_hi=cfg.init17_scale_hi)
+        if not bool(sr.ok):
+            self._pending17 = (frame, timestamp, self.cur_pose.copy())
+            return False
+        rel = sr.rel_T.cpu().numpy()  # prev_T_cur
+        # baseline gate: keep the anchor while the baseline grows
+        if (np.linalg.norm(rel[:3, 3])
+                < cfg.init17_min_baseline_frac * cfg.kf_translation):
+            return False
+        pose0 = p_pose
+        pose1 = (pose0 @ rel).astype(np.float32)
+        inl = sr.inliers.cpu().numpy() & ok
+        M = len(ok)
+        a1 = pf.im_anchor_cam.cpu().numpy()[idx]
+        a2 = frame.im_anchor_cam.cpu().numpy()
+        uv1 = pf.im_uv_ref.cpu().numpy()[idx]
+        uv2 = frame.im_uv_ref.cpu().numpy()
+        ref_T_cam = self.rig.ref_T_cam.cpu().numpy()
+        wTc = np.stack([pose0 @ ref_T_cam[a1], pose1 @ ref_T_cam[a2]], axis=1)
+        X, tri_ok = _triangulate_pairs_far(
+            torch.as_tensor(wTc, dtype=torch.float32),
+            torch.as_tensor(np.stack([uv1, uv2], axis=1), dtype=torch.float32),
+            torch.as_tensor(np.stack([fmat[a1], fmat[a2]], axis=1)),
+            torch.as_tensor(np.repeat(inl[:, None], 2, axis=1)),
+            torch.ones(M, 2), cfg.min_z, cfg.init17_max_z)
+        X = X.numpy()
+        good = tri_ok.numpy() & inl
+        if good.sum() < cfg.init17_min_landmarks:
+            self._pending17 = (frame, timestamp, self.cur_pose.copy())
+            return False
+        self._pending17 = None
+        self.stats["init_17pt"] = self.stats.get("init_17pt", 0) + 1
+        self._seed_two_view(pf, pts_t, pose0, frame, timestamp, pose1, X,
+                            good, idx)
         return True
 
     def _local_map_candidates(self):

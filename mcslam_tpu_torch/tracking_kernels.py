@@ -9,7 +9,8 @@ on the TPU. The fast-path decision is read on the host once per frame
 (one device sync); the JAX program makes it with a device-side lax.cond.
 
 `_triangulate_pairs` is the two-view triangulation of keyframe
-insertion.
+insertion; `_match_descriptors`, `_mutual_match` and
+`_triangulate_pairs_far` serve the monocular and 17-point bootstraps.
 
 Packed layout of `_track_and_map_step` / `_build_and_track_step`
 (M = intra slots): [pose (16), n_uniform, n_matches, n_with_lm, rr_ok,
@@ -282,6 +283,27 @@ def _triangulate_pairs(wTc_rays, uv_rays, f_rays, mask_rays, sigma_rays):
     """Two-view triangulation of the new landmarks at keyframe insertion:
     wTc (M, 2, 4, 4), uv (M, 2, 2), f (M, 2, 4), mask and sigma (M, 2) ->
     (X (M, 3), ok (M,)), depth gate 0.1-100 m."""
+    return _triangulate_pairs_far(wTc_rays, uv_rays, f_rays, mask_rays,
+                                  sigma_rays, 0.1, 100.0)
+
+
+def _triangulate_pairs_far(wTc_rays, uv_rays, f_rays, mask_rays, sigma_rays,
+                           min_z: float, max_z: float):
+    """_triangulate_pairs with the caller's depth gate (the 17-point
+    distant-scene bootstrap seeds landmarks beyond the 100 m cap)."""
     return triangulation.triangulate_and_refine(
         wTc_rays, uv_rays, f_rays, mask_rays, sigma=sigma_rays,
-        min_z=0.1, max_z=100.0)
+        min_z=min_z, max_z=max_z)
+
+
+def _match_descriptors(desc_a, valid_a, desc_b, valid_b):
+    """(N, 8) x (M, 8) descriptor words -> (N, M) int32 Hamming distances
+    (the validity masks are applied by the matcher)."""
+    return hamming.hamming_matrix(desc_a, desc_b)
+
+
+def _mutual_match(dist, valid_a, valid_b, max_dist: int, ratio: float):
+    """Mutual-best match of an (N, M) distance matrix with the distance
+    threshold and the ratio test -> MatchResult over the N rows."""
+    return match_ops.match_mutual(dist, row_mask=valid_a, col_mask=valid_b,
+                                  max_dist=max_dist, ratio=ratio)

@@ -14,12 +14,15 @@ across two runs; gated-matcher rows / columns with a pair within 1e-3 * thr2 of
 the gate threshold are excluded (f32 summation order); pose 2e-3 and
 inlier sets equal away from the chi2 threshold (f32 reduction order);
 the gated matcher and the pose LM bitwise equal across two runs;
-ba_linearize's payload, Hpp and gp to 1e-5 of their largest magnitude,
-r atol 1e-4 + rtol 1e-6 (pixel residuals up to ~1000 px on the random
-stage C problem), w atol 1e-5, and bitwise equal across two runs. The
-frame build on the card against the CPU under the extraction routes A and
-B: keypoints exact, descriptors equal except at keypoints whose angle
-lies within 1e-4 rad of a steering-bin boundary."""
+ba_linearize's payload, r and w bitwise (the kernel rounds every
+multiply and add as the plain version does), Hpp and gp to 1e-5 of their
+largest magnitude (summed in another order), and bitwise equal across
+two runs, at K in {1, 2, 6} x Ok in {1, 1365, 8192} x C in {1, 4, 8};
+the oriented gather bitwise, also across two runs, at T in {1, 7, 3072}
+x W in {640, 200, 201}. The frame build on the card against the CPU
+under the extraction routes A and B: keypoints exact, descriptors equal
+except at keypoints whose angle lies within 1e-4 rad of a steering-bin
+boundary."""
 
 import numpy as np
 import pytest
@@ -316,27 +319,39 @@ def test_pose_lm_wrapper_rejects_what_the_kernel_cannot_take(cuda):
 
 
 @pytest.mark.gpu
-def test_ba_linearize_kernel_matches_plain(cuda):
-    """bench.py's stage C problem: K=6, Ok=1365, L=2048, C=4."""
-    f = synthetic.random_window_ba_problem(synthetic.make_synthetic_rig())
+@pytest.mark.parametrize("C", [1, 4, 8])
+@pytest.mark.parametrize("Ok", [1, 1365, 8192])
+@pytest.mark.parametrize("K", [1, 2, 6])
+def test_ba_linearize_kernel_matches_plain(cuda, K, Ok, C):
+    """bench.py's random problem at K keyframes x Ok observations with a
+    C-camera rig (stage C is K=6, Ok=1365, C=4; the two-view init pair of
+    a 1-camera rig K=2, Ok=8192, C=1): one launch per call, bitwise equal
+    across two calls, the prepared call equal to the one-shot one."""
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(num_cams=C))
+    f = synthetic.random_window_ba_problem(rig, num_kfs=K, num_lms=2048,
+                                           obs_capacity=K * Ok, seed=K + C)
     args = ba.linearize_inputs(ba.problem_from_numpy(**f))  # on the card
-    assert args[0].device.type == "cuda"
+    assert args[0].device.type == "cuda" and args[2].shape == (K * Ok,)
     n0 = _build.LAUNCHES["ba_linearize"]
     kout = ba_cuda.ba_linearize(*args)
-    again = ba_cuda.ba_linearize(*args)
+    lin = ba_cuda.Linearizer(*args[2:6], *args[7:], K, 2048)
+    again = lin(args[0], args[1], args[6])
     pout = ba_cuda.ba_linearize_reference(*args)
     assert _build.LAUNCHES["ba_linearize"] == n0 + 2
     for x, y in zip(kout, again):
         assert torch.equal(x, y)  # fixed reduction order: bitwise
-    for i in (0, 3, 4):  # payload, Hpp, gp
+    for i in (0, 1, 2):  # payload, r, w: the plain version's roundings
+        assert torch.equal(kout[i], pout[i]), i
+    for i in (3, 4):  # Hpp, gp: summed in another order
         err = (kout[i] - pout[i]).abs().max() / pout[i].abs().max()
         assert float(err) <= 1e-5, i
     H = kout[3].reshape(-1, 6, 6)
     assert torch.equal(H, H.transpose(1, 2))
-    torch.testing.assert_close(kout[1], pout[1], atol=1e-4, rtol=1e-6)
-    torch.testing.assert_close(kout[2], pout[2], atol=1e-5, rtol=0)
+    assert _build.library().mc_ba_linearize_cluster() > 1
     with pytest.raises(ValueError):
         ba_cuda.ba_linearize(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        lin(args[0], args[1], args[6][:-1])
 
 
 @pytest.mark.gpu
@@ -455,20 +470,37 @@ def test_patch_gather_batched_kernel_matches_plain(cuda):
         patch_cuda.patch_gather_batched(imgs, yx[:3])
 
 
+def _oriented_inputs(T, W, dev, B=5, H=100, seed=2):
+    """T keypoints over B random H x W images, the first ones at the four
+    corners and past each border (their windows clamp), the rest anywhere
+    within 3 px of the images."""
+    rng = np.random.RandomState(seed + T + W)
+    imgs = torch.from_numpy(rng.rand(B, H, W).astype(np.float32)).to(dev)
+    yx = np.stack([rng.randint(-3, H + 3, T), rng.randint(-3, W + 3, T)], -1)
+    edges = [(0, 0), (H - 1, W - 1), (0, W - 1), (H - 1, 0), (-7, 60),
+             (H + 4, 61), (50, -2), (51, W + 9)]
+    yx[:min(T, len(edges))] = edges[:T]
+    idx = rng.randint(0, B, T)
+    return (imgs, torch.from_numpy(yx.astype(np.int32)).to(dev),
+            torch.from_numpy(idx.astype(np.int32)).to(dev))
+
+
 @pytest.mark.gpu
-def test_patch_gather_oriented_kernel_matches_plain(cuda):
-    rng = np.random.RandomState(2)
-    imgs = torch.from_numpy(rng.rand(5, 96, 200).astype(np.float32)).to(cuda)
-    yx = torch.from_numpy(np.stack([rng.randint(0, 96, 500),
-                                    rng.randint(0, 200, 500)], -1)
-                          .astype(np.int32)).to(cuda)
-    idx = torch.from_numpy(rng.randint(0, 5, 500).astype(np.int32)).to(cuda)
+@pytest.mark.parametrize("W", [640, 200, 201])
+@pytest.mark.parametrize("T", [1, 7, 3072])
+def test_patch_gather_oriented_kernel_matches_plain(cuda, T, W):
+    """Windows clamped at all four borders, odd and even t (a patch of
+    1521 bf16 elements starts mid-word for odd t), W = 640 and 200 staged
+    by 16-byte copies and W = 201 by 4-byte ones: bf16 patches, moments
+    and origins bitwise equal to the plain version and across two runs."""
+    imgs, yx, idx = _oriented_inputs(T, W, cuda)
     n0 = _build.LAUNCHES["patch_gather_oriented"]
     kout = patch_cuda.patch_gather_oriented(imgs, yx, idx)
+    again = patch_cuda.patch_gather_oriented(imgs, yx, idx)
     pout = patch_cuda.patch_gather_oriented_reference(imgs, yx, idx)
-    assert _build.LAUNCHES["patch_gather_oriented"] == n0 + 1
-    for k, p in zip(kout, pout):  # moments in the same fixed order
-        assert torch.equal(k, p)
+    assert _build.LAUNCHES["patch_gather_oriented"] == n0 + 2
+    for k, a, p in zip(kout, again, pout):  # moments in the same fixed order
+        assert torch.equal(k, p) and torch.equal(k, a)
     with pytest.raises(ValueError):
         patch_cuda.patch_gather_oriented(imgs, yx, idx.long())
 

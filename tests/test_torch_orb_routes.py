@@ -185,14 +185,14 @@ def test_patch_gather_oriented_reference_matches_pallas():
 
 
 def test_kernel_circle_table_matches_circle_weights():
-    """The oriented kernel's per-row half-width table in constant memory
-    describes exactly orb._circle_weights' circle."""
+    """The oriented kernel's circle test (dx^2 + dy^2 against a squared
+    radius, on the window offsets it advances by increments) describes
+    exactly orb._circle_weights' circle."""
     src = (REPO / "mcslam_tpu_torch/csrc/patch_gather.cu").read_text()
-    body = re.search(r"kHalfWidth\[PATCH\] = \{([^}]*)\}", src).group(1)
-    half = np.array([int(v) for v in body.replace("\n", " ").split(",")])
+    r2 = int(re.search(r"dx \* dx \+ dy \* dy <= (\d+);", src).group(1))
     wx, wy = jorb._circle_weights()
     d = np.arange(39) - 19
-    inside = np.abs(d)[None, :] <= half[:, None]
+    inside = d[None, :] ** 2 + d[:, None] ** 2 <= r2
     np.testing.assert_array_equal(wx, np.where(inside, d[None, :], 0))
     np.testing.assert_array_equal(wy, np.where(inside, d[:, None], 0))
     np.testing.assert_array_equal(

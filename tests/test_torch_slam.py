@@ -250,7 +250,5 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError, match="not ported"):
             tslam.MultiCameraSLAM(trig, **kw)
     slam = tslam.MultiCameraSLAM(trig, tslam.SlamConfig(**CFG))
-    with pytest.raises(NotImplementedError, match="17-point"):
-        slam.process_image(np.zeros_like(imgs[0]), 0.0, extract_cfg=ECFG)
     with pytest.raises(NotImplementedError, match="IMU and GPS"):
         slam.process_image(imgs[0], 0.0, imu=([], [], []))
