@@ -76,7 +76,22 @@ Phases, each of which raises (non-zero exit) on failure:
      right before it (ba_linearize, the matcher and the pose LM launched in
      all three, the extraction kernels in (a) and (b)), printing the
      host-clock time of the frames up to the init;
-  7. timing: for each kernel the CUDA-event time of its wrapper call, of
+  7. visual-inertial and GPS path: preintegrate and predict on CUDA
+     tensors against the CPU (1e-5); (a) the stage D window solve
+     (ba_vio.vio_solve, K=6, Ok=1365, L=2048, C=4, 5 IMU factors of 40
+     samples over 0.2 s; synthetic.random_vio_problem) without GPS and
+     with 6 GPS factors (4 valid), warm (1 x 2) and cold (8 x 2), on the
+     card under set_sync_debug_mode("error") against the CPU (VIO_TOL),
+     ba_linearize launched inside it; (b) a 24-frame VIO + GPS session
+     through process_image on the scene's rig and landmarks along
+     analytic_circle_imu's circle (200 Hz IMU, a fix per frame,
+     imu_init_samples=40, otherwise SlamConfig defaults): IMU and state
+     initialized, no failure, >= 1 VIO solve, >= 1 fix attached, ATE from
+     the init frame <= 0.13 m, the five default-route kernels launched;
+     (c) tests/test_slam_vio.py's low-rate GPS dummy-keyframe drive at the
+     feature level: dummy keyframes at non-vision timestamps, each with a
+     fix; each with its launch counters reset right before it;
+  8. timing: for each kernel the CUDA-event time of its wrapper call, of
      its plain version and, where one exists, of the one PyTorch call
      that computes the same function (the advanced-indexing gather for
      the two plain patch gathers); its device time and the wrapper's
@@ -90,9 +105,11 @@ Phases, each of which raises (non-zero exit) on failure:
      solve's prepared call (one device op per call, checked);
      the warm and cold window solves (CUDA events, plus device time and
      device-op count from one torch.profiler run each), the per-frame
-     build+track time on both paths and both routes, and the per-frame
+     build+track time on both paths and both routes, the per-frame
      process_image wall time of a second session, keyframe frames and the
-     others apart.
+     others apart, the stage D VIO solves warm and cold with and without
+     GPS (as the window solves), and the per-frame process_image wall time
+     of a second VIO + GPS session.
 The last three lines are the card's name and power limit (nvidia-smi),
 the kernels JSON record and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
@@ -135,6 +152,24 @@ BLANK_FRAMES, BOOT_FRAMES = 2, 12
 MONO_FRAMES, MONO_MIN_KEYFRAMES, MONO_MAX_ATE = 16, 3, 0.15
 FAR_FRAMES, FAR_MAX_ATE, FAR_DEPTH = 8, 0.40, (100.0, 200.0)
 PATCH_PX = 39 * 39
+# the visual-inertial phase: (a) the stage D window solve (bench.py:209-251:
+# K=6, Ok=1365, L=2048, C=4, 5 IMU factors of 40 samples over 0.2 s) on
+# synthetic.random_vio_problem, without GPS and with VIO_GPS GPS factors
+# (4 valid), on the card against the CPU within VIO_TOL (card and CPU
+# solve the damped step in float64; the vision sums differ in order; at
+# most 2.8e-6 measured on an NVIDIA H100 80GB HBM3 at 700 W);
+# (b) a VIO + GPS session of VIO_FRAMES frames through process_image on
+# the scene's rig and landmarks along analytic_circle_imu's circle, held to
+# VIO_MAX_ATE after its init (the single-run ceiling named by
+# tests/test_slam_vio.py); (c) tests/test_slam_vio.py's low-rate GPS
+# dummy-keyframe drive at the feature level (DUMMY_FRAMES frames, vision
+# every 3rd).
+VIO_GPS, VIO_FRAMES, VIO_MAX_ATE, DUMMY_FRAMES = 6, 24, 0.13, 30
+VIO_TOL = dict(poses=1e-4, vels=1e-4, biases=1e-4, E_T_V=1e-4)
+VIO_IMU = dict(accel_noise=2e-3, gyro_noise=2e-4)
+VIO_BIAS = dict(accel_bias=(0.02, -0.01, 0.015),
+                gyro_bias=(0.001, -0.0005, 0.002))
+LLA0 = (42.36, -71.06, 10.0)
 
 # The least time of a kernel's work: bytes over the H100 SXM's 3.35 TB/s,
 # and the time of its operations. The six rows other than FAST count
@@ -358,8 +393,8 @@ class Scene:
             synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)))
         check(self.rig.device.type == "cuda", "the rig is not on the card")
         self.poses = synthetic.smooth_trajectory(frames, step_angle=0.02)
-        lms = synthetic.make_landmarks(3000, depth_range=(4.0, 15.0))
-        imgs = synthetic.render_blob_images(self.rig, self.poses, lms)
+        self.lms = synthetic.make_landmarks(3000, depth_range=(4.0, 15.0))
+        imgs = synthetic.render_blob_images(self.rig, self.poses, self.lms)
         self.imgs = [torch.from_numpy(imgs[k]).to(dev) for k in range(frames)]
         self.dev = dev
 
@@ -999,7 +1034,10 @@ def main() -> int:
     # ---- phase 6: the vision-only bootstraps, launches counted ----
     bootstrap_phase(scene, dev, kernels)
 
-    # ---- phase 7: timing ----
+    # ---- phase 7: the visual-inertial and GPS path, launches counted ----
+    vio_problems = vio_phase(scene, dev)
+
+    # ---- phase 8: timing ----
     for n, k in kernels.items():
         time_kernel(n, k, smi)
         if "at_b1" in k:
@@ -1041,6 +1079,7 @@ def main() -> int:
         print(f"# per-frame process_image wall, {name} (n={len(ms)}): mean "
               f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f} ms, max "
               f"{np.max(ms):.3f} ms ({smi})")
+    vio_timing(scene, vio_problems, smi)
 
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
@@ -1245,8 +1284,265 @@ def bootstrap_phase(scene, dev, kernels):
           f"truth, outside (0.2, 5)")
 
 
+def _lla(p):
+    """Geodetic fix of an ENU position (the small-offset inverse of
+    tests/test_slam_vio.py)."""
+    lat = LLA0[0] + p[1] / 110_900.0
+    lon = LLA0[1] + p[0] / (110_900.0 * np.cos(np.radians(LLA0[0])))
+    return lat, lon, LLA0[2] + p[2]
+
+
+def _imu_span(ts, t_prev, t):
+    return (ts > t_prev) & (ts <= t)
+
+
+def vio_phase(scene, dev):
+    """Phase 7: (a) the stage D solve on the card under sync-debug
+    "error" against the CPU, with and without GPS, warm and cold, with
+    ba_linearize launched inside it; (b) the VIO + GPS session through
+    process_image; (c) the low-rate GPS dummy-keyframe drive. Each with
+    the launch counters reset right before it and read right after.
+    Returns the stage D problems on the card by GPS factor count."""
+    import torch
+
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.backend import ba_vio
+    from mcslam_tpu_torch.backend import imu as imu_mod
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.slam import INITIALIZED
+    from mcslam_tpu_torch.utils import metrics
+
+    # the IMU math on CUDA tensors against the CPU (the driver hands it
+    # CPU tensors; this shows the module runs on the card)
+    _, ts, gyro, acc = synthetic.analytic_circle_imu(
+        5, radius=4.0, omega=0.35, seed=3, **VIO_IMU, **VIO_BIAS)
+    sel = ts <= 0.2
+    args = [torch.from_numpy(np.asarray(a, np.float32)) for a in (
+        np.diff(ts[sel], prepend=0.0), gyro[sel], acc[sel])]
+    args += [torch.ones(int(sel.sum()), dtype=torch.bool),
+             torch.full((6,), 1e-3)]
+    pre = [imu_mod.preintegrate(*(a.to(d) for a in args))
+           for d in ("cpu", dev)]
+    st = [imu_mod.ImuState(torch.eye(4, device=d), torch.ones(3, device=d),
+                           torch.zeros(6, device=d)) for d in ("cpu", dev)]
+    pred = [imu_mod.predict(s, p) for s, p in zip(st, pre)]
+    err_imu = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        (*pre[1][:10], *pred[1]), (*pre[0][:10], *pred[0])))
+    check(err_imu <= 1e-5, f"imu on the card vs the CPU: {err_imu}")
+    print(f"# imu: preintegrate ({int(sel.sum())} samples) and predict on "
+          f"the card vs the CPU, max abs err {err_imu:.3g}")
+
+    # (a) the stage D solve
+    problems = {}
+    for num_gps in (0, VIO_GPS):
+        f = synthetic.random_vio_problem(scene.rig, num_gps=num_gps)
+        p_dev = ba_vio.problem_from_numpy(**f)
+        p_cpu = ba_vio.problem_from_numpy(**dict(f, device="cpu"))
+        check(p_dev.poses.device == dev, "the VIO problem is not on the card")
+        problems[num_gps] = p_dev
+        for name, iters in BA_ITERS:
+            ref = ba_vio.vio_solve(p_cpu, iters=iters, kf_blocked=True)
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                res = ba_vio.vio_solve(p_dev, iters=iters, kf_blocked=True)
+                enqueue_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            n_lin = _build.LAUNCHES.get("ba_linearize", 0)
+            check(n_lin > 0, f"vio_solve {name}: ba_linearize not launched")
+            err = {k: float((getattr(res, k).cpu() - getattr(ref, k)).abs()
+                            .max()) for k in VIO_TOL}
+            moved = float((ref.poses - p_cpu.poses).abs().max())
+            check(all(np.isfinite(list(err.values()))),
+                  f"vio_solve {name}: non-finite")
+            print(f"# vio_solve {name} ({iters} x 2) K=6 Ok=1365 L=2048 C=4, "
+                  f"{num_gps} GPS factors: queued with no host sync in "
+                  f"{enqueue_ms:.2f} ms, then {wait_ms:.2f} ms to finish; "
+                  f"ba_linearize launched {n_lin} times; card vs CPU max abs "
+                  f"err {err} (the solve moved the poses {moved:.3g}); cost "
+                  f"{float(res.cost):.6g} card, {float(ref.cost):.6g} CPU")
+            for k, tol in VIO_TOL.items():
+                check(err[k] <= tol, f"vio_solve {name}: {k} card vs CPU "
+                      f"{err[k]} > {tol}")
+
+    # (b) the VIO + GPS session
+    _build.LAUNCHES.clear()
+    slam, poses, times, init_at = vio_session(scene)
+    launches = dict(_build.LAUNCHES)
+    _, est = slam.trajectory_arrays()
+    ate = metrics.ate_rmse(est[init_at:], poses[init_at:])
+    fails = slam.stats["failures"]
+    print(f"# VIO + GPS session: {VIO_FRAMES} frames, IMU and vision "
+          f"initialized on frame {init_at}, state {slam.state}, keyframes "
+          f"{slam.stats['keyframes']}, VIO solves "
+          f"{slam.stats.get('window_ba_vio', 0)}, fixes attached "
+          f"{len(slam.kf_gps)}, GPS initialized {slam.gps_initialized}, "
+          f"failures {fails}, bias {np.round(slam.bias, 5).tolist()}, ATE "
+          f"from the init frame {ate:.4f} m; launches {launches}")
+    for line in slam.timers.report().splitlines():
+        print("#   " + line)
+    check(slam.imu_initialized and slam.state == INITIALIZED,
+          "VIO session: IMU not initialized or not INITIALIZED at the end")
+    check(fails == 0, f"VIO session: {fails} tracking failures")
+    check(slam.stats.get("window_ba_vio", 0) > 0, "VIO session: no VIO solve")
+    check(len(slam.kf_gps) >= 1, "VIO session: no fix attached")
+    check(np.all(np.isfinite(est)) and ate <= VIO_MAX_ATE,
+          f"VIO session: ATE {ate:.4f} m > {VIO_MAX_ATE}")
+    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
+              "ba_linearize"):
+        check(launches.get(n, 0) > 0,
+              f"kernel {n} was not launched in the VIO session")
+    print(f"# ba_linearize in the VIO session: {launches.get('ba_linearize')} "
+          f"launches in {slam.stats['window_ba_vio']} VIO solves")
+
+    # (c) the low-rate GPS dummy-keyframe drive
+    _build.LAUNCHES.clear()
+    slam = dummy_drive(dev)
+    launches = dict(_build.LAUNCHES)
+    dummies = [k for k in slam.keyframes if k.is_dummy]
+    vision_ts = {k.timestamp for k in slam.keyframes if not k.is_dummy}
+    print(f"# GPS dummy drive: {DUMMY_FRAMES // 3} vision frames, state "
+          f"{slam.state}, dummy keyframes {slam.stats.get('gps_dummy_kfs', 0)} "
+          f"({len(dummies)} in the list), VIO solves "
+          f"{slam.stats.get('window_ba_vio', 0)}; launches {launches}")
+    check(slam.state == INITIALIZED, "GPS dummy drive: not INITIALIZED")
+    check(slam.stats.get("gps_dummy_kfs", 0) >= 1 and dummies,
+          "GPS dummy drive: no dummy keyframe")
+    check(all(d.timestamp not in vision_ts and d.kf_id in slam.kf_gps
+              for d in dummies),
+          "GPS dummy drive: a dummy at a vision timestamp or without a fix")
+    check(launches.get("ba_linearize", 0) > 0,
+          "GPS dummy drive: ba_linearize not launched")
+    return problems
+
+
+def vio_session(scene, frames=VIO_FRAMES):
+    """frames blob frames of the scene's rig and landmarks along
+    analytic_circle_imu's circle (0.35 rad/s, 0.3 s stationary, 0.3 s
+    ramp, tests/test_slam_vio.py's noise and biases), 200 Hz IMU and a GPS
+    fix per frame through process_image with bench.py's extraction ->
+    (slam, true poses, [(wall s, keyframe?)], the frame the session
+    initialized on); finalize()d."""
+    import torch
+
+    from mcslam_tpu_torch.backend.imu import ImuParams
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    poses, imu_ts, gyro, accel = synthetic.analytic_circle_imu(
+        frames, fps=20.0, radius=4.0, omega=0.35, stationary_s=0.3,
+        ramp_s=0.3, seed=0, **VIO_IMU, **VIO_BIAS)
+    imgs = synthetic.render_blob_images(scene.rig, poses, scene.lms)
+    slam = MultiCameraSLAM(scene.rig, SlamConfig(imu_init_samples=40),
+                           imu_params=ImuParams(**VIO_IMU),
+                           gps_lever_arm=np.zeros(3))
+    times, init_at = [], None
+    for k in range(frames):
+        t, t_prev = k / 20.0, (k - 1) / 20.0 if k else -1.0
+        sel = _imu_span(imu_ts, t_prev, t)
+        img = torch.from_numpy(imgs[k]).to(scene.dev)
+        t0 = time.perf_counter()
+        info = slam.process_image(
+            img, t, imu=(imu_ts[sel], gyro[sel], accel[sel]),
+            gps=(np.array([t]), np.array([_lla(poses[k][:3, 3])])),
+            extract_cfg=scene.frame_kwargs())
+        times.append((time.perf_counter() - t0, info["keyframe"]))
+        if info.get("initialized") and init_at is None:
+            init_at = k
+    slam.finalize()
+    check(init_at is not None, "VIO session: never initialized")
+    return slam, poses, times, init_at
+
+
+def dummy_drive(dev, seed=7):
+    """tests/test_slam_vio.py's GPS dummy-keyframe session on the card: a
+    3-camera VGA rig, feature-level frames with 1.6 px noise, vision every
+    3rd of DUMMY_FRAMES frames, IMU at 200 Hz and GPS fixes at 1/3 and 2/3
+    of every frame gap (gps_sigma 0.1, gps_min_move 0.02)."""
+    import torch
+
+    from mcslam_tpu_torch.backend.imu import ImuParams
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.ops import hamming
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    fps = 20.0
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=3, baseline=0.2), device=dev)
+    poses, imu_ts, gyro, accel = synthetic.analytic_circle_imu(
+        DUMMY_FRAMES, fps=fps, radius=4.0, omega=0.35, stationary_s=0.3,
+        ramp_s=0.3, seed=seed, **VIO_IMU, **VIO_BIAS)
+    feats = synthetic.render_feature_frames(
+        rig, poses, synthetic.make_landmarks(900, seed=seed + 1,
+                                             depth_range=(5.0, 16.0)),
+        synthetic.make_descriptors(900, seed=seed + 2), kps_per_cam=320,
+        px_noise=1.6, desc_bit_noise=5, fps=fps, seed=seed + 3)
+    fixes_t, fixes_lla = [], []
+    for k in range(DUMMY_FRAMES - 1):
+        for frac in (1.0 / 3.0, 2.0 / 3.0):
+            fixes_t.append((k + frac) / fps)
+            fixes_lla.append(_lla((1 - frac) * poses[k][:3, 3]
+                                  + frac * poses[k + 1][:3, 3]))
+    gps_t, gps_lla = np.array(fixes_t), np.array(fixes_lla)
+    cfg = SlamConfig(window_size=4, ba_obs_capacity=8192, ba_lm_capacity=1024,
+                     local_map_landmarks=1024, kf_translation=0.1,
+                     kf_rotation=0.08, imu_init_samples=40, gps_sigma=0.1,
+                     gps_min_move=0.02)
+    slam = MultiCameraSLAM(rig, cfg, imu_params=ImuParams(**VIO_IMU),
+                           gps_lever_arm=np.zeros(3))
+    t_prev = -1.0
+    for k in range(0, DUMMY_FRAMES, 3):
+        f, t = feats[k], k / fps
+        sel, gsel = _imu_span(imu_ts, t_prev, t), _imu_span(gps_t, t_prev, t)
+        ff = frame.build_frame_from_keypoints(
+            torch.from_numpy(f.uv).to(dev), hamming.desc_to_torch(f.desc, dev),
+            torch.from_numpy(f.valid).to(dev), rig, max_intra=1024)
+        slam.process_frame(ff, f.timestamp,
+                           imu=(imu_ts[sel], gyro[sel], accel[sel]),
+                           gps=(gps_t[gsel], gps_lla[gsel]))
+        t_prev = t
+    slam.finalize()
+    return slam
+
+
+def vio_timing(scene, problems, smi):
+    """Phase 8's visual-inertial rows: the stage D solve warm and cold,
+    with and without GPS (CUDA events; device time and device ops from
+    one profiled solve), and the per-frame process_image wall time of a
+    second VIO + GPS session, keyframe frames and the others apart."""
+    from mcslam_tpu_torch.backend import ba_vio
+
+    for num_gps, p in problems.items():
+        for name, iters in BA_ITERS:
+            def solve():
+                return ba_vio.vio_solve(p, iters=iters, kf_blocked=True)
+            ms = cuda_ms(solve, reps=5, warmup=1)
+            dev_ms, n_ops, _ = device_profile(solve)
+            print(f"# time vio_solve {name} ({iters} x 2), {num_gps} GPS "
+                  f"factors: {ms:.3f} ms by CUDA events; profiler: "
+                  f"{dev_ms:.3f} ms device time in {n_ops:.0f} device ops "
+                  f"({smi})")
+    _, _, times, init_at = vio_session(scene)
+    for name, sel in (("keyframe frames", [k for k, (_, kf) in
+                                           enumerate(times) if kf]),
+                      ("other tracked frames", [
+                          k for k, (_, kf) in enumerate(times)
+                          if k > init_at and not kf])):
+        ms = [times[k][0] * 1e3 for k in sel]
+        print(f"# VIO + GPS session, per-frame process_image wall, {name} "
+              f"(n={len(ms)}): mean {np.mean(ms):.3f} ms, median "
+              f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms ({smi})")
+
+
 def time_kernel(n, k, smi):
-    """Phase 6 for one kernel record: replaces its callables and counts in
+    """Phase 8 for one kernel record: replaces its callables and counts in
     k by the times and the bound, and prints them."""
     fn, plain = k.pop("fn"), k.pop("plain")
     library = k.pop("library", None)

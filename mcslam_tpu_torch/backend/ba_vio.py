@@ -1,0 +1,483 @@
+"""Visual-inertial(-GPS) sliding-window bundle adjustment (counterpart of
+mcslam_tpu/backend/ba_vio.py, its kf_blocked=True path).
+
+Per-keyframe state [pose(6), vel(3), bias(6)] (D = 15), plus one global
+6-dof GPS alignment state E_T_V (ENU from the VIO world) appended as the
+last column block of the dense pose-side system, N = K * D + 6.
+
+- Vision observations touch the 6 pose dofs of one keyframe and one
+  landmark. Their block is the window BA's: one `ba_linearize` launch per
+  linearization (ops/ba_cuda.Linearizer, prepared once per solve; its
+  plain version on the CPU) and backend/ba._assemble_from_payload on a
+  BAProblem view with zero priors. A constant 0/1 matrix E (N, K * 6)
+  embeds the (K*6) pose blocks into the N layout exactly.
+- IMU factors couple two keyframes' 15-dof states, GPS factors one pose
+  and E_T_V, between factors two poses. Their residuals are whitened
+  functions of the states; the Jacobians on the factors' tangents come
+  from torch.func.jacfwd under vmap, in float64 (float32 jacfwd gives
+  float64 tangents for ops with a Python scalar, e.g. so3_exp's
+  t2 / 6.0, and a float32 matmul with them fails), cast back to float32.
+- A factor's Jacobian is placed into the N columns by a constant 0/1
+  selection matrix built once per solve from the host index columns
+  (`ImuFactors.i/j`, `GpsFactors.kf`, `BetweenFactors.i/j` are numpy):
+  no scatter, no atomics, no device index upload. Padded factors carry
+  weight 0.
+- The damped Schur step and the final marginal reuse backend/ba's
+  landmark elimination and solve, in float64 (the JAX package solves in
+  float32; the priors reach 1e8 against 1e-2 information entries).
+
+`vio_solve` queues on the current stream without the host waiting: no
+`.item()`, no host branch on a tensor and no host<->device copy inside.
+
+The reference's "hold the first optimization until >= 3 GPS factors" rule
+lives in the driver, not here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mcslam_tpu_torch.backend import ba
+from mcslam_tpu_torch.backend import imu as imu_mod
+from mcslam_tpu_torch.geometry import lie
+from mcslam_tpu_torch.ops import ba_cuda
+
+D = 15  # per-keyframe state dims
+
+
+class ImuFactors(NamedTuple):
+    """Padded table of preintegrated IMU factors between window keyframes;
+    the index columns are host arrays."""
+
+    i: np.ndarray  # (F,) int32 source keyframe (window index)
+    j: np.ndarray  # (F,) int32 target keyframe
+    dR: torch.Tensor  # (F, 3, 3)
+    dv: torch.Tensor  # (F, 3)
+    dp: torch.Tensor  # (F, 3)
+    dt: torch.Tensor  # (F,)
+    dR_dbg: torch.Tensor  # (F, 3, 3)
+    dv_dbg: torch.Tensor  # (F, 3, 3)
+    dv_dba: torch.Tensor  # (F, 3, 3)
+    dp_dbg: torch.Tensor  # (F, 3, 3)
+    dp_dba: torch.Tensor  # (F, 3, 3)
+    bias_hat: torch.Tensor  # (F, 6)
+    sqrt_info: torch.Tensor  # (F, 15, 15) upper-triangular whitening
+    valid: torch.Tensor  # (F,) bool
+
+
+class BetweenFactors(NamedTuple):
+    """SE(3) relative-pose factors between window keyframes (loop
+    constraints of the replay harness)."""
+
+    i: np.ndarray  # (B,) int32 window keyframe index
+    j: np.ndarray  # (B,) int32 window keyframe index
+    rel: torch.Tensor  # (B, 4, 4) measured i_T_j
+    sigma_rot: torch.Tensor  # (B,) rad
+    sigma_trans: torch.Tensor  # (B,) m
+    valid: torch.Tensor  # (B,) bool
+
+
+class GpsFactors(NamedTuple):
+    """GPS position factors: enu = E_T_V * (p_body + R_body t_bg)."""
+
+    kf: np.ndarray  # (G,) int32 window keyframe index
+    enu: torch.Tensor  # (G, 3) measured ENU position
+    t_bg: torch.Tensor  # (3,) body->GPS lever arm
+    sigma: torch.Tensor  # (G,) measurement sigma [m]
+    valid: torch.Tensor  # (G,) bool
+
+
+class VioProblem(NamedTuple):
+    poses: torch.Tensor  # (K, 4, 4) world_T_body
+    vels: torch.Tensor  # (K, 3)
+    biases: torch.Tensor  # (K, 6)
+    landmarks: torch.Tensor  # (L, 3)
+    lm_valid: torch.Tensor  # (L,)
+    obs: ba.BAObservations  # uv observations (kf-blocked layout)
+    cam_T_body: torch.Tensor  # (C, 4, 4) camera-from-body extrinsics
+    fxycxy: torch.Tensor  # (C, 4)
+    imu: ImuFactors | None
+    gps: GpsFactors | None
+    E_T_V: torch.Tensor  # (4, 4) ENU-from-VIO-world alignment state
+    prior_H: torch.Tensor  # (K*D+6, K*D+6)
+    prior_b: torch.Tensor  # (K*D+6,)
+    kf_valid: torch.Tensor  # (K,)
+    g_norm: float = 9.81
+    between: BetweenFactors | None = None
+
+
+class VioResult(NamedTuple):
+    poses: torch.Tensor
+    vels: torch.Tensor
+    biases: torch.Tensor
+    landmarks: torch.Tensor
+    E_T_V: torch.Tensor
+    obs_inliers: torch.Tensor
+    cost: torch.Tensor
+    # pose-side marginal information at the solution (landmarks
+    # eliminated): the source of the next window's fixed-lag prior
+    marginal_H: torch.Tensor  # (K*D+6, K*D+6)
+
+
+_INDEX_FIELDS = ("i", "j", "kf")
+
+
+def factor_table(cls, device="cuda", **fields):
+    """A factor table (ImuFactors, GpsFactors or BetweenFactors) from
+    arrays of its fields: index columns as host int32 arrays, `valid` as
+    bool and the rest as float32 tensors on `device`."""
+    out = {}
+    for n in cls._fields:
+        v = fields[n]
+        if n in _INDEX_FIELDS:
+            out[n] = np.asarray(v, np.int32)
+        else:
+            out[n] = ba._field(v, torch.bool if n == "valid"
+                               else torch.float32, device)
+    return cls(**out)
+
+
+def problem_from_numpy(poses, vels, biases, landmarks, lm_valid, obs,
+                       cam_T_body, fxycxy, E_T_V, prior_H, prior_b, kf_valid,
+                       imu=None, gps=None, between=None, g_norm=9.81,
+                       device="cuda") -> VioProblem:
+    """A VioProblem on `device` from arrays of the same fields (numpy, or
+    anything np.asarray takes; tensors are moved). `obs` is any object
+    with the BAObservations fields; the factor tables are factor_table()s
+    (or None) and are moved too."""
+    f32 = torch.float32
+    b = ba.problem_from_numpy(poses, landmarks, lm_valid, obs, cam_T_body,
+                              fxycxy, prior_H, prior_b, kf_valid,
+                              device=device)
+
+    def move(t):
+        return None if t is None else factor_table(
+            type(t), device, **t._asdict())
+
+    return VioProblem(
+        poses=b.poses, vels=ba._field(vels, f32, device),
+        biases=ba._field(biases, f32, device), landmarks=b.landmarks,
+        lm_valid=b.lm_valid, obs=b.obs, cam_T_body=b.cam_T_ref,
+        fxycxy=b.fxycxy, imu=move(imu), gps=move(gps),
+        E_T_V=ba._field(E_T_V, f32, device), prior_H=b.prior_H,
+        prior_b=b.prior_b, kf_valid=b.kf_valid, g_norm=float(g_norm),
+        between=move(between))
+
+
+# -- factor residuals ---------------------------------------------------------
+# Each takes the stacked tangent x of the states it touches and the
+# factor's tensors, with any leading batch dims (a single factor under
+# vmap, or all factors at once), and returns the whitened residual.
+
+
+def _retract_state(pose, vel, bias, xi):
+    return (lie.se3_retract(pose, xi[..., :6]), vel + xi[..., 6:9],
+            bias + xi[..., 9:15])
+
+
+def _imu_residual(x, Ti, vi, bi, Tj, vj, bj, dR, dv, dp, dt, dR_dbg, dv_dbg,
+                  dv_dba, dp_dbg, dp_dba, bias_hat, sqrt_info, g_norm):
+    """15-dim whitened residual of an IMU factor at the states retracted
+    by x = [xi_i (15), xi_j (15)]."""
+    pre = imu_mod.Preintegrated(
+        dR=dR, dv=dv, dp=dp, dt=dt, dR_dbg=dR_dbg, dv_dbg=dv_dbg,
+        dv_dba=dv_dba, dp_dbg=dp_dbg, dp_dba=dp_dba, cov=None,
+        bias_hat=bias_hat, n_samples=None)
+    si = imu_mod.ImuState(*_retract_state(Ti, vi, bi, x[..., :D]))
+    sj = imu_mod.ImuState(*_retract_state(Tj, vj, bj, x[..., D:]))
+    r = imu_mod.residual(si, sj, pre, imu_mod.ImuParams(g_norm=g_norm))
+    return lie._apply_mat(sqrt_info, r)
+
+
+def _gps_residual(x, pose, E_T_V, enu, t_bg):
+    """3-dim residual E_T_V (pose t_bg) - enu at x = [xi_pose, xi_E]."""
+    p_world = lie.se3_apply(lie.se3_retract(pose, x[..., :6]), t_bg)
+    return lie.se3_apply(lie.se3_retract(E_T_V, x[..., 6:]), p_world) - enu
+
+
+def _between_residual(x, Ti, Tj, rel, sigma_rot, sigma_trans):
+    """6-dim whitened log(rel^-1 T_i^-1 T_j) at x = [xi_i, xi_j]."""
+    Pi = lie.se3_retract(Ti, x[..., :6])
+    Pj = lie.se3_retract(Tj, x[..., 6:])
+    r6 = lie.se3_log(lie.se3_inverse(rel) @ (lie.se3_inverse(Pi) @ Pj))
+    w = torch.cat([
+        (1.0 / torch.clamp(sigma_rot, min=1e-6))[..., None].expand(
+            *sigma_rot.shape, 3),
+        (1.0 / torch.clamp(sigma_trans, min=1e-6))[..., None].expand(
+            *sigma_trans.shape, 3)], dim=-1)
+    return r6 * w
+
+
+def _stack_rows(t: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """t[idx] for host indices, as views and one stack (no index upload)."""
+    return torch.stack([t[int(k)] for k in idx])
+
+
+class _Factor:
+    """One factor table prepared for a solve: its residual function, its
+    weights and the selection matrix (F, n, N) that places each factor's
+    n tangent columns at its states' columns of the dense system."""
+
+    def __init__(self, fn, weight, blocks, n, N, dev):
+        self.fn, self.weight = fn, weight
+        F = weight.shape[0]
+        self.sel = torch.zeros(F, n, N, dtype=torch.float32, device=dev)
+        for f, row in enumerate(blocks):
+            for r0, c0, size in row:
+                self.sel[f, r0:r0 + size, c0:c0 + size].diagonal().fill_(1.0)
+
+    def linearize(self, *args):
+        """(weighted cost, H (N, N), g (N,)) of the table at the states in
+        args (the tangent is 0): Jacobians by jacfwd in float64."""
+        def f(x, *a):
+            r = self.fn(x, *a)
+            return r, r
+
+        a64 = [a.double() for a in args]
+        z = torch.zeros(a64[0].shape[0], self.sel.shape[1],
+                        dtype=torch.float64, device=a64[0].device)
+        J, r = torch.func.vmap(torch.func.jacfwd(f, has_aux=True))(z, *a64)
+        J, r = J.float() @ self.sel, r.float()
+        Jw = J * self.weight[:, None, None]
+        return (torch.sum(self.weight * torch.sum(r * r, dim=-1)),
+                torch.einsum("fri,frj->ij", Jw, J),
+                torch.einsum("fri,fr->i", Jw, r))
+
+    def cost(self, *args):
+        r = self.fn(torch.zeros(args[0].shape[0], self.sel.shape[1],
+                                dtype=args[0].dtype, device=args[0].device),
+                    *args)
+        return torch.sum(self.weight * torch.sum(r * r, dim=-1))
+
+
+def _vision_problem(problem: VioProblem) -> ba.BAProblem:
+    """The vision block as a BAProblem with zero priors."""
+    K = problem.poses.shape[0]
+    z = problem.poses.new_zeros
+    return ba.BAProblem(
+        poses=problem.poses, landmarks=problem.landmarks,
+        lm_valid=problem.lm_valid, obs=problem.obs,
+        cam_T_ref=problem.cam_T_body, fxycxy=problem.fxycxy,
+        prior_H=z((K * 6, K * 6)), prior_b=z(K * 6),
+        kf_valid=problem.kf_valid)
+
+
+def _factors(p: VioProblem, N: int) -> list:
+    """[(factor, args)] of the problem's factor tables: args(poses, vels,
+    biases, E_T_V) gives the factor residual's tensor arguments at a
+    state."""
+    dev, K = p.poses.device, p.poses.shape[0]
+    out = []
+    if p.imu is not None:
+        fi = p.imu
+        out.append((_Factor(
+            lambda x, *a: _imu_residual(x, *a, p.g_norm), fi.valid.float(),
+            [((0, int(i) * D, D), (D, int(j) * D, D))
+             for i, j in zip(fi.i, fi.j)], 2 * D, N, dev),
+            lambda P, V, B, E: (
+                _stack_rows(P, fi.i), _stack_rows(V, fi.i),
+                _stack_rows(B, fi.i), _stack_rows(P, fi.j),
+                _stack_rows(V, fi.j), _stack_rows(B, fi.j), fi.dR, fi.dv,
+                fi.dp, fi.dt, fi.dR_dbg, fi.dv_dbg, fi.dv_dba, fi.dp_dbg,
+                fi.dp_dba, fi.bias_hat, fi.sqrt_info)))
+    if p.gps is not None:
+        gf = p.gps
+        G = gf.kf.shape[0]
+        out.append((_Factor(
+            _gps_residual,
+            gf.valid.float() / torch.clamp(gf.sigma, min=1e-3) ** 2,
+            [((0, int(k) * D, 6), (6, K * D, 6)) for k in gf.kf], 12, N,
+            dev),
+            lambda P, V, B, E: (_stack_rows(P, gf.kf), E.expand(G, 4, 4),
+                                gf.enu, gf.t_bg.expand(G, 3))))
+    if p.between is not None:
+        fb = p.between
+        out.append((_Factor(
+            _between_residual, fb.valid.float(),
+            [((0, int(i) * D, 6), (6, int(j) * D, 6))
+             for i, j in zip(fb.i, fb.j)], 12, N, dev),
+            lambda P, V, B, E: (_stack_rows(P, fb.i), _stack_rows(P, fb.j),
+                                fb.rel, fb.sigma_rot, fb.sigma_trans)))
+    return out
+
+
+class _System:
+    """Everything of a VIO problem that is constant over a solve, and its
+    linearization at a state."""
+
+    def __init__(self, problem: VioProblem, huber_px: float):
+        p = problem
+        dev = p.poses.device
+        K, L = p.poses.shape[0], p.landmarks.shape[0]
+        self.K, self.N = K, K * D + 6
+        self.problem = p
+        self.vis = _vision_problem(p)
+        self.oh_l = ba._landmark_onehot(self.vis)
+        self.c = c = ba._lin_constants(self.vis)
+        self.lin = ba_cuda.Linearizer(c["obs_lm"], c["obs_cam"], c["uv"],
+                                      c["sigma2"], c["Rc9"], c["tc"],
+                                      c["f4"], K, L, huber_px)
+        # E (N, K*6): pose block k of the vision system -> rows k*D..k*D+5
+        self.E = torch.zeros(self.N, K * 6, dtype=torch.float32, device=dev)
+        for k in range(K):
+            self.E[k * D:k * D + 6, k * 6:k * 6 + 6].diagonal().fill_(1.0)
+        self.factors = _factors(p, self.N)
+
+    def __call__(self, state, obs_valid):
+        """-> ((H (N, N), g (N,), Hll (L, 3, 3), gl (L, 3), Wc (K, 6, L,
+        3)), total cost, vision residuals (O, 2), vision weights (O,))."""
+        poses, vels, biases, lms, ETV = state
+        payload, r, w, Hpp36, gp6 = self.lin(
+            ba._rtw12(poses), lms.contiguous(),
+            self.c["lm_vf"] * obs_valid.to(torch.float32))
+        Hpp, gp, Hll, gl, Wc = ba._assemble_from_payload(
+            self.vis, payload, Hpp36, gp6, self.oh_l)
+        cost = torch.sum(w * torch.sum(r * r, dim=-1))
+        H = self.E @ Hpp @ self.E.T + self.problem.prior_H
+        g = self.E @ gp + self.problem.prior_b
+        for fac, args in self.factors:
+            c_f, H_f, g_f = fac.linearize(*args(poses, vels, biases, ETV))
+            cost, H, g = cost + c_f, H + H_f, g + g_f
+        return (H, g, Hll, gl, Wc), cost, r, w
+
+    def rows(self, Wc):
+        """(K, 6, L, 3) vision cross terms -> (N, 1, L, 3) in the N
+        layout (the shape backend/ba._eliminate flattens)."""
+        L = Wc.shape[2]
+        return (self.E @ Wc.reshape(self.K * 6, L * 3)).reshape(
+            self.N, 1, L, 3)
+
+
+def _need_blocked(kf_blocked: bool, name: str):
+    if not kf_blocked:
+        raise NotImplementedError(
+            f"{name}: only the kf-blocked observation layout is ported "
+            f"(kf_blocked=True)")
+
+
+def _assemble_vio(problem: VioProblem, huber_px: float,
+                  kf_blocked: bool = True):
+    """The dense pose-side system and the landmark blocks at the problem's
+    state -> (H (N, N), g (N,), Hll (L, 3, 3), gl (L, 3), Wc (N, L, 3),
+    (r, w), cost), the JAX package's layout."""
+    _need_blocked(kf_blocked, "_assemble_vio")
+    s = _System(problem, huber_px)
+    (H, g, Hll, gl, Wc), cost, r, w = s(
+        (problem.poses, problem.vels, problem.biases, problem.landmarks,
+         problem.E_T_V), problem.obs.valid)
+    return H, g, Hll, gl, s.rows(Wc)[:, 0], (r, w), cost
+
+
+def _vio_cost(problem: VioProblem, huber_px: float) -> torch.Tensor:
+    """Total cost at the problem's state, residuals only (the vision
+    residuals by the plain path)."""
+    p = problem
+    cost = ba._total_cost(_vision_problem(p), huber_px)
+    for fac, args in _factors(p, p.poses.shape[0] * D + 6):
+        cost = cost + fac.cost(*args(p.poses, p.vels, p.biases, p.E_T_V))
+    return cost
+
+
+def vio_solve(problem: VioProblem, iters: int = 10, huber_px: float = 2.5,
+              init_lambda: float = 1e-4, chi2_thresh: float = 5.991,
+              gate_rounds: int = 2, kf_blocked: bool = True) -> VioResult:
+    """LM over the VIO window with the schedule of backend/ba.ba_solve:
+    `gate_rounds` rounds of `iters` steps, one linearization per step (the
+    trial point's doubles as the previous step's acceptance check), a
+    rejected step re-solving the carried system with a larger lambda; a
+    gate step takes no LM step: it tightens the vision mask by the chi2
+    gate (5.991) from the carried residuals, re-linearizes the carried
+    state, adopts it and resets lambda. The marginal comes from the
+    carried system. Only the kf-blocked observation layout is ported."""
+    _need_blocked(kf_blocked, "vio_solve")
+    dev = problem.poses.device
+    f32 = torch.float32
+    K = problem.poses.shape[0]
+    obs = problem.obs
+    system = _System(problem, huber_px)
+    sigma2 = system.c["sigma2"]
+
+    def gate(r):
+        chi2 = torch.sum(r * r, dim=-1) / torch.clamp(sigma2, min=1e-6)
+        return obs.valid & (chi2 < chi2_thresh)
+
+    def lam0():
+        return torch.full((), init_lambda, dtype=f32, device=dev)
+
+    obs_valid = obs.valid
+    b_state = (problem.poses, problem.vels, problem.biases,
+               problem.landmarks, problem.E_T_V)
+    b_sys, b_cost, b_r, _ = system(b_state, obs_valid)
+    lam = lam0()
+    for idx in range(iters * gate_rounds):
+        if idx > 0 and idx % iters == 0:
+            obs_valid = gate(b_r)
+            b_sys, b_cost, b_r, _ = system(b_state, obs_valid)
+            lam = lam0()
+            continue
+        H, g, Hll, gl, Wc = b_sys
+        dx, dl = ba._schur_solve(H, g, Hll, gl, system.rows(Wc), lam,
+                                 problem.lm_valid)
+        ds = dx[:K * D].reshape(K, D)
+        poses, vels, biases, lms, ETV = b_state
+        t_state = (lie.se3_retract(poses, ds[:, :6]), vels + ds[:, 6:9],
+                   biases + ds[:, 9:], lms + dl,
+                   lie.se3_retract(ETV, dx[K * D:]))
+        sys_t, c_t, r_t, _ = system(t_state, obs_valid)
+        improved = c_t < b_cost
+
+        def pick(a, b):
+            return torch.where(improved, a, b)
+
+        b_state = tuple(pick(a, b) for a, b in zip(t_state, b_state))
+        b_sys = tuple(pick(a, b) for a, b in zip(sys_t, b_sys))
+        b_r = pick(r_t, b_r)
+        b_cost = pick(c_t, b_cost)
+        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0),
+                          1e-8, 1e4)
+    # undamped pose-side marginal at the solution, from the carried system
+    H, _, Hll, _, Wc = b_sys
+    _, Wm, WHinv = ba._eliminate(Hll, system.rows(Wc), 1e-6)
+    marginal_H = (H.to(torch.float64)
+                  - torch.einsum("plk,qlk->pq", WHinv, Wm)).to(f32)
+    poses, vels, biases, lms, ETV = b_state
+    return VioResult(poses=poses, vels=vels, biases=biases, landmarks=lms,
+                     E_T_V=ETV, obs_inliers=gate(b_r), cost=b_cost,
+                     marginal_H=marginal_H)
+
+
+def make_imu_factors(preints: list, pairs: list, capacity: int,
+                     params: imu_mod.ImuParams = imu_mod.ImuParams(),
+                     device="cuda") -> ImuFactors:
+    """Stack host-side Preintegrated records into a padded factor table of
+    `capacity` rows on `device` (padding: identity deltas, dt 1e-3, unit
+    whitening, invalid). The whitening is the upper Cholesky factor of
+    each record's information, in float64 on the host."""
+    F = capacity
+    z33 = np.zeros((F, 3, 3), np.float32)
+    out = dict(
+        i=np.zeros(F, np.int32), j=np.zeros(F, np.int32),
+        dR=np.tile(np.eye(3, dtype=np.float32), (F, 1, 1)),
+        dv=np.zeros((F, 3), np.float32), dp=np.zeros((F, 3), np.float32),
+        dt=np.ones(F, np.float32) * 1e-3,
+        dR_dbg=z33.copy(), dv_dbg=z33.copy(), dv_dba=z33.copy(),
+        dp_dbg=z33.copy(), dp_dba=z33.copy(),
+        bias_hat=np.zeros((F, 6), np.float32),
+        sqrt_info=np.tile(np.eye(15, dtype=np.float32), (F, 1, 1)),
+        valid=np.zeros(F, bool),
+    )
+    for n, (pre, (i, j)) in enumerate(zip(preints, pairs)):
+        if n >= F:
+            break
+        info = imu_mod.information(pre, params).cpu().numpy()
+        out["sqrt_info"][n] = np.linalg.cholesky(
+            info + 1e-8 * np.eye(15)).T.astype(np.float32)
+        out["i"][n], out["j"][n] = i, j
+        for name in ("dR", "dv", "dp", "dt", "dR_dbg", "dv_dbg", "dv_dba",
+                     "dp_dbg", "dp_dba", "bias_hat"):
+            out[name][n] = getattr(pre, name).cpu().numpy()
+        out["valid"][n] = True
+    return factor_table(ImuFactors, device, **out)

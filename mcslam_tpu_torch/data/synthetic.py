@@ -189,6 +189,180 @@ def render_blob_images(rig: cam_ops.CameraRig, poses: np.ndarray,
     return out
 
 
+def _circle_profile(t, omega, t0, ramp):
+    """Piecewise yaw profile: stationary until t0, a constant angular
+    acceleration ramp of duration `ramp`, then the constant rate omega ->
+    (theta, dtheta, ddtheta), all exact."""
+    t = np.asarray(t, np.float64)
+    t1 = t - t0
+    if ramp <= 1e-8:  # no ramp: constant rate from t0 on
+        theta = np.where(t1 < 0.0, 0.0, omega * t1)
+        dtheta = np.where(t1 < 0.0, 0.0, omega)
+        return theta, dtheta, np.zeros_like(theta)
+    theta = np.where(
+        t1 <= 0.0, 0.0,
+        np.where(t1 < ramp, omega * t1 * t1 / (2.0 * ramp),
+                 omega * (t1 - ramp / 2.0)))
+    dtheta = np.where(
+        t1 <= 0.0, 0.0, np.where(t1 < ramp, omega * t1 / ramp, omega))
+    ddtheta = np.where((t1 > 0.0) & (t1 < ramp), omega / ramp, 0.0)
+    return theta, dtheta, ddtheta
+
+
+def analytic_circle_imu(num_frames: int, fps: float = 20.0,
+                        rate_hz: float = 200.0, radius: float = 4.0,
+                        omega: float = 0.3, accel_noise: float = 0.0,
+                        gyro_noise: float = 0.0, accel_bias=(0.0, 0.0, 0.0),
+                        gyro_bias=(0.0, 0.0, 0.0), gravity: float = 9.81,
+                        stationary_s: float = 0.0, ramp_s: float = 0.0,
+                        seed: int = 5):
+    """Circular trajectory with exact IMU samples: the body yaws about +y
+    with the profile of _circle_profile (stationary, ramp, constant rate)
+    while moving along p = radius (sin theta, 0, -cos theta); velocity and
+    acceleration are the profile's closed-form derivatives. Gravity is
+    -z in the world. Returns (poses (F, 4, 4) at the frame times, imu_ts
+    (S,) at interval midpoints, gyro (S, 3), accel (S, 3)). Same seed,
+    same samples as the JAX package's generator."""
+    rng = np.random.RandomState(seed)
+    g_world = np.array([0.0, 0.0, -gravity])
+
+    def roty(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
+
+    def state(t):
+        th, dth, ddth = _circle_profile(t, omega, stationary_s,
+                                        max(ramp_s, 1e-9))
+        s, c = np.sin(th), np.cos(th)
+        p = radius * np.array([s, 0.0, -c])
+        dp_dth = radius * np.array([c, 0.0, s])
+        d2p_dth2 = radius * np.array([-s, 0.0, c])
+        a = d2p_dth2 * dth * dth + dp_dth * ddth
+        return roty(th), p, a, dth
+
+    poses = np.zeros((num_frames, 4, 4), np.float32)
+    for k in range(num_frames):
+        R, p, _, _ = state(k / fps)
+        poses[k, :3, :3] = R
+        poses[k, :3, 3] = p
+        poses[k, 3, 3] = 1.0
+    dt = 1.0 / rate_hz
+    n = int(round((num_frames - 1) / fps / dt))
+    ts = (np.arange(n) + 0.5) * dt
+    gyro = np.zeros((n, 3))
+    accel = np.zeros((n, 3))
+    for i, t in enumerate(ts):
+        R, _, a_world, dth = state(t)
+        gyro[i] = np.array([0.0, dth, 0.0]) + np.asarray(gyro_bias) \
+            + rng.randn(3) * gyro_noise
+        accel[i] = R.T @ (a_world - g_world) + np.asarray(accel_bias) \
+            + rng.randn(3) * accel_noise
+    return poses, ts, gyro, accel
+
+
+def circle_velocity(t, radius=4.0, omega=0.3, stationary_s=0.0, ramp_s=0.0):
+    """Closed-form world velocity of analytic_circle_imu at time t."""
+    th, dth, _ = _circle_profile(t, omega, stationary_s, max(ramp_s, 1e-9))
+    return radius * dth * np.array([np.cos(th), 0.0, np.sin(th)])
+
+
+def random_vio_problem(rig: cam_ops.CameraRig, num_kfs: int = 6,
+                       num_lms: int = 2048, obs_capacity: int = 8192,
+                       num_gps: int = 0, seed: int = 0,
+                       px_noise: float = 0.5, pose_noise: float = 0.01,
+                       outlier_frac: float = 0.05) -> dict:
+    """A consistent visual-inertial window at bench.py's stage D shape, as
+    the keyword arguments of backend.ba_vio.problem_from_numpy (numpy
+    fields and factor tables on the rig's device).
+
+    K keyframes 0.2 s apart along analytic_circle_imu's circle (radius 4
+    m, 0.35 rad/s; the body is the rig's reference frame), joined by K - 1
+    IMU factors preintegrated from its 200 Hz samples (40 per gap, noise
+    2e-3 / 2e-4, zero bias); L landmarks in a slab ahead; a kf-blocked
+    table of obs_capacity // K observations per keyframe with random
+    cameras and landmarks, the projections plus N(0, px_noise) noise,
+    outlier_frac of them moved 30-120 px, those behind a camera invalid;
+    every pose but the first perturbed by pose_noise and the velocities by
+    0.05 m/s. num_gps > 0 adds that many GPS factors on keyframes 0, 1, ...
+    (every third one invalid) of an ENU frame turned 0.3 rad about z, with
+    0.05 m noise and sigma 0.1. The priors are the driver's: 1e6 on pose
+    0, 1 on its velocity, 1e5 on its bias, E_T_V clamped at 1e8 without
+    GPS and its rotation pinned at 1e8 with it."""
+    from mcslam_tpu_torch.backend import ba_vio
+    from mcslam_tpu_torch.backend import imu as imu_mod
+    from mcslam_tpu_torch.backend.ba import BAObservations
+    from mcslam_tpu_torch.geometry import lie
+
+    rng = np.random.RandomState(seed)
+    K, L, C, D = num_kfs, num_lms, rig.num_cams, ba_vio.D
+    Ok = obs_capacity // K
+    O = Ok * K
+    poses, ts, gyro, acc = analytic_circle_imu(
+        (K - 1) * 4 + 1, fps=20.0, radius=4.0, omega=0.35,
+        accel_noise=2e-3, gyro_noise=2e-4, seed=seed + 1)
+    kf_t = np.arange(K) * 0.2
+    gt = poses[::4].astype(np.float64)
+    preints = []
+    for k in range(K - 1):
+        sel = (ts > kf_t[k]) & (ts <= kf_t[k + 1])
+        dts = np.clip(np.diff(ts[sel], prepend=kf_t[k]), 1e-4, 0.1)
+        preints.append(imu_mod.preintegrate(
+            *(torch.from_numpy(np.asarray(a, np.float32))
+              for a in (dts, gyro[sel], acc[sel])),
+            torch.ones(int(sel.sum()), dtype=torch.bool), torch.zeros(6)))
+    imu = ba_vio.make_imu_factors(preints, [(k, k + 1) for k in range(K - 1)],
+                                  K - 1, device=rig.device)
+    lms = np.stack([rng.uniform(-6, 6, L), rng.uniform(-2, 2, L),
+                    rng.uniform(2, 12, L)], 1).astype(np.float32)
+    kf = np.repeat(np.arange(K, dtype=np.int32), Ok)
+    cam = rng.randint(0, C, O).astype(np.int32)
+    lm = rng.randint(0, L, O).astype(np.int32)
+    cTr = rig.cam_T_ref.cpu().double().numpy()
+    cTw = cTr[cam] @ np.linalg.inv(gt)[kf]
+    p = np.einsum("oij,oj->oi", cTw[:, :3, :3], lms[lm]) + cTw[:, :3, 3]
+    f = rig.fxycxy.cpu().double().numpy()[cam]
+    uv = p[:, :2] / np.maximum(p[:, 2:], 1e-3) * f[:, :2] + f[:, 2:]
+    uv += rng.randn(O, 2) * px_noise
+    bad = rng.rand(O) < outlier_frac
+    uv[bad] += rng.uniform(30, 120, (int(bad.sum()), 2))
+    xi = rng.randn(K, 6) * pose_noise
+    xi[0] = 0.0
+    init = (torch.from_numpy(gt) @ lie.se3_exp(torch.from_numpy(xi))).float()
+    vels = np.stack([circle_velocity(t, 4.0, 0.35) for t in kf_t])
+    N = K * D + 6
+    prior = np.zeros((N, N), np.float32)
+    prior[:6, :6] = np.eye(6) * 1e6
+    prior[6:9, 6:9] = np.eye(3)
+    prior[9:15, 9:15] = np.eye(6) * 1e5
+    E = np.eye(4, dtype=np.float32)
+    E[:2, :2] = [[np.cos(0.3), -np.sin(0.3)], [np.sin(0.3), np.cos(0.3)]]
+    E[:3, 3] = [5.0, -2.0, 1.0]
+    gps = None
+    if num_gps:
+        gk = np.arange(num_gps, dtype=np.int32) % K
+        enu = gt[gk, :3, 3] @ E[:3, :3].T + E[:3, 3] \
+            + rng.randn(num_gps, 3) * 0.05
+        gps = ba_vio.factor_table(
+            ba_vio.GpsFactors, rig.device, kf=gk, enu=enu,
+            t_bg=np.zeros(3), sigma=np.full(num_gps, 0.1),
+            valid=np.arange(num_gps) % 3 != 2)
+        prior[K * D:K * D + 3, K * D:K * D + 3] = np.eye(3) * 1e8
+        prior[K * D + 3:, K * D + 3:] = np.eye(3)
+    else:
+        prior[K * D:, K * D:] = np.eye(6) * 1e8
+    return dict(
+        poses=init.numpy(),
+        vels=(vels + rng.randn(K, 3) * 0.05).astype(np.float32),
+        biases=np.zeros((K, 6), np.float32), landmarks=lms,
+        lm_valid=np.ones(L, bool),
+        obs=BAObservations(kf=kf, cam=cam, lm=lm, uv=uv.astype(np.float32),
+                           sigma2=np.ones(O, np.float32), valid=p[:, 2] > 0.5),
+        cam_T_body=cTr.astype(np.float32),
+        fxycxy=rig.fxycxy.cpu().numpy(), E_T_V=E, prior_H=prior,
+        prior_b=np.zeros(N, np.float32), kf_valid=np.ones(K, bool), imu=imu,
+        gps=gps, device=rig.device)
+
+
 def random_window_ba_problem(rig: cam_ops.CameraRig, num_kfs: int = 6,
                              num_lms: int = 2048, obs_capacity: int = 8192,
                              seed: int = 0, px_noise: float | None = None,

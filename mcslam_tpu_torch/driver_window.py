@@ -1,9 +1,12 @@
 """Window-BA half of the SLAM driver (mixin; counterpart of
-mcslam_tpu/driver_window.py, vision branch): window assembly in the
-kf-blocked layout with the same capacity tiers, the solve, deferred
-write-back and the fixed-lag marginal carry-over.
+mcslam_tpu/driver_window.py): window assembly in the kf-blocked layout
+with the same capacity tiers; the vision solve with deferred write-back
+and the fixed-lag marginal carry-over; and, once the IMU is
+gravity-initialized, the visual-inertial(-GPS) solve (backend/ba_vio) with
+its body-frame states, IMU and GPS factor tables, priors and synchronous
+write-back.
 
-On a CUDA device the solve runs on a side stream of its own. The tracking
+On a CUDA device the vision solve runs on a side stream of its own. The tracking
 path syncs its stream every frame (the packed fetch, the fast-path read,
 pageable uploads); on a shared stream each of those syncs would wait for
 the queued solve and make the deferred write-back synchronous. The side
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mcslam_tpu_torch.backend import ba
+from mcslam_tpu_torch.backend import ba, ba_vio
 
 
 class WindowBAMixin:
@@ -38,7 +41,9 @@ class WindowBAMixin:
         return self._ba_stream
 
     def _solve_window(self, window):
-        """Window BA over an explicit keyframe list (gauge on window[0])."""
+        """Window BA over an explicit keyframe list (gauge on window[0]);
+        the VIO solve once the IMU is gravity-initialized. GPS dummy
+        keyframes have no observations and take part as state nodes."""
         cfg = self.cfg
         if len(window) < 2:
             return
@@ -102,6 +107,14 @@ class WindowBAMixin:
         lms[: len(lm_ids)] = self.map.pos[lm_ids]
         lm_valid = np.zeros(L, bool)
         lm_valid[: len(lm_ids)] = True
+        obs = ba.BAObservations(
+            kf=np.repeat(np.arange(K, dtype=np.int32), Ok), cam=obs_cam,
+            lm=obs_lm, uv=obs_uv, sigma2=obs_s2, valid=obs_val)
+
+        if self.use_imu and self.imu_initialized:
+            self._run_window_ba_vio(window, obs, poses, kf_valid, lms,
+                                    lm_valid, lm_ids)
+            return
 
         prior_H = np.zeros((K * 6, K * 6), np.float32)
         # fixed-lag marginalization: anchor the oldest window pose with the
@@ -113,10 +126,7 @@ class WindowBAMixin:
         else:
             prior_H[:6, :6] = np.eye(6) * 1e6
         problem = ba.problem_from_numpy(
-            poses, lms, lm_valid,
-            ba.BAObservations(
-                kf=np.repeat(np.arange(K, dtype=np.int32), Ok), cam=obs_cam,
-                lm=obs_lm, uv=obs_uv, sigma2=obs_s2, valid=obs_val),
+            poses, lms, lm_valid, obs,
             self.rig.cam_T_ref, self.rig.fxycxy, prior_H,
             np.zeros(K * 6, np.float32), kf_valid, device=self.device)
         # warm windows (previous solve landed, no reinit since) are
@@ -206,3 +216,120 @@ class WindowBAMixin:
         if stream is not None and getattr(self, "_pending_ba", None):
             torch.cuda.current_stream(self.device).wait_stream(stream)
         self._pending_ba = None
+
+    def _run_window_ba_vio(self, window, obs, poses, kf_valid, lms, lm_valid,
+                           lm_ids):
+        """Visual-inertial(-GPS) window BA by ba_vio.vio_solve, written
+        back at once (no deferred landing). The inertial state is the body
+        frame: world_T_body = world_T_ref @ inv(body_T_cam[0])."""
+        cfg = self.cfg
+        K = cfg.window_size
+        D = ba_vio.D
+        N = K * D + 6
+        e0 = K * D
+        poses_body = poses.copy()
+        vels = np.zeros((K, 3), np.float32)
+        biases = np.zeros((K, 6), np.float32)
+        for wk, kf in enumerate(window):
+            poses_body[wk] = kf.world_T_ref @ self._inv_btc0
+            vels[wk] = self.kf_vel.get(kf.kf_id, np.zeros(3))
+            biases[wk] = self.kf_bias.get(kf.kf_id, self.bias)
+
+        # IMU factors between consecutive window keyframes
+        idx_of = {kf.kf_id: wk for wk, kf in enumerate(window)}
+        preints, pairs = [], []
+        for kf in window[1:]:
+            entry = self._kf_preints.get(kf.kf_id)
+            if entry is not None and entry[0] in idx_of:
+                preints.append(entry[1])
+                pairs.append((idx_of[entry[0]], idx_of[kf.kf_id]))
+        imu_factors = None
+        if preints:
+            imu_factors = ba_vio.make_imu_factors(
+                preints, pairs, capacity=K - 1, params=self.imu_params,
+                device=self.device)
+
+        # GPS factors, held until >= 3 fixes are attached
+        gps_factors = None
+        if self.use_gps and self.gps_initialized and len(self.kf_gps) >= 3:
+            g_kf = [idx_of[kf.kf_id] for kf in window
+                    if kf.kf_id in self.kf_gps]
+            if g_kf:
+                enu = np.zeros((K, 3), np.float32)
+                enu[:len(g_kf)] = [self.kf_gps[window[k].kf_id]
+                                   for k in g_kf]
+                gps_factors = ba_vio.factor_table(
+                    ba_vio.GpsFactors, self.device,
+                    kf=np.pad(g_kf, (0, K - len(g_kf))), enu=enu,
+                    t_bg=self.gps_lever_arm,
+                    sigma=np.full(K, cfg.gps_sigma, np.float32),
+                    valid=np.arange(K) < len(g_kf))
+
+        prior_H = np.zeros((N, N), np.float32)
+        prior_H[:6, :6] = np.eye(6) * 1e6  # gauge on the oldest pose
+        # fixed-lag marginalization: the previous window's marginal of the
+        # state that is now the oldest (velocity and bias are weakly
+        # observable inside one window)
+        marg = getattr(self, "_marg_prior", None)
+        if marg is not None and window[0].kf_id == marg[0]:
+            prior_H[6:D, 6:D] += marg[1][6:, 6:]
+        else:
+            prior_H[6:9, 6:9] = np.eye(3) * 1.0
+            # a cold bias may only drift at the random-walk scale
+            prior_H[9:15, 9:15] = np.eye(6) * 1e5
+        if gps_factors is None:
+            prior_H[e0:, e0:] = np.eye(6) * 1e8  # E_T_V unobserved: clamp
+        else:
+            # E_T_V is a global state: carry its information across
+            # windows, and pin its rotation (only _refit_gps_alignment,
+            # over the whole history, rotates it)
+            carry = getattr(self, "_etv_prior_H", None)
+            prior_H[e0:, e0:] = carry if carry is not None else np.eye(6)
+            for d in range(3):
+                prior_H[e0 + d, e0 + d] = max(prior_H[e0 + d, e0 + d], 1e8)
+
+        problem = ba_vio.problem_from_numpy(
+            poses_body, vels, biases, lms, lm_valid, obs,
+            np.linalg.inv(self._btc), self.rig.fxycxy, self.E_T_V, prior_H,
+            np.zeros(N, np.float32), kf_valid, imu=imu_factors,
+            gps=gps_factors, g_norm=self.imu_params.g_norm,
+            device=self.device)
+        iters = cfg.ba_iters if self._ba_warm else cfg.ba_iters_cold
+        result = ba_vio.vio_solve(problem, iters=iters, kf_blocked=True)
+        self.stats["window_ba_vio"] = self.stats.get("window_ba_vio", 0) + 1
+        self._ba_warm = True
+
+        # one fetch: poses, velocities, biases, E_T_V, landmarks, marginal
+        n_lm = len(lm_ids)
+        v = torch.cat([result.poses.reshape(-1), result.vels.reshape(-1),
+                       result.biases.reshape(-1), result.E_T_V.reshape(-1),
+                       result.landmarks[:n_lm].reshape(-1),
+                       result.marginal_H.reshape(-1)]).cpu().numpy()
+        sizes = (K * 16, K * 3, K * 6, 16, n_lm * 3, N * N)
+        parts = np.split(v, np.cumsum(sizes)[:-1])
+        new_poses_body = parts[0].reshape(K, 4, 4)
+        new_vels, new_biases = parts[1].reshape(K, 3), parts[2].reshape(K, 6)
+        margH = parts[5].reshape(N, N)
+        for wk, kf in enumerate(window):
+            kf.world_T_ref = (new_poses_body[wk] @ self._btc0).astype(
+                np.float32)
+            self.kf_vel[kf.kf_id] = new_vels[wk]
+            self.kf_bias[kf.kf_id] = new_biases[wk]
+        self.bias = new_biases[len(window) - 1]
+        if gps_factors is not None:
+            self.E_T_V = parts[3].reshape(4, 4)
+            # re-fit E_T_V over the whole history; while that history is
+            # too small or flat, carry half the window's E_T_V block
+            if not self._refit_gps_alignment():
+                blk = margH[e0:, e0:]
+                self._etv_prior_H = np.clip((blk + blk.T) * 0.5, -1e5,
+                                            1e5) * 0.5
+        self._map_update_positions(lm_ids, parts[4].reshape(n_lm, 3))
+        self.cur_pose = window[-1].world_T_ref.copy()
+        # the fixed-lag prior of the next window: the conditional block of
+        # the state that becomes the oldest, capped so that stale
+        # linearizations cannot over-constrain
+        if len(window) >= 2:
+            blk = margH[D:2 * D, D:2 * D]
+            self._marg_prior = (window[1].kf_id,
+                                np.clip((blk + blk.T) * 0.5, -1e6, 1e6))

@@ -103,8 +103,10 @@ def _triangulate_stage(groups, xy_ud, kp_sigma2, rig, min_z, max_z):
 
 def _fused_stage(imgs, rig, num_points, num_levels, fast_threshold,
                  min_threshold, max_intra, min_z, max_z,
-                 angle_bins=orb.ANGLE_BINS, route=orb.OrbRoute()):
-    """extract (by `route`) + undistort + intra-match + triangulate."""
+                 angle_bins=orb.ANGLE_BINS, route=orb.OrbRoute(),
+                 seg_masks=None):
+    """extract (by `route`) + optional seg-mask veto + undistort +
+    intra-match + triangulate."""
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) * (1.0 / 255.0)
     kps = orb.extract_orb_rig(
@@ -112,6 +114,15 @@ def _fused_stage(imgs, rig, num_points, num_levels, fast_threshold,
         fast_threshold=fast_threshold, min_threshold=min_threshold,
         angle_bins=angle_bins, route=route,
     )
+    if seg_masks is not None:
+        # veto keypoints on masked (dynamic) pixels: a mask value below 0.7
+        # kills the keypoint
+        seg_masks = torch.as_tensor(seg_masks, device=imgs.device)
+        C, H, W = seg_masks.shape
+        x = torch.clamp(kps.xy[..., 0].to(torch.int32), 0, W - 1).long()
+        y = torch.clamp(kps.xy[..., 1].to(torch.int32), 0, H - 1).long()
+        cam = torch.arange(C, device=imgs.device)[:, None]
+        kps = kps._replace(valid=kps.valid & (seg_masks[cam, y, x] >= 0.7))
     xy_ud = undistort_keypoints(kps.xy, kps.valid, rig)
     groups = intra_ops.intra_match(
         desc=kps.desc, xy_ud=xy_ud, valid=kps.valid, response=kps.response,
@@ -139,14 +150,16 @@ def build_frame(imgs: torch.Tensor, rig, num_points: int = 1024,
                 fast_threshold: float = 20.0 / 255.0,
                 min_threshold: float = 7.0 / 255.0, min_z: float = 0.5,
                 max_z: float = 40.0, angle_bins: int = orb.ANGLE_BINS,
-                route: orb.OrbRoute = orb.OrbRoute()) -> FrameFeatures:
+                route: orb.OrbRoute = orb.OrbRoute(),
+                seg_masks=None) -> FrameFeatures:
     """(C, H, W) float images in [0, 1] (or uint8) on the rig's device ->
     FrameFeatures. ORB per camera (batched, by the extraction `route`) ->
+    keypoints where a (C, H, W) segmentation mask is below 0.7 dropped ->
     undistort -> cross-camera intra-matching -> rig triangulation of
     multi-view groups."""
     return assemble_frame(*_fused_stage(
         imgs, rig, num_points, num_levels, fast_threshold, min_threshold,
-        max_intra, min_z, max_z, angle_bins, route,
+        max_intra, min_z, max_z, angle_bins, route, seg_masks,
     ))
 
 

@@ -1,6 +1,7 @@
 """Point-set alignment (counterpart of mcslam_tpu/geometry/alignment.py:
-kabsch with SE(3) / Sim(3) alignment, and the SVD-free batched absolute
-orientation kabsch_quat with _dominant_eigvec4)."""
+kabsch with SE(3) / Sim(3) alignment, the SVD-free batched absolute
+orientation kabsch_quat with _dominant_eigvec4, and the gravity
+alignment of IMU initialization)."""
 
 from __future__ import annotations
 
@@ -75,6 +76,37 @@ def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
     )
     t = mu_d - (R @ mu_s.unsqueeze(-1)).squeeze(-1)
     return R, t
+
+
+def gravity_align_rotation(acc_mean: torch.Tensor,
+                           g_world: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """world_R_body taking the mean accelerometer direction to g_world
+    (default +z), for IMU gravity initialization: Rodrigues from the cross
+    product, and for antiparallel vectors a 180-degree turn about an axis
+    orthogonal to acc_mean."""
+    f = dict(dtype=acc_mean.dtype, device=acc_mean.device)
+    if g_world is None:
+        g_world = torch.tensor([0.0, 0.0, 1.0], **f)
+    a = acc_mean / torch.clamp(
+        torch.linalg.vector_norm(acc_mean, dim=-1, keepdim=True), min=1e-12)
+    b = g_world / torch.linalg.vector_norm(g_world, dim=-1, keepdim=True)
+    v = torch.linalg.cross(a, b.expand_as(a))
+    c = torch.sum(a * b, dim=-1)
+    s2 = torch.sum(v * v, dim=-1)
+    vx = lie.so3_hat(v)
+    eye = torch.eye(3, **f)
+    generic = eye + vx + vx @ vx * (
+        (1.0 - c) / torch.clamp(s2, min=1e-12))[..., None, None]
+    ortho = torch.where(torch.abs(a[..., 0:1]) < 0.9,
+                        torch.tensor([1.0, 0.0, 0.0], **f),
+                        torch.tensor([0.0, 1.0, 0.0], **f))
+    axis = torch.linalg.cross(a, ortho)
+    axis = axis / torch.clamp(
+        torch.linalg.vector_norm(axis, dim=-1, keepdim=True), min=1e-12)
+    ax = lie.so3_hat(axis)
+    flip = eye + 2.0 * ax @ ax
+    return torch.where((c < -1.0 + 1e-6)[..., None, None], flip, generic)
 
 
 def _dominant_eigvec4(K: torch.Tensor) -> torch.Tensor:

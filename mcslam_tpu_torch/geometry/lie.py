@@ -141,8 +141,10 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(*batch, 3, 3)
     t = t.expand(*batch, 3)
     top = torch.cat([R, t.unsqueeze(-1)], dim=-1)
-    bottom = torch.zeros(*batch, 1, 4, dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # the row [0, 0, 0, 1] without a scalar write: under torch.func
+    # transforms a scalar setitem becomes a host-to-device copy (a sync)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        *batch, 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 

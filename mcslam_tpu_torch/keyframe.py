@@ -1,6 +1,6 @@
 """Host-side keyframe records (counterpart of mcslam_tpu/keyframe.py): the
 padded SoA snapshot a frame leaves behind when promoted, fetched from the
-device in one copy."""
+device in one copy, and the GPS dummy keyframe with no vision content."""
 
 from __future__ import annotations
 
@@ -37,7 +37,43 @@ class Keyframe:
     """Host-side keyframe record (small numpy arrays + landmark id table);
     descriptors are uint32 on the host, as in the JAX package."""
 
-    is_dummy = False
+    is_dummy = False  # GPS dummy keyframes (no vision content) override
+
+    @classmethod
+    def dummy(cls, kf_id, timestamp, world_T_ref, num_cams: int,
+              num_slots: int):
+        """An IMU-predicted GPS keyframe with no vision content: a pure
+        state node that the window BA constrains by IMU and GPS factors
+        only. It has no device copy (device_desc / d_lm_id raise; the
+        tracking reference is always a vision keyframe)."""
+        kf = cls.__new__(cls)
+        kf.kf_id = kf_id
+        kf.timestamp = timestamp
+        kf.world_T_ref = np.asarray(world_T_ref, np.float32)
+        kf.is_dummy = True
+        M, C = num_slots, num_cams
+        kf.im_desc = np.zeros((M, 8), np.uint32)
+        kf.im_uv = np.zeros((M, 2), np.float32)
+        kf.im_anchor_cam = np.zeros(M, np.int32)
+        kf.im_valid = np.zeros(M, bool)
+        kf.im_sigma2 = np.ones(M, np.float32)
+        kf.im_point3d = np.zeros((M, 3), np.float32)
+        kf.im_has_depth = np.zeros(M, bool)
+        kf.im_ray_idx = np.full((M, C), -1, np.int32)
+        kf.ray_uv = np.zeros((M, C, 2), np.float32)
+        kf.ray_sigma2 = np.ones((M, C), np.float32)
+        kf.ray_valid = np.zeros((M, C), bool)
+        kf.lm_id = np.full(M, -1, np.int32)
+        kf.device = None
+        kf.d_desc = None
+        kf.d_valid = None
+        kf._d_lm_id = None
+        return kf
+
+    def _need_device(self):
+        if self.is_dummy:
+            raise ValueError(f"keyframe {self.kf_id} is a GPS dummy: it has "
+                             f"no descriptors on a device")
 
     def __init__(self, kf_id, timestamp, world_T_ref, frame: FrameFeatures):
         self.kf_id = kf_id
@@ -74,12 +110,14 @@ class Keyframe:
         self._d_lm_id = None
 
     def d_lm_id(self) -> torch.Tensor:
+        self._need_device()
         if self._d_lm_id is None:
             self._d_lm_id = torch.tensor(self.lm_id, device=self.device)
         return self._d_lm_id
 
     def device_desc(self):
         """Device-resident (desc, valid), re-uploaded if released."""
+        self._need_device()
         if self.d_desc is None:
             self.d_desc = hamming.desc_to_torch(self.im_desc, self.device)
             self.d_valid = torch.tensor(self.im_valid, device=self.device)

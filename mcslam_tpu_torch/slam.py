@@ -1,18 +1,23 @@
-"""Top-level SLAM pipeline, vision-only (counterpart of mcslam_tpu/slam.py):
-the host-side state machine that sequences the device programs (frame
-build, fused frame build + tracking, window BA).
+"""Top-level SLAM pipeline (counterpart of mcslam_tpu/slam.py): the
+host-side state machine that sequences the device programs (frame build,
+fused frame build + tracking, window BA).
 
-A session is `MultiCameraSLAM(rig, config, device=...).process_image(...)`
-per frame, then `finalize()` / `trajectory_arrays()` / `write_trajectory()`.
-The port covers the three vision-only bootstraps (rig depth; the 17-point
-non-central relative pose and the monocular essential matrix for frames
-with too little intra-rig depth, each holding a pending anchor frame),
-the fused per-frame program with its motion fast path, keyframe insertion
+A session is `MultiCameraSLAM(rig, config, device=..., imu_params=...,
+gps_lever_arm=...).process_image(imgs, t, imu=(ts, gyro, accel),
+gps=(ts, lla), seg_masks=...)` per frame, then `finalize()` /
+`trajectory_arrays()` / `write_trajectory()`. The port covers the three
+vision-only bootstraps (rig depth; the 17-point non-central relative pose
+and the monocular essential matrix for frames with too little intra-rig
+depth, each holding a pending anchor frame), the fused per-frame program
+with its motion fast path, the segmentation-mask veto, keyframe insertion
 (tracked landmarks, new landmarks from rig depth and from two-view
-matches) and window BA on every keyframe with deferred write-back. It
-raises NotImplementedError for what it does not port yet: loop closure
-(`vocab`), IMU (`imu_params`, `imu=`), GPS (`gps_lever_arm`, `gps=`),
-multi-device BA (`mesh`), segmentation masks and the final global BA.
+matches) and window BA on every keyframe with deferred write-back; with
+`imu_params`, gravity initialization, IMU-predicted tracking and the
+visual-inertial window solve (driver_window, backend/ba_vio); with
+`gps_lever_arm`, GPS factors, the E_T_V alignment and GPS dummy keyframes
+(driver_sensors). It raises NotImplementedError for what it does not port
+yet: loop closure (`vocab`), multi-device BA (`mesh`) and the final
+global BA.
 
 States: NOT_INITIALIZED -> INITIALIZED, with REINITIALIZING after
 `max_track_failures` consecutive tracking failures.
@@ -27,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mcslam_tpu_torch.driver_sensors import SensorsMixin
 from mcslam_tpu_torch.driver_window import WindowBAMixin
 from mcslam_tpu_torch.frontend import ransac, seventeen
 from mcslam_tpu_torch.frontend.frame import (
@@ -51,8 +57,8 @@ REINITIALIZING = 2
 class SlamConfig:
     """The JAX package's SlamConfig, field for field with the same
     defaults (see mcslam_tpu/slam.py for the rationale of each value).
-    Fields of unported paths (loop closure, global BA, IMU, GPS) are kept
-    so that configurations carry over."""
+    Fields of unported paths (loop closure, global BA) are kept so that
+    configurations carry over."""
 
     # matching
     inter_max_dist: int = 64
@@ -118,8 +124,10 @@ class SlamConfig:
     async_ba_land_frames: int = 1
     async_gba: bool = True
     gba_land_frames: int = 4
-    # inertial / GPS (not ported)
+    # inertial: samples collected before gravity alignment
     imu_init_samples: int = 200
+    # GPS position sigma [m], and the least ENU move [m] before a new fix
+    # is accepted (car scale; small rigs lower it)
     gps_sigma: float = 0.5
     gps_min_move: float = 0.5
 
@@ -129,7 +137,7 @@ class SlamConfig:
 _BUILD_FRAME_DEFAULTS = {
     k: v.default
     for k, v in inspect.signature(build_frame).parameters.items()
-    if v.default is not inspect.Parameter.empty
+    if v.default is not inspect.Parameter.empty and k != "seg_masks"
 }
 
 
@@ -137,17 +145,17 @@ def _unit_rows(v: np.ndarray) -> np.ndarray:
     return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
 
 
-class MultiCameraSLAM(WindowBAMixin):
+class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
     def __init__(self, rig, config: SlamConfig = None, seed: int = 0,
                  device=None, vocab=None, loop_config=None, imu_params=None,
                  gps_lever_arm=None, mesh=None):
         """`device`: where the device programs run (default: the rig's,
         which is the card unless the rig was built with device="cpu");
         the rig is moved there. `seed` seeds the torch.Generator the
-        RANSAC stages draw from."""
+        RANSAC stages draw from. `imu_params` (backend.imu.ImuParams)
+        turns on the visual-inertial path, `gps_lever_arm` (body -> GPS
+        antenna, metres) the GPS factors."""
         for name, v in (("vocab (loop closure)", vocab),
-                        ("imu_params (visual-inertial)", imu_params),
-                        ("gps_lever_arm (GPS)", gps_lever_arm),
                         ("mesh (multi-device BA)", mesh)):
             if v is not None:
                 raise NotImplementedError(
@@ -181,12 +189,57 @@ class MultiCameraSLAM(WindowBAMixin):
         # synchronously (young geometry)
         self._ba_sync_left = self.cfg.window_size
         self.timers = StageTimers()
+        # owners come with replay and relocalization (not ported)
+        self.graph_log = None
+        self.relocalizer = None
+        # host copies of the rig's body_T_cam (read every keyframe)
+        self._btc = self.rig.body_T_cam.cpu().numpy()
+        self._btc0 = self._btc[0]
+        self._inv_btc0 = np.linalg.inv(self._btc0)
+
+        # inertial state
+        self.use_imu = imu_params is not None
+        self.imu_params = imu_params
+        self.imu_initialized = not self.use_imu
+        self._imu_buf = []  # (ts, gyro, accel) pending samples
+        self._imu_init_buf = []  # stationary samples for gravity init
+        self.bias = np.zeros(6, np.float32)
+        self.kf_vel: dict[int, np.ndarray] = {}  # kf_id -> velocity
+        self.kf_bias: dict[int, np.ndarray] = {}
+        self.kf_time: dict[int, float] = {}
+        self._kf_preints: dict[int, tuple] = {}  # kf_id -> (prev id, preint)
+        self._last_track_ts = None  # the IMU prediction's span starts here
+        self._pred_span = None
+        self._track_vel = np.zeros(3, np.float32)
+
+        # GPS state
+        self.use_gps = gps_lever_arm is not None
+        self.gps_lever_arm = (np.zeros(3, np.float32) if gps_lever_arm is None
+                              else np.asarray(gps_lever_arm, np.float32))
+        self.enu_converter = None
+        self.gps_initialized = False
+        self.E_T_V = np.eye(4, dtype=np.float32)  # ENU <- VIO world
+        self._gps_buf = []  # (t, enu) pending fixes
+        self._gps_last_enu = None
+        self.kf_gps: dict[int, np.ndarray] = {}  # kf_id -> attached fix
 
     # -- helpers ----------------------------------------------------------
 
     def _prev_kf(self) -> Optional[Keyframe]:
-        """The last (vision) keyframe: the tracking reference."""
-        return self.keyframes[-1] if self.keyframes else None
+        """The last vision keyframe, the tracking reference (GPS dummy
+        keyframes interleave in the list)."""
+        for kf in reversed(self.keyframes):
+            if not kf.is_dummy:
+                return kf
+        return None
+
+    def _seed_inertial(self, kfs_and_times):
+        """Zero velocity and the current bias for bootstrap keyframes."""
+        if self.use_imu:
+            for kf, t in kfs_and_times:
+                self.kf_time[kf.kf_id] = t
+                self.kf_vel[kf.kf_id] = np.zeros(3, np.float32)
+                self.kf_bias[kf.kf_id] = self.bias.copy()
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -233,6 +286,7 @@ class MultiCameraSLAM(WindowBAMixin):
         self.kf_counter += 1
         self.state = INITIALIZED
         self.stats["keyframes"] += 1
+        self._seed_inertial([(kf, timestamp)])
         return True
 
     def _anchor_matches(self, frame: FrameFeatures, pf: FrameFeatures):
@@ -268,6 +322,7 @@ class MultiCameraSLAM(WindowBAMixin):
         self.cur_pose = pose1.astype(np.float32)
         self._run_window_ba()
         self.cur_pose = kf1.world_T_ref.copy()
+        self._seed_inertial([(kf0, pts_t), (kf1, timestamp)])
 
     def _initialize_mono(self, frame: FrameFeatures, timestamp: float) -> bool:
         """Two-view monocular bootstrap (mcslam_tpu/slam.py:376-477):
@@ -420,7 +475,19 @@ class MultiCameraSLAM(WindowBAMixin):
         return d[:L], d[L:] > 0
 
     def _predict_pose(self) -> np.ndarray:
-        """Constant-velocity motion model T_pred = T_k (T_{k-1}^-1 T_k)."""
+        """The pose prediction of the projection gate and the portfolio's
+        motion candidate: with the IMU gravity-initialized, dead reckoning
+        by the preintegrated samples since the last tracked frame (constant
+        velocity misses across low-rate-vision gaps under acceleration);
+        otherwise the constant-velocity model T_k (T_{k-1}^-1 T_k)."""
+        span = self._pred_span
+        if (self.use_imu and self.imu_initialized and span is not None
+                and span[1] > span[0]):
+            pre = self._preintegrate_span(span[0], span[1])
+            if pre is not None:
+                pred = self._imu_predict(self.cur_pose, self._track_vel, pre)
+                return (pred.world_T_body.numpy() @ self._btc0).astype(
+                    np.float32)
         delta = np.linalg.inv(self.last_pose) @ self.cur_pose
         return (self.cur_pose @ delta).astype(np.float32)
 
@@ -545,8 +612,41 @@ class MultiCameraSLAM(WindowBAMixin):
         # copies; host arrays stay for window BA
         for old in self.keyframes[: -(self.cfg.window_size + 2)]:
             old.release_device()
+
+        if self.use_imu and self.imu_initialized:
+            self._inertial_bookkeeping(kf, timestamp, pose)
+        if self.use_gps:
+            self._attach_gps_to_kf(kf)
+            self._try_gps_init()
         with self.timers.span("window_ba"):
             self._run_window_ba()
+
+    def _inertial_bookkeeping(self, kf, timestamp, pose):
+        """Preintegrate the span since the previous keyframe (a dummy
+        included) and seed the new keyframe's velocity by IMU propagation
+        of the previous one's state (a finite difference of positions would
+        amplify pose noise by 1 / dt); drop consumed samples."""
+        self.kf_time[kf.kf_id] = timestamp
+        if len(self.keyframes) >= 2:
+            prev = self.keyframes[-2]
+            pre = self._preintegrate_span(prev.timestamp, timestamp)
+            if pre is not None:
+                self._kf_preints[kf.kf_id] = (prev.kf_id, pre)
+            if pre is not None and prev.kf_id in self.kf_vel:
+                v = self._imu_predict(prev.world_T_ref,
+                                      self.kf_vel[prev.kf_id],
+                                      pre).vel.numpy()
+            else:
+                # no usable preintegration: a finite difference over a
+                # noise-safe baseline
+                dt = max(timestamp - prev.timestamp, 0.05)
+                v = ((pose[:3, 3] - prev.world_T_ref[:3, 3]) / dt).astype(
+                    np.float32)
+            self.kf_vel[kf.kf_id] = v
+        else:
+            self.kf_vel[kf.kf_id] = np.zeros(3, np.float32)
+        self.kf_bias[kf.kf_id] = self.bias.copy()
+        self._imu_buf = [s for s in self._imu_buf if s[0] > timestamp - 0.2]
 
     # -- main entry -------------------------------------------------------
 
@@ -556,27 +656,34 @@ class MultiCameraSLAM(WindowBAMixin):
         uint8; numpy or a tensor). In INITIALIZED steady state the frame
         build and the tracking step run as one fused device program with
         one packed fetch (_build_and_track_step); otherwise build_frame +
-        process_frame. extract_cfg: build_frame keyword overrides
-        (num_points, num_levels, max_intra, angle_bins, route, ...)."""
-        if seg_masks is not None:
-            raise NotImplementedError(
-                "process_image: segmentation masks are not ported to "
-                "mcslam_tpu_torch yet")
-        self._refuse_sensors(imu, gps)
+        process_frame (also with seg_masks, and while the IMU waits for
+        gravity alignment). extract_cfg: build_frame keyword overrides
+        (num_points, num_levels, max_intra, angle_bins, route, ...);
+        imu / gps: the sensor messages since the previous frame, as for
+        process_frame."""
         cfg = self.cfg
         imgs = torch.as_tensor(imgs, device=self.device)
         ecfg = dict(extract_cfg or {})
-        if self.state != INITIALIZED or not self.keyframes:
-            frame = build_frame(imgs, self.rig, **ecfg)
-            return self.process_frame(frame, timestamp)
-        # a matured deferred solve lands before the fused dispatch (the
-        # program consumes the predicted pose and the map mirror)
+        if (self.state != INITIALIZED or not self.keyframes
+                or seg_masks is not None
+                or (self.use_imu and not self.imu_initialized)):
+            frame = build_frame(imgs, self.rig, seg_masks=seg_masks, **ecfg)
+            return self.process_frame(frame, timestamp, imu=imu, gps=gps)
+        # sensor ingestion and a matured deferred solve come before the
+        # fused dispatch (the program consumes the predicted pose and the
+        # map mirror); process_frame skips both when it gets _packed
+        if imu is not None and self.use_imu:
+            self._ingest_imu(imu)
+        if gps is not None and self.use_gps:
+            self._ingest_gps(gps)
+            self._process_gps_dummies(timestamp)
         if (getattr(self, "_pending_ba", None) is not None
                 and self.stats["frames"] + 1
                 - getattr(self, "_ba_dispatch_frame", 0)
                 >= cfg.async_ba_land_frames):
             self._finish_pending_ba()
         kf_prev = self._prev_kf()
+        self._set_pred_span(timestamp)
         cand_ids, cand_valid = self._candidates_on_device()
         kw = dict(_BUILD_FRAME_DEFAULTS)
         kw.update(ecfg)
@@ -603,25 +710,42 @@ class MultiCameraSLAM(WindowBAMixin):
         frame = assemble_frame(kps, xy_ud, groups, tri)
         return self.process_frame(frame, timestamp, _packed=packed)
 
-    @staticmethod
-    def _refuse_sensors(imu, gps):
-        if imu is not None or gps is not None:
-            raise NotImplementedError(
-                "MultiCameraSLAM: IMU and GPS input is not ported to "
-                "mcslam_tpu_torch yet")
+    def _set_pred_span(self, timestamp):
+        """The IMU prediction's span: the last tracked frame -> now."""
+        self._pred_span = (None if self._last_track_ts is None
+                           else (self._last_track_ts, timestamp))
 
     def process_frame(self, frame: FrameFeatures, timestamp: float,
                       imu=None, gps=None, _packed=None) -> dict:
         """One SLAM step on an already-built FrameFeatures; returns this
-        frame's stats. `_packed`: internal, a pre-dispatched tracking
-        buffer of the fused program (process_image)."""
-        self._refuse_sensors(imu, gps)
+        frame's stats. imu = (ts (S,), gyro (S, 3), accel (S, 3)) and
+        gps = (ts (G,), lla (G, 3)): the sensor messages since the previous
+        frame (with imu_params / gps_lever_arm; ignored otherwise). While
+        the IMU waits for gravity alignment a frame only records the pose.
+        `_packed`: internal, a pre-dispatched tracking buffer of the fused
+        program (process_image)."""
         cfg = self.cfg
         self.stats["frames"] += 1
         info = {"keyframe": False, "tracked": 0, "state": self.state}
 
+        if imu is not None and self.use_imu:
+            self._ingest_imu(imu)
+            if not self.imu_initialized:
+                self._record_pose(timestamp)
+                return info
+        if gps is not None and self.use_gps:
+            self._ingest_gps(gps)
+            if self.state == INITIALIZED:
+                # fixes between vision keyframes become dummy keyframes
+                self._process_gps_dummies(timestamp)
+
         if self.state != INITIALIZED:
-            info["initialized"] = self._initialize(frame, timestamp)
+            ok = self._initialize(frame, timestamp)
+            info["initialized"] = ok
+            if ok:
+                # fresh motion state for the predictor
+                self._last_track_ts = timestamp
+                self._track_vel = np.zeros(3, np.float32)
             self._record_pose(timestamp)
             return info
 
@@ -634,6 +758,7 @@ class MultiCameraSLAM(WindowBAMixin):
             self._finish_pending_ba()
 
         kf_prev = self._prev_kf()
+        self._set_pred_span(timestamp)
         with self.timers.span("track"):
             ok, pose, (m_ok, m_idx), _, lm_match, inliers = (
                 self._track_frame_fused(frame, kf_prev, packed=_packed))
@@ -669,6 +794,13 @@ class MultiCameraSLAM(WindowBAMixin):
                 lm_match, inliers = lm_match2, inl2
                 n_tracked = int(((lm_match >= 0) & inliers).sum())
         info["tracked"] = n_tracked
+
+        # world-frame velocity of the IMU predictor (finite difference of
+        # reference positions)
+        if self._last_track_ts is not None and timestamp > self._last_track_ts:
+            self._track_vel = ((pose[:3, 3] - self.cur_pose[:3, 3]) / max(
+                timestamp - self._last_track_ts, 1e-3)).astype(np.float32)
+        self._last_track_ts = timestamp
 
         self.last_pose = self.cur_pose
         self.cur_pose = pose

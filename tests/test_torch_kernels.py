@@ -19,7 +19,8 @@ multiply and add as the plain version does), Hpp and gp to 1e-5 of their
 largest magnitude (summed in another order), and bitwise equal across
 two runs, at K in {1, 2, 6} x Ok in {1, 1365, 8192} x C in {1, 4, 8};
 the oriented gather bitwise, also across two runs, at T in {1, 7, 3072}
-x W in {640, 200, 201}. The frame build on the card against the CPU
+x W in {640, 200, 201}. vio_solve at the stage D shape on the card
+against the CPU within VIO_TOL. The frame build on the card against the CPU
 under the extraction routes A and B: keypoints exact, descriptors equal
 except at keypoints whose angle lies within 1e-4 rad of a steering-bin
 boundary."""
@@ -535,3 +536,39 @@ def test_build_frame_routes_on_cuda_match_cpu(cuda, route):
     x = torch.remainder(cpu.kp_angle, 2 * np.pi) / (2 * np.pi) * 16
     near = (x - torch.floor(x) - 0.5).abs() * (2 * np.pi / 16) < 1e-4
     assert not bool((differ & ~near).any())
+
+
+# vio_solve on the card against the CPU: both solve the damped step in
+# float64, the vision sums differ in order (ba_linearize against its plain
+# version); measured at most 2.8e-6 (velocities, the cold solve with GPS),
+# so the states must agree to 1e-4 (chip_smoke.VIO_TOL)
+VIO_TOL = dict(poses=1e-4, vels=1e-4, biases=1e-4, E_T_V=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_gps", [0, 6], ids=["no_gps", "gps"])
+@pytest.mark.parametrize("iters", [1, 8], ids=["warm", "cold"])
+def test_vio_solve_on_cuda_matches_cpu(cuda, iters, num_gps):
+    """The visual-inertial window solve at bench.py's stage D shape (K=6,
+    Ok=1365, L=2048, C=4, 5 IMU factors; with 6 GPS factors, 4 valid) on
+    the card, with host syncs turned into errors, against the CPU."""
+    from mcslam_tpu_torch.backend import ba_vio
+
+    rig = synthetic.make_synthetic_rig(device=cuda)
+    f = synthetic.random_vio_problem(rig, num_gps=num_gps)
+    ref = ba_vio.vio_solve(ba_vio.problem_from_numpy(**dict(f, device="cpu")),
+                           iters=iters, kf_blocked=True)
+    p = ba_vio.problem_from_numpy(**f)
+    torch.cuda.synchronize()
+    n0 = _build.LAUNCHES["ba_linearize"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = ba_vio.vio_solve(p, iters=iters, kf_blocked=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.LAUNCHES["ba_linearize"] > n0
+    err = {k: float((getattr(res, k).cpu() - getattr(ref, k)).abs().max())
+           for k in VIO_TOL}
+    print(f"vio_solve {iters} x 2, {num_gps} GPS: card vs CPU {err}")
+    for k, tol in VIO_TOL.items():
+        assert err[k] <= tol, err

@@ -32,6 +32,7 @@ from mcslam_tpu_torch import _build
 from mcslam_tpu_torch import slam as tslam
 from mcslam_tpu_torch import tracking_kernels as ttk
 from mcslam_tpu_torch.backend import ba as tba
+from mcslam_tpu_torch.backend import imu as timu
 from mcslam_tpu_torch.geometry import camera as tcam
 from mcslam_tpu_torch.mapping import device_map as tdm
 from mcslam_tpu_torch.mapping import landmarks as tlm
@@ -244,11 +245,14 @@ def test_session_metrics_and_tum_match_jax(sessions, tmp_path):
 
 
 def test_unported_paths_raise():
-    _, trig, _, imgs = _scene()
-    for kw in (dict(vocab=object()), dict(imu_params=object()),
-               dict(gps_lever_arm=np.zeros(3)), dict(mesh=object())):
+    _, trig, _, _ = _scene()
+    for kw in (dict(vocab=object()), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             tslam.MultiCameraSLAM(trig, **kw)
-    slam = tslam.MultiCameraSLAM(trig, tslam.SlamConfig(**CFG))
-    with pytest.raises(NotImplementedError, match="IMU and GPS"):
-        slam.process_image(imgs[0], 0.0, imu=([], [], []))
+    with pytest.raises(NotImplementedError, match="final_global_ba"):
+        tslam.MultiCameraSLAM(trig, tslam.SlamConfig(final_global_ba=True))
+    # the visual-inertial and GPS paths are ported: no raise
+    slam = tslam.MultiCameraSLAM(trig, tslam.SlamConfig(**CFG),
+                                 imu_params=timu.ImuParams(),
+                                 gps_lever_arm=np.zeros(3))
+    assert slam.use_imu and slam.use_gps and not slam.imu_initialized

@@ -109,8 +109,10 @@ def test_port_imports_no_jax():
             " 'mcslam_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import chip_smoke\n"
-            "for m in ('slam', 'driver_window', 'keyframe', 'backend.ba',\n"
-            "          'ops.ba_cuda', 'mapping.landmarks', 'mapping.device_map',\n"
+            "for m in ('slam', 'driver_window', 'driver_sensors', 'keyframe',\n"
+            "          'backend.ba', 'backend.ba_vio', 'backend.imu',\n"
+            "          'geometry.geodesy', 'geometry.alignment', 'ops.ba_cuda',\n"
+            "          'mapping.landmarks', 'mapping.device_map',\n"
             "          'utils.metrics', 'utils.tum', 'utils.profiling'):\n"
             "    assert 'mcslam_tpu_torch.' + m in sys.modules, m\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or"
@@ -130,13 +132,15 @@ def test_entry_points_default_to_the_card():
 
     from mcslam_tpu_torch import slam as tslam
     from mcslam_tpu_torch.backend import ba as tba
+    from mcslam_tpu_torch.backend import ba_vio as tvio
     from mcslam_tpu_torch.data import synthetic as tsyn
     from mcslam_tpu_torch.mapping import device_map as tdm
 
     for fn in (tcam.make_rig, tcam.rig_from_numpy, tsyn.make_synthetic_rig,
                tframe.frame_from_numpy, tdm.DeviceMap,
                ttk.map_mirror_from_numpy, tba.problem_from_numpy,
-               tham.desc_to_torch):
+               tvio.problem_from_numpy, tvio.factor_table,
+               tvio.make_imu_factors, tham.desc_to_torch):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
     assert inspect.signature(tslam.MultiCameraSLAM).parameters[
