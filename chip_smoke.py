@@ -91,6 +91,35 @@ Phases, each of which raises (non-zero exit) on failure:
      (c) tests/test_slam_vio.py's low-rate GPS dummy-keyframe drive at the
      feature level: dummy keyframes at non-vision timestamps, each with a
      fix; each with its launch counters reset right before it;
+  9. loop closure and relocalization (run after phase 7, before the
+     timing), each part with its launch counters reset right before it:
+     (a) the global solve (ba_solve, 10 x 2) at tests/test_global_ba.py's
+     shape (K=64, Ok=256, L=2048) on the card under
+     set_sync_debug_mode("error") against the plain solve on the CPU
+     (1e-3), and at the SlamConfig cap (K=64, Ok=512, L=8192) on the card
+     alone: the cost falls, poses finite, peak memory printed;
+     ba_linearize launched; (b) a 40-frame loop session at the bench
+     configuration plus final_global_ba through process_image
+     (loop_trajectory around ring landmarks, textured blob images, a
+     vocabulary trained on the first frames, tests/test_image_e2e.py's
+     LoopConfig): INITIALIZED, no failure, loops >= 1, global BA >= 1,
+     ATE <= LOOP_MAX_ATE, the five default-route kernels launched; then
+     the driver's _run_global_ba dispatches a deferred global solve under
+     set_sync_debug_mode("error") and _finish_pending_gba lands it; (c)
+     tests/test_loop_pipeline.py's 60-frame drift scene at the feature
+     level with and without loop closure: a closure with a PGO bend, and
+     the loop ATE below the VO ATE; (d) tests/test_hard_synthetic.py's
+     retrieval corpus (104 database entries, 30 revisit queries, 20
+     different-world negatives, 256x192, one camera) through the port's
+     ORB, LoopCloser.retrieve_topn and the test's verification: precision
+     >= 0.95, recall >= 0.85, no false fire; (e) (c)'s map and BoW
+     database saved: the Relocalizer relocalizes a seen frame within
+     0.1 m and the FastTracker refines a perturbed prediction within
+     0.05 m, pose_lm and hamming_argmin2 launched;
+  10. the loop path's timing: detection per keyframe (span, BoW
+     transform, one verification), _close_loop, the global solve at
+     both shapes (CUDA events, device time and ops), relocalize and
+     fast-track per frame;
   8. timing: for each kernel the CUDA-event time of its wrapper call, of
      its plain version and, where one exists, of the one PyTorch call
      that computes the same function (the advanced-indexing gather for
@@ -170,6 +199,32 @@ VIO_IMU = dict(accel_noise=2e-3, gyro_noise=2e-4)
 VIO_BIAS = dict(accel_bias=(0.02, -0.01, 0.015),
                 gyro_bias=(0.001, -0.0005, 0.002))
 LLA0 = (42.36, -71.06, 10.0)
+# the loop-closure phase: (a) the global solve (10 x 2 LM steps, the
+# driver's global_ba_iters) at tests/test_global_ba.py's shape (64
+# keyframes, global_ba_lm_capacity 2048, global_ba_obs_per_kf 256) and at
+# the SlamConfig cap (global_ba_max_kfs 64, global_ba_lm_capacity 8192,
+# global_ba_obs_per_kf 512), as (K, L, O); (b) a LOOP_FRAMES-frame loop
+# session at the bench configuration (LOOP_REVISIT frames revisit the
+# start; LOOP_LMS ring landmarks; a vocabulary from LOOP_TRAIN frames;
+# tests/test_image_e2e.py's LoopConfig), its ATE gate set from the CPU
+# rehearsal of scripts/loop_rehearsal.py (PERF.md); (c)
+# tests/test_loop_pipeline.py's DRIFT_FRAMES-frame drift scene; (d)
+# tests/test_hard_synthetic.py's retrieval corpus; (e) relocalization of
+# frame RELOC_FRAME of (c) against its saved map: a revisit frame, where
+# the closed map is consistent (older keyframes reproject their own
+# landmarks at up to tens of px in both packages, ROADMAP Queue 3).
+GBA_ITERS = 10
+GBA_STEP = 0.002  # rad per keyframe: the slab stays ahead of all 64
+GBA_TEST, GBA_CAP = (64, 2048, 64 * 256), (64, 8192, 64 * 512)
+LOOP_FRAMES, LOOP_REVISIT, LOOP_LMS, LOOP_TRAIN = 40, 8, 1200, 6
+LOOP_CFG = dict(dislocal=8, k_consistency=1, min_nss=0.01, alpha=0.1,
+                min_matches=12, min_inliers=10)
+# the bench session's own ATE gate (MAX_ATE), 2.2x the worst of the CPU
+# rehearsal's two RANSAC seeds (0.0444 / 0.0422 m, PERF.md)
+LOOP_MAX_ATE = 0.1
+DRIFT_FRAMES, RELOC_FRAME = 60, 53
+RET_W, RET_H, RET_F = 256, 192, 210.0
+RET_DB, RET_Q, RET_NEG = 104, 30, 20
 
 # The least time of a kernel's work: bytes over the H100 SXM's 3.35 TB/s,
 # and the time of its operations. The six rows other than FAST count
@@ -1037,6 +1092,9 @@ def main() -> int:
     # ---- phase 7: the visual-inertial and GPS path, launches counted ----
     vio_problems = vio_phase(scene, dev)
 
+    # ---- phase 9: loop closure and relocalization, launches counted ----
+    loop_state = loop_phase(dev)
+
     # ---- phase 8: timing ----
     for n, k in kernels.items():
         time_kernel(n, k, smi)
@@ -1080,6 +1138,9 @@ def main() -> int:
               f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f} ms, max "
               f"{np.max(ms):.3f} ms ({smi})")
     vio_timing(scene, vio_problems, smi)
+
+    # ---- phase 10: the loop path's timing ----
+    loop_timing(loop_state, smi)
 
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
@@ -1181,6 +1242,21 @@ def path_ratio(est, poses) -> float:
     return float(length(est) / length(poses))
 
 
+def counted(name, expect, fn):
+    """fn() with the launch counters reset right before it and read right
+    after; each kernel named in `expect` must have launched -> (fn's
+    result, {kernel: launches})."""
+    from mcslam_tpu_torch import _build
+
+    _build.LAUNCHES.clear()
+    out = fn()
+    launches = dict(_build.LAUNCHES)
+    print(f"# launches during {name}: {launches}")
+    for n in expect:
+        check(launches.get(n, 0) > 0, f"{name}: kernel {n} was not launched")
+    return out, launches
+
+
 def bootstrap_phase(scene, dev, kernels):
     """Phase 6: the driver on frames with too little rig depth, each path
     with the launch counters reset right before it and read right after.
@@ -1191,20 +1267,9 @@ def bootstrap_phase(scene, dev, kernels):
     each gate and the host-clock time of the frames up to the init."""
     import torch
 
-    from mcslam_tpu_torch import _build
     from mcslam_tpu_torch.slam import (
         INITIALIZED, NOT_INITIALIZED, MultiCameraSLAM, SlamConfig)
     from mcslam_tpu_torch.utils import metrics
-
-    def counted(name, expect, fn):
-        _build.LAUNCHES.clear()
-        out = fn()
-        launches = dict(_build.LAUNCHES)
-        print(f"# launches during bootstrap {name}: {launches}")
-        for n in expect:
-            check(launches.get(n, 0) > 0,
-                  f"bootstrap {name}: kernel {n} was not launched")
-        return out
 
     ecfg = scene.frame_kwargs()
     main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
@@ -1221,8 +1286,8 @@ def bootstrap_phase(scene, dev, kernels):
         states.append(s.state)
         return info
 
-    init_at, boot_ms = counted("(a) blank frames", main_path,
-                               lambda: run_frames(slam, imgs, step_a))
+    init_at, boot_ms = counted("bootstrap (a) blank frames", main_path,
+                               lambda: run_frames(slam, imgs, step_a))[0]
     _, est = slam.trajectory_arrays()
     ate = metrics.ate_rmse(est[BLANK_FRAMES:], scene.poses[:BOOT_FRAMES])
     print(f"# bootstrap (a) {BLANK_FRAMES} blank + {BOOT_FRAMES} bench "
@@ -1241,8 +1306,8 @@ def bootstrap_phase(scene, dev, kernels):
           f"bootstrap (a): ATE {ate:.4f} m > {MAX_ATE}")
 
     # (b) the monocular bootstrap through process_image
-    slam, poses1, init_at, boot_ms = counted("(b) mono", main_path,
-                                             lambda: mono_session(dev))
+    slam, poses1, init_at, boot_ms = counted(
+        "bootstrap (b) mono", main_path, lambda: mono_session(dev))[0]
     _, est = slam.trajectory_arrays()
     check(init_at is not None, "bootstrap (b): the mono session never "
           "initialized")
@@ -1262,8 +1327,9 @@ def bootstrap_phase(scene, dev, kernels):
 
     # (c) the 17-point bootstrap on the distant scene, feature level
     slam, poses4, init_at, boot_ms = counted(
-        "(c) 17-point", ("hamming_argmin2", "pose_lm", "ba_linearize"),
-        lambda: far_session(dev))
+        "bootstrap (c) 17-point",
+        ("hamming_argmin2", "pose_lm", "ba_linearize"),
+        lambda: far_session(dev))[0]
     _, est = slam.trajectory_arrays()
     ate_s = metrics.ate_rmse(est, poses4, with_scale=True)
     ratio = path_ratio(est, poses4)
@@ -1510,6 +1576,514 @@ def dummy_drive(dev, seed=7):
         t_prev = t
     slam.finalize()
     return slam
+
+
+# -- phase 9: loop closure and relocalization ---------------------------------
+
+
+def global_ba_phase(dev):
+    """Phase 9 (a): the global solve (ba_solve, kf-blocked, the driver's
+    global_ba_iters 10 x 2 gate rounds) at tests/test_global_ba.py's shape
+    (GBA_TEST) on the card under sync-debug "error" against the plain
+    solve on the CPU (poses within 1e-3), then at the SlamConfig cap
+    (GBA_CAP) on the card alone: the cost falls, the poses stay finite;
+    peak device memory printed. ba_linearize must launch. -> the two
+    problems on the card, by name."""
+    import torch
+
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.data import synthetic
+
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
+        device=dev)
+    problems = {}
+    for name, (K, L, O) in (("test shape", GBA_TEST), ("cap", GBA_CAP)):
+        f = synthetic.random_window_ba_problem(
+            rig, num_kfs=K, num_lms=L, obs_capacity=O, px_noise=0.5,
+            step_angle=GBA_STEP)
+        p = ba.problem_from_numpy(**f)
+        problems[name] = p
+        cost0 = float(ba._total_cost(p, 2.5))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _build.LAUNCHES.clear()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            res = ba.ba_solve(p, iters=GBA_ITERS, kf_blocked=True)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        n_lin = _build.LAUNCHES.get("ba_linearize", 0)
+        poses = res.poses.cpu()
+        cost = float(res.cost)
+        line = (f"# global ba_solve {name} K={K} Ok={O // K} L={L} C={C} "
+                f"({GBA_ITERS} x 2): queued with no host sync in "
+                f"{enqueue_ms:.2f} ms, then {wait_ms:.2f} ms to finish; "
+                f"ba_linearize launched {n_lin} times; cost {cost0:.6g} -> "
+                f"{cost:.6g}; peak device memory {peak:.3f} GiB above the "
+                f"{base / 2**30:.3f} GiB held before")
+        check(n_lin > 0, f"global ba_solve {name}: ba_linearize not launched")
+        check(bool(torch.isfinite(poses).all()),
+              f"global ba_solve {name}: non-finite poses")
+        check(cost < cost0, f"global ba_solve {name}: the cost did not fall")
+        if name == "test shape":
+            ref = ba.ba_solve(ba.problem_from_numpy(**dict(f, device="cpu")),
+                              iters=GBA_ITERS, kf_blocked=True)
+            err = float((poses - ref.poses).abs().max())
+            line += f"; poses vs the CPU plain solve max abs err {err:.3g}"
+            check(err <= 1e-3, f"global ba_solve: card vs CPU pose error "
+                  f"{err}")
+        print(line)
+        del res
+    return problems
+
+
+def loop_session(dev, frames=LOOP_FRAMES, seed=0):
+    """Phase 9 (b): the bench configuration (C cameras, W x H, NPTS
+    keypoints per camera, NLVL levels, SlamConfig defaults) plus
+    final_global_ba, on `frames` frames of loop_trajectory (radius 4 m,
+    the last LOOP_REVISIT frames revisit the start) around
+    make_ring_landmarks (LOOP_LMS at 9 m), rendered by
+    render_blob_images(textured=True), through process_image, with a
+    vocabulary trained on the descriptors of the first LOOP_TRAIN frames
+    and tests/test_image_e2e.py's LoopConfig; `seed` seeds the driver's
+    RANSAC -> (slam, true poses, vocabulary, [(wall s, keyframe?)]);
+    finalize()d."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.loop import vocab as vocab_mod
+    from mcslam_tpu_torch.loop.detector import LoopConfig
+    from mcslam_tpu_torch.ops import hamming
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
+        device=dev)
+    poses = synthetic.loop_trajectory(frames, radius=4.0,
+                                      revisit_frames=LOOP_REVISIT, seed=0)
+    lms = synthetic.make_ring_landmarks(LOOP_LMS, radius=9.0, seed=1)
+    imgs = synthetic.render_blob_images(rig, poses, lms, seed=2,
+                                        textured=True)
+    imgs = [torch.from_numpy(imgs[k]).to(dev) for k in range(frames)]
+    ecfg = dict(num_points=NPTS, num_levels=NLVL, max_intra=MAXI,
+                angle_bins=BINS)
+    train = []
+    for k in range(LOOP_TRAIN):
+        ff = frame.build_frame(imgs[k], rig, **ecfg)
+        train.append(hamming.desc_to_numpy_u32(ff.kp_desc[ff.kp_valid]))
+    vocab = vocab_mod.Vocabulary.train(np.concatenate(train), k=6, depth=3,
+                                       iters=4)
+    slam = MultiCameraSLAM(rig, SlamConfig(final_global_ba=True), seed=seed,
+                           vocab=vocab, loop_config=LoopConfig(**LOOP_CFG))
+    times = []
+    for k in range(frames):
+        t0 = time.perf_counter()
+        info = slam.process_image(imgs[k], k / 20.0, extract_cfg=ecfg)
+        times.append((time.perf_counter() - t0, info["keyframe"]))
+    slam.finalize()
+    return slam, poses, vocab, times
+
+
+def drift_scene(dev, num_frames=DRIFT_FRAMES, revisit=8, seed=0):
+    """Phase 9 (c): tests/test_loop_pipeline.py's scene on the given
+    device: a 3-camera rig (the synthetic default, 640x480) on a 5 m loop
+    around 1400 ring landmarks with a 9 m sensing range, feature-level
+    frames clean at the start and the revisit and 1.8 px noisy through the
+    middle -> (rig, true poses, FrameFeatures per frame, the landmarks'
+    descriptors)."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.ops import hamming
+
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=3, baseline=0.2), device=dev)
+    poses = synthetic.loop_trajectory(num_frames, radius=5.0,
+                                      revisit_frames=revisit, seed=seed)
+    lms = synthetic.make_ring_landmarks(1400, radius=11.0, seed=seed + 1)
+    descs = synthetic.make_descriptors(1400, seed=seed + 2)
+    kw = dict(kps_per_cam=320, desc_bit_noise=4, seed=seed + 3,
+              max_depth=9.0)
+    clean = synthetic.render_feature_frames(rig, poses, lms, descs,
+                                            px_noise=0.4, **kw)
+    noisy = synthetic.render_feature_frames(rig, poses, lms, descs,
+                                            px_noise=1.8, **kw)
+    lo, hi = 10, num_frames - revisit - 4
+    ffs = []
+    for i in range(num_frames):
+        f = noisy[i] if lo <= i < hi else clean[i]
+        ffs.append(frame.build_frame_from_keypoints(
+            torch.from_numpy(f.uv).to(dev),
+            hamming.desc_to_torch(f.desc, dev),
+            torch.from_numpy(f.valid).to(dev), rig, max_intra=1024))
+    return rig, poses, ffs, descs
+
+
+def drift_runs(dev):
+    """Phase 9 (c): the drift scene through process_frame with and
+    without loop closure (tests/test_loop_pipeline.py's SlamConfig,
+    vocabulary and LoopConfig) -> (loop slam, VO slam, true poses, rig,
+    frames, vocabulary, [loop-run wall s per frame])."""
+    from mcslam_tpu_torch.loop import vocab as vocab_mod
+    from mcslam_tpu_torch.loop.detector import LoopConfig
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    rig, poses, ffs, descs = drift_scene(dev)
+    cfg = SlamConfig(window_size=4, ba_obs_capacity=8192,
+                     ba_lm_capacity=1024, local_map_landmarks=2048,
+                     kf_translation=0.3, kf_rotation=0.2)
+    vocab = vocab_mod.Vocabulary.train(descs, k=6, depth=3, iters=3)
+    runs, wall = [], []
+    for v in (vocab, None):
+        slam = MultiCameraSLAM(rig, cfg, vocab=v, loop_config=LoopConfig(
+            dislocal=12, k_consistency=2, min_nss=0.02, alpha=0.15,
+            min_matches=15, min_inliers=10) if v is not None else None)
+        for k, ff in enumerate(ffs):
+            t0 = time.perf_counter()
+            slam.process_frame(ff, k / 20.0)
+            if v is not None:
+                wall.append(time.perf_counter() - t0)
+        slam.finalize()
+        runs.append(slam)
+    return runs[0], runs[1], poses, rig, ffs, vocab, wall
+
+
+def retrieval_corpus(dev):
+    """Phase 9 (d): tests/test_hard_synthetic.py's retrieval corpus, one
+    camera at RET_W x RET_H: RET_DB database entries and RET_Q revisit
+    queries of the textured world along a 4 m loop (harsher photometric
+    corruption on the queries), RET_NEG queries of a different texture
+    world; ORB (384 points, 3 levels) by the port on `dev` in batches of 8
+    -> (rig, poses, vocabulary, BoWs (host), descriptors, validity and
+    undistorted keypoints per image, on `dev`)."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.loop import vocab as vocab_mod
+    from mcslam_tpu_torch.ops import hamming, orb
+
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=1, image_size=(RET_W, RET_H), focal=RET_F), device=dev)
+    poses = synthetic.loop_trajectory(RET_DB + RET_Q, radius=4.0,
+                                      revisit_frames=RET_Q, seed=0)
+    tex = synthetic.make_procedural_texture(seed=11)
+    imgs = synthetic.render_textured_world(rig, poses, radius=10.0, tex=tex,
+                                           seed=11)
+    tex_neg = synthetic.make_procedural_texture(seed=77)
+    imgs_neg = synthetic.render_textured_world(
+        rig, poses[:RET_NEG], radius=10.0, tex=tex_neg, seed=77)
+    harsh = dict(exposure_flicker=0.3, pixel_noise=0.025, motion_blur_px=3)
+    allimgs = np.concatenate([
+        synthetic.apply_photometric(imgs[:RET_DB], seed=1,
+                                    exposure_flicker=0.15,
+                                    pixel_noise=0.015),
+        synthetic.apply_photometric(imgs[RET_DB:], seed=2, **harsh),
+        synthetic.apply_photometric(imgs_neg, seed=3, **harsh)])[:, 0]
+    B = 8  # extraction batch, as the JAX test
+    descs, valids, xys = [], [], []
+    for i in range(0, len(allimgs), B):
+        batch = allimgs[i:i + B]
+        batch = np.concatenate([batch, np.zeros(
+            (B - len(batch), RET_H, RET_W), np.float32)])
+        kp = orb.extract_orb_rig(torch.from_numpy(batch).to(dev),
+                                 num_points=384, num_levels=3)
+        n = min(B, len(allimgs) - i)
+        descs += list(kp.desc[:n])
+        valids += list(kp.valid[:n])
+        xys += list(kp.xy[:n])
+    train = np.concatenate([hamming.desc_to_numpy_u32(descs[i][valids[i]])
+                            for i in range(0, RET_DB, 4)])
+    vocab = vocab_mod.Vocabulary.train(train, k=6, depth=3, iters=4)
+    bows = np.stack([vocab.transform(d, v).cpu().numpy()
+                     for d, v in zip(descs, valids)])
+    return rig, poses, vocab, bows, descs, valids, xys
+
+
+def retrieval_gates(dev, corpus):
+    """Phase 9 (d): tests/test_hard_synthetic.py's measurement with the
+    port's LoopCloser.retrieve_topn (3 candidates) and its verification
+    (the union of global and direct-index mutual matching, then the
+    central essential RANSAC, 256 hypotheses, >= 20 matches and >= 25
+    inliers; its RANSAC stream fixed per pair, as the test's key) ->
+    (precision, recall, false fires, fires)."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import ransac
+    from mcslam_tpu_torch.loop.detector import LoopCloser, LoopConfig
+    from mcslam_tpu_torch.ops import hamming, match as match_ops
+
+    rig, poses, vocab, bows, descs, valids, xys = corpus
+    nids = [vocab.node_ids(d, 2) for d in descs]
+    c = torch.tensor([RET_W / 2, RET_H / 2], device=dev)
+
+    def verified(qi, ri):
+        dm = hamming.hamming_matrix(descs[qi], descs[ri])
+        kw = dict(row_mask=valids[qi], col_mask=valids[ri], max_dist=64,
+                  ratio=0.85)
+        g = match_ops.match_mutual(dm, **kw)
+        b = match_ops.match_mutual(
+            dm, pair_mask=nids[qi][:, None] == nids[ri][None, :], **kw)
+        ok = g.ok | b.ok
+        idx = torch.where(g.ok, g.idx, b.idx).long()
+        er = ransac.ransac_essential(
+            torch.Generator(device=dev).manual_seed(0),
+            (xys[qi] - c) / RET_F, (xys[ri][idx] - c) / RET_F, ok,
+            num_hyp=256, thresh_n=2.0 / RET_F, min_inliers=25)
+        n = torch.stack([ok.sum(), er.num_inliers.to(torch.int64)]).cpu()
+        return int(n[0]) >= 20 and int(n[1]) >= 25
+
+    cfg = LoopConfig(dislocal=0, min_nss=0.01, alpha=0.3, k_consistency=2)
+    lc = LoopCloser(vocab, rig, cfg)
+    for i in range(RET_DB):
+        lc.add_keyframe(i, bows[i])
+    fires = correct = 0
+    for q in range(RET_Q):
+        for r in lc.retrieve_topn(bows[RET_DB + q], 3):
+            if verified(RET_DB + q, r):
+                fires += 1
+                d = np.linalg.norm(poses[r][:3, 3] - poses[RET_DB + q][:3, 3])
+                correct += int(d < 1.0)
+                break
+    # the negatives: the same database, fresh temporal state
+    lc_neg = LoopCloser(vocab, rig, cfg)
+    lc_neg.bows, lc_neg.kf_ids = lc.bows[:RET_DB], lc.kf_ids[:RET_DB]
+    false_fires = 0
+    for q in range(RET_NEG):
+        for r in lc_neg.retrieve_topn(bows[RET_DB + RET_Q + q], 3):
+            if verified(RET_DB + RET_Q + q, r):
+                false_fires += 1
+                break
+    precision = correct / max(fires + false_fires, 1)
+    return precision, correct / RET_Q, false_fires, fires
+
+
+def reloc_checks(dev, slam, vocab, rig, ffs, poses, tmp):
+    """Phase 9 (e): save the drift run's map and BoW database under tmp;
+    a Relocalizer of them relocalizes frame RELOC_FRAME, and a FastTracker
+    refines frame RELOC_FRAME + 1 from that frame's keyframe pose moved by
+    (0.05, -0.03, 0.04) m. Errors are taken against the saved map's own
+    keyframe poses (the frame relocalization works in), and printed
+    against the truth too -> (relocalizer, tracker, prediction,
+    relocalize error m, fast-track error m)."""
+    from mcslam_tpu_torch.loop.reloc import Relocalizer
+    from mcslam_tpu_torch.loop.tracking import FastTracker
+    from mcslam_tpu_torch.utils import mapio
+
+    mapio.save_map_json(f"{tmp}/map.json", slam.keyframes, slam.map)
+    slam.looper.save_database(f"{tmp}/db.npz")
+    reloc = Relocalizer(vocab, rig, f"{tmp}/map.json", f"{tmp}/db.npz")
+    k = RELOC_FRAME
+    kf_pose = {round(kf.timestamp * 20): kf.world_T_ref
+               for kf in slam.keyframes}
+    check(k in kf_pose and k + 1 in kf_pose,
+          f"frames {k} and {k + 1} are not both keyframes of the map")
+
+    def truth(i):  # the session's world is its first keyframe's frame
+        return np.linalg.inv(poses[0]) @ poses[i]
+
+    pose = reloc.relocalize(ffs[k])
+    check(pose is not None, f"relocalization of frame {k} failed")
+    err_r = float(np.linalg.norm(pose[:3, 3] - kf_pose[k][:3, 3]))
+    tracker = FastTracker(reloc)
+    pred = kf_pose[k + 1].astype(np.float32).copy()
+    pred[:3, 3] += np.array([0.05, -0.03, 0.04], np.float32)
+    refined = tracker.track(ffs[k + 1], pred)
+    check(refined is not None, f"fast tracking of frame {k + 1} failed")
+    err_t = float(np.linalg.norm(refined[:3, 3] - kf_pose[k + 1][:3, 3]))
+    print(f"# relocalization against the truth: frame {k} "
+          f"{np.linalg.norm(pose[:3, 3] - truth(k)[:3, 3]):.4f} m, frame "
+          f"{k + 1} fast-tracked "
+          f"{np.linalg.norm(refined[:3, 3] - truth(k + 1)[:3, 3]):.4f} m "
+          f"(the map's own keyframes are {np.linalg.norm(kf_pose[k][:3, 3] - truth(k)[:3, 3]):.4f}"
+          f" / {np.linalg.norm(kf_pose[k + 1][:3, 3] - truth(k + 1)[:3, 3]):.4f}"
+          f" m off the truth)")
+    return reloc, tracker, pred, err_r, err_t
+
+
+def loop_phase(dev):
+    """Phase 9: (a) global_ba_phase; (b) loop_session; (c) drift_runs;
+    (d) retrieval_corpus + retrieval_gates; (e) reloc_checks on (c)'s
+    saved map. Each with the launch counters reset right before it and
+    read right after. -> what phase 10 times."""
+    import tempfile
+
+    import torch
+
+    from mcslam_tpu_torch.slam import INITIALIZED
+    from mcslam_tpu_torch.utils import metrics
+
+    # (a) the global solve (launches checked inside)
+    gba_problems = global_ba_phase(dev)
+
+    # (b) the full-width loop session
+    main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
+                 "ba_linearize")
+    (slam, poses, vocab, times), launches = counted(
+        "the loop session", main_path, lambda: loop_session(dev))
+    _, est = slam.trajectory_arrays()
+    ate = metrics.ate_rmse(est, poses)
+    st = slam.stats
+    print(f"# loop session: {LOOP_FRAMES} frames, {C} cameras {W}x{H}, state "
+          f"{slam.state}, keyframes {st['keyframes']}, failures "
+          f"{st['failures']}, loops {st['loops']}, PGO bends "
+          f"{st.get('pgo', 0)}, global BA {st.get('global_ba', 0)}, window "
+          f"solves {st.get('window_ba', 0)}, ATE {ate:.4f} m (gate "
+          f"{LOOP_MAX_ATE}); ba_linearize {launches.get('ba_linearize', 0)} "
+          f"launches, pose_lm {launches.get('pose_lm', 0)}")
+    for line in slam.timers.report().splitlines():
+        print("#   " + line)
+    check(slam.state == INITIALIZED and st["failures"] == 0,
+          "loop session: not INITIALIZED at the end, or failures")
+    check(st["loops"] >= 1, "loop session: no loop closed")
+    check(st.get("global_ba", 0) >= 1, "loop session: no global BA")
+    check(np.all(np.isfinite(est)) and est.shape == (LOOP_FRAMES, 4, 4),
+          "loop session: trajectory malformed or non-finite")
+    check(ate <= LOOP_MAX_ATE, f"loop session: ATE {ate:.4f} m > "
+          f"{LOOP_MAX_ATE}")
+    # the driver dispatches a deferred global solve with no host sync
+    n_gba = st["global_ba"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        slam._run_global_ba()
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(slam._pending_gba is not None, "the global solve was not deferred")
+    slam._finish_pending_gba()
+    check(st["global_ba"] == n_gba + 1, "the deferred global solve did not "
+          "land")
+    print(f"# loop session: _run_global_ba dispatched its deferred solve "
+          f"with no host sync in {dispatch_ms:.2f} ms (problem assembly, "
+          f"upload and the queued solve), landed by _finish_pending_gba")
+
+    # (c) the drift scene with and without loop closure
+    (loop, vo, dposes, drig, dffs, dvocab, dwall), launches = counted(
+        "the drift scene", ("hamming_argmin2", "pose_lm", "ba_linearize"),
+        lambda: drift_runs(dev))
+    ate_loop = metrics.ate_rmse(loop.trajectory_arrays()[1], dposes)
+    ate_vo = metrics.ate_rmse(vo.trajectory_arrays()[1], dposes)
+    print(f"# drift scene, {DRIFT_FRAMES} feature-level frames: with loop "
+          f"closure loops {loop.stats['loops']}, PGO bends "
+          f"{loop.stats.get('pgo', 0)}, global BA "
+          f"{loop.stats.get('global_ba', 0)}, failures "
+          f"{loop.stats['failures']}, ATE {ate_loop:.4f} m; VO only ATE "
+          f"{ate_vo:.4f} m")
+    check(loop.state == INITIALIZED and vo.state == INITIALIZED,
+          "drift scene: a run is not INITIALIZED")
+    check(loop.stats["loops"] >= 1 and loop.stats.get("pgo", 0) >= 1,
+          "drift scene: no closure with a PGO bend")
+    check(ate_loop < ate_vo, f"drift scene: loop ATE {ate_loop:.4f} m not "
+          f"below the VO ATE {ate_vo:.4f} m")
+
+    # (d) the retrieval corpus
+    corpus, _ = counted("the retrieval corpus extraction",
+                        ("fast_select", "patch_gather"),
+                        lambda: retrieval_corpus(dev))
+    precision, recall, false_fires, fires = retrieval_gates(dev, corpus)
+    print(f"# retrieval corpus: {RET_DB} database entries, {RET_Q} revisit "
+          f"queries, {RET_NEG} different-world negatives at {RET_W}x{RET_H}: "
+          f"fires {fires}, precision {precision:.3f}, recall {recall:.3f}, "
+          f"false fires {false_fires}")
+    check(precision >= 0.95, f"retrieval: precision {precision:.3f} < 0.95")
+    check(recall >= 0.85, f"retrieval: recall {recall:.3f} < 0.85")
+    check(false_fires == 0, f"retrieval: {false_fires} false fires")
+
+    # (e) relocalization and fast tracking against (c)'s saved map
+    with tempfile.TemporaryDirectory() as tmp:
+        (reloc, tracker, pred, err_r, err_t), _ = counted(
+            "relocalization", ("hamming_argmin2", "pose_lm"),
+            lambda: reloc_checks(dev, loop, dvocab, drig, dffs, dposes, tmp))
+    print(f"# relocalization against the saved drift-scene map: frame "
+          f"{RELOC_FRAME} relocalized within {err_r:.4f} m of its keyframe "
+          f"(gate 0.1), frame {RELOC_FRAME + 1} fast-tracked within "
+          f"{err_t:.4f} m (gate 0.05)")
+    check(err_r < 0.1, f"relocalization error {err_r:.4f} m >= 0.1")
+    check(err_t < 0.05, f"fast-tracking error {err_t:.4f} m >= 0.05")
+    return dict(gba=gba_problems, slam=slam, times=times, vocab=vocab,
+                loop=loop, dwall=dwall, reloc=reloc, tracker=tracker,
+                pred=pred, dffs=dffs)
+
+
+def loop_timing(state, smi):
+    """Phase 10: the loop path's times. Detection per keyframe (the loop
+    session's loop_detect span; the BoW transform of one keyframe by CUDA
+    events; retrieval and one verification by the host clock),
+    _close_loop (its span),
+    the global solve at both shapes (CUDA events, device time and device
+    ops), relocalize and fast-track per frame (host clock, each ending in
+    its host read)."""
+    import copy
+
+    import torch
+
+    from mcslam_tpu_torch.backend import ba
+
+    slam, vocab = state["slam"], state["vocab"]
+    tm = slam.timers
+    for span in ("loop_detect", "close_loop"):
+        n = tm.count.get(span, 0)
+        if n:
+            print(f"# loop session {span} span: mean "
+                  f"{1e3 * tm.total[span] / n:.3f} ms over {n} calls "
+                  f"(host clock, ending in its host reads) ({smi})")
+    dl = state["loop"].timers
+    if dl.count.get("close_loop", 0):
+        print(f"# drift scene close_loop span: mean "
+              f"{1e3 * dl.total['close_loop'] / dl.count['close_loop']:.3f} "
+              f"ms over {dl.count['close_loop']} calls ({smi})")
+    kf = slam.keyframes[-1]
+    d, v = kf.device_desc()
+    ms = cuda_ms(lambda: vocab.transform(d, v))
+    print(f"# BoW transform of a keyframe ({int(v.sum())} of {v.shape[0]} "
+          f"intra slots valid, {vocab.num_words} words): {ms:.3f} ms by CUDA "
+          f"events ({smi})")
+    bow = slam.looper.compute_bow(d, v)
+    t0 = time.perf_counter()
+    for _ in range(100):  # on shallow copies: retrieval reassigns its state
+        copy.copy(slam.looper).retrieve_topn(bow, 3)
+    print(f"# retrieval (nss gate, scores over {slam.looper._n_bows} "
+          f"entries, islands, consistency) on the host: "
+          f"{(time.perf_counter() - t0) / 100 * 1e3:.3f} ms ({smi})")
+    old = slam.keyframes[0]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        det = slam.looper._verify(kf, old, slam.map)
+    print(f"# one verification (match, RANSAC-PnP, pose LM, host reads) of "
+          f"the last keyframe against the first: "
+          f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms, detected "
+          f"{det.detected} ({smi})")
+    for name, p in state["gba"].items():
+        def solve():
+            return ba.ba_solve(p, iters=GBA_ITERS, kf_blocked=True)
+        ms = cuda_ms(solve, reps=3, warmup=1)
+        dev_ms, n_ops, _ = device_profile(solve)
+        print(f"# time global ba_solve {name} ({GBA_ITERS} x 2): {ms:.3f} ms "
+              f"by CUDA events; profiler: {dev_ms:.3f} ms device time in "
+              f"{n_ops:.0f} device ops ({smi})")
+    ffs, k = state["dffs"], RELOC_FRAME
+    for name, fn in (("relocalize", lambda: state["reloc"].relocalize(
+            ffs[k])), ("fast-track", lambda: state["tracker"].track(
+                ffs[k + 1], state["pred"]))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        print(f"# {name} per frame: {(time.perf_counter() - t0) / 5 * 1e3:.3f}"
+              f" ms (host clock, ending in its host reads) ({smi})")
 
 
 def vio_timing(scene, problems, smi):

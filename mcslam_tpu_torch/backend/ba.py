@@ -68,9 +68,16 @@ _OBS_DTYPES = dict(kf=torch.int32, cam=torch.int32, lm=torch.int32,
 
 
 def _field(x, dtype, device) -> torch.Tensor:
+    """x as a `dtype` tensor on `device`. A host array reaches a CUDA
+    device from pinned memory by a non-blocking copy, so building a
+    problem does not wait for the work queued on the stream (the driver
+    dispatches its deferred solves without a host sync)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    t = torch.from_numpy(np.array(x)).to(dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def problem_from_numpy(poses, landmarks, lm_valid, obs, cam_T_ref, fxycxy,

@@ -6,7 +6,8 @@ gravity-initialized, the visual-inertial(-GPS) solve (backend/ba_vio) with
 its body-frame states, IMU and GPS factor tables, priors and synchronous
 write-back.
 
-On a CUDA device the vision solve runs on a side stream of its own. The tracking
+On a CUDA device the vision solve (and driver_loop's global solve) runs on
+a side stream of its own. The tracking
 path syncs its stream every frame (the packed fetch, the fast-path read,
 pageable uploads); on a shared stream each of those syncs would wait for
 the queued solve and make the deferred write-back synchronous. The side
@@ -40,13 +41,19 @@ class WindowBAMixin:
             self._ba_stream = torch.cuda.Stream(self.device)
         return self._ba_stream
 
-    def _solve_window(self, window):
+    def _solve_window(self, window, force_sync=False, allow_vio=True):
         """Window BA over an explicit keyframe list (gauge on window[0]);
-        the VIO solve once the IMU is gravity-initialized. GPS dummy
-        keyframes have no observations and take part as state nodes."""
+        the VIO solve once the IMU is gravity-initialized (unless
+        allow_vio is False). GPS dummy keyframes have no observations and
+        take part as state nodes. _run_window_ba passes the trailing
+        window; _close_loop passes [matched old keyframe] + recent ones
+        with force_sync=True (written back at once, no marginal kept)."""
         cfg = self.cfg
         if len(window) < 2:
             return
+        # a deferred global BA lands first: this window would otherwise
+        # linearize at poses the landing is about to move
+        self._finish_pending_gba()
         K = cfg.window_size
 
         # collect landmark ids observed by >= 2 window keyframes
@@ -111,7 +118,7 @@ class WindowBAMixin:
             kf=np.repeat(np.arange(K, dtype=np.int32), Ok), cam=obs_cam,
             lm=obs_lm, uv=obs_uv, sigma2=obs_s2, valid=obs_val)
 
-        if self.use_imu and self.imu_initialized:
+        if allow_vio and self.use_imu and self.imu_initialized:
             self._run_window_ba_vio(window, obs, poses, kf_valid, lms,
                                     lm_valid, lm_ids)
             return
@@ -146,7 +153,8 @@ class WindowBAMixin:
         self._ba_warm = True
         # stash the marginal information of the state that becomes the
         # oldest when the trailing window slides (consumed above)
-        self._pending_vis_marg = (window[1].kf_id, result)
+        if not force_sync:
+            self._pending_vis_marg = (window[1].kf_id, result)
         # deferred write-back: the solve runs on the device while the next
         # frame is tracked; its results land async_ba_land_frames frames
         # later (or at the next keyframe / finalize)
@@ -157,7 +165,7 @@ class WindowBAMixin:
         sync_left = getattr(self, "_ba_sync_left", 0)
         if sync_left > 0:
             self._ba_sync_left = sync_left - 1
-        if sync_left > 0 or not self._async_ba_active:
+        if force_sync or sync_left > 0 or not self._async_ba_active:
             self._finish_pending_ba()
 
     def _finish_pending_ba(self):

@@ -2,22 +2,26 @@
 host-side state machine that sequences the device programs (frame build,
 fused frame build + tracking, window BA).
 
-A session is `MultiCameraSLAM(rig, config, device=..., imu_params=...,
-gps_lever_arm=...).process_image(imgs, t, imu=(ts, gyro, accel),
-gps=(ts, lla), seg_masks=...)` per frame, then `finalize()` /
-`trajectory_arrays()` / `write_trajectory()`. The port covers the three
-vision-only bootstraps (rig depth; the 17-point non-central relative pose
-and the monocular essential matrix for frames with too little intra-rig
-depth, each holding a pending anchor frame), the fused per-frame program
+A session is `MultiCameraSLAM(rig, config, device=..., vocab=...,
+loop_config=..., imu_params=..., gps_lever_arm=...).process_image(imgs, t,
+imu=(ts, gyro, accel), gps=(ts, lla), seg_masks=...)` per frame, then
+`finalize()` / `trajectory_arrays()` / `write_trajectory()`. The port
+covers the three vision-only bootstraps (rig depth; the 17-point
+non-central relative pose and the monocular essential matrix for frames
+with too little intra-rig depth, each holding a pending anchor frame),
+the fused per-frame program
 with its motion fast path, the segmentation-mask veto, keyframe insertion
 (tracked landmarks, new landmarks from rig depth and from two-view
 matches) and window BA on every keyframe with deferred write-back; with
 `imu_params`, gravity initialization, IMU-predicted tracking and the
 visual-inertial window solve (driver_window, backend/ba_vio); with
 `gps_lever_arm`, GPS factors, the E_T_V alignment and GPS dummy keyframes
-(driver_sensors). It raises NotImplementedError for what it does not port
-yet: loop closure (`vocab`), multi-device BA (`mesh`) and the final
-global BA.
+(driver_sensors); with `vocab`, loop detection on every keyframe
+(loop/detector) and loop closing with PGO, the loop-window BA and global
+BA (driver_loop); `final_global_ba`, one global BA at finalize();
+`enable_relocalization`, a map-reuse session against a saved map
+(loop/reloc, loop/tracking). Multi-device BA (`mesh`) is not ported and
+raises NotImplementedError.
 
 States: NOT_INITIALIZED -> INITIALIZED, with REINITIALIZING after
 `max_track_failures` consecutive tracking failures.
@@ -32,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mcslam_tpu_torch.driver_loop import LoopClosingMixin
 from mcslam_tpu_torch.driver_sensors import SensorsMixin
 from mcslam_tpu_torch.driver_window import WindowBAMixin
 from mcslam_tpu_torch.frontend import ransac, seventeen
@@ -56,9 +61,7 @@ REINITIALIZING = 2
 @dataclasses.dataclass
 class SlamConfig:
     """The JAX package's SlamConfig, field for field with the same
-    defaults (see mcslam_tpu/slam.py for the rationale of each value).
-    Fields of unported paths (loop closure, global BA) are kept so that
-    configurations carry over."""
+    defaults (see mcslam_tpu/slam.py for the rationale of each value)."""
 
     # matching
     inter_max_dist: int = 64
@@ -106,10 +109,13 @@ class SlamConfig:
     ba_iters_cold: int = 8  # first solve after init / reinit
     ba_obs_capacity: int = 16384
     ba_lm_capacity: int = 2048
-    # loop closure (not ported)
+    # loop closure: the PGO bend runs only where the trajectory disagrees
+    # with the verified loop by more than this; closures are suppressed for
+    # loop_cooldown_kfs keyframes after one fires
     loop_pgo_min_trans: float = 0.2
     loop_pgo_min_rot: float = 0.05
     loop_cooldown_kfs: int = 8
+    # global BA after a closure's bend, and one at finalize()
     global_ba: bool = True
     final_global_ba: bool = False
     global_ba_max_kfs: int = 64
@@ -145,27 +151,24 @@ def _unit_rows(v: np.ndarray) -> np.ndarray:
     return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
 
 
-class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
+class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
     def __init__(self, rig, config: SlamConfig = None, seed: int = 0,
                  device=None, vocab=None, loop_config=None, imu_params=None,
                  gps_lever_arm=None, mesh=None):
         """`device`: where the device programs run (default: the rig's,
         which is the card unless the rig was built with device="cpu");
         the rig is moved there. `seed` seeds the torch.Generator the
-        RANSAC stages draw from. `imu_params` (backend.imu.ImuParams)
-        turns on the visual-inertial path, `gps_lever_arm` (body -> GPS
-        antenna, metres) the GPS factors."""
-        for name, v in (("vocab (loop closure)", vocab),
-                        ("mesh (multi-device BA)", mesh)):
-            if v is not None:
-                raise NotImplementedError(
-                    f"MultiCameraSLAM: {name} is not ported to "
-                    f"mcslam_tpu_torch yet")
-        self.cfg = config or SlamConfig()
-        if self.cfg.final_global_ba:
+        RANSAC stages draw from. `vocab` (loop.vocab.Vocabulary) turns on
+        loop closure with `loop_config` (loop.detector.LoopConfig), its
+        RANSAC seeded seed + 1; `imu_params` (backend.imu.ImuParams) the
+        visual-inertial path, `gps_lever_arm` (body -> GPS antenna, metres)
+        the GPS factors."""
+        if mesh is not None:
             raise NotImplementedError(
-                "MultiCameraSLAM: final_global_ba (global BA) is not ported "
-                "to mcslam_tpu_torch yet")
+                "MultiCameraSLAM: mesh (multi-device BA) is not ported to "
+                "mcslam_tpu_torch yet")
+        self.mesh = None
+        self.cfg = config or SlamConfig()
         self.device = torch.device(device) if device is not None \
             else rig.device
         self.rig = rig.to(self.device)
@@ -189,9 +192,21 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
         # synchronously (young geometry)
         self._ba_sync_left = self.cfg.window_size
         self.timers = StageTimers()
-        # owners come with replay and relocalization (not ported)
+        # optional streaming graph_logs writer (attach_graph_log)
         self.graph_log = None
+        # map-reuse session state (enable_relocalization)
         self.relocalizer = None
+        self.fast_tracker = None
+        self._reloc_localized = False
+        self._reloc_delta = np.eye(4, dtype=np.float32)
+        self._reloc_prev_ts = None  # the last relocalized frame's time
+        self._reloc_vel = np.zeros(3, np.float32)  # world-frame velocity
+        self.looper = None
+        if vocab is not None:
+            from mcslam_tpu_torch.loop.detector import LoopCloser
+
+            self.looper = LoopCloser(vocab, self.rig, loop_config,
+                                     seed=seed + 1)
         # host copies of the rig's body_T_cam (read every keyframe)
         self._btc = self.rig.body_T_cam.cpu().numpy()
         self._btc0 = self._btc[0]
@@ -255,6 +270,10 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
         ids = np.asarray(ids)
         if ok.any():
             self.dmap.upsert(ids[ok], pos=new_pos[ok])
+
+    def _map_delete(self, ids):
+        self.map.delete(ids)
+        self.dmap.remove(np.asarray(ids, np.int32))
 
     def _record_pose(self, timestamp):
         self.trajectory.append((timestamp, self.cur_pose.copy()))
@@ -618,6 +637,18 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
         if self.use_gps:
             self._attach_gps_to_kf(kf)
             self._try_gps_init()
+        if self.looper is not None:
+            # the keyframes after a closure re-detect the same place:
+            # closures are suppressed for loop_cooldown_kfs keyframes
+            with self.timers.span("loop_detect"):
+                det = self.looper.detect(kf, *kf.device_desc(),
+                                         self.keyframes, self.map)
+            cooled = (kf.kf_id - getattr(self, "_last_loop_kf", -10**9)
+                      >= self.cfg.loop_cooldown_kfs)
+            if det.detected and cooled:
+                self._last_loop_kf = kf.kf_id
+                with self.timers.span("close_loop"):
+                    self._close_loop(kf, det)
         with self.timers.span("window_ba"):
             self._run_window_ba()
 
@@ -648,7 +679,97 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
         self.kf_bias[kf.kf_id] = self.bias.copy()
         self._imu_buf = [s for s in self._imu_buf if s[0] > timestamp - 0.2]
 
+    # -- map reuse --------------------------------------------------------
+
+    def attach_graph_log(self, writer):
+        """Stream loop graph_logs records ('k' loop poses, 'm' loop
+        measurements) to `writer` (utils.mapio.GraphLogWriter) as closures
+        happen."""
+        self.graph_log = writer
+
+    def enable_relocalization(self, relocalizer, fast_tracker=None):
+        """Switch to a map-reuse session: frames are localized against the
+        saved map of `relocalizer` (loop.reloc.Relocalizer) instead of
+        building a new one. While lost, every frame queries the saved BoW
+        database and verifies by PnP; once localized, `fast_tracker`
+        (loop.tracking.FastTracker, when given) tracks the prior map from
+        the predicted pose, falling back to global relocalization on
+        loss."""
+        self.relocalizer = relocalizer
+        self.fast_tracker = fast_tracker
+        self.stats.setdefault("relocalizations", 0)
+        self.stats.setdefault("fast_tracked", 0)
+
+    def _process_frame_reloc(self, frame: FrameFeatures, timestamp: float,
+                             info: dict) -> dict:
+        pose = None
+        if self._reloc_localized and self.fast_tracker is not None:
+            pred = self._predict_reloc_pose(timestamp)
+            with self.timers.span("fast_track"):
+                pose = self.fast_tracker.track(frame, pred)
+            if pose is not None:
+                self.stats["fast_tracked"] += 1
+        if pose is None:
+            with self.timers.span("relocalize"):
+                pose = self.relocalizer.relocalize(frame)
+            if pose is not None:
+                self.stats["relocalizations"] += 1
+                self._reloc_delta = np.eye(4, dtype=np.float32)
+                self._reloc_vel = np.zeros(3, np.float32)
+        if pose is not None:
+            pose = np.asarray(pose, np.float32)
+            if self._reloc_localized:
+                self._reloc_delta = (np.linalg.inv(self.cur_pose)
+                                     @ pose).astype(np.float32)
+                if self._reloc_prev_ts is not None:
+                    dt = max(timestamp - self._reloc_prev_ts, 1e-3)
+                    self._reloc_vel = ((pose[:3, 3] - self.cur_pose[:3, 3])
+                                       / dt).astype(np.float32)
+            self.cur_pose = pose
+            self._reloc_localized = True
+            self.state = INITIALIZED
+            info["tracked"] = 1
+        else:
+            if self._reloc_localized:
+                self.stats["failures"] += 1
+            self._reloc_localized = False
+            self.state = REINITIALIZING
+        info["state"] = self.state
+        info["relocalized"] = pose is not None
+        self._reloc_prev_ts = timestamp
+        self._record_pose(timestamp)
+        return info
+
+    def _predict_reloc_pose(self, timestamp: float) -> np.ndarray:
+        """Pose prior of fast tracking: with the IMU gravity-initialized,
+        dead reckoning from the last tracked pose by the preintegrated
+        samples (the loaded map's world frame must be gravity-aligned, as
+        a VIO session's is); otherwise the constant-velocity model."""
+        if (self.use_imu and self.imu_initialized
+                and self._reloc_prev_ts is not None):
+            pre = self._preintegrate_span(self._reloc_prev_ts, timestamp)
+            if pre is not None:
+                pred = self._imu_predict(self.cur_pose, self._reloc_vel, pre)
+                return (pred.world_T_body.numpy() @ self._btc0).astype(
+                    np.float32)
+        return (self.cur_pose @ self._reloc_delta).astype(np.float32)
+
     # -- main entry -------------------------------------------------------
+
+    def _land_matured(self, frames_ahead: int = 0):
+        """Land deferred window and global BA solves that have had their
+        frames of overlap (frames_ahead = 1 before the fused dispatch,
+        which runs ahead of process_frame's frame count)."""
+        cfg = self.cfg
+        n = self.stats["frames"] + frames_ahead
+        if (getattr(self, "_pending_ba", None) is not None
+                and n - getattr(self, "_ba_dispatch_frame", 0)
+                >= cfg.async_ba_land_frames):
+            self._finish_pending_ba()
+        if (getattr(self, "_pending_gba", None) is not None
+                and n - getattr(self, "_gba_dispatch_frame", 0)
+                >= cfg.gba_land_frames):
+            self._finish_pending_gba()
 
     def process_image(self, imgs, timestamp: float, imu=None, gps=None,
                       seg_masks=None, extract_cfg=None) -> dict:
@@ -660,12 +781,13 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
         gravity alignment). extract_cfg: build_frame keyword overrides
         (num_points, num_levels, max_intra, angle_bins, route, ...);
         imu / gps: the sensor messages since the previous frame, as for
-        process_frame."""
+        process_frame. A relocalization session always takes the split
+        path."""
         cfg = self.cfg
         imgs = torch.as_tensor(imgs, device=self.device)
         ecfg = dict(extract_cfg or {})
-        if (self.state != INITIALIZED or not self.keyframes
-                or seg_masks is not None
+        if (self.state != INITIALIZED or self.relocalizer is not None
+                or not self.keyframes or seg_masks is not None
                 or (self.use_imu and not self.imu_initialized)):
             frame = build_frame(imgs, self.rig, seg_masks=seg_masks, **ecfg)
             return self.process_frame(frame, timestamp, imu=imu, gps=gps)
@@ -677,11 +799,7 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
         if gps is not None and self.use_gps:
             self._ingest_gps(gps)
             self._process_gps_dummies(timestamp)
-        if (getattr(self, "_pending_ba", None) is not None
-                and self.stats["frames"] + 1
-                - getattr(self, "_ba_dispatch_frame", 0)
-                >= cfg.async_ba_land_frames):
-            self._finish_pending_ba()
+        self._land_matured(frames_ahead=1)
         kf_prev = self._prev_kf()
         self._set_pred_span(timestamp)
         cand_ids, cand_valid = self._candidates_on_device()
@@ -739,6 +857,9 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
                 # fixes between vision keyframes become dummy keyframes
                 self._process_gps_dummies(timestamp)
 
+        if self.relocalizer is not None:
+            return self._process_frame_reloc(frame, timestamp, info)
+
         if self.state != INITIALIZED:
             ok = self._initialize(frame, timestamp)
             info["initialized"] = ok
@@ -749,13 +870,9 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
             self._record_pose(timestamp)
             return info
 
-        # land a matured deferred solve before tracking, so tracking sees
+        # land matured deferred solves before tracking, so tracking sees
         # the corrected map
-        if (getattr(self, "_pending_ba", None) is not None
-                and self.stats["frames"]
-                - getattr(self, "_ba_dispatch_frame", 0)
-                >= cfg.async_ba_land_frames):
-            self._finish_pending_ba()
+        self._land_matured()
 
         kf_prev = self._prev_kf()
         self._set_pred_span(timestamp)
@@ -815,8 +932,26 @@ class MultiCameraSLAM(WindowBAMixin, SensorsMixin):
     # -- outputs ----------------------------------------------------------
 
     def finalize(self):
-        """Flush asynchronous backend work (call before reading poses/map)."""
+        """Flush asynchronous backend work (call before reading poses/map);
+        with final_global_ba, one global BA over the whole session, its
+        correction carried to every recorded pose by the nearest (in time)
+        keyframe's."""
         self._finish_pending_ba()
+        self._finish_pending_gba()
+        if (self.cfg.final_global_ba
+                and not getattr(self, "_final_gba_done", False)
+                and self.state == INITIALIZED and len(self.keyframes) >= 3):
+            self._final_gba_done = True
+            vis = [k for k in self.keyframes if not k.is_dummy]
+            pre = {k.kf_id: k.world_T_ref.copy() for k in vis}
+            self._run_global_ba()
+            self._finish_pending_gba()
+            kf_ts = np.array([k.timestamp for k in vis])
+            corr = [(k.world_T_ref @ np.linalg.inv(pre[k.kf_id])).astype(
+                np.float32) for k in vis]
+            for i, (t, p) in enumerate(self.trajectory):
+                j = int(np.argmin(np.abs(kf_ts - t)))
+                self.trajectory[i] = (t, (corr[j] @ p).astype(np.float32))
 
     def trajectory_arrays(self):
         self.finalize()

@@ -246,11 +246,17 @@ def test_session_metrics_and_tum_match_jax(sessions, tmp_path):
 
 def test_unported_paths_raise():
     _, trig, _, _ = _scene()
-    for kw in (dict(vocab=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tslam.MultiCameraSLAM(trig, **kw)
-    with pytest.raises(NotImplementedError, match="final_global_ba"):
-        tslam.MultiCameraSLAM(trig, tslam.SlamConfig(final_global_ba=True))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tslam.MultiCameraSLAM(trig, mesh=object())
+    # loop closure and the final global BA are ported: no raise
+    from mcslam_tpu_torch.loop import vocab as tvocab
+    from mcslam_tpu_torch.loop.detector import LoopConfig
+
+    vocab = tvocab.Vocabulary.train(
+        jsyn.make_descriptors(300, seed=11), k=4, depth=2, iters=2)
+    slam = tslam.MultiCameraSLAM(trig, tslam.SlamConfig(final_global_ba=True),
+                                 vocab=vocab, loop_config=LoopConfig())
+    assert slam.looper is not None and slam.cfg.final_global_ba
     # the visual-inertial and GPS paths are ported: no raise
     slam = tslam.MultiCameraSLAM(trig, tslam.SlamConfig(**CFG),
                                  imu_params=timu.ImuParams(),

@@ -113,7 +113,10 @@ def test_port_imports_no_jax():
             "          'backend.ba', 'backend.ba_vio', 'backend.imu',\n"
             "          'geometry.geodesy', 'geometry.alignment', 'ops.ba_cuda',\n"
             "          'mapping.landmarks', 'mapping.device_map',\n"
-            "          'utils.metrics', 'utils.tum', 'utils.profiling'):\n"
+            "          'utils.metrics', 'utils.tum', 'utils.profiling',\n"
+            "          'driver_loop', 'backend.pgo', 'utils.mapio',\n"
+            "          'loop.vocab', 'loop.detector', 'loop.reloc',\n"
+            "          'loop.tracking'):\n"
             "    assert 'mcslam_tpu_torch.' + m in sys.modules, m\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or"
             " k.startswith(('jax.', 'mcslam_tpu.')))\n"
