@@ -120,6 +120,29 @@ Phases, each of which raises (non-zero exit) on failure:
      transform, one verification), _close_loop, the global solve at
      both shapes (CUDA events, device time and ops), relocalize and
      fast-track per frame;
+  11. the app and data path (after phase 10), each part with its launch
+     counters reset right before it: (a) phase 5's 24 frames written as
+     8-bit PGM folders with 19-digit ns names, a Kalibr camchain of the
+     bench rig, frontend / backend YAML (bench.py's nFeatures / nLevels),
+     a vocabulary trained on the first 6 frames and a cfg with map,
+     database, graph log, calc_depth and a dense cloud, through
+     apps.mc_slam_app.main with its default device (the card; so is
+     the EuRoC runner's below): rc 0, 24 TUM rows, >= 7
+     keyframes, ATE <= APP_MAX_ATE (from the CPU rehearsal,
+     `python3 chip_smoke.py --rehearse-app`), a finite depth map per
+     keyframe that tracking inserted, a non-empty cloud, map and database
+     written, the five default-route kernels launched; then a map-reuse
+     run of 8 frames with relocalization and fast tracking: rc 0, 8 rows,
+     ATE <= 0.25 m; (b) the same drive in EuRoC's ASL layout through
+     apps.run_euroc: rc 0, every frame associated, ATE <= APP_MAX_ATE;
+     then the reader's decode time per frame, the app's per-frame wall
+     time (keyframe frames and the others apart) and the session's device
+     busy share; (c) depth_from_rig_pair box and SGM at VGA with D = 64
+     on the bench pair and on a pair whose camera 1 is yawed by 3 degrees
+     (the rectifying remap), card against CPU: >= 99 % equal integer
+     winners, depth within 1e-4 relative where they agree; each call's
+     time (CUDA events, device ms and ops), the rectifier rebuild's host
+     time, and DenseFuser.add_keyframe on 3 keyframes;
   8. timing: for each kernel the CUDA-event time of its wrapper call, of
      its plain version and, where one exists, of the one PyTorch call
      that computes the same function (the advanced-indexing gather for
@@ -142,6 +165,9 @@ Phases, each of which raises (non-zero exit) on failure:
 The last three lines are the card's name and power limit (nvidia-smi),
 the kernels JSON record and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
+`python3 chip_smoke.py --rehearse-app [SEEDS]` runs phase 11 (a) and (b)
+on the CPU with the plain versions instead, once per driver RANSAC seed,
+and prints the ATEs that APP_MAX_ATE is set against (no smoke result).
 """
 
 from __future__ import annotations
@@ -225,6 +251,22 @@ LOOP_MAX_ATE = 0.1
 DRIFT_FRAMES, RELOC_FRAME = 60, 53
 RET_W, RET_H, RET_F = 256, 192, 210.0
 RET_DB, RET_Q, RET_NEG = 104, 30, 20
+# the app and data phase: (a) the session's APP_FRAMES frames as 8-bit PGM
+# folders at APP_FPS through mc_slam_app (a vocabulary from the first
+# APP_VOCAB frames), its ATE gate set from the CPU rehearsal
+# (`python3 chip_smoke.py --rehearse-app`, PERF.md), then a map-reuse run
+# of REUSE_FRAMES frames held to tests/test_app_cli.py's 0.25 m; (b) the
+# same drive through the EuRoC runner; (c) depth_from_rig_pair at VGA with
+# D = STEREO_D on the bench pair and on a pair yawed by STEREO_YAW degrees,
+# card against CPU (STEREO_SHARE equal winners, STEREO_REL relative
+# depth where they agree), and DenseFuser on the frames FUSE_KFS. The
+# rehearsal read 0.0539 m for the app and the runner at both driver RANSAC
+# seeds 0 and 1 (the same trajectory), so APP_MAX_ATE is the session's
+# own gate, 1.9x that.
+APP_FRAMES, APP_FPS, APP_VOCAB, APP_MAX_ATE = SESSION_FRAMES, 20.0, 6, MAX_ATE
+REUSE_FRAMES, REUSE_MAX_ATE = 8, 0.25
+STEREO_D, STEREO_YAW, STEREO_SHARE, STEREO_REL = 64, 3.0, 0.99, 1e-4
+FUSE_KFS = (0, 8, 16)
 
 # The least time of a kernel's work: bytes over the H100 SXM's 3.35 TB/s,
 # and the time of its operations. The six rows other than FAST count
@@ -1141,6 +1183,9 @@ def main() -> int:
 
     # ---- phase 10: the loop path's timing ----
     loop_timing(loop_state, smi)
+
+    # ---- phase 11: the app and data path, launches counted ----
+    app_phase(scene, dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
@@ -2388,5 +2433,444 @@ def _frame_ms(scene, ff0, mapstate, frac, route=None, n=6,
     return (time.perf_counter() - t0) / n * 1e3
 
 
+# -- phase 11: the app and data path -----------------------------------------
+
+def write_pgm(path, img: np.ndarray) -> None:
+    """(H, W) uint8 -> binary 8-bit PGM."""
+    h, w = img.shape
+    path.write_bytes(b"P5\n%d %d\n255\n" % (w, h)
+                     + np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def frames_u8(imgs) -> np.ndarray:
+    """(C, H, W) float images in [0, 1] (tensors or numpy) per frame ->
+    (F, C, H, W) uint8, as an 8-bit camera delivers them."""
+    return np.stack([(np.clip(np.asarray(
+        x.cpu() if hasattr(x, "cpu") else x), 0.0, 1.0) * 255).astype(
+            np.uint8) for x in imgs])
+
+
+def stamp_ns(k: int) -> int:
+    """Frame k's EuRoC-style 19-digit nanosecond stamp (APP_FPS)."""
+    return 10**18 + int(k / APP_FPS * 1e9)
+
+
+def _yaml_rows(T) -> str:
+    return ", ".join("[" + ", ".join(f"{v:.9f}" for v in r) + "]" for r in T)
+
+
+def write_app_dataset(root, rig, u8, device):
+    """Phase 11 (a)'s inputs under `root`: images/cam<c>/data/<ns>.pgm, a
+    Kalibr camchain of `rig` (the T_cn_cnm1 chain), frontend / backend
+    YAML with bench.py's ORBextractor.nFeatures / nLevels, a vocabulary
+    trained on the first APP_VOCAB frames' descriptors (as phase 9 trains
+    one) and the cfgs: app.cfg (calc_depth, dense cloud, map, database,
+    graph log; outputs in out/), profiled.cfg (the same, outputs in
+    out_profiled/) and reuse.cfg (relocalization and fast tracking on
+    out/'s map and database) -> {cfg name: path}."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.loop import vocab as vocab_mod
+    from mcslam_tpu_torch.ops import hamming
+
+    F_, C_ = u8.shape[:2]
+    for c in range(C_):
+        d = root / "images" / f"cam{c}" / "data"
+        d.mkdir(parents=True)
+        for k in range(F_):
+            write_pgm(d / f"{stamp_ns(k)}.pgm", u8[k, c])
+    fx = rig.fxycxy.cpu().numpy()
+    cam_T_ref = rig.cam_T_ref.cpu().numpy().astype(np.float64)
+    w, h = rig.image_size
+    lines = []
+    for c in range(C_):
+        lines += [f"cam{c}:",
+                  f"  intrinsics: [{', '.join(f'{v:.6f}' for v in fx[c])}]",
+                  "  distortion_coeffs: [0.0, 0.0, 0.0, 0.0]",
+                  "  distortion_model: none",
+                  f"  resolution: [{w}, {h}]"]
+        if c:
+            T = cam_T_ref[c] @ np.linalg.inv(cam_T_ref[c - 1])
+            lines.append("  T_cn_cnm1:")
+            lines += ["    - [" + ", ".join(f"{v:.9f}" for v in r) + "]"
+                      for r in T]
+    (root / "camchain.yaml").write_text("\n".join(lines) + "\n")
+    (root / "frontend.yaml").write_text(
+        f"%YAML:1.0\n---\nORBextractor.nFeatures: {NPTS}\n"
+        f"ORBextractor.nLevels: {NLVL}\n")
+    (root / "backend.yaml").write_text("%YAML:1.0\n---\nWindowBad: 6\n")
+    ecfg = dict(num_points=NPTS, num_levels=NLVL)
+    train = []
+    for k in range(APP_VOCAB):
+        x = torch.from_numpy(u8[k]).to(device).float() / 255.0
+        ff = frame.build_frame(x, rig, **ecfg)
+        train.append(hamming.desc_to_numpy_u32(ff.kp_desc[ff.kp_valid]))
+    vocab_mod.Vocabulary.train(np.concatenate(train), k=6, depth=3,
+                               iters=4).save(root / "vocab.npz")
+    head = (f"data_path={root}\nimages_path=images\n"
+            "calib_file_path=camchain.yaml\n"
+            "frontend_params_file=frontend.yaml\n"
+            "backend_params_file=backend.yaml\nkalibr=true\n"
+            f"num_cams={C_}\nvocabulary=vocab.npz\n")
+    cfgs = {}
+    for name, out in (("app", "out"), ("profiled", "out_profiled")):
+        (root / out).mkdir()
+        cfgs[name] = root / f"{name}.cfg"
+        cfgs[name].write_text(
+            head + f"traj_file={out}/traj.txt\nmap_path={out}/map.json\n"
+            f"database_path={out}/db.npz\nlog_file={out}/graph.log\n"
+            f"calc_depth=true\ndepth_dir={out}/depth\n"
+            f"dense_cloud_path={root / out}/cloud.ply\n")
+    cfgs["reuse"] = root / "reuse.cfg"
+    cfgs["reuse"].write_text(
+        head + "traj_file=out/traj_reuse.txt\nmap_path=out/map.json\n"
+        "database_path=out/db.npz\nrelocalization=true\nfast_tracking=true\n")
+    return cfgs
+
+
+def write_euroc_sequence(root, rig, u8, poses):
+    """Phase 11 (b)'s sequence in EuRoC's ASL layout under root/mav0:
+    cam<c>/sensor.yaml (T_BS = inv(cam_T_ref): body = camera 0) with
+    cam<c>/data/<ns>.pgm, and state_groundtruth_estimate0/data.csv (the
+    true poses, quaternion w x y z)."""
+    import torch
+
+    from mcslam_tpu_torch.geometry import lie
+
+    mav0 = root / "mav0"
+    fx = rig.fxycxy.cpu().numpy()
+    cam_T_ref = rig.cam_T_ref.cpu().numpy().astype(np.float64)
+    w, h = rig.image_size
+    for c in range(u8.shape[1]):
+        d = mav0 / f"cam{c}" / "data"
+        d.mkdir(parents=True)
+        for k in range(u8.shape[0]):
+            write_pgm(d / f"{stamp_ns(k)}.pgm", u8[k, c])
+        (mav0 / f"cam{c}" / "sensor.yaml").write_text(
+            "sensor_type: camera\nT_BS:\n  rows: 4\n  cols: 4\n"
+            f"  data: [{_yaml_rows(np.linalg.inv(cam_T_ref[c]))}]\n"
+            f"rate_hz: {APP_FPS:g}\nresolution: [{w}, {h}]\n"
+            "camera_model: pinhole\n"
+            f"intrinsics: [{', '.join(f'{v:.6f}' for v in fx[c])}]\n"
+            "distortion_model: radial-tangential\n"
+            "distortion_coefficients: [0.0, 0.0, 0.0, 0.0]\n")
+    q = lie.quat_from_rot(torch.as_tensor(poses[:, :3, :3])).numpy()
+    gt = mav0 / "state_groundtruth_estimate0"
+    gt.mkdir()
+    rows = ["#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z"]
+    for k in range(len(poses)):
+        p = poses[k, :3, 3]
+        rows.append(f"{stamp_ns(k)},{p[0]:.9f},{p[1]:.9f},{p[2]:.9f},"
+                    f"{q[k, 3]:.9f},{q[k, 0]:.9f},{q[k, 1]:.9f},"
+                    f"{q[k, 2]:.9f}")
+    (gt / "data.csv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def device_args(device) -> list:
+    """The apps' arguments for `device`: none for the card, which is
+    their default (so phase 11 runs them as a user would)."""
+    return [] if device == "cuda" else ["--device", device]
+
+
+def app_run(cfg, device, *extra):
+    """mc_slam_app.main on `cfg` -> (rc, wall s of the call, [(host s at
+    the end of each frame, keyframe?)]): each frame's stamp is taken after
+    its dense products, behind a synchronize of the current stream (a
+    deferred window solve on the side stream may still overlap the next
+    frame, as in phase 5's per-frame times)."""
+    import torch
+
+    from mcslam_tpu_torch.apps import mc_slam_app
+
+    stamps = []
+    post = mc_slam_app._postprocess_frame
+
+    def timed(info, *a):
+        post(info, *a)
+        if device == "cuda":
+            torch.cuda.current_stream().synchronize()
+        stamps.append((time.perf_counter(), bool(info.get("keyframe"))))
+
+    mc_slam_app._postprocess_frame = timed
+    try:
+        t0 = time.perf_counter()
+        rc = mc_slam_app.main(["--config_file", str(cfg), *extra]
+                              + device_args(device))
+        wall = time.perf_counter() - t0
+    finally:
+        mc_slam_app._postprocess_frame = post
+    return rc, wall, stamps
+
+
+def app_sessions(root, rig, u8, poses, device, count, max_ate):
+    """Phase 11 (a) and (b) on `device` under `root`: the app on the
+    dataset (gates: rc 0, one TUM row per frame, >= MIN_KEYFRAMES
+    keyframes, ATE <= max_ate, a finite depth map per keyframe that
+    tracking inserted, a non-empty cloud, map and database written), the
+    map-reuse run of its first REUSE_FRAMES frames (rc 0, a row per frame,
+    ATE <= REUSE_MAX_ATE) and the EuRoC runner on the same drive in ASL
+    layout (rc 0, every frame associated, ATE <= max_ate); `count(name,
+    expect, fn)` runs each part (with the launch counters on the card).
+    -> the numbers phase 11's timing and the rehearsal read."""
+    import json
+
+    from mcslam_tpu_torch.apps import run_euroc
+    from mcslam_tpu_torch.utils import metrics, tum
+
+    main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
+                 "ba_linearize")
+    cfgs = write_app_dataset(root, rig, u8, device)
+    (rc, wall, stamps), launches = count("the app", main_path,
+                                         lambda: app_run(cfgs["app"], device))
+    out = root / "out"
+    ts, est = tum.read_tum(out / "traj.txt")
+    ate = metrics.ate_rmse(est, poses)
+    kfs = json.loads((out / "map.json").read_text())["keyframes"]
+    depth = sorted((out / "depth").glob("depth_*.npy"))
+    finite = all(np.isfinite(np.load(p)).all() for p in depth)
+    n_cloud = int((out / "cloud.ply").read_text().split(
+        "element vertex ")[1].split()[0])
+    print(f"# app on {device}: rc {rc}, {len(ts)} frames, {len(kfs)} "
+          f"keyframes, ATE {ate:.4f} m (gate {max_ate}), {len(depth)} depth "
+          f"maps (finite {finite}), dense cloud {n_cloud} voxels; map "
+          f"{(out / 'map.json').exists()}, database "
+          f"{(out / 'db.npz').exists()}")
+    check(rc == 0, f"app: rc {rc}")
+    check(len(ts) == len(poses) and np.isfinite(est).all(),
+          f"app: {len(ts)} trajectory rows for {len(poses)} frames")
+    check(len(kfs) >= MIN_KEYFRAMES, f"app: {len(kfs)} keyframes")
+    check(ate <= max_ate, f"app: ATE {ate:.4f} m > {max_ate}")
+    check(len(depth) == sum(kf for _, kf in stamps) >= MIN_KEYFRAMES - 1
+          and finite, f"app: {len(depth)} depth maps for "
+          f"{sum(kf for _, kf in stamps)} tracked keyframes (finite {finite})")
+    check(n_cloud > 0, "app: empty dense cloud")
+    check((out / "db.npz").exists(), "app: no database written")
+
+    (rc_r, _, _), _ = count(
+        "the map-reuse app run", ("hamming_argmin2", "pose_lm"),
+        lambda: app_run(cfgs["reuse"], device, "--max_frames",
+                        str(REUSE_FRAMES)))
+    ts_r, est_r = tum.read_tum(out / "traj_reuse.txt")
+    ate_r = metrics.ate_rmse(est_r, poses[:REUSE_FRAMES])
+    print(f"# map-reuse app run (relocalization, fast tracking) on {device}: "
+          f"rc {rc_r}, {len(ts_r)} frames, ATE {ate_r:.4f} m (gate "
+          f"{REUSE_MAX_ATE})")
+    check(rc_r == 0 and len(ts_r) == REUSE_FRAMES,
+          f"map-reuse run: rc {rc_r}, {len(ts_r)} rows")
+    check(ate_r <= REUSE_MAX_ATE, f"map-reuse run: ATE {ate_r:.4f} m")
+
+    seq = write_euroc_sequence(root / "euroc", rig, u8, poses)
+    rc_e, _ = count("the EuRoC runner", main_path, lambda: run_euroc.main([
+        str(seq), "--out_dir", str(root / "euroc_out"), "--num_points",
+        str(NPTS), "--num_levels", str(NLVL)] + device_args(device)))
+    ts_e, est_e = tum.read_tum(root / "euroc_out" / "trajectory_tum.txt")
+    ts_g, gt = tum.read_tum(root / "euroc_out" / "groundtruth_tum.txt")
+    ie, ig = metrics.associate(ts_e, ts_g, 0.02)
+    ate_e = metrics.ate_rmse(est_e[ie], gt[ig])
+    print(f"# EuRoC runner on {device}: rc {rc_e}, {len(ie)} of {len(ts_e)} "
+          f"frames associated with {len(ts_g)} ground-truth rows, ATE "
+          f"{ate_e:.4f} m (gate {max_ate})")
+    check(rc_e == 0 and len(ie) == len(ts_e) == len(poses),
+          f"EuRoC runner: rc {rc_e}, {len(ie)} associated")
+    check(ate_e <= max_ate, f"EuRoC runner: ATE {ate_e:.4f} m > {max_ate}")
+    return dict(cfgs=cfgs, wall=wall, stamps=stamps, ate=ate, ate_r=ate_r,
+                ate_e=ate_e)
+
+
+def yawed_pair(rig, deg=STEREO_YAW):
+    """Cameras 0 and 1 of `rig` (on the CPU) with camera 1 yawed by `deg`
+    degrees about its own y axis."""
+    from mcslam_tpu_torch.geometry import camera
+
+    a = np.radians(deg)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]], np.float32)
+    cam_T_ref = rig.cam_T_ref[:2].cpu().numpy().copy()
+    cam_T_ref[1, :3] = R.T @ cam_T_ref[1, :3]
+    return camera.make_rig(rig.fxycxy[:2].cpu().numpy(), None, cam_T_ref,
+                           image_size=rig.image_size, device="cpu")
+
+
+def stereo_winners(imgs, rig, algo):
+    """The integer disparity winners of depth_from_rig_pair's search on
+    cameras 0 and 1 (rectified first where the pair is not parallel)."""
+    from mcslam_tpu_torch.ops import rectify, stereo
+
+    rr = rectify.RigRectifier(rig)
+    la, lb = ((imgs[0], imgs[1]) if rr.is_identity
+              else (rr.rectify(imgs[0]), rr.rectify_b(imgs[1])))
+    cv = stereo.cost_volume(la, lb, STEREO_D)
+    if algo == "sgm":
+        cv = stereo.sgm_aggregate(cv)
+    return cv.argmin(dim=0)
+
+
+def stereo_phase(scene, dev, smi):
+    """Phase 11 (c): depth_from_rig_pair, box and SGM at VGA with D =
+    STEREO_D, on the bench pair (cameras 0 and 1: parallel, no remap)
+    and on yawed_pair (the remap path), card against CPU: equal integer
+    winners on >= STEREO_SHARE of the pixels, depth within STEREO_REL
+    relative where they agree; then each call's time (CUDA events; device
+    ms and device ops from the profiler) and the host time of the
+    rectifier rebuild that every call without a cached rectifier pays;
+    then DenseFuser.add_keyframe on FUSE_KFS keyframes."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.mapping.dense_fusion import DenseFuser
+    from mcslam_tpu_torch.ops import rectify, stereo
+
+    yaw = yawed_pair(scene.rig)
+    yaw_imgs = synthetic.render_blob_images(yaw, scene.poses[:1],
+                                            scene.lms)[0]
+    pairs = {"bench pair": (scene.rig, scene.imgs[0]),
+             f"pair yawed {STEREO_YAW:g} deg": (
+                 yaw.to(dev), torch.from_numpy(yaw_imgs).to(dev))}
+    for name, (rig, imgs) in pairs.items():
+        rig_c, imgs_c = rig.to("cpu"), imgs.cpu()
+        rr = rectify.RigRectifier(rig)
+        check(rr.is_identity == (name == "bench pair"),
+              f"{name}: is_identity {rr.is_identity}")
+        for algo in ("box", "sgm"):
+            z, v = stereo.depth_from_rig_pair(imgs, rig, max_disp=STEREO_D,
+                                              algo=algo)
+            z_c, v_c = stereo.depth_from_rig_pair(imgs_c, rig_c,
+                                                  max_disp=STEREO_D,
+                                                  algo=algo)
+            same = (stereo_winners(imgs, rig, algo).cpu()
+                    == stereo_winners(imgs_c, rig_c, algo))
+            share = float(same.float().mean())
+            rel = ((z.cpu() - z_c).abs() / z_c)[same]
+            rel_max = float(rel.max())
+            v_same = float((v.cpu() == v_c)[same].float().mean())
+            print(f"# depth_from_rig_pair {algo}, {name}, {W}x{H} D="
+                  f"{STEREO_D}: card vs CPU equal winners {100 * share:.3f} "
+                  f"%, depth where they agree max rel err {rel_max:.3g}, "
+                  f"valid masks equal there on {100 * v_same:.3f} %, valid "
+                  f"{100 * float(v.float().mean()):.1f} % (card)")
+            check(bool(torch.isfinite(z).all()), f"{name} {algo}: non-finite")
+            check(share >= STEREO_SHARE,
+                  f"{name} {algo}: equal winners {share:.4f}")
+            check(rel_max <= STEREO_REL,
+                  f"{name} {algo}: depth rel err {rel_max:.3g}")
+
+            def call():
+                return stereo.depth_from_rig_pair(imgs, rig,
+                                                  max_disp=STEREO_D,
+                                                  algo=algo)
+            ms = cuda_ms(call, reps=3, warmup=1)
+            dev_ms, n_ops, _ = device_profile(call)
+            print(f"# time depth_from_rig_pair {algo}, {name}: {ms:.3f} ms "
+                  f"by CUDA events; profiler: {dev_ms:.3f} ms device time in "
+                  f"{n_ops:.0f} device ops ({smi})")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rectify.RigRectifier(rig)
+        print(f"# RigRectifier rebuild ({name}; maps on the host, then "
+              f"uploaded): {(time.perf_counter() - t0) / 3 * 1e3:.3f} ms "
+              f"host clock ({smi})")
+    fuser = DenseFuser(scene.rig, max_disp=STEREO_D)
+    times, voxels = [], []
+    for k in FUSE_KFS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voxels.append(fuser.add_keyframe(scene.imgs[k], scene.poses[k]))
+        times.append(time.perf_counter() - t0)
+    pts, _, cnt = fuser.finalize()
+    print(f"# DenseFuser.add_keyframe (sgm, D={STEREO_D}) on frames "
+          f"{FUSE_KFS}: {[round(t * 1e3, 3) for t in times]} ms (host clock, "
+          f"ending in its host reads), voxels {voxels}, fused "
+          f"{len(pts)} ({int((cnt > 1).sum())} seen twice or more) ({smi})")
+    check(min(voxels) > 0 and np.isfinite(pts).all(),
+          "DenseFuser: a keyframe contributed nothing, or non-finite points")
+
+
+def app_phase(scene, dev, smi):
+    """Phase 11: app_sessions on the card (with the launch counters), the
+    reader's decode time, the app's per-frame wall time and the session's
+    device busy share, then stereo_phase."""
+    import tempfile
+    from pathlib import Path
+
+    from mcslam_tpu_torch.data import readers
+
+    u8 = frames_u8(scene.imgs[:APP_FRAMES])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        res = app_sessions(root, scene.rig, u8, scene.poses[:APP_FRAMES],
+                           "cuda", counted, APP_MAX_ATE)
+        reader = readers.ImageFolderReader(root / "images")
+        dt = []
+        while True:
+            t0 = time.perf_counter()
+            if reader.get_next() is None:
+                break
+            dt.append(time.perf_counter() - t0)
+        print(f"# reader decode ({len(reader.cam_dirs)} PGM images of "
+              f"{W}x{H} per frame, host): median {np.median(dt) * 1e3:.3f} "
+              f"ms per frame over {len(dt)} frames ({smi})")
+        st = res["stamps"]
+        per = [(st[k][0] - st[k - 1][0], st[k][1]) for k in range(1, len(st))]
+        for name, sel in (("keyframe frames", True), ("other frames", False)):
+            ms = [t * 1e3 for t, kf in per if kf == sel]
+            print(f"# app per-frame wall (read, upload, process_image, depth "
+                  f"map and fusion on keyframes), {name} (n={len(ms)}): "
+                  f"median {np.median(ms):.3f} ms, mean {np.mean(ms):.3f} "
+                  f"ms ({smi})")
+        dev_ms, n_ops, _ = device_profile(
+            lambda: app_run(res["cfgs"]["profiled"], "cuda"))
+        wall_ms = res["wall"] * 1e3
+        print(f"# app session of {APP_FRAMES} frames: {wall_ms:.1f} ms wall "
+              f"(setup and outputs included); a profiled repeat: "
+              f"{dev_ms:.1f} ms device time in {n_ops:.0f} device ops, "
+              f"device busy {100 * dev_ms / wall_ms:.1f} % of the unprofiled "
+              f"wall time ({smi})")
+    stereo_phase(scene, dev, smi)
+
+
+def rehearse_app(seeds):
+    """CPU rehearsal of phase 11 (a) and (b) with the plain versions: the
+    bench scene, rendered as Scene renders it, through app_sessions on
+    the CPU once per driver RANSAC seed (MultiCameraSLAM's `seed`), with
+    no ATE gate; prints each run's ATEs, which APP_MAX_ATE sits against."""
+    import tempfile
+    from pathlib import Path
+
+    from mcslam_tpu_torch import slam as slam_mod
+    from mcslam_tpu_torch.data import synthetic
+
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
+        device="cpu")
+    poses = synthetic.smooth_trajectory(SESSION_FRAMES, step_angle=0.02)
+    lms = synthetic.make_landmarks(3000, depth_range=(4.0, 15.0))
+    u8 = frames_u8(synthetic.render_blob_images(rig, poses, lms))
+    base = slam_mod.MultiCameraSLAM
+
+    def no_count(name, expect, fn):
+        return fn(), {}
+
+    for seed in range(seeds):
+        class Seeded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, seed=seed, **kw)
+
+        slam_mod.MultiCameraSLAM = Seeded
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                res = app_sessions(Path(tmp), rig, u8, poses, "cpu",
+                                   no_count, float("inf"))
+        finally:
+            slam_mod.MultiCameraSLAM = base
+        print(f"# rehearsal seed {seed}: app ATE {res['ate']:.4f} m, "
+              f"map-reuse ATE {res['ate_r']:.4f} m, EuRoC runner ATE "
+              f"{res['ate_e']:.4f} m")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rehearse-app"]:
+        rehearse_app(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
+        sys.exit(0)
     sys.exit(main())

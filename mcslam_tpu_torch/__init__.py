@@ -26,3 +26,31 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+# Lazy top-level re-exports of the main user entry points (PEP 562), as
+# mcslam_tpu/__init__.py has them, each resolved to its port module:
+# `import mcslam_tpu_torch` stays cheap for tools that only need config
+# parsing or IO.
+_EXPORTS = {
+    "MultiCameraSLAM": "mcslam_tpu_torch.slam",
+    "SlamConfig": "mcslam_tpu_torch.slam",
+    "build_frame": "mcslam_tpu_torch.frontend.frame",
+    "CameraRig": "mcslam_tpu_torch.geometry.camera",
+    "load_kalibr": "mcslam_tpu_torch.data.calib",
+    "load_euroc_rig": "mcslam_tpu_torch.data.euroc",
+    "ate_rmse": "mcslam_tpu_torch.utils.metrics",
+}
+
+
+def __getattr__(name):
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(
+            f"module 'mcslam_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target), name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_EXPORTS))

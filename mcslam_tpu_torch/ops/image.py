@@ -1,5 +1,6 @@
-"""Dense image ops: separable Gaussian blur, antialiased bilinear resize,
-pyramids (counterpart of mcslam_tpu/ops/image.py). Images are
+"""Dense image ops: separable Gaussian blur, the reflect-padded separable
+convolution, antialiased bilinear resize, pyramids (counterpart of
+mcslam_tpu/ops/image.py). Images are
 (..., H, W) float32 in [0, 1], batched over leading dims.
 
 The resize reproduces jax.image.resize(method="bilinear") — which
@@ -28,18 +29,27 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian blur with reflect padding (vertical pass, then
     horizontal)."""
-    taps = torch.tensor(_np_gaussian_taps(ksize, sigma), dtype=torch.float32)
+    return _sep_conv(img, torch.tensor(_np_gaussian_taps(ksize, sigma),
+                                       dtype=torch.float32))
+
+
+def _sep_conv(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Separable 2D convolution with reflect padding, batched over leading
+    dims: the vertical pass, then the horizontal, each summing the taps in
+    order (the convolution path of the JAX package's _sep_conv, whose
+    banded-matmul branch serves the TPU only). k: (ksize,) f32 taps."""
+    ksize = k.shape[0]
     pad = ksize // 2
     h, w = img.shape[-2:]
     x = img.reshape(-1, 1, h, w)
     x = torch.nn.functional.pad(x, (pad, pad, pad, pad), mode="reflect")
     acc = None
     for t in range(ksize):
-        term = x[:, :, t:t + h, :] * taps[t]
+        term = x[:, :, t:t + h, :] * k[t]
         acc = term if acc is None else acc + term
     out = None
     for t in range(ksize):
-        term = acc[:, :, :, t:t + w] * taps[t]
+        term = acc[:, :, :, t:t + w] * k[t]
         out = term if out is None else out + term
     return out.reshape(img.shape)
 
