@@ -143,6 +143,26 @@ Phases, each of which raises (non-zero exit) on failure:
      winners, depth within 1e-4 relative where they agree; each call's
      time (CUDA events, device ms and ops), the rectifier rebuild's host
      time, and DenseFuser.add_keyframe on 3 keyframes;
+  12. the generic BA layout, replay, the mesh and the entry (after phase
+     11): (a) ba_solve's default generic layout on the stage C problem,
+     warm and cold, on the card under sync-debug "error", twice
+     (bit-equal), against the CPU's generic solve and the card's
+     kf-blocked one (poses 1e-3), with its time, device time, ops and
+     peak memory beside the kf-blocked solve's; (b) the graph logs that
+     phase 5's session and phase 7's VIO + GPS session wrote, replayed on
+     the card (replay_graph_logs at 65536 slots: the cost falls, two
+     replays bit-equal, n_obs and cost_in as the CPU's; the VIO replay
+     with tests/test_replay_and_utils.py's gates); (c) a 4-shard mesh
+     (distinct cards where the machine has four, else all shards on
+     cuda:0; printed): the observation-sharded solve at the stage C shape
+     (5e-4) and the landmark-sharded one at the global test shape (5e-3)
+     against one device under sync-debug "error", and at the SlamConfig
+     cap with its peak memory; sharded_hamming_match exactly the
+     single-device match; sharded_build_frame of bench frame 0 bit-equal
+     to build_frame with fast_select and patch_gather launched once per
+     shard; a 24-frame session with mesh= (INITIALIZED, ATE <= 0.1 m,
+     the four frame kernels launched) beside phase 8's session; (d)
+     entry()'s forward and dryrun_multichip(4) on the card;
   8. timing: for each kernel the CUDA-event time of its wrapper call, of
      its plain version and, where one exists, of the one PyTorch call
      that computes the same function (the advanced-indexing gather for
@@ -168,6 +188,9 @@ Needs one CUDA card; exits non-zero without one.
 `python3 chip_smoke.py --rehearse-app [SEEDS]` runs phase 11 (a) and (b)
 on the CPU with the plain versions instead, once per driver RANSAC seed,
 and prints the ATEs that APP_MAX_ATE is set against (no smoke result).
+`python3 chip_smoke.py --rehearse-mesh` runs phase 12 (b)-(d) on the CPU
+with the plain versions (the replays at 16384 slots), every gate, no
+timing (no smoke result).
 """
 
 from __future__ import annotations
@@ -242,6 +265,17 @@ LLA0 = (42.36, -71.06, 10.0)
 GBA_ITERS = 10
 GBA_STEP = 0.002  # rad per keyframe: the slab stays ahead of all 64
 GBA_TEST, GBA_CAP = (64, 2048, 64 * 256), (64, 8192, 64 * 512)
+# phase 12: the mesh's shard count; the sharded match's map rows (not a
+# multiple of the 4 x 8 padding) and queries; the sharded solves' pose
+# bounds against one device (tests/test_parallel.py: observation-sharded
+# 5e-4, landmark-sharded 5e-3) and the generic layout's against the
+# kf-blocked one (tests/test_backend.py, 1e-3); the replay's observation
+# capacity (the JAX package's default; the CPU rehearsal takes the JAX
+# tests' 16384)
+MESH_SHARDS = 4
+MESH_MATCH = (4093, 2048)
+MESH_TOL = dict(obs=5e-4, lm=5e-3, generic=1e-3)
+REPLAY_CAPACITY = 65536
 LOOP_FRAMES, LOOP_REVISIT, LOOP_LMS, LOOP_TRAIN = 40, 8, 1200, 6
 LOOP_CFG = dict(dislocal=8, k_consistency=1, min_nss=0.01, alpha=0.1,
                 min_matches=12, min_inliers=10)
@@ -486,9 +520,12 @@ class Scene:
 
         from mcslam_tpu_torch.data import synthetic
 
-        self.rig = synthetic.make_synthetic_rig(
-            synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)))
-        check(self.rig.device.type == "cuda", "the rig is not on the card")
+        spec = synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H))
+        if dev.type == "cuda":
+            self.rig = synthetic.make_synthetic_rig(spec)
+            check(self.rig.device.type == "cuda", "the rig is not on the card")
+        else:  # a CPU rehearsal
+            self.rig = synthetic.make_synthetic_rig(spec, device=dev)
         self.poses = synthetic.smooth_trajectory(frames, step_angle=0.02)
         self.lms = synthetic.make_landmarks(3000, depth_range=(4.0, 15.0))
         imgs = synthetic.render_blob_images(self.rig, self.poses, self.lms)
@@ -947,6 +984,9 @@ def solver_kernels(scene, rng, dev, kernels):
 
 
 def main() -> int:
+    import tempfile
+    from pathlib import Path
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1081,8 +1121,11 @@ def main() -> int:
               f"for another reason")
 
     # ---- phase 5: the sessions, launches counted ----
+    # (its graph log and phase 7's are replayed in phase 12)
+    logs = tempfile.TemporaryDirectory()
+    log_paths = (Path(logs.name) / "session.log", Path(logs.name) / "vio.log")
     _build.LAUNCHES.clear()
-    slam, _ = run_session(scene)
+    slam, _ = run_session(scene, log_path=log_paths[0])
     launches = dict(_build.LAUNCHES)
     _, est = slam.trajectory_arrays()
     ate = metrics.ate_rmse(est, scene.poses)
@@ -1132,7 +1175,7 @@ def main() -> int:
     bootstrap_phase(scene, dev, kernels)
 
     # ---- phase 7: the visual-inertial and GPS path, launches counted ----
-    vio_problems = vio_phase(scene, dev)
+    vio_problems = vio_phase(scene, dev, log_path=log_paths[1])
 
     # ---- phase 9: loop closure and relocalization, launches counted ----
     loop_state = loop_phase(dev)
@@ -1146,7 +1189,8 @@ def main() -> int:
             time_kernel(f"{n} on uniform noise", k["on_noise"], smi)
     for name, iters in BA_ITERS:
         def solve():
-            return ba.ba_solve(solve_problem, iters=iters, gate_rounds=2)
+            return ba.ba_solve(solve_problem, iters=iters, gate_rounds=2,
+                               kf_blocked=True)
         ms = cuda_ms(solve, reps=5, warmup=1)
         dev_ms, n_ops, _ = device_profile(solve)
         print(f"# time ba_solve {name} ({iters} x 2): {ms:.3f} ms by CUDA "
@@ -1186,6 +1230,12 @@ def main() -> int:
 
     # ---- phase 11: the app and data path, launches counted ----
     app_phase(scene, dev, smi)
+
+    # ---- phase 12: the generic layout, replay, the mesh, the entry ----
+    generic_phase(solve_problem, dev, smi)
+    replay_phase(scene, dev, smi, log_paths)
+    logs.cleanup()
+    mesh_phase(scene, solve_problem, dev, smi, plain_times=times)
 
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
@@ -1407,13 +1457,14 @@ def _imu_span(ts, t_prev, t):
     return (ts > t_prev) & (ts <= t)
 
 
-def vio_phase(scene, dev):
+def vio_phase(scene, dev, log_path=None):
     """Phase 7: (a) the stage D solve on the card under sync-debug
     "error" against the CPU, with and without GPS, warm and cold, with
     ba_linearize launched inside it; (b) the VIO + GPS session through
-    process_image; (c) the low-rate GPS dummy-keyframe drive. Each with
-    the launch counters reset right before it and read right after.
-    Returns the stage D problems on the card by GPS factor count."""
+    process_image (its graph log written to log_path if given); (c) the
+    low-rate GPS dummy-keyframe drive. Each with the launch counters reset
+    right before it and read right after. Returns the stage D problems on
+    the card by GPS factor count."""
     import torch
 
     from mcslam_tpu_torch import _build
@@ -1484,7 +1535,7 @@ def vio_phase(scene, dev):
 
     # (b) the VIO + GPS session
     _build.LAUNCHES.clear()
-    slam, poses, times, init_at = vio_session(scene)
+    slam, poses, times, init_at = vio_session(scene, log_path=log_path)
     launches = dict(_build.LAUNCHES)
     _, est = slam.trajectory_arrays()
     ate = metrics.ate_rmse(est[init_at:], poses[init_at:])
@@ -1533,7 +1584,7 @@ def vio_phase(scene, dev):
     return problems
 
 
-def vio_session(scene, frames=VIO_FRAMES):
+def vio_session(scene, frames=VIO_FRAMES, log_path=None):
     """frames blob frames of the scene's rig and landmarks along
     analytic_circle_imu's circle (0.35 rad/s, 0.3 s stationary, 0.3 s
     ramp, tests/test_slam_vio.py's noise and biases), 200 Hz IMU and a GPS
@@ -1553,6 +1604,10 @@ def vio_session(scene, frames=VIO_FRAMES):
     slam = MultiCameraSLAM(scene.rig, SlamConfig(imu_init_samples=40),
                            imu_params=ImuParams(**VIO_IMU),
                            gps_lever_arm=np.zeros(3))
+    if log_path is not None:
+        from mcslam_tpu_torch.utils import mapio
+
+        slam.attach_graph_log(mapio.GraphLogWriter(log_path))
     times, init_at = [], None
     for k in range(frames):
         t, t_prev = k / 20.0, (k - 1) / 20.0 if k else -1.0
@@ -1567,6 +1622,8 @@ def vio_session(scene, frames=VIO_FRAMES):
         if info.get("initialized") and init_at is None:
             init_at = k
     slam.finalize()
+    if log_path is not None:
+        dump_graph(slam, log_path)
     check(init_at is not None, "VIO session: never initialized")
     return slam, poses, times, init_at
 
@@ -2184,13 +2241,33 @@ def time_kernel(n, k, smi):
           f"{k['bound_ms']:.4f} ms ({k['bound_by']}) ({smi})")
 
 
-def run_session(scene, frames=SESSION_FRAMES, route=None):
-    """The first `frames` frames through the driver's entry point, on the
-    rig's device -> (slam, [(wall seconds, keyframe?) per frame]);
-    finalize()d."""
-    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+def dump_graph(slam, path):
+    """The session's end-of-run x / l / e graph-log records (as the app
+    writes them: one edge per keyframe landmark, its anchor camera) after
+    the records streamed during the run; closes the writer."""
+    log = slam.graph_log
+    for kf in slam.keyframes:
+        log.pose(kf.kf_id, kf.world_T_ref, kf.timestamp)
+        for m in np.nonzero(kf.lm_id >= 0)[0]:
+            log.edge(kf.kf_id, int(kf.im_anchor_cam[m]), int(kf.lm_id[m]),
+                     float(kf.im_uv[m, 0]), float(kf.im_uv[m, 1]))
+    for lid in np.nonzero(slam.map.valid)[0]:
+        log.landmark(int(lid), slam.map.pos[lid])
+    log.close()
 
-    slam = MultiCameraSLAM(scene.rig, SlamConfig())
+
+def run_session(scene, frames=SESSION_FRAMES, route=None, mesh=None,
+                log_path=None):
+    """The first `frames` frames through the driver's entry point, on the
+    rig's device (the window and global solves over `mesh` if given) ->
+    (slam, [(wall seconds, keyframe?) per frame]); finalize()d. With
+    log_path, the session's graph log is written there."""
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+    from mcslam_tpu_torch.utils import mapio
+
+    slam = MultiCameraSLAM(scene.rig, SlamConfig(), mesh=mesh)
+    if log_path is not None:
+        slam.attach_graph_log(mapio.GraphLogWriter(log_path))
     times = []
     for k in range(frames):
         t0 = time.perf_counter()
@@ -2198,6 +2275,8 @@ def run_session(scene, frames=SESSION_FRAMES, route=None):
                                   extract_cfg=scene.frame_kwargs(route))
         times.append((time.perf_counter() - t0, info["keyframe"]))
     slam.finalize()
+    if log_path is not None:
+        dump_graph(slam, log_path)
     return slam, times
 
 
@@ -2217,12 +2296,14 @@ def _window_solves(scene, dev):
     p_dev = ba.problem_from_numpy(**f)
     check(p_dev.poses.device == dev, "the window problem is not on the card")
     for name, iters in BA_ITERS:
-        ref = ba.ba_solve(p_cpu, iters=iters, gate_rounds=2)
+        ref = ba.ba_solve(p_cpu, iters=iters, gate_rounds=2,
+                          kf_blocked=True)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             t0 = time.perf_counter()
-            res = ba.ba_solve(p_dev, iters=iters, gate_rounds=2)
+            res = ba.ba_solve(p_dev, iters=iters, gate_rounds=2,
+                              kf_blocked=True)
             enqueue_ms = (time.perf_counter() - t0) * 1e3
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -2830,6 +2911,406 @@ def app_phase(scene, dev, smi):
     stereo_phase(scene, dev, smi)
 
 
+def _same(a, b) -> bool:
+    """Every tensor field of two results (or frames) equal, bit for bit."""
+    import torch
+
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _card_time(fn, dev, smi, what, reps=5):
+    """Print fn()'s time by CUDA events and its device time and ops by the
+    profiler (on the card only) -> (ms, device ms, device ops)."""
+    if dev.type != "cuda":
+        return None
+    ms = cuda_ms(fn, reps=reps, warmup=1)
+    dev_ms, n_ops, _ = device_profile(fn)
+    print(f"# time {what}: {ms:.3f} ms by CUDA events; profiler: "
+          f"{dev_ms:.3f} ms device time in {n_ops:.0f} device ops ({smi})")
+    return ms, dev_ms, n_ops
+
+
+def _peak_gib(fn, dev):
+    """Peak device memory of fn() above what was held before, GiB (the
+    card only)."""
+    import torch
+
+    if dev.type != "cuda":
+        return float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    del out
+    return peak
+
+
+def _queued(dev) -> str:
+    """How phase 12 describes a solve it ran under _no_sync."""
+    return ("queued with no host sync" if dev.type == "cuda"
+            else "on the CPU")
+
+
+def _no_sync(fn, dev):
+    """fn() with host syncs turned into errors on the card."""
+    import torch
+
+    if dev.type != "cuda":
+        return fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def generic_phase(p_dev, dev, smi):
+    """Phase 12 (a): ba_solve's generic layout (the default,
+    kf_blocked=False) on the stage C problem, warm and cold, on the card
+    under sync-debug "error", twice (bit-equal), against the generic solve
+    on the CPU and the card's kf-blocked solve (poses within
+    MESH_TOL["generic"]); its time, device time, ops and peak memory
+    beside the kf-blocked solve's."""
+    from mcslam_tpu_torch.backend import ba
+
+    p_cpu = ba.problem_from_numpy(*p_dev, device="cpu")
+    for name, iters in BA_ITERS:
+        def solve(blocked=False):
+            return ba.ba_solve(p_dev, iters=iters, gate_rounds=2,
+                               kf_blocked=blocked)
+
+        res = _no_sync(solve, dev)
+        res2 = _no_sync(solve, dev)
+        ref = ba.ba_solve(p_cpu, iters=iters, gate_rounds=2)
+        blk = solve(True)
+        poses = res.poses.cpu()
+        check(bool(poses.isfinite().all()), f"generic {name}: non-finite")
+        err_cpu = float((poses - ref.poses).abs().max())
+        err_blk = float((poses - blk.poses.cpu()).abs().max())
+        same = _same(res, res2)
+        print(f"# generic ba_solve {name} ({iters} x 2) K=6 Ok=1365 L=2048 "
+              f"on {p_dev.poses.device}: {_queued(dev)}; poses vs "
+              f"the CPU generic solve max abs err {err_cpu:.3g}, vs the "
+              f"kf-blocked solve {err_blk:.3g}; inliers "
+              f"{int(res.num_inliers)} (kf-blocked {int(blk.num_inliers)}, "
+              f"CPU {int(ref.num_inliers)}); two runs bit-equal: {same}; "
+              f"peak memory {_peak_gib(solve, dev):.3f} GiB (kf-blocked "
+              f"{_peak_gib(lambda: solve(True), dev):.3f})")
+        check(err_cpu <= MESH_TOL["generic"],
+              f"generic {name}: card vs CPU pose error {err_cpu}")
+        check(err_blk <= MESH_TOL["generic"],
+              f"generic {name}: generic vs kf-blocked pose error {err_blk}")
+        check(same, f"generic {name}: two runs differ")
+        _card_time(solve, dev, smi, f"generic ba_solve {name} ({iters} x 2)")
+        _card_time(lambda: solve(True), dev, smi,
+                   f"kf-blocked ba_solve {name} ({iters} x 2), same call")
+
+
+def replay_phase(scene, dev, smi, logs, capacity=REPLAY_CAPACITY):
+    """Phase 12 (b): the graph log of phase 5's session (logs[0]) replayed
+    (replay_graph_logs) on `dev` twice: cost_out <= 1.05 cost_in,
+    bit-equal, the same n_obs and cost_in (1e-4) as the CPU's replay of
+    the file with no LM step; then phase 7's VIO + GPS session's log
+    (logs[1]) through replay_graph_logs_vio with
+    tests/test_replay_and_utils.py's gates (IMU factors >= keyframes - 4,
+    >= 1 GPS factor, > 200 observations, cost_out <= 1.05 cost_in, poses
+    within 0.5 m of the logged ones, bit-equal reruns)."""
+    from mcslam_tpu_torch.backend.imu import ImuParams
+    from mcslam_tpu_torch.utils import replay
+
+    rig = scene.rig
+    cTr, f = rig.cam_T_ref.cpu().numpy(), rig.fxycxy.cpu().numpy()
+    path, vpath = logs
+
+    def rep():
+        return replay.replay_graph_logs(path, cTr, f, obs_capacity=capacity,
+                                        device=dev)
+
+    t0 = time.perf_counter()
+    out = rep()
+    wall = (time.perf_counter() - t0) * 1e3
+    out2 = rep()
+    cpu = replay.replay_graph_logs(path, cTr, f, iters=0,
+                                   obs_capacity=capacity, device="cpu")
+    K, L = len(out["kf_ids"]), len(out["lm_ids"])
+    same = (np.array_equal(out["poses_out"], out2["poses_out"])
+            and np.array_equal(out["lms_out"], out2["lms_out"]))
+    print(f"# replay of the {SESSION_FRAMES}-frame session's log on {dev}: "
+          f"K={K} L={L} n_obs {out['n_obs']} (CPU {cpu['n_obs']}) of "
+          f"{capacity} slots; cost {out['cost_in']:.6g} -> "
+          f"{out['cost_out']:.6g} (CPU cost_in {cpu['cost_in']:.6g}); "
+          f"inliers {out['inliers']}; wall {wall:.1f} ms (parse, upload, "
+          f"15 x 2 solve, fetch); two replays bit-equal: {same}; peak "
+          f"memory {_peak_gib(rep, dev):.3f} GiB")
+    check(out["n_obs"] == cpu["n_obs"] > 200, "replay: n_obs differs")
+    check(abs(out["cost_in"] - cpu["cost_in"]) <= 1e-4 * cpu["cost_in"],
+          "replay: cost_in differs from the CPU's")
+    check(out["cost_out"] <= 1.05 * out["cost_in"], "replay: the cost rose")
+    check(same, "replay: two replays differ")
+    _card_time(rep, dev, smi, "replay_graph_logs (whole call)", reps=2)
+
+    btc = rig.body_T_cam.cpu().numpy()
+    ctb = np.linalg.inv(btc).astype(np.float32)
+
+    def rep_vio():
+        return replay.replay_graph_logs_vio(
+            vpath, ctb, f, body_T_cam0=btc[0],
+            imu_params=ImuParams(**VIO_IMU), obs_capacity=capacity,
+            device=dev)
+
+    t0 = time.perf_counter()
+    vo = rep_vio()
+    wall = (time.perf_counter() - t0) * 1e3
+    vo2 = rep_vio()
+    dt = np.linalg.norm(vo["poses_out"][:, :3, 3] - vo["poses_in"][:, :3, 3],
+                        axis=-1)
+    same = np.array_equal(vo["poses_out"], vo2["poses_out"])
+    prof = ""
+    if dev.type == "cuda":
+        dev_ms, n_ops, _ = device_profile(rep_vio)
+        prof = (f"; profiler: {dev_ms:.3f} ms device time in {n_ops:.0f} "
+                f"device ops")
+    print(f"# VIO replay on {dev}: K={len(vo['kf_ids'])} n_obs {vo['n_obs']},"
+          f" IMU factors {vo['n_imu']}, GPS {vo['n_gps']}, loops "
+          f"{vo['n_loop']}; cost {vo['cost_in']:.6g} -> {vo['cost_out']:.6g};"
+          f" max pose move {dt.max():.4f} m; wall {wall:.1f} ms (host "
+          f"clock, ending in the fetch){prof}; two replays bit-equal: "
+          f"{same} ({smi})")
+    check(vo["n_imu"] >= len(vo["kf_ids"]) - 4, "VIO replay: IMU factors")
+    check(vo["n_gps"] >= 1 and vo["n_obs"] > 200, "VIO replay: factors")
+    check(vo["cost_out"] <= 1.05 * vo["cost_in"], "VIO replay: the cost rose")
+    check(dt.max() < 0.5, f"VIO replay: a pose moved {dt.max()} m")
+    check(same, "VIO replay: two replays differ")
+
+
+def _mesh_match(mesh, dev, smi):
+    """sharded_hamming_match of MESH_MATCH queries against map rows over
+    the mesh, exactly the single-device brute force."""
+    import torch
+
+    from mcslam_tpu_torch.ops import hamming
+    from mcslam_tpu_torch.parallel import sharded_match
+
+    N, Q = MESH_MATCH
+    rng = np.random.RandomState(3)
+    mdesc = rng.randint(0, 2**32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    mvalid = rng.rand(N) > 0.1
+    q = mdesc[rng.randint(0, N, Q)].copy()
+    flip = rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
+    q = np.where(rng.rand(Q, 8) > 0.06, q, q ^ flip)
+    q[:Q // 4] = rng.randint(0, 2**32, (Q // 4, 8),
+                             dtype=np.uint64).astype(np.uint32)
+    qd = hamming.desc_to_torch(q, dev)
+    qv = torch.ones(Q, dtype=torch.bool, device=dev)
+    d_sh, v_sh, Np = sharded_match.shard_map_desc(mesh, mdesc, mvalid)
+
+    def sharded():
+        return sharded_match.sharded_hamming_match(mesh, qd, qv, d_sh, v_sh)
+
+    md = hamming.desc_to_torch(mdesc, dev)
+    mv = torch.from_numpy(mvalid).to(dev)
+
+    def single():
+        d = torch.where(mv[None], hamming.hamming_matrix(qd, md), 1 << 20)
+        d1, i1 = torch.min(d, dim=1)
+        d2 = torch.min(d.scatter(1, i1[:, None], 1 << 20), dim=1).values
+        ok = qv & (d1 <= 64) & (d1.float() <= 0.85 * d2.float())
+        return i1.to(torch.int32), ok, d1.to(torch.int32)
+
+    got, ref = sharded(), single()
+    same = _same(got, ref)
+    print(f"# sharded_hamming_match: {Q} queries x {N} map rows (padded to "
+          f"{Np}) over {mesh.size} shards: idx / ok / distance equal to the "
+          f"single-device brute force: {same} ({int(got[1].sum())} pass the "
+          f"gates)")
+    check(same, "sharded_hamming_match differs from the single device")
+    _card_time(sharded, dev, smi, f"sharded_hamming_match ({mesh.size} "
+               f"shards)")
+    _card_time(single, dev, smi, "single-device brute-force match")
+
+
+def _mesh_frame(scene, mesh, dev, smi):
+    """sharded_build_frame of bench frame 0, one camera per shard, bit-equal
+    to build_frame; fast_select and patch_gather launched once per
+    shard."""
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.parallel import mesh as mesh_mod
+    from mcslam_tpu_torch.parallel import sharded_frame
+
+    cam_mesh = mesh_mod.Mesh(mesh.devices, sharded_frame.AXIS)
+    kw = scene.frame_kwargs()
+    ref = frame.build_frame(scene.imgs[0], scene.rig, **kw)
+    _build.LAUNCHES.clear()
+    got = sharded_frame.sharded_build_frame(cam_mesh, scene.imgs[0],
+                                            scene.rig, **kw)
+    launches = dict(_build.LAUNCHES)
+    same = [n for n in ref._fields
+            if not _same([getattr(got, n)], [getattr(ref, n)])]
+    print(f"# sharded_build_frame of bench frame 0 ({C} cameras over "
+          f"{mesh.size} shards): fields that differ from build_frame: "
+          f"{same or 'none'}; launches {launches}")
+    check(not same, f"sharded_build_frame: {same} differ from build_frame")
+    if dev.type == "cuda":
+        for n in ("fast_select", "patch_gather"):
+            check(launches.get(n, 0) == mesh.size,
+                  f"sharded_build_frame: {n} launched {launches.get(n, 0)} "
+                  f"times, not once per shard")
+    _card_time(lambda: sharded_frame.sharded_build_frame(
+        cam_mesh, scene.imgs[0], scene.rig, **kw), dev, smi,
+        f"sharded_build_frame ({mesh.size} shards)")
+    _card_time(lambda: frame.build_frame(scene.imgs[0], scene.rig, **kw),
+               dev, smi, "build_frame, same call")
+
+
+def _mesh_solves(scene, mesh, p_dev, dev, smi):
+    """The observation-sharded solve at the stage C shape and the
+    landmark-sharded one at the global solve's test shape against one
+    device's ba_solve (MESH_TOL), under sync-debug "error"; the
+    landmark-sharded one at the SlamConfig cap with its peak memory."""
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.parallel import sharded_ba
+
+    for name, iters in BA_ITERS:
+        def solve():
+            return sharded_ba.sharded_ba_solve(mesh, *p_dev[:3],
+                                               p_dev.kf_valid, p_dev.obs,
+                                               *p_dev[4:8], iters=iters)
+
+        out = _no_sync(solve, dev)
+        ref = ba.ba_solve(p_dev, iters=iters)
+        err = float((out[0] - ref.poses).abs().max())
+        print(f"# sharded_ba_solve {name} ({iters} x 2) stage C over "
+              f"{mesh.size} shards: {_queued(dev)}; poses vs "
+              f"ba_solve max abs err {err:.3g}; inliers {int(out[4])} "
+              f"(single {int(ref.num_inliers)})")
+        check(err <= MESH_TOL["obs"], f"sharded_ba_solve {name}: {err}")
+        _card_time(solve, dev, smi, f"sharded_ba_solve {name} ({iters} x 2, "
+                   f"{mesh.size} shards)")
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
+        device=dev)
+    for name, (K, L, O) in (("test shape", GBA_TEST), ("cap", GBA_CAP)):
+        f = synthetic.random_window_ba_problem(
+            rig, num_kfs=K, num_lms=L, obs_capacity=O, px_noise=0.5,
+            step_angle=GBA_STEP)
+        p = ba.problem_from_numpy(**f)  # on the rig's device, dev
+        grouped = sharded_ba.shard_by_landmark(f["obs"], L, mesh.size)
+        pg = ba.problem_from_numpy(**dict(f, obs=grouped))
+
+        def solve():
+            return sharded_ba.sharded_ba_solve_lm(
+                mesh, *pg[:3], pg.kf_valid, pg.obs, *pg[4:8],
+                iters=GBA_ITERS)
+
+        cost0 = float(ba._total_cost(p, 2.5))
+        out = _no_sync(solve, dev)
+        line = (f"# sharded_ba_solve_lm {name} K={K} Ok={O // K} L={L} over "
+                f"{mesh.size} shards ({grouped.kf.shape[0]} grouped rows): "
+                f"{_queued(dev)}; cost {cost0:.6g} -> "
+                f"{float(out[3]):.6g}; peak memory "
+                f"{_peak_gib(solve, dev):.3f} GiB")
+        check(bool(out[0].isfinite().all()) and float(out[3]) < cost0,
+              f"sharded_ba_solve_lm {name}: no descent")
+        if name == "test shape":
+            ref = ba.ba_solve(p, iters=GBA_ITERS, kf_blocked=True)
+            err = float((out[0] - ref.poses).abs().max())
+            line += f"; poses vs ba_solve max abs err {err:.3g}"
+            check(err <= MESH_TOL["lm"], f"sharded_ba_solve_lm: {err}")
+        print(line)
+        _card_time(solve, dev, smi, f"sharded_ba_solve_lm {name}", reps=1)
+
+
+def mesh_phase(scene, p_dev, dev, smi, plain_times=None):
+    """Phase 12 (c) and (d): a MESH_SHARDS-shard mesh (distinct cards where
+    the machine has them, else all shards on `dev`): the sharded solves,
+    the sharded match, the camera-sharded frame build, a
+    SESSION_FRAMES-frame session with mesh= (launches counted) beside
+    plain_times, phase 8's session (a plain session is run when it is
+    None), then entry()'s forward and dryrun_multichip."""
+    import torch
+
+    from mcslam_tpu_torch import _build, entry
+    from mcslam_tpu_torch.parallel import mesh as mesh_mod
+    from mcslam_tpu_torch.utils import metrics
+    from mcslam_tpu_torch.slam import INITIALIZED
+
+    mesh = mesh_mod.spread_mesh(MESH_SHARDS, dev)
+    kind = "distinct cards" if mesh.distinct else "all shards on one device"
+    print(f"# mesh: {mesh} ({kind}; {torch.cuda.device_count()} CUDA "
+          f"device(s))")
+    _mesh_solves(scene, mesh, p_dev, dev, smi)
+    _mesh_match(mesh, dev, smi)
+    _mesh_frame(scene, mesh, dev, smi)
+
+    plain = plain_times if plain_times is not None else run_session(scene)[1]
+    _build.LAUNCHES.clear()
+    slam, times = run_session(scene, mesh=mesh)
+    launches = dict(_build.LAUNCHES)
+    ate = metrics.ate_rmse(slam.trajectory_arrays()[1], scene.poses)
+    print(f"# mesh session: {SESSION_FRAMES} frames, state {slam.state}, "
+          f"keyframes {slam.stats['keyframes']}, failures "
+          f"{slam.stats['failures']}, window solves "
+          f"{slam.stats.get('window_ba', 0)} (observation-sharded), ATE "
+          f"{ate:.4f} m; launches {launches}")
+    for label, tt in (("mesh", times), ("single device", plain)):
+        for name, kf in (("keyframe frames", True), ("other frames", False)):
+            ms = [t * 1e3 for k, (t, is_kf) in enumerate(tt)
+                  if k and is_kf == kf]
+            print(f"# per-frame process_image wall, {label} session, {name} "
+                  f"(n={len(ms)}): median {np.median(ms):.3f} ms, mean "
+                  f"{np.mean(ms):.3f} ms ({smi})")
+    check(slam.state == INITIALIZED, "mesh session: not INITIALIZED")
+    check(slam.stats.get("window_ba", 0) >= 1, "mesh session: no solve")
+    check(ate <= MAX_ATE, f"mesh session: ATE {ate:.4f} m > {MAX_ATE}")
+    if dev.type == "cuda":
+        for n in ("fast_select", "patch_gather", "hamming_argmin2",
+                  "pose_lm"):
+            check(launches.get(n, 0) > 0,
+                  f"mesh session: kernel {n} was not launched")
+
+    fn, (example,) = entry.entry(device=dev)
+    X, desc, valid = fn(example)
+    check(X.shape == (2048, 3) and bool(X.isfinite().all()),
+          "entry(): malformed or non-finite output")
+    print(f"# entry(): the fused 4-camera VGA frame build on {X.device}, "
+          f"{int(valid.sum())} valid intra groups")
+    _card_time(lambda: fn(example), dev, smi, "entry() forward")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(MESH_SHARDS, device=dev)
+    print(f"# dryrun_multichip({MESH_SHARDS}) on {dev}: passed in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def rehearse_mesh():
+    """CPU rehearsal of phase 12 (b)-(d) with the plain versions and
+    device="cpu" (the replays at the JAX tests' 16384 observation slots):
+    every gate of the phases, no timing."""
+    import torch
+
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.data import synthetic
+
+    import tempfile
+    from pathlib import Path
+
+    cpu = torch.device("cpu")
+    scene = Scene(cpu)
+    p = ba.problem_from_numpy(**dict(synthetic.random_window_ba_problem(
+        scene.rig, px_noise=0.5), device="cpu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = (Path(tmp) / "session.log", Path(tmp) / "vio.log")
+        run_session(scene, log_path=logs[0])
+        vio_session(scene, log_path=logs[1])
+        replay_phase(scene, cpu, "cpu rehearsal", logs, capacity=16384)
+    mesh_phase(scene, p, cpu, "cpu rehearsal")
+    print("# phase 12 rehearsal (b)-(d) on the CPU: passed")
+
+
 def rehearse_app(seeds):
     """CPU rehearsal of phase 11 (a) and (b) with the plain versions: the
     bench scene, rendered as Scene renders it, through app_sessions on
@@ -2872,5 +3353,8 @@ def rehearse_app(seeds):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rehearse-app"]:
         rehearse_app(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--rehearse-mesh"]:
+        rehearse_mesh()
         sys.exit(0)
     sys.exit(main())

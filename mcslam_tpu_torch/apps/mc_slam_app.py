@@ -85,11 +85,6 @@ def main(argv=None):
         raise NotImplementedError(
             "live_view: the viewer (viz/viewer.py) is not ported to "
             "mcslam_tpu_torch yet (ROADMAP Queue 1 item 7)")
-    if int(settings.raw.get("mesh_devices", 0) or 0) > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1: multi-device BA and frame builds "
-            "(parallel/) are not ported to mcslam_tpu_torch yet (ROADMAP "
-            "Queue 1 item 6)")
     frontend = config.load_frontend_params(settings.frontend_params_file)
     backend = config.load_backend_params(settings.backend_params_file)
     slam_cfg, extract_cfg = config.slam_config_from_params(frontend, backend)
@@ -131,8 +126,18 @@ def main(argv=None):
         tbg = gps_params.get("Tbg")
         gps_lever = tbg[:3, 3] if tbg is not None else np.zeros(3, np.float32)
 
+    # mesh_devices > 1: window / global solves over a device mesh of that
+    # many distinct devices of --device (the CPU repeats), and the
+    # camera-sharded frame build when the mesh divides the rig
+    mesh = None
+    n_mesh = int(settings.raw.get("mesh_devices", 0) or 0)
+    if n_mesh > 1:
+        from mcslam_tpu_torch.parallel import sharded_ba
+
+        mesh = sharded_ba.make_mesh(n_mesh, args.device)
+
     slam = MultiCameraSLAM(rig, slam_cfg, vocab=vocab, imu_params=imu_p,
-                           gps_lever_arm=gps_lever)
+                           gps_lever_arm=gps_lever, mesh=mesh)
 
     # map-reuse session (reference relocal app mode, mc_slam_app.cpp:347-521):
     # relocalization=true loads the saved map + BoW DB and localizes against
@@ -225,10 +230,26 @@ def main(argv=None):
     # Fused frontend (default): in INITIALIZED steady state the frame
     # build and the tracking step run as one device program
     # (slam.process_image) with one packed fetch per frame. The split
-    # loop (fused_frontend=false) builds frame N+1 (queued on the device)
-    # before frame N's tracking runs on the host.
-    fused_frontend = str(settings.raw.get("fused_frontend", "true")).lower() \
-        not in ("false", "0")
+    # loop builds frame N+1 (queued on the device) before frame N's
+    # tracking runs on the host: it takes the camera-sharded build
+    # (parallel/sharded_frame, bit-exact) when a mesh divides the rig, and
+    # serves fused_frontend=false.
+    cam_sharded = mesh is not None and rig.num_cams % n_mesh == 0
+    if cam_sharded:
+        from mcslam_tpu_torch.parallel import mesh as mesh_mod
+        from mcslam_tpu_torch.parallel import sharded_frame
+
+        cam_mesh = mesh_mod.Mesh(mesh.devices, sharded_frame.AXIS)
+
+        def _build(imgs):
+            return sharded_frame.sharded_build_frame(cam_mesh, imgs, rig,
+                                                     **extract_cfg)
+    else:
+        def _build(imgs):
+            return build_frame(imgs, rig, **extract_cfg)
+    fused_frontend = not cam_sharded and str(
+        settings.raw.get("fused_frontend", "true")).lower() not in ("false",
+                                                                    "0")
     while fused_frontend:
         nxt = _next()
         if nxt is None:
@@ -250,7 +271,7 @@ def main(argv=None):
         if nxt is not None:
             n_read += 1
             imgs, ts = nxt
-            ff = build_frame(imgs, rig, **extract_cfg)
+            ff = _build(imgs)
         else:
             imgs = ff = ts = None
         if pending is None:

@@ -1,15 +1,23 @@
 """Sliding-window bundle adjustment: Levenberg-Marquardt with a dense Schur
-complement over a keyframe-blocked observation table (counterpart of
-mcslam_tpu/backend/ba.py, its kf_blocked=True path).
+complement (counterpart of mcslam_tpu/backend/ba.py).
 
-The window is a fixed-size state: K keyframe poses, L landmark slots and
-O = K * Ok observation slots, padded and masked, with observation o
-belonging to keyframe o // Ok. Every LM iteration linearizes all
-observations in one launch of the `ba_linearize` kernel (ops/ba_cuda;
-its plain version on the CPU), reduces the 30-channel payload against the
-landmark one-hot in one batched f32 product, eliminates the landmarks
-with closed-form 3x3 inverses and solves the (K*6)^2 Schur system with
-`torch.linalg.solve_ex`, the elimination in float64 (see _eliminate).
+The window is a fixed-size state: K keyframe poses, L landmark slots and O
+observation slots, padded and masked. Two observation layouts:
+- kf-blocked (kf_blocked=True, what the SLAM driver builds): O = K * Ok
+  with observation o belonging to keyframe o // Ok. Every LM iteration
+  linearizes all observations in one launch of the `ba_linearize` kernel
+  (ops/ba_cuda; its plain version on the CPU) and reduces the 30-channel
+  payload against the landmark one-hot in one batched f32 product.
+- generic (kf_blocked=False, the default as in the JAX package: any
+  keyframe per observation, e.g. a replayed graph log or an observation
+  shard): the linearization by row gathers (_residuals_and_jacobians)
+  and every segment sum as one f32 product against a one-hot
+  (_assemble): fixed summation order, no atomics, so two runs on the
+  card are bit-equal.
+Either way the landmarks are eliminated with closed-form 3x3 inverses and
+the (K*6)^2 Schur system is solved with `torch.linalg.solve_ex`, the
+elimination in float64 (see _eliminate). One LM schedule (lm_schedule)
+serves both layouts, the VIO solve and the sharded solvers.
 
 The solve queues on the current stream without the host waiting: no
 `.item()`, no host branch on a tensor and no host<->device copy inside
@@ -144,6 +152,52 @@ def _landmark_onehot(problem: BAProblem) -> torch.Tensor:
     return (problem.obs.lm.long()[:, None] == ar[None]).to(torch.float32)
 
 
+def _make_onehots(problem: BAProblem):
+    """(O, K) and (O, L) f32 one-hots of each observation's keyframe and
+    landmark slot: the generic layout's segment reductions, constant
+    over a solve."""
+    K = problem.poses.shape[0]
+    ar = torch.arange(K, device=problem.poses.device)
+    oh_k = (problem.obs.kf.long()[:, None] == ar[None]).to(torch.float32)
+    return oh_k, _landmark_onehot(problem)
+
+
+def _assemble(problem: BAProblem, r, Jp, Jl, w, onehots=None):
+    """Normal equations of the generic layout from the per-observation
+    linearization: -> (Hpp (K*6, K*6) dense with the prior, gp (K*6,),
+    Hll (L, 3, 3), gl (L, 3), Wc (K, 6, L, 3)), the kf-blocked assembly's
+    layout.
+
+    Two f32 products, each a fixed-order reduction: the pose blocks
+    [Hpp | gp] (O, 42) against the (O, K) keyframe one-hot, and one
+    landmark-axis product for W, Hll and gl together: the payload
+    [T placed in its keyframe's 18 columns (O, K*18) | Hll (O, 9) |
+    gl (O, 3)] against the (O, L) landmark one-hot. W costs K times the
+    kf-blocked product's operations, as the JAX package's K masked
+    products do."""
+    K = problem.poses.shape[0]
+    L = problem.landmarks.shape[0]
+    O = r.shape[0]
+    oh_k, oh_l = _make_onehots(problem) if onehots is None else onehots
+    Jpw = Jp * w[:, None, None]
+    Jlw = Jl * w[:, None, None]
+    pose = oh_k.T @ torch.cat([
+        torch.einsum("ori,orj->oij", Jpw, Jp).reshape(O, 36),
+        torch.einsum("ori,or->oi", Jpw, r)], dim=1)  # (K, 42)
+    T = torch.einsum("ori,orj->oij", Jpw, Jl).reshape(O, 1, 18)
+    payload = torch.cat([
+        (oh_k[:, :, None] * T).reshape(O, K * 18),
+        torch.einsum("ori,orj->oij", Jlw, Jl).reshape(O, 9),
+        torch.einsum("ori,or->oi", Jlw, r)], dim=1)
+    R = payload.T @ oh_l  # (K*18 + 12, L)
+    Wc = R[:K * 18].reshape(K, 6, 3, L).permute(0, 1, 3, 2)
+    Hll = R[K * 18:K * 18 + 9].T.reshape(L, 3, 3)
+    gl = R[K * 18 + 9:].T
+    Hpp = torch.block_diag(*pose[:, :36].reshape(K, 6, 6).unbind(0))
+    return (Hpp + problem.prior_H, pose[:, 36:].reshape(K * 6)
+            + problem.prior_b, Hll, gl, Wc)
+
+
 def _lin_constants(problem: BAProblem) -> dict:
     """The per-solve inputs of ba_linearize: contiguous int32 / f32
     observation columns, the rig tables (Rc9 (C, 9), tc (C, 3), f4
@@ -219,110 +273,173 @@ def _eliminate(Hll, Wc, damp):
     return Hll_inv, Wm, torch.einsum("plj,ljk->plk", Wm, Hll_inv)
 
 
+def _schur_terms(Hll, gl, Wc, lam):
+    """One landmark set's share of the damped Schur system, in float64:
+    (Hll^-1, Wm, W Hll^-1 W^T (K*6, K*6), W Hll^-1 gl (K*6,)) with the
+    landmark blocks damped by lam + 1e-6 (empty / invalid blocks become
+    identity, their delta 0 since their gradient is 0 too)."""
+    Hll_inv, Wm, WHinv = _eliminate(Hll, Wc, lam.to(torch.float64) + 1e-6)
+    return (Hll_inv, Wm, torch.einsum("plk,qlk->pq", WHinv, Wm),
+            torch.einsum("plk,lk->p", WHinv, gl.to(torch.float64)))
+
+
+def _solve_reduced(Hpp, gp, S_part, rhs_part, lam):
+    """The pose step of the damped Schur system (float64)."""
+    f64 = torch.float64
+    K6 = Hpp.shape[0]
+    S = (Hpp.to(f64) + lam.to(f64) * torch.eye(K6, dtype=f64,
+                                               device=Hpp.device) - S_part)
+    # solve_ex, not solve: solve checks its info on the host (a sync)
+    return -torch.linalg.solve_ex(S, gp.to(f64) - rhs_part)[0]
+
+
+def _back_substitute(Hll_inv, Wm, gl, dp, lm_valid):
+    """Landmark deltas (L, 3) in float64 given the pose step dp."""
+    dl = -torch.einsum("ljk,lk->lj", Hll_inv,
+                       gl.to(torch.float64)
+                       + torch.einsum("plj,p->lj", Wm, dp))
+    return dl * lm_valid[:, None].to(torch.float64)
+
+
 def _schur_solve(Hpp, gp, Hll, gl, Wc, lam, lm_valid):
     """Damped Schur solve -> (dpose (K*6,), dlm (L, 3)) in Hpp's dtype;
     lam a 0-d tensor."""
-    f64 = torch.float64
-    K6 = Hpp.shape[0]
-    lam = lam.to(f64)
-    # damp landmark blocks; empty / invalid blocks become identity (delta 0
-    # since their gradient is 0 too)
-    Hll_inv, Wm, WHinv = _eliminate(Hll, Wc, lam + 1e-6)
-    S = (Hpp.to(f64) + lam * torch.eye(K6, dtype=f64, device=Hpp.device)
-         - torch.einsum("plk,qlk->pq", WHinv, Wm))
-    gl = gl.to(f64)
-    rhs = gp.to(f64) - torch.einsum("plk,lk->p", WHinv, gl)
-    # solve_ex, not solve: solve checks its info on the host (a sync)
-    dp = -torch.linalg.solve_ex(S, rhs)[0]
-    dl = -torch.einsum("ljk,lk->lj", Hll_inv,
-                       gl + torch.einsum("plj,p->lj", Wm, dp))
-    dl = dl * lm_valid[:, None].to(f64)
+    lam = lam.to(torch.float64)  # once: the steps below take it as is
+    Hll_inv, Wm, S_part, rhs_part = _schur_terms(Hll, gl, Wc, lam)
+    dp = _solve_reduced(Hpp, gp, S_part, rhs_part, lam)
+    dl = _back_substitute(Hll_inv, Wm, gl, dp, lm_valid)
     return dp.to(Hpp.dtype), dl.to(Hpp.dtype)
+
+
+def _marginal(Hpp, Hll, Wc) -> torch.Tensor:
+    """Undamped pose-side marginal S = Hpp - W Hll^-1 W^T (f32): the
+    information fixed-lag marginalization hands to the next window."""
+    _, Wm, WHinv = _eliminate(Hll, Wc, 1e-6)
+    return (Hpp.to(torch.float64)
+            - torch.einsum("plk,qlk->pq", WHinv, Wm)).to(torch.float32)
+
+
+def _where(cond, a, b):
+    """torch.where over matching nests of tuples / lists of tensors, the
+    0-d condition copied to each leaf's device (a no-op on its own)."""
+    if isinstance(a, (tuple, list)):
+        return type(a)(_where(cond, x, y) for x, y in zip(a, b))
+    return torch.where(cond.to(a.device, non_blocking=True), a, b)
+
+
+def lm_schedule(system, step, state, obs_valid, gate, iters: int,
+                gate_rounds: int, init_lambda: float):
+    """The LM schedule of every solver of the port (ba_solve, vio_solve,
+    parallel/sharded_ba): accept / reject damping in `gate_rounds` rounds
+    of `iters` steps, with the chi2 outlier gate tightening the
+    observation mask between rounds. One linearization per step: the
+    trial point's pass doubles as the previous step's acceptance check,
+    and a rejected step re-solves the carried system with a larger
+    lambda. A gate step takes no LM step: it re-linearizes the carried
+    state under the new mask, adopts it and resets lambda.
+
+    system(state, obs_valid) -> (sys, cost (0-d), r); step(sys, lam,
+    state) -> the trial state; gate(r) -> obs_valid. state, sys, r and
+    obs_valid may be nests of tuples / lists of tensors on several
+    devices; cost and lambda live on one. Decisions are device tensors
+    (torch.where), never read on the host.
+    -> (state, sys, cost, r) of the last adopted state."""
+    b_sys, b_cost, b_r = system(state, obs_valid)
+
+    def lam0():
+        return torch.full((), init_lambda, dtype=torch.float32,
+                          device=b_cost.device)
+
+    lam = lam0()
+    for idx in range(iters * gate_rounds):
+        if idx > 0 and idx % iters == 0:
+            obs_valid = gate(b_r)
+            b_sys, b_cost, b_r = system(state, obs_valid)
+            lam = lam0()
+            continue
+        t_state = step(b_sys, lam, state)
+        sys_t, c_t, r_t = system(t_state, obs_valid)
+        improved = c_t < b_cost
+        state, b_sys, b_r, b_cost = _where(
+            improved, (t_state, sys_t, r_t, c_t), (state, b_sys, b_r, b_cost))
+        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0),
+                          1e-8, 1e4)
+    return state, b_sys, b_cost, b_r
+
+
+def _blocked_system(problem: BAProblem, huber_px: float):
+    """system(state, obs_valid) of the kf-blocked layout on the
+    ba_linearize kernel (prepared once per solve)."""
+    c = _lin_constants(problem)
+    oh_l = _landmark_onehot(problem)
+    lin = ba_cuda.Linearizer(c["obs_lm"], c["obs_cam"], c["uv"],
+                             c["sigma2"], c["Rc9"], c["tc"], c["f4"],
+                             problem.poses.shape[0],
+                             problem.landmarks.shape[0], huber_px)
+
+    def system(state, obs_valid):
+        poses, lms = state
+        payload, r, w, Hpp36, gp6 = lin(
+            _rtw12(poses), lms.contiguous(),
+            c["lm_vf"] * obs_valid.to(torch.float32))
+        sys_ = _assemble_from_payload(problem, payload, Hpp36, gp6, oh_l)
+        return sys_, torch.sum(w * torch.sum(r * r, dim=-1)), r
+
+    return system
+
+
+def _generic_system(problem: BAProblem, huber_px: float):
+    """system(state, obs_valid) of the generic layout (plain PyTorch, as
+    the JAX package's generic path is plain XLA)."""
+    onehots = _make_onehots(problem)
+
+    def system(state, obs_valid):
+        poses, lms = state
+        p = problem._replace(poses=poses, landmarks=lms,
+                             obs=problem.obs._replace(valid=obs_valid))
+        r, Jp, Jl, w = _residuals_and_jacobians(p, huber_px)
+        sys_ = _assemble(p, r, Jp, Jl, w, onehots)
+        return sys_, torch.sum(w * torch.sum(r * r, dim=-1)), r
+
+    return system
+
+
+def chi2_gate(obs: BAObservations, chi2_thresh: float):
+    """gate(r) -> obs.valid & (|r|^2 / sigma^2 < chi2_thresh)."""
+    sigma2 = torch.clamp(obs.sigma2.to(torch.float32), min=1e-6)
+
+    def gate(r):
+        return obs.valid & (torch.sum(r * r, dim=-1) / sigma2 < chi2_thresh)
+
+    return gate
 
 
 def ba_solve(problem: BAProblem, iters: int = 10, huber_px: float = 2.5,
              init_lambda: float = 1e-4, chi2_thresh: float = 5.991,
-             gate_rounds: int = 2, kf_blocked: bool = True) -> BAResult:
-    """LM with accept/reject damping in `gate_rounds` rounds of `iters`
-    steps, with the chi2 outlier gate (5.991) tightening the observation
-    mask between rounds. One linearization per step: the trial point's
-    pass doubles as the previous step's acceptance check, and a rejected
-    step re-solves the carried system with a larger lambda. A gate step
-    takes no LM step: it re-linearizes the carried state under the new
-    mask, adopts it and resets lambda.
+             gate_rounds: int = 2, kf_blocked: bool = False) -> BAResult:
+    """LM over the window by lm_schedule (`gate_rounds` rounds of `iters`
+    steps, the chi2 gate (5.991) between rounds), then the inlier set at
+    the solution and the undamped pose-side marginal of the carried
+    system.
 
-    The observation table must be kf-blocked (O = K * Ok, obs.kf[o] ==
-    o // Ok); the generic layout (kf_blocked=False) is not ported."""
-    if not kf_blocked:
-        raise NotImplementedError(
-            "ba_solve: only the kf-blocked observation layout is ported "
-            "(kf_blocked=True)")
-    dev = problem.poses.device
-    f32 = torch.float32
-    obs = problem.obs
+    kf_blocked=True takes the kf-blocked layout on the ba_linearize
+    kernel: the caller guarantees O = K * Ok and obs.kf[o] == o // Ok.
+    The default, the generic layout, takes any observation table."""
     K = problem.poses.shape[0]
+    system = (_blocked_system if kf_blocked else _generic_system)(
+        problem, huber_px)
 
-    # per-solve constants
-    oh_l = _landmark_onehot(problem)
-    c = _lin_constants(problem)
+    def step(sys_, lam, state):
+        dp, dl = _schur_solve(*sys_, lam, problem.lm_valid)
+        return (lie.se3_retract(state[0], dp.reshape(K, 6)), state[1] + dl)
 
-    lin = ba_cuda.Linearizer(c["obs_lm"], c["obs_cam"], c["uv"],
-                             c["sigma2"], c["Rc9"], c["tc"], c["f4"], K,
-                             problem.landmarks.shape[0], huber_px)
-
-    def system(poses, lms, obs_valid):
-        payload, r, w, Hpp36, gp6 = lin(
-            _rtw12(poses), lms.contiguous(), c["lm_vf"] * obs_valid.to(f32))
-        sys_ = _assemble_from_payload(problem, payload, Hpp36, gp6, oh_l)
-        return sys_, torch.sum(w * torch.sum(r * r, dim=-1)), r
-
-    def gate_weights(r):
-        chi2 = torch.sum(r * r, dim=-1) / torch.clamp(c["sigma2"], min=1e-6)
-        return obs.valid & (chi2 < chi2_thresh)
-
-    def lam0():
-        return torch.full((), init_lambda, dtype=f32, device=dev)
-
-    obs_valid = obs.valid
-    b_poses, b_lms = problem.poses, problem.landmarks
-    b_sys, b_cost, b_r = system(b_poses, b_lms, obs_valid)
-    lam = lam0()
-    for idx in range(iters * gate_rounds):
-        if idx > 0 and idx % iters == 0:
-            # gate boundary: tighten the mask from the carried residuals,
-            # re-linearize the carried state and adopt it unconditionally
-            obs_valid = gate_weights(b_r)
-            b_sys, b_cost, b_r = system(b_poses, b_lms, obs_valid)
-            lam = lam0()
-            continue
-        dp, dl = _schur_solve(*b_sys, lam, problem.lm_valid)
-        t_poses = lie.se3_retract(b_poses, dp.reshape(K, 6))
-        t_lms = b_lms + dl
-        sys_t, c_t, r_t = system(t_poses, t_lms, obs_valid)
-        improved = c_t < b_cost
-
-        def pick(a, b):
-            return torch.where(improved, a, b)
-
-        b_poses = pick(t_poses, b_poses)
-        b_lms = pick(t_lms, b_lms)
-        b_sys = tuple(pick(a, b) for a, b in zip(sys_t, b_sys))
-        b_r = pick(r_t, b_r)
-        b_cost = pick(c_t, b_cost)
-        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0),
-                          1e-8, 1e4)
-    # final gate for the reported inlier set
-    inliers = gate_weights(b_r)
-
-    # undamped pose-side marginal at the solution, from the carried system:
-    # S = Hpp - W Hll^-1 W^T, the information fixed-lag marginalization
-    # hands to the next window
-    Hpp_f, _, Hll_f, _, Wc_f = b_sys
-    _, Wm, WHinv = _eliminate(Hll_f, Wc_f, 1e-6)
-    marginal_H = (Hpp_f.to(torch.float64)
-                  - torch.einsum("plk,qlk->pq", WHinv, Wm)).to(f32)
+    gate = chi2_gate(problem.obs, chi2_thresh)
+    (poses, lms), (Hpp, _, Hll, _, Wc), cost, r = lm_schedule(
+        system, step, (problem.poses, problem.landmarks), problem.obs.valid,
+        gate, iters, gate_rounds, init_lambda)
+    inliers = gate(r)  # the reported inlier set
     return BAResult(
-        poses=b_poses, landmarks=b_lms, obs_inliers=inliers, cost=b_cost,
+        poses=poses, landmarks=lms, obs_inliers=inliers, cost=cost,
         num_inliers=torch.sum(inliers).to(torch.int32),
-        marginal_H=marginal_H,
+        marginal_H=_marginal(Hpp, Hll, Wc),
     )

@@ -1,16 +1,17 @@
 """Visual-inertial(-GPS) sliding-window bundle adjustment (counterpart of
-mcslam_tpu/backend/ba_vio.py, its kf_blocked=True path).
+mcslam_tpu/backend/ba_vio.py).
 
 Per-keyframe state [pose(6), vel(3), bias(6)] (D = 15), plus one global
 6-dof GPS alignment state E_T_V (ENU from the VIO world) appended as the
 last column block of the dense pose-side system, N = K * D + 6.
 
 - Vision observations touch the 6 pose dofs of one keyframe and one
-  landmark. Their block is the window BA's: one `ba_linearize` launch per
-  linearization (ops/ba_cuda.Linearizer, prepared once per solve; its
-  plain version on the CPU) and backend/ba._assemble_from_payload on a
-  BAProblem view with zero priors. A constant 0/1 matrix E (N, K * 6)
-  embeds the (K*6) pose blocks into the N layout exactly.
+  landmark. Their block is the window BA's system on a BAProblem view
+  with zero priors, of either layout: kf-blocked, one `ba_linearize`
+  launch per linearization (its plain version on the CPU), or generic,
+  backend/ba._assemble's one-hot products (the layout a replayed graph
+  log has). A constant 0/1 matrix E (N, K * 6) embeds the (K*6) pose
+  blocks into the N layout exactly: no scatter, no atomics.
 - IMU factors couple two keyframes' 15-dof states, GPS factors one pose
   and E_T_V, between factors two poses. Their residuals are whitened
   functions of the states; the Jacobians on the factors' tangents come
@@ -43,7 +44,6 @@ import torch
 from mcslam_tpu_torch.backend import ba
 from mcslam_tpu_torch.backend import imu as imu_mod
 from mcslam_tpu_torch.geometry import lie
-from mcslam_tpu_torch.ops import ba_cuda
 
 D = 15  # per-keyframe state dims
 
@@ -96,7 +96,7 @@ class VioProblem(NamedTuple):
     biases: torch.Tensor  # (K, 6)
     landmarks: torch.Tensor  # (L, 3)
     lm_valid: torch.Tensor  # (L,)
-    obs: ba.BAObservations  # uv observations (kf-blocked layout)
+    obs: ba.BAObservations  # uv observations (either layout)
     cam_T_body: torch.Tensor  # (C, 4, 4) camera-from-body extrinsics
     fxycxy: torch.Tensor  # (C, 4)
     imu: ImuFactors | None
@@ -308,18 +308,17 @@ class _System:
     """Everything of a VIO problem that is constant over a solve, and its
     linearization at a state."""
 
-    def __init__(self, problem: VioProblem, huber_px: float):
+    def __init__(self, problem: VioProblem, huber_px: float,
+                 kf_blocked: bool):
         p = problem
         dev = p.poses.device
-        K, L = p.poses.shape[0], p.landmarks.shape[0]
+        K = p.poses.shape[0]
         self.K, self.N = K, K * D + 6
         self.problem = p
-        self.vis = _vision_problem(p)
-        self.oh_l = ba._landmark_onehot(self.vis)
-        self.c = c = ba._lin_constants(self.vis)
-        self.lin = ba_cuda.Linearizer(c["obs_lm"], c["obs_cam"], c["uv"],
-                                      c["sigma2"], c["Rc9"], c["tc"],
-                                      c["f4"], K, L, huber_px)
+        # the vision block: ba's system of either layout on the zero-prior
+        # BAProblem view; its state is (poses, landmarks)
+        self.vision = (ba._blocked_system if kf_blocked
+                       else ba._generic_system)(_vision_problem(p), huber_px)
         # E (N, K*6): pose block k of the vision system -> rows k*D..k*D+5
         self.E = torch.zeros(self.N, K * 6, dtype=torch.float32, device=dev)
         for k in range(K):
@@ -328,20 +327,16 @@ class _System:
 
     def __call__(self, state, obs_valid):
         """-> ((H (N, N), g (N,), Hll (L, 3, 3), gl (L, 3), Wc (K, 6, L,
-        3)), total cost, vision residuals (O, 2), vision weights (O,))."""
+        3)), total cost, vision residuals (O, 2))."""
         poses, vels, biases, lms, ETV = state
-        payload, r, w, Hpp36, gp6 = self.lin(
-            ba._rtw12(poses), lms.contiguous(),
-            self.c["lm_vf"] * obs_valid.to(torch.float32))
-        Hpp, gp, Hll, gl, Wc = ba._assemble_from_payload(
-            self.vis, payload, Hpp36, gp6, self.oh_l)
-        cost = torch.sum(w * torch.sum(r * r, dim=-1))
+        (Hpp, gp, Hll, gl, Wc), cost, r = self.vision((poses, lms),
+                                                      obs_valid)
         H = self.E @ Hpp @ self.E.T + self.problem.prior_H
         g = self.E @ gp + self.problem.prior_b
         for fac, args in self.factors:
             c_f, H_f, g_f = fac.linearize(*args(poses, vels, biases, ETV))
             cost, H, g = cost + c_f, H + H_f, g + g_f
-        return (H, g, Hll, gl, Wc), cost, r, w
+        return (H, g, Hll, gl, Wc), cost, r
 
     def rows(self, Wc):
         """(K, 6, L, 3) vision cross terms -> (N, 1, L, 3) in the N
@@ -351,23 +346,19 @@ class _System:
             self.N, 1, L, 3)
 
 
-def _need_blocked(kf_blocked: bool, name: str):
-    if not kf_blocked:
-        raise NotImplementedError(
-            f"{name}: only the kf-blocked observation layout is ported "
-            f"(kf_blocked=True)")
-
-
 def _assemble_vio(problem: VioProblem, huber_px: float,
-                  kf_blocked: bool = True):
+                  kf_blocked: bool = False):
     """The dense pose-side system and the landmark blocks at the problem's
     state -> (H (N, N), g (N,), Hll (L, 3, 3), gl (L, 3), Wc (N, L, 3),
-    (r, w), cost), the JAX package's layout."""
-    _need_blocked(kf_blocked, "_assemble_vio")
-    s = _System(problem, huber_px)
-    (H, g, Hll, gl, Wc), cost, r, w = s(
+    (r, w), cost), the JAX package's layout. kf_blocked=True takes the
+    ba_linearize kernel (O = K * Ok, obs.kf[o] == o // Ok); the default,
+    the generic layout, any observation table."""
+    s = _System(problem, huber_px, kf_blocked)
+    (H, g, Hll, gl, Wc), cost, r = s(
         (problem.poses, problem.vels, problem.biases, problem.landmarks,
          problem.E_T_V), problem.obs.valid)
+    _, _, _, w = ba._residuals_and_jacobians(_vision_problem(problem),
+                                             huber_px)
     return H, g, Hll, gl, s.rows(Wc)[:, 0], (r, w), cost
 
 
@@ -383,70 +374,35 @@ def _vio_cost(problem: VioProblem, huber_px: float) -> torch.Tensor:
 
 def vio_solve(problem: VioProblem, iters: int = 10, huber_px: float = 2.5,
               init_lambda: float = 1e-4, chi2_thresh: float = 5.991,
-              gate_rounds: int = 2, kf_blocked: bool = True) -> VioResult:
-    """LM over the VIO window with the schedule of backend/ba.ba_solve:
-    `gate_rounds` rounds of `iters` steps, one linearization per step (the
-    trial point's doubles as the previous step's acceptance check), a
-    rejected step re-solving the carried system with a larger lambda; a
-    gate step takes no LM step: it tightens the vision mask by the chi2
-    gate (5.991) from the carried residuals, re-linearizes the carried
-    state, adopts it and resets lambda. The marginal comes from the
-    carried system. Only the kf-blocked observation layout is ported."""
-    _need_blocked(kf_blocked, "vio_solve")
-    dev = problem.poses.device
-    f32 = torch.float32
+              gate_rounds: int = 2, kf_blocked: bool = False) -> VioResult:
+    """LM over the VIO window by backend/ba.lm_schedule (`gate_rounds`
+    rounds of `iters` steps, the chi2 gate (5.991) on the vision
+    observations between rounds); the marginal comes from the carried
+    system. kf_blocked=True takes the kf-blocked vision layout on the
+    ba_linearize kernel; the default, the generic layout, any
+    observation table."""
     K = problem.poses.shape[0]
-    obs = problem.obs
-    system = _System(problem, huber_px)
-    sigma2 = system.c["sigma2"]
+    system = _System(problem, huber_px, kf_blocked)
 
-    def gate(r):
-        chi2 = torch.sum(r * r, dim=-1) / torch.clamp(sigma2, min=1e-6)
-        return obs.valid & (chi2 < chi2_thresh)
-
-    def lam0():
-        return torch.full((), init_lambda, dtype=f32, device=dev)
-
-    obs_valid = obs.valid
-    b_state = (problem.poses, problem.vels, problem.biases,
-               problem.landmarks, problem.E_T_V)
-    b_sys, b_cost, b_r, _ = system(b_state, obs_valid)
-    lam = lam0()
-    for idx in range(iters * gate_rounds):
-        if idx > 0 and idx % iters == 0:
-            obs_valid = gate(b_r)
-            b_sys, b_cost, b_r, _ = system(b_state, obs_valid)
-            lam = lam0()
-            continue
-        H, g, Hll, gl, Wc = b_sys
+    def step(sys_, lam, state):
+        H, g, Hll, gl, Wc = sys_
         dx, dl = ba._schur_solve(H, g, Hll, gl, system.rows(Wc), lam,
                                  problem.lm_valid)
         ds = dx[:K * D].reshape(K, D)
-        poses, vels, biases, lms, ETV = b_state
-        t_state = (lie.se3_retract(poses, ds[:, :6]), vels + ds[:, 6:9],
-                   biases + ds[:, 9:], lms + dl,
-                   lie.se3_retract(ETV, dx[K * D:]))
-        sys_t, c_t, r_t, _ = system(t_state, obs_valid)
-        improved = c_t < b_cost
+        poses, vels, biases, lms, ETV = state
+        return (lie.se3_retract(poses, ds[:, :6]), vels + ds[:, 6:9],
+                biases + ds[:, 9:], lms + dl,
+                lie.se3_retract(ETV, dx[K * D:]))
 
-        def pick(a, b):
-            return torch.where(improved, a, b)
-
-        b_state = tuple(pick(a, b) for a, b in zip(t_state, b_state))
-        b_sys = tuple(pick(a, b) for a, b in zip(sys_t, b_sys))
-        b_r = pick(r_t, b_r)
-        b_cost = pick(c_t, b_cost)
-        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0),
-                          1e-8, 1e4)
-    # undamped pose-side marginal at the solution, from the carried system
-    H, _, Hll, _, Wc = b_sys
-    _, Wm, WHinv = ba._eliminate(Hll, system.rows(Wc), 1e-6)
-    marginal_H = (H.to(torch.float64)
-                  - torch.einsum("plk,qlk->pq", WHinv, Wm)).to(f32)
-    poses, vels, biases, lms, ETV = b_state
+    gate = ba.chi2_gate(problem.obs, chi2_thresh)
+    state, (H, _, Hll, _, Wc), cost, r = ba.lm_schedule(
+        system, step, (problem.poses, problem.vels, problem.biases,
+                       problem.landmarks, problem.E_T_V),
+        problem.obs.valid, gate, iters, gate_rounds, init_lambda)
+    poses, vels, biases, lms, ETV = state
     return VioResult(poses=poses, vels=vels, biases=biases, landmarks=lms,
-                     E_T_V=ETV, obs_inliers=gate(b_r), cost=b_cost,
-                     marginal_H=marginal_H)
+                     E_T_V=ETV, obs_inliers=gate(r), cost=cost,
+                     marginal_H=ba._marginal(H, Hll, system.rows(Wc)))
 
 
 def make_imu_factors(preints: list, pairs: list, capacity: int,

@@ -8,7 +8,8 @@ driver's numpy code. PGO, the BA solves and the triangulation run on the
 session's device. With `async_gba` the global solve is queued on the
 window BA's side CUDA stream (driver_window._ba_side_stream) and lands
 `gba_land_frames` frames later, or before the next window solve, loop
-closure or finalize(); nothing waits for it at dispatch.
+closure or finalize(); nothing waits for it at dispatch. Over a device
+mesh the global solve is the landmark-sharded one (parallel/sharded_ba).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch.backend import ba, pgo
+from mcslam_tpu_torch.parallel import sharded_ba
 from mcslam_tpu_torch.tracking_kernels import _triangulate_pairs
 
 
@@ -218,11 +220,6 @@ class LoopClosingMixin:
             n_obs += n
         if n_obs < 60:
             return
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "global BA over a device mesh is not ported to "
-                "mcslam_tpu_torch yet")
-
         poses_old = np.tile(np.eye(4, dtype=np.float32), (Kb, 1, 1))
         poses_old[:K] = np.stack([k.world_T_ref for k in sel])
         kf_valid = np.arange(Kb) < K
@@ -232,24 +229,20 @@ class LoopClosingMixin:
         prior_H[:6, :6] = np.eye(6) * 1e6  # gauge on the first keyframe
         for pk in range(K, Kb):  # clamp the padded slots
             prior_H[pk * 6:(pk + 1) * 6, pk * 6:(pk + 1) * 6] = np.eye(6) * 1e6
+        obs = ba.BAObservations(
+            kf=np.repeat(np.arange(Kb, dtype=np.int32), Ok), cam=obs_cam,
+            lm=obs_lm, uv=obs_uv, sigma2=obs_s2, valid=obs_val)
+        if self.mesh is not None:
+            # landmark-sharded over the mesh: the table regrouped by
+            # landmark shard on the host (L is a power of two, divisible
+            # by the mesh)
+            obs = sharded_ba.shard_by_landmark(obs, L, self.mesh.size)
         problem = ba.problem_from_numpy(
-            poses_old, lms, np.arange(L) < len(lm_ids),
-            ba.BAObservations(kf=np.repeat(np.arange(Kb, dtype=np.int32), Ok),
-                              cam=obs_cam, lm=obs_lm, uv=obs_uv,
-                              sigma2=obs_s2, valid=obs_val),
+            poses_old, lms, np.arange(L) < len(lm_ids), obs,
             self.rig.cam_T_ref, self.rig.fxycxy, prior_H,
             np.zeros(Kb * 6, np.float32), kf_valid, device=self.device)
-        stream = self._ba_side_stream()
-        if stream is None:
-            result = ba.ba_solve(problem, iters=cfg.global_ba_iters,
-                                 kf_blocked=True)
-        else:
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            for t in (*problem[:3], *problem.obs, *problem[4:]):
-                t.record_stream(stream)
-            with torch.cuda.stream(stream):
-                result = ba.ba_solve(problem, iters=cfg.global_ba_iters,
-                                     kf_blocked=True)
+        result = self._dispatch_solve(problem, cfg.global_ba_iters,
+                                      landmark_sharded=True)
         # deferred write-back: the PGO bend and the landmark merge (already
         # applied) carry tracking while the solve runs
         self._pending_gba = {

@@ -1,13 +1,18 @@
 """Window-BA half of the SLAM driver (mixin; counterpart of
 mcslam_tpu/driver_window.py): window assembly in the kf-blocked layout
 with the same capacity tiers; the vision solve with deferred write-back
-and the fixed-lag marginal carry-over; and, once the IMU is
-gravity-initialized, the visual-inertial(-GPS) solve (backend/ba_vio) with
-its body-frame states, IMU and GPS factor tables, priors and synchronous
-write-back.
+and the fixed-lag marginal carry-over (over a device mesh, the
+observation-sharded solve of parallel/sharded_ba, with no marginal: the
+anchor falls back to the gauge clamp, as in the JAX driver); and, once
+the IMU is gravity-initialized, the visual-inertial(-GPS) solve
+(backend/ba_vio) with its body-frame states, IMU and GPS factor tables,
+priors and synchronous write-back.
 
 On a CUDA device the vision solve (and driver_loop's global solve) runs on
-a side stream of its own. The tracking
+a side stream of its own (a mesh solve's work on the session's device
+too; its other devices' shards queue on their current streams, and the
+copies between cards are ordered on the streams by torch's cross-device
+copy events). The tracking
 path syncs its stream every frame (the packed fetch, the fast-path read,
 pageable uploads); on a shared stream each of those syncs would wait for
 the queued solve and make the deferred write-back synchronous. The side
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch.backend import ba, ba_vio
+from mcslam_tpu_torch.parallel import sharded_ba
 
 
 class WindowBAMixin:
@@ -40,6 +46,35 @@ class WindowBAMixin:
         if getattr(self, "_ba_stream", None) is None:
             self._ba_stream = torch.cuda.Stream(self.device)
         return self._ba_stream
+
+    def _dispatch_solve(self, problem, iters: int,
+                        landmark_sharded: bool = False) -> ba.BAResult:
+        """Queue the solve of a kf-blocked BAProblem: ba_solve on the
+        ba_linearize kernel, or over the session's mesh the
+        observation-sharded solve (the landmark-sharded one for a
+        shard_by_landmark table), whose result has a zero marginal_H. On
+        a CUDA device it runs on the side stream, after the main stream,
+        with the problem's tensors recorded on it."""
+        def solve():
+            if self.mesh is None:
+                return ba.ba_solve(problem, iters=iters, kf_blocked=True)
+            fn = (sharded_ba.sharded_ba_solve_lm if landmark_sharded
+                  else sharded_ba.sharded_ba_solve)
+            out = fn(self.mesh, problem.poses, problem.landmarks,
+                     problem.lm_valid, problem.kf_valid, problem.obs,
+                     problem.cam_T_ref, problem.fxycxy, problem.prior_H,
+                     problem.prior_b, iters=iters)
+            return ba.BAResult(*out, marginal_H=torch.zeros_like(
+                problem.prior_H, device=out[0].device))
+
+        stream = self._ba_side_stream()
+        if stream is None:
+            return solve()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        for t in (*problem[:3], *problem.obs, *problem[4:]):
+            t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            return solve()
 
     def _solve_window(self, window, force_sync=False, allow_vio=True):
         """Window BA over an explicit keyframe list (gauge on window[0]);
@@ -140,20 +175,13 @@ class WindowBAMixin:
         # re-linearizations of a converged system; cold ones get the full
         # budget
         iters = cfg.ba_iters if self._ba_warm else cfg.ba_iters_cold
-        stream = self._ba_side_stream()
-        if stream is None:
-            result = ba.ba_solve(problem, iters=iters, kf_blocked=True)
-        else:
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            for t in (*problem[:3], *problem.obs, *problem[4:]):
-                t.record_stream(stream)
-            with torch.cuda.stream(stream):
-                result = ba.ba_solve(problem, iters=iters, kf_blocked=True)
+        result = self._dispatch_solve(problem, iters)
         self.stats["window_ba"] = self.stats.get("window_ba", 0) + 1
         self._ba_warm = True
         # stash the marginal information of the state that becomes the
-        # oldest when the trailing window slides (consumed above)
-        if not force_sync:
+        # oldest when the trailing window slides (consumed above); the
+        # mesh solve has none, so its next window clamps the anchor
+        if not force_sync and self.mesh is None:
             self._pending_vis_marg = (window[1].kf_id, result)
         # deferred write-back: the solve runs on the device while the next
         # frame is tracked; its results land async_ba_land_frames frames

@@ -81,17 +81,23 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Antialiased bilinear resize of (..., H, W) to (..., h, w)."""
+    """Antialiased bilinear resize of (..., H, W) to (..., h, w), as two
+    matrix products per image: every product has one shape whatever the
+    number of images, since a GEMM may sum in another order for another
+    M or batch count, and an image must resize to the same bits alone as
+    in a batch (the camera-sharded frame build, parallel/sharded_frame)."""
     h, w = img.shape[-2:]
     oh, ow = out_hw
-    x = img
-    if oh != h:
-        Wh = torch.from_numpy(_resize_matrix(h, oh)).to(img.device)
-        x = Wh @ x
-    if ow != w:
-        Ww = torch.from_numpy(_resize_matrix(w, ow)).to(img.device)
-        x = x @ Ww.T
-    return x
+    Wh = torch.from_numpy(_resize_matrix(h, oh)).to(img.device)
+    Ww = torch.from_numpy(_resize_matrix(w, ow)).to(img.device).T
+
+    def one(x):
+        if oh != h:
+            x = Wh @ x
+        return x @ Ww if ow != w else x
+
+    out = [one(x) for x in img.reshape(-1, h, w)]
+    return torch.stack(out).reshape(*img.shape[:-2], oh, ow)
 
 
 @functools.lru_cache(maxsize=None)

@@ -114,12 +114,17 @@ def _steered_sample_index(bins: int = ANGLE_BINS) -> np.ndarray:
     return out
 
 
-def patch_orientation(patches: torch.Tensor) -> torch.Tensor:
-    """IC angle atan2(m01, m10) of (N, P, P) patches from one f32
-    (N, P^2) @ (P^2, 2) product (TF32 is off: a flipped steering bin
-    decorrelates the descriptor)."""
+def patch_orientation(patches: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """IC angle atan2(m01, m10) of (N, P, P) patches from f32
+    (N / groups, P^2) @ (P^2, 2) products, one per group of rows (TF32 is
+    off: a flipped steering bin decorrelates the descriptor). The frame
+    build passes one group per image or camera, so every product has the
+    same shape whatever the number of cameras: a GEMM may sum in another
+    order for another M, and the camera-sharded build
+    (parallel/sharded_frame) must give the same bits."""
     W = torch.from_numpy(_moment_weight_matrix()).to(patches.device)
-    m = patches.reshape(patches.shape[0], PATCH * PATCH) @ W
+    flat = patches.reshape(patches.shape[0], PATCH * PATCH)
+    m = torch.cat([g @ W for g in flat.chunk(groups)])
     return torch.atan2(m[:, 1], m[:, 0])
 
 
@@ -367,7 +372,7 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
         ang = torch.atan2(m[:, 1], m[:, 0])
     else:
         patches, _origin = patch_gather(blurred, flat_yx, flat_img)
-        ang = patch_orientation(patches)
+        ang = patch_orientation(patches, groups=C)
     desc = compute_descriptors_patch(patches, ang, angle_bins)
     return Keypoints(
         xy=xy0_m, response=resp_m, angle=ang.reshape(C, n_out),
@@ -383,7 +388,7 @@ def _finish_late_compact(blurred, yx, resp, valid, xy0, octv, sigma2, merge,
     LC, maxb = yx.shape[:2]
     patches, _origin = patch_gather_batched(blurred, yx.contiguous())
     patches = patches.reshape(LC * maxb, PATCH, PATCH)
-    ang = patch_orientation(patches)
+    ang = patch_orientation(patches, groups=LC)
     desc = compute_descriptors_patch(patches, ang, angle_bins)
     kp = Keypoints(
         xy=merge(xy0), response=merge(resp),

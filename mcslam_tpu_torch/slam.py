@@ -20,8 +20,9 @@ visual-inertial window solve (driver_window, backend/ba_vio); with
 (loop/detector) and loop closing with PGO, the loop-window BA and global
 BA (driver_loop); `final_global_ba`, one global BA at finalize();
 `enable_relocalization`, a map-reuse session against a saved map
-(loop/reloc, loop/tracking). Multi-device BA (`mesh`) is not ported and
-raises NotImplementedError.
+(loop/reloc, loop/tracking); `mesh` (parallel/mesh.Mesh), the window
+solves observation-sharded and the global solve landmark-sharded over the
+mesh (parallel/sharded_ba).
 
 States: NOT_INITIALIZED -> INITIALIZED, with REINITIALIZING after
 `max_track_failures` consecutive tracking failures.
@@ -47,6 +48,7 @@ from mcslam_tpu_torch.geometry import lie
 from mcslam_tpu_torch.keyframe import Keyframe
 from mcslam_tpu_torch.mapping.device_map import DeviceMap
 from mcslam_tpu_torch.mapping.landmarks import LandmarkMap
+from mcslam_tpu_torch.parallel.mesh import Mesh
 from mcslam_tpu_torch.tracking_kernels import (
     _build_and_track_step, _match_descriptors, _mutual_match,
     _track_and_map_step, _triangulate_pairs, _triangulate_pairs_far,
@@ -162,12 +164,12 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         loop closure with `loop_config` (loop.detector.LoopConfig), its
         RANSAC seeded seed + 1; `imu_params` (backend.imu.ImuParams) the
         visual-inertial path, `gps_lever_arm` (body -> GPS antenna, metres)
-        the GPS factors."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiCameraSLAM: mesh (multi-device BA) is not ported to "
-                "mcslam_tpu_torch yet")
-        self.mesh = None
+        the GPS factors; `mesh` (parallel/mesh.Mesh) the window and global
+        solves over a device mesh."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
         self.cfg = config or SlamConfig()
         self.device = torch.device(device) if device is not None \
             else rig.device

@@ -268,7 +268,30 @@ def test_ba_solve_rejects_outliers_like_jax():
     _assert_near_truth(tres.poses, poses_gt)
 
 
-def test_ba_solve_refuses_generic_layout():
-    jp = _random_blocked_problem()
-    with pytest.raises(NotImplementedError, match="kf-blocked"):
-        tba.ba_solve(tba.problem_from_numpy(*jp, device="cpu"), kf_blocked=False)
+def test_ba_solve_generic_layout_matches_jax():
+    """ba_solve's default, the generic layout, on tests/test_backend.py's
+    K=4, L=64 scene in its original observation order (not kf-blocked)
+    against JAX's generic solve with _solve_both's gates (poses 1e-3,
+    inliers equal away from the chi2 threshold, marginal 1e-3), against
+    the port's kf-blocked solve of the same observations (poses 1e-3,
+    inliers equal) and within 3e-2 of the truth."""
+    problem, poses_gt, _ = _make_ba_problem(K=4, L=64)
+    jres = jba.ba_solve(problem, iters=4, gate_rounds=2)
+    tp = tba.problem_from_numpy(*problem, device="cpu")
+    tres = tba.ba_solve(tp, iters=4, gate_rounds=2)
+    np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses),
+                               atol=1e-3, rtol=0)
+    near = _near_gate(tp, tres)
+    assert np.all((tres.obs_inliers.numpy() == np.asarray(jres.obs_inliers))
+                  | near)
+    mj = np.asarray(jres.marginal_H)[6:, 6:]
+    assert np.abs(tres.marginal_H.numpy()[6:, 6:] - mj).max() \
+        <= 1e-3 * np.abs(mj).max()
+    jb, src = _blocked(problem)
+    bres = tba.ba_solve(tba.problem_from_numpy(*jb, device="cpu"),
+                        iters=4, gate_rounds=2, kf_blocked=True)
+    np.testing.assert_allclose(bres.poses.numpy(), tres.poses.numpy(),
+                               atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(bres.obs_inliers.numpy()[src >= 0],
+                                  tres.obs_inliers.numpy()[src[src >= 0]])
+    _assert_near_truth(tres.poses, poses_gt)

@@ -572,3 +572,107 @@ def test_vio_solve_on_cuda_matches_cpu(cuda, iters, num_gps):
     print(f"vio_solve {iters} x 2, {num_gps} GPS: card vs CPU {err}")
     for k, tol in VIO_TOL.items():
         assert err[k] <= tol, err
+
+
+# -- the generic layout and the mesh on the card ------------------------------
+# generic against kf-blocked / CPU solves: tests/test_backend.py's 1e-3
+# between the JAX package's two layouts; sharded against one device:
+# tests/test_parallel.py's 5e-4 (observation-sharded) and 5e-3
+# (landmark-sharded); frame builds and matches exact
+
+
+def _stage_c(cuda):
+    rig = synthetic.make_synthetic_rig(device=cuda)
+    f = synthetic.random_window_ba_problem(rig, px_noise=0.5)
+    return ba.problem_from_numpy(**f), f
+
+
+@pytest.mark.gpu
+def test_generic_ba_solve_on_cuda_matches_cpu(cuda):
+    """ba_solve's generic layout (the default) at the stage C shape on the
+    card, with host syncs turned into errors: twice bit-equal, within 1e-3
+    of the CPU's generic solve and of the card's kf-blocked solve, and no
+    ba_linearize launch (the generic path is plain PyTorch, as in JAX)."""
+    p, f = _stage_c(cuda)
+    torch.cuda.synchronize()
+    n0 = _build.LAUNCHES["ba_linearize"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = ba.ba_solve(p, iters=1)
+        b = ba.ba_solve(p, iters=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _build.LAUNCHES["ba_linearize"] == n0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    ref = ba.ba_solve(ba.problem_from_numpy(**dict(f, device="cpu")), iters=1)
+    blk = ba.ba_solve(p, iters=1, kf_blocked=True)
+    assert float((a.poses.cpu() - ref.poses).abs().max()) <= 1e-3
+    assert float((a.poses - blk.poses).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_sharded_solves_on_a_cuda_mesh(cuda):
+    """Both sharded solves over a 4-shard mesh of the card(s), with host
+    syncs turned into errors, against the single-device solve."""
+    from mcslam_tpu_torch.parallel import mesh as mesh_mod
+    from mcslam_tpu_torch.parallel import sharded_ba
+
+    mesh = mesh_mod.spread_mesh(4, cuda)
+    p, f = _stage_c(cuda)
+    L = p.landmarks.shape[0]
+    pg = ba.problem_from_numpy(**dict(f, obs=sharded_ba.shard_by_landmark(
+        f["obs"], L, 4)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        obs_out = sharded_ba.sharded_ba_solve(
+            mesh, *p[:3], p.kf_valid, p.obs, *p[4:8], iters=1)
+        lm_out = sharded_ba.sharded_ba_solve_lm(
+            mesh, *pg[:3], pg.kf_valid, pg.obs, *pg[4:8], iters=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = ba.ba_solve(p, iters=1)
+    assert float((obs_out[0] - ref.poses).abs().max()) <= 5e-4
+    assert float((lm_out[0] - ref.poses).abs().max()) <= 5e-3
+    assert obs_out[1].shape == lm_out[1].shape == (L, 3)
+
+
+@pytest.mark.gpu
+def test_sharded_frame_build_and_match_on_cuda_are_exact(cuda):
+    """The camera-sharded build of a 4-camera frame over 4 shards equals
+    build_frame bit for bit, with fast_select and patch_gather launched
+    once per shard; the map-sharded match equals the brute force."""
+    from mcslam_tpu_torch.parallel import mesh as mesh_mod
+    from mcslam_tpu_torch.parallel import sharded_frame, sharded_match
+
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=4, baseline=0.25, image_size=(256, 192), focal=210.0),
+        device=cuda)
+    poses = synthetic.smooth_trajectory(1, radius=5.0, step_angle=0.03,
+                                        seed=3)
+    lms = synthetic.make_landmarks(500, seed=4, depth_range=(4.0, 12.0))
+    imgs = torch.from_numpy(synthetic.render_blob_images(
+        rig, poses, lms, seed=5)[0]).to(cuda)
+    kw = dict(num_points=256, num_levels=3, max_intra=512)
+    ref = frame.build_frame(imgs, rig, **kw)
+    _build.LAUNCHES.clear()
+    got = sharded_frame.sharded_build_frame(
+        mesh_mod.spread_mesh(4, cuda, sharded_frame.AXIS), imgs, rig, **kw)
+    assert _build.LAUNCHES["fast_select"] == 4
+    assert _build.LAUNCHES["patch_gather"] == 4
+    for name in ref._fields:
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+    rng = np.random.RandomState(3)
+    mdesc = rng.randint(0, 2**32, (1003, 8), dtype=np.uint64).astype(
+        np.uint32)
+    q = hamming.desc_to_torch(mdesc[rng.randint(0, 1003, 64)], cuda)
+    mesh = mesh_mod.spread_mesh(4, cuda, sharded_match.AXIS)
+    d_sh, v_sh, _ = sharded_match.shard_map_desc(mesh, mdesc,
+                                                 np.ones(1003, bool))
+    idx, ok, dist = sharded_match.sharded_hamming_match(
+        mesh, q, torch.ones(64, dtype=torch.bool, device=cuda), d_sh, v_sh)
+    d = hamming.hamming_matrix(q, hamming.desc_to_torch(mdesc, cuda))
+    d1, i1 = torch.min(d, dim=1)
+    assert torch.equal(idx.long(), i1) and torch.equal(dist, d1.int())

@@ -170,8 +170,14 @@ def test_global_ba_beats_pgo_only():
     assert slam_off.stats.get("global_ba", 0) == 0
     assert ate_on < ate_off, (ate_on, ate_off)
     assert ate_on < 0.25, ate_on
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the global BA over a mesh is ported (tests/test_torch_parallel.py
+    # drives it): a CPU mesh constructs, anything else is refused
+    from mcslam_tpu_torch.parallel import mesh as tmesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         tslam.MultiCameraSLAM(_rig(), tslam.SlamConfig(), mesh=object())
+    assert tslam.MultiCameraSLAM(_rig(), tslam.SlamConfig(),
+                                 mesh=tmesh.make_mesh(2, "cpu")).mesh.size == 2
 
 
 # -- map reuse (tests/test_loop_reloc.py) ------------------------------------

@@ -245,9 +245,16 @@ def test_session_metrics_and_tum_match_jax(sessions, tmp_path):
 
 
 def test_unported_paths_raise():
+    """Every driver option is ported: a mesh that is not a
+    parallel.mesh.Mesh is refused (TypeError); a CPU mesh, loop closure,
+    the final global BA and the VIO / GPS paths construct."""
     _, trig, _, _ = _scene()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    from mcslam_tpu_torch.parallel import mesh as tmesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         tslam.MultiCameraSLAM(trig, mesh=object())
+    slam = tslam.MultiCameraSLAM(trig, mesh=tmesh.make_mesh(2, "cpu"))
+    assert slam.mesh.size == 2 and slam.mesh.first.type == "cpu"
     # loop closure and the final global BA are ported: no raise
     from mcslam_tpu_torch.loop import vocab as tvocab
     from mcslam_tpu_torch.loop.detector import LoopConfig

@@ -273,8 +273,18 @@ def test_assemble_vio_matches_jax():
     assert abs(c_t - c_j) <= 1e-4 * abs(c_j), (c_t, c_j)
     c_t, c_j = float(tvio._vio_cost(tp, 2.5)), float(jvio._vio_cost(jp, 2.5))
     assert abs(c_t - c_j) <= 1e-4 * abs(c_j), (c_t, c_j)
-    with pytest.raises(NotImplementedError, match="kf-blocked"):
-        tvio.vio_solve(tp, kf_blocked=False)
+    # the generic layout (the default, JAX's scatter branch): the same
+    # system, and the warm generic solve of the consistent problem within
+    # TOL_WARM of JAX's generic solve
+    tg = tvio._assemble_vio(tp, 2.5)
+    for name, a, b in zip(("H", "g", "Hll", "gl", "Wc"), tg[:5], jsys[:5]):
+        assert _rel(a.numpy(), b) <= 1e-5, (name, _rel(a.numpy(), b))
+    tp, jp, _ = _consistent_problem(True)
+    tr, jr = tvio.vio_solve(tp, iters=1), jvio.vio_solve(jp, iters=1)
+    for f, tol in TOL_WARM.items():
+        err = float(np.abs(getattr(tr, f).numpy()
+                           - np.asarray(getattr(jr, f))).max())
+        assert err <= tol, (f, err)
 
 
 def _consistent_problem(with_gps=True):
