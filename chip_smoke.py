@@ -163,6 +163,32 @@ Phases, each of which raises (non-zero exit) on failure:
      shard; a 24-frame session with mesh= (INITIALIZED, ATE <= 0.1 m,
      the four frame kernels launched) beside phase 8's session; (d)
      entry()'s forward and dryrun_multichip(4) on the card;
+  13. the native loader, MCRAW replay, the live viewer and the dataset
+     tools (after phase 12), each part with its launch counters reset
+     right before it: (a) a probe that builds nothing prints g++'s path
+     and version, whether png.h and jpeglib.h are on its include path
+     and matplotlib's version; a part that needs what the probe found
+     missing prints `not run: ...` (decided by the probe only); (b)
+     phase 11 (a)'s 24 PGM frames in an MCRAW container: written by
+     apps.convert_to_mcraw where the library builds (and then equal,
+     byte for byte, to the container written by numpy in
+     native/loader.cpp's layout), else written by numpy in that layout;
+     McrawReader (no library) gives the uint8 frames / 255 bit for bit,
+     NativePrefetchReader (the library) the PGM rasters times
+     float32(1 / 255) bit for bit (within 6e-8 of ImageFolderReader's);
+     each reader's decode time per 4-camera frame; (c) apps.mc_slam_app
+     on the card with mcraw_path, and --live_view where matplotlib is
+     present: rc 0, 24 TUM rows, ATE <= APP_MAX_ATE, the five
+     default-route kernels launched; with the viewer, the PNG decodes,
+     the HTML page exists, the viewer rendered during the session; its
+     per-frame wall time and busy share beside phase 11 (a)'s run from
+     the PGM folders; (d) apps.evaluate_trajectory --plot
+     writes a PNG that decodes; (e) apps.train_vocabulary on the card:
+     fast_select and patch_gather launched, the vocabulary has its
+     words; extract_orb on bench frame 0, card against CPU (level 0
+     exact, levels >= 1 shared at >= 95 %, descriptors >= 99.5 %); (f)
+     utils/profiling.device_trace writes a trace naming
+     fast_select_kernel, sync returns;
   8. timing: for each kernel the CUDA-event time of its wrapper call, of
      its plain version and, where one exists, of the one PyTorch call
      that computes the same function (the advanced-indexing gather for
@@ -187,7 +213,10 @@ the kernels JSON record and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
 `python3 chip_smoke.py --rehearse-app [SEEDS]` runs phase 11 (a) and (b)
 on the CPU with the plain versions instead, once per driver RANSAC seed,
-and prints the ATEs that APP_MAX_ATE is set against (no smoke result).
+and prints the ATEs that APP_MAX_ATE is set against, then phase 13
+(b)-(d) on the CPU (no smoke result); with `--as-probed
+g++,png.h,jpeglib.h,matplotlib` (any of them) last, phase 13 runs as
+where the probe found those missing.
 `python3 chip_smoke.py --rehearse-mesh` runs phase 12 (b)-(d) on the CPU
 with the plain versions (the replays at 16384 slots), every gate, no
 timing (no smoke result).
@@ -1229,13 +1258,17 @@ def main() -> int:
     loop_timing(loop_state, smi)
 
     # ---- phase 11: the app and data path, launches counted ----
-    app_phase(scene, dev, smi)
+    app_res = app_phase(scene, dev, smi)
 
     # ---- phase 12: the generic layout, replay, the mesh, the entry ----
     generic_phase(solve_problem, dev, smi)
     replay_phase(scene, dev, smi, log_paths)
     logs.cleanup()
     mesh_phase(scene, solve_problem, dev, smi, plain_times=times)
+
+    # ---- phase 13: the native loader, MCRAW replay, the live viewer and
+    # the dataset tools, launches counted ----
+    tools_phase(scene, dev, smi, app_res)
 
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
@@ -2329,8 +2362,11 @@ def device_profile(fn, reps=1, names=()):
     duration and count of the device-side events, and the summed duration
     of those whose name contains one of `names`. A trace that caught no
     device-side event, or none of the kernels named (the CUDA trace now
-    and then comes back empty), is taken again, up to five times; then
-    the run fails rather than report a time it did not measure."""
+    and then comes back empty), or that lost some of them (the count of
+    device-side events, or of the kernels named, is not a whole number
+    per call: the trace now and then drops one of ten), is taken again,
+    up to five times; then the run fails rather than report a time or a
+    count it did not measure."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2346,11 +2382,14 @@ def device_profile(fn, reps=1, names=()):
         named = [e for e in evs if any(n in e.name for n in names)]
         us = sum(e.time_range.elapsed_us() for e in evs)
         named_us = sum(e.time_range.elapsed_us() for e in named)
-        if us > 0 and (named_us > 0 or not names):
+        whole = len(evs) % reps == 0 and len(named) % reps == 0
+        if us > 0 and (named_us > 0 or not names) and whole:
             break
     check(us > 0, "the profiler caught no device-side event in five traces")
     check(named_us > 0 or not names,
           f"the profiler caught no launch of {names} in five traces")
+    check(whole, f"the profiler caught {len(evs)} device-side events, "
+          f"{len(named)} of {names}, for {reps} calls in each of five traces")
     return us / 1e3 / reps, len(evs) / reps, named_us / 1e3 / reps
 
 
@@ -2756,7 +2795,8 @@ def app_sessions(root, rig, u8, poses, device, count, max_ate):
     check(rc_e == 0 and len(ie) == len(ts_e) == len(poses),
           f"EuRoC runner: rc {rc_e}, {len(ie)} associated")
     check(ate_e <= max_ate, f"EuRoC runner: ATE {ate_e:.4f} m > {max_ate}")
-    return dict(cfgs=cfgs, wall=wall, stamps=stamps, ate=ate, ate_r=ate_r,
+    return dict(cfgs=cfgs, wall=wall, stamps=stamps, ate=ate, est=est,
+                ate_r=ate_r,
                 ate_e=ate_e)
 
 
@@ -2892,10 +2932,7 @@ def app_phase(scene, dev, smi):
         print(f"# reader decode ({len(reader.cam_dirs)} PGM images of "
               f"{W}x{H} per frame, host): median {np.median(dt) * 1e3:.3f} "
               f"ms per frame over {len(dt)} frames ({smi})")
-        st = res["stamps"]
-        per = [(st[k][0] - st[k - 1][0], st[k][1]) for k in range(1, len(st))]
-        for name, sel in (("keyframe frames", True), ("other frames", False)):
-            ms = [t * 1e3 for t, kf in per if kf == sel]
+        for name, ms in frame_walls(res["stamps"]).items():
             print(f"# app per-frame wall (read, upload, process_image, depth "
                   f"map and fusion on keyframes), {name} (n={len(ms)}): "
                   f"median {np.median(ms):.3f} ms, mean {np.mean(ms):.3f} "
@@ -2909,6 +2946,18 @@ def app_phase(scene, dev, smi):
               f"device busy {100 * dev_ms / wall_ms:.1f} % of the unprofiled "
               f"wall time ({smi})")
     stereo_phase(scene, dev, smi)
+    return dict(est=res["est"], per_frame=frame_walls(res["stamps"]),
+                busy=dev_ms / wall_ms)
+
+
+def frame_walls(stamps) -> dict:
+    """app_run's frame stamps -> {"keyframe frames": [ms], "other
+    frames": [ms]} (the first frame has no predecessor)."""
+    per = [(stamps[k][0] - stamps[k - 1][0], stamps[k][1])
+           for k in range(1, len(stamps))]
+    return {name: [t * 1e3 for t, kf in per if kf == sel]
+            for name, sel in (("keyframe frames", True),
+                              ("other frames", False))}
 
 
 def _same(a, b) -> bool:
@@ -3286,6 +3335,383 @@ def mesh_phase(scene, p_dev, dev, smi, plain_times=None):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 13: the native loader, MCRAW replay, the live viewer, the tools ---
+
+def tools_probe(absent=()) -> dict:
+    """Phase 13 (a): what the parts need, probed without building
+    anything: g++ (path, version), png.h and jpeglib.h on its include
+    path, matplotlib -> {what: [missing]} for "library" (mcraw_write,
+    so convert_to_mcraw, and NativePrefetchReader), "viewer" (the live
+    viewer of (c)) and "d" ((e) and (f), McrawReader and the app's
+    replay need none of it). `absent` names what to treat as missing
+    though found (a CPU rehearsal of another host)."""
+    from mcslam_tpu_torch.data import native_loader
+
+    tc = native_loader.toolchain()
+    try:
+        import matplotlib
+        mpl = matplotlib.__version__
+    except ImportError:
+        mpl = None
+    print(f"# phase 13 probe: g++ {tc['g++']} (version {tc['version']}), "
+          f"png.h {tc['png.h']}, jpeglib.h {tc['jpeglib.h']} on its include "
+          f"path; matplotlib {mpl}" + (f"; treated as missing: "
+                                       f"{', '.join(absent)}" if absent
+                                       else ""))
+    native = [k for k in ("g++", "png.h", "jpeglib.h")
+              if not tc[k] or k in absent]
+    viewer = ["matplotlib"] if not mpl or "matplotlib" in absent else []
+    return {"library": native, "viewer": viewer, "d": viewer}
+
+
+OUT_KEYS = ("traj_file", "map_path", "database_path", "log_file",
+            "depth_dir", "dense_cloud_path")
+
+
+def retarget(cfg_text, root, out) -> str:
+    """An app cfg's text with every output moved into the directory
+    root/out (created)."""
+    from pathlib import Path
+
+    (root / out).mkdir()
+    lines = []
+    for line in cfg_text.splitlines():
+        k, _, v = line.partition("=")
+        if k in OUT_KEYS:
+            p = Path(v)
+            line = f"{k}={p.parent.with_name(out) / p.name}"
+        lines.append(line)
+    return "\n".join(lines) + "\n"
+
+
+def not_run(part, missing) -> bool:
+    """Print the probe's verdict on a part -> whether it is skipped."""
+    if missing:
+        print(f"# phase 13 ({part}): not run: {', '.join(missing)} missing "
+              f"(probe)")
+    return bool(missing)
+
+
+def mcraw_bytes(u8) -> bytes:
+    """An MCRAW container of (F, C, H, W) uint8 frames in
+    native/loader.cpp's layout: the 32-byte McrawHeader {"MCRW", u32
+    version 1, n_frames, n_cams, height, width, u64 0}, then the frames."""
+    return (b"MCRW" + np.array([1, *u8.shape], "<u4").tobytes()
+            + bytes(8) + np.ascontiguousarray(u8).tobytes())
+
+
+def mcraw_part(root, u8, smi, missing):
+    """Phase 13 (b): the PGM folders under root/images in an MCRAW
+    container with the folder's stamps in its sidecar: converted by
+    apps.convert_to_mcraw where the probe finds the library's needs
+    (and then equal, byte for byte, to mcraw_bytes), else written by
+    mcraw_bytes. McrawReader's frames equal the uint8 frames / 255 and
+    ImageFolderReader's bit for bit, with the folder's stamps;
+    NativePrefetchReader's (folder_reader, where the library builds)
+    equal the PGM rasters times the C++ decoders' scale float32(1 / 255)
+    bit for bit and ImageFolderReader's u8 / 255 within 6e-8 (one ulp at
+    126 of the 256 levels); then each reader's decode time per frame
+    (host clock, median) -> the container's path."""
+    from mcslam_tpu_torch.data import native_loader, readers
+
+    seq = root / "seq.mcraw"
+    folder = readers.ImageFolderReader(root / "images")
+    native = not not_run("b: convert_to_mcraw, NativePrefetchReader",
+                         missing)
+    if native:
+        from mcslam_tpu_torch.apps import convert_to_mcraw
+
+        t0 = time.perf_counter()
+        rc = convert_to_mcraw.main([str(root / "images"), str(seq)])
+        print(f"# convert_to_mcraw: rc {rc}, {time.perf_counter() - t0:.3f}"
+              f" s (library {native_loader.build().name})")
+        check(rc == 0 and seq.exists(), f"convert_to_mcraw: rc {rc}")
+        check(seq.read_bytes() == mcraw_bytes(u8),
+              "convert_to_mcraw: the container is not the layout's bytes")
+    else:
+        seq.write_bytes(mcraw_bytes(u8))
+        np.save(str(seq) + ".ts.npy", np.array([t for t, _ in folder.rows]))
+        print("# phase 13 (b): the container written by numpy in "
+              "native/loader.cpp's layout")
+    mr = native_loader.McrawReader(seq)
+    nat = native_loader.folder_reader(root / "images") if native else None
+    check(len(mr) == len(folder) == len(u8)
+          and (nat is None or len(nat) == len(u8)),
+          f"readers: {len(mr)} / {len(folder)} frames")
+    worst = 0.0
+    for k, (t, files) in enumerate(folder.rows):
+        m, tm = mr.get_next()
+        b, tb = folder.get_next()
+        check(np.array_equal(m, u8[k].astype(np.float32) / 255.0)
+              and np.array_equal(m, b) and tm == t == tb,
+              f"MCRAW frame {k} differs from the uint8 frame / 255")
+        if nat is None:
+            continue
+        a, ta = nat.get_next()
+        raster = np.stack([readers._read_pgm(f) for f in files])
+        check(ta == t and np.array_equal(a, raster.astype(np.float32)
+                                         * np.float32(1.0 / 255.0)),
+              f"native frame {k} differs from the PGM raster's decode")
+        worst = max(worst, float(np.abs(a - b).max()))
+    check(worst <= 6e-8, f"native vs ImageFolderReader: {worst:.3g}")
+    mr.close()
+    print(f"# readers on {len(u8)} frames: MCRAW == uint8 / 255 bit for bit, "
+          f"== ImageFolderReader" + ("" if nat is None else
+                                     f"; NativePrefetchReader == PGM raster "
+                                     f"* float32(1/255) bit for bit, max "
+                                     f"|native - ImageFolderReader| "
+                                     f"{worst:.3g}"))
+    timed = [("MCRAW (mmap, u8 -> f32)", lambda: native_loader.McrawReader(
+        seq)), ("ImageFolderReader (PGM by numpy)",
+                lambda: readers.ImageFolderReader(root / "images"))]
+    if nat is not None:
+        nat.close()
+        timed.insert(1, (
+            "NativePrefetchReader (PGM, 2 decode threads, depth 4)",
+            lambda: native_loader.folder_reader(root / "images")))
+    for name, make in timed:
+        reader, dt = make(), []
+        while True:
+            t0 = time.perf_counter()
+            if reader.get_next() is None:
+                break
+            dt.append(time.perf_counter() - t0)
+        print(f"# decode {name}: median {np.median(dt) * 1e3:.3f} ms per "
+              f"{u8.shape[1]}-camera {W}x{H} frame over {len(dt)} frames "
+              f"(host clock) ({smi})")
+    return seq
+
+
+def live_app_part(root, cfgs, seq, poses, device, count, smi, viewer_missing,
+                  base=None):
+    """Phase 13 (c): the app on `device` with mcraw_path=seq (phase 11
+    (a)'s cfg otherwise), with --live_view unless the probe found the
+    viewer's needs missing. Gates: rc 0, a TUM row per frame, ATE <=
+    APP_MAX_ATE, the five default-route kernels launched (`count`); with
+    the viewer, the PNG decodes, the HTML page exists, the viewer
+    rendered during the session. Prints the per-frame wall time beside
+    `base`'s (phase 11 (a)'s run from the PGM folders on the card; in a
+    CPU rehearsal with the viewer, the same replay without it) and, on
+    the card, the busy share -> (trajectory file, its poses)."""
+    from mcslam_tpu_torch.utils import metrics, tum
+
+    live = root / "out13" / "live.png"
+    cfg = root / "live.cfg"
+    cfg.write_text(retarget(cfgs["app"].read_text(), root, "out13")
+                   + f"mcraw_path={seq}\n")
+    with_view = not not_run("c: --live_view", viewer_missing)
+    extra = ("--live_view", str(live)) if with_view else ()
+    what = "mcraw_path" + (" and --live_view" if with_view else "")
+    renders = []
+    if with_view:
+        from mcslam_tpu_torch.viz import viewer
+
+        base_cls = viewer.LiveViewer
+
+        class Recorded(base_cls):
+            def stop(self, final_render=True):
+                renders.append(self._frames_rendered)
+                super().stop(final_render)
+                renders.append(self._frames_rendered)
+
+        viewer.LiveViewer = Recorded
+    try:
+        main_path = ("fast_select", "patch_gather", "hamming_argmin2",
+                     "pose_lm", "ba_linearize")
+        (rc, wall, stamps), launches = count(
+            f"the app ({what})", main_path if device == "cuda" else (),
+            lambda: app_run(cfg, device, *extra))
+    finally:
+        if with_view:
+            viewer.LiveViewer = base_cls
+    ts, est = tum.read_tum(root / "out13" / "traj.txt")
+    ate = metrics.ate_rmse(est, poses)
+    print(f"# app with {what} on {device}: rc {rc}, {len(ts)} frames, ATE "
+          f"{ate:.4f} m (gate {APP_MAX_ATE})")
+    check(rc == 0, f"app with {what}: rc {rc}")
+    check(len(ts) == len(poses) and np.isfinite(est).all(),
+          f"app with {what}: {len(ts)} TUM rows for {len(poses)} frames")
+    check(ate <= APP_MAX_ATE,
+          f"app with {what}: ATE {ate:.4f} m > {APP_MAX_ATE}")
+    if with_view:
+        import matplotlib.image
+
+        png = matplotlib.image.imread(live)
+        html = live.with_suffix(".html")
+        print(f"# live viewer: renders during the session "
+              f"{renders[0] if renders else 0}, with the final one "
+              f"{renders[-1] if renders else 0}; PNG {png.shape}, HTML "
+              f"{html.exists()}")
+        check(png.ndim == 3 and png.size > 0,
+              "live app: the PNG does not decode")
+        check(html.exists() and live.name in html.read_text(),
+              "live app: no HTML page")
+        check(renders and renders[0] >= 1,
+              f"live app: the viewer rendered {renders} times in the session")
+    per = frame_walls(stamps)
+    if base is None and with_view:  # a CPU rehearsal: replay without it
+        cfg_b = root / "noview.cfg"
+        cfg_b.write_text(retarget(cfg.read_text(), root, "out13b"))
+        base = dict(per_frame=frame_walls(app_run(cfg_b, device)[2]),
+                    what="the same MCRAW replay without the viewer")
+    elif base is not None:
+        print(f"# app with {what} vs phase 11 (a)'s PGM run on the card: "
+              f"max |pose difference| {np.abs(est - base['est']).max():.3g}")
+    for name, ms in per.items():
+        ref = ("" if base is None else
+               f"; {base.get('what', 'phase 11 (a) (PGM folders, no viewer)')}"
+               f" (n={len(base['per_frame'][name])}): median "
+               f"{np.median(base['per_frame'][name]):.3f} ms, mean "
+               f"{np.mean(base['per_frame'][name]):.3f} ms")
+        print(f"# app per-frame wall with {what} on {device}, {name} "
+              f"(n={len(ms)}): median {np.median(ms):.3f} ms, mean "
+              f"{np.mean(ms):.3f} ms{ref} ({smi})")
+    if device == "cuda":
+        prof = root / "live_profiled.cfg"
+        prof.write_text(retarget(cfg.read_text(), root, "out13p"))
+        extra_p = (("--live_view", str(root / "out13p" / "live.png"))
+                   if with_view else ())
+        dev_ms, n_ops, _ = device_profile(
+            lambda: app_run(prof, device, *extra_p))
+        print(f"# app with {what}: {wall * 1e3:.1f} ms wall; a profiled "
+              f"repeat {dev_ms:.1f} ms device time in {n_ops:.0f} device "
+              f"ops, device busy {100 * dev_ms / (wall * 1e3):.1f} % "
+              f"(phase 11 (a): {100 * base['busy']:.1f} %) ({smi})")
+    return root / "out13" / "traj.txt", est
+
+
+def plot_part(root, traj, poses):
+    """Phase 13 (d): evaluate_trajectory --plot on (c)'s trajectory
+    against the true poses: rc 0, the PNG decodes."""
+    import matplotlib.image
+
+    from mcslam_tpu_torch.apps import evaluate_trajectory
+    from mcslam_tpu_torch.utils import tum
+
+    gt = root / "gt.txt"
+    tum.write_tum(gt, np.array([stamp_ns(k) * 1e-9
+                                for k in range(len(poses))]), poses)
+    out = root / "eval.png"
+    rc = evaluate_trajectory.main([str(traj), str(gt), "--plot", str(out)])
+    png = matplotlib.image.imread(out)
+    print(f"# evaluate_trajectory --plot: rc {rc}, PNG {png.shape}")
+    check(rc == 0 and png.ndim == 3 and png.size > 0,
+          f"evaluate_trajectory --plot: rc {rc}")
+
+
+def vocab_part(root, scene, device, count, smi):
+    """Phase 13 (e): apps.train_vocabulary on the PGM folders (its
+    default device, the card; APP_VOCAB frames, k 6, depth 3 as phase
+    11's vocabulary): fast_select and patch_gather launched, the
+    vocabulary has its words; then extract_orb on bench frame 0's camera
+    0, the card against the CPU: the level-0 keypoints (position,
+    response) exactly, the keypoint set of levels >= 1 shared at >= 95 %
+    and descriptors of shared keypoints equal on >= 99.5 %
+    (tests/test_torch_ops.py's bounds)."""
+    from mcslam_tpu_torch.apps import train_vocabulary
+    from mcslam_tpu_torch.loop.vocab import Vocabulary
+    from mcslam_tpu_torch.ops import hamming, orb
+
+    out = root / "trained_vocab.npz"
+    t0 = time.perf_counter()
+    rc, _ = count("train_vocabulary", ("fast_select", "patch_gather")
+                  if device == "cuda" else (),
+                  lambda: train_vocabulary.main(
+                      [str(root / "images"), str(out), "--k", "6", "--depth",
+                       "3", "--max_frames", str(APP_VOCAB), "--num_points",
+                       str(NPTS), "--num_levels", str(NLVL)]
+                      + device_args(device)))
+    voc = Vocabulary.load(out)
+    print(f"# train_vocabulary on {device}: rc {rc}, {voc.num_words} words, "
+          f"{time.perf_counter() - t0:.2f} s ({smi})")
+    check(rc == 0 and voc.num_words > 6 ** 2, f"train_vocabulary: rc {rc}, "
+          f"{voc.num_words} words")
+    img = scene.imgs[0][0]
+    kw = dict(num_points=NPTS, num_levels=NLVL)
+    kd = orb.extract_orb(img, **kw)
+    kc = orb.extract_orb(img.cpu(), **kw)
+
+    def keyed(k, lvl0):
+        v = k.valid.cpu().numpy() & ((k.octave.cpu().numpy() == 0) == lvl0)
+        xy = k.xy.cpu().numpy()[v]
+        d = hamming.desc_to_numpy_u32(k.desc)[v]
+        r = k.response.cpu().numpy()[v]
+        return {tuple(p): (dd, rr) for p, dd, rr in zip(xy, d, r)}
+
+    l0d, l0c = keyed(kd, True), keyed(kc, True)
+    check(l0d.keys() == l0c.keys() and all(
+        l0d[p][1] == l0c[p][1] for p in l0d),
+        "extract_orb: level-0 keypoints differ between card and CPU")
+    hd, hc = keyed(kd, False), keyed(kc, False)
+    share = len(hd.keys() & hc.keys()) / max(len(hd), len(hc), 1)
+    both = {**l0d, **hd}.keys() & {**l0c, **hc}.keys()
+    alld, allc = {**l0d, **hd}, {**l0c, **hc}
+    desc_eq = np.mean([np.array_equal(alld[p][0], allc[p][0]) for p in both])
+    print(f"# extract_orb card vs CPU on bench frame 0 camera 0: level 0 "
+          f"{len(l0d)} keypoints equal; levels >= 1 share {share:.4f} of "
+          f"{len(hd)} / {len(hc)}; descriptors equal on {desc_eq:.4f} of "
+          f"{len(both)} shared")
+    check(share >= 0.95, f"extract_orb: levels >= 1 share {share:.4f}")
+    check(desc_eq >= 0.995, f"extract_orb: descriptors equal {desc_eq:.4f}")
+
+
+def profiling_part(scene, dev):
+    """Phase 13 (f): utils/profiling.device_trace around an extraction
+    writes a Chrome trace that names fast_select_kernel (mc_fast_select's
+    kernel; an empty CUDA trace is taken again, up to five times, as
+    device_profile does); sync returns."""
+    import tempfile
+    from pathlib import Path
+
+    from mcslam_tpu_torch.ops import orb
+    from mcslam_tpu_torch.utils import profiling
+
+    found = False
+    for attempt in range(5):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.device_trace(tmp):
+                kps = orb.extract_orb(scene.imgs[0][0], num_points=NPTS,
+                                      num_levels=NLVL)
+            text = (Path(tmp) / "trace.json").read_text()
+        found = "fast_select_kernel" in text
+        if found:
+            break
+    check(profiling.sync(kps) is None, "sync returned a value")
+    print(f"# device_trace: Chrome trace of {len(text)} bytes names "
+          f"fast_select_kernel {found} (attempt {attempt + 1}); sync returned")
+    check(found, "device_trace: no fast_select_kernel in five traces")
+
+
+def tools_parts(root, rig, u8, poses, device, count, smi, missing,
+                base=None):
+    """Phase 13 (b)-(d) on `device` under `root` (the PGM folders, cfgs
+    and vocabulary of write_app_dataset), each part or piece of one as
+    the probe allows."""
+    cfgs = write_app_dataset(root, rig, u8, device)
+    seq = mcraw_part(root, u8, smi, missing["library"])
+    traj, _ = live_app_part(root, cfgs, seq, poses, device, count, smi,
+                            missing["viewer"], base)
+    if not not_run("d", missing["d"]):
+        plot_part(root, traj, poses)
+
+
+def tools_phase(scene, dev, smi, base):
+    """Phase 13: (a) tools_probe, (b)-(d) tools_parts on the card with
+    the launch counters (phase 11 (a)'s numbers beside (c)'s), (e)
+    vocab_part, (f) profiling_part."""
+    import tempfile
+    from pathlib import Path
+
+    missing = tools_probe()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        tools_parts(root, scene.rig, frames_u8(scene.imgs[:APP_FRAMES]),
+                    scene.poses[:APP_FRAMES], "cuda", counted, smi, missing,
+                    base)
+        vocab_part(root, scene, "cuda", counted, smi)
+    profiling_part(scene, dev)
+
+
 def rehearse_mesh():
     """CPU rehearsal of phase 12 (b)-(d) with the plain versions and
     device="cpu" (the replays at the JAX tests' 16384 observation slots):
@@ -3311,11 +3737,13 @@ def rehearse_mesh():
     print("# phase 12 rehearsal (b)-(d) on the CPU: passed")
 
 
-def rehearse_app(seeds):
+def rehearse_app(seeds, absent=()):
     """CPU rehearsal of phase 11 (a) and (b) with the plain versions: the
     bench scene, rendered as Scene renders it, through app_sessions on
     the CPU once per driver RANSAC seed (MultiCameraSLAM's `seed`), with
-    no ATE gate; prints each run's ATEs, which APP_MAX_ATE sits against."""
+    no ATE gate; prints each run's ATEs, which APP_MAX_ATE sits against.
+    Then phase 13 (b)-(d) on the CPU (tools_parts, every gate), with
+    `absent` treated as missing by the probe."""
     import tempfile
     from pathlib import Path
 
@@ -3348,11 +3776,20 @@ def rehearse_app(seeds):
         print(f"# rehearsal seed {seed}: app ATE {res['ate']:.4f} m, "
               f"map-reuse ATE {res['ate_r']:.4f} m, EuRoC runner ATE "
               f"{res['ate_e']:.4f} m")
+    missing = tools_probe(absent)
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_parts(Path(tmp), rig, u8, poses, "cpu", no_count,
+                    "cpu rehearsal", missing)
+    print("# phase 13 (b)-(d) rehearsal on the CPU: passed")
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rehearse-app"]:
-        rehearse_app(int(sys.argv[2]) if len(sys.argv) > 2 else 2)
+        rest = sys.argv[2:]
+        absent = ()
+        if rest[-2:-1] == ["--as-probed"]:
+            absent, rest = tuple(rest[-1].split(",")), rest[:-2]
+        rehearse_app(int(rest[0]) if rest else 2, absent)
         sys.exit(0)
     if sys.argv[1:2] == ["--rehearse-mesh"]:
         rehearse_mesh()

@@ -7,7 +7,7 @@ out to the external `evo` toolkit; this is self-contained.
 
 Usage:
   python -m mcslam_tpu_torch.apps.evaluate_trajectory est.txt gt.txt
-      [--scale] [--max_dt 0.02] [--rpe_delta 1]
+      [--scale] [--max_dt 0.02] [--rpe_delta 1] [--plot out.png]
 """
 
 from __future__ import annotations
@@ -26,12 +26,9 @@ def main(argv=None):
                     help="Sim(3) alignment (monocular)")
     ap.add_argument("--max_dt", type=float, default=0.02)
     ap.add_argument("--rpe_delta", type=int, default=1)
-    ap.add_argument("--plot", default=None, help="not ported yet")
+    ap.add_argument("--plot", default=None,
+                    help="PNG path: both trajectories in 3D")
     args = ap.parse_args(argv)
-    if args.plot:
-        raise NotImplementedError(
-            "--plot: the viewer (viz/viewer.py) is not ported to "
-            "mcslam_tpu_torch yet (ROADMAP Queue 1 item 7)")
 
     from mcslam_tpu_torch.utils import metrics, tum
 
@@ -56,6 +53,14 @@ def main(argv=None):
     t_drift, r_drift = metrics.drift(pe, pg)
     print(f"translation drift [%]: {t_drift:.3f}  "
           f"rotation error [rad/m]: {r_drift:.6f}")
+    if args.plot:
+        from mcslam_tpu_torch.viz import viewer
+
+        viewer.render_map(
+            args.plot, [], None, pe[:, :3, 3], pg[:, :3, 3],
+            title=f"ATE {ate:.3f} m",
+        )
+        print(f"plot -> {args.plot}")
     return 0
 
 

@@ -14,7 +14,7 @@ images; each frame is uploaded once.
 
 Usage:
   python -m mcslam_tpu_torch.apps.mc_slam_app --config_file cfg
-      [--traj_file out] [--device {cuda,cpu}]
+      [--traj_file out] [--live_view live.png] [--device {cuda,cpu}]
 """
 
 from __future__ import annotations
@@ -32,9 +32,10 @@ def build_reader(settings):
     from mcslam_tpu_torch.data import readers
 
     if settings.raw.get("mcraw_path"):
-        raise NotImplementedError(
-            "mcraw_path: the native .mcraw loader (data/native_loader.py) "
-            "is not ported to mcslam_tpu_torch yet (ROADMAP Queue 1 item 7)")
+        # decode-free mmap replay container (apps/convert_to_mcraw.py)
+        from mcslam_tpu_torch.data.native_loader import McrawReader
+
+        return McrawReader(settings.raw["mcraw_path"])
     if settings.raw.get("video_streams"):
         paths = [p for p in settings.raw["video_streams"].split(",") if p]
         return readers.VideoReader(paths, shifts=settings.shifts)
@@ -69,7 +70,8 @@ def main(argv=None):
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument(
         "--live_view", default=None,
-        help="PNG path for the live follow-cam view (not ported yet)",
+        help="PNG path for the live follow-cam view (also writes an "
+        "auto-refreshing .html next to it)",
     )
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the session runs (default: the card)")
@@ -81,10 +83,6 @@ def main(argv=None):
     from mcslam_tpu_torch.utils import mapio
 
     settings = config.parse_cfg(args.config_file)
-    if args.live_view or settings.raw.get("live_view"):
-        raise NotImplementedError(
-            "live_view: the viewer (viz/viewer.py) is not ported to "
-            "mcslam_tpu_torch yet (ROADMAP Queue 1 item 7)")
     frontend = config.load_frontend_params(settings.frontend_params_file)
     backend = config.load_backend_params(settings.backend_params_file)
     slam_cfg, extract_cfg = config.slam_config_from_params(frontend, backend)
@@ -206,6 +204,18 @@ def main(argv=None):
             max_disp=int(settings.raw.get("depth_max_disp", 64)),
         )
 
+    # live viewer (reference OpenGlViewer::goLive): background follow-cam
+    # rendering of the running session to an auto-refreshed PNG/HTML pair
+    live = None
+    live_path = args.live_view or settings.raw.get("live_view")
+    if live_path:
+        from mcslam_tpu_torch.viz.viewer import LiveViewer
+
+        live = LiveViewer(
+            live_path, slam,
+            hz=float(settings.raw.get("live_view_hz", 2.0)),
+        ).start()
+
     def _next():
         """The reader's next (imgs on the rig's device, ts), or None."""
         if args.max_frames and n_read >= args.max_frames:
@@ -289,6 +299,8 @@ def main(argv=None):
         n += 1
         _progress()
 
+    if live is not None:
+        live.stop()  # final render includes the full session
     if fuser is not None:
         n_pts = (fuser.save_ply(cloud_path) if str(cloud_path).endswith(".ply")
                  else fuser.save_npz(cloud_path))

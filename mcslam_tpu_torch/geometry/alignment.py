@@ -1,5 +1,5 @@
 """Point-set alignment (counterpart of mcslam_tpu/geometry/alignment.py:
-kabsch with SE(3) / Sim(3) alignment, the SVD-free batched absolute
+kabsch with SE(3) / Sim(3) alignment (umeyama), the SVD-free batched absolute
 orientation kabsch_quat with _dominant_eigvec4, and the gravity
 alignment of IMU initialization)."""
 
@@ -40,6 +40,11 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
         s = torch.ones(C.shape[:-2], dtype=C.dtype, device=C.device)
     t = mu_dst - s[..., None] * (R @ mu_src.unsqueeze(-1)).squeeze(-1)
     return R, t, s
+
+
+def umeyama(src: torch.Tensor, dst: torch.Tensor, weights=None):
+    """Similarity-transform alignment (kabsch with the scale estimated)."""
+    return kabsch(src, dst, weights, estimate_scale=True)
 
 
 def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,

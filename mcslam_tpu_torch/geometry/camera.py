@@ -47,6 +47,15 @@ class CameraRig:
     def ref_T_cam(self) -> torch.Tensor:
         return lie.se3_inverse(self.cam_T_ref)
 
+    def K(self) -> torch.Tensor:
+        """(N, 3, 3) intrinsic matrices."""
+        fx, fy, cx, cy = self.fxycxy.unbind(-1)
+        z = torch.zeros_like(fx)
+        o = torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, z, cx], -1),
+                            torch.stack([z, fy, cy], -1),
+                            torch.stack([z, z, o], -1)], dim=-2)
+
     def to(self, device) -> "CameraRig":
         return dataclasses.replace(
             self, fxycxy=self.fxycxy.to(device), dist=self.dist.to(device),
@@ -149,3 +158,33 @@ def backproject(uv: torch.Tensor, fxycxy: torch.Tensor, dist: torch.Tensor,
     """Pixels -> unit-depth normalized coords (..., 2) (undistorted)."""
     xd = (uv - fxycxy[..., 2:]) / fxycxy[..., :2]
     return undistort(xd, dist, model)
+
+
+def bearing(uv: torch.Tensor, fxycxy: torch.Tensor, dist: torch.Tensor,
+            model: int) -> torch.Tensor:
+    """Pixels -> unit bearing vectors (..., 3) in the camera frame."""
+    xn = backproject(uv, fxycxy, dist, model)
+    rays = torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1)
+    return rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
+
+
+def project_rig(p_ref: torch.Tensor,
+                rig: CameraRig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reference-frame points (M, 3) into every camera of the rig ->
+    (uv (N, M, 2), valid (N, M): in front of the camera and inside the
+    image)."""
+    p_cam = lie.se3_apply(rig.cam_T_ref[:, None], p_ref[None, :, :])
+    uv, valid = project(p_cam, rig.fxycxy[:, None, :], rig.dist[:, None, :],
+                        rig.dist_model)
+    w, h = rig.image_size
+    in_img = ((uv[..., 0] >= 0) & (uv[..., 0] < w) & (uv[..., 1] >= 0)
+              & (uv[..., 1] < h))
+    return uv, valid & in_img
+
+
+def rig_bearings(uv: torch.Tensor, rig: CameraRig) -> torch.Tensor:
+    """Per-camera pixel sets (N, K, 2) -> (N, K, 3) unit rays rotated into
+    the reference-camera frame (their origins are rig.ref_T_cam[:, :3, 3])."""
+    rays_cam = bearing(uv, rig.fxycxy[:, None, :], rig.dist[:, None, :],
+                       rig.dist_model)
+    return rays_cam @ rig.ref_T_cam[:, :3, :3].transpose(-1, -2)

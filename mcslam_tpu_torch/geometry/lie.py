@@ -148,6 +148,21 @@ def se3_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def se3_rotation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
+def se3_translation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
+def se3_identity(batch=(), dtype=torch.float32,
+                 device="cuda") -> torch.Tensor:
+    """(*batch, 4, 4) identity poses (a broadcast view of one eye)."""
+    return torch.eye(4, dtype=dtype, device=device).expand(
+        *tuple(batch), 4, 4)
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
@@ -178,6 +193,15 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Right-multiplicative retraction used by all optimizers."""
     return T @ se3_exp(xi)
+
+
+def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 6, 6) adjoint in (omega, v) ordering."""
+    R = T[..., :3, :3]
+    tR = so3_hat(T[..., :3, 3]) @ R
+    z = torch.zeros_like(R)
+    return torch.cat([torch.cat([R, z], dim=-1), torch.cat([tR, R], dim=-1)],
+                     dim=-2)
 
 
 def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
@@ -229,3 +253,14 @@ def rot_from_quat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def se3_interpolate(T0: torch.Tensor, T1: torch.Tensor, alpha) -> torch.Tensor:
+    """Geodesic interpolation T0 * exp(alpha * log(T0^-1 T1)); alpha a
+    number or a tensor of the batch shape.
+
+    Parity: the reference's SE(3) GPS / VINS interpolation
+    (FrontEnd.cpp:8128 interpolation_vins_GPS)."""
+    delta = se3_log(se3_inverse(T0) @ T1)
+    alpha = torch.as_tensor(alpha, dtype=delta.dtype, device=delta.device)
+    return T0 @ se3_exp(alpha[..., None] * delta)

@@ -1,16 +1,117 @@
 """Batched multi-view triangulation: midpoint initialization, per-point
 Gauss-Newton refine and chi2/cheirality gating (counterpart of
-triangulate_and_refine in mcslam_tpu/geometry/triangulation.py).
+mcslam_tpu/geometry/triangulation.py).
 
-Computed in the same transposed component form: every scalar component
-is an (R, M) tensor with the point axis minor.
+triangulate_and_refine, the fused form the frame build uses, computes in
+the JAX package's transposed component form: every scalar component is
+an (R, M) tensor with the point axis minor. The separate steps
+(triangulate_rays, reprojection_residuals, refine_points_gn, chi2_gate,
+parallax_cosine) take (..., R, ...) tensors as the JAX functions do.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mcslam_tpu_torch.geometry import lie, linalg3
 from mcslam_tpu_torch.geometry.linalg3 import safe_det
+
+
+def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def triangulate_rays(origins: torch.Tensor, dirs: torch.Tensor,
+                     mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Least-squares midpoint of up to R rays per point: origins, dirs
+    (unit) (..., R, 3) in the world frame, mask (..., R) -> (X (..., 3),
+    ok (...,): >= 2 valid rays and a well-conditioned system). Minimizes
+    sum_r || (I - d_r d_r^T)(X - o_r) ||^2."""
+    m = mask[..., None, None].to(dirs.dtype)
+    d = dirs[..., :, None]
+    eye = torch.eye(3, dtype=dirs.dtype, device=dirs.device)
+    P = (eye - d @ d.transpose(-1, -2)) * m  # (..., R, 3, 3)
+    A = torch.sum(P, dim=-3)
+    b = torch.sum(P @ origins[..., :, None], dim=-3)[..., 0]
+    n_valid = torch.sum(mask, dim=-1)
+    A_reg = A + 1e-6 * eye  # keeps the solve defined for empty sets
+    X = linalg3.solve3(A_reg, b)
+    det = linalg3.det3(A_reg)
+    ok = (n_valid >= 2) & (det > 1e-9) & torch.all(torch.isfinite(X), dim=-1)
+    return X, ok
+
+
+def reprojection_residuals(X: torch.Tensor, world_T_cam: torch.Tensor,
+                           uv: torch.Tensor,
+                           fxycxy: torch.Tensor) -> torch.Tensor:
+    """Pinhole reprojection residuals in pixels (uv undistorted): X
+    (..., 3), world_T_cam (..., R, 4, 4), uv (..., R, 2), fxycxy
+    (..., R, 4) -> (..., R, 2)."""
+    p_cam = lie.se3_apply(lie.se3_inverse(world_T_cam), X[..., None, :])
+    z = torch.clamp(p_cam[..., 2], min=1e-6)
+    pred = p_cam[..., :2] / z[..., None] * fxycxy[..., :2] + fxycxy[..., 2:]
+    return pred - uv
+
+
+def refine_points_gn(X0: torch.Tensor, world_T_cam: torch.Tensor,
+                     uv: torch.Tensor, fxycxy: torch.Tensor,
+                     mask: torch.Tensor, iters: int = 5,
+                     damping: float = 1e-3) -> torch.Tensor:
+    """Batched per-point Gauss-Newton on the reprojection error with
+    analytic Jacobians (dr/dX = J_proj @ R_cam_world) -> X (..., 3)."""
+    cam_T_world = lie.se3_inverse(world_T_cam)  # (..., R, 4, 4)
+    R_cw = cam_T_world[..., :3, :3]
+    t_cw = cam_T_world[..., :3, 3]
+    fx = fxycxy[..., 0]
+    fy = fxycxy[..., 1]
+    m = mask.to(X0.dtype)
+    eye3 = torch.eye(3, dtype=X0.dtype, device=X0.device)
+    zero = torch.zeros_like(fx)
+    X = X0
+    for _ in range(iters):
+        p = _matvec(R_cw, X[..., None, :]) + t_cw  # (..., R, 3)
+        inv_z = 1.0 / torch.clamp(p[..., 2], min=1e-3)
+        pred = (p[..., :2] * inv_z[..., None] * fxycxy[..., :2]
+                + fxycxy[..., 2:])
+        r = (pred - uv) * m[..., None]
+        Jp = torch.stack([
+            torch.stack([fx * inv_z, zero, -fx * p[..., 0] * inv_z * inv_z],
+                        -1),
+            torch.stack([zero, fy * inv_z, -fy * p[..., 1] * inv_z * inv_z],
+                        -1)], dim=-2)  # (..., R, 2, 3)
+        J = (Jp @ R_cw) * m[..., None, None]
+        H = torch.einsum("...rai,...raj->...ij", J, J) + damping * eye3
+        g = torch.einsum("...rai,...ra->...i", J, r)
+        X = X - linalg3.solve3(H, g)
+    return X
+
+
+def chi2_gate(X: torch.Tensor, world_T_cam: torch.Tensor, uv: torch.Tensor,
+              fxycxy: torch.Tensor, mask: torch.Tensor,
+              sigma: torch.Tensor | float = 1.0, chi2_thresh: float = 5.991,
+              min_z: float = 0.1, max_z: float = 1e4) -> torch.Tensor:
+    """Per-ray chi-square and cheirality gate -> (..., R) bool of the rays
+    that pass; sigma may be per ray (..., R) (octave-scaled)."""
+    r = reprojection_residuals(X, world_T_cam, uv, fxycxy)
+    sigma = torch.as_tensor(sigma, dtype=r.dtype, device=r.device)
+    chi2 = torch.sum((r / sigma[..., None]) ** 2, dim=-1)
+    z = lie.se3_apply(lie.se3_inverse(world_T_cam), X[..., None, :])[..., 2]
+    return mask & (chi2 < chi2_thresh) & (z > min_z) & (z < max_z)
+
+
+def parallax_cosine(X: torch.Tensor, origins: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Cosine between the two most separated viewing rays of each point
+    (the reference's cosParallax < 0.99998 gate, FrontEnd.cpp:2725-2754):
+    X (..., 3), origins (..., R, 3), mask (..., R) -> (...,); invalid ray
+    pairs count as cos = 1 (no parallax)."""
+    rays = X[..., None, :] - origins
+    rays = rays / torch.clamp(
+        torch.linalg.vector_norm(rays, dim=-1, keepdim=True), min=1e-9)
+    cos = rays @ rays.transpose(-1, -2)
+    pair_mask = mask[..., :, None] & mask[..., None, :]
+    cos = torch.where(pair_mask, cos, torch.ones_like(cos))
+    return torch.amin(cos, dim=(-1, -2))
 
 
 def _solve3_elem(A, b, damping=0.0):

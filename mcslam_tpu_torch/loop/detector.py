@@ -145,6 +145,11 @@ class LoopCloser:
         self.add_keyframe(query_kf.kf_id, bow)
         return detection
 
+    def retrieve(self, bow: np.ndarray):
+        """The best single candidate of retrieve_topn, or None."""
+        top = self.retrieve_topn(bow, 1)
+        return top[0] if top else None
+
     def retrieve_topn(self, bow: np.ndarray, n: int) -> list[int]:
         """Retrieval alone: the nss gate against the previous query, the
         alpha threshold over the usable database, island grouping and

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch.ops import hamming
+from mcslam_tpu_torch.ops.hamming import popcount32
 
 
 def _popcount_np(x: np.ndarray) -> np.ndarray:
@@ -43,15 +44,6 @@ def _majority_centroid(descs: np.ndarray) -> np.ndarray:
                          axis=1, bitorder="little")
     maj = (bits.sum(0) * 2 >= len(descs)).astype(np.uint8)
     return np.packbits(maj, bitorder="little").view(np.uint32)
-
-
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int32 word (its uint32 bit pattern) -> int32."""
-    v = x.to(torch.int64) & 0xFFFFFFFF
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
 class Vocabulary:
@@ -186,6 +178,13 @@ class Vocabulary:
         nodes, children, _, _ = self.device_arrays(desc.device)
         stop = max(self.depth - int(levels_up), 1)
         return _descend_nodes(desc, nodes, children, stop).to(torch.int32)
+
+
+def score_database(query_bow: torch.Tensor,
+                   db_bows: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of the query against every stored frame
+    (L2-normalized BoW vectors): one matvec, (F, V) @ (V,) -> (F,)."""
+    return db_bows @ query_bow
 
 
 def _descend_nodes(desc, nodes, children, n_levels):

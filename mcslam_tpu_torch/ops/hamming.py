@@ -62,3 +62,20 @@ def hamming_matrix(a_packed: torch.Tensor,
                    b_packed: torch.Tensor) -> torch.Tensor:
     """(N, 8) x (M, 8) words -> (N, M) int32 Hamming distances."""
     return hamming_from_planes(to_planes(a_packed), to_planes(b_packed))
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its uint32 bit pattern) -> int32."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def hamming_pairwise(a_packed: torch.Tensor,
+                     b_packed: torch.Tensor) -> torch.Tensor:
+    """Distance of aligned descriptor arrays: (..., 8) words -> (...,)
+    int32."""
+    return torch.sum(popcount32(torch.bitwise_xor(a_packed, b_packed)),
+                     dim=-1, dtype=torch.int32)

@@ -25,6 +25,16 @@ def _np_gaussian_taps(ksize: int, sigma: float) -> tuple:
     return tuple(float(v) for v in k)
 
 
+def gaussian_kernel(ksize: int, sigma: float,
+                    device="cuda") -> torch.Tensor:
+    """(ksize,) f32 normalized Gaussian taps, computed in float32 as the
+    JAX package's gaussian_kernel does."""
+    x = torch.arange(ksize, dtype=torch.float32, device=device) - (
+        ksize - 1) / 2
+    k = torch.exp(-(x * x) / (2.0 * sigma * sigma))
+    return k / torch.sum(k)
+
+
 def gaussian_blur(img: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian blur with reflect padding (vertical pass, then
@@ -119,3 +129,27 @@ def build_pyramid(img: torch.Tensor, num_levels: int = 8,
     for lvl in range(1, num_levels):
         levels.append(resize_bilinear(levels[-1], shapes[lvl]))
     return levels
+
+
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) -> (..., H, W) with the BT.601 weights (as
+    cv2.cvtColor)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype,
+                     device=img.device)
+    return torch.einsum("...c,c->...", img, w)
+
+
+def clahe_like(img: torch.Tensor, grid: int = 8,
+               clip: float = 0.02) -> torch.Tensor:
+    """Cheap contrast normalization standing in for the reference's CLAHE
+    preprocessing (FrontEnd.h:196-257): local mean / std normalization
+    with a box filter (_sep_conv's reflect padding), squashed back to
+    [0, 1] by a sigmoid."""
+    h, w = img.shape[-2:]
+    k = max(h, w) // grid | 1
+    k = min(k, 63) | 1
+    box = torch.full((k,), 1.0 / k, dtype=torch.float32)
+    mean = _sep_conv(img, box)
+    sq = _sep_conv(img * img, box)
+    std = torch.sqrt(torch.clamp(sq - mean * mean, min=1e-6))
+    return torch.sigmoid((img - mean) / torch.clamp(std, min=clip))

@@ -69,3 +69,17 @@ def match_one_way(dist_matrix: torch.Tensor, row_mask=None, col_mask=None,
     if row_mask is not None:
         ok = ok & row_mask
     return MatchResult(idx=idx, dist=best.to(torch.int32), ok=ok)
+
+
+def topk_neighbors(dist_matrix: torch.Tensor, k: int, col_mask=None):
+    """The k nearest targets per row -> (idx (N, k) int32, dist (N, k) of
+    the matrix's dtype), nearest first; among equal distances the lower
+    index first, as jax.lax.top_k orders them (a stable sort: torch.topk
+    makes no promise on ties). Replaces the reference fast-tracking
+    module's cv::flann kNN queries (Tracking.cpp:321-360)."""
+    d = dist_matrix
+    if col_mask is not None:
+        d = torch.where(col_mask[None, :], d, torch.full_like(d, BIG))
+    vals, idx = torch.sort(d.to(torch.float32), dim=1, stable=True)
+    return (idx[:, :k].to(torch.int32),
+            vals[:, :k].to(dist_matrix.dtype))

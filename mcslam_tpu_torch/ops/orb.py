@@ -114,6 +114,25 @@ def _steered_sample_index(bins: int = ANGLE_BINS) -> np.ndarray:
     return out
 
 
+def extract_patches(img: torch.Tensor, yx: torch.Tensor):
+    """(H, W) f32 image + (N, 2) int yx -> ((N, 39, 39) patches, (N, 2)
+    int32 patch origins, clamped into the image): patch_gather on the
+    one image (its kernel for CUDA tensors, its plain version for CPU
+    tensors)."""
+    yx = yx.to(torch.int32).contiguous()
+    idx = torch.zeros(yx.shape[0], dtype=torch.int32, device=yx.device)
+    return patch_gather(img[None].contiguous(), yx, idx)
+
+
+def extract_patches_indexed(imgs: torch.Tensor, yx: torch.Tensor,
+                            img_idx: torch.Tensor):
+    """Flat-list patch extraction: imgs (B, H, W), yx (T, 2) int, img_idx
+    (T,) int (each keypoint's source image) -> ((T, 39, 39) patches,
+    (T, 2) int32 origins), through patch_gather."""
+    return patch_gather(imgs.contiguous(), yx.to(torch.int32).contiguous(),
+                        img_idx.to(torch.int32).contiguous())
+
+
 def patch_orientation(patches: torch.Tensor, groups: int = 1) -> torch.Tensor:
     """IC angle atan2(m01, m10) of (N, P, P) patches from f32
     (N / groups, P^2) @ (P^2, 2) products, one per group of rows (TF32 is
@@ -275,6 +294,13 @@ def extract_orb_rig(imgs: torch.Tensor, num_points: int = 1024,
     levels = image_ops.build_pyramid(imgs, num_levels, scale)
     return extract_orb_levels(levels, num_points, scale, fast_threshold,
                               min_threshold, angle_bins, route)
+
+
+def extract_orb(img: torch.Tensor, **kwargs) -> Keypoints:
+    """Single-image extraction: extract_orb_rig on img[None] (H, W), the
+    camera axis dropped from every field."""
+    kps = extract_orb_rig(img[None], **kwargs)
+    return Keypoints(*(a[0] for a in kps))
 
 
 def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,

@@ -1,5 +1,5 @@
-"""Named span timers with running averages (counterpart of
-StageTimers in mcslam_tpu/utils/profiling.py).
+"""Named span timers with running averages, a device fence and a
+profiler trace (counterpart of mcslam_tpu/utils/profiling.py).
 
 A span measures host wall time. PyTorch returns before the card finishes,
 so a span that should include the device work it queued passes `fence`,
@@ -13,6 +13,23 @@ import time
 from collections import defaultdict
 
 import torch
+
+
+def sync(x) -> None:
+    """Device fence: wait for the CUDA work queued on the device of x (a
+    tensor, or the first tensor found in a nested list / tuple / dict);
+    a no-op for CPU tensors and for no tensor."""
+    stack = [x]
+    while stack:
+        v = stack.pop(0)
+        if isinstance(v, torch.Tensor):
+            if v.device.type == "cuda":
+                torch.cuda.synchronize(v.device)
+            return
+        if isinstance(v, dict):
+            stack.extend(v.values())
+        elif isinstance(v, (list, tuple)):
+            stack.extend(v)
 
 
 class StageTimers:
@@ -48,3 +65,23 @@ class StageTimers:
             f"{name}: mean {self.mean_ms(name):.2f} ms over "
             f"{self.count[name]} calls (last {self.last[name]*1e3:.2f} ms)"
             for name in sorted(self.total))
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """Capture a torch.profiler trace of the block (CPU and, where there
+    is a card, CUDA activity) and write it into `logdir` as a Chrome
+    trace (`trace.json`; open in chrome://tracing or Perfetto)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -261,19 +261,84 @@ def test_app_mesh_devices_matches_single_device(dataset, session_a,
 
 @pytest.mark.parametrize("extra,flag", [
     ("mcraw_path=seq.mcraw", None), ("", "live_view.png")])
-def test_unported_options_raise(dataset, tmp_path, extra, flag):
+def test_unported_options_raise(dataset, session_a, tmp_path, monkeypatch,
+                                extra, flag):
+    """The two options that raised NotImplementedError before the native
+    loader and the viewer were ported now run and change nothing in the
+    session: mcraw_path replays the dataset converted by
+    apps.convert_to_mcraw (needs g++, libpng and libjpeg) and gives the
+    PGM-folder run's TUM rows; --live_view writes the PNG and its HTML
+    page, renders during the session, and gives the same trajectory as
+    the run without it (its snapshot never finalizes the session)."""
     root, _ = dataset
     from mcslam_tpu_torch.apps import mc_slam_app
+    from mcslam_tpu_torch.utils import tum
+    from mcslam_tpu_torch.viz import viewer
 
     cfg = tmp_path / "x.cfg"
-    cfg.write_text((root / "app.cfg").read_text() + f"\n{extra}\n")
+    text = _cfg(root, tmp_path)
+    if extra:
+        from mcslam_tpu_torch.apps import convert_to_mcraw
+        from mcslam_tpu_torch.data import native_loader
+
+        tc = native_loader.toolchain()
+        if not all(tc[k] for k in ("g++", "png.h", "jpeglib.h")):
+            pytest.skip(f"no toolchain for the native loader: {tc}")
+        seq = tmp_path / "seq.mcraw"
+        assert convert_to_mcraw.main([str(root), str(seq)]) == 0
+        text += f"\nmcraw_path={seq}\n"
+    else:
+        text += "\nlive_view_hz=1\n"
+    cfg.write_text(text)
     argv = ["--config_file", str(cfg), "--device", "cpu",
             "--traj_file", str(tmp_path / "t.txt")]
+    live = []
     if flag:
         argv += ["--live_view", str(tmp_path / flag)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mc_slam_app.main(argv)
-    assert not (tmp_path / "t.txt").exists()
+
+        class Recorded(viewer.LiveViewer):
+            def stop(self, final_render=True):
+                live.append(self._frames_rendered)
+                super().stop(final_render)
+
+        monkeypatch.setattr(viewer, "LiveViewer", Recorded)
+    assert mc_slam_app.main(argv) == 0
+    ts, p = tum.read_tum(tmp_path / "t.txt")
+    ts_f, p_f = tum.read_tum(root / "traj.txt")
+    np.testing.assert_array_equal(ts, ts_f)
+    np.testing.assert_array_equal(p, p_f)
+    if flag:
+        import matplotlib.image
+
+        assert live and live[0] >= 1, live  # rendered during the session
+        png = matplotlib.image.imread(tmp_path / flag)
+        assert png.ndim == 3 and png.shape[:2] == (600, 800)
+        html = (tmp_path / "live_view.html").read_text()
+        assert "src='live_view.png'" in html
+
+
+def test_live_view_without_matplotlib_fails_before_the_session(
+        dataset, tmp_path, monkeypatch):
+    """--live_view on a host without matplotlib raises ImportError before
+    the first frame is read, not after the session (whose trajectory,
+    map and cloud would then be lost)."""
+    import sys
+
+    from mcslam_tpu_torch.apps import mc_slam_app
+    from mcslam_tpu_torch.slam import MultiCameraSLAM
+
+    root, _ = dataset
+    cfg = tmp_path / "x.cfg"
+    cfg.write_text(_cfg(root, tmp_path))
+    frames = []
+    monkeypatch.setattr(MultiCameraSLAM, "process_image",
+                        lambda self, *a, **kw: frames.append(1))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
+    with pytest.raises(ImportError):
+        mc_slam_app.main(["--config_file", str(cfg), "--device", "cpu",
+                          "--live_view", str(tmp_path / "live.png")])
+    assert not frames and not (tmp_path / "traj.txt").exists()
 
 
 def test_app_wires_imu_gps_params_like_jax(dataset, tmp_path, monkeypatch):
@@ -348,7 +413,12 @@ def test_app_defaults_to_the_card(dataset, euroc_seq, tmp_path):
                           "--traj_file", str(tmp_path / "t.txt")])
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
         run_euroc.main([str(euroc_seq[0]), "--out_dir", str(tmp_path)])
+    from mcslam_tpu_torch.apps import train_vocabulary
+
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+        train_vocabulary.main([str(root), str(tmp_path / "v.npz")])
     assert not (tmp_path / "t.txt").exists()
+    assert not (tmp_path / "v.npz").exists()
 
 
 # -- EuRoC (ASL layout) --------------------------------------------------------
@@ -472,7 +542,9 @@ def test_run_euroc_end_to_end(euroc_seq, tmp_path, capsys):
     assert len(ie) == 6
     ate = metrics.ate_rmse(est[ie], gt[ig])
     assert ate < 0.2, ate
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_trajectory.main([str(out / "trajectory_tum.txt"),
-                                  str(out / "groundtruth_tum.txt"),
-                                  "--plot", str(tmp_path / "p.png")])
+    assert evaluate_trajectory.main([str(out / "trajectory_tum.txt"),
+                                     str(out / "groundtruth_tum.txt"),
+                                     "--plot", str(tmp_path / "p.png")]) == 0
+    import matplotlib.image
+
+    assert matplotlib.image.imread(tmp_path / "p.png").ndim == 3

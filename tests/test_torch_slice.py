@@ -116,7 +116,8 @@ def test_port_imports_no_jax():
             "          'utils.metrics', 'utils.tum', 'utils.profiling',\n"
             "          'driver_loop', 'backend.pgo', 'utils.mapio',\n"
             "          'loop.vocab', 'loop.detector', 'loop.reloc',\n"
-            "          'loop.tracking'):\n"
+            "          'loop.tracking', 'viz.viewer', 'data.native_loader',\n"
+            "          'apps.train_vocabulary', 'apps.convert_to_mcraw'):\n"
             "    assert 'mcslam_tpu_torch.' + m in sys.modules, m\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or"
             " k.startswith(('jax.', 'mcslam_tpu.')))\n"
@@ -137,13 +138,16 @@ def test_entry_points_default_to_the_card():
     from mcslam_tpu_torch.backend import ba as tba
     from mcslam_tpu_torch.backend import ba_vio as tvio
     from mcslam_tpu_torch.data import synthetic as tsyn
+    from mcslam_tpu_torch.geometry import lie as tlie
     from mcslam_tpu_torch.mapping import device_map as tdm
+    from mcslam_tpu_torch.ops import image as timage
 
     for fn in (tcam.make_rig, tcam.rig_from_numpy, tsyn.make_synthetic_rig,
                tframe.frame_from_numpy, tdm.DeviceMap,
                ttk.map_mirror_from_numpy, tba.problem_from_numpy,
                tvio.problem_from_numpy, tvio.factor_table,
-               tvio.make_imu_factors, tham.desc_to_torch):
+               tvio.make_imu_factors, tham.desc_to_torch,
+               tlie.se3_identity, timage.gaussian_kernel):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
     assert inspect.signature(tslam.MultiCameraSLAM).parameters[
