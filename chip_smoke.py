@@ -59,9 +59,16 @@ Phases, each of which raises (non-zero exit) on failure:
      the session, on the card by default) with bench.py's extraction
      settings (the vision-only driver: rig-depth bootstrap, fused frame
      program, keyframes, window BA on every keyframe with deferred
-     write-back). It must end INITIALIZED with no failure, >= 7 keyframes
-     and ATE <= 0.1 m after finalize(), and all five default-route launch
-     counters must be > 0 (reset right before it); then 12 frames under
+     write-back; on the card the fused frame step and the window solve
+     replay CUDA graphs, utils/graphs). First the same session eager
+     (cuda_graphs=False), the reference; then the session runs under a
+     device trace with the launch counters reset right before it. A
+     replay runs no wrapper, so the five default-route kernels' launches
+     are counted in the trace (main_path_session): each > 0 and equal
+     to the reference's plus the graph warm-ups' (the kernels line's
+     launches), and each wrapper counter > 0 (the warm-ups and the
+     eager frames). It must end INITIALIZED with no failure, >= 7
+     keyframes and ATE <= 0.1 m after finalize(); then 12 frames under
      route B: INITIALIZED, no failure, ATE <= 0.1 m;
   6. bootstraps: (a) 2 blank frames, then 12 bench frames through
      process_image: NOT_INITIALIZED on the blank frames (pending 17-point
@@ -208,6 +215,28 @@ Phases, each of which raises (non-zero exit) on failure:
      others apart, the stage D VIO solves warm and cold with and without
      GPS (as the window solves), and the per-frame process_image wall time
      of a second VIO + GPS session.
+  14. the graphed frame step and window solve (after phase 5): (a)
+     frames 1 and 2 of the phase 3 drive, each from the same inputs and
+     generator state through the eager _build_and_track_step (host
+     branch) and through a captured program (utils/graphs, the portfolio
+     a conditional node on the device), one per fastpath_frac: the
+     fast-path program replayed with its predicted pose flipping the
+     branch (identity, a yaw of YAWS that leaves the fast path,
+     identity), the forced-portfolio one once: all 18 outputs bit-equal,
+     the flags as planned, each replay's launches in its device trace
+     equal to the eager frame's; the fast-path frame's wall, device
+     time, device ops and host-issued launches, graphed and eager; the
+     stage C window solve warm and cold, eager and through the session's
+     graphed solve (driver_window._replay_solve) on its side stream:
+     bit-equal, wall and device time of both; (b) phase 5's session
+     eager (its reference run) and graphed, host syncs counted per
+     frame (sync debug mode "warn"): both INITIALIZED, no failure, >= 7
+     keyframes, ATE <= 0.1 m; one frame-program replay per fused frame;
+     exactly one host sync (the packed fetch) on every steady frame (no
+     keyframe, no solve landing, no capture); (c) each session's
+     per-frame wall by kind (other / keyframe / capture frames) beside
+     PERF.md §2's 50 / 100 ms limits, every program's capture ms, pool
+     bytes and replays, and each session's device busy share;
 The last three lines are the card's name and power limit (nvidia-smi),
 the kernels JSON record and {"ok": true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
@@ -224,6 +253,7 @@ timing (no smoke result).
 
 from __future__ import annotations
 
+import collections
 import json
 import re
 import subprocess
@@ -1153,9 +1183,7 @@ def main() -> int:
     # (its graph log and phase 7's are replayed in phase 12)
     logs = tempfile.TemporaryDirectory()
     log_paths = (Path(logs.name) / "session.log", Path(logs.name) / "vio.log")
-    _build.LAUNCHES.clear()
-    slam, _ = run_session(scene, log_path=log_paths[0])
-    launches = dict(_build.LAUNCHES)
+    slam, wrapper, launches, eager_ref = main_path_session(scene, log_paths[0])
     _, est = slam.trajectory_arrays()
     ate = metrics.ate_rmse(est, scene.poses)
     print(f"# session: {SESSION_FRAMES} frames on {slam.device}, state "
@@ -1166,7 +1194,14 @@ def main() -> int:
           f"{slam.stats.get('track_dispatch', 0)}, ATE {ate:.4f} m")
     for line in slam.timers.report().splitlines():
         print("#   " + line)
-    print(f"# launches during the session: {launches}")
+    print(f"# launches during the session, in its device trace: {launches} "
+          f"(the eager reference's plus the warm-ups' "
+          f"{dict(graph_warmups(slam))}); counted by the wrappers (the "
+          f"warm-ups and the eager frames): {wrapper}")
+    print(f"# session graphs: {len(slam._frame_programs.programs)} frame "
+          f"program(s) replayed {sum(p.replays for p in slam._frame_programs.programs.values())} "
+          f"times, {len(slam._solve_programs.programs)} window-solve "
+          f"programs")
     check(slam.device.type == "cuda", "session: the driver is not on the card")
     check(slam.state == INITIALIZED, "session: not INITIALIZED at the end")
     check(slam.stats["failures"] == 0,
@@ -1176,11 +1211,10 @@ def main() -> int:
     check(np.all(np.isfinite(est)) and est.shape == (SESSION_FRAMES, 4, 4),
           "session: trajectory malformed or non-finite")
     check(ate <= MAX_ATE, f"session: ATE {ate:.4f} m > {MAX_ATE}")
-    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
-              "ba_linearize"):
-        check(launches.get(n, 0) > 0,
+    for n in PATH:
+        check(launches[n] > 0 and wrapper.get(n, 0) > 0,
               f"kernel {n} was not launched on the main path")
-        kernels[n]["launches"] = launches.get(n, 0)
+        kernels[n]["launches"] = launches[n]
 
     _build.LAUNCHES.clear()
     slam_b, _ = run_session(scene, ROUTE_B_FRAMES, routes["B"][0])
@@ -1199,6 +1233,10 @@ def main() -> int:
     for n in routes["B"][1]:
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched in the route B session")
+
+    # ---- phase 14: the graphed frame step and window solve ----
+    graphs_phase(scene, ff0, mapstate, solve_problem, dev, smi,
+                 eager_ref)
 
     # ---- phase 6: the vision-only bootstraps, launches counted ----
     bootstrap_phase(scene, dev, kernels)
@@ -2289,6 +2327,37 @@ def dump_graph(slam, path):
     log.close()
 
 
+def main_path_session(scene, log_path=None):
+    """Phase 5's session through process_image, which replays CUDA graphs
+    on the card: their launches no wrapper sees, so the session runs
+    under a device trace with the launch counters reset right before it,
+    and the kernels of PATH that ran on the device are counted there and
+    held to those of an eager session (cuda_graphs=False, the reference,
+    run first, its host syncs counted for phase 14) plus the graphs'
+    warm-ups' -> (slam, the wrappers' launches (the warm-ups' and the
+    eager frames'), the traced launches, (the eager slam, its frame
+    records, its launches))."""
+    from mcslam_tpu_torch import _build
+
+    _build.LAUNCHES.clear()
+    slam_e, recs_e = graph_session(scene, cuda_graphs=False, syncs=True)
+    launches_e = {n: _build.LAUNCHES.get(n, 0) for n in PATH}
+    print(f"# launches during the eager reference session (cuda_graphs="
+          f"False): {launches_e}")
+
+    def session():
+        _build.LAUNCHES.clear()
+        slam, _ = run_session(scene, log_path=log_path)
+        return slam, dict(_build.LAUNCHES)
+
+    def expect(out):
+        warm = graph_warmups(out[0])
+        return {n: launches_e[n] + warm.get(n, 0) for n in PATH}
+
+    (slam, wrapper), launches = traced_launches(session, expect)
+    return slam, wrapper, launches, (slam_e, recs_e, launches_e)
+
+
 def run_session(scene, frames=SESSION_FRAMES, route=None, mesh=None,
                 log_path=None):
     """The first `frames` frames through the driver's entry point, on the
@@ -2356,40 +2425,66 @@ def _window_solves(scene, dev):
     return p_dev
 
 
+SENTINELS = 64  # spin kernels that open every device trace (device_events)
+SENTINEL = "spin_kernel"
+
+
+def device_events(run):
+    """run() under a torch.profiler CPU + CUDA trace -> (run's result, the
+    trace's device-side events less the sentinels, whether it kept one of
+    the sentinels). The CUDA trace loses events, the first ones of a
+    trace most often, and more of them the more large traces the process
+    took before (on an NVIDIA H100 under torch 2.11, after phase 14's
+    traces, phase 8's trace of ten fast_select calls kept four in five
+    tries): SENTINELS spin kernels open each trace, run() after they
+    finish, so that such losses fall on them. Callers take again a trace
+    that kept none of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kept = [e for e in evs if SENTINEL in e.name]
+    return out, [e for e in evs if SENTINEL not in e.name], bool(kept)
+
+
 def device_profile(fn, reps=1, names=()):
     """(device ms, device ops, device ms of the kernels named) per fn()
     call, over `reps` calls, from a torch.profiler CUDA trace: the summed
     duration and count of the device-side events, and the summed duration
     of those whose name contains one of `names`. A trace that caught no
     device-side event, or none of the kernels named (the CUDA trace now
-    and then comes back empty), or that lost some of them (the count of
-    device-side events, or of the kernels named, is not a whole number
-    per call: the trace now and then drops one of ten), is taken again,
-    up to five times; then the run fails rather than report a time or a
+    and then comes back empty), or that lost some of them (it kept none
+    of its sentinels, or the count of device-side events, or of the
+    kernels named, is not a whole number per call), is taken again, up
+    to five times; then the run fails rather than report a time or a
     count it did not measure."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    def run():
+        for _ in range(reps):
+            fn()
 
     for _ in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        _, evs, kept = device_events(run)
         named = [e for e in evs if any(n in e.name for n in names)]
         us = sum(e.time_range.elapsed_us() for e in evs)
         named_us = sum(e.time_range.elapsed_us() for e in named)
-        whole = len(evs) % reps == 0 and len(named) % reps == 0
+        whole = kept and len(evs) % reps == 0 and len(named) % reps == 0
         if us > 0 and (named_us > 0 or not names) and whole:
             break
     check(us > 0, "the profiler caught no device-side event in five traces")
     check(named_us > 0 or not names,
           f"the profiler caught no launch of {names} in five traces")
     check(whole, f"the profiler caught {len(evs)} device-side events, "
-          f"{len(named)} of {names}, for {reps} calls in each of five traces")
+          f"{len(named)} of {names}, for {reps} calls (sentinels kept: "
+          f"{kept}) in each of five traces")
     return us / 1e3 / reps, len(evs) / reps, named_us / 1e3 / reps
 
 
@@ -3710,6 +3805,463 @@ def tools_phase(scene, dev, smi, base):
                     base)
         vocab_part(root, scene, "cuda", counted, smi)
     profiling_part(scene, dev)
+
+
+# -- phase 14: the graphed frame step and window solve ------------------------
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+GRAPH_REPS = 10  # frames / solves per timing
+LIMIT_MS = {"other frames": 50.0, "keyframe frames": 100.0}  # PERF.md §2
+API_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
+# the main path's kernels by wrapper, each with the device-side kernel that
+# its wrapper launches exactly once per call (hamming_argmin2 launches a
+# tile and a merge kernel; patch_gather_kernel is also the batched entry's,
+# which only route A calls)
+TRACE_NAMES = {"fast_select": "fast_select_kernel",
+               "patch_gather": "patch_gather_kernel",
+               "hamming_argmin2": "hamming_merge_kernel",
+               "pose_lm": "pose_lm_cluster_kernel",
+               "ba_linearize": "linearize_kernel"}
+PATH = tuple(TRACE_NAMES)
+# degrees of yaw tried, in order, for a prediction off the fast path (on
+# an NVIDIA H100 the first that takes frame 2 off it is 18)
+YAWS = tuple(float(d) for d in range(10, 31))
+
+
+def trace_counts(events) -> dict:
+    """{wrapper: events of its kernel} among a trace's device-side events
+    (TRACE_NAMES)."""
+    out = dict.fromkeys(TRACE_NAMES, 0)
+    for e in events:
+        for n, sym in TRACE_NAMES.items():
+            out[n] += sym in e.name
+    return out
+
+
+def traced_launches(fn, expect):
+    """fn() under a torch.profiler CUDA trace -> (its result, the launches
+    of each kernel of PATH that ran on the device, counted in the trace:
+    graph replays and conditional bodies included, which no wrapper
+    counts). They must equal expect(result). A trace that lost events
+    (device_events: it kept none of its sentinels, or it is short of them
+    with none over) is taken again, fn run again, up to five times; then
+    the run fails."""
+    for _ in range(5):
+        out, evs, kept = device_events(fn)
+        got, want = trace_counts(evs), expect(out)
+        if kept and (got == want or any(got[n] > want[n] for n in PATH)):
+            break
+        print(f"# a trace short of the launches {want}: {got}; taken again")
+    check(got == want, f"launches in the device trace {got} != {want}")
+    return out, got
+
+
+def graph_warmups(slam) -> collections.Counter:
+    """The launches of the warm-ups of a session's captured programs."""
+    warm = collections.Counter()
+    for p in (*slam._frame_programs.programs.values(),
+              *slam._solve_programs.programs.values()):
+        warm.update(p.warmup)
+    return warm
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn") -> (its result,
+    the host syncs it made: torch warns once per synchronizing call)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def host_api_launches(fn) -> int:
+    """The host-side CUDA API calls that enqueue device work (kernel and
+    graph launches, copies, memsets) during one fn(), from a torch.profiler
+    trace's CPU events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.name.startswith(API_LAUNCHES))
+
+
+def _leaves(x):
+    """The tensors of a nest of tuples (NamedTuples included)."""
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    return [] if x is None else [x]
+
+
+def _median_ms(fn, reps=GRAPH_REPS) -> float:
+    """Median host ms of fn() ending in a synchronize."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def yawed(deg, dev):
+    """A (4, 4) float32 rotation by `deg` degrees about the y axis."""
+    import torch
+
+    a = np.deg2rad(deg)
+    T = np.eye(4, dtype=np.float32)
+    T[0, 0] = T[2, 2] = np.cos(a)
+    T[0, 2], T[2, 0] = np.sin(a), -np.sin(a)
+    return torch.from_numpy(T).to(dev)
+
+
+def graph_frames(scene, ff0, mapstate, dev, smi):
+    """Phase 14 (a), frames: frames 1 and 2 of the phase 3 drive through
+    the eager _build_and_track_step (the host branch) and through one
+    captured program per fastpath_frac (utils/graphs, the branch on the
+    device), each pair from the same inputs and generator state. After
+    its capturing call, the fast-path program is replayed with the
+    predicted pose (an input of the step) flipping its branch: identity
+    (fast path), a pose yawed off the fast path (the portfolio body
+    runs), identity again; the forced-portfolio program once. Every
+    output bit-equal to the eager frame's, the fast-path flags as
+    planned, and each replay's kernel launches, counted in its device
+    trace, equal to the eager frame's. Then the fast-path frame's wall,
+    device time, device ops and host-issued launches, graphed and
+    eager."""
+    import collections
+
+    import torch
+
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch import tracking_kernels as tk
+    from mcslam_tpu_torch.utils import graphs
+
+    eye = torch.eye(4, device=dev)
+    M = ff0.im_valid.shape[0]
+
+    def eager(k, pred, frac, gen):
+        return tk._build_and_track_step(
+            gen, scene.imgs[k], scene.rig, ff0.im_desc, ff0.im_valid,
+            *mapstate, pred, **scene.step_kwargs(frac))
+
+    # the predicted pose off the fast path: the least yaw of YAWS that
+    # takes frame 2 off it in the eager step
+    off = None
+    for deg in YAWS:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        v = eager(2, yawed(deg, dev), FASTPATH_FRAC, gen)[-1].cpu().numpy()
+        if v[20] < 0.5:
+            off = deg
+            break
+    check(off is not None, f"graph: no yaw of {YAWS[0]}-{YAWS[-1]} degrees "
+          f"takes frame 2 off the fast path")
+    print(f"# graph: a {off} degree yaw of the prediction takes frame 2 off "
+          f"the fast path (eager: {v[16]:.0f} inliers of {v[18]:.0f} "
+          f"landmark matches, rr_ok {v[19]:.0f})")
+    poses = {"identity": eye, f"yaw {off}": yawed(off, dev)}
+    plans = (("fast path", FASTPATH_FRAC, ("identity", f"yaw {off}",
+                                           "identity"), (1, 0, 1)),
+             ("forced portfolio", 2.0, ("identity",), (0,)))
+    res = {}
+    for name, frac, seq, want_flags in plans:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cache = graphs.ProgramCache(dev, gen)
+
+        def step(imgs, pred, frac=frac, gen=gen):
+            return tk._build_and_track_step(
+                gen, imgs, scene.rig, ff0.im_desc, ff0.im_valid, *mapstate,
+                pred, branch="device", **scene.step_kwargs(frac))
+
+        # the capturing call: frame 1 on identity
+        state = gen.get_state()
+        e_out = eager(1, eye, frac, gen)
+        gen.set_state(state)
+        g_out, prog = cache(frac, step, (scene.imgs[1], eye))
+        n_diff = sum(not torch.equal(a, b)
+                     for a, b in zip(_leaves(e_out), _leaves(g_out)))
+        print(f"# graph {name} frame 1, identity, the capturing call: "
+              f"{n_diff} of {len(_leaves(g_out))} outputs differ from the "
+              f"eager frame's; warm-up launches {dict(prog.warmup)}, capture "
+              f"{prog.capture_ms:.1f} ms, pools (program and body) "
+              f"{prog.pool_bytes() / 2**20:.1f} MiB")
+        check(n_diff == 0, f"graph {name} frame 1: the graphed outputs "
+              f"differ from the eager ones")
+        flags = []
+        for pname in seq:
+            pred = poses[pname]
+            state = gen.get_state()
+            before = collections.Counter(_build.LAUNCHES)
+            e_out = eager(2, pred, frac, gen)
+            e_launch = _build.LAUNCHES - before
+            e_launch = {n: e_launch.get(n, 0) for n in PATH}
+            # frame 2 comes from host memory, as an app's frames may
+            img = scene.imgs[2].cpu()
+
+            def replay(pred=pred, state=state):
+                gen.set_state(state)
+                return cache(frac, step, (img, pred))[0]
+
+            g_out, traced = traced_launches(replay, lambda _: e_launch)
+            v = g_out[-1].cpu().numpy()
+            ev, gv = _leaves(e_out), _leaves(g_out)
+            n_diff = sum(not torch.equal(a, b) for a, b in zip(ev, gv))
+            flags.append(int(v[20] > 0.5))
+            print(f"# graph {name} frame 2, {pname}: fastpath={v[20] > 0.5}, "
+                  f"inliers {v[16]:.0f}, {n_diff} of {len(gv)} outputs "
+                  f"differ from the eager frame's; launches in the replay's "
+                  f"trace {traced}, the eager frame's {e_launch}")
+            check(len(ev) == len(gv) and n_diff == 0,
+                  f"graph {name} frame 2 ({pname}): the graphed outputs "
+                  f"differ from the eager ones")
+            check(v.shape == (21 + 3 * M + 16 + 2 * M,),
+                  f"graph {name}: packed buffer malformed")
+        check(tuple(flags) == want_flags, f"graph {name}: fast-path flags "
+              f"{flags} over {seq}, want {want_flags}")
+        res[name] = (prog, frac, gen)
+
+    prog, frac, gen = res["fast path"]
+    imgs1 = scene.imgs[1]
+
+    def graphed_frame():
+        return prog(imgs1, eye)[-1].cpu()
+
+    def eager_frame():
+        return eager(1, eye, frac, gen)[-1].cpu()
+
+    times = {}
+    for name, fn in (("eager", eager_frame), ("graphed", graphed_frame),
+                     ("graphed", graphed_frame), ("eager", eager_frame)):
+        times.setdefault(name, []).append(_median_ms(fn))
+    for name, fn in (("graphed", graphed_frame), ("eager", eager_frame)):
+        dev_ms, n_ops, _ = device_profile(fn)
+        n_api = host_api_launches(fn)
+        print(f"# graph fast-path frame, {name}: wall {min(times[name]):.3f} "
+              f"ms (median of {GRAPH_REPS}, best of 2 turns, build + track + "
+              f"packed fetch); profiler: {dev_ms:.3f} ms device time in "
+              f"{n_ops:.0f} device ops; {n_api} host-issued launches / "
+              f"copies ({smi})")
+    print(f"# graph capture of the fused frame step: {prog.capture_ms:.1f} ms "
+          f"host; warm-up launches {dict(prog.warmup)}")
+
+
+def graph_solves(p_dev, scene, dev, smi):
+    """Phase 14 (a), the window solve: the stage C problem solved warm and
+    cold by ba_solve on the side stream, eager and through the session's
+    graphed solve (driver_window._replay_solve): every result field
+    bit-equal; then each one's wall from dispatch to synchronize, device
+    time and ops."""
+    import torch
+
+    from mcslam_tpu_torch.backend import ba
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    slam = MultiCameraSLAM(scene.rig, SlamConfig())
+    stream = slam._ba_side_stream()
+
+    def on_side(fn):
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            out = fn()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return out
+
+    for name, iters in BA_ITERS:
+        def eager(iters=iters):
+            return on_side(lambda: ba.ba_solve(
+                p_dev, iters=iters, gate_rounds=2, kf_blocked=True))
+
+        def graphed(iters=iters):
+            return on_side(lambda: slam._replay_solve(p_dev, iters))
+
+        e_res, g_res = eager(), graphed()
+        n_diff = sum(not torch.equal(a, b) for a, b in zip(e_res, g_res))
+        prog = slam._solve_programs.programs[
+            (6, p_dev.obs.kf.shape[0] // 6, p_dev.landmarks.shape[0],
+             p_dev.cam_T_ref.shape[0], iters, 2)]
+        print(f"# graph window solve {name} ({iters} x 2): {n_diff} of "
+              f"{len(g_res)} result fields differ from the eager solve's; "
+              f"capture {prog.capture_ms:.1f} ms, pool "
+              f"{prog.pool_bytes() / 2**20:.1f} MiB")
+        check(n_diff == 0, f"graph window solve {name}: the graphed result "
+              f"differs from the eager one")
+        times = {}
+        for tname, fn in (("eager", eager), ("graphed", graphed),
+                          ("graphed", graphed), ("eager", eager)):
+            times.setdefault(tname, []).append(_median_ms(fn, reps=5))
+        for tname, fn in (("graphed", graphed), ("eager", eager)):
+            dev_ms, n_ops, _ = device_profile(fn)
+            print(f"# graph window solve {name}, {tname}: wall "
+                  f"{min(times[tname]):.3f} ms from dispatch to synchronize "
+                  f"(median of 5, best of 2 turns); profiler: {dev_ms:.3f} ms "
+                  f"device time in {n_ops:.0f} device ops ({smi})")
+
+
+def graph_session(scene, cuda_graphs=True, syncs=False):
+    """The phase 5 session through process_image with or without the
+    graphs -> (slam, one record per frame: wall s, keyframe, a deferred
+    solve landed, host syncs (with syncs=True), a capture happened)."""
+    from mcslam_tpu_torch.slam import INITIALIZED, MultiCameraSLAM, SlamConfig
+
+    slam = MultiCameraSLAM(scene.rig, SlamConfig())
+    slam.cuda_graphs = cuda_graphs
+    progs = (slam._frame_programs.programs, slam._solve_programs.programs)
+    recs = []
+    for k in range(SESSION_FRAMES):
+        pending = getattr(slam, "_pending_ba", None)
+        n_prog = sum(map(len, progs))
+        fused = slam.state == INITIALIZED
+
+        def frame(k=k):
+            return slam.process_image(scene.imgs[k], k / 20.0,
+                                      extract_cfg=scene.frame_kwargs())
+
+        t0 = time.perf_counter()
+        info, n_sync = count_syncs(frame) if syncs else (frame(), None)
+        recs.append(dict(
+            wall=time.perf_counter() - t0, kf=info["keyframe"],
+            fused=fused and k > 0, syncs=n_sync,
+            landed=(pending is not None
+                    and getattr(slam, "_pending_ba", None) is not pending),
+            captured=sum(map(len, progs)) > n_prog))
+    slam.finalize()
+    return slam, recs
+
+
+def _session_gates(name, slam, scene):
+    from mcslam_tpu_torch.slam import INITIALIZED
+    from mcslam_tpu_torch.utils import metrics
+
+    _, est = slam.trajectory_arrays()
+    ate = metrics.ate_rmse(est, scene.poses)
+    print(f"# graph session ({name}): state {slam.state}, keyframes "
+          f"{slam.stats['keyframes']}, failures {slam.stats['failures']}, "
+          f"fast-path frames {slam.stats.get('track_fastpath', 0)}/"
+          f"{slam.stats.get('track_dispatch', 0)}, window solves "
+          f"{slam.stats.get('window_ba', 0)}, ATE {ate:.4f} m")
+    check(slam.state == INITIALIZED, f"graph session ({name}): not "
+          f"INITIALIZED")
+    check(slam.stats["failures"] == 0,
+          f"graph session ({name}): {slam.stats['failures']} failures")
+    check(slam.stats["keyframes"] >= MIN_KEYFRAMES,
+          f"graph session ({name}): {slam.stats['keyframes']} keyframes")
+    check(np.all(np.isfinite(est)) and ate <= MAX_ATE,
+          f"graph session ({name}): ATE {ate:.4f} m")
+    return ate
+
+
+def _walls(recs) -> dict:
+    """Per-frame wall ms by kind: the frames that captured a graph apart."""
+    out = {"other frames": [], "keyframe frames": [], "capture frames": []}
+    for r in recs[1:]:
+        kind = ("capture frames" if r["captured"] else
+                "keyframe frames" if r["kf"] else "other frames")
+        out[kind].append(r["wall"] * 1e3)
+    return out
+
+
+def graph_sessions(scene, dev, smi, eager_ref):
+    """Phase 14 (b) and (c): phase 5's session eager (cuda_graphs=False;
+    `eager_ref`, phase 5's reference run: slam, records, launches) and
+    graphed: both held to phase 5's gates; the graphed one replays its
+    frame program on every fused frame and its steady frames (no
+    keyframe, no landing, no capture) make exactly one host sync (the
+    packed fetch). Its launches are phase 5's, counted in the device
+    trace against the eager session's. Then the wall of a frame by kind,
+    the device busy share of each session, and the captures' ms, keys
+    and pool bytes."""
+    import torch
+
+    slam_e, recs_e, launches_e = eager_ref
+    _session_gates("eager", slam_e, scene)
+    slam_g, recs_g = graph_session(scene, syncs=True)
+    _session_gates("graphed", slam_g, scene)
+    print(f"# graph session launches: the eager session's {launches_e} "
+          f"(an eager session before the graphs read 24 / 24 / 46 / 46 / "
+          f"47); the graphed session's in phase 5, from its device trace")
+    n_fused = sum(r["fused"] for r in recs_g)
+    frame_progs = list(slam_g._frame_programs.programs.values())
+    n_replays = sum(p.replays for p in frame_progs)
+    print(f"# graph session: {len(frame_progs)} frame program(s), "
+          f"{n_replays} replays for {n_fused} fused frames; "
+          f"{len(slam_g._solve_programs.programs)} window-solve programs "
+          f"replayed {sum(p.replays for p in slam_g._solve_programs.programs.values())} "
+          f"times for {slam_g.stats.get('window_ba', 0)} solves")
+    check(n_replays == n_fused and len(frame_progs) == 1,
+          "graph session: not one frame-program replay per fused frame")
+    for name, recs in (("graphed", recs_g), ("eager", recs_e)):
+        by = collections.defaultdict(list)
+        for r in recs[1:]:
+            kind = ("steady" if r["fused"] and not (r["kf"] or r["landed"]
+                                                     or r["captured"])
+                    else "keyframe / landing / capture")
+            by[kind].append(r["syncs"])
+        print(f"# graph session host syncs per frame ({name}): "
+              + "; ".join(f"{k}: {v}" for k, v in sorted(by.items())))
+    steady = [r["syncs"] for r in recs_g[1:] if r["fused"] and not (
+        r["kf"] or r["landed"] or r["captured"])]
+    check(steady and all(n == 1 for n in steady),
+          f"graph session: steady frames' host syncs {steady} (1 each)")
+
+    # (c) times: sessions without the sync counting
+    for name, graphs_on in (("eager", False), ("graphed", True),
+                            ("graphed", True), ("eager", False)):
+        slam, recs = graph_session(scene, cuda_graphs=graphs_on)
+        wall_ms = sum(r["wall"] for r in recs) * 1e3
+        for kind, ms in _walls(recs).items():
+            if ms:
+                lim = LIMIT_MS.get(kind)
+                print(f"# graph session wall ({name}), {kind} (n={len(ms)}): "
+                      f"median {np.median(ms):.3f} ms, mean {np.mean(ms):.3f} "
+                      f"ms, max {np.max(ms):.3f} ms"
+                      + (f" (PERF.md §2 limit {lim:.0f} ms)" if lim else "")
+                      + f" ({smi})")
+        if graphs_on:
+            for key, p in {**slam._frame_programs.programs,
+                           **slam._solve_programs.programs}.items():
+                print(f"#   program {str(key)[:80]}: capture "
+                      f"{p.capture_ms:.1f} ms, pool (with its body's) "
+                      f"{p.pool_bytes() / 2**20:.1f} MiB, replays "
+                      f"{p.replays}")
+        print(f"# graph session ({name}): {wall_ms:.1f} ms wall for "
+              f"{SESSION_FRAMES} frames")
+    for name, graphs_on in (("graphed", True), ("eager", False)):
+        box = {}
+
+        def run(graphs_on=graphs_on, box=box):
+            box["recs"] = graph_session(scene, cuda_graphs=graphs_on)[1]
+
+        dev_ms, n_ops, _ = device_profile(run)
+        wall_ms = sum(r["wall"] for r in box["recs"]) * 1e3
+        print(f"# graph session device busy ({name}): {dev_ms:.1f} ms device "
+              f"time in {n_ops:.0f} device ops over {wall_ms:.1f} ms of "
+              f"profiled wall: {100 * dev_ms / wall_ms:.1f} % ({smi})")
+    torch.cuda.synchronize()
+
+
+def graphs_phase(scene, ff0, mapstate, p_dev, dev, smi, eager_ref):
+    """Phase 14: the graphed frame step and window solve; `eager_ref` is
+    phase 5's eager session (slam, records, launches)."""
+    graph_frames(scene, ff0, mapstate, dev, smi)
+    graph_solves(p_dev, scene, dev, smi)
+    graph_sessions(scene, dev, smi, eager_ref)
 
 
 def rehearse_mesh():

@@ -24,6 +24,12 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+# cuSOLVER / cuBLAS for every factorization and solve on the card (the
+# window solve's solve_ex, RANSAC's cholesky_ex): torch's heuristic may
+# pick MAGMA, whose host-side calls a CUDA graph capture refuses, and the
+# eager and the captured programs must take the same backend.
+if _torch.backends.cuda.is_built():
+    _torch.backends.cuda.preferred_linalg_library("cusolver")
 
 __version__ = "0.1.0"
 

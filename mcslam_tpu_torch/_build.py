@@ -74,11 +74,23 @@ SIGNATURES = {
     "mc_ba_linearize": [P] * 15 + [I, I, I, I, F, P],
     # -> CTAs per keyframe (the cluster size)
     "mc_ba_linearize_cluster": [],
+    # pred (device bool), body (cudaGraph_t), the capturing stream: an IF
+    # node running a copy of body where *pred, appended to the capture
+    "mc_graph_add_if": [P, P, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds
-# one right before it launches its kernel (plain-version calls add none).
+# one right before it launches its kernel (count; plain-version calls add
+# none).
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+def count(name: str) -> None:
+    """One launch of kernel `name` on the current stream. Under a CUDA
+    graph capture the launch is recorded into the graph, not made, and is
+    not counted (a replay runs no wrapper)."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 _LIB = None
 BUILD_SECONDS = None  # wall time of the nvcc run of this process, if any

@@ -13,9 +13,11 @@ a side stream of its own (a mesh solve's work on the session's device
 too; its other devices' shards queue on their current streams, and the
 copies between cards are ordered on the streams by torch's cross-device
 copy events). The tracking
-path syncs its stream every frame (the packed fetch, the fast-path read,
-pageable uploads); on a shared stream each of those syncs would wait for
-the queued solve and make the deferred write-back synchronous. The side
+path syncs its stream every frame (the packed fetch; off the graphed
+path also the fast-path read and pageable uploads); on a shared stream
+each of those syncs would wait for the queued solve and make the deferred
+write-back synchronous. With cuda_graphs the vision solve replays a CUDA
+graph captured on that side stream (_replay_solve). The side
 stream waits for the main stream before the solve, its input tensors are
 recorded on it (so the allocator does not hand their memory to the main
 stream while the solve reads them), and the main stream waits for it
@@ -48,14 +50,21 @@ class WindowBAMixin:
         return self._ba_stream
 
     def _dispatch_solve(self, problem, iters: int,
-                        landmark_sharded: bool = False) -> ba.BAResult:
+                        landmark_sharded: bool = False,
+                        graphed: bool = False) -> ba.BAResult:
         """Queue the solve of a kf-blocked BAProblem: ba_solve on the
         ba_linearize kernel, or over the session's mesh the
         observation-sharded solve (the landmark-sharded one for a
         shard_by_landmark table), whose result has a zero marginal_H. On
         a CUDA device it runs on the side stream, after the main stream,
-        with the problem's tensors recorded on it."""
+        with the problem's tensors recorded on it. `graphed` (the window
+        solve, with cuda_graphs, no mesh): ba_solve replays a CUDA graph
+        captured on the side stream per (K, Ok, L, C, iters, gate rounds);
+        its result is the graph's output, which lands before the next
+        solve replays."""
         def solve():
+            if self.mesh is None and graphed and self.cuda_graphs:
+                return self._replay_solve(problem, iters)
             if self.mesh is None:
                 return ba.ba_solve(problem, iters=iters, kf_blocked=True)
             fn = (sharded_ba.sharded_ba_solve_lm if landmark_sharded
@@ -75,6 +84,24 @@ class WindowBAMixin:
             t.record_stream(stream)
         with torch.cuda.stream(stream):
             return solve()
+
+    def _replay_solve(self, problem, iters: int,
+                      gate_rounds: int = 2) -> ba.BAResult:
+        """ba_solve (kf-blocked) of `problem` as a replayed CUDA graph on
+        the current stream."""
+        K, L, C = (problem.poses.shape[0], problem.landmarks.shape[0],
+                   problem.cam_T_ref.shape[0])
+        Ok = problem.obs.kf.shape[0] // K
+        flat = (*problem[:3], *problem.obs, *problem[4:])
+
+        def solve(*t):
+            p = ba.BAProblem(*t[:3], ba.BAObservations(*t[3:9]), *t[9:])
+            return tuple(ba.ba_solve(p, iters=iters, gate_rounds=gate_rounds,
+                                     kf_blocked=True))
+
+        outs, _ = self._solve_programs(
+            (K, Ok, L, C, iters, gate_rounds), solve, flat)
+        return ba.BAResult(*outs)  # a new tuple: _pending_vis_marg tests it
 
     def _solve_window(self, window, force_sync=False, allow_vio=True):
         """Window BA over an explicit keyframe list (gauge on window[0]);
@@ -175,7 +202,7 @@ class WindowBAMixin:
         # re-linearizations of a converged system; cold ones get the full
         # budget
         iters = cfg.ba_iters if self._ba_warm else cfg.ba_iters_cold
-        result = self._dispatch_solve(problem, iters)
+        result = self._dispatch_solve(problem, iters, graphed=True)
         self.stats["window_ba"] = self.stats.get("window_ba", 0) + 1
         self._ba_warm = True
         # stash the marginal information of the state that becomes the

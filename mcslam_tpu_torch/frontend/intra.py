@@ -16,6 +16,7 @@ import torch
 from mcslam_tpu_torch.geometry import lie
 from mcslam_tpu_torch.ops import hamming, match
 from mcslam_tpu_torch.ops.topk_grid import topk_stable
+from mcslam_tpu_torch.utils import graphs
 
 
 class IntraGroups(NamedTuple):
@@ -61,8 +62,14 @@ def intra_match(desc: torch.Tensor, xy_ud: torch.Tensor, valid: torch.Tensor,
     if pair_i:
         E_all = torch.stack([pair_essential(rig, i, j)
                              for i, j in zip(pair_i, pair_j)])
-        d = hamming.hamming_from_planes(planes[pair_i], planes[pair_j])
-        gate = sampson_gate(xn[pair_i], xn[pair_j], E_all, thr_n)
+        # camera pairs by index tensors made once per device (a Python
+        # list index is a host upload)
+        pi = graphs.values(tuple(pair_i), torch.int64, dev)
+        pj = graphs.values(tuple(pair_j), torch.int64, dev)
+        d = hamming.hamming_from_planes(planes.index_select(0, pi),
+                                        planes.index_select(0, pj))
+        gate = sampson_gate(xn.index_select(0, pi), xn.index_select(0, pj),
+                            E_all, thr_n)
         cands = []
         for p, (i, j) in enumerate(zip(pair_i, pair_j)):
             res = match.match_mutual(

@@ -230,7 +230,7 @@ def pose_lm(T_init, data, mask, sched, huber_px=2.5, chi2_thresh=CHI2_2DOF,
                          f"cluster's shared memory")
     T_out = torch.empty(B, 4, 4, dtype=torch.float32, device=dev)
     chi2 = torch.empty(B, M, dtype=torch.float32, device=dev)
-    _build.LAUNCHES["pose_lm"] += 1
+    _build.count("pose_lm")
     _build.check(lib.mc_pose_lm(
         T_init.data_ptr(), data.data_ptr(), mask.data_ptr(),
         T_out.data_ptr(), chi2.data_ptr(), B, M, len(iters),

@@ -14,6 +14,7 @@ import math
 import torch
 
 from mcslam_tpu_torch.geometry import alignment, lie, linalg3
+from mcslam_tpu_torch.utils import graphs
 
 
 class RansacResult(NamedTuple):
@@ -101,9 +102,11 @@ def _score_reprojection(world_T_ref_h, X_world, uv, cam_T_ref, fxycxy, mask,
 
 
 def _best(hyp, counts, inl, min_inliers):
-    best = torch.argmax(counts)
-    n = counts[best]
-    return RansacResult(world_T_ref=hyp[best], inliers=inl[best],
+    # index_select: indexing by a 0-d tensor reads it on the host
+    best = torch.argmax(counts).reshape(1)
+    n = counts.index_select(0, best)[0]
+    return RansacResult(world_T_ref=hyp.index_select(0, best)[0],
+                        inliers=inl.index_select(0, best)[0],
                         num_inliers=n.to(torch.int32), ok=n >= min_inliers)
 
 
@@ -251,8 +254,8 @@ def _decompose_E(E: torch.Tensor, xn0: torch.Tensor, xn1: torch.Tensor,
     U, _, Vt = torch.linalg.svd(E)
     U = U * torch.where(linalg3.det3(U) < 0, -1.0, 1.0)
     Vt = Vt * torch.where(linalg3.det3(Vt) < 0, -1.0, 1.0)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = graphs.values(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)),
+                      E.dtype, E.device)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     t = U[:, 2]

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from mcslam_tpu_torch.geometry import lie, linalg3
+from mcslam_tpu_torch.utils import graphs
 
 
 def kabsch(src: torch.Tensor, dst: torch.Tensor,
@@ -142,12 +143,14 @@ def _dominant_eigvec4(K: torch.Tensor) -> torch.Tensor:
         lam = lam - p / dp
 
     A = K - lam[..., None, None] * eye
-    keep = [[i for i in range(4) if i != r] for r in range(4)]
+    keep = [graphs.values(tuple(i for i in range(4) if i != r), torch.int64,
+                          A.device) for r in range(4)]
     cof = torch.stack(
         [
             torch.stack(
                 [((-1.0) ** (r + c)) * linalg3.det3(
-                    A[..., keep[r], :][..., :, keep[c]]) for c in range(4)],
+                    A.index_select(-2, keep[r]).index_select(-1, keep[c]))
+                 for c in range(4)],
                 dim=-1,
             )
             for r in range(4)

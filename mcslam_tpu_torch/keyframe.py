@@ -102,17 +102,23 @@ class Keyframe:
         self.ray_sigma2 = take(M * C, (M, C), True)
         self.ray_valid = self.im_ray_idx >= 0
         self.lm_id = np.full(M, -1, np.int32)
-        # device-resident copies for the tracking programs (the frame's own
-        # tensors; re-uploaded only after release_device)
+        # device-resident copies for the tracking programs (re-uploaded
+        # only after release_device); cloned, since a frame of the graphed
+        # step lives in the graph's outputs, which the next frame overwrites
         self.device = frame.im_desc.device
-        self.d_desc = frame.im_desc
-        self.d_valid = frame.im_valid
+        self.d_desc = frame.im_desc.clone()
+        self.d_valid = frame.im_valid.clone()
         self._d_lm_id = None
 
     def d_lm_id(self) -> torch.Tensor:
         self._need_device()
         if self._d_lm_id is None:
-            self._d_lm_id = torch.tensor(self.lm_id, device=self.device)
+            t = torch.from_numpy(np.array(self.lm_id))
+            # on the card from pinned memory, non-blocking: the graphed
+            # frame step makes no host sync besides its packed fetch
+            self._d_lm_id = (t.pin_memory().to(self.device, non_blocking=True)
+                             if self.device.type == "cuda"
+                             else t.to(self.device))
         return self._d_lm_id
 
     def device_desc(self):

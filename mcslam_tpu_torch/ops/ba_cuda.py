@@ -149,7 +149,7 @@ class Linearizer:
         base = buf.data_ptr()
         lm, cam, uv, s2, Rc, tc, f4 = self.ptrs
         lib = _build.library()
-        _build.LAUNCHES["ba_linearize"] += 1
+        _build.count("ba_linearize")
         _build.check(lib.mc_ba_linearize(
             rTw12.data_ptr(), lm_pos.data_ptr(), lm, cam, uv, s2,
             validf.data_ptr(), Rc, tc, f4, *(base + 4 * off for *_, off in

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from mcslam_tpu_torch.utils import graphs
+
 # Bresenham circle radius 3: 16 (dy, dx) offsets in circular order.
 CIRCLE = (
     (-3, 0), (-3, 1), (-2, 2), (-1, 3),
@@ -45,7 +47,7 @@ def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
     bright = torch.amax(arc_min(diffs), dim=-3)
     dark = torch.amax(arc_min(-diffs), dim=-3)
     score = torch.maximum(bright, dark)
-    thr = torch.tensor(threshold, dtype=score.dtype, device=score.device)
+    thr = graphs.values(threshold, score.dtype, score.device)
     score = torch.where(score > thr, score, torch.zeros_like(score))
     h, w = img.shape[-2:]
     ys = torch.arange(h, device=img.device)[:, None]

@@ -29,6 +29,7 @@ import torch
 
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import fast as fast_ops
+from mcslam_tpu_torch.utils import graphs
 
 CELL = 16  # cell size and height of a skipped band
 K = 4  # candidates per cell
@@ -45,7 +46,7 @@ def _blur(img: torch.Tensor, taps: tuple) -> torch.Tensor:
     image, columns wrap modulo ceil128(W) and then clamp to W - 1."""
     _, H, W = img.shape
     dev = img.device
-    t = torch.tensor(taps, dtype=torch.float32, device=dev)
+    t = graphs.values(tuple(taps), torch.float32, dev)
     r = len(taps) // 2
     offs = torch.arange(-r, r + 1, device=dev)
     rows = torch.clamp(torch.arange(H, device=dev)[:, None] + offs, 0, H - 1)
@@ -97,7 +98,7 @@ def fast_select_reference(img: torch.Tensor, min_threshold: float,
     ok = (yy < heights[:, None, None] - fast_ops.BORDER) & (
         xx < widths[:, None, None] - fast_ops.BORDER)
     s = torch.where(ok, s, torch.zeros_like(s))
-    thr = torch.tensor(fast_threshold, dtype=f32, device=dev)
+    thr = graphs.values(fast_threshold, f32, dev)
     s = torch.where(s > thr, s + 1.0, s)
 
     # exact per-cell top-K: (value desc, raster rid asc), knock out winner
@@ -150,7 +151,7 @@ def fast_select(img: torch.Tensor, min_threshold: float,
     cand_v = torch.empty(LC, G, K, dtype=torch.float32, device=img.device)
     cand_r = torch.empty(LC, G, K, dtype=torch.int32, device=img.device)
     lib = _build.library()
-    _build.LAUNCHES["fast_select"] += 1
+    _build.count("fast_select")
     _build.check(lib.mc_fast_select(
         img.data_ptr(), heights.data_ptr(), widths.data_ptr(),
         blur.data_ptr(), cand_v.data_ptr(), cand_r.data_ptr(), LC, H, W,
@@ -206,8 +207,8 @@ def fast_corners(img: torch.Tensor, threshold: float,
     score = torch.empty_like(img)
     blur = torch.empty_like(img) if taps is not None else None
     lib = _build.library()
-    _build.LAUNCHES["fast_corners_hskip" if heights is not None
-                    else "fast_corners_full"] += 1
+    _build.count("fast_corners_hskip" if heights is not None
+                 else "fast_corners_full")
     _build.check(lib.mc_fast_corners(
         img.data_ptr(), heights.data_ptr() if heights is not None else None,
         score.data_ptr(), blur.data_ptr() if blur is not None else None,

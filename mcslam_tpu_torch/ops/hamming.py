@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcslam_tpu_torch.utils import graphs
+
 BITS = 256
 WORDS = BITS // 32
 
@@ -31,7 +33,7 @@ def desc_to_numpy_u32(desc: torch.Tensor) -> np.ndarray:
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     """(N, 8) int32 words -> (N, 256) int8 in {0, 1} (LSB-first)."""
-    shifts = torch.tensor(_SHIFTS, dtype=torch.int32, device=packed.device)
+    shifts = graphs.values(_SHIFTS, torch.int32, packed.device)
     bits = (packed[..., :, None] >> shifts) & 1
     return bits.reshape(*packed.shape[:-1], BITS).to(torch.int8)
 
@@ -39,7 +41,7 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(N, 256) {0, 1} -> (N, 8) int32 words (LSB-first)."""
     b = bits.reshape(*bits.shape[:-1], WORDS, 32).to(torch.int64)
-    shifts = torch.tensor(_SHIFTS, dtype=torch.int64, device=bits.device)
+    shifts = graphs.values(_SHIFTS, torch.int64, bits.device)
     words = torch.sum(b << shifts, dim=-1)  # in [0, 2^32)
     words = torch.where(words >= 2**31, words - 2**32, words)
     return words.to(torch.int32)

@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from mcslam_tpu_torch.utils import graphs
+
 
 def _np_gaussian_taps(ksize: int, sigma: float) -> tuple:
     r = (ksize - 1) / 2
@@ -39,8 +41,8 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian blur with reflect padding (vertical pass, then
     horizontal)."""
-    return _sep_conv(img, torch.tensor(_np_gaussian_taps(ksize, sigma),
-                                       dtype=torch.float32))
+    return _sep_conv(img, graphs.values(_np_gaussian_taps(ksize, sigma),
+                                        torch.float32, img.device))
 
 
 def _sep_conv(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -98,8 +100,10 @@ def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     in a batch (the camera-sharded frame build, parallel/sharded_frame)."""
     h, w = img.shape[-2:]
     oh, ow = out_hw
-    Wh = torch.from_numpy(_resize_matrix(h, oh)).to(img.device)
-    Ww = torch.from_numpy(_resize_matrix(w, ow)).to(img.device).T
+    Wh = graphs.const(("image.resize", h, oh), img.device,
+                      lambda: _resize_matrix(h, oh))
+    Ww = graphs.const(("image.resize", w, ow), img.device,
+                      lambda: _resize_matrix(w, ow)).T
 
     def one(x):
         if oh != h:
@@ -134,8 +138,7 @@ def build_pyramid(img: torch.Tensor, num_levels: int = 8,
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) -> (..., H, W) with the BT.601 weights (as
     cv2.cvtColor)."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype,
-                     device=img.device)
+    w = graphs.values((0.299, 0.587, 0.114), img.dtype, img.device)
     return torch.einsum("...c,c->...", img, w)
 
 

@@ -17,6 +17,7 @@ import torch
 
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import hamming
+from mcslam_tpu_torch.utils import graphs
 
 BIGF = float(1 << 20)  # matches ops/match.BIG
 # bias magnitude for validity folding: must dominate the largest raw d2
@@ -36,7 +37,7 @@ def hamming_argmin2_reference(a_desc: torch.Tensor, b_desc: torch.Tensor,
     admissible iff (ahat @ bhat)[i, j] < thr2; others score BIGF."""
     dist = hamming.hamming_matrix(a_desc, b_desc).to(torch.float32)
     d2 = ahat @ bhat
-    thr = torch.tensor(thr2, dtype=torch.float32, device=d2.device)
+    thr = graphs.values(thr2, torch.float32, d2.device)
     gated = torch.where(d2 < thr, dist, torch.full_like(dist, BIGF))
     idx = torch.argmin(gated, dim=1, keepdim=True)
     best = torch.gather(gated, 1, idx)[:, 0]
@@ -88,7 +89,7 @@ def hamming_argmin2(a_desc: torch.Tensor, b_desc: torch.Tensor,
                            dtype=torch.float32, device=dev)
     iscratch = torch.empty(lib.mc_hamming_scratch_ints(M, N),
                            dtype=torch.int32, device=dev)
-    _build.LAUNCHES["hamming_argmin2"] += 1
+    _build.count("hamming_argmin2")
     _build.check(lib.mc_hamming_argmin2(
         a_desc.data_ptr(), b_desc.data_ptr(), ahat.data_ptr(),
         bhat.data_ptr(), best.data_ptr(), second.data_ptr(), idx.data_ptr(),

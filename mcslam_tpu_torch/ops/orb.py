@@ -33,6 +33,7 @@ from mcslam_tpu_torch.ops.fast_cuda import fast_corners, fast_select
 from mcslam_tpu_torch.ops.patch_cuda import (
     PATCH, PATCH_R, patch_gather, patch_gather_batched, patch_gather_oriented)
 from mcslam_tpu_torch.ops.topk_grid import topk_stable
+from mcslam_tpu_torch.utils import graphs
 
 PATCH_RADIUS = 15  # IC-angle circular patch radius (31x31 patch)
 EDGE = 19  # keep-out border for orientation/descriptor sampling
@@ -141,7 +142,8 @@ def patch_orientation(patches: torch.Tensor, groups: int = 1) -> torch.Tensor:
     same shape whatever the number of cameras: a GEMM may sum in another
     order for another M, and the camera-sharded build
     (parallel/sharded_frame) must give the same bits."""
-    W = torch.from_numpy(_moment_weight_matrix()).to(patches.device)
+    W = graphs.const("orb.moment_weights", patches.device,
+                     _moment_weight_matrix)
     flat = patches.reshape(patches.shape[0], PATCH * PATCH)
     m = torch.cat([g @ W for g in flat.chunk(groups)])
     return torch.atan2(m[:, 1], m[:, 0])
@@ -157,10 +159,11 @@ def compute_descriptors_patch(patches: torch.Tensor, angle: torch.Tensor,
     dev = patches.device
     flat = patches.reshape(n, PATCH * PATCH).to(torch.bfloat16).to(
         torch.float32)
-    two_pi = torch.tensor(2.0 * np.pi, dtype=torch.float32, device=dev)
+    two_pi = graphs.values(2.0 * np.pi, torch.float32, dev)
     b = torch.round((torch.remainder(angle, two_pi) / two_pi) * angle_bins)
     b = b.to(torch.int64) % angle_bins
-    idx = torch.from_numpy(_steered_sample_index(angle_bins)).to(dev)[b]
+    idx = graphs.const(("orb.steered_index", angle_bins), dev,
+                       lambda: _steered_sample_index(angle_bins))[b]
     p = torch.gather(flat, 1, idx[..., 0])
     q = torch.gather(flat, 1, idx[..., 1])
     return hamming.pack_bits((q - p) > 0)
@@ -273,7 +276,7 @@ def _select_from_score(score, h_l, w_l, fast_threshold, maxb: int, *,
     interior = ((yy < h_l.long()[:, None, None] - fast_ops.BORDER)
                 & (xx < w_l.long()[:, None, None] - fast_ops.BORDER))
     score = torch.where(interior, score, torch.zeros_like(score))
-    thr = torch.tensor(fast_threshold, dtype=torch.float32, device=dev)
+    thr = graphs.values(fast_threshold, torch.float32, dev)
     score = torch.where(score > thr, score + 1.0, score)
     if subcell:
         return topk_grid.select_keypoints_subcell(score, maxb,
@@ -325,10 +328,12 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
         [F.pad(lv[None], (0, W0 - w, 0, H0 - h), mode="replicate")[0]
          for lv, (h, w) in zip(levels, hw)], dim=0,
     ).contiguous()
-    h_l = torch.tensor([h for h, _ in hw], dtype=torch.int32,
-                       device=dev).repeat_interleave(C)
-    w_l = torch.tensor([w for _, w in hw], dtype=torch.int32,
-                       device=dev).repeat_interleave(C)
+    # per-image level sizes and budgets, made once per device (no upload
+    # inside a captured frame)
+    h_l = graphs.values(tuple(h for h, _ in hw for _ in range(C)),
+                        torch.int32, dev)
+    w_l = graphs.values(tuple(w for _, w in hw for _ in range(C)),
+                        torch.int32, dev)
     taps = image_ops._np_gaussian_taps(7, 2.0)
     if route.fused_blur and route.select_in_kernel:
         blurred, cand_v, cand_rid = fast_select(
@@ -349,8 +354,8 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
             score, h_l, w_l, fast_threshold, maxb, cell=cell,
             per_cell=per_cell, subcell=route.sel_subcell)
     resp = torch.where(resp > 1.0, resp - 1.0, resp)  # undo rank bonus
-    budget_arr = torch.tensor(budgets, dtype=torch.int64,
-                              device=dev).repeat_interleave(C)
+    budget_arr = graphs.values(tuple(b for b in budgets for _ in range(C)),
+                               torch.int64, dev)
     valid = valid & (torch.arange(maxb, device=dev)[None, :]
                      < budget_arr[:, None])
     hl, wl = h_l.long()[:, None], w_l.long()[:, None]
@@ -358,8 +363,8 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
            & (yx[..., 1] >= EDGE) & (yx[..., 1] < wl - EDGE))
     valid = valid & inb
 
-    s_lvl = torch.tensor([scale**lvl for lvl in range(L)],
-                         dtype=torch.float32, device=dev)
+    s_lvl = graphs.values(tuple(scale**lvl for lvl in range(L)),
+                          torch.float32, dev)
     xy_lvl = torch.stack([yx[..., 1], yx[..., 0]], dim=-1).to(torch.float32)
     xy0 = (xy_lvl.reshape(L, C, maxb, 2)
            * s_lvl[:, None, None, None]).reshape(L * C, maxb, 2)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch import _build
+from mcslam_tpu_torch.utils import graphs
 
 PATCH = 39  # patch window: covers rotated BRIEF offsets (+-13*sqrt(2) < 19)
 PATCH_R = PATCH // 2
@@ -90,7 +91,7 @@ def patch_gather(imgs: torch.Tensor, yx: torch.Tensor, img_idx: torch.Tensor):
                           device=imgs.device)
     origins = torch.empty(T, 2, dtype=torch.int32, device=imgs.device)
     lib = _build.library()
-    _build.LAUNCHES["patch_gather"] += 1
+    _build.count("patch_gather")
     _build.check(lib.mc_patch_gather(
         imgs.data_ptr(), yx.data_ptr(), img_idx.data_ptr(),
         patches.data_ptr(), origins.data_ptr(), B, H, W, T,
@@ -126,7 +127,7 @@ def patch_gather_batched(imgs: torch.Tensor, yx: torch.Tensor):
                           device=imgs.device)
     origins = torch.empty(C, N, 2, dtype=torch.int32, device=imgs.device)
     lib = _build.library()
-    _build.LAUNCHES["patch_gather_batched"] += 1
+    _build.count("patch_gather_batched")
     _build.check(lib.mc_patch_gather_batched(
         imgs.data_ptr(), yx.data_ptr(), patches.data_ptr(),
         origins.data_ptr(), C, H, W, N, _build.stream_ptr(imgs.device),
@@ -157,7 +158,8 @@ def patch_gather_oriented_reference(imgs: torch.Tensor, yx: torch.Tensor,
     T = win.shape[0]
     n = PATCH * PATCH
     steps = -(-n // 32)
-    prods = win.reshape(T, 1, n) * circle_weights(imgs.device)  # (T, 2, n)
+    prods = win.reshape(T, 1, n) * graphs.const(
+        "patch.circle_weights", imgs.device, circle_weights)  # (T, 2, n)
     prods = torch.nn.functional.pad(prods, (0, steps * 32 - n))
     prods = prods.reshape(T, 2, steps, 32)
     acc = torch.zeros(T, 2, 32, dtype=torch.float32, device=imgs.device)
@@ -186,7 +188,7 @@ def patch_gather_oriented(imgs: torch.Tensor, yx: torch.Tensor,
     moments = torch.empty(T, 2, dtype=torch.float32, device=imgs.device)
     origins = torch.empty(T, 2, dtype=torch.int32, device=imgs.device)
     lib = _build.library()
-    _build.LAUNCHES["patch_gather_oriented"] += 1
+    _build.count("patch_gather_oriented")
     _build.check(lib.mc_patch_gather_oriented(
         imgs.data_ptr(), yx.data_ptr(), img_idx.data_ptr(),
         patches.data_ptr(), moments.data_ptr(), origins.data_ptr(), B, H, W,

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from mcslam_tpu_torch.utils import graphs
+
 
 def topk_stable(x: torch.Tensor, k: int):
     """(values, indices) of the k largest along the last dim, ties to the
@@ -85,7 +87,7 @@ def select_keypoints_subcell(score: torch.Tensor, num_points: int,
     cells = cells.reshape(B, gh, gw, sub * sub)
     dev = score.device
     rid = torch.arange(sub * sub, device=dev)  # raster offset in the cell
-    big = torch.tensor(sub * sub, device=dev)
+    big = graphs.values(sub * sub, torch.int64, dev)
     gy = torch.arange(gh, device=dev)[:, None] * sub
     gx = torch.arange(gw, device=dev)[None, :] * sub
     resp_r, ys_r, xs_r = [], [], []

@@ -24,6 +24,12 @@ BA (driver_loop); `final_global_ba`, one global BA at finalize();
 solves observation-sharded and the global solve landmark-sharded over the
 mesh (parallel/sharded_ba).
 
+On the card (`cuda_graphs`, on by default there) the steady-state fused
+frame program and the window solve replay captured CUDA graphs
+(utils/graphs), with the fast-path decision on the device; bootstrap,
+relocalization, segmentation masks and the frames before IMU gravity
+alignment stay eager, as do all CPU sessions.
+
 States: NOT_INITIALIZED -> INITIALIZED, with REINITIALIZING after
 `max_track_failures` consecutive tracking failures.
 """
@@ -53,6 +59,7 @@ from mcslam_tpu_torch.tracking_kernels import (
     _build_and_track_step, _match_descriptors, _mutual_match,
     _track_and_map_step, _triangulate_pairs, _triangulate_pairs_far,
 )
+from mcslam_tpu_torch.utils import graphs
 from mcslam_tpu_torch.utils.profiling import StageTimers
 
 NOT_INITIALIZED = 0
@@ -149,6 +156,13 @@ _BUILD_FRAME_DEFAULTS = {
 }
 
 
+def _split_track_inputs(buf, L: int):
+    """A _track_inputs_host buffer (on the host or the device) -> views
+    (cand_ids (L,), cand_valid (L,), predicted pose (4, 4) float32)."""
+    return (buf[:L], buf[L:2 * L] > 0,
+            buf[2 * L:].view(torch.float32).reshape(4, 4))
+
+
 def _unit_rows(v: np.ndarray) -> np.ndarray:
     return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
 
@@ -188,6 +202,13 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         self.trajectory: list[tuple[float, np.ndarray]] = []
         self.kf_counter = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # on the card, the steady-state frame step and the window solve
+        # replay CUDA graphs (utils/graphs), one program cache each (their
+        # own memory pools: the solve runs on a side stream beside the
+        # frames); False runs every op eagerly, as on the CPU
+        self.cuda_graphs = self.device.type == "cuda"
+        self._frame_programs = graphs.ProgramCache(self.device, self._gen)
+        self._solve_programs = graphs.ProgramCache(self.device)
         self.stats = {"frames": 0, "keyframes": 0, "failures": 0, "loops": 0}
         self._ba_warm = False  # adaptive LM budget: cold until a solve lands
         # the first window_size solves after construction / reinit land
@@ -484,16 +505,25 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         ids = ids[self.map.valid[ids]]
         return ids[: self.cfg.local_map_landmarks]
 
-    def _candidates_on_device(self):
-        """(cand_ids (Lm,), cand_valid (Lm,)) padded to local_map_landmarks,
-        uploaded as one int32 buffer."""
+    def _track_inputs_host(self) -> np.ndarray:
+        """The tracking step's host-made inputs as one int32 buffer of
+        2 L + 16 words (L = local_map_landmarks): the local-map candidate
+        ids padded to L, their validity, and the predicted pose's float32
+        words; _split_track_inputs takes it apart."""
         cand = self._local_map_candidates()
         L = self.cfg.local_map_landmarks
-        buf = np.zeros(2 * L, np.int32)
+        buf = np.zeros(2 * L + 16, np.int32)
         buf[:len(cand)] = cand
         buf[L:L + len(cand)] = 1
-        d = self._to_device(buf)
-        return d[:L], d[L:] > 0
+        buf[2 * L:] = np.ascontiguousarray(
+            self._predict_pose(), np.float32).reshape(16).view(np.int32)
+        return buf
+
+    def _track_inputs_on_device(self):
+        """(cand_ids (L,), cand_valid (L,), predicted pose (4, 4)) from one
+        upload of _track_inputs_host."""
+        return _split_track_inputs(self._to_device(self._track_inputs_host()),
+                                   self.cfg.local_map_landmarks)
 
     def _predict_pose(self) -> np.ndarray:
         """The pose prediction of the projection gate and the portfolio's
@@ -521,7 +551,7 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         layout (the fused program of process_image) to parse instead."""
         cfg = self.cfg
         if packed is None:
-            cand_ids, cand_valid = self._candidates_on_device()
+            cand_ids, cand_valid, pred = self._track_inputs_on_device()
             with self.timers.span("track.dispatch"):
                 packed = _track_and_map_step(
                     self._gen, frame.im_desc, frame.im_valid,
@@ -529,8 +559,7 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
                     frame.im_point3d, frame.im_has_depth, *kf.device_desc(),
                     kf.d_lm_id(), self.dmap.pos, self.dmap.valid,
                     self.dmap.desc, self.dmap.normal, cand_ids, cand_valid,
-                    self.rig.cam_T_ref, self.rig.fxycxy,
-                    self._to_device(self._predict_pose()),
+                    self.rig.cam_T_ref, self.rig.fxycxy, pred,
                     cfg.ransac_hyps, cfg.ransac_px, cfg.inter_max_dist,
                     cfg.inter_ratio, self.rig.image_size,
                     cfg.local_map_radius_px, cfg.local_map_max_dist,
@@ -786,12 +815,13 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         process_frame. A relocalization session always takes the split
         path."""
         cfg = self.cfg
-        imgs = torch.as_tensor(imgs, device=self.device)
+        imgs = torch.as_tensor(imgs)
         ecfg = dict(extract_cfg or {})
         if (self.state != INITIALIZED or self.relocalizer is not None
                 or not self.keyframes or seg_masks is not None
                 or (self.use_imu and not self.imu_initialized)):
-            frame = build_frame(imgs, self.rig, seg_masks=seg_masks, **ecfg)
+            frame = build_frame(imgs.to(self.device), self.rig,
+                                seg_masks=seg_masks, **ecfg)
             return self.process_frame(frame, timestamp, imu=imu, gps=gps)
         # sensor ingestion and a matured deferred solve come before the
         # fused dispatch (the program consumes the predicted pose and the
@@ -804,31 +834,56 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         self._land_matured(frames_ahead=1)
         kf_prev = self._prev_kf()
         self._set_pred_span(timestamp)
-        cand_ids, cand_valid = self._candidates_on_device()
         kw = dict(_BUILD_FRAME_DEFAULTS)
         kw.update(ecfg)
+        statics = dict(
+            num_points=kw["num_points"], num_levels=kw["num_levels"],
+            fast_threshold=kw["fast_threshold"],
+            min_threshold=kw["min_threshold"], max_intra=kw["max_intra"],
+            min_z=kw["min_z"], max_z=kw["max_z"],
+            angle_bins=kw["angle_bins"], num_hyp=cfg.ransac_hyps,
+            px=cfg.ransac_px, max_dist=cfg.inter_max_dist,
+            ratio=cfg.inter_ratio, image_wh=self.rig.image_size,
+            lm_radius=cfg.local_map_radius_px,
+            lm_max_dist=cfg.local_map_max_dist,
+            gate_px=cfg.track_match_radius_px,
+            fastpath_frac=self._fastpath_frac,
+            fastpath_min=cfg.track_fastpath_min_inliers, route=kw["route"])
         with self.timers.span("track.dispatch"):
-            kps, xy_ud, groups, tri, packed = _build_and_track_step(
-                self._gen, imgs, self.rig, *kf_prev.device_desc(),
-                kf_prev.d_lm_id(), self.dmap.pos, self.dmap.valid,
-                self.dmap.desc, self.dmap.normal, cand_ids, cand_valid,
-                self._to_device(self._predict_pose()),
-                num_points=kw["num_points"], num_levels=kw["num_levels"],
-                fast_threshold=kw["fast_threshold"],
-                min_threshold=kw["min_threshold"], max_intra=kw["max_intra"],
-                min_z=kw["min_z"], max_z=kw["max_z"],
-                angle_bins=kw["angle_bins"], num_hyp=cfg.ransac_hyps,
-                px=cfg.ransac_px, max_dist=cfg.inter_max_dist,
-                ratio=cfg.inter_ratio, image_wh=self.rig.image_size,
-                lm_radius=cfg.local_map_radius_px,
-                lm_max_dist=cfg.local_map_max_dist,
-                gate_px=cfg.track_match_radius_px,
-                fastpath_frac=self._fastpath_frac,
-                fastpath_min=cfg.track_fastpath_min_inliers,
-                route=kw["route"],
-            )
+            if self.cuda_graphs:
+                kps, xy_ud, groups, tri, packed = self._replay_frame(
+                    imgs, kf_prev, statics)
+            else:
+                kps, xy_ud, groups, tri, packed = _build_and_track_step(
+                    self._gen, imgs.to(self.device), self.rig,
+                    *kf_prev.device_desc(), kf_prev.d_lm_id(), self.dmap.pos,
+                    self.dmap.valid, self.dmap.desc, self.dmap.normal,
+                    *self._track_inputs_on_device(), **statics)
         frame = assemble_frame(kps, xy_ud, groups, tri)
         return self.process_frame(frame, timestamp, _packed=packed)
+
+    def _replay_frame(self, imgs, kf_prev, statics):
+        """The fused frame program as a captured CUDA graph
+        (utils/graphs), keyed on `statics` and the images' shape and type,
+        the fast-path decision on the device (branch="device"). Its inputs
+        are copied in before each replay: the images, the reference
+        keyframe's descriptors, validity and landmark ids, and the
+        _track_inputs_host buffer; the graph reads the map mirror in place
+        (DeviceMap updates in place). -> the outputs, the graph's, which
+        the next frame overwrites."""
+        L = self.cfg.local_map_landmarks
+
+        def step(imgs, desc, valid, lm_id, buf):
+            return _build_and_track_step(
+                self._gen, imgs, self.rig, desc, valid, lm_id, self.dmap.pos,
+                self.dmap.valid, self.dmap.desc, self.dmap.normal,
+                *_split_track_inputs(buf, L), branch="device", **statics)
+
+        key = (tuple(imgs.shape), imgs.dtype, tuple(sorted(statics.items())))
+        outs, _ = self._frame_programs(
+            key, step, (imgs, *kf_prev.device_desc(), kf_prev.d_lm_id(),
+                        torch.from_numpy(self._track_inputs_host())))
+        return outs
 
     def _set_pred_span(self, timestamp):
         """The IMU prediction's span: the last tracked frame -> now."""

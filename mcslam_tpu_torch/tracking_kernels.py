@@ -5,8 +5,14 @@ local-map tracking, with the JAX package's packed output layout.
 
 Both matchers go through the gated matching kernel (ops/match_cuda) and
 every pose refine through the one-launch LM (frontend/pose_opt_cuda), as
-on the TPU. The fast-path decision is read on the host once per frame
-(one device sync); the JAX program makes it with a device-side lax.cond.
+on the TPU. The fast-path decision is taken by `branch`: "host" reads it
+once per frame (one device sync) and runs one side; "device" keeps it on
+the device, as the JAX program's lax.cond does: utils/graphs.cond runs
+the portfolio as a conditional node of a captured frame program (the
+session's graphed frame step) and, outside a capture, runs both sides and
+selects on the device. Both modes draw the RANSAC samples in the same
+order from the same generator; "device" draws them before the branch, on
+fast-path frames too.
 
 `_triangulate_pairs` is the two-view triangulation of keyframe
 insertion; `_match_descriptors`, `_mutual_match` and
@@ -20,12 +26,15 @@ local-map lm id (M), local-map inliers (M)].
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from mcslam_tpu_torch.frontend import pose_opt, ransac
 from mcslam_tpu_torch.geometry import lie, triangulation
 from mcslam_tpu_torch.ops import hamming, match as match_ops, match_cuda, orb
+from mcslam_tpu_torch.utils import graphs
 
 _GATE_BIG = 1e12
 LM_SCHED = (8, 8)  # per-round LM schedule of every refine on this path
@@ -42,13 +51,20 @@ def map_mirror_from_numpy(pos, valid, desc_u32, normal, device="cuda"):
     )
 
 
+def _one_hot(idx, n: int, dtype):
+    """(M,) indices -> (M, n) 0/1 rows (F.one_hot checks its range on
+    the host, a sync on the CPU)."""
+    return (idx.long()[:, None]
+            == torch.arange(n, device=idx.device)[None, :]).to(dtype)
+
+
 def _anchored_sq_px_dist(uv, anchor, proj, penalize):
     """(M, N) squared pixel distance from each row feature to each column
     target's projection in the row's anchor camera, as two matmuls over
     one-hot anchor weights (no (M, N, 2) gather). uv (M, 2); anchor (M,);
     proj (C, N, 2); penalize (C, N) adds _GATE_BIG."""
     C = proj.shape[0]
-    oh = torch.nn.functional.one_hot(anchor.long(), C).to(uv.dtype)
+    oh = _one_hot(anchor, C, uv.dtype)
     P2 = torch.sum(proj * proj, dim=-1) + _GATE_BIG * penalize.to(uv.dtype)
     A = (oh[:, :, None] * uv[:, None, :]).reshape(uv.shape[0], 2 * C)
     B = proj.permute(0, 2, 1).reshape(2 * C, proj.shape[1])
@@ -65,7 +81,7 @@ def _gate_factors(uv, anchor, proj, penalize, row_invalid, col_invalid,
     C = proj.shape[0]
     M, N = uv.shape[0], proj.shape[1]
     f32 = torch.float32
-    oh = torch.nn.functional.one_hot(anchor.long(), C).to(f32)
+    oh = _one_hot(anchor, C, f32)
     P2 = torch.sum(proj * proj, dim=-1) + _GATE_BIG * penalize.to(f32)
     A = (oh[:, :, None] * uv[:, None, :]).reshape(M, 2 * C)
     B = proj.permute(0, 2, 1).reshape(2 * C, N)
@@ -88,13 +104,14 @@ def _track_core(gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2,
                 map_pos, map_valid, cam_T_ref_all, fxycxy_all, pred_T_wr,
                 num_hyp: int, px: float, max_dist: int, ratio: float,
                 gate_px: float, fastpath_frac: float = 0.95,
-                fastpath_min: int = 100):
+                fastpath_min: int = 100, branch: str = "host"):
     """Inter-frame tracking: projection-gated mutual match (prev features
     with a landmark only match current features within gate_px of the
     landmark's projection under pred_T_wr) -> landmark lookup in the map
     mirror -> the motion candidate refined up front; when it explains
     >= fastpath_frac of the landmark matches (and >= fastpath_min) the
-    Kabsch/PnP RANSAC portfolio is skipped -> (packed, pose)."""
+    Kabsch/PnP RANSAC portfolio is skipped (`branch`: "host" or "device",
+    see the module docstring) -> (packed, pose)."""
     if gate_px <= 0.0:
         raise ValueError("_track_core: the port implements the projection-"
                          "gated matcher only (gate_px > 0)")
@@ -137,25 +154,31 @@ def _track_core(gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2,
     n_with = torch.sum(with_lm)
     strong_t = (score_pred >= fastpath_min) & (
         score_pred.to(torch.float32) >= fastpath_frac * n_with.to(torch.float32))
-    strong = bool(strong_t.item())  # the one host sync of the frame
-    if strong:
-        T_best, n_uniform = ref_pred.world_T_ref, score_pred.to(torch.int32)
+    fast = (ref_pred.world_T_ref, score_pred.to(torch.int32))
+    n_pnp = max(num_hyp // 2, 64)
+    if branch == "host":
+        if bool(strong_t.item()):  # the one host sync of the frame
+            T_best, n_uniform = fast
+        else:
+            T_best, n_uniform = _portfolio(
+                px, ref_pred.world_T_ref, cur_p3d, X_world, cur_uv, cTr, f,
+                mask3d, with_lm, cur_sigma2,
+                ransac._sample_idx(gen, num_hyp, 3, X_world.shape[0],
+                                   mask3d.float()),
+                ransac._sample_idx(gen, n_pnp, 6, X_world.shape[0],
+                                   with_lm.float()))
+    elif branch == "device":
+        idx_kab = ransac._sample_idx(gen, num_hyp, 3, X_world.shape[0],
+                                     mask3d.float())
+        idx_pnp = ransac._sample_idx(gen, n_pnp, 6, X_world.shape[0],
+                                     with_lm.float())
+        T_best, n_uniform = graphs.cond(
+            ~strong_t, functools.partial(_portfolio, px),
+            (ref_pred.world_T_ref, cur_p3d, X_world, cur_uv, cTr, f, mask3d,
+             with_lm, cur_sigma2, idx_kab, idx_pnp), fast)
     else:
-        rr_kab = ransac.ransac_kabsch(gen, cur_p3d, X_world, cur_uv, cTr, f,
-                                      mask3d, num_hyp=num_hyp, px_thresh=px)
-        rr_pnp = ransac.ransac_pnp(gen, X_world, cur_uv, cTr, f, with_lm,
-                                   num_hyp=max(num_hyp // 2, 64),
-                                   px_thresh=px)
-        inits = torch.stack([rr_kab.world_T_ref, rr_pnp.world_T_ref])
-        masks = torch.stack([with_lm & rr_kab.inliers,
-                             with_lm & rr_pnp.inliers])
-        refs = pose_opt.optimize_pose(inits, X_world, cur_uv, cTr, f, masks,
-                                      sigma2=cur_sigma2, iters=LM_SCHED)
-        cand_T = torch.cat([ref_pred.world_T_ref[None], refs.world_T_ref])
-        scores, _ = ransac._score_reprojection(cand_T, X_world, cur_uv, cTr,
-                                               f, with_lm, px)
-        b = torch.argmax(scores)
-        T_best, n_uniform = cand_T[b], scores[b].to(torch.int32)
+        raise ValueError(f"_track_core: branch must be 'host' or 'device', "
+                         f"got {branch!r}")
     rr_ok = n_uniform >= 10
     header = torch.stack([
         n_uniform.to(torch.float32), torch.sum(res.ok).to(torch.float32),
@@ -167,6 +190,28 @@ def _track_core(gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2,
         res.idx.to(torch.float32), lm.to(torch.float32),
     ])
     return packed, T_best
+
+
+def _portfolio(px: float, T_pred, cur_p3d, X_world, cur_uv, cTr, f, mask3d,
+               with_lm, cur_sigma2, idx_kab, idx_pnp):
+    """The pose-candidate portfolio of a frame off the fast path: Kabsch
+    and PnP RANSAC on the given samples, both refined, scored with the
+    refined motion candidate T_pred -> (best pose, its inlier count as
+    int32)."""
+    rr_kab = ransac.ransac_kabsch(None, cur_p3d, X_world, cur_uv, cTr, f,
+                                  mask3d, px_thresh=px, idx=idx_kab)
+    rr_pnp = ransac.ransac_pnp(None, X_world, cur_uv, cTr, f, with_lm,
+                               px_thresh=px, idx=idx_pnp)
+    inits = torch.stack([rr_kab.world_T_ref, rr_pnp.world_T_ref])
+    masks = torch.stack([with_lm & rr_kab.inliers, with_lm & rr_pnp.inliers])
+    refs = pose_opt.optimize_pose(inits, X_world, cur_uv, cTr, f, masks,
+                                  sigma2=cur_sigma2, iters=LM_SCHED)
+    cand_T = torch.cat([T_pred[None], refs.world_T_ref])
+    scores, _ = ransac._score_reprojection(cand_T, X_world, cur_uv, cTr, f,
+                                           with_lm, px)
+    b = torch.argmax(scores).reshape(1)
+    return (cand_T.index_select(0, b)[0],
+            scores.index_select(0, b)[0].to(torch.int32))
 
 
 def _project_and_match_local(T_wr, lm_pos, lm_desc, lm_valid, im_desc, im_uv,
@@ -233,14 +278,14 @@ def _track_and_map_step(gen, cur_desc, cur_valid, cur_uv, cur_anchor,
                         max_dist: int, ratio: float, image_wh=None,
                         lm_radius: float = 15.0, lm_max_dist: int = 64,
                         gate_px: float = 0.0, fastpath_frac: float = 0.95,
-                        fastpath_min: int = 100):
+                        fastpath_min: int = 100, branch: str = "host"):
     """Inter-frame tracking + local-map tracking with one packed output;
     the local-map half consumes the tracking pose."""
     track_packed, pose = _track_core(
         gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2, cur_p3d,
         cur_has_depth, prev_desc, prev_valid, prev_lm_id, map_pos,
         map_valid, cam_T_ref_all, fxycxy_all, pred_T_wr, num_hyp, px,
-        max_dist, ratio, gate_px, fastpath_frac, fastpath_min)
+        max_dist, ratio, gate_px, fastpath_frac, fastpath_min, branch)
     lm_packed = _localmap_core(
         pose, cand_ids, cand_valid, map_pos, map_desc, map_normal, cur_desc,
         cur_uv, cur_anchor, cur_valid, cur_sigma2, cam_T_ref_all, fxycxy_all,
@@ -257,12 +302,14 @@ def _build_and_track_step(gen, imgs, rig, prev_desc, prev_valid, prev_lm_id,
                           px: float, max_dist: int, ratio: float, image_wh,
                           lm_radius: float, lm_max_dist: int, gate_px: float,
                           fastpath_frac: float, fastpath_min: int,
-                          route: orb.OrbRoute = orb.OrbRoute()):
+                          route: orb.OrbRoute = orb.OrbRoute(),
+                          branch: str = "host"):
     """Frame build + inter-frame/local-map tracking of one frame:
     extraction -> intra-match -> triangulate -> projection-gated match ->
     pose portfolio -> local-map track. `gen` is the torch.Generator (on
     the images' device) the RANSAC stages draw from; `route` is the
-    extraction route. Returns (kps, xy_ud, groups, tri, packed);
+    extraction route; `branch` where the fast-path decision is taken
+    (module docstring). Returns (kps, xy_ud, groups, tri, packed);
     frame.assemble_frame turns the first four into a FrameFeatures."""
     from mcslam_tpu_torch.frontend import frame as frame_mod
 
@@ -275,7 +322,7 @@ def _build_and_track_step(gen, imgs, rig, prev_desc, prev_valid, prev_lm_id,
         has_depth, prev_desc, prev_valid, prev_lm_id, map_pos, map_valid,
         map_desc, map_normal, cand_ids, cand_valid, rig.cam_T_ref,
         rig.fxycxy, pred_T_wr, num_hyp, px, max_dist, ratio, image_wh,
-        lm_radius, lm_max_dist, gate_px, fastpath_frac, fastpath_min)
+        lm_radius, lm_max_dist, gate_px, fastpath_frac, fastpath_min, branch)
     return kps, xy_ud, groups, tri, packed
 
 

@@ -15,8 +15,9 @@ PORT = JAX.parent / "mcslam_tpu_torch"
 # JAX module -> why the port has none
 NO_MODULE = {
     # the XLA persistent compilation cache; the port's hashed kernel
-    # library (_build.py) is rebuilt only when a source or flag changes
-    "utils/compile_cache.py": "no XLA cache to enable",
+    # library (_build.py) is rebuilt only when a source or flag changes,
+    # and its captured programs are CUDA graphs made per session
+    "utils/compile_cache.py": "the port's program cache is utils/graphs.py",
 }
 # (JAX module, JAX name) -> the port's name in the counterpart module
 RENAMED = {
