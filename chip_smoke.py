@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (non-zero exit) on failure:
-  1. build: compile the nine CUDA kernels' five sources from
-     mcslam_tpu_torch/csrc (one nvcc per source, in parallel, sm_90a) and
+  1. build: compile the CUDA sources of mcslam_tpu_torch/csrc (the nine
+     kernels' five, the graphs' branch and the SGM scan; one nvcc per
+     source, in parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
-     kernel and the oriented patch gather must use no local memory and
+     kernel, the oriented patch gather and the SGM path kernel at D = 64
+     must use no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
@@ -23,7 +25,10 @@ Phases, each of which raises (non-zero exit) on failure:
      origins exact; oriented: bf16 patches, moments and origins bitwise
      equal, also across two runs), the gated matcher, the pose LM at B = 1
      and B = 2, and ba_linearize through the solve's prepared call (these
-     three also bitwise equal across two runs); track one frame of a
+     three also bitwise equal across two runs), the SGM scan on the bench
+     pair's cost volume at VGA, D = 64, and on a random one at D = 48, 37 x
+     53 (bitwise equal to its plain version and across two runs); track
+     one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
      1e-3; solve a stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with
@@ -92,9 +97,15 @@ Phases, each of which raises (non-zero exit) on failure:
      ba_linearize launched inside it; (b) a 24-frame VIO + GPS session
      through process_image on the scene's rig and landmarks along
      analytic_circle_imu's circle (200 Hz IMU, a fix per frame,
-     imu_init_samples=40, otherwise SlamConfig defaults): IMU and state
-     initialized, no failure, >= 1 VIO solve, >= 1 fix attached, ATE from
-     the init frame <= 0.13 m, the five default-route kernels launched;
+     imu_init_samples=40, otherwise SlamConfig defaults), first eagerly
+     (the reference, its launches counted), then graphed under a device
+     trace: IMU and state initialized, no failure, >= 1 VIO solve, >= 1
+     fix attached, ATE from the init frame <= 0.13 m, the five
+     default-route kernels launched, each kernel's count in the trace
+     (graph replays included) equal to the eager session's plus the
+     graphs' warm-ups', the one cold VIO solve eager and every warm one a
+     replay; its VIO program keys (capture ms, pool, replays) beside the
+     count of the warm solves' index patterns;
      (c) tests/test_slam_vio.py's low-rate GPS dummy-keyframe drive at the
      feature level: dummy keyframes at non-vision timestamps, each with a
      fix; each with its launch counters reset right before it;
@@ -148,8 +159,11 @@ Phases, each of which raises (non-zero exit) on failure:
      on the bench pair and on a pair whose camera 1 is yawed by 3 degrees
      (the rectifying remap), card against CPU: >= 99 % equal integer
      winners, depth within 1e-4 relative where they agree; each call's
-     time (CUDA events, device ms and ops), the rectifier rebuild's host
-     time, and DenseFuser.add_keyframe on 3 keyframes;
+     time (CUDA events, device ms and ops), sgm_scan launched once per SGM
+     call and never by box, the rectifier rebuild's host time, and
+     DenseFuser.add_keyframe on 3 keyframes (one sgm_scan launch each);
+     the app's run of (a) must launch sgm_scan (its dense cloud's fuser),
+     and that count is the kernels line's;
   12. the generic BA layout, replay, the mesh and the entry (after phase
      11): (a) ba_solve's default generic layout on the stage C problem,
      warm and cold, on the card under sync-debug "error", twice
@@ -213,8 +227,10 @@ Phases, each of which raises (non-zero exit) on failure:
      build+track time on both paths and both routes, the per-frame
      process_image wall time of a second session, keyframe frames and the
      others apart, the stage D VIO solves warm and cold with and without
-     GPS (as the window solves), and the per-frame process_image wall time
-     of a second VIO + GPS session.
+     GPS (as the window solves), eager and replayed through phase 14's
+     programs, and the per-frame process_image wall time of a VIO + GPS
+     session graphed (a third, untraced) and eager (phase 7 (b)'s
+     reference) by kind (keyframe, other and capture frames) and in all.
   14. the graphed frame step and window solve (after phase 5): (a)
      frames 1 and 2 of the phase 3 drive, each from the same inputs and
      generator state through the eager _build_and_track_step (host
@@ -225,10 +241,15 @@ Phases, each of which raises (non-zero exit) on failure:
      identity), the forced-portfolio one once: all 18 outputs bit-equal,
      the flags as planned, each replay's launches in its device trace
      equal to the eager frame's; the fast-path frame's wall, device
-     time, device ops and host-issued launches, graphed and eager; the
+     time, device ops and host-issued launches, graphed and eager, and
+     the device time of the IF node's condition kernel; the
      stage C window solve warm and cold, eager and through the session's
      graphed solve (driver_window._replay_solve) on its side stream:
-     bit-equal, wall and device time of both; (b) phase 5's session
+     bit-equal, wall and device time of both; the stage D VIO solve
+     (phase 7 (a)'s problems) warm and cold, without and with GPS, eager
+     and through driver_window._replay_vio_solve, then a window with its
+     IMU pairs and GPS fixes rolled through the same program: bit-equal,
+     each program's capture ms and pool; (b) phase 5's session
      eager (its reference run) and graphed, host syncs counted per
      frame (sync debug mode "warn"): both INITIALIZED, no failure, >= 7
      keyframes, ATE <= 0.1 m; one frame-program replay per fused frame;
@@ -237,8 +258,9 @@ Phases, each of which raises (non-zero exit) on failure:
      per-frame wall by kind (other / keyframe / capture frames) beside
      PERF.md §2's 50 / 100 ms limits, every program's capture ms, pool
      bytes and replays, and each session's device busy share;
-The last three lines are the card's name and power limit (nvidia-smi),
-the kernels JSON record and {"ok": true, "device": {...}}.
+The last lines are the script's time from start to end, the card's
+name and power limit (nvidia-smi), the kernels JSON record and {"ok":
+true, "device": {...}}.
 Needs one CUDA card; exits non-zero without one.
 `python3 chip_smoke.py --rehearse-app [SEEDS]` runs phase 11 (a) and (b)
 on the CPU with the plain versions instead, once per driver RANSAC seed,
@@ -399,6 +421,12 @@ POSE_OPS = 260  # per observation and LM iteration: projection through rig
 #                 JtJ / Jtr sums, and the trial step's cost
 BA_OPS = 300  # per observation: projection, 2x6 and 2x3 Jacobians, weight,
 #               the 30 payload channels and 27 Hpp / gp sums
+# (add, compare / min) operations per cost-volume element of the SGM scan:
+# per path 3 adds ((c + best) - m, + p1) and 4 minima (3 in best, about 1
+# of the line's minimum), then the 3 adds of the four paths' sum
+SGM_OPS = (4 * 3 + 3, 4 * 4)
+# the SGM kernel's odd shape of phase 2 (D, H, W), beside VGA at STEREO_D
+SGM_ODD = (48, 37, 53)
 
 
 def check(cond, msg):
@@ -415,11 +443,12 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "fast_corners_kernel<true>": "fast_corners_kernelILb1E",
               "fast_corners_kernel<false>": "fast_corners_kernelILb0E",
               "linearize_kernel": "linearize_kernel",
-              "patch_oriented_kernel": "patch_oriented_kernel"}
+              "patch_oriented_kernel": "patch_oriented_kernel",
+              "sgm_path_kernel<2>": "sgm_path_kernelILi2E"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
-            "linearize_kernel", "patch_oriented_kernel")
+            "linearize_kernel", "patch_oriented_kernel", "sgm_path_kernel<2>")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1042,12 +1071,46 @@ def solver_kernels(scene, rng, dev, kernels):
         ops_s=f32_ops_s(lin_args[2].numel() * BA_OPS))
 
 
+def stereo_kernels(scene, rng, dev, kernels):
+    """Phase 2, the SGM scan: the cost volume of the bench pair (cameras
+    0 and 1 of frame 0) at D = STEREO_D and a random one at SGM_ODD, each
+    through the kernel twice and the plain version: all equal bit for
+    bit."""
+    import torch
+
+    from mcslam_tpu_torch.ops import sgm_cuda, stereo
+
+    cv = stereo.cost_volume(scene.imgs[0][0], scene.imgs[0][1], STEREO_D)
+    odd = torch.from_numpy(rng.rand(*SGM_ODD).astype(np.float32)).to(dev)
+    for name, v in ((f"{W}x{H} D={STEREO_D} (bench pair)", cv),
+                    (f"{SGM_ODD[2]}x{SGM_ODD[1]} D={SGM_ODD[0]} (random)",
+                     odd)):
+        k1, k2 = sgm_cuda.sgm_aggregate(v), sgm_cuda.sgm_aggregate(v)
+        ref = sgm_cuda.sgm_aggregate_reference(v)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, k2), f"sgm_scan {name}: two runs differ")
+        check(torch.equal(k1, ref), f"sgm_scan {name}: differs from the "
+              f"plain version by {float((k1 - ref).abs().max()):.3g}")
+        print(f"# kernel sgm_scan {name}: bitwise equal to the plain version "
+              f"and across two runs")
+    n = cv.numel()
+    kernels["sgm_scan"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/sgm_scan.cu",
+        replaces="mcslam_tpu/ops/stereo.py:69", max_abs_err=0.0,
+        fn=lambda: sgm_cuda.sgm_aggregate(cv),
+        plain=lambda: sgm_cuda.sgm_aggregate_reference(cv),
+        symbols=("sgm_path_kernel", "sgm_sum_kernel"), device_ops=2,
+        nbytes=2 * cv.nbytes, ops_s=class_ops_s(SGM_OPS[0] * n,
+                                                 SGM_OPS[1] * n))
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -1102,6 +1165,7 @@ def main() -> int:
     # ---- phase 2: kernels against their plain versions ----
     frame_kernels(scene, rng, dev, kernels)
     solver_kernels(scene, rng, dev, kernels)
+    stereo_kernels(scene, rng, dev, kernels)
     solve_problem = _window_solves(scene, dev)
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
@@ -1234,15 +1298,15 @@ def main() -> int:
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched in the route B session")
 
-    # ---- phase 14: the graphed frame step and window solve ----
-    graphs_phase(scene, ff0, mapstate, solve_problem, dev, smi,
-                 eager_ref)
+    # ---- phase 14: the graphed frame step, window and VIO solves ----
+    vio_graphs = graphs_phase(scene, ff0, mapstate, solve_problem, dev, smi,
+                              eager_ref)
 
     # ---- phase 6: the vision-only bootstraps, launches counted ----
     bootstrap_phase(scene, dev, kernels)
 
     # ---- phase 7: the visual-inertial and GPS path, launches counted ----
-    vio_problems = vio_phase(scene, dev, log_path=log_paths[1])
+    vio_problems, vio_eager = vio_phase(scene, dev, log_path=log_paths[1])
 
     # ---- phase 9: loop closure and relocalization, launches counted ----
     loop_state = loop_phase(dev)
@@ -1290,13 +1354,14 @@ def main() -> int:
         print(f"# per-frame process_image wall, {name} (n={len(ms)}): mean "
               f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f} ms, max "
               f"{np.max(ms):.3f} ms ({smi})")
-    vio_timing(scene, vio_problems, smi)
+    vio_timing(scene, vio_problems, smi, vio_graphs, vio_eager)
 
     # ---- phase 10: the loop path's timing ----
     loop_timing(loop_state, smi)
 
     # ---- phase 11: the app and data path, launches counted ----
     app_res = app_phase(scene, dev, smi)
+    kernels["sgm_scan"]["launches"] = app_res["launches"].get("sgm_scan", 0)
 
     # ---- phase 12: the generic layout, replay, the mesh, the entry ----
     generic_phase(solve_problem, dev, smi)
@@ -1308,6 +1373,8 @@ def main() -> int:
     # the dataset tools, launches counted ----
     tools_phase(scene, dev, smi, app_res)
 
+    print(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
+          f"end, the build included")
     print(smi)
     print(json.dumps({"kernels": [dict(name=n, **k)
                                   for n, k in kernels.items()]}))
@@ -1534,8 +1601,10 @@ def vio_phase(scene, dev, log_path=None):
     ba_linearize launched inside it; (b) the VIO + GPS session through
     process_image (its graph log written to log_path if given); (c) the
     low-rate GPS dummy-keyframe drive. Each with the launch counters reset
-    right before it and read right after. Returns the stage D problems on
-    the card by GPS factor count."""
+    right before it and read right after; (b) runs eagerly first, and its
+    graphed run's launches are counted in a device trace too. Returns the
+    stage D problems on the card by GPS factor count and the eager
+    session's frame records."""
     import torch
 
     from mcslam_tpu_torch import _build
@@ -1604,10 +1673,28 @@ def vio_phase(scene, dev, log_path=None):
                 check(err[k] <= tol, f"vio_solve {name}: {k} card vs CPU "
                       f"{err[k]} > {tol}")
 
-    # (b) the VIO + GPS session
+    # (b) the VIO + GPS session: eagerly on the card (the reference), then
+    # graphed under a device trace, whose counts of the path's kernels
+    # (graph replays included, which no wrapper counts) must equal the
+    # eager session's plus the graphs' warm-ups'
     _build.LAUNCHES.clear()
-    slam, poses, times, init_at = vio_session(scene, log_path=log_path)
-    launches = dict(_build.LAUNCHES)
+    eager = vio_session(scene, cuda_graphs=False)
+    launches_e = {n: _build.LAUNCHES.get(n, 0) for n in PATH}
+    print(f"# launches during the eager VIO + GPS session (cuda_graphs="
+          f"False): {launches_e}")
+
+    def session():
+        _build.LAUNCHES.clear()
+        patterns = []
+        out = vio_session(scene, log_path=log_path, patterns=patterns)
+        return out, patterns, dict(_build.LAUNCHES)
+
+    def expect(res):
+        warm = graph_warmups(res[0][0])
+        return {n: launches_e[n] + warm.get(n, 0) for n in PATH}
+
+    ((slam, poses, times, init_at), patterns, launches), traced = (
+        traced_launches(session, expect))
     _, est = slam.trajectory_arrays()
     ate = metrics.ate_rmse(est[init_at:], poses[init_at:])
     fails = slam.stats["failures"]
@@ -1617,7 +1704,8 @@ def vio_phase(scene, dev, log_path=None):
           f"{slam.stats.get('window_ba_vio', 0)}, fixes attached "
           f"{len(slam.kf_gps)}, GPS initialized {slam.gps_initialized}, "
           f"failures {fails}, bias {np.round(slam.bias, 5).tolist()}, ATE "
-          f"from the init frame {ate:.4f} m; launches {launches}")
+          f"from the init frame {ate:.4f} m; launches in the device trace "
+          f"{traced}, counted by the wrappers {launches}")
     for line in slam.timers.report().splitlines():
         print("#   " + line)
     check(slam.imu_initialized and slam.state == INITIALIZED,
@@ -1627,12 +1715,33 @@ def vio_phase(scene, dev, log_path=None):
     check(len(slam.kf_gps) >= 1, "VIO session: no fix attached")
     check(np.all(np.isfinite(est)) and ate <= VIO_MAX_ATE,
           f"VIO session: ATE {ate:.4f} m > {VIO_MAX_ATE}")
-    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
-              "ba_linearize"):
-        check(launches.get(n, 0) > 0,
+    for n in PATH:
+        check(traced[n] > 0 and launches.get(n, 0) > 0,
               f"kernel {n} was not launched in the VIO session")
-    print(f"# ba_linearize in the VIO session: {launches.get('ba_linearize')} "
-          f"launches in {slam.stats['window_ba_vio']} VIO solves")
+    progs = vio_programs(slam)
+    n_solves = slam.stats["window_ba_vio"]
+    n_cold = n_solves - len(patterns)
+    warm_up = sum(p.warmup.get("ba_linearize", 0) for p in progs.values())
+    print(f"# ba_linearize in the VIO session: {traced['ba_linearize']} "
+          f"launches in the device trace = {launches_e['ba_linearize']} of "
+          f"the eager session + {graph_warmups(slam)['ba_linearize']} of "
+          f"the graphs' warm-ups ({warm_up} of the VIO programs'); "
+          f"{n_solves} VIO solves: {n_cold} cold, eager, {len(patterns)} "
+          f"warm, replayed")
+    print(f"# VIO + GPS session graphs: {len(progs)} VIO program keys for "
+          f"{len(patterns)} warm solves (keying on the factor tables' index "
+          f"columns too would make {len(set(patterns))})")
+    for key, prog in progs.items():
+        print(f"#   VIO program (iters {key[1]}, tables {key[4]}, K "
+              f"{key[5][0][0][0]}): capture {prog.capture_ms:.1f} ms, pool "
+              f"{prog.pool_bytes() / 2**20:.1f} MiB, replays {prog.replays}")
+    check(slam.cuda_graphs and progs, "VIO session: no graphed VIO solve")
+    check(n_cold == 1 and all(p[0] == slam.cfg.ba_iters for p in patterns),
+          f"VIO session: {n_cold} eager VIO solves, not the one cold "
+          f"solve; graphed iters {[p[0] for p in patterns]}")
+    check(sum(p.replays for p in progs.values()) == len(patterns),
+          f"VIO session: {len(patterns)} graphed VIO solves, replays "
+          f"{[p.replays for p in progs.values()]}")
 
     # (c) the low-rate GPS dummy-keyframe drive
     _build.LAUNCHES.clear()
@@ -1652,16 +1761,36 @@ def vio_phase(scene, dev, log_path=None):
           "GPS dummy drive: a dummy at a vision timestamp or without a fix")
     check(launches.get("ba_linearize", 0) > 0,
           "GPS dummy drive: ba_linearize not launched")
-    return problems
+    return problems, eager[2]
 
 
-def vio_session(scene, frames=VIO_FRAMES, log_path=None):
+def vio_programs(slam) -> dict:
+    """The session's captured VIO solve programs by key."""
+    return {k: p for k, p in slam._solve_programs.programs.items()
+            if k[0] == "vio"}
+
+
+def index_pattern(problem, iters) -> tuple:
+    """iters and the VIO problem's factor-table index columns: what a
+    graphed solve keyed on them would tell apart."""
+    return (iters,) + tuple(
+        None if t is None else tuple(
+            tuple(getattr(t, f).tolist()) for f in t._fields
+            if f in ("i", "j", "kf"))
+        for t in (problem.imu, problem.gps, problem.between))
+
+
+def vio_session(scene, frames=VIO_FRAMES, log_path=None, cuda_graphs=None,
+                patterns=None):
     """frames blob frames of the scene's rig and landmarks along
     analytic_circle_imu's circle (0.35 rad/s, 0.3 s stationary, 0.3 s
     ramp, tests/test_slam_vio.py's noise and biases), 200 Hz IMU and a GPS
     fix per frame through process_image with bench.py's extraction ->
-    (slam, true poses, [(wall s, keyframe?)], the frame the session
-    initialized on); finalize()d."""
+    (slam, true poses, [(wall s, keyframe?, capture?)], the frame the session
+    initialized on); finalize()d; each frame's record also says whether
+    it captured a program. cuda_graphs=False runs the session
+    eagerly on the card; a `patterns` list gets each graphed VIO solve's
+    index_pattern."""
     import torch
 
     from mcslam_tpu_torch.backend.imu import ImuParams
@@ -1675,21 +1804,34 @@ def vio_session(scene, frames=VIO_FRAMES, log_path=None):
     slam = MultiCameraSLAM(scene.rig, SlamConfig(imu_init_samples=40),
                            imu_params=ImuParams(**VIO_IMU),
                            gps_lever_arm=np.zeros(3))
+    if cuda_graphs is not None:
+        slam.cuda_graphs = cuda_graphs
+    if patterns is not None:
+        replay = slam._replay_vio_solve
+
+        def recorded(problem, iters, **kw):
+            patterns.append(index_pattern(problem, iters))
+            return replay(problem, iters, **kw)
+
+        slam._replay_vio_solve = recorded
     if log_path is not None:
         from mcslam_tpu_torch.utils import mapio
 
         slam.attach_graph_log(mapio.GraphLogWriter(log_path))
     times, init_at = [], None
+    progs = (slam._frame_programs.programs, slam._solve_programs.programs)
     for k in range(frames):
         t, t_prev = k / 20.0, (k - 1) / 20.0 if k else -1.0
         sel = _imu_span(imu_ts, t_prev, t)
         img = torch.from_numpy(imgs[k]).to(scene.dev)
+        n_prog = sum(map(len, progs))
         t0 = time.perf_counter()
         info = slam.process_image(
             img, t, imu=(imu_ts[sel], gyro[sel], accel[sel]),
             gps=(np.array([t]), np.array([_lla(poses[k][:3, 3])])),
             extract_cfg=scene.frame_kwargs())
-        times.append((time.perf_counter() - t0, info["keyframe"]))
+        times.append((time.perf_counter() - t0, info["keyframe"],
+                      sum(map(len, progs)) > n_prog))
         if info.get("initialized") and init_at is None:
             init_at = k
     slam.finalize()
@@ -2259,33 +2401,55 @@ def loop_timing(state, smi):
               f" ms (host clock, ending in its host reads) ({smi})")
 
 
-def vio_timing(scene, problems, smi):
+def vio_timing(scene, problems, smi, graphed, eager_times):
     """Phase 8's visual-inertial rows: the stage D solve warm and cold,
-    with and without GPS (CUDA events; device time and device ops from
-    one profiled solve), and the per-frame process_image wall time of a
-    second VIO + GPS session, keyframe frames and the others apart."""
+    with and without GPS, eager and replayed through `graphed` (phase 14's
+    slam, whose VIO programs these shapes hit) (CUDA events; device time
+    and device ops from one profiled solve), and the per-frame
+    process_image wall time of a VIO + GPS session, graphed (run here,
+    untraced) and eager (phase 7 (b)'s records, `eager_times`), keyframe,
+    other and capture frames apart, and the session's total."""
     from mcslam_tpu_torch.backend import ba_vio
 
+    n_progs = len(vio_programs(graphed))
     for num_gps, p in problems.items():
         for name, iters in BA_ITERS:
-            def solve():
-                return ba_vio.vio_solve(p, iters=iters, kf_blocked=True)
-            ms = cuda_ms(solve, reps=5, warmup=1)
-            dev_ms, n_ops, _ = device_profile(solve)
-            print(f"# time vio_solve {name} ({iters} x 2), {num_gps} GPS "
-                  f"factors: {ms:.3f} ms by CUDA events; profiler: "
-                  f"{dev_ms:.3f} ms device time in {n_ops:.0f} device ops "
-                  f"({smi})")
+            for how, solve in (
+                    ("eager", lambda p=p, iters=iters: ba_vio.vio_solve(
+                        p, iters=iters, kf_blocked=True)),
+                    ("graphed", lambda p=p, iters=iters:
+                     graphed._replay_vio_solve(p, iters))):
+                ms = cuda_ms(solve, reps=5, warmup=1)
+                dev_ms, n_ops, _ = device_profile(solve)
+                print(f"# time vio_solve {name} ({iters} x 2), {num_gps} GPS "
+                      f"factors, {how}: {ms:.3f} ms by CUDA events; "
+                      f"profiler: {dev_ms:.3f} ms device time in {n_ops:.0f} "
+                      f"device ops ({smi})")
+    check(len(vio_programs(graphed)) == n_progs,
+          "phase 8's stage D problems captured new VIO programs")
     _, _, times, init_at = vio_session(scene)
-    for name, sel in (("keyframe frames", [k for k, (_, kf) in
-                                           enumerate(times) if kf]),
-                      ("other tracked frames", [
-                          k for k, (_, kf) in enumerate(times)
-                          if k > init_at and not kf])):
-        ms = [times[k][0] * 1e3 for k in sel]
-        print(f"# VIO + GPS session, per-frame process_image wall, {name} "
-              f"(n={len(ms)}): mean {np.mean(ms):.3f} ms, median "
-              f"{np.median(ms):.3f} ms, max {np.max(ms):.3f} ms ({smi})")
+    for how, times in (("graphed", times), ("eager", eager_times)):
+        for name, sel in (
+                ("keyframe frames", [k for k, (_, kf, cap) in
+                                     enumerate(times) if kf and not cap]),
+                ("other tracked frames", [
+                    k for k, (_, kf, cap) in enumerate(times)
+                    if k > init_at and not (kf or cap)]),
+                ("capture frames", [k for k, (_, _, cap) in
+                                    enumerate(times) if cap])):
+            ms = [times[k][0] * 1e3 for k in sel]
+            if not ms:
+                continue
+            lim = LIMIT_MS.get("other frames" if name == "other tracked "
+                               "frames" else name)
+            print(f"# VIO + GPS session ({how}), per-frame process_image "
+                  f"wall, {name} (n={len(ms)}): mean {np.mean(ms):.3f} ms, "
+                  f"median {np.median(ms):.3f} ms, max {np.max(ms):.3f} ms"
+                  + (f" (PERF.md §2 limit {lim:.0f} ms)" if lim else "")
+                  + f" ({smi})")
+        print(f"# VIO + GPS session ({how}): {len(times)} frames in "
+              f"{sum(t for t, _, _ in times) * 1e3:.3f} ms of process_image "
+              f"wall in all, captures included ({smi})")
 
 
 def time_kernel(n, k, smi):
@@ -2837,8 +3001,10 @@ def app_sessions(root, rig, u8, poses, device, count, max_ate):
     main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
                  "ba_linearize")
     cfgs = write_app_dataset(root, rig, u8, device)
-    (rc, wall, stamps), launches = count("the app", main_path,
-                                         lambda: app_run(cfgs["app"], device))
+    # the dense cloud's DenseFuser aggregates by SGM on every keyframe
+    (rc, wall, stamps), launches = count(
+        "the app", main_path + ("sgm_scan",),
+        lambda: app_run(cfgs["app"], device))
     out = root / "out"
     ts, est = tum.read_tum(out / "traj.txt")
     ate = metrics.ate_rmse(est, poses)
@@ -2891,8 +3057,7 @@ def app_sessions(root, rig, u8, poses, device, count, max_ate):
           f"EuRoC runner: rc {rc_e}, {len(ie)} associated")
     check(ate_e <= max_ate, f"EuRoC runner: ATE {ate_e:.4f} m > {max_ate}")
     return dict(cfgs=cfgs, wall=wall, stamps=stamps, ate=ate, est=est,
-                ate_r=ate_r,
-                ate_e=ate_e)
+                ate_r=ate_r, ate_e=ate_e, launches=launches)
 
 
 def yawed_pair(rig, deg=STEREO_YAW):
@@ -2934,6 +3099,7 @@ def stereo_phase(scene, dev, smi):
     then DenseFuser.add_keyframe on FUSE_KFS keyframes."""
     import torch
 
+    from mcslam_tpu_torch import _build
     from mcslam_tpu_torch.data import synthetic
     from mcslam_tpu_torch.mapping.dense_fusion import DenseFuser
     from mcslam_tpu_torch.ops import rectify, stereo
@@ -2950,8 +3116,12 @@ def stereo_phase(scene, dev, smi):
         check(rr.is_identity == (name == "bench pair"),
               f"{name}: is_identity {rr.is_identity}")
         for algo in ("box", "sgm"):
+            before = _build.LAUNCHES["sgm_scan"]
             z, v = stereo.depth_from_rig_pair(imgs, rig, max_disp=STEREO_D,
                                               algo=algo)
+            n_sgm = _build.LAUNCHES["sgm_scan"] - before
+            check(n_sgm == (algo == "sgm"), f"{name} {algo}: sgm_scan "
+                  f"launched {n_sgm} times in one call")
             z_c, v_c = stereo.depth_from_rig_pair(imgs_c, rig_c,
                                                   max_disp=STEREO_D,
                                                   algo=algo)
@@ -2965,7 +3135,8 @@ def stereo_phase(scene, dev, smi):
                   f"{STEREO_D}: card vs CPU equal winners {100 * share:.3f} "
                   f"%, depth where they agree max rel err {rel_max:.3g}, "
                   f"valid masks equal there on {100 * v_same:.3f} %, valid "
-                  f"{100 * float(v.float().mean()):.1f} % (card)")
+                  f"{100 * float(v.float().mean()):.1f} % (card); sgm_scan "
+                  f"launches in the card's call: {n_sgm}")
             check(bool(torch.isfinite(z).all()), f"{name} {algo}: non-finite")
             check(share >= STEREO_SHARE,
                   f"{name} {algo}: equal winners {share:.4f}")
@@ -2989,16 +3160,21 @@ def stereo_phase(scene, dev, smi):
               f"host clock ({smi})")
     fuser = DenseFuser(scene.rig, max_disp=STEREO_D)
     times, voxels = [], []
+    before = _build.LAUNCHES["sgm_scan"]
     for k in FUSE_KFS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         voxels.append(fuser.add_keyframe(scene.imgs[k], scene.poses[k]))
         times.append(time.perf_counter() - t0)
+    n_sgm = _build.LAUNCHES["sgm_scan"] - before
     pts, _, cnt = fuser.finalize()
     print(f"# DenseFuser.add_keyframe (sgm, D={STEREO_D}) on frames "
           f"{FUSE_KFS}: {[round(t * 1e3, 3) for t in times]} ms (host clock, "
           f"ending in its host reads), voxels {voxels}, fused "
-          f"{len(pts)} ({int((cnt > 1).sum())} seen twice or more) ({smi})")
+          f"{len(pts)} ({int((cnt > 1).sum())} seen twice or more); sgm_scan "
+          f"launches {n_sgm} ({smi})")
+    check(n_sgm == len(FUSE_KFS), f"DenseFuser: sgm_scan launched {n_sgm} "
+          f"times for {len(FUSE_KFS)} keyframes")
     check(min(voxels) > 0 and np.isfinite(pts).all(),
           "DenseFuser: a keyframe contributed nothing, or non-finite points")
 
@@ -3042,7 +3218,7 @@ def app_phase(scene, dev, smi):
               f"wall time ({smi})")
     stereo_phase(scene, dev, smi)
     return dict(est=res["est"], per_frame=frame_walls(res["stamps"]),
-                busy=dev_ms / wall_ms)
+                busy=dev_ms / wall_ms, launches=res["launches"])
 
 
 def frame_walls(stamps) -> dict:
@@ -4051,13 +4227,17 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                      ("graphed", graphed_frame), ("eager", eager_frame)):
         times.setdefault(name, []).append(_median_ms(fn))
     for name, fn in (("graphed", graphed_frame), ("eager", eager_frame)):
-        dev_ms, n_ops, _ = device_profile(fn)
+        cond = ("mc_set_cond_kernel",) if name == "graphed" else ()
+        dev_ms, n_ops, cond_ms = device_profile(fn, names=cond)
         n_api = host_api_launches(fn)
         print(f"# graph fast-path frame, {name}: wall {min(times[name]):.3f} "
               f"ms (median of {GRAPH_REPS}, best of 2 turns, build + track + "
               f"packed fetch); profiler: {dev_ms:.3f} ms device time in "
               f"{n_ops:.0f} device ops; {n_api} host-issued launches / "
-              f"copies ({smi})")
+              f"copies"
+              + (f"; the IF node's condition kernel (graph_cond.cu) "
+                 f"{cond_ms:.4f} ms of device time" if cond else "")
+              + f" ({smi})")
     print(f"# graph capture of the fused frame step: {prog.capture_ms:.1f} ms "
           f"host; warm-up launches {dict(prog.warmup)}")
 
@@ -4256,12 +4436,64 @@ def graph_sessions(scene, dev, smi, eager_ref):
     torch.cuda.synchronize()
 
 
+def graph_vio_solves(scene, dev, smi):
+    """Phase 14 (a), the VIO solve: the stage D problems of phase 7 (a)
+    (synthetic.random_vio_problem, without GPS and with VIO_GPS factors)
+    solved warm and cold by vio_solve and through a session's graphed VIO
+    solve (driver_window._replay_vio_solve) on the current stream, then a
+    window of the same shapes with other index columns (the IMU pairs and
+    GPS fixes rolled) through the same program: every result field
+    bit-equal to the eager solve's; each program's capture ms and pool.
+    -> the session (its programs serve phase 8's timing)."""
+    import torch
+
+    from mcslam_tpu_torch.backend import ba_vio
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
+
+    slam = MultiCameraSLAM(scene.rig, SlamConfig())
+    for num_gps in (0, VIO_GPS):
+        p = ba_vio.problem_from_numpy(**synthetic.random_vio_problem(
+            scene.rig, num_gps=num_gps))
+        imu = p.imu._replace(i=torch.roll(p.imu.i, 1),
+                             j=torch.roll(p.imu.j, 1))
+        other = p._replace(imu=imu, gps=None if p.gps is None else
+                           p.gps._replace(kf=torch.roll(p.gps.kf, 1)))
+        for name, iters in BA_ITERS:
+            n_diff = []
+            for q in (p, other):
+                e_res = ba_vio.vio_solve(q, iters=iters, kf_blocked=True)
+                g_res = slam._replay_vio_solve(q, iters)
+                n_diff.append(sum(not torch.equal(a, b)
+                                  for a, b in zip(e_res, g_res)))
+            progs = vio_programs(slam)
+            prog = next(pr for k, pr in progs.items()
+                        if k[1] == iters and k[4][1] == (num_gps > 0))
+            print(f"# graph VIO solve {name} ({iters} x 2), {num_gps} GPS "
+                  f"factors: {n_diff[0]} of {len(g_res)} result fields differ "
+                  f"from the eager solve's, {n_diff[1]} for the window with "
+                  f"rolled index columns (the same program, replays "
+                  f"{prog.replays}); capture {prog.capture_ms:.1f} ms, pool "
+                  f"{prog.pool_bytes() / 2**20:.1f} MiB; warm-up launches "
+                  f"{dict(prog.warmup)} ({smi})")
+            check(n_diff == [0, 0], f"graph VIO solve {name}, {num_gps} GPS: "
+                  f"the graphed result differs from the eager one")
+            check(prog.replays == 2, f"graph VIO solve {name}: the rolled "
+                  f"window did not replay the same program")
+    check(len(vio_programs(slam)) == 2 * len(BA_ITERS),
+          f"graph VIO solves: {len(vio_programs(slam))} programs")
+    return slam
+
+
 def graphs_phase(scene, ff0, mapstate, p_dev, dev, smi, eager_ref):
-    """Phase 14: the graphed frame step and window solve; `eager_ref` is
-    phase 5's eager session (slam, records, launches)."""
+    """Phase 14: the graphed frame step, window solve and VIO solve;
+    `eager_ref` is phase 5's eager session (slam, records, launches) ->
+    the session whose VIO programs phase 8 times."""
     graph_frames(scene, ff0, mapstate, dev, smi)
     graph_solves(p_dev, scene, dev, smi)
+    vio_slam = graph_vio_solves(scene, dev, smi)
     graph_sessions(scene, dev, smi, eager_ref)
+    return vio_slam
 
 
 def rehearse_mesh():

@@ -19,10 +19,13 @@ last column block of the dense pose-side system, N = K * D + 6.
   float64 tangents for ops with a Python scalar, e.g. so3_exp's
   t2 / 6.0, and a float32 matmul with them fails), cast back to float32.
 - A factor's Jacobian is placed into the N columns by a constant 0/1
-  selection matrix built once per solve from the host index columns
-  (`ImuFactors.i/j`, `GpsFactors.kf`, `BetweenFactors.i/j` are numpy):
-  no scatter, no atomics, no device index upload. Padded factors carry
-  weight 0.
+  selection matrix built once per solve, by one scatter, from the index
+  columns (`ImuFactors.i/j`, `GpsFactors.kf`, `BetweenFactors.i/j`:
+  int32 tensors on the problem's device, uploaded with the tables'
+  other fields), and the factors' states are gathered by index_select.
+  So the index columns are inputs like any other tensor: one captured
+  program (driver_window._replay_vio_solve) serves every index pattern
+  of its shapes. Padded factors carry weight 0.
 - The damped Schur step and the final marginal reuse backend/ba's
   landmark elimination and solve, in float64 (the JAX package solves in
   float32; the priors reach 1e8 against 1e-2 information entries).
@@ -49,11 +52,11 @@ D = 15  # per-keyframe state dims
 
 
 class ImuFactors(NamedTuple):
-    """Padded table of preintegrated IMU factors between window keyframes;
-    the index columns are host arrays."""
+    """Padded table of preintegrated IMU factors between window
+    keyframes."""
 
-    i: np.ndarray  # (F,) int32 source keyframe (window index)
-    j: np.ndarray  # (F,) int32 target keyframe
+    i: torch.Tensor  # (F,) int32 source keyframe (window index)
+    j: torch.Tensor  # (F,) int32 target keyframe
     dR: torch.Tensor  # (F, 3, 3)
     dv: torch.Tensor  # (F, 3)
     dp: torch.Tensor  # (F, 3)
@@ -72,8 +75,8 @@ class BetweenFactors(NamedTuple):
     """SE(3) relative-pose factors between window keyframes (loop
     constraints of the replay harness)."""
 
-    i: np.ndarray  # (B,) int32 window keyframe index
-    j: np.ndarray  # (B,) int32 window keyframe index
+    i: torch.Tensor  # (B,) int32 window keyframe index
+    j: torch.Tensor  # (B,) int32 window keyframe index
     rel: torch.Tensor  # (B, 4, 4) measured i_T_j
     sigma_rot: torch.Tensor  # (B,) rad
     sigma_trans: torch.Tensor  # (B,) m
@@ -83,7 +86,7 @@ class BetweenFactors(NamedTuple):
 class GpsFactors(NamedTuple):
     """GPS position factors: enu = E_T_V * (p_body + R_body t_bg)."""
 
-    kf: np.ndarray  # (G,) int32 window keyframe index
+    kf: torch.Tensor  # (G,) int32 window keyframe index
     enu: torch.Tensor  # (G, 3) measured ENU position
     t_bg: torch.Tensor  # (3,) body->GPS lever arm
     sigma: torch.Tensor  # (G,) measurement sigma [m]
@@ -127,17 +130,12 @@ _INDEX_FIELDS = ("i", "j", "kf")
 
 def factor_table(cls, device="cuda", **fields):
     """A factor table (ImuFactors, GpsFactors or BetweenFactors) from
-    arrays of its fields: index columns as host int32 arrays, `valid` as
-    bool and the rest as float32 tensors on `device`."""
-    out = {}
-    for n in cls._fields:
-        v = fields[n]
-        if n in _INDEX_FIELDS:
-            out[n] = np.asarray(v, np.int32)
-        else:
-            out[n] = ba._field(v, torch.bool if n == "valid"
+    arrays of its fields: index columns as int32, `valid` as bool and the
+    rest as float32 tensors, all on `device`."""
+    return cls(**{n: ba._field(fields[n], torch.int32 if n in _INDEX_FIELDS
+                               else torch.bool if n == "valid"
                                else torch.float32, device)
-    return cls(**out)
+                  for n in cls._fields})
 
 
 def problem_from_numpy(poses, vels, biases, landmarks, lm_valid, obs,
@@ -165,6 +163,46 @@ def problem_from_numpy(poses, vels, biases, landmarks, lm_valid, obs,
         E_T_V=ba._field(E_T_V, f32, device), prior_H=b.prior_H,
         prior_b=b.prior_b, kf_valid=b.kf_valid, g_norm=float(g_norm),
         between=move(between))
+
+
+_TABLES = {"imu": ImuFactors, "gps": GpsFactors, "between": BetweenFactors}
+
+
+def _flatten(problem: VioProblem) -> tuple:
+    """A VioProblem as a captured program's inputs -> (its tensors in field
+    order, the factor tables' index columns among them; which tables are
+    present). g_norm is not among them: a program is keyed on it
+    (unflatten takes it back)."""
+    flat, present = [], []
+    for name in VioProblem._fields:
+        v = getattr(problem, name)
+        if name == "obs":
+            flat += list(v)
+        elif name in _TABLES:
+            present.append(v is not None)
+            flat += [] if v is None else list(v)
+        elif name != "g_norm":
+            flat.append(v)
+    return flat, tuple(present)
+
+
+def _unflatten(flat, present, g_norm: float) -> VioProblem:
+    """_flatten's inverse."""
+    it = iter(flat)
+    fields, tables = {}, iter(present)
+    for name in VioProblem._fields:
+        if name == "obs":
+            fields[name] = ba.BAObservations(
+                *(next(it) for _ in ba.BAObservations._fields))
+        elif name in _TABLES:
+            cls = _TABLES[name]
+            fields[name] = (cls(*(next(it) for _ in cls._fields))
+                            if next(tables) else None)
+        elif name == "g_norm":
+            fields[name] = g_norm
+        else:
+            fields[name] = next(it)
+    return VioProblem(**fields)
 
 
 # -- factor residuals ---------------------------------------------------------
@@ -211,23 +249,25 @@ def _between_residual(x, Ti, Tj, rel, sigma_rot, sigma_trans):
     return r6 * w
 
 
-def _stack_rows(t: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    """t[idx] for host indices, as views and one stack (no index upload)."""
-    return torch.stack([t[int(k)] for k in idx])
-
-
 class _Factor:
     """One factor table prepared for a solve: its residual function, its
     weights and the selection matrix (F, n, N) that places each factor's
-    n tangent columns at its states' columns of the dense system."""
+    n tangent columns at its states' columns of the dense system.
+    `starts` lists, in the order of the tangent's columns, (first column,
+    size) blocks; a first column is an int (every factor's) or a tensor
+    of one per factor."""
 
-    def __init__(self, fn, weight, blocks, n, N, dev):
+    def __init__(self, fn, weight, starts, N):
         self.fn, self.weight = fn, weight
-        F = weight.shape[0]
-        self.sel = torch.zeros(F, n, N, dtype=torch.float32, device=dev)
-        for f, row in enumerate(blocks):
-            for r0, c0, size in row:
-                self.sel[f, r0:r0 + size, c0:c0 + size].diagonal().fill_(1.0)
+        F, dev = weight.shape[0], weight.device
+        n = sum(size for _, size in starts)
+        cols = torch.cat([
+            (c0.long()[:, None] if isinstance(c0, torch.Tensor)
+             else torch.full((F, 1), c0, dtype=torch.long, device=dev))
+            + torch.arange(size, device=dev) for c0, size in starts],
+            dim=1)  # (F, n): each tangent column's state column
+        self.sel = torch.zeros(F, n, N, dtype=torch.float32,
+                               device=dev).scatter_(2, cols[:, :, None], 1.0)
 
     def linearize(self, *args):
         """(weighted cost, H (N, N), g (N,)) of the table at the states in
@@ -269,18 +309,16 @@ def _factors(p: VioProblem, N: int) -> list:
     """[(factor, args)] of the problem's factor tables: args(poses, vels,
     biases, E_T_V) gives the factor residual's tensor arguments at a
     state."""
-    dev, K = p.poses.device, p.poses.shape[0]
+    K = p.poses.shape[0]
     out = []
     if p.imu is not None:
         fi = p.imu
         out.append((_Factor(
             lambda x, *a: _imu_residual(x, *a, p.g_norm), fi.valid.float(),
-            [((0, int(i) * D, D), (D, int(j) * D, D))
-             for i, j in zip(fi.i, fi.j)], 2 * D, N, dev),
+            [(fi.i * D, D), (fi.j * D, D)], N),
             lambda P, V, B, E: (
-                _stack_rows(P, fi.i), _stack_rows(V, fi.i),
-                _stack_rows(B, fi.i), _stack_rows(P, fi.j),
-                _stack_rows(V, fi.j), _stack_rows(B, fi.j), fi.dR, fi.dv,
+                *(t.index_select(0, fi.i) for t in (P, V, B)),
+                *(t.index_select(0, fi.j) for t in (P, V, B)), fi.dR, fi.dv,
                 fi.dp, fi.dt, fi.dR_dbg, fi.dv_dbg, fi.dv_dba, fi.dp_dbg,
                 fi.dp_dba, fi.bias_hat, fi.sqrt_info)))
     if p.gps is not None:
@@ -289,18 +327,17 @@ def _factors(p: VioProblem, N: int) -> list:
         out.append((_Factor(
             _gps_residual,
             gf.valid.float() / torch.clamp(gf.sigma, min=1e-3) ** 2,
-            [((0, int(k) * D, 6), (6, K * D, 6)) for k in gf.kf], 12, N,
-            dev),
-            lambda P, V, B, E: (_stack_rows(P, gf.kf), E.expand(G, 4, 4),
+            [(gf.kf * D, 6), (K * D, 6)], N),
+            lambda P, V, B, E: (P.index_select(0, gf.kf), E.expand(G, 4, 4),
                                 gf.enu, gf.t_bg.expand(G, 3))))
     if p.between is not None:
         fb = p.between
         out.append((_Factor(
             _between_residual, fb.valid.float(),
-            [((0, int(i) * D, 6), (6, int(j) * D, 6))
-             for i, j in zip(fb.i, fb.j)], 12, N, dev),
-            lambda P, V, B, E: (_stack_rows(P, fb.i), _stack_rows(P, fb.j),
-                                fb.rel, fb.sigma_rot, fb.sigma_trans)))
+            [(fb.i * D, 6), (fb.j * D, 6)], N),
+            lambda P, V, B, E: (P.index_select(0, fb.i),
+                                P.index_select(0, fb.j), fb.rel,
+                                fb.sigma_rot, fb.sigma_trans)))
     return out
 
 

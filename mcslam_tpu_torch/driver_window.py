@@ -21,7 +21,12 @@ graph captured on that side stream (_replay_solve). The side
 stream waits for the main stream before the solve, its input tensors are
 recorded on it (so the allocator does not hand their memory to the main
 stream while the solve reads them), and the main stream waits for it
-before the result is read.
+before the result is read. The VIO solve stays on the current stream
+(its write-back is synchronous); with cuda_graphs its warm solves
+replay a CUDA graph too (_replay_vio_solve). A cold VIO solve runs
+eagerly: it comes once per session and again only after a reset or a
+loop closure, so its program would seldom repeat and a capture costs
+about two eager solves.
 """
 
 from __future__ import annotations
@@ -102,6 +107,27 @@ class WindowBAMixin:
         outs, _ = self._solve_programs(
             (K, Ok, L, C, iters, gate_rounds), solve, flat)
         return ba.BAResult(*outs)  # a new tuple: _pending_vis_marg tests it
+
+    def _replay_vio_solve(self, problem, iters: int,
+                          gate_rounds: int = 2) -> ba_vio.VioResult:
+        """ba_vio.vio_solve (kf-blocked) of `problem` as a replayed CUDA
+        graph on the current stream (the VIO write-back reads it at once,
+        before the next replay overwrites it). The factor tables' index
+        columns are inputs of the program, not part of its key: one
+        program per shape, iters, gate rounds, g_norm and set of factor
+        tables serves every keyframe pattern of the window's IMU pairs
+        and GPS fixes."""
+        flat, present = ba_vio._flatten(problem)
+
+        def solve(*t):
+            return tuple(ba_vio.vio_solve(
+                ba_vio._unflatten(t, present, problem.g_norm), iters=iters,
+                gate_rounds=gate_rounds, kf_blocked=True))
+
+        key = ("vio", iters, gate_rounds, problem.g_norm, present,
+               tuple((tuple(t.shape), t.dtype) for t in flat))
+        outs, _ = self._solve_programs(key, solve, flat)
+        return ba_vio.VioResult(*outs)
 
     def _solve_window(self, window, force_sync=False, allow_vio=True):
         """Window BA over an explicit keyframe list (gauge on window[0]);
@@ -358,7 +384,10 @@ class WindowBAMixin:
             gps=gps_factors, g_norm=self.imu_params.g_norm,
             device=self.device)
         iters = cfg.ba_iters if self._ba_warm else cfg.ba_iters_cold
-        result = ba_vio.vio_solve(problem, iters=iters, kf_blocked=True)
+        result = (self._replay_vio_solve(problem, iters)
+                  if self.cuda_graphs and self._ba_warm
+                  else ba_vio.vio_solve(problem, iters=iters,
+                                        kf_blocked=True))
         self.stats["window_ba_vio"] = self.stats.get("window_ba_vio", 0) + 1
         self._ba_warm = True
 

@@ -13,9 +13,10 @@ winner-take-all with sub-pixel parabola refinement and a left-right
 consistency mask. For a parallel-baseline rig (cameras along +x) the
 pair is rectified by construction; general rigs rectify through
 ops/rectify.RigRectifier first. All of it is plain PyTorch on the
-images' device, as the JAX package's is plain XLA; the SGM recursion is
-a Python loop over the scan axis (the JAX package's lax.scan), one
-step of a few device ops per scan line position.
+images' device, as the JAX package's is plain XLA, except the SGM
+recursion (the JAX package's lax.scan): on the card one CUDA kernel
+(csrc/sgm_scan.cu through ops/sgm_cuda), on the CPU its plain version,
+a Python loop over the scan axis of a few ops per step.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from mcslam_tpu_torch.ops import image as image_ops
+from mcslam_tpu_torch.ops import sgm_cuda
 
 
 def _shift_x(img: torch.Tensor, d) -> torch.Tensor:
@@ -47,55 +49,14 @@ def cost_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     return image_ops._sep_conv(sad, box)
 
 
-def _sgm_pass(cv_seq: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
-    """One SGM path-aggregation direction.
-
-    cv_seq: (S, D, N) - S scan steps along the path, N independent lines,
-    D disparities. Returns the aggregated volume, same shape. Classic SGM
-    recursion (Hirschmueller): each step's path cost is the step's cost
-    plus the best transition from the previous step's (D, N) front (stay,
-    +-1 disparity at p1, any jump at p2 over the per-line minimum), less
-    that minimum. The steps write into one preallocated (S, D + 2, N)
-    buffer whose first and last disparity rows hold the 1e9 border, so
-    the +-1 shifts are views; a step is 8 device ops."""
-    S, D, N = cv_seq.shape
-    buf = torch.full((S, D + 2, N), 1e9, dtype=cv_seq.dtype,
-                     device=cv_seq.device)
-    buf[0, 1:D + 1] = cv_seq[0]
-    for s in range(1, S):
-        prev_pad = buf[s - 1]
-        prev = prev_pad[1:D + 1]
-        m = torch.amin(prev, dim=0, keepdim=True)  # (1, N)
-        best = torch.minimum(
-            torch.minimum(prev, m + p2),
-            torch.minimum(prev_pad[2:], prev_pad[:D]) + p1,
-        )
-        torch.sub(cv_seq[s] + best, m, out=buf[s, 1:D + 1])
-    return buf[:, 1:D + 1]
-
-
 def sgm_aggregate(cv: torch.Tensor, p1: float = 0.03, p2: float = 0.2):
     """4-path semi-global aggregation of a (D, H, W) cost volume
-    (left/right/up/down). The reference's SGBM MODE_HH runs 8 paths; 4
-    axis-aligned paths capture most of the regularization at half the
-    scans. The two opposite directions of an axis are independent
-    recursions over the same lines, so they run as one pass over twice
-    the lines (the reversed sequence beside the forward one): two passes
-    of W - 1 and H - 1 steps in all."""
-    D, H, W = cv.shape
-
-    def both_ways(seq):  # (S, D, N) -> forward, backward aggregates
-        N = seq.shape[-1]
-        out = _sgm_pass(torch.cat([seq, torch.flip(seq, (0,))], dim=-1),
-                        p1, p2)
-        return out[..., :N], torch.flip(out[..., N:], (0,))
-
-    # horizontal: scan over W, lines = H
-    a, b = both_ways(cv.permute(2, 0, 1))  # (W, D, H)
-    # vertical: scan over H, lines = W
-    c, d = both_ways(cv.permute(1, 0, 2))  # (H, D, W)
-    return (a.permute(1, 2, 0) + b.permute(1, 2, 0) + c.permute(1, 0, 2)
-            + d.permute(1, 0, 2))
+    (left/right/up/down; the reference's SGBM MODE_HH runs 8 paths, 4
+    axis-aligned ones capture most of the regularization at half the
+    scans): on a CUDA volume the csrc/sgm_scan.cu kernel, on a CPU one
+    its plain version (ops/sgm_cuda.sgm_aggregate_reference), bit-equal
+    to each other."""
+    return sgm_cuda.sgm_aggregate(cv, p1, p2)
 
 
 def disparity(left: torch.Tensor, right: torch.Tensor, max_disp: int = 64,

@@ -3,7 +3,10 @@
 On the CPU: a TorchDispatchMode guard runs what the card captures - the
 fused frame step with the fast-path decision on the device
 (branch="device"), on both sides of the branch and under the three
-extraction routes, and the kf-blocked window solve - at a small size
+extraction routes, the kf-blocked window solve, and the VIO solve of
+the flattened problem a VIO program takes as its inputs (warm and cold,
+with and without GPS factors; bit-equal to the solve of the problem
+itself) - at a small size
 (2 cameras, 192x144, 128 keypoints per camera) and fails on any op a
 capturing stream cannot take: a host read (aten._local_scalar_dense:
 .item(), bool(), int(), a 0-d tensor index), nonzero, masked_select,
@@ -14,11 +17,14 @@ bit (also where the predicted pose flips the branch) and to the JAX
 _build_and_track_step with test_build_and_track_step_matches_jax's
 tolerances; the launch accounting (no wrapper counts under a capture;
 chip_smoke counts a replay's kernels in the device trace) is checked on
-stubs; and a CPU session leaves the program caches empty.
+stubs; a CPU session, vision-only or VIO + GPS, leaves the program
+caches empty; and with cuda_graphs on, a VIO session's cold solve runs
+eagerly and its warm ones go to the graph (the replays stubbed).
 
-`gpu` cases (they skip without a card) hold the captured frame step and
-window solve to their eager runs on the card, bit for bit, the frame
-program over replays whose predicted pose flips the branch:
+`gpu` cases (they skip without a card) hold the captured frame step,
+window solve and VIO solve to their eager runs on the card, bit for bit,
+the frame program over replays whose predicted pose flips the branch,
+the VIO program over two windows of other index columns:
     python -m pytest --noconftest tests/test_torch_graphs.py -m gpu -q
 (this file imports JAX only inside the JAX comparison)."""
 
@@ -32,10 +38,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch import tracking_kernels as ttk
-from mcslam_tpu_torch.backend import ba
+from mcslam_tpu_torch.backend import ba, ba_vio
+from mcslam_tpu_torch.backend.imu import ImuParams
 from mcslam_tpu_torch.data import synthetic as tsyn
 from mcslam_tpu_torch.frontend import frame as tframe
-from mcslam_tpu_torch.ops import orb
+from mcslam_tpu_torch.ops import hamming, orb
 from mcslam_tpu_torch.slam import MultiCameraSLAM, SlamConfig
 from mcslam_tpu_torch.utils import graphs
 
@@ -371,6 +378,121 @@ def test_cpu_session_takes_the_eager_path(cpu_scene):
     assert not slam._solve_programs.programs
 
 
+def _vio_problem(gps, device="cpu"):
+    """synthetic.random_vio_problem at tests/test_torch_vio.py's small
+    shape (K=4, C=2, L=256, Ok=400; 3 GPS factors, 2 valid) -> (rig,
+    problem)."""
+    rig = tsyn.make_synthetic_rig(tsyn.SyntheticRigSpec(num_cams=2),
+                                  device=device)
+    f = tsyn.random_vio_problem(rig, num_kfs=4, num_lms=256,
+                                obs_capacity=1600, num_gps=3 if gps else 0,
+                                seed=7)
+    return rig, ba_vio.problem_from_numpy(**dict(f, device=device))
+
+
+@pytest.mark.parametrize("gps", [True, False], ids=["gps", "no_gps"])
+@pytest.mark.parametrize("iters", [1, 8], ids=["warm", "cold"])
+def test_vio_solve_is_capture_safe(iters, gps):
+    """What _replay_vio_solve captures: the solve of the flattened problem
+    (every field a tensor, the factor tables' index columns among them:
+    the program's inputs) makes no op a capture refuses, and equals the
+    solve of the problem itself bit for bit."""
+    _, problem = _vio_problem(gps)
+    ref = ba_vio.vio_solve(problem, iters=iters, kf_blocked=True)
+    flat, present = ba_vio._flatten(problem)
+    assert present == (True, gps, False)
+    assert all(isinstance(t, torch.Tensor) for t in flat)
+    p = ba_vio._unflatten(flat, present, problem.g_norm)
+    assert p.g_norm == problem.g_norm
+    assert all(getattr(t, f).dtype == torch.int32
+               for t in (p.imu, p.gps) if t is not None
+               for f in t._fields if f in ("i", "j", "kf"))
+    with CaptureGuard() as guard:
+        res = ba_vio.vio_solve(p, iters=iters, kf_blocked=True)
+    assert not guard.seen, dict(guard.seen)
+    assert all(torch.equal(a, b) for a, b in zip(res, ref))
+
+
+def _vio_session(setup=None, frames=12):
+    """tests/test_torch_slam_vio.py's feature-level VIO + GPS scene, on
+    the CPU through process_frame; setup(slam) runs before the first
+    frame -> the session (12 frames: 1 VIO solve; 20: 4)."""
+    fps = 20.0
+    rig = tsyn.make_synthetic_rig(
+        tsyn.SyntheticRigSpec(num_cams=3, baseline=0.2), device="cpu")
+    poses, imu_ts, gyro, accel = tsyn.analytic_circle_imu(
+        frames, fps=fps, radius=4.0, omega=0.35, accel_noise=2e-3,
+        gyro_noise=2e-4, stationary_s=0.3, ramp_s=0.3, seed=0)
+    frames = tsyn.render_feature_frames(
+        rig, poses, tsyn.make_landmarks(900, seed=1, depth_range=(5.0, 16.0)),
+        tsyn.make_descriptors(900, seed=2), kps_per_cam=320, px_noise=0.3,
+        desc_bit_noise=5, fps=fps, seed=3)
+    slam = MultiCameraSLAM(rig, SlamConfig(
+        window_size=4, ba_obs_capacity=8192, ba_lm_capacity=1024,
+        local_map_landmarks=1024, imu_init_samples=40, kf_translation=0.1,
+        kf_rotation=0.08), imu_params=ImuParams(accel_noise=2e-3,
+                                                gyro_noise=2e-4),
+        gps_lever_arm=np.zeros(3))
+    if setup is not None:
+        setup(slam)
+    for k, f in enumerate(frames):
+        t_prev = (k - 1) / fps if k else -1.0
+        sel = (imu_ts > t_prev) & (imu_ts <= k / fps)
+        ff = tframe.build_frame_from_keypoints(
+            torch.from_numpy(f.uv), hamming.desc_to_torch(f.desc, "cpu"),
+            torch.from_numpy(f.valid), rig, max_intra=1024)
+        p = poses[k][:3, 3]
+        lla = (42.36 + p[1] / 110_900.0,
+               -71.06 + p[0] / (110_900.0 * np.cos(np.radians(42.36))),
+               10.0 + p[2])
+        slam.process_frame(ff, f.timestamp,
+                           imu=(imu_ts[sel], gyro[sel], accel[sel]),
+                           gps=(np.array([k / fps]), np.array([lla])))
+    assert slam.imu_initialized and slam.stats.get("window_ba_vio", 0) >= 1
+    return slam
+
+
+def test_cpu_vio_session_takes_the_eager_path():
+    """A CPU VIO + GPS session solves its windows eagerly: the program
+    caches stay empty."""
+    slam = _vio_session()
+    assert slam.cuda_graphs is False
+    assert not slam._frame_programs.programs
+    assert not slam._solve_programs.programs
+
+
+def test_only_warm_vio_solves_take_the_graph(monkeypatch):
+    """With cuda_graphs on (the card's default), a cold VIO solve runs
+    eagerly (its program would seldom repeat) and every warm one goes to
+    _replay_vio_solve; here the replays are stubbed by the eager solve
+    and recorded, as is every vio_solve call with its iters."""
+    calls, replayed = [], []
+    solve = ba_vio.vio_solve
+
+    def recorded(problem, iters, **kw):
+        calls.append(iters)
+        return solve(problem, iters=iters, **kw)
+
+    def setup(slam):
+        def replay(problem, iters, gate_rounds=2):
+            replayed.append(iters)
+            return solve(problem, iters=iters, gate_rounds=gate_rounds,
+                         kf_blocked=True)
+
+        slam.cuda_graphs = True
+        slam._replay_vio_solve = replay
+        slam._replay_solve = lambda problem, iters: ba.ba_solve(
+            problem, iters=iters, kf_blocked=True)
+
+    monkeypatch.setattr(ba_vio, "vio_solve", recorded)
+    slam = _vio_session(setup, frames=20)
+    cfg = slam.cfg
+    assert calls and calls == [cfg.ba_iters_cold] * len(calls)
+    assert replayed and replayed == [cfg.ba_iters] * len(replayed)
+    assert len(calls) + len(replayed) == slam.stats["window_ba_vio"]
+    assert not slam._solve_programs.programs
+
+
 # -- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -432,3 +554,25 @@ def test_graphed_window_solve_equals_eager(cuda, iters):
     torch.cuda.current_stream().wait_stream(stream)
     assert all(torch.equal(a, b) for a, b in zip(eager, graphed))
     assert len(slam._solve_programs.programs) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gps", [True, False], ids=["gps", "no_gps"])
+@pytest.mark.parametrize("iters", [1, 8], ids=["warm", "cold"])
+def test_graphed_vio_solve_equals_eager(cuda, iters, gps):
+    """One captured VIO program replays two windows whose index columns
+    differ (the IMU pairs and GPS fixes rolled), each bit-equal to the
+    eager solve."""
+    rig, problem = _vio_problem(gps, cuda)
+    imu = problem.imu._replace(i=torch.roll(problem.imu.i, 1),
+                               j=torch.roll(problem.imu.j, 1))
+    other = problem._replace(imu=imu, gps=None if problem.gps is None else
+                             problem.gps._replace(
+                                 kf=torch.roll(problem.gps.kf, 1)))
+    slam = MultiCameraSLAM(rig, SlamConfig())
+    for p in (problem, other):
+        eager = ba_vio.vio_solve(p, iters=iters, kf_blocked=True)
+        graphed = slam._replay_vio_solve(p, iters)
+        assert all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    (prog,) = slam._solve_programs.programs.values()
+    assert prog.replays == 2
