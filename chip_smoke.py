@@ -10,7 +10,7 @@ Phases, each of which raises (non-zero exit) on failure:
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
-     kernel, the oriented patch gather and the SGM path kernel at D = 64
+     kernel, the oriented patch gather and the SGM tile kernel at D = 64
      must use no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
@@ -26,8 +26,9 @@ Phases, each of which raises (non-zero exit) on failure:
      equal, also across two runs), the gated matcher, the pose LM at B = 1
      and B = 2, and ba_linearize through the solve's prepared call (these
      three also bitwise equal across two runs), the SGM scan on the bench
-     pair's cost volume at VGA, D = 64, and on a random one at D = 48, 37 x
-     53 (bitwise equal to its plain version and across two runs); track
+     pair's cost volume at VGA, D = 64, and on random ones at D = 48, 37 x
+     53, D = 128, 96 x 64 and D = 33, 128 x 72 (bitwise equal to its plain
+     version and across two runs); track
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -242,9 +243,10 @@ Phases, each of which raises (non-zero exit) on failure:
      the flags as planned, each replay's launches in its device trace
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
-     the device time of the IF node's condition kernel; the
-     stage C window solve warm and cold, eager and through the session's
-     graphed solve (driver_window._replay_solve) on its side stream:
+     the device time of the IF node's condition kernel beside its bytes
+     bound (COND_BYTES); the stage C window solve warm and cold, eager
+     and through the session's graphed solve
+     (driver_window._replay_solve) on its side stream:
      bit-equal, wall and device time of both; the stage D VIO solve
      (phase 7 (a)'s problems) warm and cold, without and with GPS, eager
      and through driver_window._replay_vio_solve, then a window with its
@@ -425,8 +427,13 @@ BA_OPS = 300  # per observation: projection, 2x6 and 2x3 Jacobians, weight,
 # per path 3 adds ((c + best) - m, + p1) and 4 minima (3 in best, about 1
 # of the line's minimum), then the 3 adds of the four paths' sum
 SGM_OPS = (4 * 3 + 3, 4 * 4)
-# the SGM kernel's odd shape of phase 2 (D, H, W), beside VGA at STEREO_D
+# bytes the graphs' condition kernel moves: it reads the 1-byte predicate
+# and the 8-byte conditional handle and writes the 4-byte condition
+COND_BYTES = 1 + 8 + 4
+# the SGM kernel's odd shape of phase 2 (D, H, W), beside VGA at STEREO_D,
+# and two small aligned ones (D = 128 and D = 33 across the tiles' edges)
 SGM_ODD = (48, 37, 53)
+SGM_SMALL = ((128, 64, 96), (33, 72, 128))
 
 
 def check(cond, msg):
@@ -444,11 +451,11 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "fast_corners_kernel<false>": "fast_corners_kernelILb0E",
               "linearize_kernel": "linearize_kernel",
               "patch_oriented_kernel": "patch_oriented_kernel",
-              "sgm_path_kernel<2>": "sgm_path_kernelILi2E"}
+              "sgm_tile_kernel<2>": "sgm_tile_kernelILi2E"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
-            "linearize_kernel", "patch_oriented_kernel", "sgm_path_kernel<2>")
+            "linearize_kernel", "patch_oriented_kernel", "sgm_tile_kernel<2>")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1073,18 +1080,19 @@ def solver_kernels(scene, rng, dev, kernels):
 
 def stereo_kernels(scene, rng, dev, kernels):
     """Phase 2, the SGM scan: the cost volume of the bench pair (cameras
-    0 and 1 of frame 0) at D = STEREO_D and a random one at SGM_ODD, each
-    through the kernel twice and the plain version: all equal bit for
-    bit."""
+    0 and 1 of frame 0) at D = STEREO_D and random ones at SGM_ODD and
+    SGM_SMALL, each through the kernel twice and the plain version: all
+    equal bit for bit."""
     import torch
 
     from mcslam_tpu_torch.ops import sgm_cuda, stereo
 
     cv = stereo.cost_volume(scene.imgs[0][0], scene.imgs[0][1], STEREO_D)
-    odd = torch.from_numpy(rng.rand(*SGM_ODD).astype(np.float32)).to(dev)
-    for name, v in ((f"{W}x{H} D={STEREO_D} (bench pair)", cv),
-                    (f"{SGM_ODD[2]}x{SGM_ODD[1]} D={SGM_ODD[0]} (random)",
-                     odd)):
+    volumes = [(f"{W}x{H} D={STEREO_D} (bench pair)", cv)] + [
+        (f"{w}x{h} D={d} (random)",
+         torch.from_numpy(rng.rand(d, h, w).astype(np.float32)).to(dev))
+        for d, h, w in (SGM_ODD,) + SGM_SMALL]
+    for name, v in volumes:
         k1, k2 = sgm_cuda.sgm_aggregate(v), sgm_cuda.sgm_aggregate(v)
         ref = sgm_cuda.sgm_aggregate_reference(v)
         torch.cuda.synchronize()
@@ -1099,7 +1107,7 @@ def stereo_kernels(scene, rng, dev, kernels):
         replaces="mcslam_tpu/ops/stereo.py:69", max_abs_err=0.0,
         fn=lambda: sgm_cuda.sgm_aggregate(cv),
         plain=lambda: sgm_cuda.sgm_aggregate_reference(cv),
-        symbols=("sgm_path_kernel", "sgm_sum_kernel"), device_ops=2,
+        symbols=("sgm_tile_kernel",), device_ops=3,
         nbytes=2 * cv.nbytes, ops_s=class_ops_s(SGM_OPS[0] * n,
                                                  SGM_OPS[1] * n))
 
@@ -4236,7 +4244,10 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
               f"{n_ops:.0f} device ops; {n_api} host-issued launches / "
               f"copies"
               + (f"; the IF node's condition kernel (graph_cond.cu) "
-                 f"{cond_ms:.4f} ms of device time" if cond else "")
+                 f"{cond_ms:.4f} ms of device time, bound "
+                 f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
+                 f"predicate and 8-byte handle read, the 4-byte condition "
+                 f"written)" if cond else "")
               + f" ({smi})")
     print(f"# graph capture of the fused frame step: {prog.capture_ms:.1f} ms "
           f"host; warm-up launches {dict(prog.warmup)}")

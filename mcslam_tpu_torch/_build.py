@@ -77,7 +77,7 @@ SIGNATURES = {
     # pred (device bool), body (cudaGraph_t), the capturing stream: an IF
     # node running a copy of body where *pred, appended to the capture
     "mc_graph_add_if": [P, P, P],
-    # cv, out, scratch (3 volumes), D, H, W, p1, p2, stream
+    # cv, out, scratch (a volume and the fronts), D, H, W, p1, p2, stream
     "mc_sgm_scan": [P, P, P, I, I, I, F, F, P],
 }
 

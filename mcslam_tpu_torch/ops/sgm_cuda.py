@@ -69,6 +69,12 @@ def sgm_aggregate_reference(cv: torch.Tensor, p1: float = 0.03,
             + d.permute(1, 0, 2))
 
 
+def scratch_floats(D: int, H: int, W: int) -> int:
+    """Floats of the kernel's scratch: one volume (the vertical paths'
+    first parts) and the four paths' fronts, 2 D (H + W) (csrc/sgm_scan.cu)."""
+    return D * H * W + 2 * D * (H + W)
+
+
 def sgm_aggregate(cv: torch.Tensor, p1: float = 0.03,
                   p2: float = 0.2) -> torch.Tensor:
     """(D, H, W) floating cost volume -> its 4-path aggregate, same shape
@@ -88,7 +94,8 @@ def sgm_aggregate(cv: torch.Tensor, p1: float = 0.03,
                          f"float32 volume with D <= {MAX_D}, got {cv.dtype} "
                          f"{(D, H, W)}, contiguous {cv.is_contiguous()}")
     out = torch.empty_like(cv)
-    scratch = torch.empty((3, D, H, W), dtype=torch.float32, device=cv.device)
+    scratch = torch.empty(scratch_floats(D, H, W), dtype=torch.float32,
+                          device=cv.device)
     lib = _build.library()
     _build.count("sgm_scan")
     _build.check(lib.mc_sgm_scan(

@@ -4,17 +4,22 @@ On the CPU: ops/stereo.sgm_aggregate takes the plain version
 (sgm_aggregate_reference) for a CPU volume without building or launching
 anything, and equals the JAX package's jitted sgm_aggregate within
 tests/test_torch_stereo.py's tolerance (1e-5 relative); a numpy model of
-the kernel's order of work (one recursion per path and line, each path's
-volume apart, then ((a + b) + c) + d) equals the plain version bit for
-bit, at odd shapes and at each disparity count the kernel's register
-slots take (D <= 32, 64, 96, 128); a non-floating, empty or not 3-d
-volume raises, while a float64 volume or one with D > 128, which the
-kernel does not take, computes on the CPU.
+the kernel's order of work (tiles of 8 steps; each path cut at its middle
+tile, the first part's front carried into the second; the three launches'
+sums: a and b, then b + a / a + b, then (ab + c) + d with c or d from the
+scratch volume) equals the plain version bit for bit, at shapes that cross
+the tiles' edges (H and W one above and one below a multiple of 8, W < 8,
+H = 1, W = 1, W % 4 != 0) and at each disparity count the kernel's
+register slots take (D = 1, 33, 64, 96, 128), and NaN-aware on a volume
+with NaNs (the same NaN positions, equal bits elsewhere); a non-floating,
+empty or not 3-d volume raises, while a float64 volume or one with D >
+128, which the kernel does not take, computes on the CPU.
 
 `gpu` cases (they skip without a card) hold the kernel to the plain
-version with torch.equal at VGA with D = 64 and at D = 48, 37 x 53, on
-uniform and on quantized (tied) costs, with one launch counted per call,
-and a strided, float64 or D = 129 volume refused:
+version with torch.equal at VGA with D = 64 and at those edge shapes, on
+uniform and on quantized (tied) costs, NaN-aware on the volume with NaNs,
+with one launch counted per call, and a strided, float64 or D = 129
+volume refused:
     python -m pytest --noconftest tests/test_torch_sgm.py -m gpu -q
 (this file imports JAX only inside the JAX comparison)."""
 
@@ -34,34 +39,82 @@ def _volume(D, H, W, kind="uniform", seed=0):
     cv = rng.random((D, H, W), dtype=np.float32)
     if kind == "quantized":  # many equal costs: ties in every minimum
         cv = np.round(cv * 8.0).astype(np.float32) / np.float32(8.0)
+    elif kind == "nan":  # a NaN in a few cells: it wins every minimum after
+        cv.reshape(-1)[rng.choice(cv.size, 3, replace=False)] = np.nan
     return cv
 
 
-def _kernel_model(cv, p1=0.03, p2=0.2):
-    """The kernel's work in numpy float32: paths +x, -x, +y, -y, each a
-    recursion over its lines with the 1e9 border, written to its own
-    volume, then summed ((a + b) + c) + d."""
-    p1, p2 = np.float32(p1), np.float32(p2)
-    vols = []
-    for path in range(4):
-        horizontal, forward = path < 2, path % 2 == 0
-        seq = cv.transpose(2, 0, 1) if horizontal else cv.transpose(1, 0, 2)
-        if not forward:
-            seq = seq[::-1]
-        res = np.empty_like(seq)
-        prev = res[0] = seq[0]
-        for s in range(1, seq.shape[0]):
+STEPS = 8  # steps per tile of the kernel (csrc/sgm_scan.cu STEPS)
+
+
+def _scan(seq, steps, prev, p1, p2):
+    """The recursion over seq (S, D, N) at `steps`, in order, from the
+    front prev (None: steps[0] starts the lines, its value the cost):
+    {step: values (D, N)} and the last front."""
+    res = {}
+    for s in steps:
+        if prev is None:
+            prev = seq[s].copy()
+        else:
             m = prev.min(axis=0)
             up = np.concatenate([prev[1:], np.full_like(prev[:1], BIG)])
             dn = np.concatenate([np.full_like(prev[:1], BIG), prev[:-1]])
             best = np.minimum(np.minimum(prev, m + p2),
                               np.minimum(up, dn) + p1)
-            prev = res[s] = (seq[s] + best) - m
-        if not forward:
-            res = res[::-1]
-        vols.append(res.transpose(1, 2, 0) if horizontal
-                    else res.transpose(1, 0, 2))
-    return ((vols[0] + vols[1]) + vols[2]) + vols[3]
+            prev = (seq[s] + best) - m
+        res[s] = prev
+    return res, prev
+
+
+def _kernel_model(cv, p1=0.03, p2=0.2):
+    """The kernel's work in numpy float32, launch by launch. A path's S
+    steps make n = ceil(S / STEPS) tiles, cut at h = n // 2: +x / +y run
+    tiles [0, h) then [h, n), -x / -y tiles [h, n) then [0, h) backwards,
+    the second part from the first's front. Launch 1 writes a and b into
+    out and c and d into scratch; launch 2 out = out + (a or b); launch
+    3 out = (out + c) + scratch's d below the cut, (out + scratch's c) + d
+    above it."""
+    p1, p2 = np.float32(p1), np.float32(p2)
+    out, scratch = np.empty_like(cv), np.empty_like(cv)
+    parts = {}
+    for horizontal in (True, False):
+        seq = cv.transpose(2, 0, 1) if horizontal else cv.transpose(1, 0, 2)
+        S = seq.shape[0]
+        n = -(-S // STEPS)
+        cut = min((n // 2) * STEPS, S)
+        lo, hi = list(range(cut)), list(range(cut, S))
+        fwd1, front_f = _scan(seq, lo, None, p1, p2)
+        bwd1, front_b = _scan(seq, hi[::-1], None, p1, p2)
+        fwd2, _ = _scan(seq, hi, front_f if lo else None, p1, p2)
+        bwd2, _ = _scan(seq, lo[::-1], front_b, p1, p2)
+        parts[horizontal] = (fwd1, bwd1, fwd2, bwd2)
+
+    def at(vol, horizontal, s):  # the (D, N) slab of step s of a path
+        return vol[:, :, s] if horizontal else vol[:, s, :]
+
+    fwd1, bwd1, fwd2, bwd2 = parts[True]
+    for s, v in {**fwd1, **bwd1}.items():  # launch 1: a and b
+        at(out, True, s)[...] = v
+    fwd1, bwd1, _, _ = parts[False]
+    for s, v in {**fwd1, **bwd1}.items():  # launch 1: c and d
+        at(scratch, False, s)[...] = v
+    _, _, fwd2, bwd2 = parts[True]
+    for s, v in {**fwd2, **bwd2}.items():  # launch 2: b + a, a + b
+        at(out, True, s)[...] = at(out, True, s) + v
+    _, _, fwd2, bwd2 = parts[False]
+    for s, v in fwd2.items():  # launch 3: (ab + c) + d
+        at(out, False, s)[...] = (at(out, False, s) + v) + at(scratch, False, s)
+    for s, v in bwd2.items():
+        at(out, False, s)[...] = (at(out, False, s) + at(scratch, False, s)) + v
+    return out
+
+
+def _same(a, b):
+    """Bit-equal, NaN-aware: the same NaN positions, equal values
+    elsewhere."""
+    a, b = np.asarray(a), np.asarray(b)
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb) and np.array_equal(a[~na], b[~nb]))
 
 
 def _blob_volume(D=24):
@@ -100,15 +153,31 @@ def test_matches_jax():
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
 
 
+# shapes that cross the kernel's tiles (8 lines x 8 steps) and register
+# slots (D <= 32, 64, 96, 128): H and W one above and one below a multiple
+# of 8, W < 8, H = 1, W = 1, W % 4 != 0, D = 1, 33 and 128
+EDGE_SHAPES = [(16, 17, 23), (16, 15, 25), (8, 9, 5), (6, 1, 19),
+               (6, 21, 1), (1, 9, 10), (33, 10, 12), (128, 9, 9),
+               (20, 11, 13), (24, 8, 16)]
+
+
 @pytest.mark.parametrize("shape,kind", [
     ((48, 37, 53), "uniform"), ((48, 37, 53), "quantized"),
     ((20, 9, 11), "uniform"), ((64, 12, 17), "quantized"),
     ((96, 7, 6), "uniform"), ((128, 5, 8), "uniform"), ((5, 1, 7), "uniform"),
-    ((3, 6, 1), "uniform")])
+    ((3, 6, 1), "uniform")]
+    + [(shape, "uniform") for shape in EDGE_SHAPES]
+    + [((33, 10, 12), "quantized"), ((16, 17, 23), "nan"),
+       ((48, 37, 53), "nan")])
 def test_kernel_order_equals_the_plain_version(shape, kind):
     cv = _volume(*shape, kind)
     want = sgm_cuda.sgm_aggregate_reference(torch.from_numpy(cv)).numpy()
-    assert np.array_equal(_kernel_model(cv), want)
+    got = _kernel_model(cv)
+    if kind == "nan":
+        assert np.isnan(want).any() and not np.isnan(want).all()
+        assert _same(got, want)
+    else:
+        assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("cv", [
@@ -147,9 +216,10 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(64, 480, 640), (48, 37, 53)],
-                         ids=["vga_d64", "d48_37x53"])
-@pytest.mark.parametrize("kind", ["uniform", "quantized"])
+@pytest.mark.parametrize("shape", [(64, 480, 640), (48, 37, 53)]
+                         + EDGE_SHAPES + [(128, 64, 96), (33, 72, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["uniform", "quantized", "nan"])
 def test_kernel_equals_the_plain_version(cuda, shape, kind):
     cv = torch.from_numpy(_volume(*shape, kind)).to(cuda)
     before = _build.LAUNCHES["sgm_scan"]
@@ -158,7 +228,10 @@ def test_kernel_equals_the_plain_version(cuda, shape, kind):
     plain = sgm_cuda.sgm_aggregate_reference(cv)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sgm_scan"] - before == 2
-    assert torch.equal(out, plain) and torch.equal(again, out)
+    if kind == "nan":
+        assert _same(out.cpu(), plain.cpu()) and _same(again.cpu(), out.cpu())
+    else:
+        assert torch.equal(out, plain) and torch.equal(again, out)
 
 
 @pytest.mark.gpu
