@@ -5,13 +5,14 @@
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build: compile the CUDA sources of mcslam_tpu_torch/csrc (the nine
-     kernels' five, the graphs' branch and the SGM scan; one nvcc per
-     source, in parallel, sm_90a) and
+     kernels' five, the graphs' branch, the SGM scan, tri_refine and
+     intra_pairs; one nvcc per source, in parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
-     kernel, the oriented patch gather and the SGM tile kernel at D = 64
-     must use no local memory and
+     kernel, the oriented patch gather, the SGM tile kernel at D = 64,
+     tri_refine at R = 2, 4 and 8 and intra_pairs' two kernels must use
+     no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
@@ -28,7 +29,12 @@ Phases, each of which raises (non-zero exit) on failure:
      three also bitwise equal across two runs), the SGM scan on the bench
      pair's cost volume at VGA, D = 64, and on random ones at D = 48, 37 x
      53, D = 128, 96 x 64 and D = 33, 128 x 72 (bitwise equal to its plain
-     version and across two runs); track
+     version and across two runs), tri_refine at the bench frame's
+     recorded groups (M = 2048, R = 4, the pose table expanded), at a
+     random keyframe-pair problem (M = 2048, R = 2) and at M = 37, R = 5,
+     and intra_pairs at the bench frame's recorded descriptors and
+     Sampson gate (C = 4, N = 768) and at random C = 2, 3 and 5 ones
+     (bitwise equal to their plain versions and across two runs); track
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -43,8 +49,9 @@ Phases, each of which raises (non-zero exit) on failure:
      under the constant-velocity prediction - once with the production
      fast path and once with the portfolio forced (fastpath_frac=2.0).
      Every frame must pass the driver's acceptance gates and stay within
-     0.1 m / 0.02 rad of ground truth; each of the four frame kernels'
-     launch counters must be > 0 after this phase (counters are reset
+     0.1 m / 0.02 rad of ground truth; each of the six frame kernels'
+     launch counters (the four of the nine, tri_refine and intra_pairs)
+     must be > 0 after this phase (counters are reset
      right before it);
   4. routes: the same 8-frame drive on the fast path under the two other
      extraction routes (ops.orb.OrbRoute): route A (score map with blur,
@@ -244,8 +251,10 @@ Phases, each of which raises (non-zero exit) on failure:
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
      the device time of the IF node's condition kernel beside its bytes
-     bound (COND_BYTES); the stage C window solve warm and cold, eager
-     and through the session's graphed solve
+     bound (COND_BYTES), and beside the frame before tri_refine and
+     intra_pairs (FRAME_BEFORE; the frame build's stages apart:
+     scripts/frame_stage_split.py); the stage C window solve warm and
+     cold, eager and through the session's graphed solve
      (driver_window._replay_solve) on its side stream:
      bit-equal, wall and device time of both; the stage D VIO solve
      (phase 7 (a)'s problems) warm and cold, without and with GPS, eager
@@ -278,13 +287,25 @@ timing (no smoke result).
 from __future__ import annotations
 
 import collections
+import faulthandler
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# Tear CUPTI down at the end of every profiler trace. Left initialized
+# from one trace to the next (this torch's default), it crashed the
+# process: on an NVIDIA H100 under torch 2.11, phase 8's trace of the
+# graphed cold VIO solve with GPS (27943 nodes) hit a segmentation fault
+# in the graph's replay, in every run once the frame step's graphs had
+# shrunk to ~660 nodes; with the teardown the run passes. Set before
+# torch loads its profiler.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
 
 # production shape (bench.py) and SlamConfig defaults of the tracking step
 C, W, H = 4, 640, 480
@@ -427,6 +448,22 @@ BA_OPS = 300  # per observation: projection, 2x6 and 2x3 Jacobians, weight,
 # per path 3 adds ((c + best) - m, + p1) and 4 minima (3 in best, about 1
 # of the line's minimum), then the 3 adds of the four paths' sum
 SGM_OPS = (4 * 3 + 3, 4 * 4)
+# operations of tri_refine per ray and per point, counted from the
+# algorithm (csrc/tri_refine.cu): per ray the unit ray and its share of
+# the normal equations (~80), of each of the 5 Gauss-Newton steps
+# (projection, residual, Jacobian, JtJ / Jtr: ~100) and of the gate (~30);
+# per point the 6 cofactor solves (~60 each)
+TRI_OPS = (80 + 5 * 100 + 30, 6 * 60)
+# operations of intra_pairs per (pair, row, column) cell: 8 xor, 8
+# popcounts, 7 adds, and the masks, the row's best / second / argmin and
+# the column's minimum (6 compare / select); the popcounts run at 16 per
+# SM per clock (CUDA C++ Programming Guide, compute capability 9.0)
+INTRA_OPS = 29
+POPC_OPS_PER_S = SMS * 16 * SM_CLOCK_HZ  # ~4.2e12
+TRI_INTRA = ("tri_refine", "intra_pairs")
+# the graphed fast-path frame before the two kernels above: device ops
+# and device ms (NVIDIA H100 80GB HBM3, 700.00 W)
+FRAME_BEFORE = (2041, 4.107)
 # bytes the graphs' condition kernel moves: it reads the 1-byte predicate
 # and the 8-byte conditional handle and writes the 4-byte condition
 COND_BYTES = 1 + 8 + 4
@@ -451,11 +488,18 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "fast_corners_kernel<false>": "fast_corners_kernelILb0E",
               "linearize_kernel": "linearize_kernel",
               "patch_oriented_kernel": "patch_oriented_kernel",
-              "sgm_tile_kernel<2>": "sgm_tile_kernelILi2E"}
+              "sgm_tile_kernel<2>": "sgm_tile_kernelILi2E",
+              "tri_refine_kernel<2>": "tri_refine_kernelILi2E",
+              "tri_refine_kernel<4>": "tri_refine_kernelILi4E",
+              "tri_refine_kernel<8>": "tri_refine_kernelILi8E",
+              "intra_rows_kernel": "intra_rows_kernel",
+              "intra_link_kernel": "intra_link_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
-            "linearize_kernel", "patch_oriented_kernel", "sgm_tile_kernel<2>")
+            "linearize_kernel", "patch_oriented_kernel", "sgm_tile_kernel<2>",
+            "tri_refine_kernel<2>", "tri_refine_kernel<4>",
+            "tri_refine_kernel<8>", "intra_rows_kernel", "intra_link_kernel")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1112,6 +1156,190 @@ def stereo_kernels(scene, rng, dev, kernels):
                                                  SGM_OPS[1] * n))
 
 
+def capture_calls(build, targets=None) -> dict:
+    """{name: (args, kwargs)} of the first call of each module function
+    of `targets` ({name: (module, attribute)}; by default the frame
+    build's tri_refine and intra_pairs calls, the two kernels' inputs on
+    its path) that build() makes; the calls go through unchanged."""
+    from mcslam_tpu_torch.frontend import intra_cuda
+    from mcslam_tpu_torch.geometry import triangulation
+
+    if targets is None:
+        targets = {"tri_refine": (triangulation, "triangulate_and_refine"),
+                   "intra_pairs": (intra_cuda, "intra_pairs")}
+    seen = {}
+    saved = {n: getattr(m, a) for n, (m, a) in targets.items()}
+
+    def record(name, fn):
+        def wrapped(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    for n, (m, a) in targets.items():
+        setattr(m, a, record(n, saved[n]))
+    try:
+        build()
+    finally:
+        for n, (m, a) in targets.items():
+            setattr(m, a, saved[n])
+    check(set(seen) == set(targets),
+          f"the frame build made no call of {set(targets) - set(seen)}")
+    return seen
+
+
+def tri_problem(rng, M, R, dev):
+    """Per-point views (keyframe pairs at R = 2): world_T_cam (M, R, 4, 4)
+    contiguous, R cameras 0.3 m apart with small yaws about a per-point
+    offset; points 1-30 m ahead (a tenth behind the cameras, a tenth past
+    40 m); pixels with 0.5 px noise, a tenth of the rays masked; sigma
+    1.2^octave."""
+    import torch
+
+    poses = np.tile(np.eye(4, dtype=np.float32), (M, R, 1, 1))
+    for r in range(R):
+        a = 0.02 * (r - R / 2)
+        poses[:, r, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                               [-np.sin(a), 0, np.cos(a)]]
+        poses[:, r, 0, 3] = 0.3 * r
+    poses[..., :3, 3] += rng.uniform(-2, 2, (M, 1, 3))
+    X = np.stack([rng.uniform(-8, 8, M), rng.uniform(-4, 4, M),
+                  rng.uniform(1, 30, M)], 1)
+    kind = rng.randint(0, 10, M)
+    X[kind == 0, 2] *= -1.0
+    X[kind == 1, 2] += 40.0
+    X = X + poses[:, 0, :3, 3]
+    f = np.broadcast_to(np.array([400, 400, 320, 240], np.float32),
+                        (M, R, 4)).copy()
+    p = np.einsum("mrji,mrj->mri", poses[..., :3, :3],
+                  X[:, None, :] - poses[..., :3, 3])
+    uv = p[..., :2] / p[..., 2:] * f[..., :2] + f[..., 2:]
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    mask = rng.rand(M, R) < 0.9
+    sig = (1.2 ** rng.randint(0, 4, (M, R))).astype(np.float32)
+    return (tuple(torch.from_numpy(np.array(a)).to(dev)
+                  for a in (poses, uv, f, mask)),
+            torch.from_numpy(sig).to(dev))
+
+
+def intra_problem(rng, C, N, dev):
+    """Descriptors drawn from 8 words (ties in every row and column), a
+    tenth of the features invalid, a random gate: desc, valid, gate."""
+    import torch
+
+    from mcslam_tpu_torch.ops import hamming
+
+    words = rng.randint(0, 2**32, (8, 8), dtype=np.uint64).astype(np.uint32)
+    desc = words[rng.randint(0, 8, (C, N))]
+    desc[..., 0] ^= rng.randint(0, 16, (C, N)).astype(np.uint32)
+    P = C * (C - 1) // 2
+    return (hamming.desc_to_torch(desc, dev),
+            torch.from_numpy(rng.rand(C, N) < 0.9).to(dev),
+            torch.from_numpy(rng.rand(P, N, N) < 0.4).to(dev))
+
+
+def same_bits(a, b) -> bool:
+    """torch.equal up to NaN payloads: the same NaN positions."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def geometry_kernels(scene, rng, dev, kernels):
+    """Phase 2, the frame build's triangulation (tri_refine) and intra
+    pair match (intra_pairs): each at the bench frame's inputs (frame 0,
+    recorded on the frame build's path: M = MAXI groups of R = C rays
+    with the expanded pose table; the C = 4 x N = NPTS descriptors and
+    the Sampson gate) and at random problems (tri_refine at a keyframe
+    pair's M = 2048, R = 2 and at M = 37, R = 5; intra_pairs at C = 2, 3
+    and 5), through the kernel twice and the plain version: equal bit
+    for bit (X up to NaN payloads)."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import frame, intra_cuda
+    from mcslam_tpu_torch.geometry import triangulation, triangulation_cuda
+
+    seen = capture_calls(lambda: frame.build_frame(
+        scene.imgs[0], scene.rig, **scene.frame_kwargs()))
+    a, kw = seen["tri_refine"]
+    check(a[0].stride(0) == 0 and a[0].shape[1:] == (C, 4, 4),
+          f"tri_refine: the frame's pose table is not an expand of C poses "
+          f"({tuple(a[0].shape)}, strides {a[0].stride()})")
+    frame_tri = (a, kw)
+    pair = tri_problem(rng, 2048, 2, dev)
+    odd = tri_problem(rng, 37, 5, dev)
+    cases = [(f"M={a[3].shape[0]} R={C} (bench frame 0, expanded poses)",
+              a, kw),
+             ("M=2048 R=2 (keyframe pairs, random)", pair[0],
+              dict(sigma=pair[1], min_z=0.1, max_z=100.0)),
+             ("M=37 R=5 (random)", odd[0], dict(sigma=odd[1]))]
+    for name, a, kw in cases:
+        k1 = triangulation_cuda.tri_refine(*a, **kw)
+        k2 = triangulation_cuda.tri_refine(*a, **kw)
+        ref = triangulation.triangulate_and_refine_reference(*a, **kw)
+        torch.cuda.synchronize()
+        check(same_bits(k1[0], k2[0]) and torch.equal(k1[1], k2[1]),
+              f"tri_refine {name}: two runs differ")
+        n_x = int((~((k1[0] == ref[0]) | (torch.isnan(k1[0])
+                                          & torch.isnan(ref[0])))).sum())
+        n_ok = int((k1[1] != ref[1]).sum())
+        check(n_x == 0 and n_ok == 0, f"tri_refine {name}: {n_x} coordinates "
+              f"and {n_ok} ok flags differ from the plain version")
+        print(f"# kernel tri_refine {name}: X and ok bitwise equal to the "
+              f"plain version and across two runs ({int(ref[1].sum())} "
+              f"points ok)")
+    a, kw = frame_tri
+    M = a[3].shape[0]
+    kernels["tri_refine"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/tri_refine.cu",
+        replaces="mcslam_tpu/geometry/triangulation.py:194", max_abs_err=0.0,
+        fn=lambda a=a, kw=kw: triangulation_cuda.tri_refine(*a, **kw),
+        plain=lambda a=a, kw=kw: triangulation.triangulate_and_refine_reference(
+            *a, **kw),
+        symbols=("tri_refine_kernel",), device_ops=1,
+        # the C distinct poses and intrinsics, pixels, mask and sigma read
+        # once; X and ok written once
+        nbytes=C * (64 + 16) + M * C * (8 + 1 + 4) + M * (12 + 1),
+        ops_s=f32_ops_s(M * (C * TRI_OPS[0] + TRI_OPS[1])))
+
+    a, kw = seen["intra_pairs"]
+    desc, valid, gate = a[:3]
+    ik = dict(max_dist=a[3], ratio=a[4]) if len(a) == 5 else kw
+    cases = [(f"C={C} N={desc.shape[1]} (bench frame 0)", (desc, valid, gate))]
+    cases += [(f"C={c} N={n} (random)", intra_problem(rng, c, n, dev))
+              for c, n in ((2, 333), (3, 768), (5, 500))]
+    for name, args in cases:
+        k1 = intra_cuda.intra_pairs(*args, **ik)
+        k2 = intra_cuda.intra_pairs(*args, **ik)
+        ref = intra_cuda.intra_pairs_reference(*args, **ik)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, k2), f"intra_pairs {name}: two runs differ")
+        check(torch.equal(k1, ref), f"intra_pairs {name}: "
+              f"{int((k1 != ref).sum())} parents differ from the plain "
+              f"version")
+        n = args[0].shape[1]
+        linked = int((ref != torch.arange(ref.numel(), device=dev).reshape(
+            ref.shape)).sum())
+        print(f"# kernel intra_pairs {name}: parent bitwise equal to the "
+              f"plain version and across two runs ({linked} of "
+              f"{ref.numel()} features linked to a lower camera's)")
+    N = desc.shape[1]
+    P = C * (C - 1) // 2
+    cells = P * N * N
+    kernels["intra_pairs"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/intra_match.cu",
+        replaces="mcslam_tpu/frontend/intra.py:110", max_abs_err=0.0,
+        fn=lambda: intra_cuda.intra_pairs(desc, valid, gate, **ik),
+        plain=lambda: intra_cuda.intra_pairs_reference(desc, valid, gate,
+                                                       **ik),
+        symbols=("intra_rows_kernel", "intra_link_kernel"), device_ops=2,
+        # the gate, descriptors and validity read once; parent written once
+        nbytes=cells + C * N * (32 + 1) + C * N * 4,
+        ops_s=max(INTRA_OPS * cells / ISSUE_OPS_PER_S,
+                  8 * cells / POPC_OPS_PER_S))
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -1119,6 +1347,7 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
+    faulthandler.enable()  # a crash in native code prints the Python stack
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -1174,6 +1403,7 @@ def main() -> int:
     frame_kernels(scene, rng, dev, kernels)
     solver_kernels(scene, rng, dev, kernels)
     stereo_kernels(scene, rng, dev, kernels)
+    geometry_kernels(scene, rng, dev, kernels)
     solve_problem = _window_solves(scene, dev)
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
@@ -1194,7 +1424,8 @@ def main() -> int:
           "forced-portfolio drive took the fast path")
     launches = dict(_build.LAUNCHES)
     print(f"# launches during the slice: {launches}")
-    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm"):
+    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
+              *TRI_INTRA):
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched on the slice's path")
 
@@ -4006,7 +4237,9 @@ TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "patch_gather": "patch_gather_kernel",
                "hamming_argmin2": "hamming_merge_kernel",
                "pose_lm": "pose_lm_cluster_kernel",
-               "ba_linearize": "linearize_kernel"}
+               "ba_linearize": "linearize_kernel",
+               "tri_refine": "tri_refine_kernel",
+               "intra_pairs": "intra_link_kernel"}
 PATH = tuple(TRACE_NAMES)
 # degrees of yaw tried, in order, for a prediction off the fast path (on
 # an NVIDIA H100 the first that takes frame 2 off it is 18)
@@ -4248,6 +4481,9 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                  f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
                  f"predicate and 8-byte handle read, the 4-byte condition "
                  f"written)" if cond else "")
+              + (f"; before tri_refine and intra_pairs {FRAME_BEFORE[0]} "
+                 f"device ops, {FRAME_BEFORE[1]:.3f} ms (NVIDIA H100 80GB "
+                 f"HBM3, 700.00 W)" if cond else "")
               + f" ({smi})")
     print(f"# graph capture of the fused frame step: {prog.capture_ms:.1f} ms "
           f"host; warm-up launches {dict(prog.warmup)}")

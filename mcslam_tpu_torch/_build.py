@@ -34,9 +34,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# flags of one source only: ba_linearize rounds every multiply and add on
-# its own, as its plain version does (no contraction into FMAs)
-SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"]}
+# flags of one source only: ba_linearize and tri_refine round every
+# multiply and add on their own, as their plain versions do (no
+# contraction into FMAs)
+SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
+                "tri_refine": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -79,6 +81,15 @@ SIGNATURES = {
     "mc_graph_add_if": [P, P, P],
     # cv, out, scratch (a volume and the fronts), D, H, W, p1, p2, stream
     "mc_sgm_scan": [P, P, P, I, I, I, F, F, P],
+    # wTc, uv, f, mask, sigma (NULL: the scalar), X, ok, M, R, element
+    # strides (wTc 4, uv 3, f 3, mask 2, sigma 2), gn_iters, sigma scalar,
+    # chi2_thresh, min_z, max_z, stream
+    "mc_tri_refine": [P] * 7 + [I] * 2 + [I] * 14 + [I] + [F] * 4 + [P],
+    # desc, valid, gate, parent, rows (3 P N ints), colpart (P T N int64),
+    # C, N, max_dist, ratio, stream
+    "mc_intra_pairs": [P] * 6 + [I] * 3 + [F, P],
+    # N -> row tiles T of a call (colpart's middle dimension)
+    "mc_intra_pairs_tiles": [I],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

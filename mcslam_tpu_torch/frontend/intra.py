@@ -2,9 +2,11 @@
 same 3D point (counterpart of mcslam_tpu/frontend/intra.py).
 
 All C(C-1)/2 camera pairs get a Sampson-gated mutual-best Hamming match
-in one batch; chains are merged by pointer jumping on a (C, N) parent
-table (lowest camera wins); groups are compacted to max_out slots by a
-stable priority sort (more rays first, then response).
+and their matches make a (C, N) parent table (lowest camera wins), in
+one kernel call on the card (frontend/intra_cuda.intra_pairs); chains
+are merged by pointer jumping on the parent table; groups are compacted
+to max_out slots by a stable priority sort (more rays first, then
+response).
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from mcslam_tpu_torch.frontend import intra_cuda
 from mcslam_tpu_torch.geometry import lie
-from mcslam_tpu_torch.ops import hamming, match
 from mcslam_tpu_torch.ops.topk_grid import topk_stable
 from mcslam_tpu_torch.utils import graphs
 
@@ -54,11 +56,7 @@ def intra_match(desc: torch.Tensor, xy_ud: torch.Tensor, valid: torch.Tensor,
     f = rig.fxycxy[:, None, :]
     xn = (xy_ud - f[..., 2:]) / f[..., :2]
     thr_n = sampson_px / torch.mean(rig.fxycxy[:, 0])
-    planes = hamming.to_planes(desc.reshape(C * N, 8)).reshape(C, N, -1)
-    flat_self = torch.arange(C * N, dtype=torch.int32, device=dev).reshape(C, N)
-
-    pair_i = [i for i in range(C - 1) for _ in range(i + 1, C)]
-    pair_j = [j for i in range(C - 1) for j in range(i + 1, C)]
+    pair_i, pair_j = intra_cuda.camera_pairs(C)
     if pair_i:
         E_all = torch.stack([pair_essential(rig, i, j)
                              for i, j in zip(pair_i, pair_j)])
@@ -66,34 +64,12 @@ def intra_match(desc: torch.Tensor, xy_ud: torch.Tensor, valid: torch.Tensor,
         # list index is a host upload)
         pi = graphs.values(tuple(pair_i), torch.int64, dev)
         pj = graphs.values(tuple(pair_j), torch.int64, dev)
-        d = hamming.hamming_from_planes(planes.index_select(0, pi),
-                                        planes.index_select(0, pj))
         gate = sampson_gate(xn.index_select(0, pi), xn.index_select(0, pj),
                             E_all, thr_n)
-        cands = []
-        for p, (i, j) in enumerate(zip(pair_i, pair_j)):
-            res = match.match_mutual(
-                d[p], row_mask=valid[i], col_mask=valid[j],
-                max_dist=max_dist, ratio=ratio, pair_mask=gate[p],
-            )
-            # cam-j feature -> flat index of its matched cam-i feature;
-            # mutual-best makes it 1-1 (lowest row on duplicates)
-            eq = res.ok[:, None] & (
-                res.idx[:, None] == torch.arange(N, device=dev)[None, :])
-            row = torch.argmax(eq.to(torch.uint8), dim=0)
-            cands.append(torch.where(
-                torch.any(eq, dim=0), flat_self[i][row],
-                torch.full_like(flat_self[i], C * N)))
-        rows = [flat_self[0]]
-        for j in range(1, C):
-            sel = [p for p in range(len(pair_i)) if pair_j[p] == j]
-            best = cands[sel[0]]
-            for p in sel[1:]:
-                best = torch.minimum(best, cands[p])
-            rows.append(torch.where(best < flat_self[j], best, flat_self[j]))
-        parent = torch.stack(rows)
+        parent = intra_cuda.intra_pairs(desc, valid, gate, max_dist, ratio)
     else:
-        parent = flat_self
+        parent = torch.arange(C * N, dtype=torch.int32,
+                              device=dev).reshape(C, N)
 
     flat_parent = parent.reshape(C * N).long()
     for _ in range(3):  # 2^3 = 8 >= C hops

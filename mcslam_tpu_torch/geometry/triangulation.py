@@ -2,18 +2,20 @@
 Gauss-Newton refine and chi2/cheirality gating (counterpart of
 mcslam_tpu/geometry/triangulation.py).
 
-triangulate_and_refine, the fused form the frame build uses, computes in
-the JAX package's transposed component form: every scalar component is
-an (R, M) tensor with the point axis minor. The separate steps
-(triangulate_rays, reprojection_residuals, refine_points_gn, chi2_gate,
-parallax_cosine) take (..., R, ...) tensors as the JAX functions do.
+triangulate_and_refine, the fused form the frame build uses, is one
+kernel launch on the card (geometry/triangulation_cuda.py); its plain
+version computes in the JAX package's transposed component form: every
+scalar component is an (R, M) tensor with the point axis minor. The
+separate steps (triangulate_rays, reprojection_residuals,
+refine_points_gn, chi2_gate, parallax_cosine) take (..., R, ...) tensors
+as the JAX functions do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mcslam_tpu_torch.geometry import lie, linalg3
+from mcslam_tpu_torch.geometry import lie, linalg3, triangulation_cuda
 from mcslam_tpu_torch.geometry.linalg3 import safe_det
 
 
@@ -150,7 +152,40 @@ def triangulate_and_refine(
     gn_iters: int = 5,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """world_T_cam (..., R, 4, 4); uv (..., R, 2) undistorted pixels;
-    fxycxy (..., R, 4); mask (..., R). -> (X (..., 3), ok (...,))."""
+    fxycxy (..., R, 4); mask (..., R). -> (X (..., 3), ok (...,)).
+
+    CUDA tensors launch the tri_refine kernel
+    (geometry/triangulation_cuda.py); CPU tensors take
+    triangulate_and_refine_reference, which the kernel equals bit for bit
+    on the card."""
+    if mask.device.type == "cpu":
+        return triangulate_and_refine_reference(
+            world_T_cam, uv, fxycxy, mask, sigma, chi2_thresh, min_z, max_z,
+            gn_iters)
+    if mask.device.type != "cuda":
+        raise ValueError(f"triangulate_and_refine: unsupported device "
+                         f"{mask.device}")
+    return triangulation_cuda.tri_refine(
+        world_T_cam, uv, fxycxy, mask, sigma, chi2_thresh, min_z, max_z,
+        gn_iters)
+
+
+def triangulate_and_refine_reference(
+    world_T_cam: torch.Tensor,
+    uv: torch.Tensor,
+    fxycxy: torch.Tensor,
+    mask: torch.Tensor,
+    sigma: torch.Tensor | float = 1.0,
+    chi2_thresh: float = 5.991,
+    min_z: float = 0.1,
+    max_z: float = 40.0,
+    gn_iters: int = 5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of triangulate_and_refine, in the JAX
+    package's transposed component form. Every component is made a
+    contiguous (R, M) tensor, so every sum over the rays is the same
+    reduction whatever the inputs' strides (on the card its order of adds
+    is what csrc/tri_refine.cu repeats)."""
     batch_shape = mask.shape[:-1]
     R = mask.shape[-1]
     M = 1
@@ -158,8 +193,8 @@ def triangulate_and_refine(
         M *= s
     f32 = torch.float32
 
-    def t2(x):  # (..., R) -> (R, M)
-        return x.reshape(M, R).transpose(0, 1).to(f32)
+    def t2(x):  # (..., R) -> contiguous (R, M)
+        return x.reshape(M, R).transpose(0, 1).to(f32).contiguous()
 
     T = [[t2(world_T_cam[..., i, j]) for j in range(4)] for i in range(3)]
     u = t2(uv[..., 0])

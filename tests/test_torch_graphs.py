@@ -308,8 +308,9 @@ def test_replay_launch_accounting(monkeypatch):
 
 def test_trace_counts_each_wrapper_once():
     """chip_smoke counts a replay's launches in the device trace: one
-    event per wrapper call (hamming_argmin2 by its merge kernel; other
-    kernels, copies and the trace's sentinels count nothing)."""
+    event per wrapper call (hamming_argmin2 by its merge kernel,
+    intra_pairs by its link kernel; other kernels, copies and the trace's
+    sentinels count nothing)."""
     import types
 
     import chip_smoke
@@ -319,11 +320,14 @@ def test_trace_counts_each_wrapper_once():
         "fast_select_kernel", "fast_select_kernel",
         "void hamming_tile_kernel<14>(unsigned int const*)",
         "hamming_merge_kernel", "pose_lm_cluster_kernel", "linearize_kernel",
+        "void (anonymous namespace)::tri_refine_kernel<4>(Args)",
+        "(anonymous namespace)::intra_rows_kernel(int const*)",
+        "(anonymous namespace)::intra_link_kernel(unsigned char const*)",
         "mc_set_cond_kernel", "Memcpy HtoD (Pinned -> Device)",
         "at::cuda::(anonymous namespace)::spin_kernel(long)")]
     assert chip_smoke.trace_counts(events) == dict(
         fast_select=2, patch_gather=1, hamming_argmin2=1, pose_lm=1,
-        ba_linearize=1)
+        ba_linearize=1, tri_refine=1, intra_pairs=1)
     assert chip_smoke.PATH == tuple(chip_smoke.TRACE_NAMES)
 
 
