@@ -300,9 +300,11 @@ import numpy as np
 # Tear CUPTI down at the end of every profiler trace. Left initialized
 # from one trace to the next (this torch's default), it crashed the
 # process: on an NVIDIA H100 under torch 2.11, phase 8's trace of the
-# graphed cold VIO solve with GPS (27943 nodes) hit a segmentation fault
-# in the graph's replay, in every run once the frame step's graphs had
-# shrunk to ~660 nodes; with the teardown the run passes. Set before
+# graphed cold VIO solve with GPS (27943 nodes, none of them tri_refine
+# or intra_pairs) hit a segmentation fault on the host in the graph's
+# replay, in every run once the frame step's graphs had shrunk to ~660
+# nodes; with the teardown every run passes. scripts/kernel_guard.py
+# finds no write of those two kernels outside their buffers. Set before
 # torch loads its profiler.
 os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
@@ -456,10 +458,10 @@ SGM_OPS = (4 * 3 + 3, 4 * 4)
 TRI_OPS = (80 + 5 * 100 + 30, 6 * 60)
 # operations of intra_pairs per (pair, row, column) cell: 8 xor, 8
 # popcounts, 7 adds, and the masks, the row's best / second / argmin and
-# the column's minimum (6 compare / select); the popcounts run at 16 per
-# SM per clock (CUDA C++ Programming Guide, compute capability 9.0)
+# the column's minimum (6 compare / select); counted at F32_OPS_PER_S as
+# hamming_argmin2's row counts the same cell (the function is an exact
+# +-1 product, which the tensor cores run faster still)
 INTRA_OPS = 29
-POPC_OPS_PER_S = SMS * 16 * SM_CLOCK_HZ  # ~4.2e12
 TRI_INTRA = ("tri_refine", "intra_pairs")
 # the graphed fast-path frame before the two kernels above: device ops
 # and device ms (NVIDIA H100 80GB HBM3, 700.00 W)
@@ -1336,8 +1338,7 @@ def geometry_kernels(scene, rng, dev, kernels):
         symbols=("intra_rows_kernel", "intra_link_kernel"), device_ops=2,
         # the gate, descriptors and validity read once; parent written once
         nbytes=cells + C * N * (32 + 1) + C * N * 4,
-        ops_s=max(INTRA_OPS * cells / ISSUE_OPS_PER_S,
-                  8 * cells / POPC_OPS_PER_S))
+        ops_s=f32_ops_s(INTRA_OPS * cells))
 
 
 def main() -> int:

@@ -86,10 +86,8 @@ SIGNATURES = {
     # chi2_thresh, min_z, max_z, stream
     "mc_tri_refine": [P] * 7 + [I] * 2 + [I] * 14 + [I] + [F] * 4 + [P],
     # desc, valid, gate, parent, rows (3 P N ints), colpart (P T N int64),
-    # C, N, max_dist, ratio, stream
-    "mc_intra_pairs": [P] * 6 + [I] * 3 + [F, P],
-    # N -> row tiles T of a call (colpart's middle dimension)
-    "mc_intra_pairs_tiles": [I],
+    # C, N, T, max_dist, ratio, stream
+    "mc_intra_pairs": [P] * 6 + [I] * 4 + [F, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

@@ -231,20 +231,16 @@ intra_link_kernel(const uint8_t* __restrict__ valid, const int* __restrict__ row
 
 }  // namespace
 
-// -> the row tiles of a call with N features per camera
-extern "C" int mc_intra_pairs_tiles(int N) { return (N + RT - 1) / RT; }
-
 // desc (C, N, 8) int32, valid (C, N) bool, gate (P, N, N) bool -> parent
 // (C, N) int32; rows (3, P, N) int32 and colpart (P, T, N) uint64 are the
-// caller's scratch
+// caller's scratch, T = ceil(N / RT) row tiles (checked)
 extern "C" int mc_intra_pairs(const void* desc, const void* valid,
                               const void* gate, void* parent, void* rows,
-                              void* colpart, int C, int N, int max_dist,
-                              float ratio, void* stream) {
-  if (C < 2 || N < 0) return cudaErrorInvalidValue;
+                              void* colpart, int C, int N, int T,
+                              int max_dist, float ratio, void* stream) {
+  if (C < 2 || N < 0 || T != (N + RT - 1) / RT) return cudaErrorInvalidValue;
   if (N == 0) return 0;
   const int P = C * (C - 1) / 2;
-  const int T = mc_intra_pairs_tiles(N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   intra_rows_kernel<<<dim3(T, P), THREADS, 0, s>>>(
       static_cast<const int*>(desc), static_cast<const uint8_t*>(valid),

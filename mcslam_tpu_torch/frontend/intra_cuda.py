@@ -20,6 +20,8 @@ from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import hamming, match
 from mcslam_tpu_torch.utils import graphs
 
+ROW_TILE = 32  # rows of a block's tile in csrc/intra_match.cu (RT)
+
 
 def camera_pairs(C: int) -> tuple[list[int], list[int]]:
     """The pairs (i, j), i < j, in the order (0, 1), (0, 2), ..., (C - 2,
@@ -98,15 +100,15 @@ def intra_pairs(desc: torch.Tensor, valid: torch.Tensor, gate: torch.Tensor,
             raise ValueError(f"intra_pairs: the kernel takes a contiguous "
                              f"{dtype} {name} on {dev}, got {x.dtype} on "
                              f"{x.device}, contiguous {x.is_contiguous()}")
-    lib = _build.library()
-    T = lib.mc_intra_pairs_tiles(N)
+    T = -(-N // ROW_TILE)
     parent = torch.empty(C, N, dtype=torch.int32, device=dev)
     rows = torch.empty(3, P, N, dtype=torch.int32, device=dev)
     colpart = torch.empty(P, T, N, dtype=torch.int64, device=dev)
+    lib = _build.library()
     _build.count("intra_pairs")
     _build.check(lib.mc_intra_pairs(
         desc.data_ptr(), valid.data_ptr(), gate.data_ptr(), parent.data_ptr(),
-        rows.data_ptr(), colpart.data_ptr(), C, N, int(max_dist),
+        rows.data_ptr(), colpart.data_ptr(), C, N, T, int(max_dist),
         float(ratio), _build.stream_ptr(dev),
     ), "mc_intra_pairs")
     return parent

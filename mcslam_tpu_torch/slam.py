@@ -409,13 +409,13 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         wTc = np.stack([np.broadcast_to(pose0, (M, 4, 4)),
                         np.broadcast_to(pose1, (M, 4, 4))], axis=1)
         X, tri_ok = _triangulate_pairs(
-            torch.as_tensor(wTc, dtype=torch.float32),
-            torch.as_tensor(np.stack([uv0, uv1], axis=1), dtype=torch.float32),
-            torch.as_tensor(np.broadcast_to(f0, (M, 2, 4)).copy()),
-            torch.as_tensor(np.repeat(inl[:, None], 2, axis=1)),
-            torch.ones(M, 2))
-        X = X.numpy()
-        good = tri_ok.numpy() & inl
+            self._to_device(wTc.astype(f32)),
+            self._to_device(np.stack([uv0, uv1], axis=1).astype(f32)),
+            self._to_device(np.broadcast_to(f0, (M, 2, 4))),
+            self._to_device(np.repeat(inl[:, None], 2, axis=1)),
+            torch.ones(M, 2, device=self.device))
+        X = X.cpu().numpy()
+        good = tri_ok.cpu().numpy() & inl
         if good.sum() < 50:
             self._mono_pending = (frame, timestamp, self.cur_pose.copy())
             return False
@@ -478,14 +478,16 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
         uv2 = frame.im_uv_ref.cpu().numpy()
         ref_T_cam = self.rig.ref_T_cam.cpu().numpy()
         wTc = np.stack([pose0 @ ref_T_cam[a1], pose1 @ ref_T_cam[a2]], axis=1)
+        f32 = np.float32
         X, tri_ok = _triangulate_pairs_far(
-            torch.as_tensor(wTc, dtype=torch.float32),
-            torch.as_tensor(np.stack([uv1, uv2], axis=1), dtype=torch.float32),
-            torch.as_tensor(np.stack([fmat[a1], fmat[a2]], axis=1)),
-            torch.as_tensor(np.repeat(inl[:, None], 2, axis=1)),
-            torch.ones(M, 2), cfg.min_z, cfg.init17_max_z)
-        X = X.numpy()
-        good = tri_ok.numpy() & inl
+            self._to_device(wTc.astype(f32)),
+            self._to_device(np.stack([uv1, uv2], axis=1).astype(f32)),
+            self._to_device(np.stack([fmat[a1], fmat[a2]], axis=1)),
+            self._to_device(np.repeat(inl[:, None], 2, axis=1)),
+            torch.ones(M, 2, device=self.device), cfg.min_z,
+            cfg.init17_max_z)
+        X = X.cpu().numpy()
+        good = tri_ok.cpu().numpy() & inl
         if good.sum() < cfg.init17_min_landmarks:
             self._pending17 = (frame, timestamp, self.cur_pose.copy())
             return False
@@ -635,18 +637,18 @@ class MultiCameraSLAM(LoopClosingMixin, WindowBAMixin, SensorsMixin):
                 wTc = np.stack([prev_kf.world_T_ref @ ref_T_cam[a0],
                                 pose @ ref_T_cam[a1]], axis=1)
                 fmat = self.rig.fxycxy.cpu().numpy()
-                f32 = torch.float32
+                f32 = np.float32
                 X, tri_ok = _triangulate_pairs(
-                    torch.as_tensor(wTc, dtype=f32),
-                    torch.as_tensor(np.stack(
-                        [prev_kf.im_uv[m_idx], kf.im_uv], axis=1), dtype=f32),
-                    torch.as_tensor(np.stack([fmat[a0], fmat[a1]], axis=1)),
-                    torch.as_tensor(np.repeat(cand[:, None], 2, axis=1)),
-                    torch.ones(M, 2))
-                good = tri_ok.numpy() & cand
+                    self._to_device(wTc.astype(f32)),
+                    self._to_device(np.stack(
+                        [prev_kf.im_uv[m_idx], kf.im_uv], axis=1).astype(f32)),
+                    self._to_device(np.stack([fmat[a0], fmat[a1]], axis=1)),
+                    self._to_device(np.repeat(cand[:, None], 2, axis=1)),
+                    torch.ones(M, 2, device=self.device))
+                good = tri_ok.cpu().numpy() & cand
                 if good.sum() > 0:
                     gsel = np.nonzero(good)[0]
-                    Xg = X.numpy()[gsel]
+                    Xg = X.cpu().numpy()[gsel]
                     ids = self._map_insert(Xg, kf.im_desc[gsel],
                                            _unit_rows(Xg - pose[:3, 3]),
                                            kf.kf_id)
