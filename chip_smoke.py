@@ -11,7 +11,7 @@ Phases, each of which raises (non-zero exit) on failure:
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
      kernel, the oriented patch gather, the SGM tile kernel at D = 64,
-     tri_refine at R = 2, 4 and 8 and intra_pairs' two kernels must use
+     tri_refine at R = 2, 4 and 8 and intra_pairs' one kernel must use
      no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
@@ -31,10 +31,12 @@ Phases, each of which raises (non-zero exit) on failure:
      53, D = 128, 96 x 64 and D = 33, 128 x 72 (bitwise equal to its plain
      version and across two runs), tri_refine at the bench frame's
      recorded groups (M = 2048, R = 4, the pose table expanded), at a
-     random keyframe-pair problem (M = 2048, R = 2) and at M = 37, R = 5,
-     and intra_pairs at the bench frame's recorded descriptors and
-     Sampson gate (C = 4, N = 768) and at random C = 2, 3 and 5 ones
-     (bitwise equal to their plain versions and across two runs); track
+     random keyframe-pair problem (M = 2048, R = 2), at M = 37, R = 5 and
+     at M = 2048, R = 8, and intra_pairs at the bench frame's recorded
+     descriptors and Sampson gate (C = 4, N = 768) and at random C = 2, 3
+     and 5 ones (bitwise equal to their plain versions and across two
+     runs; the bench frame's call also captured in a CUDA graph and
+     replayed twice, its arrival counters back at zero after each); track
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -226,8 +228,11 @@ Phases, each of which raises (non-zero exit) on failure:
      and the least time the card could take for the work (bytes at 3.35
      TB/s or operations, the larger: at 67 TFLOP/s, or for the FAST rows
      by instruction class, counting the arc trees only where this run's
-     data passes the compass pre-test),
-     the pose LM at B = 2 and at B = 1 (the record's "at_b1"), fast_select
+     data passes the compass pre-test, and for the two Hamming rows the
+     +-1 product at the int8 tensor-core rate against the epilogue by
+     class),
+     the pose LM at B = 2 and at B = 1, tri_refine at M = 2048 with R = 2
+     and R = 8 (each record's "at", by shape), fast_select
      on uniform noise (the record's "on_noise"), ba_linearize's wrapper the
      solve's prepared call (one device op per call, checked);
      the warm and cold window solves (CUDA events, plus device time and
@@ -251,8 +256,9 @@ Phases, each of which raises (non-zero exit) on failure:
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
      the device time of the IF node's condition kernel beside its bytes
-     bound (COND_BYTES), and beside the frame before tri_refine and
-     intra_pairs (FRAME_BEFORE; the frame build's stages apart:
+     bound (COND_BYTES), and beside the frame with tri_refine and
+     intra_pairs as first written (FRAME_BEFORE; the frame build's
+     stages apart:
      scripts/frame_stage_split.py); the stage C window solve warm and
      cold, eager and through the session's graphed solve
      (driver_window._replay_solve) on its side stream:
@@ -302,10 +308,13 @@ import numpy as np
 # process: on an NVIDIA H100 under torch 2.11, phase 8's trace of the
 # graphed cold VIO solve with GPS (27943 nodes, none of them tri_refine
 # or intra_pairs) hit a segmentation fault on the host in the graph's
-# replay, in every run once the frame step's graphs had shrunk to ~660
-# nodes; with the teardown every run passes. scripts/kernel_guard.py
-# finds no write of those two kernels outside their buffers. Set before
-# torch loads its profiler.
+# replay, in every run with tri_refine and intra_pairs as first written
+# (one thread per point; two launches); with the teardown every run
+# passes. With their redesigns three runs without the teardown passed,
+# the cause still unknown, so it stays. scripts/kernel_guard.py finds no
+# write of those two kernels outside their buffers;
+# scripts/segv_backtrace.c prints the native frames of such a crash. Set
+# before torch loads its profiler.
 os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 
@@ -409,10 +418,10 @@ STEREO_D, STEREO_YAW, STEREO_SHARE, STEREO_REL = 64, 3.0, 0.99, 1e-4
 FUSE_KFS = (0, 8, 16)
 
 # The least time of a kernel's work: bytes over the H100 SXM's 3.35 TB/s,
-# and the time of its operations. The six rows other than FAST count
-# operations at 67 TFLOP/s float32 outside the tensor cores (each scalar
-# operation counted as one; the published peak counts an FMA as two), so
-# they compare with earlier runs.
+# and the time of its operations. The rows other than FAST, SGM and the
+# two Hamming rows count operations at 67 TFLOP/s float32 outside the
+# tensor cores (each scalar operation counted as one; the published peak
+# counts an FMA as two), so they compare with earlier runs.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # The FAST rows count by instruction class, at the throughputs of the CUDA
@@ -439,8 +448,20 @@ FAST_OPS = {"one": (12, 81), "both": (12, 161)}
 NMS_OPS = (0, 11)  # 8 max + 2 compares + select
 BLUR_OPS = (26, 0)  # 2 passes x (7 multiplies + 6 adds)
 SEL_OPS = (0, 12)  # true-bounds mask + rank bonus + 4 argmax rounds
-HAMMING_OPS = 29  # per pair: 8 xor + 8 popcount + 7 adds + 6 compare/select,
-#                   plus 2 per gate factor (the gate's dot product)
+# The two Hamming rows (hamming_argmin2, intra_pairs) count by instruction
+# class too: the distance is an exact +-1 product of the descriptors' bit
+# planes, PM1_OPS int8 operations per pair (256 multiply-adds) at the
+# dense int8 tensor-core rate; the rest is the epilogue, in integer
+# operations at the compare-class rate and, for the matcher's gate, f32
+# multiply-adds at the issue rate. The tensor cores and the other pipes
+# overlap, so a row takes the longer of the two (pm1_ops_s).
+INT8_OPS_PER_S = 1979e12
+PM1_OPS = 2 * 256
+# hamming_argmin2 per pair: the distance from the product (subtract,
+# shift), the gate's compare and the code's select, the row's key and its
+# best / second (or, min, max, min); with the column argmin the column's
+# key and minimum (2 more); and one f32 multiply-add per gate factor
+HAMMING_INT_OPS = (8, 2)
 POSE_OPS = 260  # per observation and LM iteration: projection through rig
 #                 and camera, residual, Huber weight, 2x6 Jacobian, the
 #                 JtJ / Jtr sums, and the trial step's cost
@@ -456,16 +477,15 @@ SGM_OPS = (4 * 3 + 3, 4 * 4)
 # (projection, residual, Jacobian, JtJ / Jtr: ~100) and of the gate (~30);
 # per point the 6 cofactor solves (~60 each)
 TRI_OPS = (80 + 5 * 100 + 30, 6 * 60)
-# operations of intra_pairs per (pair, row, column) cell: 8 xor, 8
-# popcounts, 7 adds, and the masks, the row's best / second / argmin and
-# the column's minimum (6 compare / select); counted at F32_OPS_PER_S as
-# hamming_argmin2's row counts the same cell (the function is an exact
-# +-1 product, which the tensor cores run faster still)
-INTRA_OPS = 29
+# intra_pairs per (pair, row, column) cell: the distance from the product
+# (2), the gate and the two validities and the code's select (3), the row's
+# key and its best / second (4), the column's key and minimum (2)
+INTRA_INT_OPS = 11
 TRI_INTRA = ("tri_refine", "intra_pairs")
-# the graphed fast-path frame before the two kernels above: device ops
-# and device ms (NVIDIA H100 80GB HBM3, 700.00 W)
-FRAME_BEFORE = (2041, 4.107)
+# the graphed fast-path frame with the two kernels above as first written
+# (one thread per point; two launches): device ops and device ms (NVIDIA
+# H100 80GB HBM3, 700.00 W)
+FRAME_BEFORE = (664, 1.861)
 # bytes the graphs' condition kernel moves: it reads the 1-byte predicate
 # and the 8-byte conditional handle and writes the 4-byte condition
 COND_BYTES = 1 + 8 + 4
@@ -494,14 +514,13 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "tri_refine_kernel<2>": "tri_refine_kernelILi2E",
               "tri_refine_kernel<4>": "tri_refine_kernelILi4E",
               "tri_refine_kernel<8>": "tri_refine_kernelILi8E",
-              "intra_rows_kernel": "intra_rows_kernel",
-              "intra_link_kernel": "intra_link_kernel"}
+              "intra_pairs_kernel": "intra_pairs_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
             "linearize_kernel", "patch_oriented_kernel", "sgm_tile_kernel<2>",
             "tri_refine_kernel<2>", "tri_refine_kernel<4>",
-            "tri_refine_kernel<8>", "intra_rows_kernel", "intra_link_kernel")
+            "tri_refine_kernel<8>", "intra_pairs_kernel")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -577,6 +596,13 @@ def class_ops_s(add_ops: float, cmp_ops: float) -> float:
     """Seconds of add_ops f32 add / multiply and cmp_ops compare-class
     operations: the issue of both against the compare pipe alone."""
     return max((add_ops + cmp_ops) / ISSUE_OPS_PER_S, cmp_ops / CMP_OPS_PER_S)
+
+
+def pm1_ops_s(cells: float, add_ops: float, int_ops: float) -> float:
+    """Seconds of a Hamming kernel's operations: the +-1 products of
+    `cells` pairs on the tensor cores against the epilogue's add_ops f32
+    and int_ops integer operations (class_ops_s)."""
+    return max(cells * PM1_OPS / INT8_OPS_PER_S, class_ops_s(add_ops, int_ops))
 
 
 def live_pixels(heights, skip_offset=0) -> int:
@@ -1009,7 +1035,7 @@ def solver_kernels(scene, rng, dev, kernels):
     from mcslam_tpu_torch.ops import ba_cuda, match_cuda
 
     ham_errs, ham_calls = [], []
-    ham_bytes = ham_ops = 0
+    ham_bytes = ham_pairs = ham_add = ham_int = 0
     for (M, N, thr, want_cols) in ((MAXI, MAXI, 100.0, True),
                                    (MAXI, LML, 18.0, False)):
         args = _match_problem(rng, M, N, thr, want_cols, dev)
@@ -1026,7 +1052,10 @@ def solver_kernels(scene, rng, dev, kernels):
         ham_calls.append(args)
         ham_bytes += sum(a.nbytes for a in args[:4]) + 12 * M + (
             8 * N if want_cols else 0)
-        ham_ops += M * N * (HAMMING_OPS + 2 * args[2].shape[1])
+        ham_pairs += M * N
+        ham_add += M * N * args[2].shape[1]
+        ham_int += M * N * (HAMMING_INT_OPS[0]
+                            + (HAMMING_INT_OPS[1] if want_cols else 0))
         print(f"# kernel hamming_argmin2 {M}x{N} want_cols={want_cols}: "
               f"indices and distances exact on {int((~rows).sum())}/{M} rows "
               f"away from the gate boundary, max abs err {err:.3g}; bitwise "
@@ -1039,7 +1068,7 @@ def solver_kernels(scene, rng, dev, kernels):
         plain=lambda: [match_cuda.hamming_argmin2_reference(*a)
                        for a in ham_calls],
         symbols=("hamming_tile_kernel", "hamming_merge_kernel"),
-        nbytes=ham_bytes, ops_s=f32_ops_s(ham_ops))
+        nbytes=ham_bytes, ops_s=pm1_ops_s(ham_pairs, ham_add, ham_int))
 
     # B = 2 (the portfolio's refine, the shape timed first) is the table's
     # entry; B = 1 (the fast path's two refines per frame) rides along
@@ -1075,7 +1104,7 @@ def solver_kernels(scene, rng, dev, kernels):
     kernels["pose_lm"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/pose_lm.cu",
         replaces="mcslam_tpu/frontend/pose_opt_pallas.py:262",
-        at_b1=pose[1], **pose[2])
+        at={"B=1": pose[1]}, **pose[2])
 
     lin_args = ba.linearize_inputs(ba.problem_from_numpy(
         **synthetic.random_window_ba_problem(scene.rig)))
@@ -1271,11 +1300,13 @@ def geometry_kernels(scene, rng, dev, kernels):
     frame_tri = (a, kw)
     pair = tri_problem(rng, 2048, 2, dev)
     odd = tri_problem(rng, 37, 5, dev)
+    wide = tri_problem(rng, 2048, 8, dev)
     cases = [(f"M={a[3].shape[0]} R={C} (bench frame 0, expanded poses)",
               a, kw),
              ("M=2048 R=2 (keyframe pairs, random)", pair[0],
               dict(sigma=pair[1], min_z=0.1, max_z=100.0)),
-             ("M=37 R=5 (random)", odd[0], dict(sigma=odd[1]))]
+             ("M=37 R=5 (random)", odd[0], dict(sigma=odd[1])),
+             ("M=2048 R=8 (random)", wide[0], dict(sigma=wide[1]))]
     for name, a, kw in cases:
         k1 = triangulation_cuda.tri_refine(*a, **kw)
         k2 = triangulation_cuda.tri_refine(*a, **kw)
@@ -1291,19 +1322,28 @@ def geometry_kernels(scene, rng, dev, kernels):
         print(f"# kernel tri_refine {name}: X and ok bitwise equal to the "
               f"plain version and across two runs ({int(ref[1].sum())} "
               f"points ok)")
+    def tri_record(a, kw, distinct_poses):
+        M, R = a[3].shape
+        return dict(
+            fn=lambda a=a, kw=kw: triangulation_cuda.tri_refine(*a, **kw),
+            plain=lambda a=a, kw=kw:
+                triangulation.triangulate_and_refine_reference(*a, **kw),
+            symbols=("tri_refine_kernel",), device_ops=1,
+            # the distinct poses and intrinsics, pixels, mask and sigma
+            # read once; X and ok written once
+            nbytes=distinct_poses * (64 + 16) + M * R * (8 + 1 + 4)
+            + M * (12 + 1),
+            ops_s=f32_ops_s(M * (R * TRI_OPS[0] + TRI_OPS[1])))
+
     a, kw = frame_tri
-    M = a[3].shape[0]
+    # the frame's row, and the keyframe pairs' R = 2 and the widest R = 8
+    # (per-point poses) timed beside it
     kernels["tri_refine"] = dict(
         route="cuda", source="mcslam_tpu_torch/csrc/tri_refine.cu",
         replaces="mcslam_tpu/geometry/triangulation.py:194", max_abs_err=0.0,
-        fn=lambda a=a, kw=kw: triangulation_cuda.tri_refine(*a, **kw),
-        plain=lambda a=a, kw=kw: triangulation.triangulate_and_refine_reference(
-            *a, **kw),
-        symbols=("tri_refine_kernel",), device_ops=1,
-        # the C distinct poses and intrinsics, pixels, mask and sigma read
-        # once; X and ok written once
-        nbytes=C * (64 + 16) + M * C * (8 + 1 + 4) + M * (12 + 1),
-        ops_s=f32_ops_s(M * (C * TRI_OPS[0] + TRI_OPS[1])))
+        at={"M=2048 R=2": tri_record(*cases[1][1:], 2 * 2048),
+            "M=2048 R=8": tri_record(*cases[3][1:], 8 * 2048)},
+        **tri_record(a, kw, C))
 
     a, kw = seen["intra_pairs"]
     desc, valid, gate = a[:3]
@@ -1326,6 +1366,30 @@ def geometry_kernels(scene, rng, dev, kernels):
         print(f"# kernel intra_pairs {name}: parent bitwise equal to the "
               f"plain version and across two runs ({linked} of "
               f"{ref.numel()} features linked to a lower camera's)")
+    # the one launch captured in a CUDA graph: two replays equal to the
+    # plain version, the arrival counters back at zero after each
+    ref = intra_cuda.intra_pairs_reference(desc, valid, gate, **ik)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        intra_cuda.intra_pairs(desc, valid, gate, **ik)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = intra_cuda.intra_pairs(desc, valid, gate, **ik)
+    for k in range(2):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"intra_pairs: graph replay {k} differs "
+              f"from the plain version")
+        check(int(intra_cuda.counters(dev).abs().sum()) == 0,
+              f"intra_pairs: counters not zero after graph replay {k}")
+    print("# kernel intra_pairs bench frame 0 in a CUDA graph: two replays "
+          "bitwise equal to the plain version, the arrival counters back at "
+          "zero after each")
+    del graph
+
     N = desc.shape[1]
     P = C * (C - 1) // 2
     cells = P * N * N
@@ -1335,10 +1399,10 @@ def geometry_kernels(scene, rng, dev, kernels):
         fn=lambda: intra_cuda.intra_pairs(desc, valid, gate, **ik),
         plain=lambda: intra_cuda.intra_pairs_reference(desc, valid, gate,
                                                        **ik),
-        symbols=("intra_rows_kernel", "intra_link_kernel"), device_ops=2,
+        symbols=("intra_pairs_kernel",), device_ops=1,
         # the gate, descriptors and validity read once; parent written once
         nbytes=cells + C * N * (32 + 1) + C * N * 4,
-        ops_s=f32_ops_s(INTRA_OPS * cells))
+        ops_s=pm1_ops_s(cells, 0, INTRA_INT_OPS * cells))
 
 
 def main() -> int:
@@ -1554,8 +1618,8 @@ def main() -> int:
     # ---- phase 8: timing ----
     for n, k in kernels.items():
         time_kernel(n, k, smi)
-        if "at_b1" in k:
-            time_kernel(f"{n} B=1", k["at_b1"], smi)
+        for label, rec in k.get("at", {}).items():
+            time_kernel(f"{n} {label}", rec, smi)
         if "on_noise" in k:
             time_kernel(f"{n} on uniform noise", k["on_noise"], smi)
     for name, iters in BA_ITERS:
@@ -4240,7 +4304,7 @@ TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "pose_lm": "pose_lm_cluster_kernel",
                "ba_linearize": "linearize_kernel",
                "tri_refine": "tri_refine_kernel",
-               "intra_pairs": "intra_link_kernel"}
+               "intra_pairs": "intra_pairs_kernel"}
 PATH = tuple(TRACE_NAMES)
 # degrees of yaw tried, in order, for a prediction off the fast path (on
 # an NVIDIA H100 the first that takes frame 2 off it is 18)
@@ -4482,9 +4546,9 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                  f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
                  f"predicate and 8-byte handle read, the 4-byte condition "
                  f"written)" if cond else "")
-              + (f"; before tri_refine and intra_pairs {FRAME_BEFORE[0]} "
-                 f"device ops, {FRAME_BEFORE[1]:.3f} ms (NVIDIA H100 80GB "
-                 f"HBM3, 700.00 W)" if cond else "")
+              + (f"; with tri_refine and intra_pairs as first written "
+                 f"{FRAME_BEFORE[0]} device ops, {FRAME_BEFORE[1]:.3f} ms "
+                 f"(NVIDIA H100 80GB HBM3, 700.00 W)" if cond else "")
               + f" ({smi})")
     print(f"# graph capture of the fused frame step: {prog.capture_ms:.1f} ms "
           f"host; warm-up launches {dict(prog.warmup)}")

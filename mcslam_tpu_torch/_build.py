@@ -42,6 +42,7 @@ SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 # C signature of every exported launcher: (argtypes); restype is int.
@@ -85,9 +86,10 @@ SIGNATURES = {
     # strides (wTc 4, uv 3, f 3, mask 2, sigma 2), gn_iters, sigma scalar,
     # chi2_thresh, min_z, max_z, stream
     "mc_tri_refine": [P] * 7 + [I] * 2 + [I] * 14 + [I] + [F] * 4 + [P],
-    # desc, valid, gate, parent, rows (3 P N ints), colpart (P T N int64),
-    # C, N, T, max_dist, ratio, stream
-    "mc_intra_pairs": [P] * 6 + [I] * 4 + [F, P],
+    # desc, valid, gate, parent, scratch (P N (3 T + 1) ints), counters
+    # (P + C ints, zero), C, N, T, scratch ints, counter ints, max_dist,
+    # ratio, stream
+    "mc_intra_pairs": [P] * 6 + [I] * 3 + [L, I, I, F, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

@@ -28,7 +28,8 @@
 //    registers (taller blocks unpack each column for more rows). The
 //    descriptor bit behind each k slot is the same for A and B (thread
 //    t of a quad holds words 2t, 2t+1; step s their byte s), which is all
-//    the product needs;
+//    the product needs (the planes and fragments: pm1_mma.cuh, shared
+//    with intra_match.cu);
 //  - every global load of a block is issued first (half a staged column
 //    per thread, the thread's two rows), then the planes are unpacked;
 //  - the epilogue works on the accumulator registers: the gate as an f32
@@ -52,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pm1_mma.cuh"
 
 namespace {
 
@@ -78,25 +81,6 @@ __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 __device__ __forceinline__ bool lex_less(float v1, int i1, float v2, int i2) {
   return (v1 < v2) || (v1 == v2 && i1 < i2);
-}
-
-// 4 descriptor bits -> 4 bytes of +-1 (bit i -> byte i: 1 -> +1, 0 -> -1)
-__device__ __forceinline__ uint32_t pm1(uint32_t nib) {
-  const uint32_t ones = (nib * 0x00204081u) & 0x01010101u;
-  return ~(ones * 0xFEu);
-}
-
-// byte offset of 16-byte chunk q (0..15) of column c's 256-byte plane
-__device__ __forceinline__ int chunk_off(int c, int q) {
-  return c * 256 + ((q ^ (((q >> 3) & 1) << 1) ^ (c & 1)) << 4);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // merge of two (best, idx, second) states; first index wins ties
@@ -175,28 +159,14 @@ __global__ void __launch_bounds__(THREADS) hamming_tile_kernel(
 
   // the column's +-1 planes and gate factors into shared memory
   {
-#pragma unroll
-    for (int i = 0; i < 16 / PER; ++i) {
-      const uint32_t x = (w[i >> 1] >> (16 * (i & 1))) & 0xFFFFu;
-      *reinterpret_cast<uint4*>(s_bp + chunk_off(cs, part * (16 / PER) + i)) =
-          make_uint4(pm1(x & 0xF), pm1((x >> 4) & 0xF), pm1((x >> 8) & 0xF),
-                     pm1(x >> 12));
-    }
+    pm1::stage_column(s_bp, cs, part, w);
 #pragma unroll
     for (int i = 0; i < DGP / PER; ++i)
       s_bh[cs >> 1][2 * (PER * i + part) + (cs & 1)] = bc[i];
   }
   // the rows' A fragments
   uint32_t af[8][4];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    const uint32_t bg = ((s < 4 ? xg.x : xg.y) >> (8 * (s & 3))) & 0xFFu;
-    const uint32_t b8 = ((s < 4 ? x8.x : x8.y) >> (8 * (s & 3))) & 0xFFu;
-    af[s][0] = pm1(bg & 0xF);
-    af[s][1] = pm1(b8 & 0xF);
-    af[s][2] = pm1(bg >> 4);
-    af[s][3] = pm1(b8 >> 4);
-  }
+  pm1::a_fragments(xg, x8, af);
   __syncthreads();
 
   // row keys: code << COL_BITS | local column; column keys: code <<
@@ -206,17 +176,10 @@ __global__ void __launch_bounds__(THREADS) hamming_tile_kernel(
   uint32_t bk_g = NOKEY, sk_g = NOKEY, bk_8 = NOKEY, sk_8 = NOKEY;
 #pragma unroll 2
   for (int jt = 0; jt < TN / 8; ++jt) {
-    // distances of rows (g, g + 8) x columns (2t, 2t + 1) of this n8 tile:
-    // two accumulator chains (even and odd k steps), summed exactly
-    int acc0[4] = {0, 0, 0, 0}, acc1[4] = {0, 0, 0, 0};
-    const int cB = jt * 8 + g;
-#pragma unroll
-    for (int sp = 0; sp < 4; ++sp) {
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          s_bp + chunk_off(cB, 4 * t + sp));
-      mma_s8(acc0, af[2 * sp], v.x, v.y);
-      mma_s8(acc1, af[2 * sp + 1], v.z, v.w);
-    }
+    // +-1 products of rows (g, g + 8) x columns (2t, 2t + 1) of this n8
+    // tile
+    int dot[4];
+    pm1::tile_dot(s_bp, jt, g, t, af, dot);
     // the gate: an f32 FMA chain per pair, factors in order (the padding
     // factors are zero on both sides: exact)
     const float4* bh = reinterpret_cast<const float4*>(&s_bh[jt * 4 + t][0]);
@@ -235,10 +198,10 @@ __global__ void __launch_bounds__(THREADS) hamming_tile_kernel(
     }
     const uint32_t jl = jt * 8 + 2 * t;  // local column of acc[0] / acc[2]
     const bool ok0 = col0 + (int)jl < N, ok1 = col0 + (int)jl + 1 < N;
-    const uint32_t v00 = d00 < thr2 ? (256 - acc0[0] - acc1[0]) >> 1 : GATED;
-    const uint32_t v01 = d01 < thr2 ? (256 - acc0[1] - acc1[1]) >> 1 : GATED;
-    const uint32_t v10 = d10 < thr2 ? (256 - acc0[2] - acc1[2]) >> 1 : GATED;
-    const uint32_t v11 = d11 < thr2 ? (256 - acc0[3] - acc1[3]) >> 1 : GATED;
+    const uint32_t v00 = d00 < thr2 ? (256 - dot[0]) >> 1 : GATED;
+    const uint32_t v01 = d01 < thr2 ? (256 - dot[1]) >> 1 : GATED;
+    const uint32_t v10 = d10 < thr2 ? (256 - dot[2]) >> 1 : GATED;
+    const uint32_t v11 = d11 < thr2 ? (256 - dot[3]) >> 1 : GATED;
     key_push(ok0 ? v00 << COL_BITS | jl : NOKEY, bk_g, sk_g);
     key_push(ok1 ? v01 << COL_BITS | (jl + 1) : NOKEY, bk_g, sk_g);
     key_push(ok0 ? v10 << COL_BITS | jl : NOKEY, bk_8, sk_8);

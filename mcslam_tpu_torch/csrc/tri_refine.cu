@@ -1,5 +1,5 @@
-// Multi-view triangulation with its Gauss-Newton refine and gate, one
-// thread per point.
+// Multi-view triangulation with its Gauss-Newton refine and gate, four
+// lanes per point, one ray each.
 //
 // Replaces: the TPU-shaped fused triangulation of the frame build,
 // mcslam_tpu/geometry/triangulation.py triangulate_and_refine (:194; the
@@ -38,26 +38,35 @@
 // R = 4) a call reads ~M R (2 + 1 + 1) floats and bytes plus the C poses
 // and intrinsics, and writes M (12 + 1) bytes, ~0.1 MB: tens of
 // nanoseconds of HBM time; its ~5.7 M float32 operations (~2800 a point)
-// are ~0.09 us at 67 TFLOP/s. What a call costs is one thread's chain of
-// dependent steps (seven passes over its rays, a solve per pass but the
-// last), so the design runs that chain once per point, in registers:
-//  - one thread per point, 64 threads a block, so the frame's 2048 points
-//    spread over 32 SMs with one warp on each;
-//  - no shared memory, no atomics, no second pass: the sums over the rays
-//    are a thread's own, streamed ray by ray into the four accumulators;
-//  - each input is read through its element strides, so the frame's
-//    world_T_cam, an expand of C poses to (M, C, 4, 4), is read as the C
-//    poses (stride 0 over the points) with no copy; the pose and
-//    intrinsics of a ray are re-read from the cache in every pass; up to
-//    R = 4 the rays are unrolled, beyond a loop takes one at a time (no
-//    local memory at any R).
+// are ~0.09 us at 67 TFLOP/s. What a call costs is the chain of dependent
+// steps of a point (seven passes over its rays, a solve per pass but the
+// last) and how few warps run it: one thread per point put the frame's
+// 2048 points on 32 SMs, one warp each, each thread walking four rays per
+// pass. The design spreads a point over a quad of lanes:
+//  - lane k of a point's quad takes rays k, k + 4 (r < R): accumulator
+//    r % 4 of the plain order is lane k's own, added in the same order,
+//    and a lane without a ray keeps the 0.0f the accumulator starts with;
+//  - the fold ((a0 + a1) + a2) + a3 is four width-4 __shfl_sync reads
+//    taken in that order, on every lane of the quad, so every lane holds
+//    the same A, b, H and g; the 3x3 solves then run on all four lanes
+//    from the same inputs to the same results, with no broadcast and no
+//    divergence; the counts of valid and passing rays are integer sums
+//    over the quad (__shfl_xor_sync);
+//  - 64 threads a block: the frame's 2048 points are 8192 threads, 256
+//    warps, one block on each of 128 SMs; a lane holds one ray (two at R
+//    = 5-8) in registers for all seven passes, loaded once, every input
+//    read through its element strides (the frame's world_T_cam, an expand
+//    of C poses to (M, C, 4, 4), is read as the C poses: stride 0 over the
+//    points, no copy); no shared memory, no atomics, no local memory at
+//    any R.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int THREADS = 64;  // 16 points a block
+constexpr int LANES = 4;  // lanes per point, one accumulator each
 constexpr int MAX_R = 8;
 
 struct Args {
@@ -92,36 +101,21 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
 }
 
 // torch.sum(x, dim=0) over a contiguous (R, M) float32 array on the card:
-// ray r into accumulator r % 4 (first as 0 + x), then ((a0 + a1) + a2) + a3
-struct RaySum {
-  float a[4];
-  __device__ __forceinline__ RaySum() { a[0] = a[1] = a[2] = a[3] = 0.0f; }
-  // k = r % 4; a constant in the unrolled bodies of R <= 4, a select of
-  // the four registers in the loop of R > 4 (no indexed local array)
-  __device__ __forceinline__ void put(int k, float x) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (i == k) a[i] = add(a[i], x);
-  }
-  __device__ __forceinline__ float total() const {
-    return add(add(add(a[0], a[1]), a[2]), a[3]);
-  }
-};
+// ray r into accumulator r % 4 (first as 0 + x), then ((a0 + a1) + a2) + a3.
+// Lane k of the point's quad holds accumulator k; every lane reads the
+// four in order and folds them alike.
+__device__ __forceinline__ float fold(float a, unsigned mask) {
+  const float a0 = __shfl_sync(mask, a, 0, LANES);
+  const float a1 = __shfl_sync(mask, a, 1, LANES);
+  const float a2 = __shfl_sync(mask, a, 2, LANES);
+  const float a3 = __shfl_sync(mask, a, 3, LANES);
+  return add(add(add(a0, a1), a2), a3);
+}
 
-// f(r, r % 4) for the rays r = 0..R-1 in order. Up to 4 rays the body is
-// unrolled (the rays' loads and arithmetic overlap); beyond, a loop that is
-// not unrolled takes one ray at a time, so R = 5-8 hold one ray in
-// registers (fully unrolled, the compiler issued every ray's loads first
-// and R >= 5 spilled at 255 registers)
-template <int R, typename F>
-__device__ __forceinline__ void for_rays(F&& f) {
-  if constexpr (R <= 4) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) f(r, r);
-  } else {
-#pragma unroll 1
-    for (int r = 0; r < R; ++r) f(r, r & 3);
-  }
+// an integer sum over the quad
+__device__ __forceinline__ int quad_sum(int n, unsigned mask) {
+  n += __shfl_xor_sync(mask, n, 1, LANES);
+  return n + __shfl_xor_sync(mask, n, 2, LANES);
 }
 
 // One ray's pose (rows 0-2 of world_T_cam), pixel, intrinsics and mask.
@@ -204,46 +198,68 @@ __device__ constexpr int uj(int e) { return e < 3 ? e : (e < 5 ? e - 2 : 2); }
 
 template <int R>
 __global__ void __launch_bounds__(THREADS) tri_refine_kernel(const Args a) {
-  const int p = blockIdx.x * THREADS + threadIdx.x;
+  constexpr int NJ = (R + LANES - 1) / LANES;  // rays a lane takes, at most
+  const int tid = blockIdx.x * THREADS + threadIdx.x;
+  const int p = tid / LANES, k = tid % LANES;
+  // the quads of points past M leave; the others' shuffles name them
+  const unsigned mask = __ballot_sync(0xffffffffu, p < a.M);
   if (p >= a.M) return;
 
+  // lane k's rays k + LANES j, loaded once
+  Ray ray[NJ];
+  bool has[NJ];
+  float sig[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int r = k + LANES * j;
+    has[j] = r < R;
+    if (has[j]) {
+      load_ray(a, p, r, ray[j]);
+      sig[j] = a.sigma ? ldf(a.sigma + p * a.s_m + r * a.s_r) : a.sigma_scalar;
+    }
+  }
+
   // 1-4: midpoint initialization
-  RaySum As[6], bs[3];
+  float As[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float bs[3] = {0.0f, 0.0f, 0.0f};
   int n_valid = 0;
-  for_rays<R>([&](int r, int k) {
-    Ray ray;
-    load_ray(a, p, r, ray);
-    n_valid += ray.m != 0.0f;
-    const float xn = __fdiv_rn(sub(ray.u, ray.cx), ray.fx);
-    const float yn = __fdiv_rn(sub(ray.v, ray.cy), ray.fy);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (!has[j]) continue;
+    const Ray& q = ray[j];
+    n_valid += q.m != 0.0f;
+    const float xn = __fdiv_rn(sub(q.u, q.cx), q.fx);
+    const float yn = __fdiv_rn(sub(q.v, q.cy), q.fy);
     const float inv_n = rsqrtf(add(add(mul(xn, xn), mul(yn, yn)), 1.0f));
     const float dc[3] = {mul(xn, inv_n), mul(yn, inv_n), inv_n};
     float d[3], o[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      d[i] = add(add(mul(ray.T[i][0], dc[0]), mul(ray.T[i][1], dc[1])),
-                 mul(ray.T[i][2], dc[2]));
-      o[i] = ray.T[i][3];
+      d[i] = add(add(mul(q.T[i][0], dc[0]), mul(q.T[i][1], dc[1])),
+                 mul(q.T[i][2], dc[2]));
+      o[i] = q.T[i][3];
     }
     // m (eye - d_i d_j): d_i d_j == d_j d_i, so A is symmetric exactly
     float P[3][3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j)
-        P[i][j] = mul(ray.m, sub(i == j ? 1.0f : 0.0f, mul(d[i], d[j])));
+      for (int jj = 0; jj < 3; ++jj)
+        P[i][jj] = mul(q.m, sub(i == jj ? 1.0f : 0.0f, mul(d[i], d[jj])));
 #pragma unroll
-    for (int e = 0; e < 6; ++e) As[e].put(k, P[ui(e)][uj(e)]);
+    for (int e = 0; e < 6; ++e) As[e] = add(As[e], P[ui(e)][uj(e)]);
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      bs[i].put(k, add(add(add(0.0f, mul(P[i][0], o[0])), mul(P[i][1], o[1])),
-                       mul(P[i][2], o[2])));
-  });
+      bs[i] = add(bs[i],
+                  add(add(add(0.0f, mul(P[i][0], o[0])), mul(P[i][1], o[1])),
+                      mul(P[i][2], o[2])));
+  }
   float A[6], b[3], X0[3];
 #pragma unroll
-  for (int e = 0; e < 6; ++e) A[e] = As[e].total();
+  for (int e = 0; e < 6; ++e) A[e] = fold(As[e], mask);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) b[i] = bs[i].total();
+  for (int i = 0; i < 3; ++i) b[i] = fold(bs[i], mask);
+  n_valid = quad_sum(n_valid, mask);
   const float det = solve3(A, b, 1e-6f, X0);
   const bool ok0 = n_valid >= 2 && det > 1e-9f && isfinite(X0[0]) &&
                    isfinite(X0[1]) && isfinite(X0[2]);
@@ -252,40 +268,43 @@ __global__ void __launch_bounds__(THREADS) tri_refine_kernel(const Args a) {
   float X[3] = {X0[0], X0[1], X0[2]};
 #pragma unroll 1
   for (int it = 0; it < a.gn_iters; ++it) {
-    RaySum Hs[6], gs[3];
-    for_rays<R>([&](int r, int k) {
-      Ray ray;
-      load_ray(a, p, r, ray);
-      float q[3];
-      project(ray, X, q);
-      const float inv_z = __fdiv_rn(1.0f, clamp_min(q[2], 1e-3f));
-      const float ru = mul(sub(add(mul(mul(q[0], inv_z), ray.fx), ray.cx),
-                               ray.u), ray.m);
-      const float rv = mul(sub(add(mul(mul(q[1], inv_z), ray.fy), ray.cy),
-                               ray.v), ray.m);
-      const float gx = mul(ray.fx, inv_z);
-      const float gy = mul(ray.fy, inv_z);
-      const float hx = mul(mul(-gx, q[0]), inv_z);
-      const float hy = mul(mul(-gy, q[1]), inv_z);
+    float Hs[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float gs[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (!has[j]) continue;
+      const Ray& q = ray[j];
+      float c[3];
+      project(q, X, c);
+      const float inv_z = __fdiv_rn(1.0f, clamp_min(c[2], 1e-3f));
+      const float ru = mul(sub(add(mul(mul(c[0], inv_z), q.fx), q.cx), q.u),
+                           q.m);
+      const float rv = mul(sub(add(mul(mul(c[1], inv_z), q.fy), q.cy), q.v),
+                           q.m);
+      const float gx = mul(q.fx, inv_z);
+      const float gy = mul(q.fy, inv_z);
+      const float hx = mul(mul(-gx, c[0]), inv_z);
+      const float hy = mul(mul(-gy, c[1]), inv_z);
       float J0[3], J1[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        J0[i] = mul(add(mul(gx, ray.T[i][0]), mul(hx, ray.T[i][2])), ray.m);
-        J1[i] = mul(add(mul(gy, ray.T[i][1]), mul(hy, ray.T[i][2])), ray.m);
+        J0[i] = mul(add(mul(gx, q.T[i][0]), mul(hx, q.T[i][2])), q.m);
+        J1[i] = mul(add(mul(gy, q.T[i][1]), mul(hy, q.T[i][2])), q.m);
       }
 #pragma unroll
       for (int e = 0; e < 6; ++e) {
-        const int i = ui(e), j = uj(e);
-        Hs[e].put(k, add(mul(J0[i], J0[j]), mul(J1[i], J1[j])));
+        const int i = ui(e), jj = uj(e);
+        Hs[e] = add(Hs[e], add(mul(J0[i], J0[jj]), mul(J1[i], J1[jj])));
       }
 #pragma unroll
-      for (int i = 0; i < 3; ++i) gs[i].put(k, add(mul(J0[i], ru), mul(J1[i], rv)));
-    });
+      for (int i = 0; i < 3; ++i)
+        gs[i] = add(gs[i], add(mul(J0[i], ru), mul(J1[i], rv)));
+    }
     float H[6], g[3], dX[3];
 #pragma unroll
-    for (int e = 0; e < 6; ++e) H[e] = Hs[e].total();
+    for (int e = 0; e < 6; ++e) H[e] = fold(Hs[e], mask);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) g[i] = gs[i].total();
+    for (int i = 0; i < 3; ++i) g[i] = fold(gs[i], mask);
     solve3(H, g, 1e-3f, dX);
 #pragma unroll
     for (int i = 0; i < 3; ++i) X[i] = sub(X[i], dX[i]);
@@ -299,29 +318,30 @@ __global__ void __launch_bounds__(THREADS) tri_refine_kernel(const Args a) {
 
   // 7: chi2 / cheirality gate
   int n_pass = 0;
-  for_rays<R>([&](int r, int) {
-    Ray ray;
-    load_ray(a, p, r, ray);
-    float q[3];
-    project(ray, X, q);
-    const float zs = clamp_min(q[2], 1e-6f);
-    const float ru = sub(add(mul(__fdiv_rn(q[0], zs), ray.fx), ray.cx), ray.u);
-    const float rv = sub(add(mul(__fdiv_rn(q[1], zs), ray.fy), ray.cy), ray.v);
-    const float sig = a.sigma ? ldf(a.sigma + p * a.s_m + r * a.s_r)
-                              : a.sigma_scalar;
-    const float chi2 = __fdiv_rn(add(mul(ru, ru), mul(rv, rv)), mul(sig, sig));
-    n_pass += ray.m > 0.5f && chi2 < a.chi2_thresh && q[2] > a.min_z &&
-              q[2] < a.max_z;
-  });
-  a.X[3 * p + 0] = X[0];
-  a.X[3 * p + 1] = X[1];
-  a.X[3 * p + 2] = X[2];
-  a.ok[p] = ok0 && n_pass >= 2;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (!has[j]) continue;
+    const Ray& q = ray[j];
+    float c[3];
+    project(q, X, c);
+    const float zs = clamp_min(c[2], 1e-6f);
+    const float ru = sub(add(mul(__fdiv_rn(c[0], zs), q.fx), q.cx), q.u);
+    const float rv = sub(add(mul(__fdiv_rn(c[1], zs), q.fy), q.cy), q.v);
+    const float chi2 = __fdiv_rn(add(mul(ru, ru), mul(rv, rv)),
+                                 mul(sig[j], sig[j]));
+    n_pass += q.m > 0.5f && chi2 < a.chi2_thresh && c[2] > a.min_z &&
+              c[2] < a.max_z;
+  }
+  n_pass = quad_sum(n_pass, mask);
+  if (k < 3) a.X[3 * p + k] = k == 0 ? X[0] : (k == 1 ? X[1] : X[2]);
+  if (k == 0) a.ok[p] = ok0 && n_pass >= 2;
 }
 
 template <int R>
 int launch(const Args& a, cudaStream_t s) {
-  tri_refine_kernel<R><<<(a.M + THREADS - 1) / THREADS, THREADS, 0, s>>>(a);
+  const long long threads = static_cast<long long>(a.M) * LANES;
+  tri_refine_kernel<R><<<static_cast<unsigned>((threads + THREADS - 1) / THREADS),
+                         THREADS, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

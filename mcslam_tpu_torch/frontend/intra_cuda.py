@@ -1,4 +1,4 @@
-"""The intra-rig pair match in two launches, a CUDA entry (kernel source
+"""The intra-rig pair match in one launch, a CUDA entry (kernel source
 csrc/intra_match.cu), the port's counterpart of the TPU-shaped pair stage
 of the JAX package's intra match (mcslam_tpu/frontend/intra.py
 intra_match :110-147); no Pallas kernel corresponds to it.
@@ -20,7 +20,55 @@ from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import hamming, match
 from mcslam_tpu_torch.utils import graphs
 
-ROW_TILE = 32  # rows of a block's tile in csrc/intra_match.cu (RT)
+TILE = 128  # rows and columns of a block's tile in csrc/intra_match.cu
+COUNTERS = 128  # arrival counters of a device's buffer (P + C <= COUNTERS)
+
+# per CUDA device index: the kernel's arrival counters, zeroed once; every
+# launch leaves them at zero (csrc/intra_match.cu)
+_COUNTERS: dict = {}
+
+
+def tiles(N: int) -> int:
+    """Row tiles (and column splits) of the kernel's grid for N features."""
+    return -(-N // TILE)
+
+
+def scratch_ints(C: int, N: int) -> int:
+    """int32 scratch of one call: per (pair, row) its (best, second) keys
+    for each column split (the splits rounded up to even), per (pair,
+    column) its key for each row tile, and per (pair, column) its
+    candidate."""
+    P, T = C * (C - 1) // 2, tiles(N)
+    return P * N * (2 * (T + T % 2) + T + 1)
+
+
+def check_buffers(C: int, N: int, scratch: torch.Tensor,
+                  counters: torch.Tensor) -> None:
+    """Raise unless scratch and counters are what a launch at (C, N)
+    needs: contiguous int32, scratch_ints(C, N) and P + C elements at
+    least (a counter per pair, then per camera)."""
+    P = C * (C - 1) // 2
+    for name, x, n in (("scratch", scratch, scratch_ints(C, N)),
+                       ("counters", counters, P + C)):
+        if x.dtype != torch.int32 or not x.is_contiguous() or x.numel() < n:
+            raise ValueError(f"intra_pairs: {name} must be contiguous int32 "
+                             f"of {n} elements at least, got {x.dtype} of "
+                             f"{x.numel()}, contiguous {x.is_contiguous()}")
+
+
+def counters(dev: torch.device) -> torch.Tensor:
+    """The arrival counters of `dev`, made (zeroed) at its first eager
+    call; a CUDA graph capture must find them made (a capture replays
+    no zeroing)."""
+    idx = torch.device(dev).index
+    buf = _COUNTERS.get(idx)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("intra_pairs: the first call on a device must "
+                               "not be under a CUDA graph capture")
+        buf = _COUNTERS[idx] = torch.zeros(COUNTERS, dtype=torch.int32,
+                                           device=dev)
+    return buf
 
 
 def camera_pairs(C: int) -> tuple[list[int], list[int]]:
@@ -100,15 +148,15 @@ def intra_pairs(desc: torch.Tensor, valid: torch.Tensor, gate: torch.Tensor,
             raise ValueError(f"intra_pairs: the kernel takes a contiguous "
                              f"{dtype} {name} on {dev}, got {x.dtype} on "
                              f"{x.device}, contiguous {x.is_contiguous()}")
-    T = -(-N // ROW_TILE)
     parent = torch.empty(C, N, dtype=torch.int32, device=dev)
-    rows = torch.empty(3, P, N, dtype=torch.int32, device=dev)
-    colpart = torch.empty(P, T, N, dtype=torch.int64, device=dev)
+    scratch = torch.empty(scratch_ints(C, N), dtype=torch.int32, device=dev)
+    cnt = counters(dev)
+    check_buffers(C, N, scratch, cnt)
     lib = _build.library()
     _build.count("intra_pairs")
     _build.check(lib.mc_intra_pairs(
         desc.data_ptr(), valid.data_ptr(), gate.data_ptr(), parent.data_ptr(),
-        rows.data_ptr(), colpart.data_ptr(), C, N, T, int(max_dist),
-        float(ratio), _build.stream_ptr(dev),
+        scratch.data_ptr(), cnt.data_ptr(), C, N, tiles(N), scratch.numel(),
+        cnt.numel(), int(max_dist), float(ratio), _build.stream_ptr(dev),
     ), "mc_intra_pairs")
     return parent

@@ -4,21 +4,25 @@ on one CUDA card.
 
 Runs each kernel at chip_smoke.py phase 2's shapes: tri_refine at bench
 frame 0's M = 2048 groups of R = 4 rays (the pose table expanded, as the
-frame build passes it), at M = 2048, R = 2 and at M = 37, R = 5;
-intra_pairs at bench frame 0's C = 4 x N = 768 descriptors and Sampson
-gate and at random C = 2, 3 and 5. Every buffer a wrapper allocates (its
-outputs and its scratch) is placed inside a slab of canary bytes, PAD
-bytes on each side, the canary alternating from launch to launch. After
-every launch it checks that no canary byte changed (a write out of
-bounds), that no input changed (a write into an input), and that the
-outputs equal the first launch's and the plain version's bit for bit (a
-race or an unwritten output shows as a difference). Run from the
-repository's root on a machine with a card and nvcc:
+frame build passes it), at M = 2048, R = 2, at M = 37, R = 5 and at M =
+2048, R = 8; intra_pairs at bench frame 0's C = 4 x N = 768 descriptors
+and Sampson gate, eagerly and through a captured CUDA graph, and at
+random C = 2, 3 and 5. Every buffer a wrapper allocates (its outputs and
+its scratch) is placed inside a slab of canary bytes, PAD bytes on each
+side, the canary alternating from launch to launch (fixed in a graph,
+whose capture holds the slabs' filling), and so is intra_pairs' per-device
+buffer of arrival counters. After every launch it checks that no canary
+byte changed (a write out of bounds), that the counters are back at zero,
+that no input changed (a write into an input), and that the outputs
+equal the first launch's and the plain version's bit for bit (a race or
+an unwritten output shows as a difference). Run from the repository's
+root on a machine with a card and nvcc:
 
     python3 scripts/kernel_guard.py [--reps 50] [--quick] [--sanitize]
 
 --quick leaves out the bench scene (random problems only, R = 4 with an
-expanded pose table too). --sanitize then runs this script with --quick
+expanded pose table too, and intra_pairs' graph replays at a random C =
+4 x N = 768). --sanitize then runs this script with --quick
 --reps 2 under compute-sanitizer's memcheck, racecheck and synccheck
 tools, where the toolkit has it, and prints each tool's exit code and
 report, or that the tool did not run (it refuses a device it cannot
@@ -73,6 +77,47 @@ def guarded_empty(slabs: list, canary: int):
         torch.empty = real
 
 
+@contextlib.contextmanager
+def guarded_counters(dev, canary: int, found: list):
+    """intra_pairs' arrival counters of `dev` -> a zeroed view into the
+    middle of a canary-filled slab, for as long as the context lasts; the
+    slab goes to `found` as (slab, bytes, canary)."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import intra_cuda
+
+    idx = dev.index
+    saved = intra_cuda._COUNTERS.get(idx)
+    n = intra_cuda.COUNTERS * 4
+    slab = torch.empty(2 * PAD + n, dtype=torch.uint8, device=dev)
+    slab.fill_(canary)
+    slab[PAD:PAD + n].zero_()
+    intra_cuda._COUNTERS[idx] = slab[PAD:PAD + n].view(torch.int32)
+    found.append((slab, n, canary))
+    try:
+        yield
+    finally:
+        if saved is None:
+            intra_cuda._COUNTERS.pop(idx)
+        else:
+            intra_cuda._COUNTERS[idx] = saved
+
+
+def persistent_fails(name, rep, found) -> list[str]:
+    """Canary bytes changed around, and counters not back at zero in, the
+    guarded counter slabs."""
+    fails = []
+    for slab, n, canary in found:
+        bad = int((slab[:PAD] != canary).sum()) \
+            + int((slab[PAD + n:] != canary).sum())
+        if bad:
+            fails.append(f"{name}: launch {rep}, the counters' slab: {bad} "
+                         f"canary bytes overwritten")
+        if int(slab[PAD:PAD + n].ne(0).sum()):
+            fails.append(f"{name}: launch {rep}: counters not back at zero")
+    return fails
+
+
 def bits(x):
     """x reinterpreted as integers of its element size (NaN payloads and
     signed zeros compare as bits)."""
@@ -104,41 +149,104 @@ def tensors(obj):
 
 
 def guard(name, fn, args, kw, plain, reps) -> list[str]:
-    """Launch fn(*args, **kw) reps times with guarded buffers; the
-    failures found."""
+    """Launch fn(*args, **kw) reps times with guarded buffers (and, for
+    intra_pairs, guarded arrival counters); the failures found."""
     import torch
+
+    from mcslam_tpu_torch.frontend import intra_cuda
 
     inputs = tensors(args) + tensors(kw)
     before = [bits(t).clone() for t in inputs]
     ref = tensors(plain(*args, **kw))
-    fails, first = [], None
-    for rep in range(reps):
-        slabs = []
-        canary = CANARIES[rep % 2]
-        with guarded_empty(slabs, canary):
-            out = tensors(fn(*args, **kw))
-        torch.cuda.synchronize()
-        for k, (slab, n) in enumerate(slabs):
-            bad = int((slab[:PAD] != canary).sum()) \
-                + int((slab[PAD + n:] != canary).sum())
-            if bad:
-                fails.append(f"{name}: launch {rep}, buffer {k} "
-                             f"({n} B): {bad} canary bytes overwritten")
-        out = [t.clone() for t in out]
-        if first is None:
-            first = out
-            for k, (o, r) in enumerate(zip(out, ref)):
-                if not same_values(o, r):
-                    fails.append(f"{name}: output {k} differs from the plain "
-                                 f"version")
-        elif not all(torch.equal(bits(o), bits(f))
-                     for o, f in zip(out, first)):
-            fails.append(f"{name}: launch {rep} differs from launch 0")
-    for k, (t, b) in enumerate(zip(inputs, before)):
-        if not torch.equal(bits(t), b):
-            fails.append(f"{name}: input {k} changed")
+    fails, first, found = [], None, []
+    with contextlib.ExitStack() as stack:
+        if fn is intra_cuda.intra_pairs:
+            stack.enter_context(guarded_counters(inputs[0].device,
+                                                 CANARIES[0], found))
+        for rep in range(reps):
+            slabs = []
+            canary = CANARIES[rep % 2]
+            with guarded_empty(slabs, canary):
+                out = tensors(fn(*args, **kw))
+            torch.cuda.synchronize()
+            fails += persistent_fails(name, rep, found)
+            fails += launch_fails(name, rep, slabs, canary, out, ref, first)
+            if first is None:
+                first = [t.clone() for t in out]
+    fails += input_fails(name, inputs, before)
     print(f"# guard {name}: {reps} launches, {len(slabs)} guarded buffers "
-          f"each, {PAD} canary bytes a side: "
+          f"each{' and the counters' if found else ''}, {PAD} canary bytes "
+          f"a side: {'clean' if not fails else f'{len(fails)} failures'}",
+          flush=True)
+    return fails
+
+
+def launch_fails(name, rep, slabs, canary, out, ref, first) -> list[str]:
+    """Canary bytes changed around a launch's buffers; outputs unequal to
+    the plain version's (first launch) or to the first launch's."""
+    import torch
+
+    fails = []
+    for k, (slab, n) in enumerate(slabs):
+        bad = int((slab[:PAD] != canary).sum()) \
+            + int((slab[PAD + n:] != canary).sum())
+        if bad:
+            fails.append(f"{name}: launch {rep}, buffer {k} "
+                         f"({n} B): {bad} canary bytes overwritten")
+    if first is None:
+        for k, (o, r) in enumerate(zip(out, ref)):
+            if not same_values(o, r):
+                fails.append(f"{name}: output {k} differs from the plain "
+                             f"version")
+    elif not all(torch.equal(bits(o), bits(f)) for o, f in zip(out, first)):
+        fails.append(f"{name}: launch {rep} differs from launch 0")
+    return fails
+
+
+def input_fails(name, inputs, before) -> list[str]:
+    import torch
+
+    return [f"{name}: input {k} changed"
+            for k, (t, b) in enumerate(zip(inputs, before))
+            if not torch.equal(bits(t), b)]
+
+
+def guard_graph(name, args, kw, plain, reps) -> list[str]:
+    """intra_pairs captured in a CUDA graph (its buffers allocated in
+    canary slabs during the capture, the slabs' filling captured ahead of
+    the launch), replayed reps times: the same checks as guard()."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import intra_cuda
+
+    dev = args[0].device
+    inputs = tensors(args) + tensors(kw)
+    before = [bits(t).clone() for t in inputs]
+    ref = tensors(plain(*args, **kw))
+    fails, first, found, slabs = [], None, [], []
+    with guarded_counters(dev, CANARIES[0], found):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            intra_cuda.intra_pairs(*args, **kw)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph), guarded_empty(slabs, CANARIES[1]):
+            out = tensors(intra_cuda.intra_pairs(*args, **kw))
+        for rep in range(reps):
+            for o in out:
+                o.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            fails += persistent_fails(name, rep, found)
+            fails += launch_fails(name, rep, slabs, CANARIES[1], out, ref,
+                                  first)
+            if first is None:
+                first = [t.clone() for t in out]
+        del graph
+    fails += input_fails(name, inputs, before)
+    print(f"# guard {name}: {reps} graph replays, {len(slabs)} guarded "
+          f"buffers and the counters, {PAD} canary bytes a side: "
           f"{'clean' if not fails else f'{len(fails)} failures'}",
           flush=True)
     return fails
@@ -175,16 +283,24 @@ def cases(quick: bool, dev):
         a, kw = seen["intra_pairs"]
         out.append(("intra_pairs C=4 N=768 (bench frame 0)", intra, a, kw,
                     intra_plain))
+        out.append(("intra_pairs C=4 N=768 (bench frame 0, graph replays)",
+                    None, a, kw, intra_plain))
     a, s = cs.tri_problem(rng, 2048, 2, dev)
     out.append(("tri_refine M=2048 R=2 (random)", tri, a,
                 dict(sigma=s, min_z=0.1, max_z=100.0), tri_plain))
     a, s = cs.tri_problem(rng, 37, 5, dev)
     out.append(("tri_refine M=37 R=5 (random)", tri, a, dict(sigma=s),
                 tri_plain))
+    a, s = cs.tri_problem(rng, 2048, 8, dev)
+    out.append(("tri_refine M=2048 R=8 (random)", tri, a, dict(sigma=s),
+                tri_plain))
     shapes = ((4, 768),) if quick else ()
     for c, n in shapes + ((2, 333), (3, 768), (5, 500)):
         out.append((f"intra_pairs C={c} N={n} (random)", intra,
                     cs.intra_problem(rng, c, n, dev), ik, intra_plain))
+    if quick:
+        out.append(("intra_pairs C=4 N=768 (random, graph replays)", None,
+                    out[-4][2], ik, intra_plain))
     return out
 
 
@@ -245,7 +361,10 @@ def main() -> int:
     _build.library()
     fails = []
     for name, fn, args, kw, plain in cases(opt.quick, dev):
-        fails += guard(name, fn, args, kw, plain, opt.reps)
+        if fn is None:  # intra_pairs through a captured CUDA graph
+            fails += guard_graph(name, args, kw, plain, opt.reps)
+        else:
+            fails += guard(name, fn, args, kw, plain, opt.reps)
     for f in fails:
         print(f"# FAIL {f}", flush=True)
     rc = 1 if fails else 0

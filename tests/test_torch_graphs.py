@@ -309,7 +309,7 @@ def test_replay_launch_accounting(monkeypatch):
 def test_trace_counts_each_wrapper_once():
     """chip_smoke counts a replay's launches in the device trace: one
     event per wrapper call (hamming_argmin2 by its merge kernel,
-    intra_pairs by its link kernel; other kernels, copies and the trace's
+    intra_pairs by its one kernel; other kernels, copies and the trace's
     sentinels count nothing)."""
     import types
 
@@ -321,8 +321,7 @@ def test_trace_counts_each_wrapper_once():
         "void hamming_tile_kernel<14>(unsigned int const*)",
         "hamming_merge_kernel", "pose_lm_cluster_kernel", "linearize_kernel",
         "void (anonymous namespace)::tri_refine_kernel<4>(Args)",
-        "(anonymous namespace)::intra_rows_kernel(int const*)",
-        "(anonymous namespace)::intra_link_kernel(unsigned char const*)",
+        "(anonymous namespace)::intra_pairs_kernel(int const*)",
         "mc_set_cond_kernel", "Memcpy HtoD (Pinned -> Device)",
         "at::cuda::(anonymous namespace)::spin_kernel(long)")]
     assert chip_smoke.trace_counts(events) == dict(

@@ -12,11 +12,18 @@ cameras, exact duplicates of a feature (ties in a row's best and in a
 column's argmin), pairs at exactly max_dist, masked rows, masked columns
 and a column that the Sampson gate masks in every pair.
 
+The CPU also checks the wrapper's scratch sizing by the kernel's 128 x
+128 tiles (short or mistyped buffers refused).
+
 `gpu` cases (they skip without a card) hold the kernel's parent table to
 the plain version's with torch.equal on the card, on those scenes, at C
-= 5, at the bench frame's C = 4 x N = 768 and on random gates over a few
-distinct descriptors (ties everywhere), equal across two runs and one
-launch counted per call:
+= 5, at the bench frame's C = 4 x N = 768, on random gates over a few
+distinct descriptors (ties everywhere) at N = 1, 33, 127, 129, 768 and
+1000 for C = 2-5 and at N = 6000 (past the rows the link stages in
+shared memory), with rows and columns gated or invalid in every pair,
+with equal descriptors on both sides of the tile edges, and through two
+replays of a captured CUDA graph (the arrival counters back at zero),
+equal across two runs and one launch counted per call:
     python -m pytest --noconftest tests/test_torch_intra_kernel.py -m gpu -q
 (this file imports JAX only inside the JAX comparison)."""
 
@@ -233,3 +240,109 @@ def test_kernel_matches_plain_on_random_gates(cuda, C, N):
     d, valid, gate = _random_gate_inputs(C * N, C, N, cuda)
     _kernel_vs_plain(d, valid, gate)
     _kernel_vs_plain(d, valid, gate, max_dist=2, ratio=1.0)
+
+
+@pytest.mark.parametrize("C,N", [(2, 1), (4, 768), (5, 1000)])
+def test_scratch_and_counters_follow_the_tiling(C, N):
+    """The wrapper sizes the one launch's scratch by the kernel's 128 x
+    128 tiles and refuses buffers short of it (no launch: CPU tensors)."""
+    P = C * (C - 1) // 2
+    T = -(-N // 128)
+    assert intra_cuda.TILE == 128 and intra_cuda.tiles(N) == T
+    assert intra_cuda.scratch_ints(C, N) == P * N * (2 * (T + T % 2) + T + 1)
+    scratch = torch.empty(intra_cuda.scratch_ints(C, N), dtype=torch.int32)
+    counters = torch.zeros(P + C, dtype=torch.int32)
+    intra_cuda.check_buffers(C, N, scratch, counters)
+    for bad in ((scratch[:-1], counters), (scratch, counters[:-1]),
+                (scratch.long(), counters), (scratch, counters.long()),
+                (scratch.repeat(2)[::2], counters)):
+        with pytest.raises(ValueError, match="contiguous int32"):
+            intra_cuda.check_buffers(C, N, *bad)
+
+
+EDGE_SHAPES = [(C, N) for C in (2, 3, 4, 5)
+               for N in (1, 33, 127, 129, 768, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,N", EDGE_SHAPES)
+def test_kernel_matches_plain_at_tile_edges(cuda, C, N):
+    """N below, at and across the 128-feature tiles (ragged gate rows
+    where N % 16 != 0)."""
+    d, valid, gate = _random_gate_inputs(7 * C + N, C, N, cuda)
+    _kernel_vs_plain(d, valid, gate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,N", [(3, 300), (4, 768)])
+def test_kernel_matches_plain_with_gated_rows_and_columns(cuda, C, N):
+    """Rows and columns the gate or the validity closes in every pair, an
+    invalid band across a tile edge, and a pair closed whole."""
+    d, valid, gate = _random_gate_inputs(C * N + 1, C, N, cuda)
+    gate[:, 5] = False
+    gate[:, 130] = False
+    gate[:, :, 7] = False
+    gate[:, :, N - 1] = False
+    gate[0] = False
+    valid[1, 120:140] = False
+    valid[0, 3] = False
+    _kernel_vs_plain(d, valid, gate)
+    _kernel_vs_plain(d, valid, gate, max_dist=256, ratio=1.0)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_ties_across_tiles(cuda):
+    """Equal descriptors on both sides of the tile edges: a row's best
+    tied across two column splits, a column's best tied across two row
+    tiles; the first index wins in both."""
+    C, N = 3, 400
+    g = np.random.RandomState(5)
+    desc = g.randint(0, 2**32, (C, N, 8), dtype=np.uint64).astype(np.uint32)
+    for c in range(C):
+        for cols in ((127, 128), (255, 256, 300), (10, 138, 266)):
+            desc[c, list(cols)] = desc[0, cols[0]]
+    d = hamming.desc_to_torch(desc, cuda)
+    valid = torch.ones(C, N, dtype=torch.bool, device=cuda)
+    gate = torch.ones(C * (C - 1) // 2, N, N, dtype=torch.bool, device=cuda)
+    _kernel_vs_plain(d, valid, gate)
+    _kernel_vs_plain(d, valid, gate, max_dist=256, ratio=1.0)
+    ref = intra_cuda.intra_pairs_reference(d, valid, gate)
+    # the first of the tied rows and columns links; its twins do not
+    assert int(ref[1, 127]) == 127 and int(ref[2, 255]) == 255
+    assert int(ref[1, 128]) == N + 128 and int(ref[2, 266]) == 2 * N + 266
+
+
+@pytest.mark.gpu
+def test_kernel_graph_replays_match_plain(cuda):
+    """The one launch captured in a CUDA graph: each replay equals the
+    plain version, also on new inputs copied into the captured ones, and
+    leaves the arrival counters at zero."""
+    C, N = 4, 768
+    rig = _rig(C, cuda)
+    static = _inputs(_scene(21, C, N), rig, cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        intra_cuda.intra_pairs(*static, MAX_DIST, RATIO)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = intra_cuda.intra_pairs(*static, MAX_DIST, RATIO)
+    for seed in (21, 21, 22):
+        new = _inputs(_scene(seed, C, N), rig, cuda)
+        for x, y in zip(static, new):
+            x.copy_(y)
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, intra_cuda.intra_pairs_reference(
+            *new, MAX_DIST, RATIO))
+        assert int(intra_cuda.counters(cuda).abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_past_the_staged_rows(cuda):
+    """N = 6000, more rows than the link stages in shared memory: the
+    link gathers the rows' keys from the scratch instead."""
+    d, valid, gate = _random_gate_inputs(6000, 2, 6000, cuda)
+    _kernel_vs_plain(d, valid, gate)

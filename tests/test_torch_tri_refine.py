@@ -14,10 +14,12 @@ cameras and points past max_z.
 
 `gpu` cases (they skip without a card) hold the kernel to the plain
 version on the card with torch.equal (NaN-aware) on X and ok, at those
-shapes and at the frame's (M = 2048, R = 4) and a keyframe pair's (M =
-2048, R = 2), with world_T_cam an expand of R poses and a contiguous
-per-point table, equal across two runs and one launch counted per call;
-and the wrapper refusing what the kernel does not take:
+shapes, at the frame's (M = 2048, R = 4) and a keyframe pair's (M =
+2048, R = 2) and at R = 1-8 for M = 37 and 2047, with world_T_cam an
+expand of R poses and a contiguous per-point table, equal across two
+runs and one launch counted per call; with one ray per point; with NaN
+in pixels, poses, intrinsics and sigma; and the wrapper refusing what
+the kernel does not take:
     python -m pytest --noconftest tests/test_torch_tri_refine.py -m gpu -q
 (this file imports JAX only inside the JAX comparison)."""
 
@@ -161,7 +163,10 @@ def test_reference_matches_jax(R, per_point):
         start += M
 
 
-GPU_SHAPES = SHAPES + [(2048, 4), (2048, 2), (37, 8)]
+# the CPU shapes, the frame's and a keyframe pair's, and every R the kernel
+# takes at M = 37 and 2047 (not a multiple of the 8 points a warp holds)
+GPU_SHAPES = sorted(set(SHAPES + [(2048, 4), (2048, 2)]
+                        + [(M, R) for R in range(1, 9) for M in (37, 2047)]))
 
 
 @pytest.mark.gpu
@@ -198,3 +203,47 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         triangulation_cuda.tri_refine(wTc.double(), uv, f, mask, sig)
     with pytest.raises(ValueError, match="bool"):
         triangulation_cuda.tri_refine(wTc, uv, f, mask.float(), sig)
+
+
+def _kernel_vs_plain(wTc, uv, f, mask, sig, **kw):
+    ref = triangulation.triangulate_and_refine_reference(
+        wTc, uv, f, mask, sigma=sig, **kw)
+    runs = [triangulation_cuda.tri_refine(wTc, uv, f, mask, sigma=sig, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for X, ok in runs:
+        assert _same(X, ref[0]), (X - ref[0]).abs().nan_to_num().max()
+        assert torch.equal(ok, ref[1])
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [2, 4, 5, 8])
+def test_kernel_matches_plain_with_single_rays(cuda, R):
+    """One ray per point (a lane of the quad with a ray, the others
+    none): no point passes the gate, X as the plain version's."""
+    M = 2047
+    wTc, uv, f, mask, sig = _torch(_problem(R, M, R, True), cuda, False)
+    g = np.random.RandomState(R)
+    one = torch.zeros(M, R, dtype=torch.bool)
+    one[torch.arange(M), torch.from_numpy(g.randint(0, R, M))] = True
+    X, ok = _kernel_vs_plain(wTc, uv, f, one.to(cuda), sig, min_z=MIN_Z,
+                             max_z=MAX_Z)
+    assert not bool(ok.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [3, 4, 8])
+def test_kernel_matches_plain_on_nan_inputs(cuda, R):
+    """NaN in pixels, poses, intrinsics and sigma of some rays: the
+    clamps let it through as torch.clamp does, bit for bit."""
+    M = 333
+    p = [np.array(a) for a in _problem(40 + R, M, R, True)]
+    g = np.random.RandomState(R)
+    for arr in (p[1], p[0], p[2], p[4]):  # pixels, poses, intrinsics, sigma
+        flat = arr.reshape(-1)
+        flat[g.choice(flat.size, max(1, flat.size // 50), replace=False)] \
+            = np.nan
+    wTc, uv, f, mask, sig = _torch(tuple(p), cuda, False)
+    X, _ = _kernel_vs_plain(wTc, uv, f, mask, sig, min_z=MIN_Z, max_z=MAX_Z)
+    assert bool(torch.isnan(X).any())
