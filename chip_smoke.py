@@ -5,14 +5,15 @@
 
 Phases, each of which raises (non-zero exit) on failure:
   1. build: compile the CUDA sources of mcslam_tpu_torch/csrc (the nine
-     kernels' five, the graphs' branch, the SGM scan, tri_refine and
-     intra_pairs; one nvcc per source, in parallel, sm_90a) and
+     kernels' five, the graphs' branch, the SGM scan, tri_refine,
+     intra_pairs and the ORB glue's orb_pyramid, orb_select and
+     orb_describe; one nvcc per source, in parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
      kernel, the oriented patch gather, the SGM tile kernel at D = 64,
-     tri_refine at R = 2, 4 and 8 and intra_pairs' one kernel must use
-     no local memory and
+     tri_refine at R = 2, 4 and 8, intra_pairs' one kernel and the ORB
+     glue's five kernels must use no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
@@ -36,7 +37,17 @@ Phases, each of which raises (non-zero exit) on failure:
      descriptors and Sampson gate (C = 4, N = 768) and at random C = 2, 3
      and 5 ones (bitwise equal to their plain versions and across two
      runs; the bench frame's call also captured in a CUDA graph and
-     replayed twice, its arrival counters back at zero after each); track
+     replayed twice, its arrival counters back at zero after each); the
+     ORB glue's kernels (orb_kernels) at bench frame 0's recorded inputs
+     and at random shapes (the pyramid at 1 x 97 x 133 with 8 levels and
+     C = 2, 3, 5; the selection on plateau-tied candidates at C = 1, 2,
+     3, 5, with and without compaction and padding; the descriptors of
+     noise patches at 32 and 16 bins), bitwise equal to their plain
+     versions and across two runs (orb_select also through two graph
+     replays; the pyramid within 1e-6 of its earlier GEMM form, the
+     angle equal to torch.atan2 of the plain moments), then the bench
+     frame's extraction card against CPU (level 0 exactly, the level >= 1
+     keypoint share printed, >= 95 %); track
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -51,9 +62,9 @@ Phases, each of which raises (non-zero exit) on failure:
      under the constant-velocity prediction - once with the production
      fast path and once with the portfolio forced (fastpath_frac=2.0).
      Every frame must pass the driver's acceptance gates and stay within
-     0.1 m / 0.02 rad of ground truth; each of the six frame kernels'
-     launch counters (the four of the nine, tri_refine and intra_pairs)
-     must be > 0 after this phase (counters are reset
+     0.1 m / 0.02 rad of ground truth; each of the nine frame kernels'
+     launch counters (the four of the nine, the three ORB glue kernels,
+     tri_refine and intra_pairs) must be > 0 after this phase (counters are reset
      right before it);
   4. routes: the same 8-frame drive on the fast path under the two other
      extraction routes (ops.orb.OrbRoute): route A (score map with blur,
@@ -78,7 +89,7 @@ Phases, each of which raises (non-zero exit) on failure:
      replay CUDA graphs, utils/graphs). First the same session eager
      (cuda_graphs=False), the reference; then the session runs under a
      device trace with the launch counters reset right before it. A
-     replay runs no wrapper, so the five default-route kernels' launches
+     replay runs no wrapper, so the default-route kernels' launches
      are counted in the trace (main_path_session): each > 0 and equal
      to the reference's plus the graph warm-ups' (the kernels line's
      launches), and each wrapper counter > 0 (the warm-ups and the
@@ -131,7 +142,7 @@ Phases, each of which raises (non-zero exit) on failure:
      (loop_trajectory around ring landmarks, textured blob images, a
      vocabulary trained on the first frames, tests/test_image_e2e.py's
      LoopConfig): INITIALIZED, no failure, loops >= 1, global BA >= 1,
-     ATE <= LOOP_MAX_ATE, the five default-route kernels launched; then
+     ATE <= LOOP_MAX_ATE, the default-route kernels launched; then
      the driver's _run_global_ba dispatches a deferred global solve under
      set_sync_debug_mode("error") and _finish_pending_gba lands it; (c)
      tests/test_loop_pipeline.py's 60-frame drift scene at the feature
@@ -159,7 +170,7 @@ Phases, each of which raises (non-zero exit) on failure:
      keyframes, ATE <= APP_MAX_ATE (from the CPU rehearsal,
      `python3 chip_smoke.py --rehearse-app`), a finite depth map per
      keyframe that tracking inserted, a non-empty cloud, map and database
-     written, the five default-route kernels launched; then a map-reuse
+     written, the default-route kernels launched; then a map-reuse
      run of 8 frames with relocalization and fast tracking: rc 0, 8 rows,
      ATE <= 0.25 m; (b) the same drive in EuRoC's ASL layout through
      apps.run_euroc: rc 0, every frame associated, ATE <= APP_MAX_ATE;
@@ -256,8 +267,8 @@ Phases, each of which raises (non-zero exit) on failure:
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
      the device time of the IF node's condition kernel beside its bytes
-     bound (COND_BYTES), and beside the frame with tri_refine and
-     intra_pairs as first written (FRAME_BEFORE; the frame build's
+     bound (COND_BYTES), and beside the frame before the ORB glue's
+     kernels (FRAME_BEFORE; the frame build's
      stages apart:
      scripts/frame_stage_split.py); the stage C window solve warm and
      cold, eager and through the session's graphed solve
@@ -310,9 +321,10 @@ import numpy as np
 # or intra_pairs) hit a segmentation fault on the host in the graph's
 # replay, in every run with tri_refine and intra_pairs as first written
 # (one thread per point; two launches); with the teardown every run
-# passes. With their redesigns three runs without the teardown passed,
-# the cause still unknown, so it stays. scripts/kernel_guard.py finds no
-# write of those two kernels outside their buffers;
+# passes. With their redesigns, and then with the ORB glue's kernels,
+# four runs without the teardown passed, the cause still unknown, so it
+# stays. scripts/kernel_guard.py finds no write of those kernels outside
+# their buffers;
 # scripts/segv_backtrace.c prints the native frames of such a crash. Set
 # before torch loads its profiler.
 os.environ.setdefault("TEARDOWN_CUPTI", "1")
@@ -482,10 +494,12 @@ TRI_OPS = (80 + 5 * 100 + 30, 6 * 60)
 # key and its best / second (4), the column's key and minimum (2)
 INTRA_INT_OPS = 11
 TRI_INTRA = ("tri_refine", "intra_pairs")
-# the graphed fast-path frame with the two kernels above as first written
-# (one thread per point; two launches): device ops and device ms (NVIDIA
-# H100 80GB HBM3, 700.00 W)
-FRAME_BEFORE = (664, 1.861)
+# the ORB extraction's glue kernels (ops/orb_cuda.py), on the default route
+ORB_KERNELS = ("orb_pyramid", "orb_select", "orb_describe")
+# the graphed fast-path frame before the ORB glue's kernels (ORB_KERNELS),
+# its device ops and device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke
+# phase 14 on the tree before them)
+FRAME_BEFORE = (663, 1.814)
 # bytes the graphs' condition kernel moves: it reads the 1-byte predicate
 # and the 8-byte conditional handle and writes the 4-byte condition
 COND_BYTES = 1 + 8 + 4
@@ -514,13 +528,20 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "tri_refine_kernel<2>": "tri_refine_kernelILi2E",
               "tri_refine_kernel<4>": "tri_refine_kernelILi4E",
               "tri_refine_kernel<8>": "tri_refine_kernelILi8E",
-              "intra_pairs_kernel": "intra_pairs_kernel"}
+              "intra_pairs_kernel": "intra_pairs_kernel",
+              "pyramid_base_kernel": "pyramid_base_kernel",
+              "pyramid_level_kernel": "pyramid_level_kernel",
+              "orb_select_kernel": "orb_select_kernel",
+              "orb_compact_kernel": "orb_compact_kernel",
+              "orb_describe_kernel": "orb_describe_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
             "linearize_kernel", "patch_oriented_kernel", "sgm_tile_kernel<2>",
             "tri_refine_kernel<2>", "tri_refine_kernel<4>",
-            "tri_refine_kernel<8>", "intra_pairs_kernel")
+            "tri_refine_kernel<8>", "intra_pairs_kernel",
+            "pyramid_base_kernel", "pyramid_level_kernel",
+            "orb_select_kernel", "orb_compact_kernel", "orb_describe_kernel")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1405,6 +1426,239 @@ def geometry_kernels(scene, rng, dev, kernels):
         ops_s=pm1_ops_s(cells, 0, INTRA_INT_OPS * cells))
 
 
+def plateau_candidates(rng, C, L, G, ncx, dev):
+    """fast_select-shaped candidates with few distinct values (ties
+    everywhere, values with and without the rank bonus, zeros and -0.0),
+    random raster offsets and level sizes (a level's true size at least
+    half the plane's): cand_v, cand_rid (L C, G, 4), h_l, w_l (L C,)."""
+    import torch
+
+    vals = np.array([0.0, -0.0, 0.05, 0.05, 0.3, 1.05, 1.3, 1.3], np.float32)
+    v = vals[rng.randint(0, len(vals), (L * C, G, 4))]
+    r = rng.randint(0, 256, (L * C, G, 4)).astype(np.int32)
+    Hp, Wp = -(-G // ncx) * 16, ncx * 16
+    h_l = np.repeat(rng.randint(Hp // 2, Hp + 1, L), C).astype(np.int32)
+    w_l = np.repeat(rng.randint(Wp // 2, Wp + 1, L), C).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (v, r, h_l, w_l))
+
+
+def gemm_pyramid(imgs, levels):
+    """The pyramid and stack as the port built them before orb_pyramid:
+    per image and level two float32 GEMMs with the (n_out, n_in)
+    resize matrices, then a replicate pad of each level and one cat (the
+    pyramid row's earlier implementation, timed beside the kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mcslam_tpu_torch.ops import image as image_ops
+
+    B, H0, W0 = imgs.shape
+    out, x = [imgs], imgs
+    for h, w in image_ops.pyramid_shapes(H0, W0, levels, 1.2)[1:]:
+        Wh = gemm_pyramid.mats.setdefault(
+            (x.shape[1], h, imgs.device), torch.from_numpy(
+                image_ops._resize_matrix(x.shape[1], h)).to(imgs.device))
+        Ww = gemm_pyramid.mats.setdefault(
+            (x.shape[2], w, imgs.device), torch.from_numpy(
+                image_ops._resize_matrix(x.shape[2], w)).to(imgs.device)).T
+        x = torch.stack([(Wh @ im) @ Ww for im in x])
+        out.append(x)
+    return torch.cat([F.pad(lv[None], (0, W0 - lv.shape[-1], 0,
+                                       H0 - lv.shape[-2]),
+                            mode="replicate")[0] for lv in out]).contiguous()
+
+
+gemm_pyramid.mats = {}
+
+
+def select_in_graph(a, kw, dev):
+    """orb_select on the arguments a, kw captured in a CUDA graph: two
+    replays bitwise equal to the plain version."""
+    import torch
+
+    from mcslam_tpu_torch.ops import orb_cuda
+
+    ref = orb_cuda.orb_select_reference(*a, **kw)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        orb_cuda.orb_select(*a, **kw)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = orb_cuda.orb_select(*a, **kw)
+    for k in range(2):
+        for x in out:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(out, ref)),
+              f"orb_select: graph replay {k} differs from the plain version")
+    print("# kernel orb_select bench frame 0 in a CUDA graph: two replays "
+          "bitwise equal to the plain version")
+
+
+def orb_kernels(scene, rng, dev, kernels):
+    """Phase 2, the ORB extraction's glue kernels (ops/orb_cuda): each at
+    the bench frame's inputs (frame 0, recorded on the frame build's
+    path: the (C, H, W) images, fast_select's candidates, the 3072
+    patches) and at random shapes (the pyramid at 1 x 97 x 133 with 8
+    levels, C = 2, 3 and 5; the selection on plateau-tied candidates at
+    C = 1, 2, 3 and 5, with and without the compaction and with fewer
+    candidates than the level quota; the descriptors of 777 patches at 32
+    bins and of 5), through the kernel twice and the plain version:
+    equal bit for bit; orb_select also through a CUDA graph replayed
+    twice. Then the bench frame's extraction on the card against the
+    CPU: the keypoints of every level and the descriptors."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.ops import orb, orb_cuda
+
+    seen = capture_calls(lambda: frame.build_frame(
+        scene.imgs[0], scene.rig, **scene.frame_kwargs()), {
+            "orb_pyramid": (orb_cuda, "orb_pyramid"),
+            "orb_select": (orb_cuda, "orb_select"),
+            "orb_describe": (orb_cuda, "orb_describe")})
+
+    def same(a, b):
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    def hold(name, label, fn, plain):
+        k1, k2, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        check(same(k1, k2), f"{name} {label}: two runs differ")
+        check(same(k1, ref), f"{name} {label}: differs from the plain "
+              f"version")
+        print(f"# kernel {name} {label}: bitwise equal to the plain version "
+              f"and across two runs")
+        return ref
+
+    # the pyramid
+    (imgs, L), pkw = seen["orb_pyramid"][0], seen["orb_pyramid"][1]
+    cases = [(f"C={C} {H}x{W} L={L} (bench frame 0)", imgs, L)]
+    for B, Hs, Ws, Ls in ((1, 97, 133, 8), (2, 144, 192, 3),
+                          (3, 37, 53, 4), (5, 120, 160, 4)):
+        cases.append((f"C={B} {Hs}x{Ws} L={Ls} (random)",
+                      torch.rand(B, Hs, Ws, generator=torch.Generator(
+                          device=dev).manual_seed(Hs), device=dev), Ls))
+    for label, im, lv in cases:
+        hold("orb_pyramid", label, lambda im=im, lv=lv: orb_cuda.orb_pyramid(
+            im, lv, **pkw), lambda im=im, lv=lv: orb_cuda.orb_pyramid_reference(
+                im, lv, **pkw))
+    gemm = gemm_pyramid(imgs, L)
+    err_gemm = float((gemm - orb_cuda.orb_pyramid(imgs, L)).abs().max())
+    print(f"# kernel orb_pyramid bench frame 0: max abs difference from the "
+          f"earlier GEMM form {err_gemm:.3g}")
+    check(err_gemm <= 1e-6, f"orb_pyramid: {err_gemm} from the GEMM form")
+    shapes = orb.image_ops.pyramid_shapes(H, W, L, 1.2)
+    out_px = sum(h * w for h, w in shapes[1:]) * C
+    mid_px = sum(h * pw for h, (_, pw) in zip(
+        [s[0] for s in shapes[1:]], shapes[:-1])) * C
+    kernels["orb_pyramid"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/orb_pyramid.cu",
+        replaces="mcslam_tpu/ops/image.py:106", max_abs_err=0.0,
+        fn=lambda: orb_cuda.orb_pyramid(imgs, L, **pkw),
+        plain=lambda: orb_cuda.orb_pyramid_reference(imgs, L, **pkw),
+        also={"gemm_ms": lambda: gemm_pyramid(imgs, L)},
+        symbols=("pyramid_base_kernel", "pyramid_level_kernel"),
+        device_ops=L - 1,
+        # level 0 read once, the stack written once; 3 multiplies and 2
+        # adds per output of each pass (K = 3 taps)
+        nbytes=4 * imgs.numel() + 4 * L * imgs.numel(),
+        ops_s=f32_ops_s(5 * (mid_px + out_px)))
+
+    # the selection
+    a, skw = seen["orb_select"]
+    cv = a[0]
+    LC = cv.shape[0]
+    cases = [(f"C={C} L={L} (bench frame 0)", a, skw)]
+    for Cr, Lr, Gr, npts in ((1, 4, 112, 768), (2, 8, 112, 512),
+                             (3, 4, 1200, 768), (5, 1, 1200, 300),
+                             (2, 4, 24, 768)):
+        budgets = orb._level_budget(npts, Lr, 1.2)
+        kw = dict(C=Cr, budgets=budgets,
+                  n_out=min(npts, Lr * max(budgets)), scale=1.2, ncx=16)
+        cases.append((f"C={Cr} L={Lr} G={Gr} n_out={kw['n_out']} of "
+                      f"{Lr * max(budgets)} (plateau ties)",
+                      plateau_candidates(rng, Cr, Lr, Gr, 16, dev), kw))
+    for label, args, kw in cases:
+        hold("orb_select", label,
+             lambda args=args, kw=kw: orb_cuda.orb_select(*args, **kw),
+             lambda args=args, kw=kw: orb_cuda.orb_select_reference(*args,
+                                                                    **kw))
+    select_in_graph(a, skw, dev)
+    n_out = skw["n_out"]
+    M = L * max(skw["budgets"])
+    kernels["orb_select"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/orb_select.cu",
+        replaces="mcslam_tpu/ops/orb.py:219", max_abs_err=0.0,
+        fn=lambda: orb_cuda.orb_select(*a, **skw),
+        plain=lambda: orb_cuda.orb_select_reference(*a, **skw),
+        symbols=("orb_select_kernel", "orb_compact_kernel"), device_ops=2,
+        # the candidates and level sizes read once; the 7 outputs written
+        # once (8 + 4 + 4 + 4 + 1 + 8 + 4 bytes a slot)
+        nbytes=8 * cv.numel() + 8 * LC + 33 * C * n_out,
+        # a compare per candidate key and per slot key, and the slot
+        # fields (~12 operations a slot)
+        ops_s=f32_ops_s(cv.numel() + C * M + 12 * (LC * max(skw["budgets"])
+                                                   + C * n_out)))
+
+    # orientation and descriptors
+    (patches, bins), dkw = seen["orb_describe"][0], seen["orb_describe"][1]
+    T = patches.shape[0]
+    rnd = torch.rand(777, orb.PATCH, orb.PATCH, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    cases = [(f"T={T} bins={bins} (bench frame 0)", patches, bins),
+             ("T=777 bins=32 (uniform noise)", rnd, 32),
+             ("T=5 bins=16 (uniform noise)", rnd[:5].contiguous(), 16)]
+    for label, p, b in cases:
+        hold("orb_describe", label,
+             lambda p=p, b=b: orb_cuda.orb_describe(p, b),
+             lambda p=p, b=b: orb_cuda.orb_describe_reference(p, b))
+    m = orb.patch_moments(patches)
+    check(torch.equal(orb_cuda.orb_describe(patches, bins)[0],
+                      torch.atan2(m[:, 1], m[:, 0])),
+          "orb_describe: the kernel's atan2f differs from torch.atan2")
+    print("# kernel orb_describe: the angle equals torch.atan2 of the plain "
+          "moments bit for bit")
+    kernels["orb_describe"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/orb_describe.cu",
+        replaces="mcslam_tpu/ops/orb.py:114", max_abs_err=0.0,
+        fn=lambda: orb_cuda.orb_describe(patches, bins),
+        plain=lambda: orb_cuda.orb_describe_reference(patches, bins),
+        symbols=("orb_describe_kernel",), device_ops=1,
+        # the patches read once, angle and descriptor written once
+        nbytes=T * (4 * PATCH_PX + 4 + 32),
+        # 2 products and 2 adds per pixel for the moments, per bit two
+        # roundings and a subtract
+        ops_s=f32_ops_s(T * (4 * PATCH_PX + 3 * 256)))
+
+    # the bench frame's extraction on the card against the CPU
+    kw = dict(num_points=NPTS, num_levels=NLVL, angle_bins=BINS)
+    kd = orb.extract_orb_rig(scene.imgs[0], **kw)
+    kc = orb.extract_orb_rig(scene.imgs[0].cpu(), **kw)
+    lvl0 = (kc.octave == 0) & kc.valid
+    per = {f: bool(torch.equal(getattr(kd, f).cpu(), getattr(kc, f)))
+           for f in orb.Keypoints._fields}
+
+    def keyset(k, upper):
+        v = (k.valid & ((k.octave > 0) == upper)).cpu()
+        return {tuple(p) for p in k.xy.cpu()[v].tolist()}
+
+    hd, hc = keyset(kd, True), keyset(kc, True)
+    share = len(hd & hc) / max(len(hd), len(hc), 1)
+    print(f"# extract_orb_rig bench frame 0, card vs CPU: level 0 "
+          f"{int(lvl0.sum())} keypoints, levels >= 1 share {share:.4f} of "
+          f"{len(hd)} / {len(hc)}; fields equal: {per}")
+    check(keyset(kd, False) == keyset(kc, False),
+          "extract_orb_rig: level-0 keypoints differ between card and CPU")
+    check(share >= 0.95, f"extract_orb_rig: levels >= 1 share {share:.4f}")
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -1469,6 +1723,7 @@ def main() -> int:
     solver_kernels(scene, rng, dev, kernels)
     stereo_kernels(scene, rng, dev, kernels)
     geometry_kernels(scene, rng, dev, kernels)
+    orb_kernels(scene, rng, dev, kernels)
     solve_problem = _window_solves(scene, dev)
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
@@ -1489,8 +1744,8 @@ def main() -> int:
           "forced-portfolio drive took the fast path")
     launches = dict(_build.LAUNCHES)
     print(f"# launches during the slice: {launches}")
-    for n in ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
-              *TRI_INTRA):
+    for n in ("fast_select", "patch_gather", *ORB_KERNELS, "hamming_argmin2",
+              "pose_lm", *TRI_INTRA):
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched on the slice's path")
 
@@ -1809,8 +2064,8 @@ def bootstrap_phase(scene, dev, kernels):
     from mcslam_tpu_torch.utils import metrics
 
     ecfg = scene.frame_kwargs()
-    main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
-                 "ba_linearize")
+    main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
+                 "hamming_argmin2", "pose_lm", "ba_linearize")
 
     # (a) blank frames, then the bench frames
     blank = torch.zeros_like(scene.imgs[0])
@@ -2546,8 +2801,8 @@ def loop_phase(dev):
     gba_problems = global_ba_phase(dev)
 
     # (b) the full-width loop session
-    main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
-                 "ba_linearize")
+    main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
+                 "hamming_argmin2", "pose_lm", "ba_linearize")
     (slam, poses, vocab, times), launches = counted(
         "the loop session", main_path, lambda: loop_session(dev))
     _, est = slam.trajectory_arrays()
@@ -2761,11 +3016,14 @@ def time_kernel(n, k, smi):
     k by the times and the bound, and prints them."""
     fn, plain = k.pop("fn"), k.pop("plain")
     library = k.pop("library", None)
+    also = k.pop("also", {})
     names = k.pop("symbols")
     k["bound_ms"], k["bound_by"] = bound(k.pop("nbytes"), k.pop("ops_s"))
     k["ms"] = cuda_ms(fn)
     k["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
     k["library_ms"] = cuda_ms(library) if library is not None else None
+    for key, f in also.items():
+        k[key] = cuda_ms(f, reps=5, warmup=1)
     want_ops = k.pop("device_ops", None)
     wrap_ms, n_ops, kern_ms = device_profile(fn, reps=10, names=names)
     k["device_ms"] = kern_ms
@@ -2773,6 +3031,7 @@ def time_kernel(n, k, smi):
           f"{n}: the wrapper's call is {n_ops} device ops, not {want_ops}")
     lib = (f", library call {k['library_ms']:.4f} ms"
            if library is not None else "")
+    lib += "".join(f", {key} {k[key]:.4f}" for key in also)
     print(f"# time {n}: wrapper {k['ms']:.4f} ms, plain "
           f"{k['plain_ms']:.4f} ms{lib} by CUDA events; profiler: the "
           f"kernel {kern_ms:.4f} ms of device time, the wrapper's call "
@@ -3302,8 +3561,8 @@ def app_sessions(root, rig, u8, poses, device, count, max_ate):
     from mcslam_tpu_torch.apps import run_euroc
     from mcslam_tpu_torch.utils import metrics, tum
 
-    main_path = ("fast_select", "patch_gather", "hamming_argmin2", "pose_lm",
-                 "ba_linearize")
+    main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
+                 "hamming_argmin2", "pose_lm", "ba_linearize")
     cfgs = write_app_dataset(root, rig, u8, device)
     # the dense cloud's DenseFuser aggregates by SGM on every keyframe
     (rc, wall, stamps), launches = count(
@@ -3779,7 +4038,7 @@ def _mesh_frame(scene, mesh, dev, smi):
           f"{same or 'none'}; launches {launches}")
     check(not same, f"sharded_build_frame: {same} differ from build_frame")
     if dev.type == "cuda":
-        for n in ("fast_select", "patch_gather"):
+        for n in ("fast_select", "patch_gather", *ORB_KERNELS):
             check(launches.get(n, 0) == mesh.size,
                   f"sharded_build_frame: {n} launched {launches.get(n, 0)} "
                   f"times, not once per shard")
@@ -3892,8 +4151,8 @@ def mesh_phase(scene, p_dev, dev, smi, plain_times=None):
     check(slam.stats.get("window_ba", 0) >= 1, "mesh session: no solve")
     check(ate <= MAX_ATE, f"mesh session: ATE {ate:.4f} m > {MAX_ATE}")
     if dev.type == "cuda":
-        for n in ("fast_select", "patch_gather", "hamming_argmin2",
-                  "pose_lm"):
+        for n in ("fast_select", "patch_gather", *ORB_KERNELS,
+                  "hamming_argmin2", "pose_lm"):
             check(launches.get(n, 0) > 0,
                   f"mesh session: kernel {n} was not launched")
 
@@ -4062,7 +4321,7 @@ def live_app_part(root, cfgs, seq, poses, device, count, smi, viewer_missing,
     """Phase 13 (c): the app on `device` with mcraw_path=seq (phase 11
     (a)'s cfg otherwise), with --live_view unless the probe found the
     viewer's needs missing. Gates: rc 0, a TUM row per frame, ATE <=
-    APP_MAX_ATE, the five default-route kernels launched (`count`); with
+    APP_MAX_ATE, the default-route kernels launched (`count`); with
     the viewer, the PNG decodes, the HTML page exists, the viewer
     rendered during the session. Prints the per-frame wall time beside
     `base`'s (phase 11 (a)'s run from the PGM folders on the card; in a
@@ -4091,8 +4350,8 @@ def live_app_part(root, cfgs, seq, poses, device, count, smi, viewer_missing,
 
         viewer.LiveViewer = Recorded
     try:
-        main_path = ("fast_select", "patch_gather", "hamming_argmin2",
-                     "pose_lm", "ba_linearize")
+        main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
+                     "hamming_argmin2", "pose_lm", "ba_linearize")
         (rc, wall, stamps), launches = count(
             f"the app ({what})", main_path if device == "cuda" else (),
             lambda: app_run(cfg, device, *extra))
@@ -4296,10 +4555,15 @@ API_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
                 "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 # the main path's kernels by wrapper, each with the device-side kernel that
 # its wrapper launches exactly once per call (hamming_argmin2 launches a
-# tile and a merge kernel; patch_gather_kernel is also the batched entry's,
-# which only route A calls)
+# tile and a merge kernel, orb_pyramid a base kernel and one per level
+# from the third, orb_select a selection and a compaction kernel;
+# patch_gather_kernel is also the batched entry's, which only route A
+# calls)
 TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "patch_gather": "patch_gather_kernel",
+               "orb_pyramid": "pyramid_base_kernel",
+               "orb_select": "orb_compact_kernel",
+               "orb_describe": "orb_describe_kernel",
                "hamming_argmin2": "hamming_merge_kernel",
                "pose_lm": "pose_lm_cluster_kernel",
                "ba_linearize": "linearize_kernel",
@@ -4546,7 +4810,7 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                  f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
                  f"predicate and 8-byte handle read, the 4-byte condition "
                  f"written)" if cond else "")
-              + (f"; with tri_refine and intra_pairs as first written "
+              + (f"; before the ORB glue's kernels "
                  f"{FRAME_BEFORE[0]} device ops, {FRAME_BEFORE[1]:.3f} ms "
                  f"(NVIDIA H100 80GB HBM3, 700.00 W)" if cond else "")
               + f" ({smi})")

@@ -34,11 +34,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# flags of one source only: ba_linearize and tri_refine round every
-# multiply and add on their own, as their plain versions do (no
-# contraction into FMAs)
+# flags of one source only: ba_linearize, tri_refine, orb_pyramid and
+# orb_select round every multiply and add on their own, as their plain
+# versions do (no contraction into FMAs). orb_describe keeps the default
+# flags, under which torch builds the atan2 its plain version calls; its
+# own products and sums are __fmul_rn / __fadd_rn, never contracted.
 SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
-                "tri_refine": ["-fmad=false"]}
+                "tri_refine": ["-fmad=false"],
+                "orb_pyramid": ["-fmad=false"],
+                "orb_select": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -90,6 +94,15 @@ SIGNATURES = {
     # (P + C ints, zero), C, N, T, scratch ints, counter ints, max_dist,
     # ratio, stream
     "mc_intra_pairs": [P] * 6 + [I] * 3 + [L, I, I, F, P],
+    # imgs, stack, tables (a host array of device pointers), dims (a host
+    # int array), B, H, W, levels, stream
+    "mc_orb_pyramid": [P] * 4 + [I] * 4 + [P],
+    # cand_v, cand_rid, h_l, w_l, budget, s_lvl, scratch, xy, response,
+    # octave, sigma2, valid, flat_yx, flat_img, L, C, N, maxb, n_out, ncx,
+    # cell, per_cell, edge, stream
+    "mc_orb_select": [P] * 14 + [I] * 9 + [P],
+    # patches, steered index, angle, desc, T, bins, two_pi, stream
+    "mc_orb_describe": [P] * 4 + [I, I, F, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

@@ -12,7 +12,7 @@
 // Computes, for M points of R rays each (mask per ray), what the plain
 // version computes, in its order of operations:
 //  1. the unit world ray of each ray: xn = (u - cx) / fx, yn likewise,
-//     inv_n = rsqrtf((xn xn + yn yn) + 1), d = T[:3,:3] (xn, yn, 1) inv_n;
+//     inv_n = 1 / sqrtf((xn xn + yn yn) + 1), d = T[:3,:3] (xn, yn, 1) inv_n;
 //  2. the midpoint normal equations A = sum m (I - d d^T), b = sum m
 //     (I - d d^T) o, o = T[:3, 3];
 //  3. the cofactor 3x3 solve with 1e-6 added to A's diagonal and the
@@ -25,14 +25,16 @@
 //     (z clamped at 1e-6 in the projection), ok = ok0 & (>= 2 rays pass).
 //
 // Bit for bit: built with -fmad=false (_build.SOURCE_FLAGS) and written
-// with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn in the plain
-// version's order, rsqrtf where it calls torch.rsqrt, and clamps that let
-// a NaN through as torch.clamp does. Every sum over the rays is added in
-// the order of torch.sum(dim=0) on the contiguous (R, M) component arrays
-// the plain version makes: on the card (scripts/tri_sum_order.py) that
-// reduction keeps four accumulators per output, ray r going into r % 4,
-// each started as 0 + x, and folds them as ((a0 + a1) + a2) + a3 (the
-// unused ones are 0). So X and ok equal the plain version's on the card.
+// with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn in the
+// plain version's order (the ray's norm as 1 / sqrt, both correctly
+// rounded, where torch.rsqrt would round otherwise on the card than on
+// the CPU), and clamps that let a NaN through as torch.clamp does. Every
+// sum over the rays is added in the order of torch.sum(dim=0) on a
+// contiguous (R, M) array on the card (scripts/tri_sum_order.py), which
+// the plain version writes out as explicit adds (triangulation.ray_sum):
+// four accumulators per output, ray r going into r % 4, each started as
+// 0 + x, folded as ((a0 + a1) + a2) + a3 (the unused ones are 0). So X
+// and ok equal the plain version's on the card, and on the CPU.
 //
 // Bound on the card: launch and latency. At the frame's shape (M = 2048,
 // R = 4) a call reads ~M R (2 + 1 + 1) floats and bytes plus the C poses
@@ -230,7 +232,8 @@ __global__ void __launch_bounds__(THREADS) tri_refine_kernel(const Args a) {
     n_valid += q.m != 0.0f;
     const float xn = __fdiv_rn(sub(q.u, q.cx), q.fx);
     const float yn = __fdiv_rn(sub(q.v, q.cy), q.fy);
-    const float inv_n = rsqrtf(add(add(mul(xn, xn), mul(yn, yn)), 1.0f));
+    const float inv_n =
+        __fdiv_rn(1.0f, __fsqrt_rn(add(add(mul(xn, xn), mul(yn, yn)), 1.0f)));
     const float dc[3] = {mul(xn, inv_n), mul(yn, inv_n), inv_n};
     float d[3], o[3];
 #pragma unroll

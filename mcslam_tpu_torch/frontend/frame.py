@@ -87,9 +87,10 @@ def _triangulate_stage(groups, xy_ud, kp_sigma2, rig, min_z, max_z):
     world_T_cam = lie.se3_inverse(rig.cam_T_ref)[None].expand(M, C, 4, 4)
     fxy = rig.fxycxy[None].expand(M, C, 4)
     multi = torch.sum(ray_valid, dim=-1) >= 2
+    # sigma: a correctly rounded float32 square root on every device
     X, tri_ok = triangulation.triangulate_and_refine(
         world_T_cam, uv, fxy, ray_valid & multi[:, None],
-        sigma=torch.sqrt(sig2), min_z=min_z, max_z=max_z,
+        sigma=torch.sqrt(sig2.double()).float(), min_z=min_z, max_z=max_z,
     )
     has_depth = tri_ok & multi & groups.valid
     anchor_cam = torch.argmax(ray_valid.to(torch.uint8), dim=-1)

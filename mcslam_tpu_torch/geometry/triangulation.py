@@ -170,6 +170,20 @@ def triangulate_and_refine(
         gn_iters)
 
 
+def ray_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the rays of an (R, M) float32 component in the order the
+    card's torch.sum(dim=0) takes on a contiguous (R, M) array, which
+    csrc/tri_refine.cu repeats (scripts/tri_sum_order.py): ray r into
+    accumulator r % 4, each started as 0 + x, the unused ones 0, folded
+    as ((a0 + a1) + a2) + a3. Written as explicit adds, so the CPU gives
+    the card's bits."""
+    zero = torch.zeros_like(x[0])
+    acc = [zero + x[r] if r < x.shape[0] else zero for r in range(4)]
+    for r in range(4, x.shape[0]):
+        acc[r % 4] = acc[r % 4] + x[r]
+    return ((acc[0] + acc[1]) + acc[2]) + acc[3]
+
+
 def triangulate_and_refine_reference(
     world_T_cam: torch.Tensor,
     uv: torch.Tensor,
@@ -183,9 +197,9 @@ def triangulate_and_refine_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of triangulate_and_refine, in the JAX
     package's transposed component form. Every component is made a
-    contiguous (R, M) tensor, so every sum over the rays is the same
-    reduction whatever the inputs' strides (on the card its order of adds
-    is what csrc/tri_refine.cu repeats)."""
+    contiguous (R, M) tensor, and every float sum over the rays is
+    ray_sum: the card's order of adds, which csrc/tri_refine.cu repeats,
+    on every device."""
     batch_shape = mask.shape[:-1]
     R = mask.shape[-1]
     M = 1
@@ -207,7 +221,9 @@ def triangulate_and_refine_reference(
 
     xn = (u - cx) / fx
     yn = (v - cy) / fy
-    inv_n = torch.rsqrt(xn * xn + yn * yn + 1.0)
+    # a correctly rounded float32 square root on every device (the CPU's
+    # vectorized float32 sqrt is not; the kernel's __fsqrt_rn is)
+    inv_n = 1.0 / torch.sqrt((xn * xn + yn * yn + 1.0).double()).float()
     dc = [xn * inv_n, yn * inv_n, inv_n]
     d = [T[i][0] * dc[0] + T[i][1] * dc[1] + T[i][2] * dc[2]
          for i in range(3)]
@@ -218,13 +234,13 @@ def triangulate_and_refine_reference(
     for i in range(3):
         for j in range(3):
             eye = 1.0 if i == j else 0.0
-            A[i][j] = torch.sum(m * (eye - d[i] * d[j]), dim=0)
+            A[i][j] = ray_sum(m * (eye - d[i] * d[j]))
     for i in range(3):
         acc = 0.0
         for j in range(3):
             eye = 1.0 if i == j else 0.0
             acc = acc + m * (eye - d[i] * d[j]) * o[j]
-        b[i] = torch.sum(acc, dim=0)
+        b[i] = ray_sum(acc)
     X0, det = _solve3_elem(A, b, damping=1e-6)
     n_valid = torch.sum(mask, dim=-1).reshape(M)
     ok0 = (n_valid >= 2) & (det > 1e-9)
@@ -252,9 +268,9 @@ def triangulate_and_refine_reference(
         hy = -gy * p[1] * inv_z
         Jc = [[(gx * Rcw[0][i] + hx * Rcw[2][i]) * m for i in range(3)],
               [(gy * Rcw[1][i] + hy * Rcw[2][i]) * m for i in range(3)]]
-        H = [[torch.sum(Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j], dim=0)
+        H = [[ray_sum(Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j])
               for j in range(3)] for i in range(3)]
-        g = [torch.sum(Jc[0][i] * ru + Jc[1][i] * rv, dim=0)
+        g = [ray_sum(Jc[0][i] * ru + Jc[1][i] * rv)
              for i in range(3)]
         dX, _ = _solve3_elem(H, g, damping=1e-3)
         X = [X[i] - dX[i] for i in range(3)]

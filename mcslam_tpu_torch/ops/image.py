@@ -5,8 +5,9 @@ mcslam_tpu/ops/image.py). Images are
 
 The resize reproduces jax.image.resize(method="bilinear") — which
 antialiases when downsampling (a triangle filter widened by the scale) —
-as two f32 matmuls with (h_out, h_in) and (w_out, w_in) weight matrices
-built in numpy the way jax/_src/image/scale.py builds them.
+with the weights built in numpy the way jax/_src/image/scale.py builds
+them, applied as a vertical then a horizontal pass over each output's
+few nonzero taps in a fixed order.
 """
 
 from __future__ import annotations
@@ -92,26 +93,67 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.ascontiguousarray(weights.T)
 
 
+MAX_TAPS = 8  # taps per output the pyramid kernel takes (csrc/orb_pyramid.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def resize_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero taps of _resize_matrix(n_in, n_out): (n_out, K) f32
+    weights and the (n_out,) int32 input index of each output's first
+    tap, taps in ascending input index, K the widest support found (a
+    narrower one padded with zero weights; the window shifted left to
+    stay inside the input). At the pyramid's scale 1.2 the triangle's
+    support is under +-1.2 input pixels, so K <= 3."""
+    W = _resize_matrix(n_in, n_out)
+    nz = W != 0
+    lo = np.where(nz.any(1), nz.argmax(1), 0)
+    hi = np.where(nz.any(1), n_in - 1 - nz[:, ::-1].argmax(1), 0)
+    K = int(max(1, (hi - lo + 1).max()))
+    assert K <= min(n_in, MAX_TAPS), (n_in, n_out, K)
+    first = np.minimum(lo, n_in - K)
+    idx = first[:, None] + np.arange(K)[None, :]
+    taps = np.take_along_axis(W, idx, axis=1).astype(np.float32)
+    assert np.array_equal(W[np.arange(n_out)[:, None], idx], taps) and \
+        np.count_nonzero(W) == np.count_nonzero(taps)
+    return np.ascontiguousarray(taps), first.astype(np.int32)
+
+
+def _resize_pass(x: torch.Tensor, taps: torch.Tensor, first: torch.Tensor,
+                 dim: int) -> torch.Tensor:
+    """One pass of the resize along dim (-2 or -1): output o is
+    w0 x[f + 0] + w1 x[f + 1] + ... added left to right, each product and
+    sum rounded to f32 (the order csrc/orb_pyramid.cu repeats)."""
+    acc = None
+    for k in range(taps.shape[1]):
+        src = torch.index_select(x, dim, (first + k).long())
+        w = taps[:, k][:, None] if dim == -2 else taps[:, k]
+        term = src * w
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Antialiased bilinear resize of (..., H, W) to (..., h, w), as two
-    matrix products per image: every product has one shape whatever the
-    number of images, since a GEMM may sum in another order for another
-    M or batch count, and an image must resize to the same bits alone as
-    in a batch (the camera-sharded frame build, parallel/sharded_frame)."""
+    """Antialiased bilinear resize of (..., H, W) to (..., h, w): the
+    vertical pass, then the horizontal, each over its few nonzero taps
+    (resize_taps) in a fixed order, every product and sum an f32
+    elementwise op, so that every device and every batch size gives the
+    same bits (the camera-sharded frame build, parallel/sharded_frame)."""
     h, w = img.shape[-2:]
     oh, ow = out_hw
-    Wh = graphs.const(("image.resize", h, oh), img.device,
-                      lambda: _resize_matrix(h, oh))
-    Ww = graphs.const(("image.resize", w, ow), img.device,
-                      lambda: _resize_matrix(w, ow)).T
+    x = img
+    for n_in, n_out, dim in ((h, oh, -2), (w, ow, -1)):
+        if n_in != n_out:
+            taps, first = resize_tables(n_in, n_out, img.device)
+            x = _resize_pass(x, taps, first, dim)
+    return x
 
-    def one(x):
-        if oh != h:
-            x = Wh @ x
-        return x @ Ww if ow != w else x
 
-    out = [one(x) for x in img.reshape(-1, h, w)]
-    return torch.stack(out).reshape(*img.shape[:-2], oh, ow)
+def resize_tables(n_in: int, n_out: int, device):
+    """resize_taps(n_in, n_out) on `device` (made once per device)."""
+    return (graphs.const(("image.resize_taps", n_in, n_out), device,
+                         lambda: resize_taps(n_in, n_out)[0]),
+            graphs.const(("image.resize_first", n_in, n_out), device,
+                         lambda: resize_taps(n_in, n_out)[1]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,13 +168,17 @@ def pyramid_shapes(h: int, w: int, num_levels: int, scale: float) -> tuple:
 def build_pyramid(img: torch.Tensor, num_levels: int = 8,
                   scale: float = 1.2) -> list[torch.Tensor]:
     """List of (..., h_l, w_l) images, level 0 = input; each level is
-    resized from the previous one."""
-    h, w = img.shape[-2:]
-    shapes = pyramid_shapes(h, w, num_levels, scale)
-    levels = [img]
-    for lvl in range(1, num_levels):
-        levels.append(resize_bilinear(levels[-1], shapes[lvl]))
-    return levels
+    resized from the previous one. The levels are views of one stacked
+    buffer (ops/orb_cuda.orb_pyramid: its kernel for CUDA tensors)."""
+    from mcslam_tpu_torch.ops import orb_cuda
+
+    *lead, h, w = img.shape
+    flat = img.reshape(-1, h, w)
+    B = flat.shape[0]
+    stacked = orb_cuda.orb_pyramid(flat, num_levels, scale)
+    return [stacked[l * B:(l + 1) * B, :lh, :lw].reshape(*lead, lh, lw)
+            for l, (lh, lw) in enumerate(pyramid_shapes(h, w, num_levels,
+                                                        scale))]
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ shape and stacked into one (L*C, H, W) batch -> one fast_select launch
 (FAST + NMS + blur + per-cell top-4) -> global top-N per image ->
 per-level quota and edge margin -> cross-level compaction to num_points
 per camera -> patch gather -> intensity-centroid orientation -> steered
-BRIEF-256. `OrbRoute` selects the JAX package's other routes (its
+BRIEF-256. The pyramid with its stack, the selection through the
+compaction, and the orientation with the descriptors are the kernels of
+ops/orb_cuda.py (their plain versions for CPU tensors). `OrbRoute` selects the JAX package's other routes (its
 environment switches) as explicit arguments: the score map with the
 selection chain outside the kernel, the standalone blur, no height skip,
 the subcell selection, compaction after the descriptors, and the patch
@@ -134,18 +136,34 @@ def extract_patches_indexed(imgs: torch.Tensor, yx: torch.Tensor,
                         img_idx.to(torch.int32).contiguous())
 
 
-def patch_orientation(patches: torch.Tensor, groups: int = 1) -> torch.Tensor:
-    """IC angle atan2(m01, m10) of (N, P, P) patches from f32
-    (N / groups, P^2) @ (P^2, 2) products, one per group of rows (TF32 is
-    off: a flipped steering bin decorrelates the descriptor). The frame
-    build passes one group per image or camera, so every product has the
-    same shape whatever the number of cameras: a GEMM may sum in another
-    order for another M, and the camera-sharded build
-    (parallel/sharded_frame) must give the same bits."""
+MOMENT_SLOTS = 2048  # PATCH * PATCH products padded to a power of two
+
+
+def patch_moments(patches: torch.Tensor) -> torch.Tensor:
+    """(N, 2) circular moments (m10, m01) of (N, P, P) patches. Each sums
+    the P^2 products patch * weight, padded with zeros to MOMENT_SLOTS,
+    in a fixed pairwise halving tree (x[:n] + x[n:] down to one value):
+    every add an f32 elementwise op, so every device and every batch size
+    gives the same bits (csrc/orb_describe.cu repeats the tree; the
+    camera-sharded build, parallel/sharded_frame, must equal the
+    unsharded one)."""
     W = graphs.const("orb.moment_weights", patches.device,
                      _moment_weight_matrix)
     flat = patches.reshape(patches.shape[0], PATCH * PATCH)
-    m = torch.cat([g @ W for g in flat.chunk(groups)])
+    m = []
+    for k in range(2):
+        x = F.pad(flat * W[:, k], (0, MOMENT_SLOTS - PATCH * PATCH))
+        n = MOMENT_SLOTS
+        while n > 1:
+            n //= 2
+            x = x[:, :n] + x[:, n:]
+        m.append(x[:, 0])
+    return torch.stack(m, dim=-1)
+
+
+def patch_orientation(patches: torch.Tensor) -> torch.Tensor:
+    """IC angle atan2(m01, m10) of (N, P, P) patches (patch_moments)."""
+    m = patch_moments(patches)
     return torch.atan2(m[:, 1], m[:, 0])
 
 
@@ -263,6 +281,63 @@ def _compaction(valid, resp, n: int):
     return take
 
 
+def _slot_fields(yx, resp, valid, h_l, w_l, *, L: int, C: int,
+                 budgets: tuple, scale: float):
+    """Per (L C, maxb) slot of the selected candidates: the rank bonus
+    undone, the level quota and the EDGE margin against the level's true
+    size applied to the validity, then the slot metadata -> (yx, resp,
+    valid, xy0 (level-0 pixels), octave, sigma2, image index)."""
+    dev = yx.device
+    maxb = yx.shape[1]
+    resp = torch.where(resp > 1.0, resp - 1.0, resp)  # undo rank bonus
+    budget_arr = graphs.values(tuple(b for b in budgets for _ in range(C)),
+                               torch.int64, dev)
+    valid = valid & (torch.arange(maxb, device=dev)[None, :]
+                     < budget_arr[:, None])
+    hl, wl = h_l.long()[:, None], w_l.long()[:, None]
+    inb = ((yx[..., 0] >= EDGE) & (yx[..., 0] < hl - EDGE)
+           & (yx[..., 1] >= EDGE) & (yx[..., 1] < wl - EDGE))
+    valid = valid & inb
+
+    s_lvl = graphs.values(tuple(scale**lvl for lvl in range(L)),
+                          torch.float32, dev)
+    xy_lvl = torch.stack([yx[..., 1], yx[..., 0]], dim=-1).to(torch.float32)
+    xy0 = (xy_lvl.reshape(L, C, maxb, 2)
+           * s_lvl[:, None, None, None]).reshape(L * C, maxb, 2)
+    octv = torch.arange(L, dtype=torch.int32, device=dev)[:, None, None] \
+        .expand(L, C, maxb).reshape(L * C, maxb)
+    sigma2 = (s_lvl**2)[:, None, None].expand(L, C, maxb).reshape(L * C, maxb)
+    img_idx = torch.arange(L * C, dtype=torch.int32, device=dev)[:, None] \
+        .expand(L * C, maxb)
+    return yx, resp, valid, xy0, octv, sigma2, img_idx
+
+
+def _merge(x, L: int, C: int):
+    """(L*C, maxb, ...) -> (C, L*maxb, ...), level-major slot order."""
+    maxb = x.shape[1]
+    x = x.reshape(L, C, maxb, *x.shape[2:])
+    return x.movedim(1, 0).reshape(C, L * maxb, *x.shape[3:])
+
+
+def _merge_compact(yx, resp, valid, xy0, octv, sigma2, img_idx, *, L: int,
+                   C: int, n_out: int):
+    """The slot fields merged per camera into level-major order, then the
+    early cross-level compaction to the n_out best per camera -> (xy,
+    response, octave, sigma2, valid (C, n_out, ...); flat yx (C n_out, 2)
+    and image index (C n_out,), the patch gather's inputs)."""
+    yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
+        _merge(a, L, C) for a in (yx, resp, valid, img_idx, octv, sigma2,
+                                  xy0))
+    if yxm.shape[1] > n_out:
+        take = _compaction(valid_m, resp_m, n_out)
+        yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
+            take(yxm), take(resp_m), take(valid_m), take(img_m),
+            take(octv_m), take(sig2_m), take(xy0_m))
+    T = C * n_out
+    return (xy0_m, resp_m, octv_m, sig2_m, valid_m,
+            yxm.reshape(T, 2).contiguous(), img_m.reshape(T).contiguous())
+
+
 def _select_from_score(score, h_l, w_l, fast_threshold, maxb: int, *,
                        cell: int, per_cell: int, subcell: bool):
     """The selection chain over dense (LC, H, W) score maps: each image's
@@ -293,10 +368,16 @@ def extract_orb_rig(imgs: torch.Tensor, num_points: int = 1024,
                     route: OrbRoute = OrbRoute()) -> Keypoints:
     """Camera-batched multi-scale ORB: imgs (C, H, W) float32 in [0, 1]
     -> Keypoints with a leading camera axis and num_points slots (cells
-    of 16x16 pixels, 4 candidates per cell), by the given route."""
-    levels = image_ops.build_pyramid(imgs, num_levels, scale)
-    return extract_orb_levels(levels, num_points, scale, fast_threshold,
-                              min_threshold, angle_bins, route)
+    of 16x16 pixels, 4 candidates per cell), by the given route. The
+    pyramid is built straight into the stacked batch (orb_cuda.
+    orb_pyramid)."""
+    from mcslam_tpu_torch.ops import orb_cuda
+
+    H0, W0 = imgs.shape[-2:]
+    stacked = orb_cuda.orb_pyramid(imgs, num_levels, scale=scale)
+    return _extract_stacked(
+        stacked, image_ops.pyramid_shapes(H0, W0, num_levels, scale),
+        num_points, scale, fast_threshold, min_threshold, angle_bins, route)
 
 
 def extract_orb(img: torch.Tensor, **kwargs) -> Keypoints:
@@ -314,34 +395,55 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
                        route: OrbRoute = OrbRoute()) -> Keypoints:
     """extract_orb_rig from an already built pyramid: levels[l] is the
     (C, h_l, w_l) image stack of level l."""
+    hw = tuple((lv.shape[-2], lv.shape[-1]) for lv in levels)
+    return _extract_stacked(stack_levels(levels), hw, num_points, scale,
+                            fast_threshold, min_threshold, angle_bins, route)
+
+
+def stack_levels(levels: list[torch.Tensor]) -> torch.Tensor:
+    """Every (C, h_l, w_l) level edge-padded to level 0's (H0, W0) and
+    stacked level-major: (L*C, H0, W0), the FAST kernels' input."""
+    H0, W0 = levels[0].shape[-2:]
+    return torch.cat(
+        [F.pad(lv[None], (0, W0 - lv.shape[-1], 0, H0 - lv.shape[-2]),
+               mode="replicate")[0] for lv in levels], dim=0).contiguous()
+
+
+def _extract_stacked(stacked, hw, num_points, scale, fast_threshold,
+                     min_threshold, angle_bins, route) -> Keypoints:
+    """The extraction from the (L*C, H0, W0) level stack whose level l
+    has the true size hw[l]."""
+    from mcslam_tpu_torch.ops import orb_cuda
+
     cell, per_cell = 16, 4
-    dev = levels[0].device
-    L = len(levels)
-    C = levels[0].shape[0]
+    dev = stacked.device
+    L = len(hw)
+    C = stacked.shape[0] // L
     budgets = _level_budget(num_points, L, scale)
     maxb = max(budgets)
-    H0, W0 = levels[0].shape[-2:]
-    hw = [(lv.shape[-2], lv.shape[-1]) for lv in levels]
-
-    # every level edge-padded to level 0's shape, stacked (L*C, H0, W0)
-    stacked = torch.cat(
-        [F.pad(lv[None], (0, W0 - w, 0, H0 - h), mode="replicate")[0]
-         for lv, (h, w) in zip(levels, hw)], dim=0,
-    ).contiguous()
-    # per-image level sizes and budgets, made once per device (no upload
-    # inside a captured frame)
+    n_out = min(num_points, L * maxb)
+    W0 = stacked.shape[-1]
+    # per-image level sizes, made once per device (no upload inside a
+    # captured frame)
     h_l = graphs.values(tuple(h for h, _ in hw for _ in range(C)),
                         torch.int32, dev)
     w_l = graphs.values(tuple(w for _, w in hw for _ in range(C)),
                         torch.int32, dev)
     taps = image_ops._np_gaussian_taps(7, 2.0)
+    ncx = (-(-W0 // 128) * 128) // cell
     if route.fused_blur and route.select_in_kernel:
         blurred, cand_v, cand_rid = fast_select(
             stacked, min_threshold, fast_threshold, h_l, w_l, taps=taps)
+        if not route.late_compact:
+            xy0, resp, octv, sigma2, valid, flat_yx, flat_img = \
+                orb_cuda.orb_select(cand_v, cand_rid, h_l, w_l, C=C,
+                                    budgets=budgets, n_out=n_out,
+                                    scale=scale, ncx=ncx, cell=cell,
+                                    per_cell=per_cell)
+            return _describe(blurred, xy0, resp, octv, sigma2, valid,
+                             flat_yx, flat_img, angle_bins, route)
         yx, resp, valid = _select_from_cells(
-            cand_v, cand_rid, maxb, per_cell=per_cell, cell=cell,
-            ncx=(-(-W0 // 128) * 128) // cell,
-        )
+            cand_v, cand_rid, maxb, per_cell=per_cell, cell=cell, ncx=ncx)
     else:
         heights = h_l if route.hskip else None
         if route.fused_blur:
@@ -353,79 +455,52 @@ def extract_orb_levels(levels: list[torch.Tensor], num_points: int = 1024,
         yx, resp, valid = _select_from_score(
             score, h_l, w_l, fast_threshold, maxb, cell=cell,
             per_cell=per_cell, subcell=route.sel_subcell)
-    resp = torch.where(resp > 1.0, resp - 1.0, resp)  # undo rank bonus
-    budget_arr = graphs.values(tuple(b for b in budgets for _ in range(C)),
-                               torch.int64, dev)
-    valid = valid & (torch.arange(maxb, device=dev)[None, :]
-                     < budget_arr[:, None])
-    hl, wl = h_l.long()[:, None], w_l.long()[:, None]
-    inb = ((yx[..., 0] >= EDGE) & (yx[..., 0] < hl - EDGE)
-           & (yx[..., 1] >= EDGE) & (yx[..., 1] < wl - EDGE))
-    valid = valid & inb
-
-    s_lvl = graphs.values(tuple(scale**lvl for lvl in range(L)),
-                          torch.float32, dev)
-    xy_lvl = torch.stack([yx[..., 1], yx[..., 0]], dim=-1).to(torch.float32)
-    xy0 = (xy_lvl.reshape(L, C, maxb, 2)
-           * s_lvl[:, None, None, None]).reshape(L * C, maxb, 2)
-    octv = torch.arange(L, dtype=torch.int32, device=dev)[:, None, None] \
-        .expand(L, C, maxb).reshape(L * C, maxb)
-    sigma2 = (s_lvl**2)[:, None, None].expand(L, C, maxb).reshape(L * C, maxb)
-    img_idx = torch.arange(L * C, dtype=torch.int32, device=dev)[:, None] \
-        .expand(L * C, maxb)
-
-    def merge(x):
-        # (L*C, maxb, ...) -> (C, L*maxb, ...), level-major slot order
-        x = x.reshape(L, C, maxb, *x.shape[2:])
-        return x.movedim(1, 0).reshape(C, L * maxb, *x.shape[3:])
-
+    fields = _slot_fields(yx, resp, valid, h_l, w_l, L=L, C=C,
+                          budgets=budgets, scale=scale)
     if route.late_compact:
-        return _finish_late_compact(blurred, yx, resp, valid, xy0, octv,
-                                    sigma2, merge, num_points, angle_bins)
+        return _finish_late_compact(blurred, *fields[:-1], L, C, num_points,
+                                    angle_bins)
+    return _describe(blurred, *_merge_compact(*fields, L=L, C=C, n_out=n_out),
+                     angle_bins, route)
 
-    yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
-        merge(yx), merge(resp), merge(valid), merge(img_idx), merge(octv),
-        merge(sigma2), merge(xy0))
-    # early cross-level compaction: keep the num_points best per camera
-    n_out = min(num_points, L * maxb)
-    if L * maxb > n_out:
-        take = _compaction(valid_m, resp_m, n_out)
-        yxm, resp_m, valid_m, img_m, octv_m, sig2_m, xy0_m = (
-            take(yxm), take(resp_m), take(valid_m), take(img_m),
-            take(octv_m), take(sig2_m), take(xy0_m))
 
-    T = C * n_out
-    flat_yx = yxm.reshape(T, 2).contiguous()
-    flat_img = img_m.reshape(T).contiguous()
+def _describe(blurred, xy0, resp, octv, sigma2, valid, flat_yx, flat_img,
+              angle_bins, route) -> Keypoints:
+    """The patch gather, orientation and descriptors of the compacted
+    slots -> Keypoints."""
+    from mcslam_tpu_torch.ops import orb_cuda
+
+    C, n_out = valid.shape
     if route.fused_orient:
         patches, m, _origin = patch_gather_oriented(blurred, flat_yx,
                                                     flat_img)
         ang = torch.atan2(m[:, 1], m[:, 0])
+        desc = compute_descriptors_patch(patches, ang, angle_bins)
     else:
         patches, _origin = patch_gather(blurred, flat_yx, flat_img)
-        ang = patch_orientation(patches, groups=C)
-    desc = compute_descriptors_patch(patches, ang, angle_bins)
+        ang, desc = orb_cuda.orb_describe(patches, angle_bins)
     return Keypoints(
-        xy=xy0_m, response=resp_m, angle=ang.reshape(C, n_out),
-        octave=octv_m, sigma2=sig2_m, desc=desc.reshape(C, n_out, 8),
-        valid=valid_m,
+        xy=xy0, response=resp, angle=ang.reshape(C, n_out), octave=octv,
+        sigma2=sigma2, desc=desc.reshape(C, n_out, 8), valid=valid,
     )
 
 
-def _finish_late_compact(blurred, yx, resp, valid, xy0, octv, sigma2, merge,
+def _finish_late_compact(blurred, yx, resp, valid, xy0, octv, sigma2, L, C,
                          num_points, angle_bins) -> Keypoints:
     """Descriptors for all L*maxb slots of every camera, then the same
     cross-level compaction as the early route (the same keypoint set)."""
+    from mcslam_tpu_torch.ops import orb_cuda
+
     LC, maxb = yx.shape[:2]
     patches, _origin = patch_gather_batched(blurred, yx.contiguous())
-    patches = patches.reshape(LC * maxb, PATCH, PATCH)
-    ang = patch_orientation(patches, groups=LC)
-    desc = compute_descriptors_patch(patches, ang, angle_bins)
+    ang, desc = orb_cuda.orb_describe(
+        patches.reshape(LC * maxb, PATCH, PATCH), angle_bins)
     kp = Keypoints(
-        xy=merge(xy0), response=merge(resp),
-        angle=merge(ang.reshape(LC, maxb)), octave=merge(octv),
-        sigma2=merge(sigma2), desc=merge(desc.reshape(LC, maxb, 8)),
-        valid=merge(valid),
+        xy=_merge(xy0, L, C), response=_merge(resp, L, C),
+        angle=_merge(ang.reshape(LC, maxb), L, C),
+        octave=_merge(octv, L, C), sigma2=_merge(sigma2, L, C),
+        desc=_merge(desc.reshape(LC, maxb, 8), L, C),
+        valid=_merge(valid, L, C),
     )
     if kp.valid.shape[1] > num_points:
         take = _compaction(kp.valid, kp.response, num_points)

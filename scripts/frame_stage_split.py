@@ -7,10 +7,17 @@ inputs of its stages, and profiles each stage on those inputs: the ORB
 extraction, the intra match (and of it the pair stage, through the
 intra_pairs kernel and through its plain version) and the triangulation
 stage (and of it triangulate_and_refine, through the tri_refine kernel
-and through its plain version). Each line gives the device time and the
-count of device ops of one call (torch.profiler, chip_smoke's
-device_profile). Run from the repository's root on a machine with a
-card and nvcc:
+and through its plain version). The ORB extraction is split into five
+parts: the pyramid with its stacking, fast_select, the selection with
+the cross-level compaction, patch_gather, and the orientation with the
+descriptors. Where the extraction runs them as the orb_pyramid,
+orb_select and orb_describe kernels (ops/orb_cuda.py), each part is one
+call on its recorded inputs and what the five leave over is printed; in
+a tree without those kernels the selection is what the extraction's
+time and ops leave after the other four parts. Each line gives the
+device time and the count of device ops of one call (torch.profiler,
+chip_smoke's device_profile). Run from the repository's root on a
+machine with a card and nvcc:
 
     python3 scripts/frame_stage_split.py
 """
@@ -22,6 +29,78 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+
+def orb_parts(imgs, kw):
+    """([(part, fn)], (rest, extract)) of the ORB extraction of (C, H, W)
+    imgs under the extraction keywords kw: each fn one call of its part on
+    the inputs a recorded extraction gave it, and the part that is what
+    the whole extraction leaves after them."""
+    import chip_smoke as cs
+    import torch
+    import torch.nn.functional as F
+
+    from mcslam_tpu_torch.ops import image as image_ops, orb
+
+    def extract():
+        return orb.extract_orb_rig(imgs, **kw)
+
+    try:
+        from mcslam_tpu_torch.ops import orb_cuda
+    except ImportError:  # a tree before the ORB kernels
+        orb_cuda = None
+    if orb_cuda is not None:
+        seen = cs.capture_calls(extract, {
+            "pyramid": (orb_cuda, "orb_pyramid"),
+            "fast_select": (orb, "fast_select"),
+            "select": (orb_cuda, "orb_select"),
+            "patch_gather": (orb, "patch_gather"),
+            "describe": (orb_cuda, "orb_describe")})
+
+        def call(name, fn):
+            a, k = seen[name]
+            return lambda: fn(*a, **k)
+
+        return [("pyramid + stack", call("pyramid", orb_cuda.orb_pyramid)),
+                ("fast_select", call("fast_select", orb.fast_select)),
+                ("selection + compaction",
+                 call("select", orb_cuda.orb_select)),
+                ("patch_gather", call("patch_gather", orb.patch_gather)),
+                ("orientation + descriptors",
+                 call("describe", orb_cuda.orb_describe))], (
+                    "what the five parts leave", extract)
+    # the tree before the kernels: the pyramid is build_pyramid and the
+    # stacking of extract_orb_levels, the orientation and descriptors two
+    # functions of ops/orb.py
+    seen = cs.capture_calls(extract, {
+        "fast_select": (orb, "fast_select"),
+        "patch_gather": (orb, "patch_gather"),
+        "orient": (orb, "patch_orientation"),
+        "desc": (orb, "compute_descriptors_patch")})
+    H0, W0 = imgs.shape[-2:]
+
+    def pyramid():
+        levels = image_ops.build_pyramid(imgs, kw["num_levels"], 1.2)
+        return torch.cat(
+            [F.pad(lv[None], (0, W0 - lv.shape[-1], 0, H0 - lv.shape[-2]),
+                   mode="replicate")[0] for lv in levels], dim=0).contiguous()
+
+    def call(name, fn):
+        a, k = seen[name]
+        return lambda: fn(*a, **k)
+
+    orient = call("orient", orb.patch_orientation)
+    desc = call("desc", orb.compute_descriptors_patch)
+
+    def describe():
+        orient()
+        desc()
+
+    return [("pyramid + stack", pyramid),
+            ("fast_select", call("fast_select", orb.fast_select)),
+            ("patch_gather", call("patch_gather", orb.patch_gather)),
+            ("orientation + descriptors", describe)], (
+                "selection + compaction", extract)
 
 
 def stage_split(scene, smi):
@@ -47,6 +126,12 @@ def stage_split(scene, smi):
         a, kw = stages[name]
         return lambda: fn(*a, **kw)
 
+    def show(name, fn):
+        dev_ms, n_ops, _ = cs.device_profile(fn)
+        print(f"# stage split, {name}: {dev_ms:.3f} ms device time in "
+              f"{n_ops:.0f} device ops ({smi})")
+        return dev_ms, n_ops
+
     for name, fn in (
             ("frame build (eager)", build),
             ("ORB extraction", call("orb", frame.orb.extract_orb_rig)),
@@ -61,9 +146,20 @@ def stage_split(scene, smi):
             ("of which the plain triangulation",
              lambda: triangulation.triangulate_and_refine_reference(*ta,
                                                                     **tkw))):
-        dev_ms, n_ops, _ = cs.device_profile(fn)
-        print(f"# stage split, {name}: {dev_ms:.3f} ms device time in "
-              f"{n_ops:.0f} device ops ({smi})")
+        show(name, fn)
+
+    oa, okw = stages["orb"]
+    parts, (rest, extract) = orb_parts(oa[0], okw)
+    done_ms = done_ops = 0.0
+    for name, fn in parts:
+        dev_ms, n_ops = show(f"ORB part, {name}", fn)
+        done_ms += dev_ms
+        done_ops += n_ops
+    dev_ms, n_ops, _ = cs.device_profile(extract)
+    print(f"# stage split, ORB part, {rest}: {dev_ms - done_ms:.3f} ms "
+          f"device time in {n_ops - done_ops:.0f} device ops (the "
+          f"extraction's {dev_ms:.3f} ms in {n_ops:.0f} ops less the parts "
+          f"above) ({smi})")
 
 
 def main() -> int:

@@ -1,5 +1,6 @@
-"""Memory and determinism guard of the frame build's two kernels,
-tri_refine (csrc/tri_refine.cu) and intra_pairs (csrc/intra_match.cu),
+"""Memory and determinism guard of the frame build's kernels tri_refine
+(csrc/tri_refine.cu), intra_pairs (csrc/intra_match.cu) and the ORB
+extraction's orb_pyramid, orb_select and orb_describe (csrc/orb_*.cu),
 on one CUDA card.
 
 Runs each kernel at chip_smoke.py phase 2's shapes: tri_refine at bench
@@ -7,7 +8,11 @@ frame 0's M = 2048 groups of R = 4 rays (the pose table expanded, as the
 frame build passes it), at M = 2048, R = 2, at M = 37, R = 5 and at M =
 2048, R = 8; intra_pairs at bench frame 0's C = 4 x N = 768 descriptors
 and Sampson gate, eagerly and through a captured CUDA graph, and at
-random C = 2, 3 and 5. Every buffer a wrapper allocates (its outputs and
+random C = 2, 3 and 5; the three ORB kernels at bench frame 0's inputs
+(orb_select also through a captured CUDA graph) and at random ones (the
+pyramid at 1 x 97 x 133 with 8 levels and 5 x 120 x 160 with 4, the
+selection on plateau-tied candidates with and without padding, the
+descriptors of 777 noise patches at 32 bins). Every buffer a wrapper allocates (its outputs and
 its scratch) is placed inside a slab of canary bytes, PAD bytes on each
 side, the canary alternating from launch to launch (fixed in a graph,
 whose capture holds the slabs' filling), and so is intra_pairs' per-device
@@ -21,8 +26,8 @@ root on a machine with a card and nvcc:
     python3 scripts/kernel_guard.py [--reps 50] [--quick] [--sanitize]
 
 --quick leaves out the bench scene (random problems only, R = 4 with an
-expanded pose table too, and intra_pairs' graph replays at a random C =
-4 x N = 768). --sanitize then runs this script with --quick
+expanded pose table too, and the graph replays of intra_pairs at a
+random C = 4 x N = 768 and of orb_select on random candidates). --sanitize then runs this script with --quick
 --reps 2 under compute-sanitizer's memcheck, racecheck and synccheck
 tools, where the toolkit has it, and prints each tool's exit code and
 report, or that the tool did not run (it refuses a device it cannot
@@ -211,10 +216,11 @@ def input_fails(name, inputs, before) -> list[str]:
             if not torch.equal(bits(t), b)]
 
 
-def guard_graph(name, args, kw, plain, reps) -> list[str]:
-    """intra_pairs captured in a CUDA graph (its buffers allocated in
-    canary slabs during the capture, the slabs' filling captured ahead of
-    the launch), replayed reps times: the same checks as guard()."""
+def guard_graph(name, fn, args, kw, plain, reps) -> list[str]:
+    """fn captured in a CUDA graph (its buffers allocated in canary slabs
+    during the capture, the slabs' filling captured ahead of the launch;
+    intra_pairs' counters guarded too), replayed reps times: the same
+    checks as guard()."""
     import torch
 
     from mcslam_tpu_torch.frontend import intra_cuda
@@ -224,15 +230,17 @@ def guard_graph(name, args, kw, plain, reps) -> list[str]:
     before = [bits(t).clone() for t in inputs]
     ref = tensors(plain(*args, **kw))
     fails, first, found, slabs = [], None, [], []
-    with guarded_counters(dev, CANARIES[0], found):
+    with contextlib.ExitStack() as stack:
+        if fn is intra_cuda.intra_pairs:
+            stack.enter_context(guarded_counters(dev, CANARIES[0], found))
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            intra_cuda.intra_pairs(*args, **kw)
+            fn(*args, **kw)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph), guarded_empty(slabs, CANARIES[1]):
-            out = tensors(intra_cuda.intra_pairs(*args, **kw))
+            out = tensors(fn(*args, **kw))
         for rep in range(reps):
             for o in out:
                 o.fill_(-1)
@@ -246,19 +254,64 @@ def guard_graph(name, args, kw, plain, reps) -> list[str]:
         del graph
     fails += input_fails(name, inputs, before)
     print(f"# guard {name}: {reps} graph replays, {len(slabs)} guarded "
-          f"buffers and the counters, {PAD} canary bytes a side: "
-          f"{'clean' if not fails else f'{len(fails)} failures'}",
+          f"buffers{' and the counters' if found else ''}, {PAD} canary "
+          f"bytes a side: {'clean' if not fails else f'{len(fails)} failures'}",
           flush=True)
     return fails
 
 
+def orb_cases(quick: bool, dev, rng, seen):
+    """The ORB kernels' cases: bench frame 0's recorded calls (seen) and
+    random ones."""
+    import torch
+
+    import chip_smoke as cs
+    from mcslam_tpu_torch.ops import orb, orb_cuda
+
+    pyr, sel, desc = (orb_cuda.orb_pyramid, orb_cuda.orb_select,
+                      orb_cuda.orb_describe)
+    out = []
+    if seen is not None:
+        for n, fn, plain in (
+                ("orb_pyramid", pyr, orb_cuda.orb_pyramid_reference),
+                ("orb_select", sel, orb_cuda.orb_select_reference),
+                ("orb_describe", desc, orb_cuda.orb_describe_reference)):
+            a, kw = seen[n]
+            out.append((f"{n} (bench frame 0)", fn, a, kw, plain, False))
+        a, kw = seen["orb_select"]
+        out.append(("orb_select (bench frame 0, graph replays)", sel, a, kw,
+                    orb_cuda.orb_select_reference, True))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for B, H, W, L in ((1, 97, 133, 8), (5, 120, 160, 4)):
+        out.append((f"orb_pyramid {B}x{H}x{W} L={L} (random)", pyr,
+                    (torch.rand(B, H, W, generator=gen, device=dev), L), {},
+                    orb_cuda.orb_pyramid_reference, False))
+    for C, L, G in ((3, 4, 1200), (2, 4, 24)):
+        budgets = orb._level_budget(768, L, 1.2)
+        kw = dict(C=C, budgets=budgets, n_out=min(768, L * max(budgets)),
+                  scale=1.2, ncx=16)
+        a = cs.plateau_candidates(rng, C, L, G, 16, dev)
+        out.append((f"orb_select C={C} L={L} G={G} (plateau ties)", sel, a,
+                    kw, orb_cuda.orb_select_reference, False))
+        if quick and G > 24:
+            out.append((f"orb_select C={C} L={L} G={G} (plateau ties, graph "
+                        f"replays)", sel, a, kw,
+                        orb_cuda.orb_select_reference, True))
+    p = torch.rand(777, orb.PATCH, orb.PATCH, generator=gen, device=dev)
+    out.append(("orb_describe T=777 bins=32 (uniform noise)", desc, (p, 32),
+                {}, orb_cuda.orb_describe_reference, False))
+    return out
+
+
 def cases(quick: bool, dev):
-    """(name, kernel, args, kwargs, plain) at phase 2's shapes."""
+    """(name, kernel, args, kwargs, plain, through a graph) at phase 2's
+    shapes."""
     import numpy as np
 
     import chip_smoke as cs
     from mcslam_tpu_torch.frontend import frame, intra_cuda
     from mcslam_tpu_torch.geometry import triangulation, triangulation_cuda
+    from mcslam_tpu_torch.ops import orb_cuda
 
     tri = triangulation_cuda.tri_refine
     tri_plain = triangulation.triangulate_and_refine_reference
@@ -266,42 +319,45 @@ def cases(quick: bool, dev):
     intra_plain = intra_cuda.intra_pairs_reference
     ik = dict(max_dist=cs.STEP["max_dist"], ratio=cs.STEP["ratio"])
     rng = np.random.RandomState(0)
-    out = []
+    out, orb_seen = [], None
     if quick:
         a, s = cs.tri_problem(rng, 2048, cs.C, dev)
         poses = a[0][:1].expand(2048, -1, -1, -1)
         out.append(("tri_refine M=2048 R=4 (random, expanded poses)", tri,
-                    (poses, *a[1:]), dict(sigma=s), tri_plain))
+                    (poses, *a[1:]), dict(sigma=s), tri_plain, False))
     else:
         scene = cs.Scene(dev, frames=1)
         seen = cs.capture_calls(lambda: frame.build_frame(
             scene.imgs[0], scene.rig, **scene.frame_kwargs()))
+        orb_seen = cs.capture_calls(lambda: frame.build_frame(
+            scene.imgs[0], scene.rig, **scene.frame_kwargs()), {
+                n: (orb_cuda, n) for n in cs.ORB_KERNELS})
         a, kw = seen["tri_refine"]
         cs.check(a[0].stride(0) == 0, "the frame's pose table is not expanded")
         out.append(("tri_refine M=2048 R=4 (bench frame 0, expanded poses)",
-                    tri, a, kw, tri_plain))
+                    tri, a, kw, tri_plain, False))
         a, kw = seen["intra_pairs"]
         out.append(("intra_pairs C=4 N=768 (bench frame 0)", intra, a, kw,
-                    intra_plain))
+                    intra_plain, False))
         out.append(("intra_pairs C=4 N=768 (bench frame 0, graph replays)",
-                    None, a, kw, intra_plain))
+                    intra, a, kw, intra_plain, True))
     a, s = cs.tri_problem(rng, 2048, 2, dev)
     out.append(("tri_refine M=2048 R=2 (random)", tri, a,
-                dict(sigma=s, min_z=0.1, max_z=100.0), tri_plain))
+                dict(sigma=s, min_z=0.1, max_z=100.0), tri_plain, False))
     a, s = cs.tri_problem(rng, 37, 5, dev)
     out.append(("tri_refine M=37 R=5 (random)", tri, a, dict(sigma=s),
-                tri_plain))
+                tri_plain, False))
     a, s = cs.tri_problem(rng, 2048, 8, dev)
     out.append(("tri_refine M=2048 R=8 (random)", tri, a, dict(sigma=s),
-                tri_plain))
+                tri_plain, False))
     shapes = ((4, 768),) if quick else ()
     for c, n in shapes + ((2, 333), (3, 768), (5, 500)):
         out.append((f"intra_pairs C={c} N={n} (random)", intra,
-                    cs.intra_problem(rng, c, n, dev), ik, intra_plain))
+                    cs.intra_problem(rng, c, n, dev), ik, intra_plain, False))
     if quick:
-        out.append(("intra_pairs C=4 N=768 (random, graph replays)", None,
-                    out[-4][2], ik, intra_plain))
-    return out
+        out.append(("intra_pairs C=4 N=768 (random, graph replays)", intra,
+                    out[-4][2], ik, intra_plain, True))
+    return out + orb_cases(quick, dev, rng, orb_seen)
 
 
 def sanitize() -> int:
@@ -360,9 +416,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.library()
     fails = []
-    for name, fn, args, kw, plain in cases(opt.quick, dev):
-        if fn is None:  # intra_pairs through a captured CUDA graph
-            fails += guard_graph(name, args, kw, plain, opt.reps)
+    for name, fn, args, kw, plain, graphed in cases(opt.quick, dev):
+        if graphed:
+            fails += guard_graph(name, fn, args, kw, plain, opt.reps)
         else:
             fails += guard(name, fn, args, kw, plain, opt.reps)
     for f in fails:
