@@ -13,7 +13,7 @@ Phases, each of which raises (non-zero exit) on failure:
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
      kernel, the oriented patch gather, the SGM tile kernel at D = 64,
      tri_refine at R = 2, 4 and 8, intra_pairs' one kernel and the ORB
-     glue's five kernels must use no local memory and
+     glue's three kernels must use no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
@@ -39,8 +39,9 @@ Phases, each of which raises (non-zero exit) on failure:
      runs; the bench frame's call also captured in a CUDA graph and
      replayed twice, its arrival counters back at zero after each); the
      ORB glue's kernels (orb_kernels) at bench frame 0's recorded inputs
-     and at random shapes (the pyramid at 1 x 97 x 133 with 8 levels and
-     C = 2, 3, 5; the selection on plateau-tied candidates at C = 1, 2,
+     and at random shapes (the pyramid at 1 x 97 x 133 with 8 levels,
+     C = 2, 3, 5 and 2 x 240 x 320 with 10 levels in two launches; the
+     selection on plateau-tied candidates at C = 1, 2,
      3, 5, with and without compaction and padding; the descriptors of
      noise patches at 32 and 16 bins), bitwise equal to their plain
      versions and across two runs (orb_select also through two graph
@@ -51,7 +52,9 @@ Phases, each of which raises (non-zero exit) on failure:
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
-     1e-3; solve a stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with
+     1e-3; run tests/test_torch_kernels.py's session scene (3 cameras,
+     320x240, one level, 8 frames) on the card and on the CPU and print
+     the position gap per frame against SESSION_GAP; solve a stage-C-shaped window (K=6, Ok=1365, L=2048, C=4) with
      the warm (1 x 2) and the cold (8 x 2) LM budget on the card, under
      torch.cuda.set_sync_debug_mode("error") (the solve must queue with no
      host sync), and hold its poses to the plain solve on the CPU (1e-3);
@@ -267,8 +270,8 @@ Phases, each of which raises (non-zero exit) on failure:
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
      the device time of the IF node's condition kernel beside its bytes
-     bound (COND_BYTES), and beside the frame before the ORB glue's
-     kernels (FRAME_BEFORE; the frame build's
+     bound (COND_BYTES), and beside the frame before the staged-tile
+     pyramid and the one-launch selection (FRAME_BEFORE; the frame build's
      stages apart:
      scripts/frame_stage_split.py); the stage C window solve warm and
      cold, eager and through the session's graphed solve
@@ -496,10 +499,11 @@ INTRA_INT_OPS = 11
 TRI_INTRA = ("tri_refine", "intra_pairs")
 # the ORB extraction's glue kernels (ops/orb_cuda.py), on the default route
 ORB_KERNELS = ("orb_pyramid", "orb_select", "orb_describe")
-# the graphed fast-path frame before the ORB glue's kernels (ORB_KERNELS),
-# its device ops and device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke
-# phase 14 on the tree before them)
-FRAME_BEFORE = (663, 1.814)
+# the graphed fast-path frame before the staged-tile orb_pyramid and the
+# one-launch orb_select (three and two launches), its device ops and
+# device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke phase 14 on the
+# tree before them)
+FRAME_BEFORE = (492, 1.194)
 # bytes the graphs' condition kernel moves: it reads the 1-byte predicate
 # and the 8-byte conditional handle and writes the 4-byte condition
 COND_BYTES = 1 + 8 + 4
@@ -529,10 +533,8 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "tri_refine_kernel<4>": "tri_refine_kernelILi4E",
               "tri_refine_kernel<8>": "tri_refine_kernelILi8E",
               "intra_pairs_kernel": "intra_pairs_kernel",
-              "pyramid_base_kernel": "pyramid_base_kernel",
-              "pyramid_level_kernel": "pyramid_level_kernel",
-              "orb_select_kernel": "orb_select_kernel",
-              "orb_compact_kernel": "orb_compact_kernel",
+              "pyramid_tile_kernel": "pyramid_tile_kernel",
+              "orb_select_one_kernel": "orb_select_one_kernel",
               "orb_describe_kernel": "orb_describe_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
@@ -540,8 +542,8 @@ NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "linearize_kernel", "patch_oriented_kernel", "sgm_tile_kernel<2>",
             "tri_refine_kernel<2>", "tri_refine_kernel<4>",
             "tri_refine_kernel<8>", "intra_pairs_kernel",
-            "pyramid_base_kernel", "pyramid_level_kernel",
-            "orb_select_kernel", "orb_compact_kernel", "orb_describe_kernel")
+            "pyramid_tile_kernel", "orb_select_one_kernel",
+            "orb_describe_kernel")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1541,7 +1543,8 @@ def orb_kernels(scene, rng, dev, kernels):
     (imgs, L), pkw = seen["orb_pyramid"][0], seen["orb_pyramid"][1]
     cases = [(f"C={C} {H}x{W} L={L} (bench frame 0)", imgs, L)]
     for B, Hs, Ws, Ls in ((1, 97, 133, 8), (2, 144, 192, 3),
-                          (3, 37, 53, 4), (5, 120, 160, 4)):
+                          (3, 37, 53, 4), (5, 120, 160, 4),
+                          (2, 240, 320, 10)):
         cases.append((f"C={B} {Hs}x{Ws} L={Ls} (random)",
                       torch.rand(B, Hs, Ws, generator=torch.Generator(
                           device=dev).manual_seed(Hs), device=dev), Ls))
@@ -1555,6 +1558,9 @@ def orb_kernels(scene, rng, dev, kernels):
           f"earlier GEMM form {err_gemm:.3g}")
     check(err_gemm <= 1e-6, f"orb_pyramid: {err_gemm} from the GEMM form")
     shapes = orb.image_ops.pyramid_shapes(H, W, L, 1.2)
+    launches = len(orb_cuda.pyramid_plan(
+        H, W, L, 1.2, C, torch.cuda.get_device_properties(
+            dev).multi_processor_count, orb_cuda.PYRAMID_SMEM))
     out_px = sum(h * w for h, w in shapes[1:]) * C
     mid_px = sum(h * pw for h, (_, pw) in zip(
         [s[0] for s in shapes[1:]], shapes[:-1])) * C
@@ -1564,8 +1570,7 @@ def orb_kernels(scene, rng, dev, kernels):
         fn=lambda: orb_cuda.orb_pyramid(imgs, L, **pkw),
         plain=lambda: orb_cuda.orb_pyramid_reference(imgs, L, **pkw),
         also={"gemm_ms": lambda: gemm_pyramid(imgs, L)},
-        symbols=("pyramid_base_kernel", "pyramid_level_kernel"),
-        device_ops=L - 1,
+        symbols=("pyramid_tile_kernel",), device_ops=launches,
         # level 0 read once, the stack written once; 3 multiplies and 2
         # adds per output of each pass (K = 3 taps)
         nbytes=4 * imgs.numel() + 4 * L * imgs.numel(),
@@ -1598,7 +1603,7 @@ def orb_kernels(scene, rng, dev, kernels):
         replaces="mcslam_tpu/ops/orb.py:219", max_abs_err=0.0,
         fn=lambda: orb_cuda.orb_select(*a, **skw),
         plain=lambda: orb_cuda.orb_select_reference(*a, **skw),
-        symbols=("orb_select_kernel", "orb_compact_kernel"), device_ops=2,
+        symbols=("orb_select_one_kernel",), device_ops=1,
         # the candidates and level sizes read once; the 7 outputs written
         # once (8 + 4 + 4 + 4 + 1 + 8 + 4 bytes a slot)
         nbytes=8 * cv.numel() + 8 * LC + 33 * C * n_out,
@@ -1728,6 +1733,7 @@ def main() -> int:
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
           f"vs the plain versions (CPU): pose max abs err {err_small:.3g}")
+    session_gap_phase(dev, smi)
 
     # ---- phase 3: the slice, launches counted ----
     _build.LAUNCHES.clear()
@@ -3347,6 +3353,53 @@ def _small_scene_cpu_vs_cuda(dev) -> float:
     return err
 
 
+SESSION_GAP = 0.005  # m, tests/test_torch_kernels.py's card-vs-CPU bound
+
+
+def session_gap_phase(dev, smi):
+    """Phase 2's session check: tests/test_torch_kernels.py::
+    test_session_on_cuda_matches_cpu's scene (3 cameras, 320x240, one
+    pyramid level, 8 frames) through MultiCameraSLAM.process_image on the
+    card (the kernels) and on the CPU (the plain versions): both
+    initialized without failures, keyframes within one; the position gap
+    per frame printed against SESSION_GAP (the gpu test's bound, which
+    the session does not hold yet: the pose LM kernel sums in its cluster
+    order, the CPU's plain version in torch.sum's, and frame 7 of the
+    scene is a near tie; ROADMAP.md Queue 3)."""
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.slam import INITIALIZED, MultiCameraSLAM, SlamConfig
+
+    rig = synthetic.make_synthetic_rig(synthetic.SyntheticRigSpec(
+        num_cams=3, baseline=0.2, image_size=(320, 240), focal=260.0),
+        device="cpu")
+    poses = synthetic.smooth_trajectory(8, radius=5.0, step_angle=0.03)
+    imgs = synthetic.render_blob_images(rig, poses, synthetic.make_landmarks(
+        700, seed=1, depth_range=(4.0, 12.0)), seed=2)
+    cfg = SlamConfig(window_size=4, ba_obs_capacity=8192, ba_lm_capacity=1024,
+                     local_map_landmarks=1024, kf_translation=0.2,
+                     kf_rotation=0.1, min_inter_matches=40)
+    runs = []
+    for d in ("cpu", dev):
+        slam = MultiCameraSLAM(rig, cfg, device=d)
+        pos = []
+        for k in range(len(poses)):
+            slam.process_image(imgs[k], k / 20.0, extract_cfg=dict(
+                num_points=512, num_levels=1, max_intra=768))
+            pos.append(slam.trajectory_arrays()[1][-1][:3, 3].copy())
+        check(slam.state == INITIALIZED and slam.stats["failures"] == 0,
+              f"session-gap scene on {d}: not initialized or failures")
+        runs.append((np.array(pos), slam.stats["keyframes"]))
+    gap = np.linalg.norm(runs[1][0] - runs[0][0], axis=-1)
+    print(f"# session-gap scene (3 cameras, 320x240, 1 level, 8 frames), "
+          f"card vs CPU: keyframes {runs[1][1]} / {runs[0][1]}; position gap "
+          f"per frame (m) {', '.join(f'{g:.3g}' for g in gap)}; max "
+          f"{gap.max():.3g}, {'within' if gap.max() <= SESSION_GAP else 'over'} "
+          f"the test's {SESSION_GAP} ({smi})")
+    check(abs(runs[1][1] - runs[0][1]) <= 1,
+          f"session-gap scene: keyframes {runs[1][1]} on the card, "
+          f"{runs[0][1]} on the CPU")
+
+
 def _frame_ms(scene, ff0, mapstate, frac, route=None, n=6,
               warm=True) -> float:
     """Host-clock ms per frame of _build_and_track_step (after one warm-up
@@ -4555,14 +4608,13 @@ API_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
                 "cudaMemcpy", "cuMemcpy", "cudaMemset", "cuMemset")
 # the main path's kernels by wrapper, each with the device-side kernel that
 # its wrapper launches exactly once per call (hamming_argmin2 launches a
-# tile and a merge kernel, orb_pyramid a base kernel and one per level
-# from the third, orb_select a selection and a compaction kernel;
-# patch_gather_kernel is also the batched entry's, which only route A
-# calls)
+# tile and a merge kernel; orb_pyramid one tile kernel per launch of its
+# plan, one at the main path's shapes; patch_gather_kernel is also the
+# batched entry's, which only route A calls)
 TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "patch_gather": "patch_gather_kernel",
-               "orb_pyramid": "pyramid_base_kernel",
-               "orb_select": "orb_compact_kernel",
+               "orb_pyramid": "pyramid_tile_kernel",
+               "orb_select": "orb_select_one_kernel",
                "orb_describe": "orb_describe_kernel",
                "hamming_argmin2": "hamming_merge_kernel",
                "pose_lm": "pose_lm_cluster_kernel",
@@ -4810,7 +4862,8 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                  f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
                  f"predicate and 8-byte handle read, the 4-byte condition "
                  f"written)" if cond else "")
-              + (f"; before the ORB glue's kernels "
+              + (f"; before the staged-tile pyramid and the one-launch "
+                 f"selection "
                  f"{FRAME_BEFORE[0]} device ops, {FRAME_BEFORE[1]:.3f} ms "
                  f"(NVIDIA H100 80GB HBM3, 700.00 W)" if cond else "")
               + f" ({smi})")

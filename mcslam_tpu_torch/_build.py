@@ -94,13 +94,14 @@ SIGNATURES = {
     # (P + C ints, zero), C, N, T, scratch ints, counter ints, max_dist,
     # ratio, stream
     "mc_intra_pairs": [P] * 6 + [I] * 3 + [L, I, I, F, P],
-    # imgs, stack, tables (a host array of device pointers), dims (a host
-    # int array), B, H, W, levels, stream
-    "mc_orb_pyramid": [P] * 4 + [I] * 4 + [P],
-    # cand_v, cand_rid, h_l, w_l, budget, s_lvl, scratch, xy, response,
-    # octave, sigma2, valid, flat_yx, flat_img, L, C, N, maxb, n_out, ncx,
-    # cell, per_cell, edge, stream
-    "mc_orb_select": [P] * 14 + [I] * 9 + [P],
+    # imgs, stack, taps, dims (a host int array), plans (a host array of
+    # device pointers), segs (a host int array), launches, B, H, W, levels,
+    # stream
+    "mc_orb_pyramid": [P] * 6 + [I] * 5 + [P],
+    # cand_v, cand_rid, h_l, w_l, budget, s_lvl, scratch, counters (C
+    # ints, zero), xy, response, octave, sigma2, valid, flat_yx, flat_img,
+    # L, C, N, maxb, n_out, ncx, cell, per_cell, edge, stream
+    "mc_orb_select": [P] * 15 + [I] * 9 + [P],
     # patches, steered index, angle, desc, T, bins, two_pi, stream
     "mc_orb_describe": [P] * 4 + [I, I, F, P],
 }

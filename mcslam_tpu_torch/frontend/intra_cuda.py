@@ -23,11 +23,6 @@ from mcslam_tpu_torch.utils import graphs
 TILE = 128  # rows and columns of a block's tile in csrc/intra_match.cu
 COUNTERS = 128  # arrival counters of a device's buffer (P + C <= COUNTERS)
 
-# per CUDA device index: the kernel's arrival counters, zeroed once; every
-# launch leaves them at zero (csrc/intra_match.cu)
-_COUNTERS: dict = {}
-
-
 def tiles(N: int) -> int:
     """Row tiles (and column splits) of the kernel's grid for N features."""
     return -(-N // TILE)
@@ -57,18 +52,8 @@ def check_buffers(C: int, N: int, scratch: torch.Tensor,
 
 
 def counters(dev: torch.device) -> torch.Tensor:
-    """The arrival counters of `dev`, made (zeroed) at its first eager
-    call; a CUDA graph capture must find them made (a capture replays
-    no zeroing)."""
-    idx = torch.device(dev).index
-    buf = _COUNTERS.get(idx)
-    if buf is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("intra_pairs: the first call on a device must "
-                               "not be under a CUDA graph capture")
-        buf = _COUNTERS[idx] = torch.zeros(COUNTERS, dtype=torch.int32,
-                                           device=dev)
-    return buf
+    """The kernel's arrival counters on `dev` (graphs.counters)."""
+    return graphs.counters("intra_pairs", COUNTERS, dev)
 
 
 def camera_pairs(C: int) -> tuple[list[int], list[int]]:

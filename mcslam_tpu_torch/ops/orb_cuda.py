@@ -25,6 +25,7 @@ operations in their order, so the two agree bit for bit on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,7 +34,11 @@ from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import image as image_ops, orb
 from mcslam_tpu_torch.utils import graphs
 
-SELECT_CAP = 4096  # slots one orb_select block sorts (csrc/orb_select.cu)
+SELECT_CAP = 4096  # slots one orb_select block ranks (csrc/orb_select.cu)
+
+# orb_select's per-camera arrival counters on a device (graphs.counters),
+# enough for the most cameras the wrapper takes
+SELECT_CAMERAS = 65535
 
 
 def _check(name, x, dtype, dev, shape=None):
@@ -67,13 +72,229 @@ def orb_pyramid_reference(imgs: torch.Tensor, num_levels: int,
     return orb.stack_levels(levels)
 
 
+PYRAMID_THREADS = 512  # threads of an orb_pyramid block (csrc/orb_pyramid.cu)
+PYRAMID_SMEM = 100 * 1024  # shared bytes a launch's blocks may take (two a SM)
+PYRAMID_MAX_LEVELS = 8  # levels one launch computes (csrc/orb_pyramid.cu)
+
+
+def _ranges(rs) -> list:
+    """Inclusive index ranges, sorted and merged where they overlap or
+    touch, then the two closest merged until two are left."""
+    rs = sorted((a, b) for a, b in rs if a <= b)
+    out = []
+    for a, b in rs:
+        if out and a <= out[-1][1] + 1:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    while len(out) > 2:
+        k = min(range(len(out) - 1), key=lambda i: out[i + 1][0] - out[i][1])
+        out[k:k + 2] = [(out[k][0], out[k + 1][1])]
+    return out
+
+
+def _axis_plan(sizes, P, T, taps, la, lb, align4):
+    """One axis of a pyramid launch over levels la..lb (level la - 1 its
+    source): (lb - la + 2, T, 8) int32 entries (a0, a1, b0, b1, t0, t1,
+    r0, r1) per level and tile: the inclusive ranges A = [a0, a1] and B =
+    [b0, b1] (b1 < b0: none) of the level's indices that the tile
+    computes (the source level's: stages), the true indices [t0, t1) it
+    writes and the edge-replicated ones [r0, r1) it writes as copies of
+    index size - 1. The true indices of a level >= 1 are cut in T equal
+    parts, its replicated ones [size, P) too; the tile needs its part,
+    the edge index where it writes copies, and the taps of what the next
+    level needs (taps[l] = (first, K) from level l - 1 to l, K = 0 a
+    copy). Level 0 (written where la == 1) is cut at multiples of 4 when
+    align4, for 16-byte stores."""
+    def cut(n, i):
+        return (i * n) // T
+
+    def own(l, i):
+        s = sizes[l]
+        if l == 0:
+            t0, t1 = cut(P, i), cut(P, i + 1)
+            if align4:
+                t0 = t0 - t0 % 4 if i > 0 else 0
+                t1 = t1 - t1 % 4 if i + 1 < T else P
+            return t0, t1, 0, 0
+        return cut(s, i), cut(s, i + 1), s + cut(P - s, i), s + cut(P - s, i + 1)
+
+    def support(l, rs):
+        first, K = taps[l]
+        if K == 0:
+            return rs
+        return [(int(first[a]), int(first[b]) + K - 1) for a, b in rs]
+
+    out = np.zeros((lb - la + 2, T, 8), np.int32)
+    for i in range(T):
+        need = []
+        for l in range(lb, la - 2, -1):
+            if l == la - 1:
+                t0, t1, r0, r1 = own(l, i) if l == 0 else (0, 0, 0, 0)
+            else:
+                t0, t1, r0, r1 = own(l, i)
+            rs = [(t0, t1 - 1)] + ([(sizes[l] - 1,) * 2] if r1 > r0 else [])
+            if l < lb:
+                rs += support(l + 1, need)
+            need = _ranges(rs)
+            (a0, a1), (b0, b1) = (need + [(0, -1)])[:2]
+            out[l - la + 1, i] = (a0, a1, b0, b1, t0, t1, r0, r1)
+    return out
+
+
+def _tile_counts(H, W, B, sizes, sms):
+    """Tiles per image (TY, TX): at most two blocks a multiprocessor (what
+    stays resident at once, so the launch runs in one wave), each tile at
+    least 4 rows and columns of every level."""
+    tiles = max(1, 2 * sms // B)
+    ty = max(1, min(round((tiles * H / W) ** 0.5), min(h for h, _ in sizes) // 4))
+    tx = max(1, min(tiles // ty, min(w for _, w in sizes) // 4))
+    return ty, tx
+
+
+def _span(e) -> int:
+    """Indices an (a0, a1, b0, b1, ...) entry covers."""
+    return int(e[1] - e[0] + 1 + max(0, e[3] - e[2] + 1))
+
+
+def pyramid_levels(H: int, W: int, num_levels: int, scale: float):
+    """The pyramid's levels as the kernel takes them: a (num_levels, 6)
+    int32 array, per level (h, w, kv, kh, vt, ht): its true size, the taps
+    of its vertical and horizontal pass from the level before (0: the
+    axis keeps its size, a copy; level 0 has none) and the offsets of
+    those passes' tap tables in the pyramid's one table; and that table,
+    int32: per level >= 1 its vertical table (h rows of kv + 1 ints: the
+    first tap's index in the level before, then the kv weights' float32
+    bits; none where kv = 0), then its horizontal one (w rows of kh + 1)."""
+    shapes = image_ops.pyramid_shapes(H, W, num_levels, scale)
+    dims = np.zeros((num_levels, 6), np.int32)
+    dims[:, :2] = shapes
+    blocks, n = [], 0
+    for l in range(1, num_levels):
+        for k, (n_in, n_out) in enumerate(zip(shapes[l - 1], shapes[l])):
+            dims[l, 4 + k] = n
+            if n_in == n_out:
+                continue
+            taps, first = image_ops.resize_taps(n_in, n_out)
+            dims[l, 2 + k] = taps.shape[1]
+            blocks.append(np.concatenate(
+                [first[:, None], taps.view(np.int32)], 1).ravel())
+            n += blocks[-1].size
+    table = np.concatenate(blocks) if blocks else np.zeros(1, np.int32)
+    return dims, table
+
+
+def _segment_smem(rows, cols, ks) -> tuple:
+    """(bytes, buffer A floats, buffer B floats, vertical pass floats,
+    the widest region's columns) of one launch (ks: per level >= 1 of it
+    its (kv, kh)): its levels' regions alternate between two buffers (the
+    source level in A), one buffer holds a level's vertical pass (its
+    rows by the previous region's columns), then every level's two plan
+    entries and the tile's tap tables (the rows of the pyramid's table
+    that its computed rows and columns take, per level and axis)."""
+    nr = [max(_span(e) for e in rows[k]) for k in range(len(rows))]
+    nc = [max(_span(e) for e in cols[k]) for k in range(len(cols))]
+    area = [r * c for r, c in zip(nr, nc)]
+    buf_a = max(area[0::2])
+    buf_b = max(area[1::2], default=0)
+    vbuf = max((nr[k] * nc[k - 1] for k in range(1, len(nr))), default=0)
+    tabs = sum(n * (K + 1) for k, (kv, kh) in enumerate(ks, 1)
+               for n, K in ((nr[k], kv), (nc[k], kh)) if K)
+    floats = buf_a + buf_b + vbuf + 16 * len(rows) + tabs
+    return (4 * floats, buf_a, buf_b, vbuf, max(nc))
+
+
+@functools.lru_cache(maxsize=None)
+def pyramid_plan(H: int, W: int, num_levels: int, scale: float, B: int,
+                 sms: int, smem: int = PYRAMID_SMEM):
+    """The launches of orb_pyramid for B images of (H, W): a list of
+    (la, lb, TY, TX, rows, cols, sizes) per launch, which computes levels
+    la..lb (<= PYRAMID_MAX_LEVELS of them) from level la - 1 (the input
+    where la == 1, then also writing level 0) in TY x TX tiles per image;
+    rows / cols are _axis_plan's entries, sizes _segment_smem's. A launch
+    takes as many levels as fit in smem bytes of shared memory with every
+    region at most PYRAMID_THREADS columns wide (a thread a column in the
+    horizontal pass); where not even one does, the tiles are halved."""
+    shapes = image_ops.pyramid_shapes(H, W, num_levels, scale)
+    hs, ws = [h for h, _ in shapes], [w for _, w in shapes]
+    vt, ht = [None], [None]
+    for l in range(1, num_levels):
+        for n_in, n_out, t in ((hs[l - 1], hs[l], vt), (ws[l - 1], ws[l], ht)):
+            if n_in == n_out:
+                t.append((None, 0))
+            else:
+                taps, first = image_ops.resize_taps(n_in, n_out)
+                t.append((first, taps.shape[1]))
+    ty, tx = _tile_counts(H, W, B, shapes, sms)
+    while True:
+        segs, la, ok = [], 1, True
+        while la < num_levels or (la == 1 and not segs):
+            lb, best = la - 1, None
+            while lb + 1 < num_levels and lb + 1 - la < PYRAMID_MAX_LEVELS:
+                plan = _segment(hs, ws, H, W, ty, tx, vt, ht, la, lb + 1)
+                if not _fits(plan[2], smem):
+                    break
+                lb, best = lb + 1, plan
+            if best is None:
+                best = _segment(hs, ws, H, W, ty, tx, vt, ht, la, lb)
+                if not _fits(best[2], smem) or lb < la and num_levels > 1:
+                    ok = False
+                    break
+            segs.append((la, lb, ty, tx) + best)
+            la = lb + 1
+            if num_levels == 1:
+                break
+        if ok:
+            return segs
+        if ty >= min(hs) // 2 and tx >= min(ws) // 2:
+            raise ValueError(f"orb_pyramid: no tiling of {H}x{W} with "
+                             f"{num_levels} levels fits {smem} bytes")
+        ty, tx = min(2 * ty, max(1, min(hs) // 2)), min(2 * tx, max(1, min(ws) // 2))
+
+
+def _fits(sizes, smem) -> bool:
+    return sizes[0] <= smem and sizes[-1] <= PYRAMID_THREADS
+
+
+def _segment(hs, ws, H, W, ty, tx, vt, ht, la, lb):
+    rows = _axis_plan(hs, H, ty, vt, la, lb, False)
+    cols = _axis_plan(ws, W, tx, ht, la, lb, W % 4 == 0 and W // tx >= 8)
+    ks = [(vt[l][1], ht[l][1]) for l in range(la, lb + 1)]
+    return rows, cols, _segment_smem(rows, cols, ks)
+
+
+@functools.lru_cache(maxsize=None)
+def _pyramid_args(H, W, num_levels, scale, B, smem, dev):
+    """orb_pyramid's launch arguments for B images of (H, W) on dev, made
+    once: the tap table on the card, and the host arrays the launcher
+    reads (pyramid_levels' dims; per launch la, lb, TY, TX, shared bytes
+    and the buffers' floats (A, B, the vertical pass); per launch its
+    plan's device pointer: row entries, then column entries)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    key = (H, W, num_levels, scale)
+    segs = pyramid_plan(*key, B, sms, smem)
+    levels, table = pyramid_levels(*key)
+    taps = graphs.const(("orb_cuda.pyramid_taps",) + key, dev, lambda: table)
+    dims = (ctypes.c_int * levels.size)(*levels.ravel().tolist())
+    nseg = len(segs)
+    segi = (ctypes.c_int * (8 * nseg))()
+    plans = (ctypes.c_void_p * nseg)()
+    for k, (la, lb, ty, tx, rows, cols, sizes) in enumerate(segs):
+        segi[8 * k:8 * (k + 1)] = [la, lb, ty, tx, *sizes[:4]]
+        plans[k] = graphs.const(
+            ("orb_cuda.pyramid_plan",) + key + (B, sms, smem, k), dev,
+            lambda rows=rows, cols=cols: np.concatenate(
+                [rows.ravel(), cols.ravel()])).data_ptr()
+    return taps, dims, plans, segi, nseg
+
+
 def orb_pyramid(imgs: torch.Tensor, num_levels: int,
                 scale: float = 1.2) -> torch.Tensor:
     """(B, H, W) float32 images -> the (num_levels * B, H, W) stack of
     their pyramid: level l (image.pyramid_shapes) in rows [l B, (l + 1) B),
     its (h_l, w_l) image at the top left, edge-replicated to (H, W).
-    CUDA tensors launch the kernel (num_levels - 1 launches, one when
-    num_levels is 1); CPU tensors take orb_pyramid_reference."""
+    CUDA tensors launch the kernel (one launch per pyramid_plan segment:
+    one at the bench shape); CPU tensors take orb_pyramid_reference."""
     if imgs.dim() != 3:
         raise ValueError(f"orb_pyramid: imgs must be (B, H, W), got "
                          f"{tuple(imgs.shape)}")
@@ -82,30 +303,18 @@ def orb_pyramid(imgs: torch.Tensor, num_levels: int,
     dev = imgs.device
     _check("orb_pyramid: imgs", imgs, torch.float32, dev)
     B, H, W = imgs.shape
-    shapes = image_ops.pyramid_shapes(H, W, num_levels, scale)
+    if B > 65535:
+        raise ValueError(f"orb_pyramid: at most 65535 images, got {B}")
     out = torch.empty(num_levels * B, H, W, dtype=torch.float32, device=dev)
-    # per level >= 1: the vertical and horizontal tap tables (a pass that
-    # keeps its size is K = 0: a copy), in the host arrays the launcher reads
-    ptrs = (ctypes.c_void_p * max(4 * (num_levels - 1), 1))()
-    dims = (ctypes.c_int * max(4 * num_levels, 1))()
-    for l, (lh, lw) in enumerate(shapes):
-        dims[4 * l:4 * l + 2] = [lh, lw]
-        if l == 0:
-            continue
-        ph, pw = shapes[l - 1]
-        for k, (n_in, n_out) in enumerate(((ph, lh), (pw, lw))):
-            if n_in == n_out:
-                dims[4 * l + 2 + k] = 0
-                continue
-            taps, first = image_ops.resize_tables(n_in, n_out, dev)
-            dims[4 * l + 2 + k] = taps.shape[1]
-            ptrs[4 * (l - 1) + 2 * k] = taps.data_ptr()
-            ptrs[4 * (l - 1) + 2 * k + 1] = first.data_ptr()
+    if B == 0:
+        return out
+    taps, dims, plans, segi, nseg = _pyramid_args(
+        H, W, num_levels, float(scale), B, PYRAMID_SMEM, dev)
     lib = _build.library()
     _build.count("orb_pyramid")
     _build.check(lib.mc_orb_pyramid(
-        imgs.data_ptr(), out.data_ptr(), ptrs, dims, B, H, W, num_levels,
-        _build.stream_ptr(dev)), "mc_orb_pyramid")
+        imgs.data_ptr(), out.data_ptr(), taps.data_ptr(), dims, plans, segi,
+        nseg, B, H, W, num_levels, _build.stream_ptr(dev)), "mc_orb_pyramid")
     return out
 
 
@@ -138,8 +347,8 @@ def orb_select(cand_v: torch.Tensor, cand_rid: torch.Tensor,
     the per-level budgets -> (xy (C, n_out, 2) float32, response,
     octave int32, sigma2, valid bool, each (C, n_out); flat_yx (C n_out,
     2) int32 and flat_img (C n_out,) int32, patch_gather's inputs).
-    CUDA tensors launch the kernel (two launches: the selection per
-    image, then the merge and compaction per camera); CPU tensors take
+    CUDA tensors launch the kernel (one launch: a block per image, the
+    camera's last block doing the merge and compaction); CPU tensors take
     orb_select_reference."""
     kw = dict(C=C, budgets=budgets, n_out=n_out, scale=scale, ncx=ncx,
               cell=cell, per_cell=per_cell)
@@ -152,9 +361,10 @@ def orb_select(cand_v: torch.Tensor, cand_rid: torch.Tensor,
     LC, G, _ = cand_v.shape
     L = len(budgets)
     maxb = max(budgets)
-    if LC != L * C:
+    if LC != L * C or C > SELECT_CAMERAS:
         raise ValueError(f"orb_select: {LC} images are not {L} levels x "
-                         f"{C} cameras")
+                         f"{C} cameras, or more than {SELECT_CAMERAS} "
+                         f"cameras")
     _check("orb_select: cand_v", cand_v, torch.float32, dev)
     _check("orb_select: cand_rid", cand_rid, torch.int32, dev,
            cand_v.shape)
@@ -163,14 +373,16 @@ def orb_select(cand_v: torch.Tensor, cand_rid: torch.Tensor,
     n = min(maxb, G * per_cell)
     M = L * maxb
     if max(n, min(n_out, M)) > SELECT_CAP or n_out > M:
-        raise ValueError(f"orb_select: the kernel sorts at most {SELECT_CAP} "
+        raise ValueError(f"orb_select: the kernel ranks at most {SELECT_CAP} "
                          f"slots and takes n_out <= L maxb, got maxb {maxb}, "
                          f"n_out {n_out}, L maxb {M}")
+    counters = graphs.counters("orb_select", SELECT_CAMERAS, dev)
     # per-level budgets and scales, made once per device
     budget_t = graphs.values(tuple(budgets), torch.int32, dev)
     s_lvl = graphs.values(tuple(scale**lvl for lvl in range(L)),
                           torch.float32, dev)
-    scratch = torch.empty(C * M * 4, dtype=torch.int32, device=dev)
+    # per slot its fields (4 int32), then per slot a sorted prio key (int64)
+    scratch = torch.empty(C * M * 6, dtype=torch.int32, device=dev)
     xy = torch.empty(C, n_out, 2, dtype=torch.float32, device=dev)
     resp = torch.empty(C, n_out, dtype=torch.float32, device=dev)
     octave = torch.empty(C, n_out, dtype=torch.int32, device=dev)
@@ -183,7 +395,8 @@ def orb_select(cand_v: torch.Tensor, cand_rid: torch.Tensor,
     _build.check(lib.mc_orb_select(
         cand_v.data_ptr(), cand_rid.data_ptr(), h_l.data_ptr(),
         w_l.data_ptr(), budget_t.data_ptr(), s_lvl.data_ptr(),
-        scratch.data_ptr(), xy.data_ptr(), resp.data_ptr(),
+        scratch.data_ptr(), counters.data_ptr(), xy.data_ptr(),
+        resp.data_ptr(),
         octave.data_ptr(), sigma2.data_ptr(), valid.data_ptr(),
         flat_yx.data_ptr(), flat_img.data_ptr(), L, C, G * per_cell, maxb,
         n_out, ncx, cell, per_cell, orb.EDGE, _build.stream_ptr(dev)),

@@ -61,6 +61,15 @@ def const(key, device, make) -> torch.Tensor:
     return t
 
 
+def counters(name: str, n: int, device) -> torch.Tensor:
+    """The n int32 arrival counters of kernel `name` on `device`: a const,
+    so zeroed when made at the first call, which must not be under a
+    capture (a capture replays no zeroing); each launch of the kernel
+    leaves them at zero, so calls and graph replays share them."""
+    return const(("counters", name, n), device,
+                 lambda: torch.zeros(n, dtype=torch.int32))
+
+
 def values(vals, dtype, device) -> torch.Tensor:
     """const of a number or a tuple of numbers as a `dtype` tensor."""
     return const(("values", vals, dtype), device,

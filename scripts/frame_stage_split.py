@@ -19,13 +19,26 @@ device time and the count of device ops of one call (torch.profiler,
 chip_smoke's device_profile). Run from the repository's root on a
 machine with a card and nvcc:
 
-    python3 scripts/frame_stage_split.py
+    python3 scripts/frame_stage_split.py [--limit SECONDS]
+
+After its last line the process used to hang in the interpreter's
+native finalization (no Python thread but MainThread left; after
+torch.profiler's CUDA traces), until a time limit killed it. So it lists
+the threads still alive, flushes its output and ends with os._exit,
+skipping the finalizers. --limit (default 600 s) is its own time limit:
+faulthandler prints every thread's stack 5 s before it, and an alarm
+signal ends the process at it, wherever it is.
 """
 
 from __future__ import annotations
 
+import argparse
+import faulthandler
+import os
 import pathlib
+import signal
 import sys
+import threading
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -163,6 +176,11 @@ def stage_split(scene, smi):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--limit", type=float, default=600.0)
+    opt = ap.parse_args()
+    faulthandler.dump_traceback_later(max(opt.limit - 5, 1))
+    signal.alarm(int(opt.limit))
     import torch
 
     if not torch.cuda.is_available():
@@ -176,8 +194,15 @@ def main() -> int:
     print(f"# {torch.cuda.get_device_name(0)} ({smi}), torch "
           f"{torch.__version__}")
     stage_split(cs.Scene(dev, frames=2), smi)
+    alive = [f"{t.name}{' (daemon)' if t.daemon else ''}"
+             for t in threading.enumerate()]
+    print(f"# frame_stage_split: done; threads alive: {', '.join(alive)}",
+          flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

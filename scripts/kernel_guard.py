@@ -1,7 +1,7 @@
 """Memory and determinism guard of the frame build's kernels tri_refine
-(csrc/tri_refine.cu), intra_pairs (csrc/intra_match.cu) and the ORB
-extraction's orb_pyramid, orb_select and orb_describe (csrc/orb_*.cu),
-on one CUDA card.
+(csrc/tri_refine.cu), intra_pairs (csrc/intra_match.cu), the ORB
+extraction's orb_pyramid, orb_select and orb_describe (csrc/orb_*.cu)
+and the tracking's pose_lm (csrc/pose_lm.cu), on one CUDA card.
 
 Runs each kernel at chip_smoke.py phase 2's shapes: tri_refine at bench
 frame 0's M = 2048 groups of R = 4 rays (the pose table expanded, as the
@@ -9,18 +9,21 @@ frame build passes it), at M = 2048, R = 2, at M = 37, R = 5 and at M =
 2048, R = 8; intra_pairs at bench frame 0's C = 4 x N = 768 descriptors
 and Sampson gate, eagerly and through a captured CUDA graph, and at
 random C = 2, 3 and 5; the three ORB kernels at bench frame 0's inputs
-(orb_select also through a captured CUDA graph) and at random ones (the
-pyramid at 1 x 97 x 133 with 8 levels and 5 x 120 x 160 with 4, the
-selection on plateau-tied candidates with and without padding, the
-descriptors of 777 noise patches at 32 bins). Every buffer a wrapper allocates (its outputs and
+(orb_pyramid and orb_select also through a captured CUDA graph) and at
+random ones (the pyramid at 1 x 97 x 133 with 8 levels, 5 x 120 x 160
+with 4 and 2 x 240 x 320 with 10 in two launches, the selection on
+plateau-tied candidates with and without padding, the descriptors of 777
+noise patches at 32 bins); pose_lm at B = 1 and 2 candidates of M = 2048
+observations and at B = 3, M = 333. Every buffer a wrapper allocates (its outputs and
 its scratch) is placed inside a slab of canary bytes, PAD bytes on each
 side, the canary alternating from launch to launch (fixed in a graph,
-whose capture holds the slabs' filling), and so is intra_pairs' per-device
-buffer of arrival counters. After every launch it checks that no canary
+whose capture holds the slabs' filling), and so are intra_pairs' and
+orb_select's per-device buffers of arrival counters. After every launch it checks that no canary
 byte changed (a write out of bounds), that the counters are back at zero,
 that no input changed (a write into an input), and that the outputs
-equal the first launch's and the plain version's bit for bit (a race or
-an unwritten output shows as a difference). Run from the repository's
+equal the first launch's and, but for pose_lm's, which sum in another
+order, the plain version's bit for bit (a race or an unwritten output
+shows as a difference). Run from the repository's
 root on a machine with a card and nvcc:
 
     python3 scripts/kernel_guard.py [--reps 50] [--quick] [--sanitize]
@@ -83,29 +86,40 @@ def guarded_empty(slabs: list, canary: int):
 
 
 @contextlib.contextmanager
-def guarded_counters(dev, canary: int, found: list):
-    """intra_pairs' arrival counters of `dev` -> a zeroed view into the
-    middle of a canary-filled slab, for as long as the context lasts; the
-    slab goes to `found` as (slab, bytes, canary)."""
+def guarded_counters(fn, dev, canary: int, found: list):
+    """The arrival counters of `dev` that fn's kernel uses (intra_pairs',
+    orb_select's; none for the others) -> a zeroed view into the middle of
+    a canary-filled slab, for as long as the context lasts; the slab goes
+    to `found` as (slab, bytes, canary)."""
     import torch
 
     from mcslam_tpu_torch.frontend import intra_cuda
+    from mcslam_tpu_torch.ops import orb_cuda
+    from mcslam_tpu_torch.utils import graphs
 
-    idx = dev.index
-    saved = intra_cuda._COUNTERS.get(idx)
-    n = intra_cuda.COUNTERS * 4
+    name, count = {intra_cuda.intra_pairs: ("intra_pairs", intra_cuda.COUNTERS),
+                   orb_cuda.orb_select: ("orb_select",
+                                         orb_cuda.SELECT_CAMERAS)}.get(
+                       fn, (None, 0))
+    if name is None:
+        yield
+        return
+    # graphs.counters' entry of (name, count) on dev
+    key = (("counters", name, count), torch.device(dev))
+    saved = graphs._CONSTS.get(key)
+    n = count * 4
     slab = torch.empty(2 * PAD + n, dtype=torch.uint8, device=dev)
     slab.fill_(canary)
     slab[PAD:PAD + n].zero_()
-    intra_cuda._COUNTERS[idx] = slab[PAD:PAD + n].view(torch.int32)
+    graphs._CONSTS[key] = slab[PAD:PAD + n].view(torch.int32)
     found.append((slab, n, canary))
     try:
         yield
     finally:
         if saved is None:
-            intra_cuda._COUNTERS.pop(idx)
+            graphs._CONSTS.pop(key)
         else:
-            intra_cuda._COUNTERS[idx] = saved
+            graphs._CONSTS[key] = saved
 
 
 def persistent_fails(name, rep, found) -> list[str]:
@@ -155,19 +169,17 @@ def tensors(obj):
 
 def guard(name, fn, args, kw, plain, reps) -> list[str]:
     """Launch fn(*args, **kw) reps times with guarded buffers (and, for
-    intra_pairs, guarded arrival counters); the failures found."""
+    intra_pairs and orb_select, guarded arrival counters); the failures
+    found."""
     import torch
-
-    from mcslam_tpu_torch.frontend import intra_cuda
 
     inputs = tensors(args) + tensors(kw)
     before = [bits(t).clone() for t in inputs]
-    ref = tensors(plain(*args, **kw))
+    ref = None if plain is None else tensors(plain(*args, **kw))
     fails, first, found = [], None, []
     with contextlib.ExitStack() as stack:
-        if fn is intra_cuda.intra_pairs:
-            stack.enter_context(guarded_counters(inputs[0].device,
-                                                 CANARIES[0], found))
+        stack.enter_context(guarded_counters(fn, inputs[0].device,
+                                             CANARIES[0], found))
         for rep in range(reps):
             slabs = []
             canary = CANARIES[rep % 2]
@@ -199,7 +211,7 @@ def launch_fails(name, rep, slabs, canary, out, ref, first) -> list[str]:
             fails.append(f"{name}: launch {rep}, buffer {k} "
                          f"({n} B): {bad} canary bytes overwritten")
     if first is None:
-        for k, (o, r) in enumerate(zip(out, ref)):
+        for k, (o, r) in enumerate(zip(out, ref or ())):
             if not same_values(o, r):
                 fails.append(f"{name}: output {k} differs from the plain "
                              f"version")
@@ -219,20 +231,17 @@ def input_fails(name, inputs, before) -> list[str]:
 def guard_graph(name, fn, args, kw, plain, reps) -> list[str]:
     """fn captured in a CUDA graph (its buffers allocated in canary slabs
     during the capture, the slabs' filling captured ahead of the launch;
-    intra_pairs' counters guarded too), replayed reps times: the same
-    checks as guard()."""
+    intra_pairs' and orb_select's counters guarded too), replayed reps
+    times: the same checks as guard()."""
     import torch
-
-    from mcslam_tpu_torch.frontend import intra_cuda
 
     dev = args[0].device
     inputs = tensors(args) + tensors(kw)
     before = [bits(t).clone() for t in inputs]
-    ref = tensors(plain(*args, **kw))
+    ref = None if plain is None else tensors(plain(*args, **kw))
     fails, first, found, slabs = [], None, [], []
     with contextlib.ExitStack() as stack:
-        if fn is intra_cuda.intra_pairs:
-            stack.enter_context(guarded_counters(dev, CANARIES[0], found))
+        stack.enter_context(guarded_counters(fn, dev, CANARIES[0], found))
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -281,8 +290,11 @@ def orb_cases(quick: bool, dev, rng, seen):
         a, kw = seen["orb_select"]
         out.append(("orb_select (bench frame 0, graph replays)", sel, a, kw,
                     orb_cuda.orb_select_reference, True))
+        a, kw = seen["orb_pyramid"]
+        out.append(("orb_pyramid (bench frame 0, graph replays)", pyr, a, kw,
+                    orb_cuda.orb_pyramid_reference, True))
     gen = torch.Generator(device=dev).manual_seed(3)
-    for B, H, W, L in ((1, 97, 133, 8), (5, 120, 160, 4)):
+    for B, H, W, L in ((1, 97, 133, 8), (5, 120, 160, 4), (2, 240, 320, 10)):
         out.append((f"orb_pyramid {B}x{H}x{W} L={L} (random)", pyr,
                     (torch.rand(B, H, W, generator=gen, device=dev), L), {},
                     orb_cuda.orb_pyramid_reference, False))
@@ -357,7 +369,24 @@ def cases(quick: bool, dev):
     if quick:
         out.append(("intra_pairs C=4 N=768 (random, graph replays)", intra,
                     out[-4][2], ik, intra_plain, True))
-    return out + orb_cases(quick, dev, rng, orb_seen)
+    return out + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
+
+
+def pose_cases(dev, rng):
+    """pose_lm at phase 2's B = 1 and 2 candidates of M = 2048
+    observations and at B = 3, M = 333 (a short last slice). No plain
+    version to hold it to bit for bit (the kernel sums in its cluster's
+    order; chip_smoke.py phase 2 holds it to 2e-3): the launches must
+    equal the first."""
+    import chip_smoke as cs
+    from mcslam_tpu_torch.frontend import pose_opt_cuda
+
+    out = []
+    for B, M in ((1, cs.MAXI), (2, cs.MAXI), (3, 333)):
+        a = (*cs._pose_problem(rng, B, M, dev), (8, 8))
+        out.append((f"pose_lm B={B} M={M} (random)", pose_opt_cuda.pose_lm,
+                    a, {}, None, False))
+    return out
 
 
 def sanitize() -> int:

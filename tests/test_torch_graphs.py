@@ -309,9 +309,9 @@ def test_replay_launch_accounting(monkeypatch):
 def test_trace_counts_each_wrapper_once():
     """chip_smoke counts a replay's launches in the device trace: one
     event per wrapper call (hamming_argmin2 by its merge kernel,
-    intra_pairs by its one kernel, orb_pyramid by its base kernel,
-    orb_select by its compaction kernel; other kernels, copies and the
-    trace's sentinels count nothing)."""
+    intra_pairs, orb_pyramid (at the main path's shapes) and orb_select
+    by their one kernel; other kernels, copies and the trace's sentinels
+    count nothing)."""
     import types
 
     import chip_smoke
@@ -323,11 +323,8 @@ def test_trace_counts_each_wrapper_once():
         "hamming_merge_kernel", "pose_lm_cluster_kernel", "linearize_kernel",
         "void (anonymous namespace)::tri_refine_kernel<4>(Args)",
         "(anonymous namespace)::intra_pairs_kernel(int const*)",
-        "(anonymous namespace)::pyramid_base_kernel(float const*)",
-        "(anonymous namespace)::pyramid_level_kernel(float const*)",
-        "(anonymous namespace)::pyramid_level_kernel(float const*)",
-        "(anonymous namespace)::orb_select_kernel(float const*)",
-        "(anonymous namespace)::orb_compact_kernel(int const*)",
+        "(anonymous namespace)::pyramid_tile_kernel(float const*)",
+        "(anonymous namespace)::orb_select_one_kernel(float const*)",
         "(anonymous namespace)::orb_describe_kernel(float const*)",
         "mc_set_cond_kernel", "Memcpy HtoD (Pinned -> Device)",
         "at::cuda::(anonymous namespace)::spin_kernel(long)")]

@@ -14,12 +14,19 @@ On the CPU:
   taps with the edge replication, the moments' lane subtrees and shuffle
   steps, the selection's 64-bit keys) against the plain versions, bit
   for bit;
+- numpy models of the staged-tile pyramid and the one-launch selection:
+  orb_cuda.pyramid_plan's tiles, with pyramid_levels' tap table, write
+  every pixel of every level once, keep every tap inside its region and
+  give the plain bits (PYRAMID_SHAPES, 10 levels, and a plan split over launches); the
+  selection's radix digits, ties and rank placement give
+  orb_select_reference's result on SELECT_CASES;
 - geometry.triangulation.ray_sum against a model of tri_refine's quad of
   lanes (ray r on lane r % 4, the fold ((a0 + a1) + a2) + a3) at R = 1-8.
 
 `gpu` cases (they skip without a card) hold each kernel to its plain
 version on the card, bit for bit, across two runs, with its launches
-counted, and orb_select through a CUDA graph replayed twice:
+counted, the pyramid also split over launches, and orb_select through a
+CUDA graph replayed twice:
     python -m pytest --noconftest tests/test_torch_orb_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparisons)."""
 
@@ -396,6 +403,252 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
         orb_cuda.orb_describe(p[:, :30], 32)
 
 
+# -- the staged-tile pyramid's and the one-launch selection's plans, CPU ---
+
+
+_span = orb_cuda._span
+
+
+def _entry_at(e):
+    """A plan entry's computed indices, in local order."""
+    a = np.arange(e[0], e[1] + 1)
+    return np.concatenate([a, np.arange(e[2], e[3] + 1)]) if e[3] >= e[2] else a
+
+
+def _entry_loc(e, y):
+    """Local index of level indices y among an entry's computed ones
+    (the kernel's Entry::loc)."""
+    return np.where(y <= e[1], y - e[0], e[1] - e[0] + 1 + y - e[2])
+
+
+def _entry_own(e):
+    return np.concatenate([np.arange(e[4], e[5]), np.arange(e[6], e[7])])
+
+
+def _tiled_pyramid(imgs, levels, segs):
+    """numpy model of csrc/orb_pyramid.cu over pyramid_plan's launches:
+    per tile the source region staged and, per level and axis, the rows
+    of pyramid_levels' tap table that its computed rows or columns take;
+    each level's region computed from the one before (a first tap's index
+    made local to the previous region by its plan entry): the vertical
+    pass over every column of the previous region, then the horizontal,
+    f32, taps left to right; and each level's part written -> (stack,
+    times each pixel of each level's plane was written). Asserts every
+    tap lies inside the previous region, every region and the tile's
+    tables fit the launch's buffers, and no region is wider than a
+    block's threads."""
+    f32 = np.float32
+    B, H, W = imgs.shape
+    dims, table = orb_cuda.pyramid_levels(H, W, levels, 1.2)
+    out = np.full((levels * B, H, W), np.nan, f32)
+    count = np.zeros((levels, H, W), np.int32)
+
+    def taps(off, e, K):
+        """the tile's table of one level and axis: (first taps, weights)"""
+        rows = table[off + _entry_at(e)[:, None] * (K + 1) + np.arange(K + 1)]
+        return rows[:, 0], rows[:, 1:].view(np.float32)
+
+    def inside(e, y):  # level indices y among an entry's computed ones
+        y = np.asarray(y)
+        assert (((y >= e[0]) & (y <= e[1])) | ((y >= e[2]) & (y <= e[3]))).all()
+
+    def first_local(prev, cur, off, K, n_in, n_out):
+        """local first taps in the previous region, checked against the
+        resize's, and the weights (K = 0: the index itself, a copy)"""
+        idx = _entry_at(cur)
+        if K == 0:
+            fl, wt = _entry_loc(prev, idx), None
+            first = idx
+        else:
+            first, wt = taps(off, cur, K)
+            fl = _entry_loc(prev, first)
+            ref_w, ref_f = image.resize_taps(n_in, n_out)
+            np.testing.assert_array_equal(first, ref_f[idx])
+            np.testing.assert_array_equal(wt, ref_w[idx])
+        K = max(K, 1)
+        assert (fl >= 0).all() and (fl + K <= _span(prev)).all()
+        inside(prev, first[:, None] + np.arange(K))
+        got = _entry_at(prev)[fl[:, None] + np.arange(K)[None]]
+        np.testing.assert_array_equal(got, first[:, None] + np.arange(K))
+        return fl, wt
+
+    for la, lb, TY, TX, rows, cols, sizes in segs:
+        nbytes, buf_a, buf_b, vbuf, _ = sizes
+        nlev = lb - la + 2
+        tab_room = nbytes // 4 - buf_a - buf_b - vbuf - 16 * nlev
+        for i in range(TY):
+            for j in range(TX):
+                er, ec = rows[0, i], cols[0, j]
+                src = imgs if la == 1 else out[(la - 1) * B:la * B]
+                S = src[:, _entry_at(er)][:, :, _entry_at(ec)]
+                assert not np.isnan(S).any() and S[0].size <= buf_a
+                if la == 1:
+                    y, x = np.arange(er[4], er[5]), np.arange(ec[4], ec[5])
+                    inside(er, y)
+                    inside(ec, x)
+                    out[:B, y[:, None], x[None]] = S[:, _entry_loc(er, y)][
+                        :, :, _entry_loc(ec, x)]
+                    count[0, y[:, None], x[None]] += 1
+                tab_ints = 0
+                for k in range(1, nlev):
+                    l = la + k - 1
+                    h, w, kv, kh, vt, ht = dims[l]
+                    ph, pw = dims[l - 1, :2]
+                    pr, pc, er, ec = er, ec, rows[k, i], cols[k, j]
+                    nr, nc = _span(er), _span(ec)
+                    assert nr * nc <= (buf_b if k % 2 else buf_a)
+                    assert nr * S.shape[2] <= vbuf
+                    assert nc <= orb_cuda.PYRAMID_THREADS
+                    tab_ints += nr * (kv + 1) * (kv > 0) + nc * (kh + 1) * (kh > 0)
+                    fl, tv = first_local(pr, er, vt, kv, ph, h)
+                    fc, th = first_local(pc, ec, ht, kh, pw, w)
+                    if kv == 0:
+                        V = S[:, fl]
+                    else:
+                        V = tv[:, 0][None, :, None] * S[:, fl]
+                        for q in range(1, kv):
+                            V = V + tv[:, q][None, :, None] * S[:, fl + q]
+                    if kh == 0:
+                        D = V[:, :, fc]
+                    else:
+                        D = th[:, 0] * V[:, :, fc]
+                        for q in range(1, kh):
+                            D = D + th[:, q] * V[:, :, fc + q]
+                    y, x = _entry_own(er), _entry_own(ec)
+                    inside(er, np.minimum(y, h - 1))
+                    inside(ec, np.minimum(x, w - 1))
+                    vals = D[:, _entry_loc(er, np.minimum(y, h - 1))][
+                        :, :, _entry_loc(ec, np.minimum(x, w - 1))]
+                    out[l * B:(l + 1) * B, y[:, None], x[None]] = vals
+                    count[l, y[:, None], x[None]] += 1
+                    S = D.astype(f32)
+                assert tab_ints <= tab_room
+    return out, count
+
+
+@pytest.mark.parametrize("B,H,W,levels,smem", [
+    (4, 480, 640, 4, None), (1, 97, 133, 8, None), (2, 144, 192, 3, None),
+    (3, 37, 53, 4, None), (5, 120, 160, 4, None), (1, 480, 640, 1, None),
+    (1, 97, 133, 8, 6000), (2, 240, 320, 10, None)])
+def test_pyramid_tiles_write_each_pixel_once_in_the_plain_order(B, H, W,
+                                                                levels, smem):
+    """pyramid_plan's tiles (at 132 SMs; the last case with so little
+    shared memory that the chain takes several launches) write every
+    pixel of every level's plane once, every tap of a tile lies in its
+    region, and the tiled order gives the plain version's bits."""
+    kw = {} if smem is None else dict(smem=smem)
+    segs = orb_cuda.pyramid_plan(H, W, levels, 1.2, B, 132, **kw)
+    if smem is not None or levels > orb_cuda.PYRAMID_MAX_LEVELS:
+        assert len(segs) > 1
+    elif (B, H, W, levels) == (4, 480, 640, 4):
+        assert len(segs) == 1  # one launch at the bench shape
+    imgs = np.random.RandomState(H).rand(B, H, W).astype(np.float32)
+    got, count = _tiled_pyramid(imgs, levels, segs)
+    assert (count == 1).all()
+    ref = orb_cuda.orb_pyramid_reference(torch.from_numpy(imgs), levels)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.numpy().view(
+        np.uint32))
+
+
+def _select_model(v, r, h_l, w_l, kw):
+    """numpy model of csrc/orb_select.cu's plan: per image the n-th
+    largest value by at most three radix passes of 11, 11 and 10 bits
+    over the order-preserving value bits (done where the n-th key's
+    bucket is taken whole), the ties at it to the lowest indices,
+    each chosen key's slot by counting the chosen keys above it; per
+    level the slots' prio keys ranked likewise; per camera each slot's
+    rank its own level's rank plus a binary search per other level."""
+    v, r = v.numpy(), r.numpy()
+    h_l, w_l = h_l.numpy(), w_l.numpy()
+    C, budgets, n_out = kw["C"], kw["budgets"], kw["n_out"]
+    ncx, cell = kw["ncx"], 16
+    LC, N = v.shape[0], v.shape[1] * v.shape[2]
+    L, maxb = LC // C, max(budgets)
+    n, M = min(maxb, N), L * maxb
+    v, r = v.reshape(LC, N), r.reshape(LC, N)
+    keys = _key_model(v)  # (value bits << 32) | ~index, per image
+    s_lvl = np.array([1.2 ** l for l in range(L)], np.float32)
+    fields = np.zeros((C, M, 4), np.int64)
+    runs = np.zeros((C, L, maxb), np.uint64)
+    for img in range(LC):
+        l, c = divmod(img, C)
+        u = (keys[img] >> np.uint64(32)).astype(np.int64)
+        prefix, known, rem, whole = 0, 0, n, False
+        for sh, bits in ((21, 11), (10, 11), (0, 10)):
+            live = (u & known) == prefix
+            hist = np.bincount((u[live] >> sh) & ((1 << bits) - 1),
+                               minlength=1 << bits)
+            above = np.cumsum(hist[::-1])[::-1] - hist  # counts above a bin
+            d = int(np.nonzero((above < rem) & (rem <= above + hist))[0][0])
+            rem -= int(above[d])
+            prefix |= d << sh
+            known |= ((1 << bits) - 1) << sh
+            if hist[d] == rem:  # the bucket taken whole: no more passes
+                whole = True
+                break
+        eq = u == prefix
+        chosen = (u >= prefix) if whole else (u > prefix) | (
+            eq & (np.cumsum(eq) - eq < rem))
+        assert chosen.sum() == n
+        ck = keys[img][chosen]
+        slot = (ck[None, :] > ck[:, None]).sum(1)  # chosen keys above
+        assert sorted(slot) == list(range(n))
+        k = (np.uint64(0xFFFFFFFF) - (ck & np.uint64(0xFFFFFFFF))).astype(int)
+        val = v[img, k]
+        g, rr = k // 4, r[img, k]
+        ok0 = val > 0
+        y = np.where(ok0, (g // ncx) * cell + rr // cell, 0)
+        x = np.where(ok0, (g % ncx) * cell + rr % cell, 0)
+        ok = ok0 & (slot < budgets[l]) & (y >= orb.EDGE) & (
+            y < h_l[img] - orb.EDGE) & (x >= orb.EDGE) & (x < w_l[img] - orb.EDGE)
+        resp = np.where(val > 1, val - np.float32(1), val).astype(np.float32)
+        j = l * maxb + slot
+        fields[c, j] = np.stack([y, x, resp.view(np.int32), ok], -1)
+        prio = np.full(maxb, -1.0, np.float32)
+        prio[slot] = np.where(ok, resp + np.float32(1000), np.float32(-1))
+        pk = _key_model(prio[None])[0]
+        pk = (pk & ~np.uint64(0xFFFFFFFF)) | (
+            np.uint64(0xFFFFFFFF) - np.arange(l * maxb, (l + 1) * maxb,
+                                              dtype=np.uint64))
+        runs[c, l, (pk[None, :] > pk[:, None]).sum(1)] = pk
+    out = [np.zeros((C, n_out, 2), np.float32), np.zeros((C, n_out), np.float32),
+           np.zeros((C, n_out), np.int32), np.zeros((C, n_out), np.float32),
+           np.zeros((C, n_out), bool), np.zeros((C * n_out, 2), np.int32),
+           np.zeros(C * n_out, np.int32)]
+    for c in range(C):
+        for le in range(L):
+            for pos, key in enumerate(runs[c, le]):
+                if M > n_out:
+                    rank = pos + sum(int((runs[c, lo] > key).sum())
+                                     for lo in range(L) if lo != le)
+                    j = int(np.uint64(0xFFFFFFFF) - (key & np.uint64(0xFFFFFFFF)))
+                else:
+                    rank = j = le * maxb + pos
+                if rank >= n_out:
+                    continue
+                fy, fx, fr, fv = fields[c, j]
+                lv = j // maxb
+                o = c * n_out + rank
+                out[0][c, rank] = (np.float32(fx) * s_lvl[lv],
+                                   np.float32(fy) * s_lvl[lv])
+                out[1][c, rank] = np.int32(fr).view(np.float32)
+                out[2][c, rank] = lv
+                out[3][c, rank] = s_lvl[lv] * s_lvl[lv]
+                out[4][c, rank] = bool(fv)
+                out[5][o] = (fy, fx)
+                out[6][o] = lv * C + c
+    return out
+
+
+@pytest.mark.parametrize("kind,C,L,num_points", SELECT_CASES)
+def test_select_plan_reproduces_the_plain_version(kind, C, L, num_points):
+    v, r, h_l, w_l, kw = _select_case(kind, C, L, num_points)
+    want = orb_cuda.orb_select_reference(v, r, h_l, w_l, **kw)
+    got = _select_model(v, r, h_l, w_l, kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
 # -- on the card -----------------------------------------------------------
 
 PYRAMID_SHAPES = [(4, 480, 640, 4), (1, 97, 133, 8), (2, 144, 192, 3),
@@ -414,6 +667,26 @@ def test_pyramid_kernel_matches_plain(cuda, B, H, W, levels):
     assert _build.LAUNCHES["orb_pyramid"] == n0 + 2
     for k in runs:
         assert torch.equal(k, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,levels,smem", [
+    (1, 97, 133, 8, 6000), (2, 240, 320, 10, None), (3, 127, 201, 5, 6000)])
+def test_pyramid_kernel_in_several_launches(cuda, monkeypatch, B, H, W,
+                                            levels, smem):
+    """The chain split over launches (more levels than one launch takes,
+    or tiles whose regions outgrow the shared memory allowed), tiles of
+    odd sizes, W % 4 != 0: the plain version's bits."""
+    if smem is not None:
+        monkeypatch.setattr(orb_cuda, "PYRAMID_SMEM", smem)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    segs = orb_cuda.pyramid_plan(H, W, levels, 1.2, B, sms,
+                                 orb_cuda.PYRAMID_SMEM)
+    assert len(segs) > 1
+    imgs = torch.from_numpy(np.random.RandomState(W).rand(B, H, W).astype(
+        np.float32)).to(cuda)
+    ref = orb_cuda.orb_pyramid_reference(imgs, levels)
+    assert torch.equal(orb_cuda.orb_pyramid(imgs, levels), ref)
 
 
 @pytest.mark.gpu
