@@ -6,14 +6,16 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. build: compile the CUDA sources of mcslam_tpu_torch/csrc (the nine
      kernels' five, the graphs' branch, the SGM scan, tri_refine,
-     intra_pairs and the ORB glue's orb_pyramid, orb_select and
-     orb_describe; one nvcc per source, in parallel, sm_90a) and
+     intra_pairs, the ORB glue's orb_pyramid, orb_select and
+     orb_describe, and the RANSAC portfolio's ransac_score, kabsch_hyp
+     and pnp_hyp; one nvcc per source, in parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
      kernel, the oriented patch gather, the SGM tile kernel at D = 64,
-     tri_refine at R = 2, 4 and 8, intra_pairs' one kernel and the ORB
-     glue's three kernels must use no local memory and
+     tri_refine at R = 2, 4 and 8, intra_pairs' one kernel, the ORB
+     glue's three kernels and the three RANSAC kernels must use no local
+     memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
@@ -48,7 +50,12 @@ Phases, each of which raises (non-zero exit) on failure:
      replays; the pyramid within 1e-6 of its earlier GEMM form, the
      angle equal to torch.atan2 of the plain moments), then the bench
      frame's extraction card against CPU (level 0 exactly, the level >= 1
-     keypoint share printed, >= 95 %); track
+     keypoint share printed, >= 95 %); the RANSAC kernels (ransac_kernels)
+     at the inputs bench frame 1's step gives them with its portfolio
+     forced (the score at K = 1, 512, 256 and 3 against M = 2048
+     correspondences, kabsch_hyp at K = 512, pnp_hyp at K = 256), each
+     twice (bitwise equal) and against its plain version under the
+     criteria of check_score and check_hypotheses (RANSAC_*); track
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -65,10 +72,14 @@ Phases, each of which raises (non-zero exit) on failure:
      under the constant-velocity prediction - once with the production
      fast path and once with the portfolio forced (fastpath_frac=2.0).
      Every frame must pass the driver's acceptance gates and stay within
-     0.1 m / 0.02 rad of ground truth; each of the nine frame kernels'
+     0.1 m / 0.02 rad of ground truth; each of the twelve frame kernels'
      launch counters (the four of the nine, the three ORB glue kernels,
-     tri_refine and intra_pairs) must be > 0 after this phase (counters are reset
-     right before it);
+     tri_refine, intra_pairs and the three RANSAC kernels) must be > 0
+     after this phase (counters are reset right before it); the RANSAC
+     kernels' launches of each drive are printed: the forced-portfolio
+     drive scores 4 times and makes each hypothesis batch once per frame
+     (kabsch_hyp's and pnp_hyp's launches in the kernels line), the
+     fast-path drive scores once per fast-path frame;
   4. routes: the same 8-frame drive on the fast path under the two other
      extraction routes (ops.orb.OrbRoute): route A (score map with blur,
      selection outside the kernel, late compaction: fast_corners in mode
@@ -157,11 +168,11 @@ Phases, each of which raises (non-zero exit) on failure:
      >= 0.95, recall >= 0.85, no false fire; (e) (c)'s map and BoW
      database saved: the Relocalizer relocalizes a seen frame within
      0.1 m and the FastTracker refines a perturbed prediction within
-     0.05 m, pose_lm and hamming_argmin2 launched;
+     0.05 m, pose_lm, hamming_argmin2, pnp_hyp and ransac_score launched;
   10. the loop path's timing: detection per keyframe (span, BoW
-     transform, one verification), _close_loop, the global solve at
-     both shapes (CUDA events, device time and ops), relocalize and
-     fast-track per frame;
+     transform, one verification with its launches), _close_loop, the
+     global solve at both shapes (CUDA events, device time and ops),
+     relocalize and fast-track per frame with their launches;
   11. the app and data path (after phase 10), each part with its launch
      counters reset right before it: (a) phase 5's 24 frames written as
      8-bit PGM folders with 19-digit ns names, a Kalibr camchain of the
@@ -499,6 +510,10 @@ INTRA_INT_OPS = 11
 TRI_INTRA = ("tri_refine", "intra_pairs")
 # the ORB extraction's glue kernels (ops/orb_cuda.py), on the default route
 ORB_KERNELS = ("orb_pyramid", "orb_select", "orb_describe")
+# the RANSAC kernels (frontend/ransac_cuda.py): the score runs on every
+# frame, the two hypothesis kernels only off the fast path (the portfolio)
+RANSAC_KERNELS = ("ransac_score", "kabsch_hyp", "pnp_hyp")
+PORTFOLIO = ("kabsch_hyp", "pnp_hyp")
 # the graphed fast-path frame before the staged-tile orb_pyramid and the
 # one-launch orb_select (three and two launches), its device ops and
 # device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke phase 14 on the
@@ -511,6 +526,121 @@ COND_BYTES = 1 + 8 + 4
 # and two small aligned ones (D = 128 and D = 33 across the tiles' edges)
 SGM_ODD = (48, 37, 53)
 SGM_SMALL = ((128, 64, 96), (33, 72, 128))
+# the RANSAC kernels (frontend/ransac_cuda) against their plain versions:
+# a score's inlier flag may differ only where |err2 - px^2| <= RANSAC_EDGE
+# px^2 (err2 recomputed in float64), a count by at most its number of such
+# flags, the winner only where its margin is within them; hypotheses
+# scoring RANSAC_GOOD of the best within RANSAC_POSE of the plain
+# version's, unless one of the two float32 solves is itself RANSAC_POSE
+# from the float64 solve (check_hypotheses), the winners' counts within
+# RANSAC_COUNT; a factorization that fails on one side only for at most
+# RANSAC_ONE_SIDED of the hypotheses
+RANSAC_EDGE, RANSAC_POSE, RANSAC_GOOD, RANSAC_COUNT = 1e-5, 2e-2, 0.8, 0.02
+RANSAC_ONE_SIDED = 0.02
+# operations per hypothesis and correspondence of the score (two 3 x 3
+# transforms with translation 24, the projection 8, the error and the
+# gate 6), and per hypothesis of the solvers (csrc/kabsch_hyp.cu: the
+# covariance 50, Faddeev-LeVerrier 3 x 112, 12 Newton steps x 16, 16
+# determinants x 14 and the rotation 60; csrc/pnp_hyp.cu: G over R rows
+# N (N + 1) R, the factor N^3 / 3, each solve 2 N^2 and its norm 2 N)
+SCORE_OPS = 38
+KABSCH_OPS = 50 + 3 * 112 + 12 * 16 + 16 * 14 + 60
+
+
+def pnp_ops(K: int, S: int, noncentral: bool) -> float:
+    """Operations of K pnp_hyp hypotheses: the first K // 2 central (12
+    columns, 2 S rows, 5 solves), the rest generalized where noncentral
+    (13 columns, 3 S rows, 10 solves, 5 deflations)."""
+    def one(N, R, solves):
+        return N * (N + 1) * R + N ** 3 / 3 + solves * (2 * N * N + 2 * N) \
+            + 400
+    kc = K // 2
+    gen = one(13, 3 * S, 10) + 5 * 4 * 13 if noncentral else one(12, 2 * S, 5)
+    return kc * one(12, 2 * S, 5) + (K - kc) * gen
+
+
+def score_edges(hyp, X, uv, cam, f, px):
+    """(K, M) |err2 - px^2| <= RANSAC_EDGE px^2 of the plain score's
+    projections, recomputed in float64: where a flag may differ."""
+    import torch
+
+    X, uv, cam, f, T = (a.double() for a in (X, uv, cam, f, hyp))
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    q = torch.einsum("kji,kmj->kmi", R, X[None] - t[:, None])
+    p = torch.einsum("mij,kmj->kmi", cam[:, :3, :3], q) + cam[None, :, :3, 3]
+    z = torch.where(p[..., 2] > 0.05, p[..., 2], torch.ones_like(p[..., 2]))
+    pred = p[..., :2] / z[..., None] * f[None, :, :2] + f[None, :, 2:]
+    err2 = ((pred - uv[None]) ** 2).sum(-1)
+    return (err2 - px * px).abs() <= RANSAC_EDGE * px * px
+
+
+def check_score(name, k, counts, flags, edges) -> dict:
+    """The score kernel's outputs k (counts, best, pose, count, inliers)
+    against the plain version's counts and (K, M) flags, under the
+    criteria; -> the flags and counts that differ and the edge flags."""
+    import torch
+
+    n_edge = edges.sum(-1)
+    check(bool(torch.all((k[0] - counts).abs() <= n_edge)),
+          f"{name}: a count differs by more than its edge flags")
+    b = int(k[1])
+    check(int(k[3]) == int(k[0][b]) == int(k[4].sum()),
+          f"{name}: the winner's count and mask disagree")
+    check(bool(torch.all((k[4] == flags[b]) | edges[b])),
+          f"{name}: the winner's inlier flags differ away from the edge")
+    top = torch.sort(counts, descending=True).values
+    margin = int(top[0] - top[1]) if counts.numel() > 1 else 1 << 30
+    if margin > 2 * int(n_edge.max()):
+        check(b == int(torch.argmax(counts)),
+              f"{name}: winner {b}, the plain version's "
+              f"{int(torch.argmax(counts))}")
+    return dict(counts_differ=int((k[0] != counts).sum()),
+                flags_differ=int((k[4] != flags[b]).sum()),
+                edge_flags=int(n_edge.sum()), winner=b,
+                plain_winner=int(torch.argmax(counts)))
+
+
+def check_hypotheses(name, hk, hp, h64, ck, cp, structural=()) -> dict:
+    """Hypotheses of a kernel hk against its plain version's hp (h64: the
+    plain version in float64; ck, cp: their counts) under the criteria;
+    `structural` hypotheses must be NaN in both -> what was compared."""
+    import torch
+
+    nk = torch.isnan(hk).any(dim=(1, 2))
+    np_ = torch.isnan(hp).any(dim=(1, 2))
+    for k in structural:
+        check(bool(nk[k]) and bool(np_[k]),
+              f"{name}: hypothesis {k} is not NaN in both")
+    one_sided = int((nk != np_).sum())
+    check(one_sided <= 1 + RANSAC_ONE_SIDED * hk.shape[0],
+          f"{name}: {one_sided} factorizations fail on one side only")
+    check(bool(torch.all(ck[nk] == 0)) and bool(torch.all(cp[np_] == 0)),
+          f"{name}: a NaN hypothesis scored inliers")
+    good = (cp >= RANSAC_GOOD * cp.max()) & ~nk & ~np_
+
+    def dist(a, b):
+        return (a.double() - b.double()).abs().amax(dim=(1, 2))
+
+    dk, dp, dkp = dist(hk, h64), dist(hp, h64), dist(hk, hp)
+    rounding = good & ((dk > RANSAC_POSE) | (dp > RANSAC_POSE))
+    apart = good & (dkp > RANSAC_POSE)
+    check(bool(torch.all(rounding[apart])),
+          f"{name}: {int((apart & ~rounding).sum())} hypotheses apart by "
+          f"more than {RANSAC_POSE} where both float32 solves are within it "
+          f"of the float64 one")
+    n_k, n_p = int((good & (dk > RANSAC_POSE)).sum()), \
+        int((good & (dp > RANSAC_POSE)).sum())
+    check(n_k <= n_p + max(2, 0.05 * int(good.sum())),
+          f"{name}: {n_k} good hypotheses of the kernel {RANSAC_POSE} from "
+          f"the float64 solve, of the plain version {n_p}")
+    best_k, best_p = int(ck.max()), int(cp.max())
+    check(abs(best_k - best_p) <= RANSAC_COUNT * best_p,
+          f"{name}: best count {best_k}, the plain version's {best_p}")
+    within = good & ~rounding
+    return dict(good=int(good.sum()), rounding=int(rounding.sum()),
+                max_abs_err=float(dkp[within].max()) if within.any() else 0.0,
+                one_sided=one_sided, best=best_k, plain_best=best_p,
+                nan=int(nk.sum()))
 
 
 def check(cond, msg):
@@ -535,7 +665,10 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "intra_pairs_kernel": "intra_pairs_kernel",
               "pyramid_tile_kernel": "pyramid_tile_kernel",
               "orb_select_one_kernel": "orb_select_one_kernel",
-              "orb_describe_kernel": "orb_describe_kernel"}
+              "orb_describe_kernel": "orb_describe_kernel",
+              "ransac_score_kernel": "ransac_score_kernel",
+              "kabsch_hyp_kernel": "kabsch_hyp_kernel",
+              "pnp_hyp_kernel": "pnp_hyp_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
@@ -543,7 +676,8 @@ NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "tri_refine_kernel<2>", "tri_refine_kernel<4>",
             "tri_refine_kernel<8>", "intra_pairs_kernel",
             "pyramid_tile_kernel", "orb_select_one_kernel",
-            "orb_describe_kernel")
+            "orb_describe_kernel", "ransac_score_kernel", "kabsch_hyp_kernel",
+            "pnp_hyp_kernel")
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1428,6 +1562,136 @@ def geometry_kernels(scene, rng, dev, kernels):
         ops_s=pm1_ops_s(cells, 0, INTRA_INT_OPS * cells))
 
 
+def capture_all(build, targets) -> dict:
+    """{name: [(args, kwargs), ...]} of every call of each module function
+    of `targets` ({name: (module, attribute)}) that build() makes; the
+    calls go through unchanged."""
+    seen = {n: [] for n in targets}
+    saved = {n: getattr(m, a) for n, (m, a) in targets.items()}
+
+    def record(name, fn):
+        def wrapped(*a, **kw):
+            seen[name].append((a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    for n, (m, a) in targets.items():
+        setattr(m, a, record(n, saved[n]))
+    try:
+        build()
+    finally:
+        for n, (m, a) in targets.items():
+            setattr(m, a, saved[n])
+    return seen
+
+
+def ransac_kernels(scene, dev, kernels):
+    """Phase 2, the RANSAC portfolio's kernels (frontend/ransac_cuda) at
+    the inputs that bench frame 1's step, its portfolio forced
+    (fastpath_frac 2.0), gives them against frame 0's map: the score at K
+    = 1 (the motion candidate), 512 (Kabsch), 256 (PnP) and 3 (the
+    re-score), kabsch_hyp at K = 512 and pnp_hyp at K = 256 (the
+    generalized form on the second half: the bench rig has lever arms);
+    each kernel twice (bitwise equal) and its plain version, under the
+    criteria of check_score / check_hypotheses."""
+    import torch
+
+    from mcslam_tpu_torch import tracking_kernels as tk
+    from mcslam_tpu_torch.frontend import frame, ransac, ransac_cuda
+
+    ff0 = frame.build_frame(scene.imgs[0], scene.rig, **scene.frame_kwargs())
+    mapstate, _ = seed_map(ff0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    targets = {n: (ransac_cuda, n) for n in ("score", "kabsch_hyp", "pnp_hyp")}
+    seen = capture_all(lambda: tk._build_and_track_step(
+        gen, scene.imgs[1], scene.rig, ff0.im_desc, ff0.im_valid, *mapstate,
+        torch.eye(4, device=dev), **scene.step_kwargs(2.0)), targets)
+    check([len(seen[n]) for n in targets] == [4, 1, 1],
+          f"the forced-portfolio step made {[len(v) for v in seen.values()]} "
+          f"score / kabsch_hyp / pnp_hyp calls, not 4 / 1 / 1")
+    recs, errs = {}, []
+    for args, kw in seen["score"]:
+        hyp, X, uv, cam, f, mask, px = args
+        K, M = hyp.shape[0], X.shape[0]
+        k1 = ransac_cuda.score(*args, **kw)
+        k2 = ransac_cuda.score(*args, **kw)
+        counts, flags = ransac._score_reprojection(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+              f"ransac_score K={K}: two runs differ")
+        check(torch.equal(k1[2], hyp[int(k1[1])]),
+              f"ransac_score K={K}: the pose is not the winner's")
+        st = check_score(f"ransac_score K={K}", k1, counts, flags,
+                         score_edges(hyp, X, uv, cam, f, px))
+        errs.append(st["counts_differ"])
+        print(f"# kernel ransac_score K={K} M={M}: {st['counts_differ']} "
+              f"counts and {st['flags_differ']} of the winner's flags differ "
+              f"from the plain version ({st['edge_flags']} flags within "
+              f"{RANSAC_EDGE} px^2 of the gate), winner {st['winner']} (plain "
+              f"{st['plain_winner']}, {int(counts.max())} inliers); bitwise "
+              f"equal across two runs")
+        recs[K] = dict(
+            fn=lambda a=args: ransac_cuda.score(*a),
+            plain=lambda a=args: ransac_cuda.score_reference(*a),
+            symbols=("ransac_score_kernel",), device_ops=1,
+            # hypotheses and correspondences read once, counts and the
+            # winner's pose, index, count and mask written once
+            nbytes=K * 64 + M * (12 + 8 + 64 + 16 + 1) + K * 8 + 8 + 64 + 4
+            + M, ops_s=f32_ops_s(K * M * SCORE_OPS))
+        if K in (512, 256):
+            recs[K]["obs"] = (X, uv, cam, f, mask, px)
+    kernels["ransac_score"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/ransac_score.cu",
+        replaces="mcslam_tpu/frontend/ransac.py:150",
+        max_abs_err=float(max(errs)),
+        at={f"K={K}": {k: v for k, v in recs[K].items() if k != "obs"}
+            for K in (1, 256, 3)},
+        **{k: v for k, v in recs[512].items() if k != "obs"})
+
+    for name, (args, kw), K, obs in (
+            ("kabsch_hyp", seen["kabsch_hyp"][0], 512, recs[512]["obs"]),
+            ("pnp_hyp", seen["pnp_hyp"][0], 256, recs[256]["obs"])):
+        fn = getattr(ransac_cuda, name)
+        plain = (ransac.kabsch_hypotheses if name == "kabsch_hyp"
+                 else ransac.pnp_hypotheses)
+        idx = args[0]
+        hk, hk2 = fn(*args), fn(*args)
+        hp = plain(*args)
+        h64 = plain(idx, *(a.double() for a in args[1:]))
+        torch.cuda.synchronize()
+        check(same_bits(hk, hk2), f"{name}: two runs differ")
+        ck = ransac._score_reprojection(hk, *obs)[0]
+        cp = ransac._score_reprojection(hp, *obs)[0]
+        st = check_hypotheses(name, hk, hp, h64, ck, cp)
+        print(f"# kernel {name} K={K} S={idx.shape[1]}: {st['good']} "
+              f"hypotheses score {RANSAC_GOOD} of the best, {st['rounding']} "
+              f"of them with a float32 solve {RANSAC_POSE} from the float64 "
+              f"one; the rest within {st['max_abs_err']:.3g} of the plain "
+              f"version's; best count {st['best']} (plain "
+              f"{st['plain_best']}); {st['nan']} NaN, {st['one_sided']} on one "
+              f"side only; bitwise equal across two runs")
+        M = args[1].shape[0]
+        S = idx.shape[1]
+        if name == "kabsch_hyp":
+            nbytes = K * 3 * (8 + 2 * 12) + K * 64
+            ops_s = f32_ops_s(K * KABSCH_OPS)
+        else:
+            lever = bool((args[3][:, :3, 3].norm(dim=-1) > 1e-6).any())
+            # samples' indices and rows, the translations' lever scan, the
+            # start vectors, the poses
+            nbytes = K * S * (8 + 12 + 8 + 64 + 16) + M * 12 + 26 * 4 + K * 64
+            ops_s = f32_ops_s(pnp_ops(K, S, lever))
+        kernels[name] = dict(
+            route="cuda", source=f"mcslam_tpu_torch/csrc/{name}.cu",
+            replaces=("mcslam_tpu/frontend/ransac.py:176" if name ==
+                      "kabsch_hyp" else "mcslam_tpu/frontend/ransac.py:293"),
+            max_abs_err=st["max_abs_err"],
+            fn=lambda a=args, fn=fn: fn(*a),
+            plain=lambda a=args, p=plain: p(*a),
+            symbols=(f"{name}_kernel",), device_ops=1, nbytes=nbytes,
+            ops_s=ops_s)
+
+
 def plateau_candidates(rng, C, L, G, ncx, dev):
     """fast_select-shaped candidates with few distinct values (ties
     everywhere, values with and without the rank bonus, zeros and -0.0),
@@ -1729,6 +1993,7 @@ def main() -> int:
     stereo_kernels(scene, rng, dev, kernels)
     geometry_kernels(scene, rng, dev, kernels)
     orb_kernels(scene, rng, dev, kernels)
+    ransac_kernels(scene, dev, kernels)
     solve_problem = _window_solves(scene, dev)
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
@@ -1742,18 +2007,35 @@ def main() -> int:
     check(n_seed >= 200, f"frame 0 seeded only {n_seed} landmarks")
     print(f"# slice: frame 0 keypoints {int(ff0.kp_valid.sum())}, intra "
           f"groups {int(ff0.im_valid.sum())}, seeded landmarks {n_seed}")
-    results = {}
+    results, by_drive = {}, {}
     for name, frac in (("fast", FASTPATH_FRAC), ("portfolio", 2.0)):
+        before = collections.Counter(_build.LAUNCHES)
         results[name] = drive(scene, ff0, mapstate, frac)
+        by_drive[name] = {n: (_build.LAUNCHES - before).get(n, 0)
+                          for n in RANSAC_KERNELS}
         check_drive(name, results[name])
     check(not any(r["fast"] for r in results["portfolio"]),
           "forced-portfolio drive took the fast path")
     launches = dict(_build.LAUNCHES)
     print(f"# launches during the slice: {launches}")
     for n in ("fast_select", "patch_gather", *ORB_KERNELS, "hamming_argmin2",
-              "pose_lm", *TRI_INTRA):
+              "pose_lm", *TRI_INTRA, *RANSAC_KERNELS):
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched on the slice's path")
+    n_off = sum(not r["fast"] for r in results["fast"])
+    nf = N_FRAMES - 1
+    print(f"# the RANSAC kernels' launches: fast-path drive {by_drive['fast']} "
+          f"({n_off} of {nf} frames off the fast path), forced-portfolio "
+          f"drive {by_drive['portfolio']} ({nf} frames)")
+    check(by_drive["portfolio"] == dict(ransac_score=4 * nf, kabsch_hyp=nf,
+                                        pnp_hyp=nf),
+          "the forced-portfolio drive did not score 4 times and make the two "
+          "hypothesis batches once per frame")
+    check(by_drive["fast"] == dict(ransac_score=nf + 3 * n_off,
+                                   kabsch_hyp=n_off, pnp_hyp=n_off),
+          "the fast-path drive's RANSAC launches do not follow its frames")
+    for n in PORTFOLIO:
+        kernels[n]["launches"] = by_drive["portfolio"][n]
 
     # ---- phase 4: the other extraction routes, launches counted ----
     routes = {
@@ -1841,6 +2123,8 @@ def main() -> int:
           "session: trajectory malformed or non-finite")
     check(ate <= MAX_ATE, f"session: ATE {ate:.4f} m > {MAX_ATE}")
     for n in PATH:
+        if n in PORTFOLIO:  # its launches: phase 3's forced-portfolio drive
+            continue
         check(launches[n] > 0 and wrapper.get(n, 0) > 0,
               f"kernel {n} was not launched on the main path")
         kernels[n]["launches"] = launches[n]
@@ -2071,7 +2355,7 @@ def bootstrap_phase(scene, dev, kernels):
 
     ecfg = scene.frame_kwargs()
     main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
-                 "hamming_argmin2", "pose_lm", "ba_linearize")
+                 "hamming_argmin2", "pose_lm", "ba_linearize", "ransac_score")
 
     # (a) blank frames, then the bench frames
     blank = torch.zeros_like(scene.imgs[0])
@@ -2281,7 +2565,7 @@ def vio_phase(scene, dev, log_path=None):
     check(np.all(np.isfinite(est)) and ate <= VIO_MAX_ATE,
           f"VIO session: ATE {ate:.4f} m > {VIO_MAX_ATE}")
     for n in PATH:
-        check(traced[n] > 0 and launches.get(n, 0) > 0,
+        check(n in PORTFOLIO or (traced[n] > 0 and launches.get(n, 0) > 0),
               f"kernel {n} was not launched in the VIO session")
     progs = vio_programs(slam)
     n_solves = slam.stats["window_ba_vio"]
@@ -2808,7 +3092,7 @@ def loop_phase(dev):
 
     # (b) the full-width loop session
     main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
-                 "hamming_argmin2", "pose_lm", "ba_linearize")
+                 "hamming_argmin2", "pose_lm", "ba_linearize", "ransac_score")
     (slam, poses, vocab, times), launches = counted(
         "the loop session", main_path, lambda: loop_session(dev))
     _, est = slam.trajectory_arrays()
@@ -2820,7 +3104,9 @@ def loop_phase(dev):
           f"{st.get('pgo', 0)}, global BA {st.get('global_ba', 0)}, window "
           f"solves {st.get('window_ba', 0)}, ATE {ate:.4f} m (gate "
           f"{LOOP_MAX_ATE}); ba_linearize {launches.get('ba_linearize', 0)} "
-          f"launches, pose_lm {launches.get('pose_lm', 0)}")
+          f"launches, pose_lm {launches.get('pose_lm', 0)}, pnp_hyp "
+          f"{launches.get('pnp_hyp', 0)} (loop verifications and frames off "
+          f"the fast path), ransac_score {launches.get('ransac_score', 0)}")
     for line in slam.timers.report().splitlines():
         print("#   " + line)
     check(slam.state == INITIALIZED and st["failures"] == 0,
@@ -2884,7 +3170,8 @@ def loop_phase(dev):
     # (e) relocalization and fast tracking against (c)'s saved map
     with tempfile.TemporaryDirectory() as tmp:
         (reloc, tracker, pred, err_r, err_t), _ = counted(
-            "relocalization", ("hamming_argmin2", "pose_lm"),
+            "relocalization", ("hamming_argmin2", "pose_lm", "pnp_hyp",
+                               "ransac_score"),
             lambda: reloc_checks(dev, loop, dvocab, drig, dffs, dposes, tmp))
     print(f"# relocalization against the saved drift-scene map: frame "
           f"{RELOC_FRAME} relocalized within {err_r:.4f} m of its keyframe "
@@ -2909,6 +3196,7 @@ def loop_timing(state, smi):
 
     import torch
 
+    from mcslam_tpu_torch import _build
     from mcslam_tpu_torch.backend import ba
 
     slam, vocab = state["slam"], state["vocab"]
@@ -2938,13 +3226,15 @@ def loop_timing(state, smi):
           f"entries, islands, consistency) on the host: "
           f"{(time.perf_counter() - t0) / 100 * 1e3:.3f} ms ({smi})")
     old = slam.keyframes[0]
+    before = collections.Counter(_build.LAUNCHES)
     t0 = time.perf_counter()
     for _ in range(3):
         det = slam.looper._verify(kf, old, slam.map)
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    per = {n: v / 3 for n, v in (_build.LAUNCHES - before).items()}
     print(f"# one verification (match, RANSAC-PnP, pose LM, host reads) of "
-          f"the last keyframe against the first: "
-          f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms, detected "
-          f"{det.detected} ({smi})")
+          f"the last keyframe against the first: {ms:.3f} ms, detected "
+          f"{det.detected}; launches per verification {per} ({smi})")
     for name, p in state["gba"].items():
         def solve():
             return ba.ba_solve(p, iters=GBA_ITERS, kf_blocked=True)
@@ -2959,11 +3249,14 @@ def loop_timing(state, smi):
                 ffs[k + 1], state["pred"]))):
         fn()
         torch.cuda.synchronize()
+        before = collections.Counter(_build.LAUNCHES)
         t0 = time.perf_counter()
         for _ in range(5):
             fn()
-        print(f"# {name} per frame: {(time.perf_counter() - t0) / 5 * 1e3:.3f}"
-              f" ms (host clock, ending in its host reads) ({smi})")
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        per = {n: v / 5 for n, v in (_build.LAUNCHES - before).items()}
+        print(f"# {name} per frame: {ms:.3f} ms (host clock, ending in its "
+              f"host reads); launches per frame {per} ({smi})")
 
 
 def vio_timing(scene, problems, smi, graphed, eager_times):
@@ -3615,7 +3908,7 @@ def app_sessions(root, rig, u8, poses, device, count, max_ate):
     from mcslam_tpu_torch.utils import metrics, tum
 
     main_path = ("fast_select", "patch_gather", *ORB_KERNELS,
-                 "hamming_argmin2", "pose_lm", "ba_linearize")
+                 "hamming_argmin2", "pose_lm", "ba_linearize", "ransac_score")
     cfgs = write_app_dataset(root, rig, u8, device)
     # the dense cloud's DenseFuser aggregates by SGM on every keyframe
     (rc, wall, stamps), launches = count(
@@ -4620,7 +4913,10 @@ TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "pose_lm": "pose_lm_cluster_kernel",
                "ba_linearize": "linearize_kernel",
                "tri_refine": "tri_refine_kernel",
-               "intra_pairs": "intra_pairs_kernel"}
+               "intra_pairs": "intra_pairs_kernel",
+               "ransac_score": "ransac_score_kernel",
+               "kabsch_hyp": "kabsch_hyp_kernel",
+               "pnp_hyp": "pnp_hyp_kernel"}
 PATH = tuple(TRACE_NAMES)
 # degrees of yaw tried, in order, for a prediction off the fast path (on
 # an NVIDIA H100 the first that takes frame 2 off it is 18)

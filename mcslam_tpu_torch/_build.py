@@ -34,15 +34,19 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-# flags of one source only: ba_linearize, tri_refine, orb_pyramid and
-# orb_select round every multiply and add on their own, as their plain
-# versions do (no contraction into FMAs). orb_describe keeps the default
+# flags of one source only: ba_linearize, tri_refine, orb_pyramid,
+# orb_select and the RANSAC kernels (ransac_score, kabsch_hyp, pnp_hyp)
+# round every multiply and add on their own, as their plain versions do
+# (no contraction into FMAs; ransac_score writes the matmuls' FMAs out). orb_describe keeps the default
 # flags, under which torch builds the atan2 its plain version calls; its
 # own products and sums are __fmul_rn / __fadd_rn, never contracted.
 SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
                 "tri_refine": ["-fmad=false"],
                 "orb_pyramid": ["-fmad=false"],
-                "orb_select": ["-fmad=false"]}
+                "orb_select": ["-fmad=false"],
+                "ransac_score": ["-fmad=false"],
+                "kabsch_hyp": ["-fmad=false"],
+                "pnp_hyp": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -104,6 +108,14 @@ SIGNATURES = {
     "mc_orb_select": [P] * 15 + [I] * 9 + [P],
     # patches, steered index, angle, desc, T, bins, two_pi, stream
     "mc_orb_describe": [P] * 4 + [I, I, F, P],
+    # hyp, X, uv, cam_T_ref, fxycxy, mask, counts, best, pose, count,
+    # inliers, counter (one int, zero), K, M, px^2, stream
+    "mc_ransac_score": [P] * 12 + [I, I, F, P],
+    # idx, X_rig, X_world, out, K, M, stream
+    "mc_kabsch_hyp": [P] * 4 + [I, I, P],
+    # idx, X_world, uv, cam_T_ref, fxycxy, start vectors, out, K, S, M,
+    # stream
+    "mc_pnp_hyp": [P] * 7 + [I, I, I, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

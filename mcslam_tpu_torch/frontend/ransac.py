@@ -3,7 +3,12 @@
 generalized reprojection, and the 8-point essential of the monocular
 bootstrap scored by the Sampson distance. Sampling draws from an explicit
 torch.Generator; the solvers and the scoring are the JAX package's, and
-each RANSAC takes its sample indices as `idx` instead."""
+each RANSAC takes its sample indices as `idx` instead.
+
+ransac_kabsch and ransac_pnp go through frontend/ransac_cuda: on CUDA
+tensors one kernel launch makes the hypotheses and one scores them;
+on CPU tensors the plain versions here (kabsch_hypotheses,
+pnp_hypotheses, _score_reprojection) run."""
 
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import math
 
 import torch
 
+from mcslam_tpu_torch.frontend import ransac_cuda
 from mcslam_tpu_torch.geometry import alignment, lie, linalg3
 from mcslam_tpu_torch.utils import graphs
 
@@ -101,13 +107,15 @@ def _score_reprojection(world_T_ref_h, X_world, uv, cam_T_ref, fxycxy, mask,
     return torch.sum(inl, dim=-1), inl
 
 
-def _best(hyp, counts, inl, min_inliers):
-    # index_select: indexing by a 0-d tensor reads it on the host
-    best = torch.argmax(counts).reshape(1)
-    n = counts.index_select(0, best)[0]
-    return RansacResult(world_T_ref=hyp.index_select(0, best)[0],
-                        inliers=inl.index_select(0, best)[0],
-                        num_inliers=n.to(torch.int32), ok=n >= min_inliers)
+def _best(hyp, X_world, uv, cam_T_ref, fxycxy, mask, px_thresh,
+          min_inliers) -> RansacResult:
+    """The hypotheses (K, 4, 4) scored (ransac_cuda.score: on the CPU
+    _score_reprojection, then the first argmax and its gathers) -> the
+    best's RansacResult."""
+    _, _, T, n, inl = ransac_cuda.score(hyp, X_world, uv, cam_T_ref, fxycxy,
+                                        mask, px_thresh)
+    return RansacResult(world_T_ref=T, inliers=inl, num_inliers=n,
+                        ok=n >= min_inliers)
 
 
 def kabsch_hypotheses(idx, X_rig, X_world) -> torch.Tensor:
@@ -123,10 +131,9 @@ def ransac_kabsch(gen, X_rig, X_world, uv, cam_T_ref, fxycxy, mask,
     by generalized reprojection. `idx` (K, 3) overrides the sampling."""
     if idx is None:
         idx = _sample_idx(gen, num_hyp, 3, X_rig.shape[0], mask.float())
-    hyp = kabsch_hypotheses(idx, X_rig, X_world)
-    counts, inl = _score_reprojection(hyp, X_world, uv, cam_T_ref, fxycxy,
-                                      mask, px_thresh)
-    return _best(hyp, counts, inl, min_inliers)
+    hyp = ransac_cuda.kabsch_hyp(idx, X_rig, X_world)
+    return _best(hyp, X_world, uv, cam_T_ref, fxycxy, mask, px_thresh,
+                 min_inliers)
 
 
 def _dlt_gpnp(Xw, rays, Tcr) -> torch.Tensor:
@@ -211,10 +218,9 @@ def ransac_pnp(gen, X_world, uv, obs_cam_T_ref, obs_fxycxy, mask,
     if idx is None:
         idx = _sample_idx(gen, num_hyp, sample_size, X_world.shape[0],
                           mask.float())
-    hyp = pnp_hypotheses(idx, X_world, uv, obs_cam_T_ref, obs_fxycxy)
-    counts, inl = _score_reprojection(hyp, X_world, uv, obs_cam_T_ref,
-                                      obs_fxycxy, mask, px_thresh)
-    return _best(hyp, counts, inl, min_inliers)
+    hyp = ransac_cuda.pnp_hyp(idx, X_world, uv, obs_cam_T_ref, obs_fxycxy)
+    return _best(hyp, X_world, uv, obs_cam_T_ref, obs_fxycxy, mask,
+                 px_thresh, min_inliers)
 
 
 class EssentialResult(NamedTuple):

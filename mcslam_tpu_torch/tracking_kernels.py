@@ -3,10 +3,12 @@ projection-gated matching to the reference keyframe, the pose-candidate
 portfolio with its motion-model fast path, robust motion-only LM, and
 local-map tracking, with the JAX package's packed output layout.
 
-Both matchers go through the gated matching kernel (ops/match_cuda) and
+Both matchers go through the gated matching kernel (ops/match_cuda),
 every pose refine through the one-launch LM (frontend/pose_opt_cuda), as
-on the TPU. The fast-path decision is taken by `branch`: "host" reads it
-once per frame (one device sync) and runs one side; "device" keeps it on
+on the TPU, and every RANSAC hypothesis batch and reprojection score
+through the RANSAC kernels (frontend/ransac_cuda). The fast-path
+decision is taken by `branch`: "host" reads it once per frame (one
+device sync) and runs one side; "device" keeps it on
 the device, as the JAX program's lax.cond does: utils/graphs.cond runs
 the portfolio as a conditional node of a captured frame program (the
 session's graphed frame step) and, outside a capture, runs both sides and
@@ -31,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from mcslam_tpu_torch.frontend import pose_opt, ransac
+from mcslam_tpu_torch.frontend import pose_opt, ransac, ransac_cuda
 from mcslam_tpu_torch.geometry import lie, triangulation
 from mcslam_tpu_torch.ops import hamming, match as match_ops, match_cuda, orb
 from mcslam_tpu_torch.utils import graphs
@@ -149,7 +151,7 @@ def _track_core(gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2,
     ref_pred = pose_opt.optimize_pose(
         pred_T_wr, X_world, cur_uv, cTr, f, with_lm, sigma2=cur_sigma2,
         iters=LM_SCHED)
-    score_pred = ransac._score_reprojection(
+    score_pred = ransac_cuda.score(
         ref_pred.world_T_ref[None], X_world, cur_uv, cTr, f, with_lm, px)[0][0]
     n_with = torch.sum(with_lm)
     strong_t = (score_pred >= fastpath_min) & (
@@ -207,11 +209,9 @@ def _portfolio(px: float, T_pred, cur_p3d, X_world, cur_uv, cTr, f, mask3d,
     refs = pose_opt.optimize_pose(inits, X_world, cur_uv, cTr, f, masks,
                                   sigma2=cur_sigma2, iters=LM_SCHED)
     cand_T = torch.cat([T_pred[None], refs.world_T_ref])
-    scores, _ = ransac._score_reprojection(cand_T, X_world, cur_uv, cTr, f,
-                                           with_lm, px)
-    b = torch.argmax(scores).reshape(1)
-    return (cand_T.index_select(0, b)[0],
-            scores.index_select(0, b)[0].to(torch.int32))
+    _, _, T_best, n_best, _ = ransac_cuda.score(cand_T, X_world, cur_uv, cTr,
+                                                f, with_lm, px)
+    return T_best, n_best
 
 
 def _project_and_match_local(T_wr, lm_pos, lm_desc, lm_valid, im_desc, im_uv,

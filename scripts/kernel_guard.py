@@ -14,15 +14,19 @@ random ones (the pyramid at 1 x 97 x 133 with 8 levels, 5 x 120 x 160
 with 4 and 2 x 240 x 320 with 10 in two launches, the selection on
 plateau-tied candidates with and without padding, the descriptors of 777
 noise patches at 32 bins); pose_lm at B = 1 and 2 candidates of M = 2048
-observations and at B = 3, M = 333. Every buffer a wrapper allocates (its outputs and
+observations and at B = 3, M = 333; the RANSAC kernels (ransac_score,
+kabsch_hyp, pnp_hyp) at the calls of bench frame 1's step with its
+portfolio forced (the score at K = 1, 512, 256 and 3, also through a
+captured CUDA graph) and at a random problem (K = 257, M = 37; the score
+at K = 1 and 512, M = 2048). Every buffer a wrapper allocates (its outputs and
 its scratch) is placed inside a slab of canary bytes, PAD bytes on each
 side, the canary alternating from launch to launch (fixed in a graph,
-whose capture holds the slabs' filling), and so are intra_pairs' and
-orb_select's per-device buffers of arrival counters. After every launch it checks that no canary
+whose capture holds the slabs' filling), and so are intra_pairs',
+orb_select's and ransac_score's per-device buffers of arrival counters. After every launch it checks that no canary
 byte changed (a write out of bounds), that the counters are back at zero,
 that no input changed (a write into an input), and that the outputs
-equal the first launch's and, but for pose_lm's, which sum in another
-order, the plain version's bit for bit (a race or an unwritten output
+equal the first launch's and, but for pose_lm's and the RANSAC
+kernels', which round in another order, the plain version's bit for bit (a race or an unwritten output
 shows as a difference). Run from the repository's
 root on a machine with a card and nvcc:
 
@@ -88,18 +92,19 @@ def guarded_empty(slabs: list, canary: int):
 @contextlib.contextmanager
 def guarded_counters(fn, dev, canary: int, found: list):
     """The arrival counters of `dev` that fn's kernel uses (intra_pairs',
-    orb_select's; none for the others) -> a zeroed view into the middle of
+    orb_select's, ransac_score's; none for the others) -> a zeroed view into the middle of
     a canary-filled slab, for as long as the context lasts; the slab goes
     to `found` as (slab, bytes, canary)."""
     import torch
 
-    from mcslam_tpu_torch.frontend import intra_cuda
+    from mcslam_tpu_torch.frontend import intra_cuda, ransac_cuda
     from mcslam_tpu_torch.ops import orb_cuda
     from mcslam_tpu_torch.utils import graphs
 
     name, count = {intra_cuda.intra_pairs: ("intra_pairs", intra_cuda.COUNTERS),
                    orb_cuda.orb_select: ("orb_select",
-                                         orb_cuda.SELECT_CAMERAS)}.get(
+                                         orb_cuda.SELECT_CAMERAS),
+                   ransac_cuda.score: ("ransac_score", 1)}.get(
                        fn, (None, 0))
     if name is None:
         yield
@@ -369,7 +374,69 @@ def cases(quick: bool, dev):
     if quick:
         out.append(("intra_pairs C=4 N=768 (random, graph replays)", intra,
                     out[-4][2], ik, intra_plain, True))
-    return out + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
+    return (out + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
+            + ransac_cases(quick, dev, rng))
+
+
+def ransac_problem(rng, M, dev):
+    """A random tracking problem for the RANSAC kernels: landmarks 4-16 m
+    ahead, four cameras with lever arms, pixels with noise -> (X, uv,
+    cam_T_ref, fxycxy, mask) on dev."""
+    import numpy as np
+    import torch
+
+    X = (rng.uniform(-6, 6, (M, 3)) + [0, 0, 10]).astype(np.float32)
+    cam = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
+    cam[:, 0, 3] = 0.1 * rng.randint(0, 4, M)
+    f = np.tile(np.float32([400, 400, 320, 240]), (M, 1))
+    p = X + cam[:, :3, 3]
+    uv = (p[:, :2] / p[:, 2:] * 400 + [320, 240]
+          + rng.normal(0, 0.5, (M, 2))).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 (X, uv, cam, f, rng.rand(M) > 0.05))
+
+
+def ransac_cases(quick: bool, dev, rng):
+    """The RANSAC kernels: the calls of bench frame 1's step with its
+    portfolio forced (not --quick) and random ones. Held to their first
+    launch (they round otherwise than their plain versions)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from mcslam_tpu_torch.frontend import ransac_cuda
+
+    score, kab, pnp = (ransac_cuda.score, ransac_cuda.kabsch_hyp,
+                       ransac_cuda.pnp_hyp)
+    out = []
+    if not quick:
+        seen = cs.portfolio_calls(cs.Scene(dev, frames=2), dev)
+        for a, kw in seen["score"]:
+            out.append((f"ransac_score K={a[0].shape[0]} (bench frame 1)",
+                        score, a, kw, None, False))
+        a, kw = seen["score"][1]
+        out.append(("ransac_score K=512 (bench frame 1, graph replays)", score,
+                    a, kw, None, True))
+        for n, fn in (("kabsch_hyp", kab), ("pnp_hyp", pnp)):
+            a, kw = seen[n][0]
+            out.append((f"{n} K={a[0].shape[0]} (bench frame 1)", fn, a, kw,
+                        None, False))
+    for M in (37, 2048):
+        obs = ransac_problem(rng, M, dev)
+        for K in ((1, 512) if M == 2048 else (257,)):
+            w = rng.normal(0, 0.02, (K, 3))
+            hyp = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+            hyp[:, :3, 3] = w
+            hyp = torch.from_numpy(hyp).to(dev)
+            out.append((f"ransac_score K={K} M={M} (random)", score,
+                        (hyp, *obs, 5.0), {}, None, quick and K == 512))
+        idx = torch.from_numpy(rng.randint(0, M, (257, 6))).to(dev)
+        out.append((f"kabsch_hyp K=257 M={M} (random)", kab,
+                    (idx[:, :3].contiguous(), obs[0], obs[0]), {}, None,
+                    False))
+        out.append((f"pnp_hyp K=257 M={M} (random)", pnp,
+                    (idx, *obs[:4]), {}, None, False))
+    return out
 
 
 def pose_cases(dev, rng):
