@@ -1585,19 +1585,16 @@ def capture_all(build, targets) -> dict:
     return seen
 
 
-def ransac_kernels(scene, dev, kernels):
-    """Phase 2, the RANSAC portfolio's kernels (frontend/ransac_cuda) at
-    the inputs that bench frame 1's step, its portfolio forced
-    (fastpath_frac 2.0), gives them against frame 0's map: the score at K
-    = 1 (the motion candidate), 512 (Kabsch), 256 (PnP) and 3 (the
-    re-score), kabsch_hyp at K = 512 and pnp_hyp at K = 256 (the
-    generalized form on the second half: the bench rig has lever arms);
-    each kernel twice (bitwise equal) and its plain version, under the
-    criteria of check_score / check_hypotheses."""
+def portfolio_calls(scene, dev) -> dict:
+    """{"score": 4, "kabsch_hyp": 1, "pnp_hyp": 1 [(args, kwargs)]} of the
+    RANSAC kernels' wrapper calls (frontend/ransac_cuda) that bench frame
+    1's step, its portfolio forced (fastpath_frac 2.0), makes against
+    frame 0's map: the score at K = 1 (the motion candidate), 512
+    (Kabsch), 256 (PnP) and 3 (the re-score)."""
     import torch
 
     from mcslam_tpu_torch import tracking_kernels as tk
-    from mcslam_tpu_torch.frontend import frame, ransac, ransac_cuda
+    from mcslam_tpu_torch.frontend import frame, ransac_cuda
 
     ff0 = frame.build_frame(scene.imgs[0], scene.rig, **scene.frame_kwargs())
     mapstate, _ = seed_map(ff0, dev)
@@ -1609,6 +1606,23 @@ def ransac_kernels(scene, dev, kernels):
     check([len(seen[n]) for n in targets] == [4, 1, 1],
           f"the forced-portfolio step made {[len(v) for v in seen.values()]} "
           f"score / kabsch_hyp / pnp_hyp calls, not 4 / 1 / 1")
+    return seen
+
+
+def ransac_kernels(scene, dev, kernels):
+    """Phase 2, the RANSAC portfolio's kernels (frontend/ransac_cuda) at
+    the inputs that bench frame 1's step, its portfolio forced
+    (fastpath_frac 2.0), gives them against frame 0's map: the score at K
+    = 1 (the motion candidate), 512 (Kabsch), 256 (PnP) and 3 (the
+    re-score), kabsch_hyp at K = 512 and pnp_hyp at K = 256 (the
+    generalized form on the second half: the bench rig has lever arms);
+    each kernel twice (bitwise equal) and its plain version, under the
+    criteria of check_score / check_hypotheses."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import ransac, ransac_cuda
+
+    seen = portfolio_calls(scene, dev)
     recs, errs = {}, []
     for args, kw in seen["score"]:
         hyp, X, uv, cam, f, mask, px = args

@@ -109,8 +109,9 @@ SIGNATURES = {
     # patches, steered index, angle, desc, T, bins, two_pi, stream
     "mc_orb_describe": [P] * 4 + [I, I, F, P],
     # hyp, X, uv, cam_T_ref, fxycxy, mask, counts, best, pose, count,
-    # inliers, counter (one int, zero), K, M, px^2, stream
-    "mc_ransac_score": [P] * 12 + [I, I, F, P],
+    # inliers, bit rows (K x ceil(M / 32) words), counters (K + 1 ints,
+    # zero), K, M, px^2, stream
+    "mc_ransac_score": [P] * 13 + [I, I, F, P],
     # idx, X_rig, X_world, out, K, M, stream
     "mc_kabsch_hyp": [P] * 4 + [I, I, P],
     # idx, X_world, uv, cam_T_ref, fxycxy, start vectors, out, K, S, M,

@@ -20,9 +20,10 @@
 //     1e-6); 2 S rows of 12: [X 1, 0, -u (X 1)] and [0, X 1, -v (X 1)]);
 //     the rest are generalized DLTs (3 S rows of 13: [d]x R_cr (R X + t)
 //     + [d]x t_cr = 0 in theta = (vec R, t, 1)) where any observation's
-//     lever arm |t_cr| exceeds 1e-6 (read on the card, every block scans
-//     the M translations), else central DLTs too; only the form taken is
-//     computed;
+//     lever arm |t_cr| exceeds 1e-6 (read on the card: a block holding a
+//     hypothesis of the second half takes it from its own samples, or
+//     else scans the M translations up to the first lever arm), else
+//     central DLTs too; only the form taken is computed;
 //  2. G = A^T A, eps = tr G / N 1e-7 + 1e-12, the Cholesky factor of G +
 //     eps I (a pivot that is not positive, or NaN, fails it: the pose is
 //     then NaN, as cholesky_ex's info makes the plain version's);
@@ -41,10 +42,13 @@
 // Built with -fmad=false (_build.SOURCE_FLAGS): products and sums are
 // rounded on their own but for G's sums, the factor's updates and the
 // solves' updates, which are fused multiply-adds as in a BLAS; these run
-// in another order than the plain version's cuSOLVER / cuBLAS calls, so the
-// poses agree to float32 rounding, not bit for bit (chip_smoke.py phase 2
-// holds them to 2e-2 where a hypothesis scores 0.8 of the best, the bound
-// tests/test_torch_pose.py holds the port to against the JAX package). A
+// in another order than the plain version's cuSOLVER / cuBLAS calls, and
+// the factor and the solves multiply by reciprocal pivots where the plain
+// version divides, so the poses agree to float32 rounding, not bit for bit
+// (chip_smoke.py phase 2 holds them to 2e-2 where a hypothesis scores 0.8
+// of the best, the bound tests/test_torch_pose.py holds the port to
+// against the JAX package; tests/test_torch_ransac_kernels.py holds a
+// float32 model of this order of operations to the same criteria). A
 // sample index outside [0, M) gives a NaN pose (the plain version would
 // fault).
 //
@@ -53,19 +57,25 @@
 // us at 3.35 TB/s); ~12,000 float32 operations a generalized hypothesis
 // (G ~3000, the factor ~800, 20 triangular solves ~7000), 2.4 M in all,
 // 0.04 us at 67 TFLOP/s. Each hypothesis is a chain of dependent steps.
-// Design: one warp per hypothesis, 4 a block (64 blocks at K = 256):
-//  - lanes s < S build sample s's rows of A in shared memory; lanes take
-//    the lower triangle of G by entries (sums over the rows in order);
-//  - the Cholesky factor column by column: lane i >= j computes its row's
-//    remainder, lane j's pivot is broadcast by a shuffle, then lanes i > j
-//    divide (G and L share one N x N array in shared memory);
-//  - each triangular solve sweeps the columns: lane j's unknown is
-//    broadcast, lanes below (above, for L^T) update their entry; lane i
-//    holds entry i of the vector in a register; norms and dots are warp
-//    butterflies;
+// Design: one warp per hypothesis, 4 a block (64 blocks at K = 256), the
+// chain kept short:
+//  - lanes s < S load sample s (and test its lever arm) and build its
+//    rows of A in shared memory;
+//  - G = A^T A by rows: lane i < N holds row i in N registers, N
+//    independent accumulators summed over A's rows in order;
+//  - the Cholesky factor right-looking in those registers: per column j
+//    lane j's pivot is broadcast by a shuffle, every lane takes 1 / L_jj
+//    = 1 / sqrt(pivot) once (lane j keeps it), lanes i > j multiply by it,
+//    and each later column c takes L_cj by a shuffle and one fused
+//    multiply-add (per entry in the order of a left-looking factor);
+//  - each lane then holds its row of L and its column of L^T scaled by
+//    1 / L_ii, so that every step of both triangular sweeps is a shuffle
+//    and a fused multiply-add (no division in the chain); norms and dots
+//    are warp butterflies;
 //  - steps 4-6 run on every lane from the broadcast vector (13 registers),
 //    lane 0 stores the pose. No local memory: the per-lane arrays are
-//    indexed by constants after unrolling, the matrices are in shared
+//    indexed by constants after unrolling (the form is a template
+//    argument: N = 12 or 13), A and the factor's transpose are in shared
 //    memory, and the start vectors come in as an input (computed on the
 //    card by torch, as the plain version computes them: a cosf / sinf in
 //    the kernel would bring the Payne-Hanek reduction's local array).
@@ -80,8 +90,9 @@ constexpr int WARPS = 4;  // hypotheses a block
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_S = 10;  // samples: 3 S rows of the generalized form <= 32
 constexpr int NMAX = 13;
-constexpr int LD = 13;  // row stride of A and of G / L in shared memory
+constexpr int LD = 13;  // row stride of A and of the factor in shared memory
 constexpr int ITERS = 5;
+constexpr int SCAN_UNROLL = 8;  // translations a thread loads at once
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -182,19 +193,49 @@ __device__ __forceinline__ void gen_row(float* row, float d0, float d1,
   row[12] = (d0 * T[3] + d1 * T[7]) + d2 * T[11];
 }
 
-// x <- (L L^T)^-1 x for the N x N factor L (row stride LD) in shared memory;
-// lane i holds x_i (lanes >= N hold 0 and keep it)
-__device__ __forceinline__ float chol_solve(const float* L, float x, int N,
-                                            int lane) {
-  for (int j = 0; j < N; ++j) {  // L y = x
-    const float yj = __shfl_sync(FULL, x, j) / L[j * LD + j];
-    if (lane > j && lane < N) x = __fmaf_rn(-L[lane * LD + j], yj, x);
-    if (lane == j) x = yj;
+// the rig's lever flag, any |t_cr| > 1e-6 among the M observations (every
+// thread of the block calls it): a lever arm among the block's own samples
+// settles it; else the M translations are scanned in chunks of
+// THREADS x SCAN_UNROLL, up to the first lever arm
+__device__ bool lever_flag(bool lever, const float* __restrict__ cTr,
+                           int M) {
+  if (__syncthreads_or(lever)) return true;
+  for (int base = 0; base < M; base += THREADS * SCAN_UNROLL) {
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < SCAN_UNROLL; ++u) {
+      const int m = base + u * THREADS + static_cast<int>(threadIdx.x);
+      if (m < M) {
+        const float* T = cTr + 16LL * m;
+        const float t0 = __ldg(T + 3), t1 = __ldg(T + 7), t2 = __ldg(T + 11);
+        any = any | (sqrtf((t0 * t0 + t1 * t1) + t2 * t2) > 1e-6f);
+      }
+    }
+    if (__syncthreads_or(any)) return true;
   }
-  for (int j = N - 1; j >= 0; --j) {  // L^T z = y
-    const float zj = __shfl_sync(FULL, x, j) / L[j * LD + j];
-    if (lane < j) x = __fmaf_rn(-L[j * LD + lane], zj, x);
-    if (lane == j) x = zj;
+  return false;
+}
+
+// x <- (L L^T)^-1 x. Lane i holds x_i, r = 1 / L_ii, its row of L and its
+// column of L^T scaled by r (lrow[c] = L_ic r, c < i; lcol[j] = L_ji r,
+// j > i): y_i = x_i r - sum_{j < i} lrow[j] y_j, then z_i = y_i r -
+// sum_{j > i} lcol[j] z_j, a shuffle and a fused multiply-add a step
+// (lanes >= N hold r = 0 and x = 0 and keep them)
+template <int N>
+__device__ __forceinline__ float solve_recip(const float (&lrow)[N],
+                                             const float (&lcol)[N], float r,
+                                             float x, int lane) {
+  x = x * r;
+#pragma unroll
+  for (int j = 0; j < N - 1; ++j) {  // L y = x
+    const float yj = __shfl_sync(FULL, x, j);
+    if (lane > j && lane < N) x = __fmaf_rn(-lrow[j], yj, x);
+  }
+  x = x * r;
+#pragma unroll
+  for (int j = N - 1; j > 0; --j) {  // L^T z = y
+    const float zj = __shfl_sync(FULL, x, j);
+    if (lane < j) x = __fmaf_rn(-lcol[j], zj, x);
   }
   return x;
 }
@@ -203,51 +244,19 @@ __device__ __forceinline__ float normalize(float x) {
   return x * rsqrtf(clamp_min(warp_sum(x * x), 1e-30f));
 }
 
-__global__ void __launch_bounds__(THREADS)
-    pnp_hyp_kernel(const long long* __restrict__ idx,
-                   const float* __restrict__ Xw,
-                   const float* __restrict__ uv,
-                   const float* __restrict__ cTr,
-                   const float* __restrict__ f,
-                   const float* __restrict__ starts, int K, int S, int M,
-                   float* __restrict__ out) {
-  __shared__ float s_A[WARPS][3 * MAX_S * LD];
-  __shared__ float s_L[WARPS][NMAX * LD];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-
-  // the rig's lever flag: any |t_cr| > 1e-6 among the M observations
-  bool lever = false;
-  for (int m = tid; m < M; m += THREADS) {
-    const float t0 = cTr[16 * m + 3], t1 = cTr[16 * m + 7],
-                t2 = cTr[16 * m + 11];
-    lever = lever || sqrtf((t0 * t0 + t1 * t1) + t2 * t2) > 1e-6f;
-  }
-  const bool noncentral = __syncthreads_or(lever);
-
-  const int k = blockIdx.x * WARPS + warp;
-  if (k >= K) return;
-  const bool central = k < K / 2 || !noncentral;
-  const int N = central ? 12 : 13;
+// One hypothesis in one warp: the central form (N = 12, 2 S rows) or the
+// generalized one (N = 13, 3 S rows). T: lane s < S's sample camera (its
+// cam_T_ref), Xs its landmark, (r0, r1) its ray; the pose to out.
+template <int N>
+__device__ __forceinline__ void hypothesis(
+    float* A, float* L, const float* __restrict__ T, float Xs0, float Xs1,
+    float Xs2, float r0, float r1, int S, int lane, bool bad,
+    const float* __restrict__ starts, float* __restrict__ out) {
+  constexpr bool central = N == 12;
   const int rows = central ? 2 * S : 3 * S;
-  float* A = s_A[warp];
-  float* L = s_L[warp];
 
   // 1. the sample's rows of A
-  float Xs0 = 0.0f, Xs1 = 0.0f, Xs2 = 0.0f;
-  bool bad = false;
   if (lane < S) {
-    const long long i = idx[static_cast<long long>(k) * S + lane];
-    bad = i < 0 || i >= M;
-    const long long m = bad ? 0 : i;
-    Xs0 = Xw[3 * m];
-    Xs1 = Xw[3 * m + 1];
-    Xs2 = Xw[3 * m + 2];
-    const float* T = cTr + 16 * m;
-    const float fx = f[4 * m], fy = f[4 * m + 1], cx = f[4 * m + 2],
-                cy = f[4 * m + 3];
-    const float r0 = (uv[2 * m] - cx) / fx;
-    const float r1 = (uv[2 * m + 1] - cy) / fy;
     if (central) {
       // R_cr^T r (r2 = 1)
       const float q0 = (T[0] * r0 + T[4] * r1) + T[8];
@@ -264,56 +273,77 @@ __global__ void __launch_bounds__(THREADS)
       gen_row(row + 2 * LD, -r1, r0, 0.0f, T, Xs0, Xs1, Xs2);
     }
   }
-  bad = __any_sync(FULL, bad);
   __syncwarp();
+  // end of A
 
-  // 2. G = A^T A (lower triangle), the shift, the Cholesky factor
-  for (int e = lane; e < N * (N + 1) / 2; e += 32) {
-    int i = 0;
-    while ((i + 1) * (i + 2) / 2 <= e) ++i;
-    const int j = e - i * (i + 1) / 2;
-    float g = 0.0f;
-    for (int r = 0; r < rows; ++r)
-      g = __fmaf_rn(A[r * LD + i], A[r * LD + j], g);
-    L[i * LD + j] = g;
-  }
-  __syncwarp();
-  float tr = 0.0f;
-  for (int i = 0; i < N; ++i) tr = tr + L[i * LD + i];
-  const float eps = tr / static_cast<float>(N) * 1e-7f + 1e-12f;
-  __syncwarp();
-  if (lane < N) L[lane * LD + lane] = L[lane * LD + lane] + eps;
-  __syncwarp();
-  bool fail = false;
-  for (int j = 0; j < N; ++j) {
-    float s = 0.0f;
-    if (lane >= j && lane < N) {
-      s = L[lane * LD + j];
-      for (int c = 0; c < j; ++c)
-        s = __fmaf_rn(-L[lane * LD + c], L[j * LD + c], s);
+  // 2. G = A^T A, lane i < N its row i (the sums over the rows in order)
+  float a[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) a[c] = 0.0f;
+  if (lane < N) {
+    for (int r = 0; r < rows; ++r) {
+      const float ai = A[r * LD + lane];
+#pragma unroll
+      for (int c = 0; c < N; ++c) a[c] = __fmaf_rn(ai, A[r * LD + c], a[c]);
     }
-    const float piv = __shfl_sync(FULL, s, j);
+  }
+  // end of G
+  float dg = 0.0f;
+#pragma unroll
+  for (int c = 0; c < N; ++c) dg = c == lane ? a[c] : dg;
+  float tr = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) tr = tr + __shfl_sync(FULL, dg, i);
+  const float eps = tr / static_cast<float>(N) * 1e-7f + 1e-12f;
+#pragma unroll
+  for (int c = 0; c < N; ++c) a[c] = c == lane ? a[c] + eps : a[c];
+
+  // the shift's Cholesky factor, right-looking: a[c] of lane i becomes L_ic
+  bool fail = false;
+  float r = 0.0f;  // 1 / L_ii
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float piv = __shfl_sync(FULL, a[j], j);
     fail = fail || !(piv > 0.0f);
     const float d = sqrtf(piv);
-    __syncwarp();
-    if (lane == j) L[j * LD + j] = d;
-    if (lane > j && lane < N) L[lane * LD + j] = s / d;
-    __syncwarp();
+    const float rj = 1.0f / d;
+    const float lij = lane == j ? d : a[j] * rj;
+    a[j] = lij;
+    if (lane == j) r = rj;
+#pragma unroll
+    for (int c = j + 1; c < N; ++c)
+      a[c] = __fmaf_rn(-lij, __shfl_sync(FULL, lij, c), a[c]);
   }
+  // the row of L and the column of L^T scaled by 1 / L_ii
+  if (lane < N) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) L[lane * LD + c] = a[c];
+  }
+  __syncwarp();
+  float lrow[N], lcol[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    lrow[j] = a[j] * r;
+    lcol[j] = (lane < N ? L[j * LD + lane] : 0.0f) * r;
+  }
+  // end of the factor
 
   // 3. inverse iteration (lane i holds entry i)
   float v = lane < N ? starts[lane] : 0.0f;
-  for (int it = 0; it < ITERS; ++it) v = normalize(chol_solve(L, v, N, lane));
+  for (int it = 0; it < ITERS; ++it)
+    v = normalize(solve_recip<N>(lrow, lcol, r, v, lane));
+  // end of v's steps
   if (!central) {
     float w = lane < N ? starts[NMAX + lane] : 0.0f;
     for (int it = 0; it < ITERS; ++it) {
-      w = chol_solve(L, w, N, lane);
+      w = solve_recip<N>(lrow, lcol, r, w, lane);
       w = w - warp_sum(w * v) * v;
       w = normalize(w);
     }
     const float na = sqrtf(warp_sum(lane < 12 ? v * v : 0.0f));
     if (!(na > 0.3f)) v = w;
   }
+  // end of w's steps
 
   // 4-6. the pose from the null vector, on every lane
   float p[NMAX];
@@ -355,7 +385,6 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < 3; ++i) t[i] = th[9 + i] / sc;
   }
   if (lane == 0) {
-    float* T = out + 16 * static_cast<long long>(k);
     const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -363,14 +392,62 @@ __global__ void __launch_bounds__(THREADS)
       const float rt = (Rm[i] * t[0] + Rm[3 + i] * t[1]) + Rm[6 + i] * t[2];
 #pragma unroll
       for (int j = 0; j < 3; ++j)
-        T[4 * i + j] = fail || bad ? nan : Rm[3 * j + i];
-      T[4 * i + 3] = fail || bad ? nan : -rt;
+        out[4 * i + j] = fail || bad ? nan : Rm[3 * j + i];
+      out[4 * i + 3] = fail || bad ? nan : -rt;
     }
-    T[12] = 0.0f;
-    T[13] = 0.0f;
-    T[14] = 0.0f;
-    T[15] = 1.0f;
+    out[12] = 0.0f;
+    out[13] = 0.0f;
+    out[14] = 0.0f;
+    out[15] = 1.0f;
   }
+  // end of the pose
+}
+
+__global__ void __launch_bounds__(THREADS)
+    pnp_hyp_kernel(const long long* __restrict__ idx,
+                   const float* __restrict__ Xw,
+                   const float* __restrict__ uv,
+                   const float* __restrict__ cTr,
+                   const float* __restrict__ f,
+                   const float* __restrict__ starts, int K, int S, int M,
+                   float* __restrict__ out) {
+  __shared__ float s_A[WARPS][3 * MAX_S * LD];
+  __shared__ float s_L[WARPS][NMAX * LD];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * WARPS + warp;
+
+  // lane s < S's sample: its landmark, its ray, its camera's lever arm
+  float Xs0 = 0.0f, Xs1 = 0.0f, Xs2 = 0.0f, r0 = 0.0f, r1 = 0.0f;
+  const float* T = cTr;
+  bool bad = false, lever = false;
+  if (k < K && lane < S) {
+    const long long i = idx[static_cast<long long>(k) * S + lane];
+    bad = i < 0 || i >= M;
+    const long long m = bad ? 0 : i;
+    Xs0 = Xw[3 * m];
+    Xs1 = Xw[3 * m + 1];
+    Xs2 = Xw[3 * m + 2];
+    T = cTr + 16 * m;
+    const float fx = f[4 * m], fy = f[4 * m + 1], cx = f[4 * m + 2],
+                cy = f[4 * m + 3];
+    r0 = (uv[2 * m] - cx) / fx;
+    r1 = (uv[2 * m + 1] - cy) / fy;
+    lever = sqrtf((T[3] * T[3] + T[7] * T[7]) + T[11] * T[11]) > 1e-6f;
+  }
+  // the rig's lever flag, where the block holds a hypothesis k >= K / 2
+  bool noncentral = false;
+  if ((blockIdx.x + 1) * WARPS > K / 2)
+    noncentral = lever_flag(lever, cTr, M);
+  if (k >= K) return;
+  bad = __any_sync(FULL, bad);
+  float* o = out + 16 * static_cast<long long>(k);
+  if (k < K / 2 || !noncentral)
+    hypothesis<12>(s_A[warp], s_L[warp], T, Xs0, Xs1, Xs2, r0, r1, S, lane,
+                   bad, starts, o);
+  else
+    hypothesis<13>(s_A[warp], s_L[warp], T, Xs0, Xs1, Xs2, r0, r1, S, lane,
+                   bad, starts, o);
 }
 
 }  // namespace

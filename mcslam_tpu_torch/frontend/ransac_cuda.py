@@ -8,7 +8,9 @@ corresponds to them.
 
 - `score`: K pose hypotheses against M correspondences -> inlier counts,
   the first hypothesis of the most inliers, its pose, count (int32) and
-  inlier mask, in one launch;
+  inlier mask, in one launch (a 2-D grid of tiles; the flags kept as bit
+  rows in a scratch the wrapper allocates, the winner's mask expanded
+  from its row);
 - `kabsch_hyp`: (K, 3) sample indices -> K 3-point Kabsch hypotheses;
 - `pnp_hyp`: (K, S) sample indices -> K 6-point DLT hypotheses, the
   first half central, the rest generalized where the rig has a lever arm
@@ -98,20 +100,24 @@ def score(world_T_ref_h, X_world, uv, cam_T_ref, fxycxy, mask,
     pose = torch.empty(4, 4, dtype=f32, device=dev)
     n = torch.empty(1, dtype=torch.int32, device=dev)
     inl = torch.empty(M, dtype=torch.bool, device=dev)
+    # the hypotheses' inlier flags as bit rows (uint32 words in int32)
+    rows = torch.empty(K, (M + 31) // 32, dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.count("ransac_score")
     _build.check(lib.mc_ransac_score(
         hyp.data_ptr(), X.data_ptr(), u.data_ptr(), T.data_ptr(),
         f.data_ptr(), m.data_ptr(), counts.data_ptr(), best.data_ptr(),
-        pose.data_ptr(), n.data_ptr(), inl.data_ptr(),
-        counters(dev).data_ptr(), K, M, float(px_thresh) ** 2,
+        pose.data_ptr(), n.data_ptr(), inl.data_ptr(), rows.data_ptr(),
+        counters(dev, K).data_ptr(), K, M, float(px_thresh) ** 2,
         _build.stream_ptr(dev)), "mc_ransac_score")
     return counts, best, pose, n[0], inl
 
 
-def counters(dev: torch.device) -> torch.Tensor:
-    """ransac_score's arrival counter on `dev` (graphs.counters)."""
-    return graphs.counters("ransac_score", 1, dev)
+def counters(dev: torch.device, K: int) -> torch.Tensor:
+    """ransac_score's K count accumulators and its arrival counter on
+    `dev` (graphs.counters, K + 1 ints, one set per K: zero between
+    launches)."""
+    return graphs.counters("ransac_score", K + 1, dev)
 
 
 def _idx(idx, S, name, dev):

@@ -17,16 +17,19 @@ noise patches at 32 bins); pose_lm at B = 1 and 2 candidates of M = 2048
 observations and at B = 3, M = 333; the RANSAC kernels (ransac_score,
 kabsch_hyp, pnp_hyp) at the calls of bench frame 1's step with its
 portfolio forced (the score at K = 1, 512, 256 and 3, also through a
-captured CUDA graph) and at a random problem (K = 257, M = 37; the score
-at K = 1 and 512, M = 2048). Every buffer a wrapper allocates (its outputs and
-its scratch) is placed inside a slab of canary bytes, PAD bytes on each
-side, the canary alternating from launch to launch (fixed in a graph,
-whose capture holds the slabs' filling), and so are intra_pairs',
-orb_select's and ransac_score's per-device buffers of arrival counters. After every launch it checks that no canary
-byte changed (a write out of bounds), that the counters are back at zero,
-that no input changed (a write into an input), and that the outputs
-equal the first launch's and, but for pose_lm's and the RANSAC
-kernels', which round in another order, the plain version's bit for bit (a race or an unwritten output
+captured CUDA graph) and at random problems (K = 257, M = 37; the score
+at K = 1 and 512, M = 2048, and at K = 3, 33 and 513, M = 2049, which end
+one past a tile). Every buffer a wrapper allocates (its outputs and its
+scratch, ransac_score's bit rows too) is placed inside a slab of canary
+bytes, PAD bytes on each side, the canary alternating from launch to
+launch (fixed in a graph, whose capture holds the slabs' filling), and
+so are intra_pairs', orb_select's and ransac_score's per-device buffers
+of arrival counters (ransac_score's K count accumulators with them).
+After every launch it checks that no canary byte changed (a write out
+of bounds), that the counters are back at zero, that no input changed
+(a write into an input), and that the outputs equal the first launch's
+and, but for pose_lm's and the RANSAC kernels', which round in another
+order, the plain version's bit for bit (a race or an unwritten output
 shows as a difference). Run from the repository's
 root on a machine with a card and nvcc:
 
@@ -90,9 +93,10 @@ def guarded_empty(slabs: list, canary: int):
 
 
 @contextlib.contextmanager
-def guarded_counters(fn, dev, canary: int, found: list):
-    """The arrival counters of `dev` that fn's kernel uses (intra_pairs',
-    orb_select's, ransac_score's; none for the others) -> a zeroed view into the middle of
+def guarded_counters(fn, dev, canary: int, found: list, args=()):
+    """The arrival counters of `dev` that fn(*args)'s kernel uses
+    (intra_pairs', orb_select's, ransac_score's K count accumulators and
+    its counter; none for the others) -> a zeroed view into the middle of
     a canary-filled slab, for as long as the context lasts; the slab goes
     to `found` as (slab, bytes, canary)."""
     import torch
@@ -104,8 +108,9 @@ def guarded_counters(fn, dev, canary: int, found: list):
     name, count = {intra_cuda.intra_pairs: ("intra_pairs", intra_cuda.COUNTERS),
                    orb_cuda.orb_select: ("orb_select",
                                          orb_cuda.SELECT_CAMERAS),
-                   ransac_cuda.score: ("ransac_score", 1)}.get(
-                       fn, (None, 0))
+                   ransac_cuda.score: ("ransac_score",
+                                       args[0].shape[0] + 1 if args else 1)
+                   }.get(fn, (None, 0))
     if name is None:
         yield
         return
@@ -184,7 +189,7 @@ def guard(name, fn, args, kw, plain, reps) -> list[str]:
     fails, first, found = [], None, []
     with contextlib.ExitStack() as stack:
         stack.enter_context(guarded_counters(fn, inputs[0].device,
-                                             CANARIES[0], found))
+                                             CANARIES[0], found, args))
         for rep in range(reps):
             slabs = []
             canary = CANARIES[rep % 2]
@@ -246,7 +251,8 @@ def guard_graph(name, fn, args, kw, plain, reps) -> list[str]:
     ref = None if plain is None else tensors(plain(*args, **kw))
     fails, first, found, slabs = [], None, [], []
     with contextlib.ExitStack() as stack:
-        stack.enter_context(guarded_counters(fn, dev, CANARIES[0], found))
+        stack.enter_context(guarded_counters(fn, dev, CANARIES[0], found,
+                                             args))
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -421,9 +427,9 @@ def ransac_cases(quick: bool, dev, rng):
             a, kw = seen[n][0]
             out.append((f"{n} K={a[0].shape[0]} (bench frame 1)", fn, a, kw,
                         None, False))
-    for M in (37, 2048):
+    for M in (37, 2048, 2049):
         obs = ransac_problem(rng, M, dev)
-        for K in ((1, 512) if M == 2048 else (257,)):
+        for K in {37: (257,), 2048: (1, 512), 2049: (3, 33, 513)}[M]:
             w = rng.normal(0, 0.02, (K, 3))
             hyp = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
             hyp[:, :3, 3] = w

@@ -18,7 +18,16 @@ VGA) with frame 0's map, per tree:
   on the correspondences that frame 1's forced-portfolio step hands its
   PnP RANSAC, ending in the host read of (ok, count) as
   `loop/reloc.verify_pnp` does: host ms (median of 20), device ms and
-  device ops.
+  device ops;
+- the graphed fast-path frame (frame 1 through a captured program of the
+  step with the branch on the device, utils/graphs.ProgramCache, ending
+  in the packed fetch): host ms (chip_smoke._median_ms), device ms and
+  device ops;
+- the RANSAC kernels at the calls of frame 1's forced-portfolio step
+  (`ransac_cuda.score` at K = 1, 512, 256 and 3, `ransac_cuda.pnp_hyp`
+  at K = 256): the kernel's device ms per call (profiler, 20 calls, the
+  kernel's own events) and the wrapper's ms per call (CUDA events, 20
+  calls), as host ms and device ms of the line.
 Prints one line per turn and measure, with the card's name and power
 limit, and the means of the two turns of each tree.
 """
@@ -47,7 +56,8 @@ def measure(root: str) -> dict:
 
     import chip_smoke as cs
     from mcslam_tpu_torch import tracking_kernels as tk
-    from mcslam_tpu_torch.frontend import frame, ransac
+    from mcslam_tpu_torch.frontend import frame, ransac, ransac_cuda
+    from mcslam_tpu_torch.utils import graphs
 
     check_root = pathlib.Path(cs.__file__).resolve().parent
     cs.check(check_root == pathlib.Path(root).resolve(),
@@ -64,23 +74,44 @@ def measure(root: str) -> dict:
             scene, ff0, mapstate, frac, n=1, warm=False))
         out[name] = dict(host_ms=ms, device_ms=dev_ms, device_ops=n_ops)
 
-    # the PnP RANSAC's inputs in frame 1's forced-portfolio step
-    seen = []
-    real = ransac.ransac_pnp
+    # the graphed fast-path frame
+    eye = torch.eye(4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cache = graphs.ProgramCache(dev, gen)
 
-    def record(*a, **kw):
-        seen.append((a, kw))
-        return real(*a, **kw)
+    def step(imgs, pred):
+        return tk._build_and_track_step(
+            gen, imgs, scene.rig, ff0.im_desc, ff0.im_valid, *mapstate, pred,
+            branch="device", **scene.step_kwargs(cs.FASTPATH_FRAC))
 
-    ransac.ransac_pnp = record
-    try:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        tk._build_and_track_step(
-            gen, scene.imgs[1], scene.rig, ff0.im_desc, ff0.im_valid,
-            *mapstate, torch.eye(4, device=dev), **scene.step_kwargs(2.0))
-    finally:
-        ransac.ransac_pnp = real
-    a, kw = seen[0]
+    _, prog = cache(cs.FASTPATH_FRAC, step, (scene.imgs[1], eye))
+
+    def graphed():
+        return prog(scene.imgs[1], eye)[-1].cpu()
+
+    ms = cs._median_ms(graphed)
+    dev_ms, n_ops, _ = cs.device_profile(graphed)
+    out["graphed fast-path frame"] = dict(host_ms=ms, device_ms=dev_ms,
+                                          device_ops=n_ops)
+
+    # the RANSAC inputs in frame 1's forced-portfolio step
+    gen = torch.Generator(device=dev).manual_seed(0)
+    seen = cs.capture_all(lambda: tk._build_and_track_step(
+        gen, scene.imgs[1], scene.rig, ff0.im_desc, ff0.im_valid, *mapstate,
+        eye, **scene.step_kwargs(2.0)), {
+            "ransac_pnp": (ransac, "ransac_pnp"),
+            "score": (ransac_cuda, "score"),
+            "pnp_hyp": (ransac_cuda, "pnp_hyp")})
+    for name, sym in (("score", "ransac_score_kernel"),
+                      ("pnp_hyp", "pnp_hyp_kernel")):
+        fn = getattr(ransac_cuda, name)
+        for a, kw in seen[name]:
+            def call(a=a, kw=kw, fn=fn):
+                return fn(*a, **kw)
+            _, n_ops, k_ms = cs.device_profile(call, reps=20, names=(sym,))
+            out[f"{sym} K={a[0].shape[0]} (wrapper as host ms)"] = dict(
+                host_ms=cs.cuda_ms(call), device_ms=k_ms, device_ops=n_ops)
+    a, kw = seen["ransac_pnp"][0]
     args = a[1:6]  # X_world, uv, cam_T_ref, fxycxy, mask
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -134,8 +165,8 @@ def main() -> int:
               flush=True)
         for name, m in res.items():
             if name != "smi":
-                print(f"# {turn} tree, {name}: host {m['host_ms']:.3f} ms, "
-                      f"device {m['device_ms']:.3f} ms in "
+                print(f"# {turn} tree, {name}: host {m['host_ms']:.4f} ms, "
+                      f"device {m['device_ms']:.4f} ms in "
                       f"{m['device_ops']:.0f} ops ({res['smi']})", flush=True)
     for turn, runs in got.items():
         for name in runs[0]:
@@ -144,7 +175,7 @@ def main() -> int:
             med = {k: sum(r[name][k] for r in runs) / len(runs)
                    for k in ("host_ms", "device_ms", "device_ops")}
             print(f"# {turn} tree, {name}, mean of two turns: host "
-                  f"{med['host_ms']:.3f} ms, device {med['device_ms']:.3f} ms "
+                  f"{med['host_ms']:.4f} ms, device {med['device_ms']:.4f} ms "
                   f"in {med['device_ops']:.1f} ops ({runs[0]['smi']})")
     return 0
 

@@ -31,7 +31,11 @@ kernel no more often so than the plain version (+ 2 or 5 %); the
 winner's count within 2 %; NaN in both where the sample is six copies of
 one point, in one only (a pivot within float32 rounding of zero) for at
 most 2 % of the hypotheses; one launch counted per call, equal across
-two runs, and the score through CUDA graph replays:
+two runs, and the score through CUDA graph replays, its count
+accumulators and arrival counter back at zero after each; the score
+also at shapes that cross its tiles (M one past a tile, K one past a
+hypothesis tile, M < 32, tied counts) and pnp_hyp at K one past a block,
+M < 32 and with every sample from the camera without a lever arm:
     python -m pytest --noconftest tests/test_torch_ransac_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparisons)."""
 
@@ -313,6 +317,222 @@ def test_degenerate_pnp_samples_match_jax():
     assert c[2] == c[5] == c_ref[2] == c_ref[5] == 0
 
 
+# ---- CPU: models of the kernels' plans ------------------------------------
+
+def _score_plan(K, M):
+    """csrc/ransac_score.cu's plan(): (GW, J, MT, HT, m-tiles, k-tiles)."""
+    hl = 4 if K >= 4 else (2 if K >= 2 else 1)
+    gw = 4 // hl
+    mt = 32 * gw
+    nmt = -(-M // mt) if M > 0 else 1
+    want = hl * 1024
+    j = min(max(1, -(-K * nmt // want)), 64 // hl, -(-K // hl))
+    return gw, j, mt, hl * j, nmt, -(-K // (hl * j))
+
+
+def _score_model(hyp, X, uv, cam, f, mask, px):
+    """The plan of csrc/ransac_score.cu on the plain version's flags: the
+    2-D grid of tiles, each warp's ballot of 32 flags a word of a bit row,
+    the words' popcounts added to per-hypothesis counts, one arrival per
+    block; the last block's first argmax and the winner's row expanded
+    into its mask -> (counts, best, pose, count, inliers), the rows and
+    how often each word was written."""
+    counts_ref, flags = ransac._score_reprojection(hyp, X, uv, cam, f, mask,
+                                                   px)
+    K, M = flags.shape
+    W = (M + 31) // 32
+    padded = np.zeros((K, W * 32), bool)
+    padded[:, :M] = flags.numpy()
+    words = (padded.reshape(K, W, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(-1)
+    gw, j, mt, ht, nmt, nkt = _score_plan(K, M)
+    hl = 4 // gw
+    rows = np.full((K, W), 0xDEADBEEF, np.uint64)
+    writes = np.zeros((K, W), np.int64)
+    acc = np.zeros(K + 1, np.int64)
+    for bx in range(nmt):
+        for by in range(nkt):
+            m0, k0 = bx * mt, by * ht
+            for warp in range(4):
+                g, h = warp % gw, warp // gw
+                word = m0 // 32 + g
+                if word >= W:
+                    continue
+                for i in range(j):
+                    k = k0 + h + i * hl
+                    if k >= K:
+                        break
+                    rows[k, word] = words[k, word]
+                    writes[k, word] += 1
+                    acc[k] += bin(int(words[k, word])).count("1")
+            acc[K] += 1
+    assert acc[K] == nmt * nkt  # the last block saw every arrival
+    counts = torch.from_numpy(acc[:K].copy())
+    keys = [(int(c) << 32) | (0xFFFFFFFF - k) for k, c in enumerate(acc[:K])]
+    b = 0xFFFFFFFF - (max(keys) & 0xFFFFFFFF)
+    inl = torch.from_numpy(
+        ((rows[b, np.arange(M) // 32] >> (np.arange(M) % 32).astype(
+            np.uint64)) & 1).astype(bool))
+    return ((counts, torch.tensor([b]), hyp[b], torch.tensor(
+        int(acc[b]), dtype=torch.int32), inl), rows, writes, counts_ref)
+
+
+@pytest.mark.parametrize("K,M,case", [
+    *[(K, M, "nan") for K in (1, 3, 257, 512) for M in (37, 2048, 2049)],
+    (3, 2048, "masked"), (512, 37, "masked"), (3, 37, "tie"),
+    (257, 2049, "tie"), (512, 2048, "tie")])
+def test_score_plan_model_matches_the_plain_score(K, M, case):
+    """A model of ransac_score.cu's tiles, bit rows, count atomics, arrival
+    and mask expansion, on the plain version's flags: every bit-row word
+    written once, and the counts, the winner (the first of the largest)
+    and its mask equal to score_reference's."""
+    P = _scene(70 + K, M)
+    hyp = _perturbed(P, K)
+    if case == "nan":
+        hyp[K // 2] = np.nan
+    if case == "masked":
+        P["mask"][:] = False
+    if case == "tie":  # hypothesis 0 far off, every later one the same pose
+        hyp[1:] = P["T_true"]
+        hyp[0, :3, 3] += 3.0
+    hyp = _t(hyp)
+    obs = _obs(P)
+    got, rows, writes, counts = _score_model(hyp, *obs, PX)
+    want = ransac_cuda.score_reference(hyp, *obs, PX)
+    assert (writes == 1).all() and (rows <= 0xFFFFFFFF).all()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[0], counts)
+    assert torch.equal(got[1], want[1]) and cs.same_bits(got[2], want[2])
+    assert int(got[3]) == int(want[3]) and torch.equal(got[4], want[4])
+    if case == "nan":
+        assert int(want[0][K // 2]) == 0 and (K == 1 or M < 100
+                                               or int(want[3]) > 0)
+    if case == "masked":
+        assert int(want[0].abs().sum()) == 0 and int(want[1]) == 0
+    if case == "tie":
+        assert int(want[1]) == 1 and int(want[0][1]) == int(want[0][-1]) > 0
+    gw, j, mt, ht, nmt, nkt = _score_plan(K, M)
+    assert {(1, 2048): 16, (3, 2048): 64, (512, 2048): 1024}.get(
+        (K, M), nmt * nkt) == nmt * nkt
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add (the product exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _warp_sum(x):
+    """csrc/pnp_hyp.cu's warp_sum: a butterfly over 32 lanes (x (K, N))."""
+    v = torch.zeros(x.shape[0], 32, dtype=torch.float32)
+    v[:, :x.shape[1]] = x
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[:, lane ^ off]
+    return v[:, :1]
+
+
+def _nullspace_recip(A, second=False, iters=5):
+    """A float32 model of csrc/pnp_hyp.cu's null vectors in its order of
+    operations: G by rows (fused multiply-adds over A's rows in order),
+    the trace shift, the right-looking Cholesky factor with one
+    reciprocal per pivot (lanes i > j multiply by it), both triangular
+    sweeps of every solve as a fused multiply-add a step on the row and
+    the column scaled by 1 / L_ii, butterfly norms and dots. A NaN vector
+    where a pivot is not positive (the kernel's NaN pose)."""
+    A = A.float()
+    K_, R, N = A.shape
+    G = torch.zeros(K_, N, N)
+    for r in range(R):
+        G = _fma(A[:, r, :, None], A[:, r, None, :], G)
+    tr = torch.zeros(K_)
+    for i in range(N):
+        tr = tr + G[:, i, i]
+    eps = tr / float(N) * 1e-7 + 1e-12
+    a = G.clone()
+    idx = torch.arange(N)
+    a[:, idx, idx] = a[:, idx, idx] + eps[:, None]
+    fail = torch.zeros(K_, dtype=torch.bool)
+    r = torch.zeros(K_, N)
+    for j in range(N):
+        piv = a[:, j, j].clone()
+        fail = fail | ~(piv > 0)
+        d = torch.sqrt(piv)
+        rj = 1.0 / d
+        col = a[:, :, j] * rj[:, None]
+        col[:, j] = d
+        a[:, :, j] = col
+        r[:, j] = rj
+        if j + 1 < N:
+            a[:, :, j + 1:] = _fma(-col[:, :, None], col[:, None, j + 1:],
+                                   a[:, :, j + 1:])
+    L = torch.tril(a)
+    lrow = L * r[:, :, None]  # lrow[i, j] = L_ij / L_ii
+    lcol = L.transpose(1, 2) * r[:, :, None]  # lcol[i, j] = L_ji / L_ii
+
+    def solve(x):
+        x = x * r
+        for j in range(N - 1):
+            x[:, j + 1:] = _fma(-lrow[:, j + 1:, j], x[:, j:j + 1],
+                                x[:, j + 1:])
+        x = x * r
+        for j in range(N - 1, 0, -1):
+            x[:, :j] = _fma(-lcol[:, :j, j], x[:, j:j + 1], x[:, :j])
+        return x
+
+    def normalize(x):
+        return x * torch.rsqrt(torch.clamp(_warp_sum(x * x), min=1e-30))
+
+    ar = torch.arange(N, dtype=torch.float32)
+    v = torch.cos(ar * 1.7 + 0.3).expand(K_, N).clone()
+    for _ in range(iters):
+        v = normalize(solve(v))
+    nan = torch.full_like(v, float("nan"))
+    if not second:
+        return torch.where(fail[:, None], nan, v)
+    w = torch.sin(ar * 2.3 + 1.1).expand(K_, N).clone()
+    for _ in range(iters):
+        w = solve(w)
+        w = w - _warp_sum(w * v) * v
+        w = normalize(w)
+    return torch.where(fail[:, None], nan, v), torch.where(fail[:, None],
+                                                           nan, w)
+
+
+@pytest.mark.parametrize("lever,cam0", [(True, False), (False, False),
+                                        (True, True)])
+def test_pnp_recip_model_holds_the_criteria(monkeypatch, lever, cam0):
+    """The float32 model of pnp_hyp.cu's solve order (reciprocal pivots,
+    G by rows, the right-looking factor) in the plain version's
+    hypotheses, against the plain version in float64 under
+    chip_smoke.check_hypotheses' criteria, at the scenes of
+    test_pnp_kernel_matches_plain (K = 256, M = 2048, the central and the
+    lever rig, with the degenerate six-copy samples; also every sample
+    from the camera without a lever arm)."""
+    K, M = 256, 2048
+    P = _scene(30 + K, M, lever=lever, outliers=0.1, noise=0.2)
+    obs = _obs(P)
+    if cam0:
+        central = np.abs(P["cam"][:, :3, 3]).max(axis=1) == 0
+        idx = P["rng"].choice(np.flatnonzero(P["mask"] & central), (K, 6))
+    else:
+        idx = _samples(P, K, 6)
+    # six copies of one point (whether such a factor fails is a matter of
+    # rounding: planted where test_pnp_kernel_matches_plain plants them)
+    planted = () if cam0 else (2, K - 1)
+    for k in planted:
+        idx[k] = idx[k, 0]
+    idx = _t(idx)
+    hp = ransac.pnp_hypotheses(idx, *obs[:4])
+    h64 = ransac.pnp_hypotheses(idx, *(o.double() for o in obs[:4]))
+    monkeypatch.setattr(ransac, "_nullspace_vecs", _nullspace_recip)
+    hm = ransac.pnp_hypotheses(idx, *obs[:4])
+    monkeypatch.undo()
+    st = cs.check_hypotheses(
+        "model vs plain", hm, hp, h64,
+        ransac._score_reprojection(hm, *obs, PX)[0],
+        ransac._score_reprojection(hp, *obs, PX)[0], structural=planted)
+    assert st["good"] - st["rounding"] >= 4 and st["plain_best"] > 200
+
+
 # ---- gpu: the kernels against their plain versions on the card ------------
 
 def _check_score(hyp, obs, px=PX):
@@ -347,19 +567,32 @@ def _counted(name, fn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,M", [(1, 2048), (3, 2048), (512, 2048),
-                                 (257, 37), (1, 37)])
-def test_score_kernel_matches_plain(cuda, K, M):
+@pytest.mark.parametrize("K,M,tie", [
+    (1, 2048, False), (3, 2048, False), (512, 2048, False), (257, 37, False),
+    (1, 37, False),
+    # M one past a tile of correspondences (128 at K = 1, 64 at K = 2-3, 32
+    # from K = 4), K one past a tile of hypotheses (4 at K = 33, M = 2048),
+    # M < 32, tied counts (the first of the largest wins)
+    (1, 129, False), (3, 65, False), (512, 2049, False), (33, 2048, False),
+    (3, 20, False), (512, 20, False), (3, 2048, True), (512, 2049, True)])
+def test_score_kernel_matches_plain(cuda, K, M, tie):
     P = _scene(10 + K, M)
     obs = _obs(P, cuda)
     hyp = _perturbed(P, K)
     if K > 3:
         hyp[7] = np.nan
+    if tie:  # hypothesis 0 far off, every later one the same pose
+        hyp[1:] = P["T_true"]
+        hyp[0, :3, 3] += 3.0
     hyp = _t(hyp, cuda)
     _counted("ransac_score", lambda: ransac_cuda.score(hyp, *obs, PX))
     k = _check_score(hyp, obs)
-    if K > 3:
+    if K > 3 and not tie:
         assert int(k[0][7]) == 0
+    if tie:
+        counts = ransac._score_reprojection(hyp, *obs, PX)[0]
+        assert torch.equal(k[0], counts) and int(counts[1]) > int(counts[0])
+        assert int(k[1]) == 1 == int(torch.argmax(counts))
 
 
 @pytest.mark.gpu
@@ -378,22 +611,31 @@ def test_kabsch_kernel_matches_plain(cuda, K, M, lever):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,M,lever", [(256, 2048, True), (256, 2048, False),
-                                       (257, 37, True), (3, 2048, True),
-                                       (1, 400, True)])
-def test_pnp_kernel_matches_plain(cuda, K, M, lever):
+@pytest.mark.parametrize("K,M,lever,cam0", [
+    (256, 2048, True, False), (256, 2048, False, False),
+    (257, 37, True, False), (3, 2048, True, False), (1, 400, True, False),
+    # K one past a block of 4 hypotheses, M < 32; every sample seen by the
+    # camera without a lever arm (the flag then comes from the scan of M)
+    (5, 2048, True, False), (9, 20, True, False), (256, 2048, True, True)])
+def test_pnp_kernel_matches_plain(cuda, K, M, lever, cam0):
     P = _scene(30 + K, M, lever=lever, outliers=0.1, noise=0.2)
     obs = _obs(P, cuda)
-    idx = _samples(P, K, 6)
-    if K > 3:
-        idx[2] = idx[2, 0]  # six copies of one point: no pose
-        idx[K - 1] = idx[K - 1, 0]
+    if cam0:
+        central = np.abs(P["cam"][:, :3, 3]).max(axis=1) == 0
+        idx = P["rng"].choice(np.flatnonzero(P["mask"] & central), (K, 6))
+    else:
+        idx = _samples(P, K, 6)
+    # six copies of one point: no pose (at the portfolio's shapes; whether
+    # the factor of such a sample fails is a matter of rounding, so the
+    # small shapes plant none)
+    planted = (2, K - 1) if K >= 256 and not cam0 else ()
+    for k in planted:
+        idx[k] = idx[k, 0]
     idx = _t(idx, cuda)
     h = _counted("pnp_hyp", lambda: ransac_cuda.pnp_hyp(idx, *obs[:4]))
     assert cs.same_bits(h, ransac_cuda.pnp_hyp(idx, *obs[:4]))
     _check_hyp(h, lambda dt: ransac.pnp_hypotheses(
-        idx, *(o.to(dt) for o in obs[:4])), obs,
-        structural=(2, K - 1) if K > 3 else ())
+        idx, *(o.to(dt) for o in obs[:4])), obs, structural=planted)
 
 
 @pytest.mark.gpu
@@ -443,7 +685,7 @@ def test_score_kernel_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, want))
-        assert int(ransac_cuda.counters(cuda).abs().sum()) == 0
+        assert int(ransac_cuda.counters(cuda, 512).abs().sum()) == 0
 
 
 @pytest.mark.gpu
