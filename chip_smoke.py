@@ -7,15 +7,17 @@ Phases, each of which raises (non-zero exit) on failure:
   1. build: compile the CUDA sources of mcslam_tpu_torch/csrc (the nine
      kernels' five, the graphs' branch, the SGM scan, tri_refine,
      intra_pairs, the ORB glue's orb_pyramid, orb_select and
-     orb_describe, and the RANSAC portfolio's ransac_score, kabsch_hyp
-     and pnp_hyp; one nvcc per source, in parallel, sm_90a) and
+     orb_describe, the RANSAC portfolio's ransac_score, kabsch_hyp
+     and pnp_hyp, and the tracking glue's track_gate, track_epilogue,
+     localmap_gate and localmap_epilogue; one nvcc per source, in
+     parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
      kernel, the oriented patch gather, the SGM tile kernel at D = 64,
      tri_refine at R = 2, 4 and 8, intra_pairs' one kernel, the ORB
-     glue's three kernels and the three RANSAC kernels must use no local
-     memory and
+     glue's three kernels, the three RANSAC kernels and the four
+     tracking glue kernels must use no local memory and
      spill nothing) and the cluster sizes of the pose LM (per candidate)
      and of ba_linearize (per keyframe), each more than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
@@ -55,7 +57,11 @@ Phases, each of which raises (non-zero exit) on failure:
      forced (the score at K = 1, 512, 256 and 3 against M = 2048
      correspondences, kabsch_hyp at K = 512, pnp_hyp at K = 256), each
      twice (bitwise equal) and against its plain version under the
-     criteria of check_score and check_hypotheses (RANSAC_*); track
+     criteria of check_score and check_hypotheses (RANSAC_*); the
+     tracking glue's kernels (track_kernels) at the calls bench frame 1's
+     fast-path step makes (C = 4, M = N = 2048, L = 4096) and at a random
+     odd shape (C = 3, M = 2049, N = 2047, L = 4097), each twice and
+     against its plain version on the card, bitwise equal; track
      one frame of a
      small 2-camera scene on the kernels
      (CUDA) and on the plain versions (CPU) and hold the two poses to
@@ -72,9 +78,10 @@ Phases, each of which raises (non-zero exit) on failure:
      under the constant-velocity prediction - once with the production
      fast path and once with the portfolio forced (fastpath_frac=2.0).
      Every frame must pass the driver's acceptance gates and stay within
-     0.1 m / 0.02 rad of ground truth; each of the twelve frame kernels'
+     0.1 m / 0.02 rad of ground truth; each of the sixteen frame kernels'
      launch counters (the four of the nine, the three ORB glue kernels,
-     tri_refine, intra_pairs and the three RANSAC kernels) must be > 0
+     tri_refine, intra_pairs, the three RANSAC kernels and the four
+     tracking glue kernels) must be > 0
      after this phase (counters are reset right before it); the RANSAC
      kernels' launches of each drive are printed: the forced-portfolio
      drive scores 4 times and makes each hypothesis batch once per frame
@@ -281,10 +288,10 @@ Phases, each of which raises (non-zero exit) on failure:
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
      the device time of the IF node's condition kernel beside its bytes
-     bound (COND_BYTES), and beside the frame before the staged-tile
-     pyramid and the one-launch selection (FRAME_BEFORE; the frame build's
-     stages apart:
-     scripts/frame_stage_split.py); the stage C window solve warm and
+     bound (COND_BYTES), and beside the frame before the tracking glue's
+     kernels (FRAME_BEFORE; the frame build's stages and the tracking
+     half's parts apart: scripts/frame_stage_split.py); the stage C
+     window solve warm and
      cold, eager and through the session's graphed solve
      (driver_window._replay_solve) on its side stream:
      bit-equal, wall and device time of both; the stage D VIO solve
@@ -514,11 +521,14 @@ ORB_KERNELS = ("orb_pyramid", "orb_select", "orb_describe")
 # frame, the two hypothesis kernels only off the fast path (the portfolio)
 RANSAC_KERNELS = ("ransac_score", "kabsch_hyp", "pnp_hyp")
 PORTFOLIO = ("kabsch_hyp", "pnp_hyp")
-# the graphed fast-path frame before the staged-tile orb_pyramid and the
-# one-launch orb_select (three and two launches), its device ops and
-# device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke phase 14 on the
-# tree before them)
-FRAME_BEFORE = (492, 1.194)
+# the tracking step's glue kernels (frontend/track_cuda.py): both matches'
+# gate prologues and epilogues, each once a frame
+TRACK_KERNELS = ("track_gate", "track_epilogue", "localmap_gate",
+                 "localmap_epilogue")
+# the graphed fast-path frame before the tracking glue's kernels, its
+# device ops and device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke
+# phase 14 on the tree before them, run 8 of PR 19)
+FRAME_BEFORE = (466, 1.117)
 # bytes the graphs' condition kernel moves: it reads the 1-byte predicate
 # and the 8-byte conditional handle and writes the 4-byte condition
 COND_BYTES = 1 + 8 + 4
@@ -668,7 +678,8 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "orb_describe_kernel": "orb_describe_kernel",
               "ransac_score_kernel": "ransac_score_kernel",
               "kabsch_hyp_kernel": "kabsch_hyp_kernel",
-              "pnp_hyp_kernel": "pnp_hyp_kernel"}
+              "pnp_hyp_kernel": "pnp_hyp_kernel",
+              **{f"{n}_kernel": f"{n}_kernel" for n in TRACK_KERNELS}}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
@@ -677,7 +688,7 @@ NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "tri_refine_kernel<8>", "intra_pairs_kernel",
             "pyramid_tile_kernel", "orb_select_one_kernel",
             "orb_describe_kernel", "ransac_score_kernel", "kabsch_hyp_kernel",
-            "pnp_hyp_kernel")
+            "pnp_hyp_kernel", *(f"{n}_kernel" for n in TRACK_KERNELS))
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1706,6 +1717,214 @@ def ransac_kernels(scene, dev, kernels):
             ops_s=ops_s)
 
 
+def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
+    """Inputs of the tracking glue's kernels on dev: a rig of C cameras, a
+    predicted pose, a map mirror of cap rows (some invalid, some without a
+    normal, the first six at, behind or just in front of the cameras'
+    plane: z <= 0.05), M current features, N previous ones (some without
+    a landmark), L candidates, and the matcher's row / column outputs
+    (some rows gated out: best = 2^20). case "identity": identity poses
+    and map rows 6-11 projecting exactly onto the frustum's edges (u = 0,
+    u = W, v = 0, v = H at VGA) and into a cone exactly at 0.5 and one
+    inside it; "no_valid": no valid current feature and no previous one
+    with a landmark."""
+    import torch
+
+    def pose(rot, trans):
+        w = rng.normal(0, rot, 3) + 1e-9
+        th = np.linalg.norm(w)
+        k = w / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        T = np.eye(4)
+        T[:3, :3] = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+        T[:3, 3] = rng.normal(0, trans, 3)
+        return T
+
+    f32, i32 = np.float32, np.int32
+    if case == "identity":
+        cam, pred = np.tile(np.eye(4), (C, 1, 1)), np.eye(4)
+        f = np.tile([256.0, 256.0, 320.0, 240.0], (C, 1))
+    else:
+        cam = np.stack([pose(0.4, 0.1) for _ in range(C)])
+        pred = pose(0.05, 0.2)
+        f = np.float32([400, 410, 320, 240]) + rng.normal(0, 5, (C, 4))
+    map_pos = rng.uniform(-8, 8, (cap, 3)) + [0, 0, 6]
+    map_pos[:6] = [[0, 0, 0.01], [0, 0, -3], [1, 1, 0.05], [0, 0, 1e-7],
+                   [3, 0, 0.0], [0.5, -0.5, 0.03]]
+    nrm = rng.normal(0, 1, (cap, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm[rng.rand(cap) < 0.2] = 0
+    if case == "identity":  # x / z = -+1.25, y / z = -+0.9375 at z = 2
+        map_pos[6:12] = [[-2.5, 0, 2], [2.5, 0, 2], [0, -1.875, 2],
+                         [0, 1.875, 2], [0, 0, 2], [0, 0, 2]]
+        nrm[6:12] = [[0, 0, 1]] * 4 + [[0, 0.75, 0.5], [0, 0.5, 0.75]]
+    cur_valid = rng.rand(M) > 0.1
+    prev_lm = rng.randint(0, cap, N)
+    prev_lm[rng.rand(N) < 0.3] = -1
+    prev_lm[:min(N, 12)] = np.arange(min(N, 12))
+    cand = rng.randint(0, cap, L)
+    cand[:min(L, 12)] = np.arange(min(L, 12))
+    if case == "no_valid":
+        cur_valid[:] = False
+        prev_lm[:] = -1
+    best = rng.randint(0, 100, M).astype(f32)
+    best[rng.rand(M) < 0.1] = float(1 << 20)
+    idx = rng.randint(0, N, M)
+    col = rng.randint(0, M, N)
+    col[idx[:M // 2]] = np.arange(M // 2)
+    P = dict(uv=rng.uniform(-10, 650, (M, 2)).astype(f32),
+             anchor=rng.randint(0, C, M).astype(i32), cur_valid=cur_valid,
+             prev_lm=prev_lm.astype(i32), prev_valid=rng.rand(N) > 0.1,
+             map_pos=map_pos.astype(f32), map_valid=rng.rand(cap) > 0.2,
+             map_desc=rng.randint(-2**31, 2**31 - 1, (cap, 8)).astype(i32),
+             nrm=nrm.astype(f32), cam=cam.astype(f32), f=f.astype(f32),
+             pred=pred.astype(f32), cand=cand.astype(i32),
+             cand_valid=rng.rand(L) > 0.15,
+             sigma2=rng.uniform(0.5, 3, M).astype(f32),
+             has_depth=rng.rand(M) > 0.3, best=best,
+             second=best + rng.randint(0, 40, M).astype(f32),
+             idx=idx.astype(i32), col=col.astype(i32),
+             lidx=rng.randint(0, L, M).astype(i32))
+    return {k: torch.from_numpy(v).to(dev) for k, v in P.items()}
+
+
+def track_calls(P, image_wh=(W, H)) -> dict:
+    """{kernel: (args, kwargs)} of the four tracking glue wrappers on a
+    track_problem's inputs (the local-map epilogue on rows made by the
+    plain inter-frame epilogue)."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import track_cuda
+
+    M = P["uv"].shape[0]
+    packed = torch.empty(track_cuda.HEAD + 3 * M, device=P["uv"].device)
+    obs = track_cuda.track_epilogue_reference(
+        P["best"], P["second"], P["idx"], P["col"], P["cur_valid"],
+        P["has_depth"], P["uv"], P["anchor"], P["sigma2"], P["prev_lm"],
+        P["map_valid"], P["map_pos"], P["cam"], P["f"], STEP["max_dist"],
+        STEP["ratio"], packed)
+    return {
+        "track_gate": ((P["uv"], P["anchor"], P["cur_valid"], P["prev_lm"],
+                        P["prev_valid"], P["map_pos"], P["map_valid"],
+                        P["cam"], P["f"], P["pred"]), {}),
+        "track_epilogue": ((P["best"], P["second"], P["idx"], P["col"],
+                            P["cur_valid"], P["has_depth"], P["uv"],
+                            P["anchor"], P["sigma2"], P["prev_lm"],
+                            P["map_valid"], P["map_pos"], P["cam"], P["f"],
+                            STEP["max_dist"], STEP["ratio"], packed), {}),
+        "localmap_gate": ((P["pred"], P["cand"], P["cand_valid"],
+                           P["map_pos"], P["map_desc"], P["nrm"], P["uv"],
+                           P["anchor"], P["cur_valid"], P["cam"], P["f"],
+                           image_wh), {}),
+        "localmap_epilogue": ((P["best"], P["second"], P["lidx"],
+                               P["cur_valid"], P["cand"], P["map_pos"],
+                               obs.rows, STEP["lm_max_dist"]), {})}
+
+
+def track_outputs(name, fn, args, kw):
+    """fn(*args, **kw)'s outputs as a list; track_epilogue into a fresh
+    packed vector, of which the slots it writes are outputs too."""
+    import torch
+
+    if name != "track_epilogue":
+        return list(fn(*args, **kw))
+    M = args[0].shape[0]
+    packed = torch.empty(args[-1].shape[0], dtype=torch.float32,
+                         device=args[0].device)
+    out = list(fn(*args[:-1], packed, **kw))
+    return out + [packed[17:19], packed[21:21 + 3 * M]]
+
+
+def track_bytes_ops(name, args) -> tuple:
+    """(bytes each input read once and each output written once,
+    float32 operations) of one call of a tracking glue kernel."""
+    if name in ("track_gate", "localmap_gate"):
+        uv, cam = args[6 if name == "localmap_gate" else 0], args[
+            9 if name == "localmap_gate" else 7]
+        C, M = cam.shape[0], uv.shape[0]
+        cols = args[3 if name == "track_gate" else 1].shape[0]
+        DG = 3 * C + 2
+        # rows: uv, anchor, valid; columns: id, valid, the map row (track:
+        # position, validity; local: position, descriptor, normal); the
+        # rig; ahat, bhat (and the candidates' descriptors)
+        per_col = 4 + 1 + (13 if name == "track_gate" else 56 + 32)
+        nbytes = M * 13 + cols * per_col + C * 80 + 64 + 4 * DG * (M + cols)
+        # a column's camera transform (15) or two (30) and per camera the
+        # projection, clamps and P2 (~12); the cone (~25); a row's 3 C + 4
+        ops = cols * (C * (15 + 12) + (40 if name == "localmap_gate" else 0))
+        return nbytes, ops + M * (3 * C + 4)
+    M = args[0].shape[0]
+    if name == "track_epilogue":
+        # best, second, idx, col_idx, prev_lm_id and map rows gathered,
+        # valid, depth, uv, anchor, sigma2; X, cTr, f, the rows, four
+        # masks, the packed slots
+        nbytes = M * (4 * 5 + 2 + 8 + 4 + 4 + 13) + M * (12 + 64 + 16 + 88
+                                                          + 2 + 8 + 12) + 8
+        return nbytes, M * 10
+    # best, second, idx, valid, cand_ids and map rows gathered, the
+    # inter-frame rows 3-21; the rows, mask, lm
+    return M * (13 + 4 + 12 + 76) + M * (88 + 4 + 4), M * 5
+
+
+def track_kernels(scene, dev, kernels):
+    """Phase 2, the tracking glue's kernels (frontend/track_cuda) at the
+    calls that bench frame 1's eager fast-path step makes against frame
+    0's map (C = 4, M = N = 2048, L = 4096) and at a random problem of odd
+    shape (C = 3, M = 2049, N = 2047, L = 4097): each kernel twice and its
+    plain version on the card, all bitwise equal."""
+    import torch
+
+    from mcslam_tpu_torch import tracking_kernels as tk
+    from mcslam_tpu_torch.frontend import frame, track_cuda
+
+    ff0 = frame.build_frame(scene.imgs[0], scene.rig, **scene.frame_kwargs())
+    mapstate, _ = seed_map(ff0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    seen = capture_all(lambda: tk._build_and_track_step(
+        gen, scene.imgs[1], scene.rig, ff0.im_desc, ff0.im_valid, *mapstate,
+        torch.eye(4, device=dev), **scene.step_kwargs(FASTPATH_FRAC)),
+        {n: (track_cuda, n) for n in TRACK_KERNELS})
+    check([len(seen[n]) for n in TRACK_KERNELS] == [1] * 4,
+          f"bench frame 1's step made {[len(seen[n]) for n in TRACK_KERNELS]}"
+          f" calls of {TRACK_KERNELS}, not one each")
+    odd = track_calls(track_problem(np.random.RandomState(21), 3, 2049, 2047,
+                                    4097, MAP_CAP, dev))
+    for n in TRACK_KERNELS:
+        fn = getattr(track_cuda, n)
+        plain = getattr(track_cuda, f"{n}_reference")
+        for what, (a, kw) in (("bench frame 1", seen[n][0]),
+                              ("odd shape", odd[n])):
+            k1 = track_outputs(n, fn, a, kw)
+            k2 = track_outputs(n, fn, a, kw)
+            pl = track_outputs(n, plain, a, kw)
+            torch.cuda.synchronize()
+            check(all(same_bits(x, y) for x, y in zip(k1, k2)),
+                  f"{n} ({what}): two runs differ")
+            differ = [i for i, (x, y) in enumerate(zip(k1, pl))
+                      if x.dtype != y.dtype or x.shape != y.shape
+                      or not same_bits(x, y)]
+            check(not differ, f"{n} ({what}): outputs {differ} differ from "
+                  f"the plain version's")
+            shapes = ", ".join(f"{tuple(x.shape)}" for x in k1)
+            print(f"# kernel {n} ({what}): {len(k1)} outputs ({shapes}) "
+                  f"bitwise equal to the plain version's and across two "
+                  f"runs")
+        a, kw = seen[n][0]
+        nbytes, ops = track_bytes_ops(n, a)
+        kernels[n] = dict(
+            route="cuda", source="mcslam_tpu_torch/csrc/track_glue.cu",
+            replaces={"track_gate": "mcslam_tpu/tracking_kernels.py:162",
+                      "track_epilogue": "mcslam_tpu/tracking_kernels.py:196",
+                      "localmap_gate": "mcslam_tpu/tracking_kernels.py:479",
+                      "localmap_epilogue":
+                          "mcslam_tpu/tracking_kernels.py:349"}[n],
+            max_abs_err=0.0,
+            fn=lambda n=n, fn=fn, a=a, kw=kw: track_outputs(n, fn, a, kw),
+            plain=lambda n=n, p=plain, a=a, kw=kw: track_outputs(n, p, a, kw),
+            symbols=(f"{n}_kernel",), device_ops=1, nbytes=nbytes,
+            ops_s=f32_ops_s(ops))
+
+
 def plateau_candidates(rng, C, L, G, ncx, dev):
     """fast_select-shaped candidates with few distinct values (ties
     everywhere, values with and without the rank bonus, zeros and -0.0),
@@ -2008,6 +2227,7 @@ def main() -> int:
     geometry_kernels(scene, rng, dev, kernels)
     orb_kernels(scene, rng, dev, kernels)
     ransac_kernels(scene, dev, kernels)
+    track_kernels(scene, dev, kernels)
     solve_problem = _window_solves(scene, dev)
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
@@ -2033,7 +2253,7 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     print(f"# launches during the slice: {launches}")
     for n in ("fast_select", "patch_gather", *ORB_KERNELS, "hamming_argmin2",
-              "pose_lm", *TRI_INTRA, *RANSAC_KERNELS):
+              "pose_lm", *TRI_INTRA, *RANSAC_KERNELS, *TRACK_KERNELS):
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched on the slice's path")
     n_off = sum(not r["fast"] for r in results["fast"])
@@ -4930,7 +5150,8 @@ TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "intra_pairs": "intra_pairs_kernel",
                "ransac_score": "ransac_score_kernel",
                "kabsch_hyp": "kabsch_hyp_kernel",
-               "pnp_hyp": "pnp_hyp_kernel"}
+               "pnp_hyp": "pnp_hyp_kernel",
+               **{n: f"{n}_kernel" for n in TRACK_KERNELS}}
 PATH = tuple(TRACE_NAMES)
 # degrees of yaw tried, in order, for a prediction off the fast path (on
 # an NVIDIA H100 the first that takes frame 2 off it is 18)
@@ -5172,8 +5393,7 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                  f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
                  f"predicate and 8-byte handle read, the 4-byte condition "
                  f"written)" if cond else "")
-              + (f"; before the staged-tile pyramid and the one-launch "
-                 f"selection "
+              + (f"; before the tracking glue's kernels "
                  f"{FRAME_BEFORE[0]} device ops, {FRAME_BEFORE[1]:.3f} ms "
                  f"(NVIDIA H100 80GB HBM3, 700.00 W)" if cond else "")
               + f" ({smi})")

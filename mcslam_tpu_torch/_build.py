@@ -35,9 +35,10 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # flags of one source only: ba_linearize, tri_refine, orb_pyramid,
-# orb_select and the RANSAC kernels (ransac_score, kabsch_hyp, pnp_hyp)
-# round every multiply and add on their own, as their plain versions do
-# (no contraction into FMAs; ransac_score writes the matmuls' FMAs out). orb_describe keeps the default
+# orb_select, the RANSAC kernels (ransac_score, kabsch_hyp, pnp_hyp) and
+# the tracking glue (track_glue) round every multiply and add on their
+# own, as their plain versions do (no contraction into FMAs; ransac_score
+# writes the matmuls' FMAs out). orb_describe keeps the default
 # flags, under which torch builds the atan2 its plain version calls; its
 # own products and sums are __fmul_rn / __fadd_rn, never contracted.
 SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
@@ -46,7 +47,8 @@ SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
                 "orb_select": ["-fmad=false"],
                 "ransac_score": ["-fmad=false"],
                 "kabsch_hyp": ["-fmad=false"],
-                "pnp_hyp": ["-fmad=false"]}
+                "pnp_hyp": ["-fmad=false"],
+                "track_glue": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -117,6 +119,21 @@ SIGNATURES = {
     # idx, X_world, uv, cam_T_ref, fxycxy, start vectors, out, K, S, M,
     # stream
     "mc_pnp_hyp": [P] * 7 + [I, I, I, P],
+    # uv, anchor, cur_valid, prev_lm_id, prev_valid, map_pos, map_valid,
+    # cam_T_ref, fxycxy, pred_T_wr, ahat, bhat, M, N, C, cap, stream
+    "mc_track_gate": [P] * 12 + [I] * 4 + [P],
+    # best, second, idx, col_idx, cur_valid, has_depth, uv, anchor, sigma2,
+    # prev_lm_id, map_valid, map_pos, cam_T_ref, fxycxy, X_world, cTr, f,
+    # obs rows, with_lm, mask3d, with_lm / mask3d as floats, packed,
+    # counters (3 ints, zero), M, N, C, cap, max_dist, ratio, stream
+    "mc_track_epilogue": [P] * 24 + [I] * 4 + [F, F, P],
+    # uv, anchor, im_valid, cand_ids, cand_valid, map_pos, map_desc,
+    # map_normal, cam_T_ref, fxycxy, T_wr, lm_desc, ahat, bhat, M, L, C,
+    # cap, width, height, min_cos, stream
+    "mc_localmap_gate": [P] * 14 + [I] * 4 + [F] * 3 + [P],
+    # best, second, idx, im_valid, cand_ids, map_pos, inter-frame obs rows,
+    # obs rows, mask, lm, M, L, cap, max_dist, stream
+    "mc_localmap_epilogue": [P] * 10 + [I] * 3 + [F, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

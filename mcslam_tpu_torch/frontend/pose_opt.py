@@ -32,19 +32,14 @@ def optimize_pose(T_init: torch.Tensor, X_world: torch.Tensor,
     per-observation cam_T_ref (M, 4, 4) and fxycxy (M, 4). `iters` is a
     per-round schedule tuple or an int repeated `rounds` times."""
     single = T_init.ndim == 2
-    T0 = T_init[None] if single else T_init
-    m = mask[None] if mask.ndim == 1 else mask
     if sigma2 is None:
         sigma2 = torch.ones(X_world.shape[0], dtype=torch.float32,
                             device=X_world.device)
-    inv_sig2 = 1.0 / sigma2
-    sched = iters if isinstance(iters, tuple) else (iters,) * rounds
-    data = pose_opt_cuda._pack_obs(X_world, uv, cam_T_ref, fxycxy, inv_sig2)
-    T, chi2 = pose_opt_cuda.pose_lm(
-        T0.to(torch.float32).contiguous(), data,
-        m.to(torch.float32).contiguous(), sched, huber_px=huber_px,
-        chi2_thresh=chi2_thresh, lm_lambda=lm_lambda,
-    )
+    data = pose_opt_cuda._pack_obs(X_world, uv, cam_T_ref, fxycxy,
+                                   1.0 / sigma2)
+    T, chi2 = refine_packed(T_init, data, mask, iters, rounds, huber_px,
+                            chi2_thresh, lm_lambda)
+    m = mask[None] if mask.ndim == 1 else mask
     inl = m.bool() & (chi2 < chi2_thresh)
     res = PoseOptResult(
         world_T_ref=T,
@@ -56,3 +51,23 @@ def optimize_pose(T_init: torch.Tensor, X_world: torch.Tensor,
     if single:
         res = PoseOptResult(*(x[0] for x in res))
     return res
+
+
+def refine_packed(T_init: torch.Tensor, data: torch.Tensor,
+                  mask: torch.Tensor, iters: int | tuple = 8,
+                  rounds: int = 2, huber_px: float = 2.5,
+                  chi2_thresh: float = CHI2_2DOF,
+                  lm_lambda: float = 1e-3):
+    """optimize_pose on observation rows already packed as pose_lm reads
+    them (data (22, M), pose_opt_cuda._pack_obs' layout, 1 / sigma^2
+    included; the tracking step's epilogue kernels write them): T_init (4,
+    4) or (B, 4, 4), mask (M,) or (B, M), bool or float 0/1 -> pose_lm's
+    (T (B, 4, 4), chi2 (B, M)), B = 1 for a single pose."""
+    T0 = T_init[None] if T_init.ndim == 2 else T_init
+    m = mask[None] if mask.ndim == 1 else mask
+    sched = iters if isinstance(iters, tuple) else (iters,) * rounds
+    return pose_opt_cuda.pose_lm(
+        T0.to(torch.float32).contiguous(), data,
+        m.to(torch.float32).contiguous(), sched, huber_px=huber_px,
+        chi2_thresh=chi2_thresh, lm_lambda=lm_lambda,
+    )

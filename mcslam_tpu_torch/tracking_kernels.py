@@ -33,12 +33,13 @@ import functools
 import numpy as np
 import torch
 
-from mcslam_tpu_torch.frontend import pose_opt, ransac, ransac_cuda
-from mcslam_tpu_torch.geometry import lie, triangulation
+from mcslam_tpu_torch.frontend import (pose_opt, ransac, ransac_cuda,
+                                      track_cuda)
+from mcslam_tpu_torch.geometry import triangulation
 from mcslam_tpu_torch.ops import hamming, match as match_ops, match_cuda, orb
 from mcslam_tpu_torch.utils import graphs
 
-_GATE_BIG = 1e12
+_GATE_BIG = track_cuda.GATE_BIG
 LM_SCHED = (8, 8)  # per-round LM schedule of every refine on this path
 
 
@@ -79,26 +80,10 @@ def _gate_factors(uv, anchor, proj, penalize, row_invalid, col_invalid,
     anchored squared pixel distance plus validity biases:
         d2_eff = d2_raw + 4*PB*row_invalid + 2*PB*col_invalid - PB*col_pass
     (PB = PASS_BIAS), so invalid rows/columns always fail the gate and
-    pass-always columns always pass."""
-    C = proj.shape[0]
-    M, N = uv.shape[0], proj.shape[1]
-    f32 = torch.float32
-    oh = _one_hot(anchor, C, f32)
-    P2 = torch.sum(proj * proj, dim=-1) + _GATE_BIG * penalize.to(f32)
-    A = (oh[:, :, None] * uv[:, None, :]).reshape(M, 2 * C)
-    B = proj.permute(0, 2, 1).reshape(2 * C, N)
-    u2 = torch.sum(uv * uv, dim=-1)
-    PB = match_cuda.PASS_BIAS
-    r_bias = 2.0 * PB * col_invalid.to(f32)
-    if col_pass is not None:
-        r_bias = r_bias - PB * col_pass.to(f32)
-    ones_m = torch.ones(M, 1, dtype=f32, device=uv.device)
-    ones_n = torch.ones(1, N, dtype=f32, device=uv.device)
-    ahat = torch.cat(
-        [-2.0 * A, oh, (u2 + 4.0 * PB * row_invalid.to(f32))[:, None],
-         ones_m], dim=1)
-    bhat = torch.cat([B, P2, ones_n, r_bias[None, :]], dim=0)
-    return ahat.contiguous(), bhat.contiguous()
+    pass-always columns always pass. proj (C, N, 2)."""
+    return track_cuda.gate_rows(uv, anchor, row_invalid, proj[..., 0],
+                                proj[..., 1], penalize, col_invalid,
+                                col_pass)
 
 
 def _track_core(gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2,
@@ -106,109 +91,83 @@ def _track_core(gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2,
                 map_pos, map_valid, cam_T_ref_all, fxycxy_all, pred_T_wr,
                 num_hyp: int, px: float, max_dist: int, ratio: float,
                 gate_px: float, fastpath_frac: float = 0.95,
-                fastpath_min: int = 100, branch: str = "host"):
+                fastpath_min: int = 100, branch: str = "host", *, out):
     """Inter-frame tracking: projection-gated mutual match (prev features
     with a landmark only match current features within gate_px of the
     landmark's projection under pred_T_wr) -> landmark lookup in the map
     mirror -> the motion candidate refined up front; when it explains
     >= fastpath_frac of the landmark matches (and >= fastpath_min) the
     Kabsch/PnP RANSAC portfolio is skipped (`branch`: "host" or "device",
-    see the module docstring) -> (packed, pose)."""
+    see the module docstring). The match's prologue and epilogue are the
+    track_gate and track_epilogue kernels (frontend/track_cuda). Writes
+    the packed section [pose (16), n_uniform, n_matches, n_with_lm, rr_ok,
+    fastpath, ok (M), match idx (M), lm id (M)] into `out` -> (pose, the
+    epilogue's TrackObs)."""
     if gate_px <= 0.0:
         raise ValueError("_track_core: the port implements the projection-"
                          "gated matcher only (gate_px > 0)")
-    dev = cur_desc.device
-    safe_prev = torch.clamp(prev_lm_id, min=0).long()
-    prev_has = (prev_lm_id >= 0) & map_valid[safe_prev]
-    Xp = map_pos[safe_prev]
-    cam_T_w = cam_T_ref_all @ lie.se3_inverse(pred_T_wr)
-    pc = torch.einsum("cij,mj->cmi", cam_T_w[:, :3, :3], Xp) \
-        + cam_T_w[:, None, :3, 3]
-    z = pc[..., 2]
-    uvp = torch.clamp(
-        pc[..., :2] / torch.clamp(z[..., None], min=1e-6)
-        * fxycxy_all[:, None, :2] + fxycxy_all[:, None, 2:], -1e5, 1e5)
-    pen = z <= 0.05
-    ahat, bhat = _gate_factors(cur_uv, cur_anchor, uvp, pen, ~cur_valid,
-                               ~prev_valid, col_pass=~prev_has)
+    if branch not in ("host", "device"):
+        raise ValueError(f"_track_core: branch must be 'host' or 'device', "
+                         f"got {branch!r}")
+    M = cur_desc.shape[0]
+    ahat, bhat = track_cuda.track_gate(
+        cur_uv, cur_anchor, cur_valid, prev_lm_id, prev_valid, map_pos,
+        map_valid, cam_T_ref_all, fxycxy_all, pred_T_wr)
     best, second, idx, col_idx = match_cuda.hamming_argmin2(
         cur_desc, prev_desc, ahat, bhat, gate_px * gate_px, want_cols=True)
-    rows = torch.arange(cur_desc.shape[0], dtype=torch.int32, device=dev)
-    ok = ((col_idx[idx.long()] == rows) & (best <= max_dist)
-          & (best <= ratio * second) & cur_valid)
-    res = match_ops.MatchResult(idx=idx, dist=best.to(torch.int32), ok=ok)
+    obs = track_cuda.track_epilogue(
+        best, second, idx, col_idx, cur_valid, cur_has_depth, cur_uv,
+        cur_anchor, cur_sigma2, prev_lm_id, map_valid, map_pos,
+        cam_T_ref_all, fxycxy_all, max_dist, ratio, out)
+    X_world, cTr, f = obs.X_world, obs.cam_T_ref, obs.fxycxy
 
-    lm = torch.where(res.ok, prev_lm_id[res.idx.long()],
-                     torch.full_like(prev_lm_id, -1))
-    safe = torch.clamp(lm, min=0).long()
-    with_lm = (lm >= 0) & map_valid[safe]
-    lm = torch.where(with_lm, lm, torch.full_like(lm, -1))
-    X_world = map_pos[safe]
-    cTr = cam_T_ref_all[cur_anchor.long()]
-    f = fxycxy_all[cur_anchor.long()]
-    mask3d = with_lm & cur_has_depth
-
-    ref_pred = pose_opt.optimize_pose(
-        pred_T_wr, X_world, cur_uv, cTr, f, with_lm, sigma2=cur_sigma2,
-        iters=LM_SCHED)
-    score_pred = ransac_cuda.score(
-        ref_pred.world_T_ref[None], X_world, cur_uv, cTr, f, with_lm, px)[0][0]
-    n_with = torch.sum(with_lm)
-    strong_t = (score_pred >= fastpath_min) & (
-        score_pred.to(torch.float32) >= fastpath_frac * n_with.to(torch.float32))
-    fast = (ref_pred.world_T_ref, score_pred.to(torch.int32))
+    T_pred = pose_opt.refine_packed(pred_T_wr, obs.rows, obs.with_f,
+                                    LM_SCHED)[0]
+    n_pred = ransac_cuda.score(T_pred, X_world, cur_uv, cTr, f, obs.with_lm,
+                               px)[3]
+    T_pred = T_pred[0]
+    # out[18]: the epilogue's count of matches with a landmark
+    strong_t = (n_pred >= fastpath_min) & (
+        n_pred.to(torch.float32) >= fastpath_frac * out[18])
+    fast = (T_pred, n_pred)
     n_pnp = max(num_hyp // 2, 64)
+
+    def draws():
+        return (ransac._sample_idx(gen, num_hyp, 3, M, obs.mask3d_f),
+                ransac._sample_idx(gen, n_pnp, 6, M, obs.with_f))
+
+    args = (T_pred, cur_p3d, X_world, cur_uv, cTr, f, obs.mask3d,
+            obs.with_lm, obs.rows)
     if branch == "host":
         if bool(strong_t.item()):  # the one host sync of the frame
             T_best, n_uniform = fast
         else:
-            T_best, n_uniform = _portfolio(
-                px, ref_pred.world_T_ref, cur_p3d, X_world, cur_uv, cTr, f,
-                mask3d, with_lm, cur_sigma2,
-                ransac._sample_idx(gen, num_hyp, 3, X_world.shape[0],
-                                   mask3d.float()),
-                ransac._sample_idx(gen, n_pnp, 6, X_world.shape[0],
-                                   with_lm.float()))
-    elif branch == "device":
-        idx_kab = ransac._sample_idx(gen, num_hyp, 3, X_world.shape[0],
-                                     mask3d.float())
-        idx_pnp = ransac._sample_idx(gen, n_pnp, 6, X_world.shape[0],
-                                     with_lm.float())
-        T_best, n_uniform = graphs.cond(
-            ~strong_t, functools.partial(_portfolio, px),
-            (ref_pred.world_T_ref, cur_p3d, X_world, cur_uv, cTr, f, mask3d,
-             with_lm, cur_sigma2, idx_kab, idx_pnp), fast)
+            T_best, n_uniform = _portfolio(px, *args, *draws())
     else:
-        raise ValueError(f"_track_core: branch must be 'host' or 'device', "
-                         f"got {branch!r}")
-    rr_ok = n_uniform >= 10
-    header = torch.stack([
-        n_uniform.to(torch.float32), torch.sum(res.ok).to(torch.float32),
-        torch.sum(with_lm).to(torch.float32), rr_ok.to(torch.float32),
-        strong_t.to(torch.float32),
-    ])
-    packed = torch.cat([
-        T_best.reshape(16), header, res.ok.to(torch.float32),
-        res.idx.to(torch.float32), lm.to(torch.float32),
-    ])
-    return packed, T_best
+        T_best, n_uniform = graphs.cond(
+            ~strong_t, functools.partial(_portfolio, px), (*args, *draws()),
+            fast)
+    out[:16] = T_best.reshape(16)
+    out[16] = n_uniform
+    out[19] = n_uniform >= 10
+    out[20] = strong_t
+    return T_best, obs
 
 
 def _portfolio(px: float, T_pred, cur_p3d, X_world, cur_uv, cTr, f, mask3d,
-               with_lm, cur_sigma2, idx_kab, idx_pnp):
+               with_lm, rows, idx_kab, idx_pnp):
     """The pose-candidate portfolio of a frame off the fast path: Kabsch
-    and PnP RANSAC on the given samples, both refined, scored with the
-    refined motion candidate T_pred -> (best pose, its inlier count as
-    int32)."""
+    and PnP RANSAC on the given samples, both refined (on the epilogue's
+    pose_lm rows), scored with the refined motion candidate T_pred ->
+    (best pose, its inlier count as int32)."""
     rr_kab = ransac.ransac_kabsch(None, cur_p3d, X_world, cur_uv, cTr, f,
                                   mask3d, px_thresh=px, idx=idx_kab)
     rr_pnp = ransac.ransac_pnp(None, X_world, cur_uv, cTr, f, with_lm,
                                px_thresh=px, idx=idx_pnp)
     inits = torch.stack([rr_kab.world_T_ref, rr_pnp.world_T_ref])
     masks = torch.stack([with_lm & rr_kab.inliers, with_lm & rr_pnp.inliers])
-    refs = pose_opt.optimize_pose(inits, X_world, cur_uv, cTr, f, masks,
-                                  sigma2=cur_sigma2, iters=LM_SCHED)
-    cand_T = torch.cat([T_pred[None], refs.world_T_ref])
+    T_refs = pose_opt.refine_packed(inits, rows, masks, LM_SCHED)[0]
+    cand_T = torch.cat([T_pred[None], T_refs])
     _, _, T_best, n_best, _ = ransac_cuda.score(cand_T, X_world, cur_uv, cTr,
                                                 f, with_lm, px)
     return T_best, n_best
@@ -220,28 +179,15 @@ def _project_and_match_local(T_wr, lm_pos, lm_desc, lm_valid, im_desc, im_uv,
                              min_view_cos: float = 0.5):
     """Project candidate landmarks into the rig and match current
     features one way, gated by frustum, pixel radius and the viewing-
-    normal cone."""
-    rTw = lie.se3_inverse(T_wr)
-    p_ref = lie.se3_apply(rTw, lm_pos)
-    p_cam = lie.se3_apply(cam_T_ref[None], p_ref[:, None])  # (L, C, 3)
-    z = p_cam[..., 2]
-    zs = torch.where(z > 0.05, z, torch.ones_like(z))
-    proj = p_cam[..., :2] / zs[..., None] * fxycxy[None, :, :2] \
-        + fxycxy[None, :, 2:]
-    w, h = image_wh
-    vis = ((z > 0.05) & (proj[..., 0] >= 0) & (proj[..., 0] < w)
-           & (proj[..., 1] >= 0) & (proj[..., 1] < h))
-    if lm_normal is not None:
-        view = lm_pos - T_wr[:3, 3][None]
-        view = view / torch.clamp(
-            torch.linalg.vector_norm(view, dim=-1, keepdim=True), min=1e-9)
-        has_n = torch.linalg.vector_norm(lm_normal, dim=-1) > 1e-6
-        cosv = torch.sum(view * lm_normal, dim=-1)
-        vis = vis & ((cosv > min_view_cos) | ~has_n)[:, None]
-    proj_c = torch.clamp(proj.permute(1, 0, 2), -1e5, 1e5)
-    pen = ~vis.T
-    ahat, bhat = _gate_factors(im_uv, im_anchor, proj_c, pen, ~im_valid,
-                               ~lm_valid)
+    normal cone (none without lm_normal): the localmap_gate kernel over
+    the landmarks as they are given (frontend/track_cuda), then the
+    gated matcher."""
+    L = lm_pos.shape[0]
+    ids = torch.arange(L, dtype=torch.int32, device=lm_pos.device)
+    normal = torch.zeros_like(lm_pos) if lm_normal is None else lm_normal
+    _, ahat, bhat = track_cuda.localmap_gate(
+        T_wr, ids, lm_valid, lm_pos, lm_desc, normal, im_uv, im_anchor,
+        im_valid, cam_T_ref, fxycxy, image_wh, min_view_cos)
     best, second, idx, _ = match_cuda.hamming_argmin2(
         im_desc, lm_desc, ahat, bhat, radius * radius, want_cols=False)
     ok = (best <= max_dist) & (best <= second) & im_valid
@@ -249,25 +195,27 @@ def _project_and_match_local(T_wr, lm_pos, lm_desc, lm_valid, im_desc, im_uv,
 
 
 def _localmap_core(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
-                   im_desc, im_uv, im_anchor, im_valid, im_sigma2, cam_T_ref,
-                   fxycxy, image_wh, radius: float, max_dist: int):
-    """Local-map tracking: gather the candidate landmarks from the map
-    mirror, projection-gated matching, pose refine -> packed
-    [pose (16), lm id (M), inliers (M)]."""
-    ids = cand_ids.long()
-    res = _project_and_match_local(
-        T_wr, map_pos[ids], map_desc[ids], cand_valid, im_desc, im_uv,
-        im_anchor, im_valid, cam_T_ref, fxycxy, image_wh, radius, max_dist,
-        lm_normal=map_normal[ids])
-    lm = torch.where(res.ok, cand_ids[res.idx.long()],
-                     torch.full_like(res.idx, -1))
-    X_world = map_pos[torch.clamp(lm, min=0).long()]
-    ref = pose_opt.optimize_pose(
-        T_wr, X_world, im_uv, cam_T_ref[im_anchor.long()],
-        fxycxy[im_anchor.long()], lm >= 0, sigma2=im_sigma2, iters=LM_SCHED)
-    lm_out = torch.where(ref.inliers, lm, torch.full_like(lm, -1))
-    return torch.cat([ref.world_T_ref.reshape(16), lm_out.to(torch.float32),
-                      ref.inliers.to(torch.float32)])
+                   im_desc, im_uv, im_anchor, im_valid, obs_rows, cam_T_ref,
+                   fxycxy, image_wh, radius: float, max_dist: int, *, out):
+    """Local-map tracking: the candidates gathered from the map mirror,
+    projected and gated (localmap_gate), matched, then the epilogue
+    (localmap_epilogue: the landmark ids and pose_lm's rows, reusing rows
+    3-21 of the inter-frame match's obs_rows: the same features) and the
+    pose refine -> packed [pose (16), lm id (M), inliers (M)], written into
+    `out`."""
+    M = im_desc.shape[0]
+    lm_desc, ahat, bhat = track_cuda.localmap_gate(
+        T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal, im_uv,
+        im_anchor, im_valid, cam_T_ref, fxycxy, image_wh)
+    best, second, idx, _ = match_cuda.hamming_argmin2(
+        im_desc, lm_desc, ahat, bhat, radius * radius, want_cols=False)
+    rows, mask, lm = track_cuda.localmap_epilogue(
+        best, second, idx, im_valid, cand_ids, map_pos, obs_rows, max_dist)
+    T, chi2 = pose_opt.refine_packed(T_wr, rows, mask, LM_SCHED)
+    inl = (chi2[0] < pose_opt.CHI2_2DOF) & (lm >= 0)
+    out[:16] = T.reshape(16)
+    out[16:16 + M] = torch.where(inl, lm, -1)
+    out[16 + M:] = inl
 
 
 def _track_and_map_step(gen, cur_desc, cur_valid, cur_uv, cur_anchor,
@@ -279,18 +227,24 @@ def _track_and_map_step(gen, cur_desc, cur_valid, cur_uv, cur_anchor,
                         lm_radius: float = 15.0, lm_max_dist: int = 64,
                         gate_px: float = 0.0, fastpath_frac: float = 0.95,
                         fastpath_min: int = 100, branch: str = "host"):
-    """Inter-frame tracking + local-map tracking with one packed output;
-    the local-map half consumes the tracking pose."""
-    track_packed, pose = _track_core(
+    """Inter-frame tracking + local-map tracking with one packed output,
+    which both halves write in place; the local-map half consumes the
+    tracking pose and the tracking's pose_lm rows."""
+    M = cur_desc.shape[0]
+    head = track_cuda.HEAD + 3 * M
+    packed = torch.empty(head + 16 + 2 * M, dtype=torch.float32,
+                         device=cur_desc.device)
+    pose, obs = _track_core(
         gen, cur_desc, cur_valid, cur_uv, cur_anchor, cur_sigma2, cur_p3d,
         cur_has_depth, prev_desc, prev_valid, prev_lm_id, map_pos,
         map_valid, cam_T_ref_all, fxycxy_all, pred_T_wr, num_hyp, px,
-        max_dist, ratio, gate_px, fastpath_frac, fastpath_min, branch)
-    lm_packed = _localmap_core(
+        max_dist, ratio, gate_px, fastpath_frac, fastpath_min, branch,
+        out=packed[:head])
+    _localmap_core(
         pose, cand_ids, cand_valid, map_pos, map_desc, map_normal, cur_desc,
-        cur_uv, cur_anchor, cur_valid, cur_sigma2, cam_T_ref_all, fxycxy_all,
-        image_wh, lm_radius, lm_max_dist)
-    return torch.cat([track_packed, lm_packed])
+        cur_uv, cur_anchor, cur_valid, obs.rows, cam_T_ref_all, fxycxy_all,
+        image_wh, lm_radius, lm_max_dist, out=packed[head:])
+    return packed
 
 
 def _build_and_track_step(gen, imgs, rig, prev_desc, prev_valid, prev_lm_id,

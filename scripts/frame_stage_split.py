@@ -16,8 +16,25 @@ call on its recorded inputs and what the five leave over is printed; in
 a tree without those kernels the selection is what the extraction's
 time and ops leave after the other four parts. Each line gives the
 device time and the count of device ops of one call (torch.profiler,
-chip_smoke's device_profile). Run from the repository's root on a
-machine with a card and nvcc:
+chip_smoke's device_profile).
+
+Then the tracking half of the eager fast-path frame: frame 1's
+`_track_and_map_step` (frame 0's map, the identity prediction, the
+production fastpath_frac, the host branch, as chip_smoke phase 14's eager
+frame) on the inputs the build hands it, whole and in parts, each part
+one call on the inputs the half gave it: the two gates (track_gate,
+localmap_gate of frontend/track_cuda; in a tree without those kernels
+the two `_gate_factors` calls, the only function of the prologues), the
+two matches (hamming_argmin2), the two epilogues (track_epilogue,
+localmap_epilogue; none in a tree without them), the two pose_lm calls,
+the fast path's score (ransac_cuda.score at K = 1), the draws (the two
+`ransac._sample_idx` calls of the graphed frame, K = 512 x 3 and 256 x
+6, on the inlier mask as float weights; the eager fast path makes none),
+and the pack: what the half leaves after its parts (the fast-path test,
+the packing; in a tree without the glue kernels also the projections,
+the epilogues and the gathers). To split the parent tree too, copy this
+script into its scripts/ and run it there. Run from the repository's
+root on a machine with a card and nvcc:
 
     python3 scripts/frame_stage_split.py [--limit SECONDS]
 
@@ -175,6 +192,109 @@ def stage_split(scene, smi):
           f"above) ({smi})")
 
 
+def track_split(scene, smi):
+    """Print the device time and device ops of frame 1's tracking half,
+    whole and in parts (module docstring)."""
+    import chip_smoke as cs
+    import torch
+
+    from mcslam_tpu_torch import tracking_kernels as tk
+    from mcslam_tpu_torch.frontend import pose_opt_cuda, ransac, ransac_cuda
+    from mcslam_tpu_torch.frontend import frame
+    from mcslam_tpu_torch.ops import match_cuda
+
+    try:
+        from mcslam_tpu_torch.frontend import track_cuda
+    except ImportError:  # a tree before the tracking glue kernels
+        track_cuda = None
+    dev = scene.dev
+    ff0 = frame.build_frame(scene.imgs[0], scene.rig, **scene.frame_kwargs())
+    mapstate, _ = cs.seed_map(ff0, dev)
+    eye = torch.eye(4, device=dev)
+
+    def step():
+        return tk._build_and_track_step(
+            torch.Generator(device=dev).manual_seed(0), scene.imgs[1],
+            scene.rig, ff0.im_desc, ff0.im_valid, *mapstate, eye,
+            **scene.step_kwargs(cs.FASTPATH_FRAC))
+
+    step()
+    half = cs.capture_calls(step, {"half": (tk, "_track_and_map_step")})
+    ha, hkw = half["half"]
+    gen = ha[0]
+
+    def whole():
+        gen.manual_seed(0)
+        return tk._track_and_map_step(*ha, **hkw)
+
+    targets = {"match": (match_cuda, "hamming_argmin2"),
+               "pose_lm": (pose_opt_cuda, "pose_lm"),
+               "score": (ransac_cuda, "score")}
+    if track_cuda is not None:
+        targets.update({n: (track_cuda, n) for n in (
+            "track_gate", "localmap_gate", "track_epilogue",
+            "localmap_epilogue")})
+    else:
+        targets["gate_factors"] = (tk, "_gate_factors")
+    seen = cs.capture_all(whole, targets)
+
+    def calls(name, fn):
+        return [lambda a=a, kw=kw: fn(*a, **kw) for a, kw in seen[name]]
+
+    def both(fns):
+        def run():
+            for f in fns:
+                f()
+        return run
+
+    mask = seen["score"][0][0][5].to(torch.float32)
+    M = mask.shape[0]
+    num_hyp = cs.STEP["num_hyp"]
+
+    def draws():
+        return (ransac._sample_idx(gen, num_hyp, 3, M, mask),
+                ransac._sample_idx(gen, max(num_hyp // 2, 64), 6, M, mask))
+
+    if track_cuda is not None:
+        parts = [("the two gates (track_gate, localmap_gate)",
+                  both(calls("track_gate", track_cuda.track_gate)
+                       + calls("localmap_gate", track_cuda.localmap_gate))),
+                 ("the two epilogues (track_epilogue, localmap_epilogue)",
+                  both(calls("track_epilogue", track_cuda.track_epilogue)
+                       + calls("localmap_epilogue",
+                               track_cuda.localmap_epilogue)))]
+    else:
+        parts = [("the two gates' _gate_factors",
+                  both(calls("gate_factors", tk._gate_factors)))]
+    parts += [("the two matches (hamming_argmin2)",
+               both(calls("match", match_cuda.hamming_argmin2))),
+              ("the two pose_lm calls",
+               both(calls("pose_lm", pose_opt_cuda.pose_lm))),
+              ("the score (ransac_score, K = 1)",
+               both(calls("score", ransac_cuda.score)))]
+    done_ms = done_ops = 0.0
+    for name, fn in parts:
+        dev_ms, n_ops, _ = cs.device_profile(fn)
+        done_ms += dev_ms
+        done_ops += n_ops
+        print(f"# track split, {name}: {dev_ms:.4f} ms device time in "
+              f"{n_ops:.0f} device ops ({smi})")
+    dev_ms, n_ops, _ = cs.device_profile(draws)
+    print(f"# track split, the draws (two ransac._sample_idx, on the graphed "
+          f"frame only): {dev_ms:.4f} ms device time in {n_ops:.0f} device "
+          f"ops ({smi})")
+    dev_ms, n_ops, _ = cs.device_profile(whole)
+    rest = ("the fast-path test and the packing" if track_cuda is not None
+            else "the projections, the epilogues, the gathers, the "
+            "fast-path test and the packing")
+    print(f"# track split, the pack and the rest ({rest}): "
+          f"{dev_ms - done_ms:.4f} ms device time in {n_ops - done_ops:.0f} "
+          f"device ops (the half's less the parts above) ({smi})")
+    print(f"# track split, the tracking half of the eager fast-path frame "
+          f"(_track_and_map_step, host branch): {dev_ms:.4f} ms device time "
+          f"in {n_ops:.0f} device ops ({smi})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--limit", type=float, default=600.0)
@@ -193,7 +313,9 @@ def main() -> int:
     smi = cs.nvidia_smi_line()
     print(f"# {torch.cuda.get_device_name(0)} ({smi}), torch "
           f"{torch.__version__}")
-    stage_split(cs.Scene(dev, frames=2), smi)
+    scene = cs.Scene(dev, frames=2)
+    stage_split(scene, smi)
+    track_split(scene, smi)
     alive = [f"{t.name}{' (daemon)' if t.daemon else ''}"
              for t in threading.enumerate()]
     print(f"# frame_stage_split: done; threads alive: {', '.join(alive)}",

@@ -1,7 +1,9 @@
 """Memory and determinism guard of the frame build's kernels tri_refine
 (csrc/tri_refine.cu), intra_pairs (csrc/intra_match.cu), the ORB
-extraction's orb_pyramid, orb_select and orb_describe (csrc/orb_*.cu)
-and the tracking's pose_lm (csrc/pose_lm.cu), on one CUDA card.
+extraction's orb_pyramid, orb_select and orb_describe (csrc/orb_*.cu),
+the tracking's pose_lm (csrc/pose_lm.cu) and its glue (track_gate,
+track_epilogue, localmap_gate, localmap_epilogue: csrc/track_glue.cu),
+on one CUDA card.
 
 Runs each kernel at chip_smoke.py phase 2's shapes: tri_refine at bench
 frame 0's M = 2048 groups of R = 4 rays (the pose table expanded, as the
@@ -19,12 +21,18 @@ kabsch_hyp, pnp_hyp) at the calls of bench frame 1's step with its
 portfolio forced (the score at K = 1, 512, 256 and 3, also through a
 captured CUDA graph) and at random problems (K = 257, M = 37; the score
 at K = 1 and 512, M = 2048, and at K = 3, 33 and 513, M = 2049, which end
-one past a tile). Every buffer a wrapper allocates (its outputs and its
+one past a tile); the tracking glue's four kernels at the calls of bench
+frame 1's fast-path step (not --quick; track_epilogue also through a
+captured CUDA graph) and at random problems (C = 4, M = N = 2048, L =
+4096, through graph replays with --quick; C = 3, M = 2049, N = 2047, L =
+4097; C = 1, M = 37, N = 33, L = 45), track_epilogue's packed vector a
+buffer of its own. Every buffer a wrapper allocates (its outputs and its
 scratch, ransac_score's bit rows too) is placed inside a slab of canary
 bytes, PAD bytes on each side, the canary alternating from launch to
 launch (fixed in a graph, whose capture holds the slabs' filling), and
-so are intra_pairs', orb_select's and ransac_score's per-device buffers
-of arrival counters (ransac_score's K count accumulators with them).
+so are intra_pairs', orb_select's, ransac_score's and track_epilogue's
+per-device buffers of arrival counters (ransac_score's K count
+accumulators and track_epilogue's two counts with them).
 After every launch it checks that no canary byte changed (a write out
 of bounds), that the counters are back at zero, that no input changed
 (a write into an input), and that the outputs equal the first launch's
@@ -109,7 +117,8 @@ def guarded_counters(fn, dev, canary: int, found: list, args=()):
                    orb_cuda.orb_select: ("orb_select",
                                          orb_cuda.SELECT_CAMERAS),
                    ransac_cuda.score: ("ransac_score",
-                                       args[0].shape[0] + 1 if args else 1)
+                                       args[0].shape[0] + 1 if args else 1),
+                   track_epilogue: ("track_epilogue", 3)
                    }.get(fn, (None, 0))
     if name is None:
         yield
@@ -381,7 +390,73 @@ def cases(quick: bool, dev):
         out.append(("intra_pairs C=4 N=768 (random, graph replays)", intra,
                     out[-4][2], ik, intra_plain, True))
     return (out + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
-            + ransac_cases(quick, dev, rng))
+            + ransac_cases(quick, dev, rng) + track_cases(quick, dev, rng))
+
+
+def track_epilogue(*args, **kw):
+    """track_epilogue into a packed vector of its own (a guarded buffer):
+    its outputs and the packed slots it writes."""
+    import chip_smoke as cs
+    from mcslam_tpu_torch.frontend import track_cuda
+
+    return cs.track_outputs("track_epilogue", track_cuda.track_epilogue,
+                            args, kw)
+
+
+def track_epilogue_reference(*args, **kw):
+    import chip_smoke as cs
+    from mcslam_tpu_torch.frontend import track_cuda
+
+    return cs.track_outputs("track_epilogue",
+                            track_cuda.track_epilogue_reference, args, kw)
+
+
+def track_cases(quick: bool, dev, rng):
+    """The tracking glue's kernels: the calls of bench frame 1's fast-path
+    step (not --quick) and random ones; held to their plain versions bit
+    for bit."""
+    import torch
+
+    import chip_smoke as cs
+    from mcslam_tpu_torch import tracking_kernels as tk
+    from mcslam_tpu_torch.frontend import frame, track_cuda
+
+    def kernel(n):
+        if n == "track_epilogue":
+            return track_epilogue, track_epilogue_reference
+        return (getattr(track_cuda, n),
+                getattr(track_cuda, f"{n}_reference"))
+
+    out = []
+    if not quick:
+        scene = cs.Scene(dev, frames=2)
+        ff0 = frame.build_frame(scene.imgs[0], scene.rig,
+                                **scene.frame_kwargs())
+        mapstate, _ = cs.seed_map(ff0, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        seen = cs.capture_calls(lambda: tk._build_and_track_step(
+            gen, scene.imgs[1], scene.rig, ff0.im_desc, ff0.im_valid,
+            *mapstate, torch.eye(4, device=dev),
+            **scene.step_kwargs(cs.FASTPATH_FRAC)),
+            {n: (track_cuda, n) for n in cs.TRACK_KERNELS})
+        for n in cs.TRACK_KERNELS:
+            a, kw = seen[n]
+            out.append((f"{n} (bench frame 1)", *kernel(n), a, kw, False))
+        a, kw = seen["track_epilogue"]
+        out.append(("track_epilogue (bench frame 1, graph replays)",
+                    *kernel("track_epilogue"), a, kw, True))
+    for C, M, N, L in ((4, 2048, 2048, 4096), (3, 2049, 2047, 4097),
+                       (1, 37, 33, 45)):
+        calls = cs.track_calls(cs.track_problem(rng, C, M, N, L, 4096, dev))
+        for n in cs.TRACK_KERNELS:
+            a, kw = calls[n]
+            out.append((f"{n} C={C} M={M} N={N} L={L} (random)", *kernel(n),
+                        a, kw, False))
+            if quick and M == 2048:
+                out.append((f"{n} C={C} M={M} N={N} L={L} (random, graph "
+                            f"replays)", *kernel(n), a, kw, True))
+    return [(name, fn, a, kw, plain, graphed)
+            for name, fn, plain, a, kw, graphed in out]
 
 
 def ransac_problem(rng, M, dev):

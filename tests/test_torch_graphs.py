@@ -309,9 +309,10 @@ def test_replay_launch_accounting(monkeypatch):
 def test_trace_counts_each_wrapper_once():
     """chip_smoke counts a replay's launches in the device trace: one
     event per wrapper call (hamming_argmin2 by its merge kernel,
-    intra_pairs, orb_pyramid (at the main path's shapes), orb_select and
-    the three RANSAC kernels by their one kernel; other kernels, copies
-    and the trace's sentinels count nothing)."""
+    intra_pairs, orb_pyramid (at the main path's shapes), orb_select, the
+    three RANSAC kernels and the four tracking glue kernels by their one
+    kernel; other kernels, copies and the trace's sentinels count
+    nothing)."""
     import types
 
     import chip_smoke
@@ -329,13 +330,18 @@ def test_trace_counts_each_wrapper_once():
         "(anonymous namespace)::ransac_score_kernel(float const*)",
         "(anonymous namespace)::kabsch_hyp_kernel(long long const*)",
         "(anonymous namespace)::pnp_hyp_kernel(long long const*)",
+        "(anonymous namespace)::track_gate_kernel(float const*)",
+        "(anonymous namespace)::track_epilogue_kernel(float const*)",
+        "(anonymous namespace)::localmap_gate_kernel(float const*)",
+        "(anonymous namespace)::localmap_epilogue_kernel(float const*)",
         "mc_set_cond_kernel", "Memcpy HtoD (Pinned -> Device)",
         "at::cuda::(anonymous namespace)::spin_kernel(long)")]
     assert chip_smoke.trace_counts(events) == dict(
         fast_select=2, patch_gather=1, orb_pyramid=1, orb_select=1,
         orb_describe=1, hamming_argmin2=1, pose_lm=1, ba_linearize=1,
         tri_refine=1, intra_pairs=1, ransac_score=1, kabsch_hyp=1,
-        pnp_hyp=1)
+        pnp_hyp=1, track_gate=1, track_epilogue=1, localmap_gate=1,
+        localmap_epilogue=1)
     assert chip_smoke.PATH == tuple(chip_smoke.TRACE_NAMES)
 
 
