@@ -8,18 +8,20 @@ Phases, each of which raises (non-zero exit) on failure:
      kernels' five, the graphs' branch, the SGM scan, tri_refine,
      intra_pairs, the ORB glue's orb_pyramid, orb_select and
      orb_describe, the RANSAC portfolio's ransac_score, kabsch_hyp
-     and pnp_hyp, and the tracking glue's track_gate, track_epilogue,
-     localmap_gate and localmap_epilogue; one nvcc per source, in
+     and pnp_hyp, the tracking glue's track_gate, track_epilogue,
+     localmap_gate and localmap_epilogue, and the intra match's glue
+     intra_gate, intra_groups and tri_gather; one nvcc per source, in
      parallel, sm_90a) and
      print the build time and ptxas' resource report, then registers,
      shared memory, stack and spills of the redesigned kernels (the pose
      LM's cluster kernel, the three FAST kernels, ba_linearize's cluster
      kernel, the oriented patch gather, the SGM tile kernel at D = 64,
      tri_refine at R = 2, 4 and 8, intra_pairs' one kernel, the ORB
-     glue's three kernels, the three RANSAC kernels and the four
-     tracking glue kernels must use no local memory and
-     spill nothing) and the cluster sizes of the pose LM (per candidate)
-     and of ba_linearize (per keyframe), each more than one CTA;
+     glue's three kernels, the three RANSAC kernels, the four
+     tracking glue kernels and the three intra glue kernels must use no
+     local memory and spill nothing) and the cluster sizes of the pose
+     LM (per candidate) and of ba_linearize (per keyframe), each more
+     than one CTA;
   2. kernels: call every kernel on the card at the shapes the 4-camera
      VGA frame and the window BA give it and hold it against its plain
      PyTorch version on the same inputs (stated tolerances), printing
@@ -41,7 +43,12 @@ Phases, each of which raises (non-zero exit) on failure:
      descriptors and Sampson gate (C = 4, N = 768) and at random C = 2, 3
      and 5 ones (bitwise equal to their plain versions and across two
      runs; the bench frame's call also captured in a CUDA graph and
-     replayed twice, its arrival counters back at zero after each); the
+     replayed twice, its arrival counters back at zero after each), and
+     the intra match's glue kernels (intra_gate, intra_groups,
+     tri_gather) at the bench frame's recorded calls and at random C = 2,
+     3 and 5 ones (N = 333, 129, 1000), each twice and against its plain
+     version, bitwise equal, the three bench calls also captured in one
+     CUDA graph and replayed twice; the
      ORB glue's kernels (orb_kernels) at bench frame 0's recorded inputs
      and at random shapes (the pyramid at 1 x 97 x 133 with 8 levels,
      C = 2, 3, 5 and 2 x 240 x 320 with 10 levels in two launches; the
@@ -78,10 +85,10 @@ Phases, each of which raises (non-zero exit) on failure:
      under the constant-velocity prediction - once with the production
      fast path and once with the portfolio forced (fastpath_frac=2.0).
      Every frame must pass the driver's acceptance gates and stay within
-     0.1 m / 0.02 rad of ground truth; each of the sixteen frame kernels'
-     launch counters (the four of the nine, the three ORB glue kernels,
-     tri_refine, intra_pairs, the three RANSAC kernels and the four
-     tracking glue kernels) must be > 0
+     0.1 m / 0.02 rad of ground truth; each of the nineteen frame
+     kernels' launch counters (the four of the nine, the three ORB glue
+     kernels, tri_refine, intra_pairs, the three intra glue kernels, the
+     three RANSAC kernels and the four tracking glue kernels) must be > 0
      after this phase (counters are reset right before it); the RANSAC
      kernels' launches of each drive are printed: the forced-portfolio
      drive scores 4 times and makes each hypothesis batch once per frame
@@ -288,8 +295,8 @@ Phases, each of which raises (non-zero exit) on failure:
      equal to the eager frame's; the fast-path frame's wall, device
      time, device ops and host-issued launches, graphed and eager, and
      the device time of the IF node's condition kernel beside its bytes
-     bound (COND_BYTES), and beside the frame before the tracking glue's
-     kernels (FRAME_BEFORE; the frame build's stages and the tracking
+     bound (COND_BYTES), and beside the frame before the intra match's
+     glue kernels (FRAME_BEFORE; the frame build's stages and the tracking
      half's parts apart: scripts/frame_stage_split.py); the stage C
      window solve warm and
      cold, eager and through the session's graphed solve
@@ -515,6 +522,12 @@ TRI_OPS = (80 + 5 * 100 + 30, 6 * 60)
 # key and its best / second (4), the column's key and minimum (2)
 INTRA_INT_OPS = 11
 TRI_INTRA = ("tri_refine", "intra_pairs")
+# the frame build's glue around them (frontend/intra_cuda): the Sampson
+# gate, the groups with their stable top-k, the triangulation's gathers
+INTRA_GLUE = ("intra_gate", "intra_groups", "tri_gather")
+# operations of the gate per (pair, row, column) cell (the dot t 4, t^2,
+# the denominator 2, the clamp, the division, the compare)
+GATE_OPS = 10
 # the ORB extraction's glue kernels (ops/orb_cuda.py), on the default route
 ORB_KERNELS = ("orb_pyramid", "orb_select", "orb_describe")
 # the RANSAC kernels (frontend/ransac_cuda.py): the score runs on every
@@ -525,10 +538,10 @@ PORTFOLIO = ("kabsch_hyp", "pnp_hyp")
 # gate prologues and epilogues, each once a frame
 TRACK_KERNELS = ("track_gate", "track_epilogue", "localmap_gate",
                  "localmap_epilogue")
-# the graphed fast-path frame before the tracking glue's kernels, its
+# the graphed fast-path frame before the intra match's glue kernels, its
 # device ops and device ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke
-# phase 14 on the tree before them, run 8 of PR 19)
-FRAME_BEFORE = (466, 1.117)
+# phase 14 on the tree before them)
+FRAME_BEFORE = (266, 0.760)
 # bytes the graphs' condition kernel moves: it reads the 1-byte predicate
 # and the 8-byte conditional handle and writes the 4-byte condition
 COND_BYTES = 1 + 8 + 4
@@ -679,7 +692,8 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "ransac_score_kernel": "ransac_score_kernel",
               "kabsch_hyp_kernel": "kabsch_hyp_kernel",
               "pnp_hyp_kernel": "pnp_hyp_kernel",
-              **{f"{n}_kernel": f"{n}_kernel" for n in TRACK_KERNELS}}
+              **{f"{n}_kernel": f"{n}_kernel" for n in TRACK_KERNELS},
+              **{f"{n}_kernel": f"{n}_kernel" for n in INTRA_GLUE}}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
@@ -688,7 +702,8 @@ NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "tri_refine_kernel<8>", "intra_pairs_kernel",
             "pyramid_tile_kernel", "orb_select_one_kernel",
             "orb_describe_kernel", "ransac_score_kernel", "kabsch_hyp_kernel",
-            "pnp_hyp_kernel", *(f"{n}_kernel" for n in TRACK_KERNELS))
+            "pnp_hyp_kernel", *(f"{n}_kernel" for n in TRACK_KERNELS),
+            *(f"{n}_kernel" for n in INTRA_GLUE))
 
 
 def ptxas_report(log: str, names: dict) -> dict:
@@ -1459,8 +1474,15 @@ def geometry_kernels(scene, rng, dev, kernels):
     from mcslam_tpu_torch.frontend import frame, intra_cuda
     from mcslam_tpu_torch.geometry import triangulation, triangulation_cuda
 
-    seen = capture_calls(lambda: frame.build_frame(
-        scene.imgs[0], scene.rig, **scene.frame_kwargs()))
+    seen = capture_all(lambda: frame.build_frame(
+        scene.imgs[0], scene.rig, **scene.frame_kwargs()),
+        {"tri_refine": (triangulation, "triangulate_and_refine"),
+         **{n: (intra_cuda, n) for n in ("intra_pairs", *INTRA_GLUE)}})
+    check(all(len(v) == 1 for v in seen.values()),
+          f"the frame build made {({k: len(v) for k, v in seen.items()})} "
+          f"calls, not one of each")
+    intra_glue_kernels(seen, rng, dev, kernels)
+    seen = {k: v[0] for k, v in seen.items()}
     a, kw = seen["tri_refine"]
     check(a[0].stride(0) == 0 and a[0].shape[1:] == (C, 4, 4),
           f"tri_refine: the frame's pose table is not an expand of C poses "
@@ -1571,6 +1593,149 @@ def geometry_kernels(scene, rng, dev, kernels):
         # the gate, descriptors and validity read once; parent written once
         nbytes=cells + C * N * (32 + 1) + C * N * 4,
         ops_s=pm1_ops_s(cells, 0, INTRA_INT_OPS * cells))
+
+
+def intra_glue_problem(rng, C, N, M, dev) -> dict:
+    """Random inputs of the three intra glue kernels: pixels over VGA (the
+    rig's pair constants for the gate); a parent table (each feature
+    itself or a random feature of a lower camera), validity, responses on
+    four levels (ties) and descriptors; ray_idx with holes (rows of 0, 1
+    and more rays), group validity and sigma2 = 1.2^octave."""
+    import torch
+
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.frontend import intra
+
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=C), device=dev)
+    pc = intra.pair_constants(rig)
+    xy = np.stack([rng.uniform(0, 640, (C, N)), rng.uniform(0, 480, (C, N))],
+                  -1).astype(np.float32)
+    parent = np.arange(C * N).reshape(C, N)
+    for c in range(1, C):
+        linked = rng.rand(N) < 0.6
+        parent[c, linked] = rng.randint(0, c * N, int(linked.sum()))
+    ray_idx = rng.randint(0, N, (M, C))
+    ray_idx[rng.rand(M, C) < 0.5] = -1
+    ray_idx[:3] = -1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    xy_t = t(xy)
+    return {
+        "intra_gate": (xy_t, rig.fxycxy, pc.E, pc.thr2),
+        "intra_groups": (t(parent.astype(np.int32)), t(rng.rand(C, N) < 0.85),
+                         t((rng.randint(0, 4, (C, N)) * 0.25).astype(
+                             np.float32)),
+                         t(rng.randint(-2**31, 2**31 - 1, (C, N, 8)).astype(
+                             np.int32)), M),
+        "tri_gather": (t(ray_idx.astype(np.int32)), t(rng.rand(M) < 0.8), xy_t,
+                       t((1.2 ** rng.randint(0, 8, (C, N))).astype(
+                           np.float32)))}
+
+
+def intra_glue_bytes_ops(name, args) -> tuple:
+    """(bytes each input read once and each output written once, float32
+    operations) of one call of an intra glue kernel."""
+    if name == "intra_gate":
+        C, N = args[0].shape[:2]
+        P = C * (C - 1) // 2
+        return (C * N * 8 + C * 16 + P * 36 + 4 + P * N * N,
+                GATE_OPS * P * N * N)
+    if name == "intra_groups":
+        C, N = args[1].shape
+        K, M = C * N, args[4]
+        Kp = 1 << max(K - 1, 1).bit_length()
+        lg = Kp.bit_length() - 1
+        # parent, valid, response, desc; ray_idx, desc, valid; the sort's
+        # compare-exchanges and the keys' few operations a feature
+        return (K * (4 + 1 + 4 + 32) + M * (4 * C + 32 + 1),
+                Kp // 2 * lg * (lg + 1) // 2 + 8 * K)
+    M, C = args[0].shape
+    N = args[2].shape[1]
+    # ray_idx, valid, pixels and sigma2; uv, sigma, mask, anchor, uv_ref,
+    # anchor sigma2, n_rays, multi & valid; a root per ray
+    return (M * C * 4 + M + C * N * 12 + M * C * 13 + M * 21, M * C)
+
+
+def intra_glue_kernels(seen, rng, dev, kernels):
+    """Phase 2, the intra match's glue kernels (frontend/intra_cuda:
+    intra_gate, intra_groups, tri_gather) at the bench frame's recorded
+    calls (C = 4, N = NPTS, M = MAXI) and at random odd shapes, each twice
+    and against its plain version on the card, bitwise equal; then the
+    three bench calls captured in one CUDA graph and replayed twice, equal
+    to the plain versions."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import intra_cuda
+
+    def outputs(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    bench = {n: seen[n][0] for n in INTRA_GLUE}
+    odd = [intra_glue_problem(rng, c, n, m, dev)
+           for c, n, m in ((2, 333, 500), (3, 129, 2048), (5, 1000, 2048))]
+    for n in INTRA_GLUE:
+        fn = getattr(intra_cuda, n)
+        plain = getattr(intra_cuda, f"{n}_reference")
+        cases = [("bench frame 0", bench[n])] + [
+            (f"random C={p['intra_gate'][0].shape[0]} "
+             f"N={p['intra_gate'][0].shape[1]}", (p[n], {})) for p in odd]
+        for what, (a, kw) in cases:
+            k1 = outputs(fn(*a, **kw))
+            k2 = outputs(fn(*a, **kw))
+            pl = outputs(plain(*a, **kw))
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(k1, k2)),
+                  f"{n} ({what}): two runs differ")
+            differ = [i for i, (x, y) in enumerate(zip(k1, pl))
+                      if x.dtype != y.dtype or not torch.equal(x, y)]
+            check(len(k1) == len(pl) and not differ,
+                  f"{n} ({what}): outputs {differ} differ from the plain "
+                  f"version's")
+            shapes = ", ".join(f"{tuple(x.shape)}" for x in k1)
+            print(f"# kernel {n} ({what}): {len(k1)} outputs ({shapes}) "
+                  f"bitwise equal to the plain version's and across two runs")
+        a, kw = bench[n]
+        nbytes, ops = intra_glue_bytes_ops(n, a)
+        kernels[n] = dict(
+            route="cuda", source="mcslam_tpu_torch/csrc/intra_glue.cu",
+            replaces={"intra_gate": "mcslam_tpu/frontend/intra.py:47",
+                      "intra_groups": "mcslam_tpu/frontend/intra.py:150",
+                      "tri_gather": "mcslam_tpu/frontend/frame.py:91"}[n],
+            max_abs_err=0.0,
+            fn=lambda fn=fn, a=a, kw=kw: fn(*a, **kw),
+            plain=lambda p=plain, a=a, kw=kw: p(*a, **kw),
+            symbols=(f"{n}_kernel",), device_ops=1, nbytes=nbytes,
+            ops_s=f32_ops_s(ops))
+    # the three bench calls in one CUDA graph: two replays
+    ref = [o for n in INTRA_GLUE for o in outputs(
+        getattr(intra_cuda, f"{n}_reference")(*bench[n][0], **bench[n][1]))]
+
+    def step():
+        return [o for n in INTRA_GLUE for o in outputs(
+            getattr(intra_cuda, n)(*bench[n][0], **bench[n][1]))]
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for k in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(out, ref)),
+              f"intra glue kernels: graph replay {k} differs from the plain "
+              f"versions")
+    print(f"# kernels {', '.join(INTRA_GLUE)} bench frame 0 in one CUDA "
+          f"graph: two replays bitwise equal to the plain versions")
+    del graph
 
 
 def capture_all(build, targets) -> dict:
@@ -2253,7 +2418,8 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     print(f"# launches during the slice: {launches}")
     for n in ("fast_select", "patch_gather", *ORB_KERNELS, "hamming_argmin2",
-              "pose_lm", *TRI_INTRA, *RANSAC_KERNELS, *TRACK_KERNELS):
+              "pose_lm", *TRI_INTRA, *INTRA_GLUE, *RANSAC_KERNELS,
+              *TRACK_KERNELS):
         check(launches.get(n, 0) > 0,
               f"kernel {n} was not launched on the slice's path")
     n_off = sum(not r["fast"] for r in results["fast"])
@@ -5151,7 +5317,8 @@ TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "ransac_score": "ransac_score_kernel",
                "kabsch_hyp": "kabsch_hyp_kernel",
                "pnp_hyp": "pnp_hyp_kernel",
-               **{n: f"{n}_kernel" for n in TRACK_KERNELS}}
+               **{n: f"{n}_kernel" for n in TRACK_KERNELS},
+               **{n: f"{n}_kernel" for n in INTRA_GLUE}}
 PATH = tuple(TRACE_NAMES)
 # degrees of yaw tried, in order, for a prediction off the fast path (on
 # an NVIDIA H100 the first that takes frame 2 off it is 18)
@@ -5393,7 +5560,7 @@ def graph_frames(scene, ff0, mapstate, dev, smi):
                  f"{bound(COND_BYTES, 0.0)[0]:.2g} ms (bytes: its 1-byte "
                  f"predicate and 8-byte handle read, the 4-byte condition "
                  f"written)" if cond else "")
-              + (f"; before the tracking glue's kernels "
+              + (f"; before the intra match's glue kernels "
                  f"{FRAME_BEFORE[0]} device ops, {FRAME_BEFORE[1]:.3f} ms "
                  f"(NVIDIA H100 80GB HBM3, 700.00 W)" if cond else "")
               + f" ({smi})")

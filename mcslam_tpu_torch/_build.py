@@ -35,10 +35,11 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # flags of one source only: ba_linearize, tri_refine, orb_pyramid,
-# orb_select, the RANSAC kernels (ransac_score, kabsch_hyp, pnp_hyp) and
-# the tracking glue (track_glue) round every multiply and add on their
-# own, as their plain versions do (no contraction into FMAs; ransac_score
-# writes the matmuls' FMAs out). orb_describe keeps the default
+# orb_select, the RANSAC kernels (ransac_score, kabsch_hyp, pnp_hyp), the
+# tracking glue (track_glue) and the intra match's glue (intra_glue) round
+# every multiply and add on their own, as their plain versions do (no
+# contraction into FMAs; ransac_score writes the matmuls' FMAs out).
+# orb_describe keeps the default
 # flags, under which torch builds the atan2 its plain version calls; its
 # own products and sums are __fmul_rn / __fadd_rn, never contracted.
 SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
@@ -48,7 +49,8 @@ SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
                 "ransac_score": ["-fmad=false"],
                 "kabsch_hyp": ["-fmad=false"],
                 "pnp_hyp": ["-fmad=false"],
-                "track_glue": ["-fmad=false"]}
+                "track_glue": ["-fmad=false"],
+                "intra_glue": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -134,6 +136,14 @@ SIGNATURES = {
     # best, second, idx, im_valid, cand_ids, map_pos, inter-frame obs rows,
     # obs rows, mask, lm, M, L, cap, max_dist, stream
     "mc_localmap_epilogue": [P] * 10 + [I] * 3 + [F, P],
+    # xy, fxycxy, E, thr^2 (one float), gate, C, N, stream
+    "mc_intra_gate": [P] * 5 + [I, I, P],
+    # parent, valid, response, desc, table scratch (C x C N ints), ray_idx,
+    # desc out, valid out, C, N, max_out, stream
+    "mc_intra_groups": [P] * 8 + [I] * 3 + [P],
+    # ray_idx, valid, xy, sigma2, uv, sigma, mask, anchor_cam, uv_ref,
+    # anchor_sigma2, n_rays, multi & valid, M, C, N, stream
+    "mc_tri_gather": [P] * 12 + [I] * 3 + [P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds
@@ -250,6 +260,30 @@ def check(err: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def device_type(x: torch.Tensor, name: str) -> str:
+    """"cpu" or "cuda", the device type of a wrapper's tensor; raises on
+    any other (a wrapper takes its plain version for CPU tensors and
+    launches its kernel for CUDA ones)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+def kernel_inputs(name, dev, **tensors) -> list:
+    """The contiguous views a kernel reads of tensors {arg: (tensor,
+    dtype, shape)}; None in a shape takes any length. Raises on another
+    device, type or shape."""
+    out = []
+    for arg, (x, dtype, shape) in tensors.items():
+        if (x.device != dev or x.dtype != dtype or x.dim() != len(shape)
+                or any(s is not None and s != d
+                       for s, d in zip(shape, x.shape))):
+            raise ValueError(f"{name}: {arg} must be {dtype} {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        out.append(x.contiguous())
+    return out
 
 
 def stream_ptr(device) -> int:

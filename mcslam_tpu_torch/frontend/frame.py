@@ -12,9 +12,11 @@ import numpy as np
 import torch
 
 from mcslam_tpu_torch.frontend import intra as intra_ops
+from mcslam_tpu_torch.frontend import intra_cuda
 from mcslam_tpu_torch.geometry import camera as cam_ops
 from mcslam_tpu_torch.geometry import lie, triangulation
 from mcslam_tpu_torch.ops import orb
+from mcslam_tpu_torch.utils import graphs
 
 
 class FrameFeatures(NamedTuple):
@@ -75,30 +77,24 @@ def undistort_keypoints(xy: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid[..., None], uv, torch.zeros_like(uv))
 
 
+def world_T_cam(rig) -> torch.Tensor:
+    """se3_inverse(rig.cam_T_ref), (C, 4, 4): a rig constant made once per
+    rig and device (graphs.derived; an in-place edit makes it again)."""
+    return graphs.derived("world_T_cam", (rig.cam_T_ref,),
+                          lambda: lie.se3_inverse(rig.cam_T_ref))
+
+
 def _triangulate_stage(groups, xy_ud, kp_sigma2, rig, min_z, max_z):
-    C = xy_ud.shape[0]
-    M = groups.ray_idx.shape[0]
-    dev = xy_ud.device
-    ray_valid = groups.ray_idx >= 0  # (M, C)
-    safe_idx = torch.clamp(groups.ray_idx, min=0).long()
-    cam_idx = torch.arange(C, device=dev)[None, :].expand(M, C)
-    uv = xy_ud[cam_idx, safe_idx]  # (M, C, 2)
-    sig2 = kp_sigma2[cam_idx, safe_idx]  # (M, C)
-    world_T_cam = lie.se3_inverse(rig.cam_T_ref)[None].expand(M, C, 4, 4)
-    fxy = rig.fxycxy[None].expand(M, C, 4)
-    multi = torch.sum(ray_valid, dim=-1) >= 2
-    # sigma: a correctly rounded float32 square root on every device
+    M, C = groups.ray_idx.shape
+    (uv, sigma, mask, anchor_cam, uv_ref, anchor_sigma2, n_rays,
+     multi_valid) = intra_cuda.tri_gather(groups.ray_idx, groups.valid, xy_ud,
+                                          kp_sigma2)
     X, tri_ok = triangulation.triangulate_and_refine(
-        world_T_cam, uv, fxy, ray_valid & multi[:, None],
-        sigma=torch.sqrt(sig2.double()).float(), min_z=min_z, max_z=max_z,
+        world_T_cam(rig)[None].expand(M, C, 4, 4), uv,
+        rig.fxycxy[None].expand(M, C, 4), mask, sigma=sigma, min_z=min_z,
+        max_z=max_z,
     )
-    has_depth = tri_ok & multi & groups.valid
-    anchor_cam = torch.argmax(ray_valid.to(torch.uint8), dim=-1)
-    anchor_kp = torch.gather(safe_idx, 1, anchor_cam[:, None])[:, 0]
-    uv_ref = xy_ud[anchor_cam, anchor_kp]
-    anchor_sigma2 = kp_sigma2[anchor_cam, anchor_kp]
-    n_rays = torch.sum(ray_valid, dim=-1).to(torch.int32)
-    return (X, has_depth, anchor_cam.to(torch.int32), uv_ref, anchor_sigma2,
+    return (X, tri_ok & multi_valid, anchor_cam, uv_ref, anchor_sigma2,
             n_rays)
 
 

@@ -54,27 +54,6 @@ class TrackObs(NamedTuple):
     mask3d_f: torch.Tensor  # (M,) float32 mask3d
 
 
-def _device(x: torch.Tensor, name: str) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type
-
-
-def _inputs(name, dev, **tensors):
-    """The kernel's contiguous views of tensors {arg: (tensor, dtype,
-    shape)}; None in a shape takes any length. Raises on another device,
-    type or shape."""
-    out = []
-    for arg, (x, dtype, shape) in tensors.items():
-        if (x.device != dev or x.dtype != dtype or x.dim() != len(shape)
-                or any(s is not None and s != d
-                       for s, d in zip(shape, x.shape))):
-            raise ValueError(f"{name}: {arg} must be {dtype} {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-        out.append(x.contiguous())
-    return out
-
-
 def _cameras(name, C):
     if not 1 <= C <= MAX_CAMERAS:
         raise ValueError(f"{name}: the kernel takes 1-{MAX_CAMERAS} cameras "
@@ -167,7 +146,7 @@ def track_gate(uv, anchor, cur_valid, prev_lm_id, prev_valid, map_pos,
     track_gate_reference. CUDA tensors launch track_gate (one launch: the
     row blocks write ahat, the column blocks bhat); CPU tensors take the
     plain version."""
-    if _device(uv, "track_gate") == "cpu":
+    if _build.device_type(uv, "track_gate") == "cpu":
         return track_gate_reference(uv, anchor, cur_valid, prev_lm_id,
                                     prev_valid, map_pos, map_valid, cam_T_ref,
                                     fxycxy, pred_T_wr)
@@ -176,7 +155,7 @@ def track_gate(uv, anchor, cur_valid, prev_lm_id, prev_valid, map_pos,
     C = cam_T_ref.shape[0]
     _cameras("track_gate", C)
     M, N, cap = uv.shape[0], prev_lm_id.shape[0], map_pos.shape[0]
-    ins = _inputs(
+    ins = _build.kernel_inputs(
         "track_gate", dev, uv=(uv, f32, (M, 2)), anchor=(anchor, i32, (M,)),
         cur_valid=(cur_valid, b8, (M,)),
         prev_lm_id=(prev_lm_id, i32, (N,)),
@@ -243,7 +222,7 @@ def track_epilogue(best, second, idx, col_idx, cur_valid, has_depth, uv,
     launch track_epilogue (one launch; its last block writes the counts
     through three counters, graphs.counters, zero between launches); CPU
     tensors take the plain version."""
-    if _device(best, "track_epilogue") == "cpu":
+    if _build.device_type(best, "track_epilogue") == "cpu":
         return track_epilogue_reference(
             best, second, idx, col_idx, cur_valid, has_depth, uv, anchor,
             sigma2, prev_lm_id, map_valid, map_pos, cam_T_ref, fxycxy,
@@ -252,7 +231,7 @@ def track_epilogue(best, second, idx, col_idx, cur_valid, has_depth, uv,
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     M, N, cap = best.shape[0], col_idx.shape[0], map_pos.shape[0]
     C = cam_T_ref.shape[0]
-    ins = _inputs(
+    ins = _build.kernel_inputs(
         "track_epilogue", dev, best=(best, f32, (M,)),
         second=(second, f32, (M,)), idx=(idx, i32, (M,)),
         col_idx=(col_idx, i32, (N,)), cur_valid=(cur_valid, b8, (M,)),
@@ -335,7 +314,7 @@ def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
     (one launch: the row blocks write ahat, the column blocks the
     candidates' descriptors and bhat); CPU tensors take the plain
     version."""
-    if _device(uv, "localmap_gate") == "cpu":
+    if _build.device_type(uv, "localmap_gate") == "cpu":
         return localmap_gate_reference(
             T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal, uv,
             anchor, im_valid, cam_T_ref, fxycxy, image_wh, min_view_cos)
@@ -344,7 +323,7 @@ def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
     C = cam_T_ref.shape[0]
     _cameras("localmap_gate", C)
     M, L, cap = uv.shape[0], cand_ids.shape[0], map_pos.shape[0]
-    ins = _inputs(
+    ins = _build.kernel_inputs(
         "localmap_gate", dev, uv=(uv, f32, (M, 2)),
         anchor=(anchor, i32, (M,)), im_valid=(im_valid, b8, (M,)),
         cand_ids=(cand_ids, i32, (L,)), cand_valid=(cand_valid, b8, (L,)),
@@ -390,13 +369,13 @@ def localmap_epilogue(best, second, idx, im_valid, cand_ids, map_pos, obs,
     (rows (22, M), mask (M,) float32, lm (M,) int32): see
     localmap_epilogue_reference. CUDA tensors launch localmap_epilogue
     (one launch); CPU tensors take the plain version."""
-    if _device(best, "localmap_epilogue") == "cpu":
+    if _build.device_type(best, "localmap_epilogue") == "cpu":
         return localmap_epilogue_reference(best, second, idx, im_valid,
                                            cand_ids, map_pos, obs, max_dist)
     dev = best.device
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     M, L, cap = best.shape[0], cand_ids.shape[0], map_pos.shape[0]
-    ins = _inputs(
+    ins = _build.kernel_inputs(
         "localmap_epilogue", dev, best=(best, f32, (M,)),
         second=(second, f32, (M,)), idx=(idx, i32, (M,)),
         im_valid=(im_valid, b8, (M,)), cand_ids=(cand_ids, i32, (L,)),

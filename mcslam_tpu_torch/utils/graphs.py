@@ -28,7 +28,10 @@ the device, from a profiler trace (chip_smoke.py).
 `const` caches the small host-made constants of the captured functions
 on their device: a CUDA copy of a host value is a pageable upload, which
 a capturing stream refuses, so a function makes its constants during the
-warm-up and finds them in the cache when it is captured.
+warm-up and finds them in the cache when it is captured. `derived` does
+the same for values computed from tensors the caller owns (a rig's
+calibration): they are made again when a tensor is another object or
+was changed in place.
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ from __future__ import annotations
 import collections
 import ctypes
 import time
+import weakref
 
 import torch
 
 from mcslam_tpu_torch import _build
 
 _CONSTS: dict = {}
+_DERIVED: dict = {}
 
 
 def const(key, device, make) -> torch.Tensor:
@@ -74,6 +79,31 @@ def values(vals, dtype, device) -> torch.Tensor:
     """const of a number or a tuple of numbers as a `dtype` tensor."""
     return const(("values", vals, dtype), device,
                  lambda: torch.tensor(vals, dtype=dtype))
+
+
+def derived(key, tensors, make):
+    """make()'s value for `tensors` (its inputs, on one device), made at
+    the first call and cached by `key`, the tensors' identities and their
+    in-place versions (`_version`): another tensor object, or an in-place
+    edit of one, makes it again; no host read. Like const, never made
+    under a capture (the warm-up makes it); a program captured earlier
+    keeps the value it was captured with. The entry goes with the first
+    of its tensors to be freed."""
+    ident = (key, tuple(id(t) for t in tensors))
+    versions = tuple(t._version for t in tensors)
+    hit = _DERIVED.get(ident)
+    if hit is not None and hit[0] == versions:
+        return hit[1]
+    dev = tensors[0].device
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"graphs.derived: {key!r} made under a capture "
+                           f"(the warm-up must make it)")
+    value = make()
+    if hit is None:
+        for t in tensors:
+            weakref.finalize(t, _DERIVED.pop, ident, None)
+    _DERIVED[ident] = (versions, value)
+    return value
 
 
 class _Prep:

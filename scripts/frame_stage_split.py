@@ -4,10 +4,17 @@ on one CUDA card.
 Builds frame 1 of chip_smoke.py's bench scene (4 cameras, 640x480, 768
 keypoints per camera, 4 levels) eagerly with `build_frame`, records the
 inputs of its stages, and profiles each stage on those inputs: the ORB
-extraction, the intra match (and of it the pair stage, through the
-intra_pairs kernel and through its plain version) and the triangulation
-stage (and of it triangulate_and_refine, through the tri_refine kernel
-and through its plain version). The ORB extraction is split into five
+extraction, the intra match (and of it the Sampson gate, the pair stage
+and the groups, through the intra_gate, intra_pairs and intra_groups
+kernels and through their plain versions) and the triangulation stage
+(and of it the gathers and triangulate_and_refine, through the
+tri_gather and tri_refine kernels and through their plain versions);
+then the rig constants (the pairs' essential matrices, the gate's
+threshold and the cameras' world poses), which a tree with
+intra.pair_constants makes once per rig and an earlier tree made in
+every frame's intra match and triangulation stage. In a tree without
+the glue kernels (frontend/intra_cuda.intra_gate) only the pair stage
+and tri_refine are split out. The ORB extraction is split into five
 parts: the pyramid with its stacking, fast_select, the selection with
 the cross-level compaction, patch_gather, and the orientation with the
 descriptors. Where the extraction runs them as the orb_pyramid,
@@ -136,15 +143,21 @@ def orb_parts(imgs, kw):
 def stage_split(scene, smi):
     """Print each stage's device time and device ops on frame 1."""
     import chip_smoke as cs
+    import torch
+
     from mcslam_tpu_torch.frontend import frame, intra_cuda
-    from mcslam_tpu_torch.geometry import triangulation, triangulation_cuda
+    from mcslam_tpu_torch.geometry import lie, triangulation, triangulation_cuda
 
     def build():
         return frame.build_frame(scene.imgs[1], scene.rig,
                                  **scene.frame_kwargs())
 
     build()  # the build and the first launches come before the traces
-    seen = cs.capture_calls(build)
+    glue = ("intra_gate", "intra_groups", "tri_gather") \
+        if hasattr(intra_cuda, "intra_gate") else ()
+    seen = cs.capture_calls(build, {
+        "tri_refine": (triangulation, "triangulate_and_refine"),
+        **{n: (intra_cuda, n) for n in ("intra_pairs", *glue)}})
     stages = cs.capture_calls(build, {
         "orb": (frame.orb, "extract_orb_rig"),
         "intra": (frame.intra_ops, "intra_match"),
@@ -156,6 +169,24 @@ def stage_split(scene, smi):
         a, kw = stages[name]
         return lambda: fn(*a, **kw)
 
+    def kernel(name, label):
+        if name not in glue:
+            return []
+        a, kw = seen[name]
+        return [(f"of which {label}, {name}",
+                 lambda: getattr(intra_cuda, name)(*a, **kw)),
+                (f"of which {label}, plain", lambda: getattr(
+                    intra_cuda, f"{name}_reference")(*a, **kw))]
+
+    rig = scene.rig
+
+    def rig_constants():
+        pair_i, pair_j = intra_cuda.camera_pairs(rig.num_cams)
+        E = torch.stack([frame.intra_ops.pair_essential(rig, i, j)
+                         for i, j in zip(pair_i, pair_j)])
+        thr_n = 3.0 / torch.mean(rig.fxycxy[:, 0])
+        return E, thr_n * thr_n, lie.se3_inverse(rig.cam_T_ref)
+
     def show(name, fn):
         dev_ms, n_ops, _ = cs.device_profile(fn)
         print(f"# stage split, {name}: {dev_ms:.3f} ms device time in "
@@ -166,16 +197,22 @@ def stage_split(scene, smi):
             ("frame build (eager)", build),
             ("ORB extraction", call("orb", frame.orb.extract_orb_rig)),
             ("intra match", call("intra", frame.intra_ops.intra_match)),
+            *kernel("intra_gate", "the Sampson gate"),
             ("of which the pair stage, intra_pairs",
              lambda: intra_cuda.intra_pairs(*ia, **ikw)),
             ("of which the pair stage, plain",
              lambda: intra_cuda.intra_pairs_reference(*ia, **ikw)),
+            *kernel("intra_groups", "the groups and their top-k"),
             ("triangulation stage", call("tri", frame._triangulate_stage)),
+            *kernel("tri_gather", "the gathers"),
             ("of which tri_refine",
              lambda: triangulation_cuda.tri_refine(*ta, **tkw)),
             ("of which the plain triangulation",
              lambda: triangulation.triangulate_and_refine_reference(*ta,
-                                                                    **tkw))):
+                                                                    **tkw)),
+            ("the rig constants (E, thr^2, world_T_cam; "
+             + ("made once per rig" if glue else "made in every frame")
+             + ")", rig_constants)):
         show(name, fn)
 
     oa, okw = stages["orb"]

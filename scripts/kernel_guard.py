@@ -1,5 +1,7 @@
 """Memory and determinism guard of the frame build's kernels tri_refine
-(csrc/tri_refine.cu), intra_pairs (csrc/intra_match.cu), the ORB
+(csrc/tri_refine.cu), intra_pairs (csrc/intra_match.cu), the intra
+match's glue (intra_gate, intra_groups, tri_gather: csrc/intra_glue.cu),
+the ORB
 extraction's orb_pyramid, orb_select and orb_describe (csrc/orb_*.cu),
 the tracking's pose_lm (csrc/pose_lm.cu) and its glue (track_gate,
 track_epilogue, localmap_gate, localmap_epilogue: csrc/track_glue.cu),
@@ -10,7 +12,11 @@ frame 0's M = 2048 groups of R = 4 rays (the pose table expanded, as the
 frame build passes it), at M = 2048, R = 2, at M = 37, R = 5 and at M =
 2048, R = 8; intra_pairs at bench frame 0's C = 4 x N = 768 descriptors
 and Sampson gate, eagerly and through a captured CUDA graph, and at
-random C = 2, 3 and 5; the three ORB kernels at bench frame 0's inputs
+random C = 2, 3 and 5; the intra glue's three kernels at bench frame 0's
+calls (not --quick; through a captured CUDA graph too) and at random
+problems (C = 2, N = 333, M = 500; C = 3, N = 129, M = 2048; C = 5, N =
+1000, M = 2048; with --quick also C = 4, N = 768 through graph replays),
+intra_groups' ray-table scratch a guarded buffer; the three ORB kernels at bench frame 0's inputs
 (orb_pyramid and orb_select also through a captured CUDA graph) and at
 random ones (the pyramid at 1 x 97 x 133 with 8 levels, 5 x 120 x 160
 with 4 and 2 x 240 x 320 with 10 in two launches, the selection on
@@ -389,8 +395,43 @@ def cases(quick: bool, dev):
     if quick:
         out.append(("intra_pairs C=4 N=768 (random, graph replays)", intra,
                     out[-4][2], ik, intra_plain, True))
-    return (out + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
+    return (out + intra_glue_cases(quick, dev, rng)
+            + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
             + ransac_cases(quick, dev, rng) + track_cases(quick, dev, rng))
+
+
+def intra_glue_cases(quick: bool, dev, rng):
+    """The intra match's glue kernels: the calls of bench frame 0's build
+    (not --quick) and random ones; held to their plain versions bit for
+    bit."""
+    import chip_smoke as cs
+    from mcslam_tpu_torch.frontend import frame, intra_cuda
+
+    def kernel(n):
+        return getattr(intra_cuda, n), getattr(intra_cuda, f"{n}_reference")
+
+    out = []
+    if not quick:
+        scene = cs.Scene(dev, frames=1)
+        seen = cs.capture_calls(lambda: frame.build_frame(
+            scene.imgs[0], scene.rig, **scene.frame_kwargs()),
+            {n: (intra_cuda, n) for n in cs.INTRA_GLUE})
+        for n in cs.INTRA_GLUE:
+            a, kw = seen[n]
+            out.append((f"{n} (bench frame 0)", *kernel(n), a, kw, False))
+            out.append((f"{n} (bench frame 0, graph replays)", *kernel(n), a,
+                        kw, True))
+    shapes = ((4, 768, 2048),) if quick else ()
+    for C, N, M in shapes + ((2, 333, 500), (3, 129, 2048), (5, 1000, 2048)):
+        calls = cs.intra_glue_problem(rng, C, N, M, dev)
+        for n in cs.INTRA_GLUE:
+            out.append((f"{n} C={C} N={N} M={M} (random)", *kernel(n),
+                        calls[n], {}, False))
+            if quick and N == 768:
+                out.append((f"{n} C={C} N={N} M={M} (random, graph replays)",
+                            *kernel(n), calls[n], {}, True))
+    return [(name, fn, a, kw, plain, graphed)
+            for name, fn, plain, a, kw, graphed in out]
 
 
 def track_epilogue(*args, **kw):
