@@ -1646,12 +1646,12 @@ def intra_glue_bytes_ops(name, args) -> tuple:
     if name == "intra_groups":
         C, N = args[1].shape
         K, M = C * N, args[4]
-        Kp = 1 << max(K - 1, 1).bit_length()
-        lg = Kp.bit_length() - 1
-        # parent, valid, response, desc; ray_idx, desc, valid; the sort's
-        # compare-exchanges and the keys' few operations a feature
+        # parent, valid, response, desc; ray_idx, desc, valid. The
+        # function's work, whatever ranks the keys: 8 hops, the ray table
+        # and the key a feature (~16 operations), and the K log2 K compares
+        # that a comparison sort of the keys needs
         return (K * (4 + 1 + 4 + 32) + M * (4 * C + 32 + 1),
-                Kp // 2 * lg * (lg + 1) // 2 + 8 * K)
+                16 * K + K * max(K - 1, 1).bit_length())
     M, C = args[0].shape
     N = args[2].shape[1]
     # ray_idx, valid, pixels and sigma2; uv, sigma, mask, anchor, uv_ref,

@@ -138,9 +138,9 @@ SIGNATURES = {
     "mc_localmap_epilogue": [P] * 10 + [I] * 3 + [F, P],
     # xy, fxycxy, E, thr^2 (one float), gate, C, N, stream
     "mc_intra_gate": [P] * 5 + [I, I, P],
-    # parent, valid, response, desc, table scratch (C x C N ints), ray_idx,
-    # desc out, valid out, C, N, max_out, stream
-    "mc_intra_groups": [P] * 8 + [I] * 3 + [P],
+    # parent, valid, response, desc, ray_idx, desc out, valid out, C, N,
+    # max_out, stream
+    "mc_intra_groups": [P] * 7 + [I] * 3 + [P],
     # ray_idx, valid, xy, sigma2, uv, sigma, mask, anchor_cam, uv_ref,
     # anchor_sigma2, n_rays, multi & valid, M, C, N, stream
     "mc_tri_gather": [P] * 12 + [I] * 3 + [P],

@@ -51,21 +51,37 @@
 // version raises on it).
 //
 // Bound on the card: intra_gate by bytes, the (P, N, N) gate it writes
-// (3.54 MB at C = 4, N = 768: 1.1 us at 3.35 TB/s; ~10 float32 operations
-// a cell take 0.5 us at 67 TFLOP/s); intra_groups by latency: one block
-// sorts the C N keys (3072 at the frame's shape, ~0.3 MB of traffic);
-// tri_gather by launch latency (~0.2 MB). Design:
-//  - intra_gate: a block per (16 rows, pair) of 256 threads, each thread 4
-//    adjacent columns (one 32-bit store per row where N % 4 == 0): the
-//    rows' coordinates and Ethi^2 in shared memory, the columns' Exj and
-//    the den prefix Exj_0^2 + Exj_1^2 in registers, computed once per
-//    column;
-//  - intra_groups: one block of 1024 threads, all in shared memory but the
-//    ray table (global scratch, C x C N ints: integer atomicMax on L2, read
-//    back past L1): the parents, the roots by 8 hops each, the table, the
-//    keys (~ordered(priority) << 32 | index, unique, so any exact sort gives
-//    the stable order), a bitonic sort of the keys padded to a power of
-//    two, and the outputs read off the sorted keys;
+// (3.54 MB at C = 4, N = 768: 1.1 us at 3.35 TB/s; ~15 float32 operations
+// a cell take 0.8 us at 67 TFLOP/s); intra_groups by latency: C N = 3072
+// features at the frame's shape, ~0.3 MB of traffic; tri_gather by launch
+// latency (~0.2 MB). Split by scripts/intra_glue_variants.py. Design:
+//  - intra_gate: a block per (32 columns, 96 rows, pair) of 128 threads,
+//    8 column quads x 16 row lanes, each thread 4 adjacent columns of 6
+//    rows (a warp stores 4 rows of 32 bytes, one 32-bit store per row where
+//    N % 4 == 0): the block's column terms (Exj, Exj_0^2 + Exj_1^2) and row
+//    terms (xi, Ethi^2) made once each, by one thread each, into shared
+//    memory. No division in a cell: RN(a / b) < thr2 is decided by a <
+//    RN(tlo b) (true) or a >= RN(thi b) (false), tlo, thi = RN(thr2 (1 -+
+//    2^-20)); each of those roundings errs by at most 2^-24 relative, so a
+//    decided cell has a / b more than 2^-21 thr2 below pred(thr2) or above
+//    thr2, where RN, monotone, keeps the division's answer (for thr2
+//    in [2^-60, 2^60], so that tlo b and thi b, b >= 1e-12, are normal or
+//    overflow: an overflowed bound is inf, which only an infinite a meets,
+//    and then a / b is inf or NaN: false, as decided). A row of four cells
+//    with one left undecided (within that margin, NaN, or every cell for
+//    another thr2) takes the IEEE division, __fdiv_rn(a, b) < thr2;
+//  - intra_groups: a block of 1024 threads per slice of 32 keys (96 blocks
+//    at the frame's shape), each block all in shared memory and none
+//    waiting for another: it loads the parents, the validity and the
+//    responses, makes every feature's root by 8 hops (four chains a thread
+//    side by side), a camera bitmask per root (shared atomicOr: n_rays is
+//    its popcount) and the ray table of its slice's roots only (shared
+//    atomicMax), the keys of all C N features (the descending priority's
+//    32 bits; with the index, ~ordered(priority) << 32 | index, they are
+//    unique), then ranks its 32 keys against all of them (a lane a key,
+//    each warp a 1/32 of the others: the count of keys before a key is its
+//    slot, with the ties by index) and writes the slots below k; slots k ..
+//    max_out - 1 are padded by all blocks, strided;
 //  - tri_gather: a thread per group, 128 a block.
 
 #include <cuda_runtime.h>
@@ -73,10 +89,17 @@
 
 namespace {
 
-constexpr int GATE_THREADS = 256;
-constexpr int GATE_ROWS = 16;      // rows of a gate block
+constexpr int GATE_QUADS = 8;   // column quads of a gate block
+constexpr int GATE_LANES = 16;  // row lanes of a gate block
+constexpr int GATE_RPT = 6;     // rows of a gate thread
+constexpr int GATE_THREADS = GATE_QUADS * GATE_LANES;
+constexpr int GATE_COLS = 4 * GATE_QUADS;         // columns of a gate block
+constexpr int GATE_ROWS = GATE_LANES * GATE_RPT;  // rows of a gate block
 constexpr int GROUP_THREADS = 1024;
-constexpr int MAX_KEYS = 16384;    // C N the groups block sorts (intra_cuda)
+constexpr int GROUP_WARPS = GROUP_THREADS / 32;
+constexpr int GROUP_SLICE = 32;  // keys a groups block ranks: a lane each
+constexpr int MAX_KEYS = 16384;  // C N of intra_groups (intra_cuda)
+constexpr int MAX_CAMERAS = 32;  // C of intra_groups: a bitmask per root
 constexpr int GATHER_THREADS = 128;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -99,64 +122,92 @@ __global__ void __launch_bounds__(GATE_THREADS)
                       const float* __restrict__ E,
                       const float* __restrict__ thr2p, int C, int N,
                       uint8_t* __restrict__ gate) {
-  __shared__ float s_x0[GATE_ROWS], s_x1[GATE_ROWS];
-  __shared__ float s_a0[GATE_ROWS], s_a1[GATE_ROWS];
-  const int p = blockIdx.y, tid = threadIdx.x;
+  // per column: Exj_0, Exj_1, Exj_2, Exj_0^2 + Exj_1^2; per row: xi_0,
+  // xi_1, Ethi_0^2, Ethi_1^2
+  __shared__ float4 s_col[GATE_COLS];
+  __shared__ float4 s_row[GATE_ROWS];
+  const int p = blockIdx.z, tid = threadIdx.x;
   int ci, cj;
   pair_of(p, C, ci, cj);
   const float* e = E + 9 * p;
-  const int r0 = blockIdx.x * GATE_ROWS;
-  const int nr = min(GATE_ROWS, N - r0);
-  if (tid < nr) {
-    const int n = ci * N + r0 + tid;
-    const float x0 = __fdiv_rn(xy[2 * n] - fxy[4 * ci + 2], fxy[4 * ci]);
-    const float x1 = __fdiv_rn(xy[2 * n + 1] - fxy[4 * ci + 3],
-                               fxy[4 * ci + 1]);
-    const float a0 = (x0 * e[0] + x1 * e[3]) + e[6];
-    const float a1 = (x0 * e[1] + x1 * e[4]) + e[7];
-    s_x0[tid] = x0;
-    s_x1[tid] = x1;
-    s_a0[tid] = a0 * a0;
-    s_a1[tid] = a1 * a1;
+  const int c0 = blockIdx.x * GATE_COLS, r0 = blockIdx.y * GATE_ROWS;
+  for (int u = tid; u < GATE_COLS + GATE_ROWS; u += GATE_THREADS) {
+    if (u < GATE_COLS) {
+      const int n = cj * N + min(c0 + u, N - 1);
+      const float y0 = __fdiv_rn(xy[2 * n] - fxy[4 * cj + 2], fxy[4 * cj]);
+      const float y1 = __fdiv_rn(xy[2 * n + 1] - fxy[4 * cj + 3],
+                                 fxy[4 * cj + 1]);
+      const float b0 = (e[0] * y0 + e[1] * y1) + e[2];
+      const float b1 = (e[3] * y0 + e[4] * y1) + e[5];
+      const float b2 = (e[6] * y0 + e[7] * y1) + e[8];
+      s_col[u] = make_float4(b0, b1, b2, b0 * b0 + b1 * b1);
+    } else {
+      const int n = ci * N + min(r0 + u - GATE_COLS, N - 1);
+      const float x0 = __fdiv_rn(xy[2 * n] - fxy[4 * ci + 2], fxy[4 * ci]);
+      const float x1 = __fdiv_rn(xy[2 * n + 1] - fxy[4 * ci + 3],
+                                 fxy[4 * ci + 1]);
+      const float a0 = (x0 * e[0] + x1 * e[3]) + e[6];
+      const float a1 = (x0 * e[1] + x1 * e[4]) + e[7];
+      s_row[u - GATE_COLS] = make_float4(x0, x1, a0 * a0, a1 * a1);
+    }
   }
-  __syncthreads();
+  __syncthreads();  // the block's column and row terms made
+  const int quad = tid % GATE_QUADS, lane = tid / GATE_QUADS;
+  const int col = c0 + 4 * quad;
+  if (col >= N) return;
+  float b0[4], b1[4], b2[4], pre[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = s_col[4 * quad + q];
+    b0[q] = v.x;
+    b1[q] = v.y;
+    b2[q] = v.z;
+    pre[q] = v.w;
+  }
+  // the margins of the decided cells (see the header)
   const float thr2 = *thr2p;
-  const float fx = fxy[4 * cj], fy = fxy[4 * cj + 1];
-  const float cx = fxy[4 * cj + 2], cy = fxy[4 * cj + 3];
-  uint8_t* out = gate + (size_t)p * N * N + (size_t)r0 * N;
+  const bool margins = thr2 >= 0x1p-60f && thr2 <= 0x1p60f;
+  const float tlo = margins ? thr2 * (1.0f - 0x1p-20f) : -1.0f;
+  const float thi = margins ? thr2 * (1.0f + 0x1p-20f) : __int_as_float(
+                                                              0x7f800000);
+  const int rl = r0 + lane;  // the thread's first row
+  uint8_t* out = gate + ((size_t)p * N + rl) * N + col;
+  const size_t step = (size_t)GATE_LANES * N;
   const bool words = (N & 3) == 0;
-  for (int c0 = 4 * tid; c0 < N; c0 += 4 * GATE_THREADS) {
-    float b0[4], b1[4], b2[4], pre[4];
+#pragma unroll
+  for (int s = 0; s < GATE_RPT; ++s) {
+    if (rl + GATE_LANES * s >= N) break;
+    const float4 x = s_row[lane + GATE_LANES * s];
+    float num[4], den[4];
+    uint32_t word = 0;
+    bool slow = false;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int n = cj * N + min(c0 + q, N - 1);
-      const float y0 = __fdiv_rn(xy[2 * n] - cx, fx);
-      const float y1 = __fdiv_rn(xy[2 * n + 1] - cy, fy);
-      b0[q] = (e[0] * y0 + e[1] * y1) + e[2];
-      b1[q] = (e[3] * y0 + e[4] * y1) + e[5];
-      b2[q] = (e[6] * y0 + e[7] * y1) + e[8];
-      pre[q] = b0[q] * b0[q] + b1[q] * b1[q];
+      const float t = (x.x * b0[q] + x.y * b1[q]) + b2[q];
+      float d = (pre[q] + x.z) + x.w;
+      d = d < 1e-12f ? 1e-12f : d;
+      const float a = t * t;
+      const bool below = a < tlo * d, above = a >= thi * d;
+      if (below) word |= 1u << (8 * q);
+      slow |= !(below || above);
+      num[q] = a;
+      den[q] = d;
     }
-    for (int rr = 0; rr < nr; ++rr) {
-      const float x0 = s_x0[rr], x1 = s_x1[rr];
-      const float a0 = s_a0[rr], a1 = s_a1[rr];
-      uint32_t word = 0;
+    if (slow) {  // a cell within the margins: the row's four by division
+      word = 0;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float t = (x0 * b0[q] + x1 * b1[q]) + b2[q];
-        float den = (pre[q] + a0) + a1;
-        den = den < 1e-12f ? 1e-12f : den;
-        word |= (uint32_t)(__fdiv_rn(t * t, den) < thr2) << (8 * q);
-      }
-      uint8_t* row = out + (size_t)rr * N + c0;
-      if (words) {
-        *reinterpret_cast<uint32_t*>(row) = word;
-      } else {
-        for (int q = 0; q < 4 && c0 + q < N; ++q)
-          row[q] = (uint8_t)((word >> (8 * q)) & 1u);
-      }
+      for (int q = 0; q < 4; ++q)
+        word |= (uint32_t)(__fdiv_rn(num[q], den[q]) < thr2) << (8 * q);
+    }
+    uint8_t* row = out + s * step;
+    if (words) {
+      *reinterpret_cast<uint32_t*>(row) = word;
+    } else {
+      for (int q = 0; q < 4 && col + q < N; ++q)
+        row[q] = (uint8_t)((word >> (8 * q)) & 1u);
     }
   }
+  // end of the gate block
 }
 
 // an ascending sort key of the priority's descending order: -0 as 0, every
@@ -172,79 +223,128 @@ __device__ __forceinline__ float priority_of(uint32_t hi) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
+// rank part of a lane's key bi (index i) against keys [j0, j1) of key:
+// the keys before it, those below it and, of index below i, those equal
+// (MODE 0: every j < i, 1: every j > i, 2: either)
+template <int MODE>
+__device__ __forceinline__ int rank_part(const uint32_t* __restrict__ key,
+                                         int j0, int j1, uint32_t bi,
+                                         int i) {
+  int n = 0;
+  for (int j = j0; j < j1; j += 4) {
+    const uint4 b = *reinterpret_cast<const uint4*>(key + j);
+    const uint32_t v[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t t = MODE == 0 ? bi + 1u
+                         : MODE == 1 ? bi
+                                     : (j + q < i ? bi + 1u : bi);
+      n += v[q] < t;
+    }
+  }
+  return n;
+}
+
 __global__ void __launch_bounds__(GROUP_THREADS, 1)
     intra_groups_kernel(const int* __restrict__ parent,
                         const bool* __restrict__ valid,
                         const float* __restrict__ response,
                         const int* __restrict__ desc, int C, int N, int Kp,
-                        int k, int max_out, int* __restrict__ table,
-                        int* __restrict__ ray_idx, int* __restrict__ out_desc,
+                        int k, int max_out, int* __restrict__ ray_idx,
+                        int* __restrict__ out_desc,
                         bool* __restrict__ out_valid) {
-  // keys: Kp sort keys; their first K ints hold the roots before the keys
-  // are made. flag: K ints, the parents, then is_root.
-  extern __shared__ unsigned long long keys[];
-  int* roots = reinterpret_cast<int*>(keys);
-  int* flag = reinterpret_cast<int*>(keys + Kp);
-  const int K = C * N, T = blockDim.x, tid = threadIdx.x;
-  for (int f = tid; f < K; f += T) flag[f] = clampi(parent[f], 0, K - 1);
-  for (int t = tid; t < C * K; t += T) table[t] = -1;
-  __syncthreads();
+  // key: Kp words, the parents, then the camera masks, then the sort keys
+  // (past C N: ~0, after every key); root: Kp ints; resp: Kp responses;
+  // table: the slice's ray table, GROUP_SLICE x C; part: GROUP_WARPS x
+  // GROUP_SLICE partial ranks; rank: GROUP_SLICE slots; flag: Kp valid
+  // flags
+  extern __shared__ uint4 smem[];
+  uint32_t* key = reinterpret_cast<uint32_t*>(smem);
+  int* root = reinterpret_cast<int*>(key + Kp);
+  float* resp = reinterpret_cast<float*>(root + Kp);
+  int* table = reinterpret_cast<int*>(resp + Kp);
+  int* part = table + GROUP_SLICE * C;
+  int* rank = part + GROUP_WARPS * GROUP_SLICE;
+  uint8_t* flag = reinterpret_cast<uint8_t*>(rank + GROUP_SLICE);
+  const int K = C * N, T = GROUP_THREADS, tid = threadIdx.x;
+  const int s0 = blockIdx.x * GROUP_SLICE;
   for (int f = tid; f < K; f += T) {
-    int x = f;
+    key[f] = (uint32_t)clampi(parent[f], 0, K - 1);
+    flag[f] = valid[f];
+    resp[f] = response[f];
+  }
+  for (int t = tid; t < GROUP_SLICE * C; t += T) table[t] = -1;
+  __syncthreads();  // the parents loaded
+  for (int f0 = tid; f0 < K; f0 += 4 * T) {  // four chains side by side
+    int x[4];
 #pragma unroll
-    for (int h = 0; h < 8; ++h) x = flag[x];
-    roots[f] = x;
+    for (int u = 0; u < 4; ++u) x[u] = min(f0 + u * T, K - 1);
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) x[u] = (int)key[x[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (f0 + u * T < K) root[f0 + u * T] = x[u];
   }
+  __syncthreads();  // the roots made
+  for (int f = tid; f < Kp; f += T) key[f] = 0u;
   __syncthreads();
   for (int f = tid; f < K; f += T) {
-    const int r = roots[f];
-    const bool v = valid[f];
-    if (v) atomicMax(&table[(f / N) * K + r], f % N);
-    flag[f] = (r == f) && v;
+    if (!flag[f]) continue;
+    const int cam = f / N, r = root[f];
+    atomicOr(&key[r], 1u << cam);
+    if ((unsigned)(r - s0) < (unsigned)GROUP_SLICE)
+      atomicMax(&table[(r - s0) * C + cam], f - cam * N);
   }
-  __syncthreads();
+  __syncthreads();  // the masks and the slice's ray table made
   for (int r = tid; r < Kp; r += T) {
+    uint32_t b = ~0u;
     if (r < K) {
-      int n = 0;
-      for (int c = 0; c < C; ++c) n += __ldcg(&table[c * K + r]) >= 0;
-      const float prio = flag[r] ? (float)n * 1e3f + response[r] : -1.0f;
-      keys[r] = ((unsigned long long)descending_bits(prio) << 32) |
-                (unsigned)r;
-    } else {
-      keys[r] = ~0ull;
+      const float prio = root[r] == r && flag[r]
+                             ? (float)__popc(key[r]) * 1e3f + resp[r]
+                             : -1.0f;
+      b = descending_bits(prio);
+    }
+    key[r] = b;
+  }
+  __syncthreads();  // the keys made
+  const int lane = tid & 31, warp = tid >> 5;
+  const int i = s0 + lane;
+  const uint32_t bi = key[min(i, Kp - 1)];
+  const int chunk = Kp / GROUP_WARPS;
+  const int j0 = warp * chunk, j1 = j0 + chunk;
+  part[warp * GROUP_SLICE + lane] =
+      j1 <= s0                 ? rank_part<0>(key, j0, j1, bi, i)
+      : j0 >= s0 + GROUP_SLICE ? rank_part<1>(key, j0, j1, bi, i)
+                               : rank_part<2>(key, j0, j1, bi, i);
+  __syncthreads();  // the partial ranks counted
+  if (tid < GROUP_SLICE) {
+    int n = 0;
+    for (int w = 0; w < GROUP_WARPS; ++w) n += part[w * GROUP_SLICE + tid];
+    rank[tid] = n;
+  }
+  __syncthreads();  // the slice's slots known
+  for (int t = tid; t < GROUP_SLICE * 8; t += T) {
+    const int l = t >> 3, f = s0 + l, m = rank[l];
+    if (f < K && m < k) out_desc[8 * m + (t & 7)] = desc[8 * f + (t & 7)];
+  }
+  for (int t = tid; t < GROUP_SLICE * C; t += T) {
+    const int l = t / C, c = t - l * C, f = s0 + l, m = rank[l];
+    if (f < K && m < k) {
+      const bool ov = priority_of(key[f]) > 0.0f;
+      ray_idx[m * C + c] = ov ? table[l * C + c] : -1;
+      if (c == 0) out_valid[m] = ov;
     }
   }
-  __syncthreads();
-  for (int size = 2; size <= Kp; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < Kp / 2; t += T) {
-        const int i = 2 * t - (t & (stride - 1));
-        const unsigned long long a = keys[i], b = keys[i + stride];
-        if ((a > b) == ((i & size) == 0)) {
-          keys[i] = b;
-          keys[i + stride] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int m = tid; m < max_out; m += T) {
-    if (m < k) {
-      const unsigned long long key = keys[m];
-      const int idx = (int)(key & 0xffffffffull);
-      const bool ov = priority_of((uint32_t)(key >> 32)) > 0.0f;
-      for (int c = 0; c < C; ++c)
-        ray_idx[m * C + c] = ov ? __ldcg(&table[c * K + idx]) : -1;
+  for (int m = k + blockIdx.x * T + tid; m < max_out; m += gridDim.x * T) {
+    for (int c = 0; c < C; ++c) ray_idx[m * C + c] = -1;
 #pragma unroll
-      for (int w = 0; w < 8; ++w) out_desc[8 * m + w] = desc[8 * idx + w];
-      out_valid[m] = ov;
-    } else {
-      for (int c = 0; c < C; ++c) ray_idx[m * C + c] = -1;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) out_desc[8 * m + w] = 0;
-      out_valid[m] = false;
-    }
+    for (int w = 0; w < 8; ++w) out_desc[8 * m + w] = 0;
+    out_valid[m] = false;
   }
+  // end of the groups block
 }
 
 __global__ void __launch_bounds__(GATHER_THREADS)
@@ -295,7 +395,8 @@ extern "C" int mc_intra_gate(const void* xy, const void* fxy, const void* E,
                              const void* thr2, void* gate, int C, int N,
                              void* stream) {
   if (C < 2 || N < 1) return cudaErrorInvalidValue;
-  const dim3 grid((N + GATE_ROWS - 1) / GATE_ROWS, C * (C - 1) / 2);
+  const dim3 grid((N + GATE_COLS - 1) / GATE_COLS,
+                  (N + GATE_ROWS - 1) / GATE_ROWS, C * (C - 1) / 2);
   intra_gate_kernel<<<grid, GATE_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xy), static_cast<const float*>(fxy),
@@ -305,32 +406,32 @@ extern "C" int mc_intra_gate(const void* xy, const void* fxy, const void* E,
 }
 
 // parent (C, N) int32, valid (C, N) bool, response (C, N) float32, desc
-// (C, N, 8) int32, table (C x C N ints of scratch), ray_idx (max_out, C),
-// desc out (max_out, 8), valid out (max_out,), C, N, max_out, stream
+// (C, N, 8) int32, ray_idx (max_out, C), desc out (max_out, 8), valid out
+// (max_out,), C, N, max_out, stream
 extern "C" int mc_intra_groups(const void* parent, const void* valid,
                                const void* response, const void* desc,
-                               void* table, void* ray_idx, void* out_desc,
-                               void* out_valid, int C, int N, int max_out,
-                               void* stream) {
+                               void* ray_idx, void* out_desc, void* out_valid,
+                               int C, int N, int max_out, void* stream) {
   const int K = C * N;
-  if (C < 1 || N < 1 || max_out < 1 || K > MAX_KEYS)
+  if (C < 1 || C > MAX_CAMERAS || N < 1 || max_out < 1 || K > MAX_KEYS)
     return cudaErrorInvalidValue;
-  int Kp = 1;
-  while (Kp < K) Kp <<= 1;
-  const int smem = Kp * 8 + K * 4;  // the keys, then the parents / flags
+  // the keys padded to whole uint4s of every warp's share
+  const int Kp = (K + 4 * GROUP_WARPS - 1) / (4 * GROUP_WARPS) * 4 *
+                 GROUP_WARPS;
+  const int smem = Kp * 12 + (GROUP_SLICE * C + GROUP_WARPS * GROUP_SLICE +
+                              GROUP_SLICE) * 4 + Kp;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         intra_groups_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return e;
   }
-  intra_groups_kernel<<<1, GROUP_THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  intra_groups_kernel<<<(K + GROUP_SLICE - 1) / GROUP_SLICE, GROUP_THREADS,
+                        smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(parent), static_cast<const bool*>(valid),
       static_cast<const float*>(response), static_cast<const int*>(desc), C,
-      N, Kp, K < max_out ? K : max_out, max_out, static_cast<int*>(table),
-      static_cast<int*>(ray_idx), static_cast<int*>(out_desc),
-      static_cast<bool*>(out_valid));
+      N, Kp, K < max_out ? K : max_out, max_out, static_cast<int*>(ray_idx),
+      static_cast<int*>(out_desc), static_cast<bool*>(out_valid));
   return static_cast<int>(cudaGetLastError());
 }
 

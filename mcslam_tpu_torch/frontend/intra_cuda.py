@@ -36,7 +36,8 @@ from mcslam_tpu_torch.utils import graphs
 
 TILE = 128  # rows and columns of a block's tile in csrc/intra_match.cu
 COUNTERS = 128  # arrival counters of a device's buffer (P + C <= COUNTERS)
-MAX_KEYS = 16384  # C N that intra_groups sorts in its one block
+MAX_KEYS = 16384  # C N that intra_groups ranks (every block holds them)
+MAX_CAMERAS = 32  # C of intra_groups (a camera bitmask per root)
 
 def tiles(N: int) -> int:
     """Row tiles (and column splits) of the kernel's grid for N features."""
@@ -169,14 +170,13 @@ def normalized(xy_ud: torch.Tensor, fxycxy: torch.Tensor) -> torch.Tensor:
     return (xy_ud - f[..., 2:]) / f[..., :2]
 
 
-def sampson_gate_sq(xn_i: torch.Tensor, xn_j: torch.Tensor,
-                    E: torch.Tensor, thr2) -> torch.Tensor:
-    """(..., Ni, 2) x (..., Nj, 2) normalized coords -> (..., Ni, Nj) bool
-    Sampson-distance gate under E (..., 3, 3) (x_i^T E x_j = 0): the
-    squared distance below thr2, in csrc/intra_glue.cu's order: the
-    three-term dots with the homogeneous 1 last, the denominator summed
-    left to right from the column's two terms, clamped at 1e-12, one
-    division."""
+def sampson_terms(xn_i: torch.Tensor, xn_j: torch.Tensor,
+                  E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., Ni, 2) x (..., Nj, 2) normalized coords, E (..., 3, 3) ->
+    the Sampson distance's numerator t^2 and denominator per (..., Ni, Nj)
+    cell, in csrc/intra_glue.cu's order: the three-term dots with the
+    homogeneous 1 last, the denominator summed left to right from the
+    column's two terms, clamped at 1e-12."""
     xi0, xi1 = xn_i[..., :, None, 0], xn_i[..., :, None, 1]
     xj0, xj1 = xn_j[..., None, :, 0], xn_j[..., None, :, 1]
 
@@ -188,7 +188,17 @@ def sampson_gate_sq(xn_i: torch.Tensor, xn_j: torch.Tensor,
     t = (xi0 * Exj[0] + xi1 * Exj[1]) + Exj[2]
     den = ((Exj[0] * Exj[0] + Exj[1] * Exj[1]) + Ethi[0] * Ethi[0]) \
         + Ethi[1] * Ethi[1]
-    return (t * t) / torch.clamp(den, min=1e-12) < thr2
+    return t * t, torch.clamp(den, min=1e-12)
+
+
+def sampson_gate_sq(xn_i: torch.Tensor, xn_j: torch.Tensor,
+                    E: torch.Tensor, thr2) -> torch.Tensor:
+    """(..., Ni, 2) x (..., Nj, 2) normalized coords -> (..., Ni, Nj) bool
+    Sampson-distance gate under E (..., 3, 3) (x_i^T E x_j = 0): the
+    squared distance below thr2, sampson_terms' numerator over its
+    denominator by one division."""
+    num, den = sampson_terms(xn_i, xn_j, E)
+    return num / den < thr2
 
 
 def intra_gate_reference(xy_ud: torch.Tensor, fxycxy: torch.Tensor,
@@ -288,8 +298,8 @@ def intra_groups(parent: torch.Tensor, valid: torch.Tensor,
     camera in each group slot, -1 none; desc (max_out, 8) int32 the root's
     descriptor; valid (max_out,) bool), the slots by priority (more rays,
     then response; ties to the lower flat index), padded past C N. CUDA
-    tensors launch the kernel (C N <= MAX_KEYS); CPU tensors take
-    intra_groups_reference."""
+    tensors launch the kernel (C N <= MAX_KEYS, C <= MAX_CAMERAS); CPU
+    tensors take intra_groups_reference."""
     if valid.dim() != 2:
         raise ValueError(f"intra_groups: valid must be (C, N), got "
                          f"{tuple(valid.shape)}")
@@ -299,15 +309,16 @@ def intra_groups(parent: torch.Tensor, valid: torch.Tensor,
     if _build.device_type(valid, "intra_groups") == "cpu":
         return intra_groups_reference(parent, valid, response, desc, max_out)
     dev = valid.device
-    if not 1 <= C * N <= MAX_KEYS:
-        raise ValueError(f"intra_groups: the kernel sorts 1 to {MAX_KEYS} "
-                         f"features in one block, got C N = {C * N}")
+    if not (1 <= C * N <= MAX_KEYS and C <= MAX_CAMERAS):
+        raise ValueError(f"intra_groups: the kernel ranks 1 to {MAX_KEYS} "
+                         f"features of at most {MAX_CAMERAS} cameras (a "
+                         f"camera bitmask per root), got C = {C}, C N = "
+                         f"{C * N}")
     p, v, r, d = _build.kernel_inputs(
         "intra_groups", dev, parent=(parent, torch.int32, (C, N)),
         valid=(valid, torch.bool, (C, N)),
         response=(response, torch.float32, (C, N)),
         desc=(desc, torch.int32, (C, N, 8)))
-    table = torch.empty(C * C * N, dtype=torch.int32, device=dev)
     ray_idx = torch.empty(max_out, C, dtype=torch.int32, device=dev)
     out_desc = torch.empty(max_out, 8, dtype=torch.int32, device=dev)
     out_valid = torch.empty(max_out, dtype=torch.bool, device=dev)
@@ -315,7 +326,7 @@ def intra_groups(parent: torch.Tensor, valid: torch.Tensor,
     _build.count("intra_groups")
     _build.check(lib.mc_intra_groups(
         p.data_ptr(), v.data_ptr(), r.data_ptr(), d.data_ptr(),
-        table.data_ptr(), ray_idx.data_ptr(), out_desc.data_ptr(),
+        ray_idx.data_ptr(), out_desc.data_ptr(),
         out_valid.data_ptr(), C, N, int(max_out), _build.stream_ptr(dev)),
         "mc_intra_groups")
     return ray_idx, out_desc, out_valid

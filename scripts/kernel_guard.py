@@ -15,8 +15,11 @@ and Sampson gate, eagerly and through a captured CUDA graph, and at
 random C = 2, 3 and 5; the intra glue's three kernels at bench frame 0's
 calls (not --quick; through a captured CUDA graph too) and at random
 problems (C = 2, N = 333, M = 500; C = 3, N = 129, M = 2048; C = 5, N =
-1000, M = 2048; with --quick also C = 4, N = 768 through graph replays),
-intra_groups' ray-table scratch a guarded buffer; the three ORB kernels at bench frame 0's inputs
+1000, M = 2048; with --quick also C = 4, N = 768 through graph replays;
+the designs' edges at C = 3, N = 200: the gate on NaN pixels with the
+threshold on a cell's quotient, the groups with every feature a root and
+with most features of two cameras on one root); the three ORB kernels at
+bench frame 0's inputs
 (orb_pyramid and orb_select also through a captured CUDA graph) and at
 random ones (the pyramid at 1 x 97 x 133 with 8 levels, 5 x 120 x 160
 with 4 and 2 x 240 x 320 with 10 in two launches, the selection on
@@ -430,8 +433,45 @@ def intra_glue_cases(quick: bool, dev, rng):
             if quick and N == 768:
                 out.append((f"{n} C={C} N={N} M={M} (random, graph replays)",
                             *kernel(n), calls[n], {}, True))
+    for name, n, a in intra_glue_edges(cs.intra_glue_problem(rng, 3, 200, 700,
+                                                             dev)):
+        out.append((f"{n} C=3 N=200 ({name})", *kernel(n), a, {}, False))
     return [(name, fn, a, kw, plain, graphed)
             for name, fn, plain, a, kw, graphed in out]
+
+
+def intra_glue_edges(calls):
+    """(name, kernel, args) of the gate's and the groups' edge cases from
+    a chip_smoke.intra_glue_problem: NaN pixels with the threshold on the
+    quotient of a cell (the cells the gate divides); every feature a root;
+    most features of cameras 1 and 2 on one root each."""
+    import torch
+
+    from mcslam_tpu_torch.frontend import intra_cuda
+
+    xy, f, E, _ = calls["intra_gate"]
+    xy = xy.clone()
+    xy[0, :3, 0] = float("nan")
+    xy[1, 5:8, 1] = float("nan")
+    C = xy.shape[0]
+    xn = intra_cuda.normalized(xy, f)
+    pi, pj = intra_cuda.camera_pairs(C)
+    num, den = intra_cuda.sampson_terms(xn[pi], xn[pj], E)
+    q = (num / den).flatten()
+    q = torch.sort(q[torch.isfinite(q) & (q > 0)]).values
+    thr2 = q[q.numel() // 10].reshape(()).clone()
+    parent, valid, response, desc, M = calls["intra_groups"]
+    roots = torch.arange(parent.numel(), dtype=torch.int32,
+                         device=parent.device).reshape(parent.shape)
+    shared = parent.clone()
+    shared[1, ::2] = 3
+    shared[2, ::3] = xy.shape[1] + 7
+    return [("NaN pixels, threshold on a cell", "intra_gate",
+             (xy, f, E, thr2)),
+            ("every feature a root", "intra_groups",
+             (roots, torch.ones_like(valid), response, desc, M)),
+            ("one root for most of two cameras", "intra_groups",
+             (shared, valid, response, desc, M))]
 
 
 def track_epilogue(*args, **kw):

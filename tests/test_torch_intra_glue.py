@@ -19,10 +19,19 @@ On the CPU, the same numpy inputs through the JAX package and the port
 - the rig constants: the bits of the per-frame ops, made once per rig,
   again for another rig and after an in-place edit.
 
+The gate's division-free cells (csrc/intra_glue.cu decides RN(a / b) <
+thr^2 by two products with margins and divides only the cells within
+them) are held to the float32 division on the CPU, modelled op for op,
+over 10^5 seeded (a, b) pairs around the threshold and the edge values.
+
 `gpu` cases (they skip without a card) hold each kernel to its plain
 version on the card with torch.equal at the frame's shape (C = 4, N =
-768, max_out 2048), at C = 2, 3, 5 x N = 1, 33, 129, 1000 and through
-two replays of a captured CUDA graph:
+768, max_out 2048), at C = 2, 3, 5 x N = 1, 33, 129, 1000, at the
+designs' edges (gate cells on the threshold, an exact rounding tie, the
+1e-12 clamp, t^2 overflowing, NaN pixels, thresholds outside the
+margins' range; groups with no valid feature, every feature a root,
+features of one camera sharing a root, equal priorities across the
+blocks' slices) and through two replays of a captured CUDA graph:
     python -m pytest --noconftest tests/test_torch_intra_glue.py -m gpu -q
 (this file imports JAX only inside its CPU comparisons)."""
 
@@ -233,6 +242,75 @@ def test_sampson_gate_matches_jax(jax_side):
     assert 0 < int(got.sum()) < got.size // 10
 
 
+def _margin_decisions(a, b, thr2):
+    """csrc/intra_glue.cu's decided gate cells, op for op in float32:
+    (below, above) where a < RN(tlo b) and a >= RN(thi b), tlo, thi =
+    RN(thr2 (1 -+ 2^-20)) for thr2 in [2^-60, 2^60], else -1 and inf."""
+    t = torch.tensor(thr2, dtype=F32)
+    if 2.0 ** -60 <= thr2 <= 2.0 ** 60:
+        tlo = t * torch.tensor(1 - 2.0 ** -20, dtype=F32)
+        thi = t * torch.tensor(1 + 2.0 ** -20, dtype=F32)
+    else:
+        tlo = torch.tensor(-1.0, dtype=F32)
+        thi = torch.tensor(float("inf"), dtype=F32)
+    return a < tlo * b, a >= thi * b
+
+
+def test_gate_margins_decide_as_the_division():
+    """The gate kernel's cells decided without a division give the float32
+    division's answer, RN(a / b) < thr2, on 10^5 seeded pairs a stated
+    ulp count from the threshold, at random and at the edges: a in {0,
+    subnormal, FLT_MAX, inf, NaN}, b at the 1e-12 clamp, FLT_MAX, inf, NaN,
+    rounding ties, thresholds inside and outside the margins' range."""
+    rng = np.random.RandomState(23)
+    n = 100_000
+    fmax = float(np.finfo(np.float32).max)
+    b = np.exp(rng.uniform(np.log(1e-12), np.log(1e30), n)).astype(np.float32)
+    b[:1000] = np.float32(1e-12)
+    checked = 0
+    for thr2 in ((3.0 / 400.0) ** 2, 1.0, 0.37, 2.0 ** -60, 2.0 ** 60,
+                 2.0 ** 59 * 1.5, 0.0, -1.0, TINY, 2.0 ** -61, 2.0 ** 61,
+                 float("inf"), float("nan")):
+        t32 = np.float32(thr2)
+        bt = torch.from_numpy(b)
+        # a within +-40 ulps of RN(thr2 b), within 2^-18 relative of it
+        # and anywhere over 20 binades
+        p = (bt * torch.tensor(t32)).numpy() if np.isfinite(t32) else b
+        k = rng.randint(-40, 41, n).astype(np.int64)
+        p = np.abs(p)  # a = t^2 >= 0
+        a_ulp = (p.view(np.int32).astype(np.int64) + k).clip(
+            0, 0x7f7fffff).astype(np.int32).view(np.float32)
+        with np.errstate(over="ignore"):  # past FLT_MAX: inf, an edge
+            a_rel = (p * (1 + rng.uniform(-2 ** -18, 2 ** -18, n))).astype(
+                np.float32)
+            a_wide = (p * np.exp2(rng.uniform(-10, 10, n))).astype(
+                np.float32)
+        edge_a = np.array([0.0, TINY, 1e-40, fmax, np.inf, np.nan, 1.0,
+                           9 * 2.0 ** -90], np.float32)
+        edge_b = np.array([1e-12, 1.0, fmax, np.inf, np.nan, 2.0 ** 60],
+                          np.float32)
+        ea, eb = (x.ravel() for x in np.meshgrid(edge_a, edge_b))
+        for a, bb in ((a_ulp, b), (a_rel, b), (a_wide, b), (ea, eb)):
+            at, btt = torch.from_numpy(a), torch.from_numpy(bb)
+            below, above = _margin_decisions(at, btt, float(t32))
+            want = at / btt < torch.tensor(t32)
+            assert not (below & above).any()
+            assert bool(want[below].all()), float(t32)
+            assert not bool(want[above].any()), float(t32)
+            checked += int((below | above).sum())
+            if 2.0 ** -60 <= t32 <= 2.0 ** 60 and a is a_wide:
+                # far from the threshold every cell is decided
+                assert int((below | above).sum()) == n
+    # the tie: 9 2^-150 rounds to the even subnormal 4 2^-149, and a
+    # threshold there sends it to the division
+    a, bb = torch.tensor([9 * 2.0 ** -90], dtype=F32), torch.tensor(
+        [2.0 ** 60], dtype=F32)
+    assert (a / bb).item() == 4 * TINY
+    below, above = _margin_decisions(a, bb, 5 * TINY)
+    assert not below.any() and not above.any()
+    assert checked > 10 * n
+
+
 def test_triangulation_stage_matches_jax(jax_side):
     """_triangulate_stage on JAX's groups of the C = 4 scene, padded slots
     (no ray) included."""
@@ -380,18 +458,131 @@ def _kernel_vs_plain(name, args):
 
 
 EDGE_SHAPES = [(C, N) for C in (2, 3, 5) for N in (1, 33, 129, 1000)]
+F32 = torch.float32
+TINY = 2.0 ** -149  # the least float32 subnormal
+
+
+def _shapes_and(edges, C, N):
+    """The shape cases (no edge), then each edge at (C, N)."""
+    return ([pytest.param(c, n, None, id=f"{c}-{n}")
+             for c, n in [(4, 768)] + EDGE_SHAPES]
+            + [pytest.param(C, N, e, id=e) for e in edges])
+
+
+def _f32_next(x, toward):
+    return torch.nextafter(torch.tensor(x, dtype=F32),
+                           torch.tensor(toward, dtype=F32))
+
+
+def _gate_edge(edge, args):
+    """intra_gate calls of an edge case, from _gate_inputs' (xy, fxycxy,
+    E, thr2)."""
+    xy, f, E, thr2 = args
+    dev = xy.device
+    if edge == "threshold":
+        # thr2 on the quotient of a cell (its gate false), one ulp above
+        # (true) and below, for cells at three quantiles of the quotients
+        C = xy.shape[0]
+        xn = intra_cuda.normalized(xy, f)
+        pi, pj = intra_cuda.camera_pairs(C)
+        num, den = intra_cuda.sampson_terms(xn[pi], xn[pj], E)
+        q = (num / den).flatten()
+        q = torch.sort(q[torch.isfinite(q) & (q > 0)]).values
+        out = []
+        for frac in (0.02, 0.3, 0.8):
+            v = q[int(frac * (q.numel() - 1))].reshape(())
+            out += [(xy, f, E, t) for t in (
+                v, _f32_next(v.item(), np.inf).to(dev),
+                _f32_next(v.item(), -np.inf).to(dev))]
+        return out
+    if edge == "tie":
+        # cell (0, 0) of pair (0, 1): xi = (0, 0), xj = (1/8, 0) exactly,
+        # so t = 3 2^-45 (t^2 = 9 2^-90) over den = (2^33 / 8)^2 = 2^60:
+        # the quotient 9 2^-150 is a rounding tie between the subnormals 4
+        # and 5 x 2^-149 (to 4, the even one); with E22 = 3 2^-10 the
+        # quotient 9 2^-80 is a normal float, a cell on the threshold
+        xy, E = xy.clone(), E.clone()
+        xy[0, 0] = f[0, 2:]
+        xy[1, 0] = f[1, 2:] + f[1, :2] * torch.tensor([0.125, 0.0],
+                                                      device=dev)
+        out = []
+        for e22, thrs in ((2.0 ** -45 * 3, (4 * TINY, 5 * TINY)),
+                          (2.0 ** -10 * 3, (9 * 2.0 ** -80,
+                                            _f32_next(9 * 2.0 ** -80,
+                                                      np.inf).item()))):
+            Et = E.clone()
+            Et[0] = 0.0
+            Et[0, 0, 0] = 2.0 ** 33
+            Et[0, 2, 2] = e22
+            xn = intra_cuda.normalized(xy, f)
+            num, den = intra_cuda.sampson_terms(xn[0:1, 0:1], xn[1:2, 0:1],
+                                                Et[0:1])
+            assert num.item() == (e22 * e22) and den.item() == 2.0 ** 60
+            out += [(xy, f, Et, torch.tensor(t, dtype=F32, device=dev))
+                    for t in thrs]
+        return out
+    if edge == "clamp":  # den below 1e-12 in most cells
+        return [(xy, f, E * 1e-7, thr2)]
+    if edge == "overflow":  # t^2 and den past float32's range in some cells
+        return [(xy, f, E * s, thr2) for s in (3e18, 3e19)]
+    if edge == "nan":  # NaN and infinite pixels in rows and columns
+        xy = xy.clone()
+        xy[0, :3, 0] = float("nan")
+        xy[1, 5:8, 1] = float("nan")
+        xy[2, 1, 0] = float("inf")
+        return [(xy, f, E, thr2)]
+    if edge == "thr2":  # thresholds outside the margins' range
+        return [(xy, f, E, torch.tensor(t, dtype=F32, device=dev))
+                for t in (0.0, -1.0, TINY, 2.0 ** -61, 2.0 ** -60, 2.0 ** 60,
+                          2.0 ** 61, float("inf"), float("nan"))]
+    raise ValueError(edge)
+
+
+GATE_EDGES = ("threshold", "tie", "clamp", "overflow", "nan", "thr2")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,N", [(4, 768)] + EDGE_SHAPES)
-def test_intra_gate_matches_plain(cuda, C, N):
-    _kernel_vs_plain("intra_gate", _gate_inputs(C * 1000 + N, C, N, cuda))
+@pytest.mark.parametrize("C,N,edge", _shapes_and(GATE_EDGES, 3, 200))
+def test_intra_gate_matches_plain(cuda, C, N, edge):
+    args = _gate_inputs(C * 1000 + N, C, N, cuda)
+    for a in ([args] if edge is None else _gate_edge(edge, args)):
+        _kernel_vs_plain("intra_gate", a)
+
+
+def _groups_edge(edge, args):
+    """intra_groups' inputs of an edge case, from _groups_inputs'."""
+    parent, valid, response, desc = (x.clone() for x in args)
+    C, N = valid.shape
+    if edge == "invalid":
+        valid[:] = False
+    elif edge == "roots":
+        parent = torch.arange(C * N, dtype=torch.int32,
+                              device=parent.device).reshape(C, N)
+        valid[:] = True
+    elif edge == "shared":
+        # most features of cameras 1 and 2 on one root each: the ray table
+        # keeps the largest index of each camera
+        parent[1, ::2] = 3
+        parent[2, 1::3] = 3
+        parent[2, ::3] = N + 7
+        valid[0, 3] = valid[1, 7] = True
+    elif edge == "ties":
+        # one priority level: roots of one ray count tie across slices
+        response[:] = 0.5
+    else:
+        raise ValueError(edge)
+    return parent, valid, response, desc
+
+
+GROUP_EDGES = ("invalid", "roots", "shared", "ties")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,N", [(4, 768)] + EDGE_SHAPES)
-def test_intra_groups_matches_plain(cuda, C, N):
+@pytest.mark.parametrize("C,N,edge", _shapes_and(GROUP_EDGES, 3, 333))
+def test_intra_groups_matches_plain(cuda, C, N, edge):
     args = _groups_inputs(C * 1000 + N, C, N, cuda)
+    if edge is not None:
+        args = _groups_edge(edge, args)
     for max_out in (2048, max(1, C * N // 2)):
         _kernel_vs_plain("intra_groups", (*args, max_out))
 
