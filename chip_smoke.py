@@ -1892,7 +1892,11 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
     and map rows 6-11 projecting exactly onto the frustum's edges (u = 0,
     u = W, v = 0, v = H at VGA) and into a cone exactly at 0.5 and one
     inside it; "no_valid": no valid current feature and no previous one
-    with a landmark."""
+    with a landmark; "all_ok" (N >= M): every current feature valid and
+    mutually matched within the distance and the ratio to a previous one
+    with a landmark, every map row valid (the epilogue counts M and M);
+    "none_with": as "all_ok" but no previous feature with a landmark (M
+    and 0)."""
     import torch
 
     def pose(rot, trans):
@@ -1935,7 +1939,7 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
     best = rng.randint(0, 100, M).astype(f32)
     best[rng.rand(M) < 0.1] = float(1 << 20)
     idx = rng.randint(0, N, M)
-    col = rng.randint(0, M, N)
+    col = rng.randint(0, max(M, 1), N)
     col[idx[:M // 2]] = np.arange(M // 2)
     P = dict(uv=rng.uniform(-10, 650, (M, 2)).astype(f32),
              anchor=rng.randint(0, C, M).astype(i32), cur_valid=cur_valid,
@@ -1949,7 +1953,16 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
              has_depth=rng.rand(M) > 0.3, best=best,
              second=best + rng.randint(0, 40, M).astype(f32),
              idx=idx.astype(i32), col=col.astype(i32),
-             lidx=rng.randint(0, L, M).astype(i32))
+             lidx=rng.randint(0, max(L, 1), M).astype(i32))
+    if case in ("all_ok", "none_with"):
+        P["cur_valid"][:] = True
+        P["map_valid"][:] = True
+        P["idx"] = rng.permutation(N)[:M].astype(i32)
+        P["col"][P["idx"]] = np.arange(M, dtype=i32)
+        P["best"] = rng.randint(0, STEP["max_dist"] + 1, M).astype(f32)
+        P["second"] = P["best"] + f32(200)
+        P["prev_lm"] = (rng.randint(0, cap, N) if case == "all_ok"
+                        else np.full(N, -1)).astype(i32)
     return {k: torch.from_numpy(v).to(dev) for k, v in P.items()}
 
 
@@ -2031,12 +2044,23 @@ def track_bytes_ops(name, args) -> tuple:
     return M * (13 + 4 + 12 + 76) + M * (88 + 4 + 4), M * 5
 
 
+# the tracking glue's redesigned kernels (track_epilogue's 32-row blocks,
+# localmap_gate's four lanes a column, 32 columns a block), which phase 2
+# holds also at these problems (C, M, N, L, track_problem's case): shapes
+# no multiple of their blocks, C = 1-4, the counts' extremes
+TRACK_REDESIGNED = ("track_epilogue", "localmap_gate")
+TRACK_EDGES = ((1, 31, 7, 63, "random"), (2, 33, 40, 65, "random"),
+               (4, 161, 200, 191, "all_ok"), (4, 2048, 2048, 4096, "none_with"))
+
+
 def track_kernels(scene, dev, kernels):
     """Phase 2, the tracking glue's kernels (frontend/track_cuda) at the
     calls that bench frame 1's eager fast-path step makes against frame
     0's map (C = 4, M = N = 2048, L = 4096) and at a random problem of odd
     shape (C = 3, M = 2049, N = 2047, L = 4097): each kernel twice and its
-    plain version on the card, all bitwise equal."""
+    plain version on the card, all bitwise equal; the redesigned two also
+    at TRACK_EDGES and, at bench frame 1's calls, through three replays of
+    one CUDA graph."""
     import torch
 
     from mcslam_tpu_torch import tracking_kernels as tk
@@ -2074,6 +2098,23 @@ def track_kernels(scene, dev, kernels):
             print(f"# kernel {n} ({what}): {len(k1)} outputs ({shapes}) "
                   f"bitwise equal to the plain version's and across two "
                   f"runs")
+        if n in TRACK_REDESIGNED:
+            for C, M, N, L, case in TRACK_EDGES:
+                a, kw = track_calls(track_problem(
+                    np.random.RandomState(M), C, M, N, L, MAP_CAP, dev,
+                    case))[n]
+                k1 = track_outputs(n, fn, a, kw)
+                k2 = track_outputs(n, fn, a, kw)
+                pl = track_outputs(n, plain, a, kw)
+                torch.cuda.synchronize()
+                check(all(same_bits(x, y) for x, y in zip(k1, k2))
+                      and all(x.shape == y.shape and same_bits(x, y)
+                              for x, y in zip(k1, pl)),
+                      f"{n} (C={C} M={M} N={N} L={L} {case}): differs from "
+                      f"the plain version or across two runs")
+            print(f"# kernel {n} at {len(TRACK_EDGES)} edge problems (C, "
+                  f"M, N, L, case: {TRACK_EDGES}): bitwise equal to the "
+                  f"plain version's and across two runs")
         a, kw = seen[n][0]
         nbytes, ops = track_bytes_ops(n, a)
         kernels[n] = dict(
@@ -2088,6 +2129,40 @@ def track_kernels(scene, dev, kernels):
             plain=lambda n=n, p=plain, a=a, kw=kw: track_outputs(n, p, a, kw),
             symbols=(f"{n}_kernel",), device_ops=1, nbytes=nbytes,
             ops_s=f32_ops_s(ops))
+    # the redesigned two at bench frame 1's calls in one CUDA graph: three
+    # replays bitwise equal to the plain versions, the epilogue's counter
+    # back at zero after each
+    from mcslam_tpu_torch.utils import graphs
+
+    ref = [o for n in TRACK_REDESIGNED for o in track_outputs(
+        n, getattr(track_cuda, f"{n}_reference"), *seen[n][0])]
+
+    def step():
+        return [o for n in TRACK_REDESIGNED for o in track_outputs(
+            n, getattr(track_cuda, n), *seen[n][0])]
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for k in range(3):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(same_bits(x, y) for x, y in zip(out, ref)),
+              f"{TRACK_REDESIGNED}: graph replay {k} differs from the plain "
+              f"versions")
+        check(int(graphs.counters("track_epilogue", 2, dev).abs().sum())
+              == 0, f"track_epilogue: counter not zero after replay {k}")
+    print(f"# kernels {', '.join(TRACK_REDESIGNED)} bench frame 1 in one "
+          f"CUDA graph: three replays bitwise equal to the plain versions, "
+          f"the counter back at zero after each")
+    del graph
 
 
 def plateau_candidates(rng, C, L, G, ncx, dev):

@@ -32,11 +32,11 @@
 //    (22, M) rows pose_lm reads (frontend/pose_opt_cuda._pack_obs: X, uv,
 //    R row-major, t, fx fy cx cy, 1 / sigma^2), with_lm and mask3d as
 //    bytes and floats; into the packed vector of the frame step the
-//    counts of ok and with_lm (slots 17, 18; integer atomics, exact, then
-//    the last block to arrive writes them and leaves its three counters
-//    at zero) and ok, idx, lm as floats (slots 21 ..);
+//    counts of ok and with_lm (slots 17, 18; integer fields of one 64-bit
+//    counter, exact, which the last block to arrive reads, writes and
+//    leaves at zero) and ok, idx, lm as floats (slots 21 ..);
 //  - localmap_gate: the candidates' map rows (position, descriptor words,
-//    normal) by id; rTw = se3_inverse(T_wr) once per block, p_ref = rTw
+//    normal) by id; rTw = se3_inverse(T_wr) by each thread, p_ref = rTw
 //    X, p_c = cam_T_ref[c] p_ref, z_s = z > 0.05 ? z : 1, the projection
 //    p / z_s f + c, visible where z > 0.05 and inside [0, W) x [0, H) and
 //    the viewing cone holds (view = (X - t_wr) / max(|X - t_wr|, 1e-9),
@@ -63,10 +63,23 @@
 // 2048, L = 4096) track_gate moves ~0.3 MB, track_epilogue ~0.5 MB,
 // localmap_gate ~0.75 MB and localmap_epilogue ~0.4 MB: 0.09-0.22 us at
 // 3.35 TB/s; their float32 operations (~30 a column and camera) take
-// below 0.01 us at 67 TFLOP/s; each kernel takes 2-5 us on an H100. So each kernel is one thread per row or
-// column, 128 a block, the gates' row blocks and column blocks in one
-// grid; the per-block poses in shared memory; ahat staged in shared memory
-// so that a block's rows go out as one contiguous run.
+// below 0.01 us at 67 TFLOP/s; each kernel takes 2-5 us on an H100, so
+// what counts is the chain of dependent loads a thread waits on and how
+// many SMs share the stores. track_gate and localmap_epilogue are a
+// thread per row or column, 128 a block (track_gate's row blocks and
+// column blocks in one grid, the cameras' world poses per block in shared
+// memory, ahat staged in shared memory so that a block's rows go out as
+// one contiguous run). track_epilogue spreads its rows over 32-row blocks
+// (64 at M = 2048): a chain warp per block walks idx -> col_idx,
+// prev_lm_id -> the map row while three other warps write the rows'
+// match-independent outputs (cam_out, f_out, rows 3-21, about 40 of a
+// row's ~55 stores) as contiguous runs; the counts cost one atomic round
+// trip a warp, no serial tail. localmap_gate gives a candidate column four
+// lanes, each projecting into one camera and taking one of the viewing
+// ray's three divisions (a thread's chain of dependent work a third of a
+// whole column's), in 128-thread blocks (144 at the frame's shape); each
+// column loads its candidate, map row and descriptor before it needs the
+// pose, and the descriptors go out as 16-byte runs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,24 +88,28 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_C = 4;               // (match_cuda.DG_MAX - 2) / 3
 constexpr int MAX_DG = 3 * MAX_C + 2;  // gate factors at MAX_C cameras
 constexpr int OBS_ROWS = 22;           // pose_lm's observation rows
 constexpr float PASS_BIAS = 1e13f;     // ops/match_cuda.PASS_BIAS
 constexpr float GATE_BIG = 1e12f;      // tracking_kernels._GATE_BIG
 constexpr unsigned FULL = 0xffffffffu;
+// track_epilogue: rows a block, its threads: a chain warp (warp 0) and
+// EPI_OTHER threads of other warps, each warp a lane per row
+constexpr int EPI_ROWS = 32;
+constexpr int EPI_THREADS = 128;
+constexpr int EPI_OTHER = EPI_THREADS - 32;
+static_assert(EPI_ROWS <= 32 && EPI_OTHER % 32 == 0,
+              "a lane per row in every warp of track_epilogue");
+// localmap_gate: threads a block (a row each in the row blocks), lanes a
+// candidate column (1, 2 or 4)
+constexpr int LM_THREADS = 128;
+constexpr int LM_LANES = 4;
 
-// atomicAdd of 1 with release and acquire semantics at device scope (as in
-// ransac_score.cu): a block's count atomics, issued before it, are seen by
-// the last block after its own
-__device__ __forceinline__ int add_acq_rel(int* p) {
-  int old;
-  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;"
-               : "=r"(old)
-               : "l"(p)
-               : "memory");
-  return old;
+// a barrier of track_epilogue's other warps alone (its chain warp never
+// waits on it)
+__device__ __forceinline__ void others_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(EPI_OTHER) : "memory");
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -122,9 +139,10 @@ __device__ __forceinline__ void se3_inverse12(const float* P, float* inv) {
     inv[9 + j] = -dot3(P[j], P[4 + j], P[8 + j], P[3], P[7], P[11]);
 }
 
-// the rows of ahat (M, DG) of rows [m0, m0 + THREADS): -2 oh u, -2 oh v
-// per camera, oh, u^2 + v^2 + 4 PB row_invalid, 1; staged in shared
-// memory, then written as one contiguous run
+// the rows of ahat (M, DG) of rows [m0, m0 + ROWS), a thread each: -2 oh
+// u, -2 oh v per camera, oh, u^2 + v^2 + 4 PB row_invalid, 1; staged in
+// shared memory, then written as one contiguous run
+template <int ROWS>
 __device__ void write_ahat(const float* __restrict__ uv,
                            const int* __restrict__ anchor,
                            const bool* __restrict__ valid, int M, int C,
@@ -150,9 +168,9 @@ __device__ void write_ahat(const float* __restrict__ uv,
     r[3 * C + 1] = 1.0f;
   }
   __syncthreads();
-  const int n = min(THREADS, M - m0) * DG;
+  const int n = min(ROWS, M - m0) * DG;
   float* out = ahat + static_cast<long long>(m0) * DG;
-  for (int k = tid; k < n; k += THREADS) out[k] = s_a[k];
+  for (int k = tid; k < n; k += ROWS) out[k] = s_a[k];
 }
 
 // one column's gate factors: rows 2c, 2c + 1 the projection, 2C + c its
@@ -190,7 +208,8 @@ __global__ void __launch_bounds__(THREADS) track_gate_kernel(
   __shared__ float s_f[MAX_C][4];
   const int tid = threadIdx.x;
   if (static_cast<int>(blockIdx.x) < row_blocks) {
-    write_ahat(uv, anchor, cur_valid, M, C, blockIdx.x * THREADS, ahat, s_a);
+    write_ahat<THREADS>(uv, anchor, cur_valid, M, C, blockIdx.x * THREADS,
+                        ahat, s_a);
     return;
   }
   if (tid < C) {
@@ -238,90 +257,156 @@ __global__ void __launch_bounds__(THREADS) track_gate_kernel(
                  2e13f * ci - PASS_BIAS * cp);
 }
 
-__global__ void __launch_bounds__(THREADS) localmap_gate_kernel(
+// LM_LANES lanes per candidate column (lane q projects into the cameras
+// c = q mod LM_LANES and divides the viewing ray's components k = q mod
+// LM_LANES, each on the same code path as its neighbours), LM_THREADS a
+// block; the column blocks first in the grid, then
+// the row blocks of ahat (LM_THREADS rows each). A column issues its loads
+// (the candidate, then its map row and descriptor) ahead of the pose,
+// which each thread inverts itself: no block barrier waits on T_wr, which
+// the tracking half has just written
+__global__ void __launch_bounds__(LM_THREADS) localmap_gate_kernel(
     const float* __restrict__ uv, const int* __restrict__ anchor,
     const bool* __restrict__ im_valid, const int* __restrict__ cand_ids,
     const bool* __restrict__ cand_valid, const float* __restrict__ map_pos,
     const int* __restrict__ map_desc, const float* __restrict__ map_normal,
     const float* __restrict__ cam, const float* __restrict__ fxy,
     const float* __restrict__ T_wr, int M, int L, int C, int cap,
-    float width, float height, float min_cos, int row_blocks,
+    float width, float height, float min_cos, int col_blocks,
     int* __restrict__ lm_desc, float* __restrict__ ahat,
     float* __restrict__ bhat) {
-  __shared__ float s_a[THREADS * MAX_DG];
-  __shared__ float s_inv[12];
-  __shared__ float s_t[3];
-  __shared__ float s_cam[MAX_C][12];
-  __shared__ float s_f[MAX_C][4];
-  const int tid = threadIdx.x;
-  if (static_cast<int>(blockIdx.x) < row_blocks) {
-    write_ahat(uv, anchor, im_valid, M, C, blockIdx.x * THREADS, ahat, s_a);
+  constexpr int COLS = LM_THREADS / LM_LANES;  // columns a block
+  constexpr int WCOLS = 32 / LM_LANES;         // columns a warp
+  __shared__ float s_a[LM_THREADS * MAX_DG];
+  // the gate block starts
+  const int tid = threadIdx.x, lane = tid & 31, q = tid % LM_LANES;
+  if (static_cast<int>(blockIdx.x) >= col_blocks) {
+    write_ahat<LM_THREADS>(uv, anchor, im_valid, M, C,
+                           (blockIdx.x - col_blocks) * LM_THREADS, ahat,
+                           s_a);
+    // the ahat rows stored
     return;
   }
-  if (tid == 0) {
-    se3_inverse12(T_wr, s_inv);
-    s_t[0] = T_wr[3];
-    s_t[1] = T_wr[7];
-    s_t[2] = T_wr[11];
+  const int l = blockIdx.x * COLS + tid / LM_LANES;
+  const bool live = l < L;
+  int id = 0;
+  bool cvalid = false;
+  if (live) {
+    id = clampi(cand_ids[l], 0, cap - 1);
+    cvalid = cand_valid[l];
   }
-  if (tid < C) {
-    const float* T = cam + 16 * tid;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) s_cam[tid][3 * i + k] = T[4 * i + k];
-      s_cam[tid][9 + i] = T[4 * i + 3];
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s_f[tid][k] = fxy[4 * tid + k];
-  }
-  __syncthreads();
-  const int l = (static_cast<int>(blockIdx.x) - row_blocks) * THREADS + tid;
-  if (l >= L) return;
-  const int id = clampi(cand_ids[l], 0, cap - 1);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) lm_desc[8 * l + k] = map_desc[8 * id + k];
   const float X0 = map_pos[3 * id], X1 = map_pos[3 * id + 1],
               X2 = map_pos[3 * id + 2];
   const float n0 = map_normal[3 * id], n1 = map_normal[3 * id + 1],
               n2 = map_normal[3 * id + 2];
-  // the viewing cone
-  float v0 = X0 - s_t[0], v1 = X1 - s_t[1], v2 = X2 - s_t[2];
-  float vn = __fsqrt_rn(dot3(v0, v1, v2, v0, v1, v2));
+  // the descriptors' copy
+  {
+    // the warp's columns' words as 16-byte runs: int4 e of the warp's
+    // run is column e / 2's half e % 2, read by 16 bytes where map_desc
+    // is aligned to them
+    const int c0 = l - lane / LM_LANES;  // the warp's first column
+    const bool vec = (reinterpret_cast<uintptr_t>(map_desc) & 15) == 0;
+#pragma unroll
+    for (int k = 0; k < (2 * WCOLS + 31) / 32; ++k) {
+      const int e = 32 * k + lane;
+      const int src = __shfl_sync(FULL, id, ((e >> 1) * LM_LANES) & 31);
+      const int col = c0 + (e >> 1);
+      if (e < 2 * WCOLS && col < L) {
+        const int* d = map_desc + 8 * src + 4 * (e & 1);
+        const int4 v = vec ? *reinterpret_cast<const int4*>(d)
+                           : make_int4(d[0], d[1], d[2], d[3]);
+        reinterpret_cast<int4*>(lm_desc)[2 * col + (e & 1)] = v;
+      }
+    }
+  }
+  // the candidate's map row in
+  if (!live) return;  // a column's lanes return together
+  // rTw = se3_inverse(T_wr), by each thread
+  float rTw[12];
+  se3_inverse12(T_wr, rTw);
+  // the pose in
+  // the viewing cone: the ray's components divided by the column's lanes
+  // (component k by lane k mod LM_LANES), gathered by shuffles
+  const float w0 = X0 - T_wr[3], w1 = X1 - T_wr[7], w2 = X2 - T_wr[11];
+  float vn = __fsqrt_rn(dot3(w0, w1, w2, w0, w1, w2));
   vn = vn < 1e-9f ? 1e-9f : vn;
-  v0 = v0 / vn;
-  v1 = v1 / vn;
-  v2 = v2 / vn;
+  constexpr int VK = (3 + LM_LANES - 1) / LM_LANES;  // components a lane
+  float vd[VK];
+#pragma unroll
+  for (int k = 0; k < VK; ++k) {
+    const int comp = q + LM_LANES * k;
+    vd[k] = (comp == 0 ? w0 : (comp == 1 ? w1 : w2)) / vn;
+  }
+  float v[3];
+  if constexpr (LM_LANES == 1) {
+    v[0] = vd[0];
+    v[1] = vd[1];
+    v[2] = vd[2];
+  } else {
+    const int base = lane - q;  // the column's first lane
+    const unsigned cmask = (0xffffffffu >> (32 - LM_LANES)) << base;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      v[i] = __shfl_sync(cmask, vd[i / LM_LANES], base + i % LM_LANES);
+  }
   const bool has_n = __fsqrt_rn(dot3(n0, n1, n2, n0, n1, n2)) > 1e-6f;
-  const bool cone = dot3(v0, v1, v2, n0, n1, n2) > min_cos || !has_n;
-  // the reference frame, then each camera
-  const float* r = s_inv;
+  const bool cone = dot3(v[0], v[1], v[2], n0, n1, n2) > min_cos || !has_n;
+  // the reference frame, then the lane's cameras c = q + LM_LANES k
+  const float* r = rTw;
   const float q0 = dot3(r[0], r[1], r[2], X0, X1, X2) + r[9];
   const float q1 = dot3(r[3], r[4], r[5], X0, X1, X2) + r[10];
   const float q2 = dot3(r[6], r[7], r[8], X0, X1, X2) + r[11];
-  float pu[MAX_C], pv[MAX_C], pen[MAX_C];
+  constexpr int CK = MAX_C / LM_LANES;  // cameras a lane
+  float pu[CK], pv[CK], pen[CK];
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
+  for (int k = 0; k < CK; ++k) {
+    const int c = q + LM_LANES * k;
     if (c < C) {
-      const float* w = s_cam[c];
-      const float p0 = dot3(w[0], w[1], w[2], q0, q1, q2) + w[9];
-      const float p1 = dot3(w[3], w[4], w[5], q0, q1, q2) + w[10];
-      const float z = dot3(w[6], w[7], w[8], q0, q1, q2) + w[11];
+      const float* w = cam + 16 * c;
+      const float4 f = make_float4(fxy[4 * c], fxy[4 * c + 1],
+                                   fxy[4 * c + 2], fxy[4 * c + 3]);
+      const float p0 = dot3(w[0], w[1], w[2], q0, q1, q2) + w[3];
+      const float p1 = dot3(w[4], w[5], w[6], q0, q1, q2) + w[7];
+      const float z = dot3(w[8], w[9], w[10], q0, q1, q2) + w[11];
       const float zs = z > 0.05f ? z : 1.0f;
-      const float u = p0 / zs * s_f[c][0] + s_f[c][2];
-      const float v = p1 / zs * s_f[c][1] + s_f[c][3];
+      const float u = p0 / zs * f.x + f.z;
+      const float v = p1 / zs * f.y + f.w;
       const bool vis = z > 0.05f && u >= 0.0f && u < width && v >= 0.0f &&
                        v < height && cone;
-      pu[c] = clampf(u, -1e5f, 1e5f);
-      pv[c] = clampf(v, -1e5f, 1e5f);
-      pen[c] = vis ? 0.0f : 1.0f;
+      pu[k] = clampf(u, -1e5f, 1e5f);
+      pv[k] = clampf(v, -1e5f, 1e5f);
+      pen[k] = vis ? 0.0f : 1.0f;
     }
   }
-  write_bhat_col(bhat, L, C, l, pu, pv, pen,
-                 2e13f * (cand_valid[l] ? 0.0f : 1.0f));
+  // the projections made
+#pragma unroll
+  for (int k = 0; k < CK; ++k) {
+    const int c = q + LM_LANES * k;
+    if (c < C) {
+      bhat[static_cast<long long>(2 * c) * L + l] = pu[k];
+      bhat[static_cast<long long>(2 * c + 1) * L + l] = pv[k];
+      bhat[static_cast<long long>(2 * C + c) * L + l] =
+          (pu[k] * pu[k] + pv[k] * pv[k]) + GATE_BIG * pen[k];
+    }
+  }
+  if (q == 0) {
+    bhat[static_cast<long long>(3 * C) * L + l] = 1.0f;
+    bhat[static_cast<long long>(3 * C + 1) * L + l] =
+        2e13f * (cvalid ? 0.0f : 1.0f);
+  }
+  // the gate block ends
 }
 
-__global__ void __launch_bounds__(THREADS) track_epilogue_kernel(
+// EPI_ROWS rows a block of EPI_THREADS threads. The chain warp (a lane
+// per row) loads idx, then col_idx and prev_lm_id, then the map row, and
+// writes what the match decides: X (as contiguous runs through shuffles),
+// rows 0-2, the masks, the packed slots, and the counts by one 64-bit
+// atomic a block; the other warps meanwhile write what the frame build
+// decided alone: cam_out and f_out as 16-byte runs, rows 3-21. The
+// counter packs the count of ok (bits 0-21), of with_lm (22-43) and the
+// blocks arrived (44-63): the last block to arrive reads both totals from
+// its one atomic, writes them and leaves the counter at zero
+__global__ void __launch_bounds__(EPI_THREADS) track_epilogue_kernel(
     const float* __restrict__ best, const float* __restrict__ second,
     const int* __restrict__ idx, const int* __restrict__ col_idx,
     const bool* __restrict__ cur_valid, const bool* __restrict__ has_depth,
@@ -334,82 +419,139 @@ __global__ void __launch_bounds__(THREADS) track_epilogue_kernel(
     float* __restrict__ f_out, float* __restrict__ obs,
     bool* __restrict__ with_out, bool* __restrict__ mask3d_out,
     float* __restrict__ with_f, float* __restrict__ mask3d_f,
-    float* __restrict__ packed, int* __restrict__ counters) {
-  __shared__ int s_ok[WARPS], s_with[WARPS];
-  const int tid = threadIdx.x;
-  const int m = blockIdx.x * THREADS + tid;
-  bool ok = false, with = false;
-  if (m < M) {
-    const int j_raw = idx[m];
-    const int j = clampi(j_raw, 0, N - 1);
-    const float b = best[m];
-    ok = col_idx[j] == m && b <= max_dist && b <= ratio * second[m] &&
-         cur_valid[m];
-    const int lm0 = ok ? prev_lm_id[j] : -1;
-    const int safe = clampi(lm0, 0, cap - 1);
-    with = lm0 >= 0 && map_valid[safe];
-    const bool m3 = with && has_depth[m];
-    const float X0 = map_pos[3 * safe], X1 = map_pos[3 * safe + 1],
-                X2 = map_pos[3 * safe + 2];
-    const int a = clampi(anchor[m], 0, C - 1);
-    const float* T = cam + 16 * a;
-    const float* f = fxy + 4 * a;
-    X_out[3 * m] = X0;
-    X_out[3 * m + 1] = X1;
-    X_out[3 * m + 2] = X2;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) cam_out[16 * m + k] = T[k];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) f_out[4 * m + k] = f[k];
-    // pose_lm's rows: X, uv, R (row-major), t, f, 1 / sigma^2
-    const long long Ml = M;
-    obs[0 * Ml + m] = X0;
-    obs[1 * Ml + m] = X1;
-    obs[2 * Ml + m] = X2;
-    obs[3 * Ml + m] = uv[2 * m];
-    obs[4 * Ml + m] = uv[2 * m + 1];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) obs[(5 + 3 * i + k) * Ml + m] = T[4 * i + k];
-      obs[(14 + i) * Ml + m] = T[4 * i + 3];
+    float* __restrict__ packed,
+    unsigned long long* __restrict__ counter) {
+  __shared__ __align__(16) float s_cam[MAX_C * 16];
+  __shared__ __align__(16) float s_f[MAX_C * 4];
+  // the epilogue block starts
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * EPI_ROWS;
+  const int nr = min(EPI_ROWS, M - m0);
+  const long long Ml = M;
+  if (warp == 0) {
+    const int m = m0 + lane;
+    const bool live = lane < nr;
+    bool ok = false, with = false, m3 = false;
+    int j_raw = 0, lm = -1;
+    float X0 = 0.0f, X1 = 0.0f, X2 = 0.0f;
+    if (live) {
+      j_raw = idx[m];
+      const float b = best[m], s = second[m];
+      const bool valid = cur_valid[m], depth = has_depth[m];
+      const int j = clampi(j_raw, 0, N - 1);
+      const int col = col_idx[j], prev = prev_lm_id[j];
+      ok = col == m && b <= max_dist && b <= ratio * s && valid;
+      const int lm0 = ok ? prev : -1;
+      const int safe = clampi(lm0, 0, cap - 1);
+      with = lm0 >= 0 && map_valid[safe];
+      X0 = map_pos[3 * safe];
+      X1 = map_pos[3 * safe + 1];
+      X2 = map_pos[3 * safe + 2];
+      m3 = with && depth;
+      lm = with ? lm0 : -1;
     }
+    // the chain's values in
+    // X_out's 3 nr floats of the block's rows in three contiguous runs
+    float* xo = X_out + 3ll * m0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) obs[(17 + k) * Ml + m] = f[k];
-    obs[21 * Ml + m] = 1.0f / sigma2[m];
-    with_out[m] = with;
-    mask3d_out[m] = m3;
-    with_f[m] = with ? 1.0f : 0.0f;
-    mask3d_f[m] = m3 ? 1.0f : 0.0f;
-    packed[21 + m] = ok ? 1.0f : 0.0f;
-    packed[21 + Ml + m] = static_cast<float>(j_raw);
-    packed[21 + 2 * Ml + m] = static_cast<float>(with ? lm0 : -1);
-  }
-  // the counts: a ballot per warp, the block's sum, one atomic each
-  const unsigned b_ok = __ballot_sync(FULL, ok);
-  const unsigned b_with = __ballot_sync(FULL, with);
-  if ((tid & 31) == 0) {
-    s_ok[tid >> 5] = __popc(b_ok);
-    s_with[tid >> 5] = __popc(b_with);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n_ok = 0, n_with = 0;
+    for (int k = 0; k < 3; ++k) {
+      const int e = 32 * k + lane;
+      const int src = e / 3, comp = e - 3 * src;
+      const float x0 = __shfl_sync(FULL, X0, src);
+      const float x1 = __shfl_sync(FULL, X1, src);
+      const float x2 = __shfl_sync(FULL, X2, src);
+      if (e < 3 * nr) xo[e] = comp == 0 ? x0 : (comp == 1 ? x1 : x2);
+    }
+    if (live) {
+      obs[m] = X0;
+      obs[Ml + m] = X1;
+      obs[2 * Ml + m] = X2;
+      with_out[m] = with;
+      mask3d_out[m] = m3;
+      with_f[m] = with ? 1.0f : 0.0f;
+      mask3d_f[m] = m3 ? 1.0f : 0.0f;
+      packed[21 + m] = ok ? 1.0f : 0.0f;
+      packed[21 + Ml + m] = static_cast<float>(j_raw);
+      packed[21 + 2 * Ml + m] = static_cast<float>(lm);
+    }
+    // the chain's stores issued
+    const unsigned b_ok = __ballot_sync(FULL, ok);
+    const unsigned b_with = __ballot_sync(FULL, with);
+    if (lane == 0) {
+      // the block's counts
+      {
+        const unsigned long long mine =
+            (1ull << 44) | (static_cast<unsigned long long>(__popc(b_with))
+                            << 22) | static_cast<unsigned long long>(__popc(b_ok));
+        const unsigned long long now = atomicAdd(counter, mine) + mine;
+        if ((now >> 44) == gridDim.x) {
+          packed[17] = static_cast<float>(now & 0x3fffffu);
+          packed[18] = static_cast<float>((now >> 22) & 0x3fffffu);
+          *counter = 0ull;
+        }
+      }
+    }
+  } else {
+    // the other warps: a lane per row (every such warp loads the rows'
+    // anchor, uv and sigma^2), the rig's cameras into shared memory, then
+    // their stores; no load waits on another
+    const int t = tid - 32, w = t >> 5;
+    const int i = lane, m = m0 + i;
+    const bool live = i < nr;
+    int a = 0;
+    float u = 0.0f, v = 0.0f, s2 = 1.0f;
+    if (live) {
+      a = clampi(anchor[m], 0, C - 1);
+      u = uv[2 * m];
+      v = uv[2 * m + 1];
+      s2 = sigma2[m];
+    }
+    for (int k = t; k < 20 * C; k += EPI_OTHER) {
+      if (k < 16 * C) s_cam[k] = cam[k];
+      else s_f[k - 16 * C] = fxy[k - 16 * C];
+    }
+    others_sync();
+    // the match-independent stores begin
+    {
+      // cam_out's and f_out's rows as 16-byte runs: float4 e < 4 nr is
+      // row e / 4's quarter e % 4 of cam_out, 4 nr <= e < 5 nr row e - 4 nr
+      // of f_out; the row's anchor from its lane
+      float4* co = reinterpret_cast<float4*>(cam_out) + 4ll * m0;
+      float4* fo = reinterpret_cast<float4*>(f_out) + m0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      n_ok += s_ok[w];
-      n_with += s_with[w];
+      for (int k = 0; k < (5 * EPI_ROWS + EPI_OTHER - 1) / EPI_OTHER; ++k) {
+        const int e = t + EPI_OTHER * k;
+        const int row = e < 4 * EPI_ROWS ? e >> 2 : e - 4 * EPI_ROWS;
+        const int ar = __shfl_sync(FULL, a, row & 31);
+        if (e < 4 * nr) {
+          co[e] = *reinterpret_cast<const float4*>(s_cam + 16 * ar +
+                                                   4 * (e & 3));
+        } else if (e >= 4 * EPI_ROWS && row < nr) {
+          fo[row] = *reinterpret_cast<const float4*>(s_f + 4 * ar);
+        }
+      }
+      // rows 3-21 (uv, R row-major, t, f, 1 / sigma^2): warp w of the
+      // others writes the rows 3 + w, 3 + w + EPI_OTHER / 32, ...
+      if (live) {
+        const float* T = s_cam + 16 * a;
+        const float* f = s_f + 4 * a;
+#pragma unroll
+        for (int row = 3; row < OBS_ROWS; ++row) {
+          if ((row - 3) % (EPI_OTHER / 32) != w) continue;
+          float val;
+          if (row == 3) val = u;
+          else if (row == 4) val = v;
+          else if (row < 14) val = T[4 * ((row - 5) / 3) + (row - 5) % 3];
+          else if (row < 17) val = T[4 * (row - 14) + 3];
+          else if (row < 21) val = f[row - 17];
+          else val = 1.0f / s2;
+          obs[row * Ml + m] = val;
+        }
+      }
     }
-    if (n_ok) atomicAdd(counters, n_ok);
-    if (n_with) atomicAdd(counters + 1, n_with);
-    if (add_acq_rel(counters + 2) == static_cast<int>(gridDim.x) - 1) {
-      // the last block to arrive: every count is in; both written as
-      // floats, and the three counters left at zero for the next launch
-      packed[17] = static_cast<float>(atomicExch(counters, 0));
-      packed[18] = static_cast<float>(atomicExch(counters + 1, 0));
-      atomicExch(counters + 2, 0);
-    }
+    // the match-independent stores issued
   }
+  // the epilogue block ends
 }
 
 __global__ void __launch_bounds__(THREADS) localmap_epilogue_kernel(
@@ -466,8 +608,12 @@ extern "C" int mc_track_gate(const void* uv, const void* anchor,
 
 // best, second, idx, col_idx, cur_valid, has_depth, uv, anchor, sigma2,
 // prev_lm_id, map_valid, map_pos, cam_T_ref, fxycxy, X_world, cTr, f, obs
-// rows, with_lm, mask3d, with_lm float, mask3d float, packed, counters (3
-// ints, zero), M, N, C, cap, max_dist, ratio, stream
+// rows, with_lm, mask3d, with_lm float, mask3d float, packed, counters (2
+// ints, zero, read as one 8-byte aligned 64-bit counter), M, N, C, cap,
+// max_dist, ratio, stream. cTr and f must be 16-byte aligned; M < 2^22
+// (the counter's fields), C <= MAX_C (the cameras' table in shared
+// memory). M = 0 launches one block, which writes the two
+// counts as zeros
 extern "C" int mc_track_epilogue(
     const void* best, const void* second, const void* idx,
     const void* col_idx, const void* cur_valid, const void* has_depth,
@@ -477,9 +623,14 @@ extern "C" int mc_track_epilogue(
     void* f_out, void* obs, void* with_out, void* mask3d_out, void* with_f,
     void* mask3d_f, void* packed, void* counters, int M, int N, int C,
     int cap, float max_dist, float ratio, void* stream) {
-  if (M < 0 || N < 1 || C < 1 || cap < 1) return cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  track_epilogue_kernel<<<blocks(M), THREADS, 0,
+  if (M < 0 || M >= (1 << 22) || N < 1 || C < 1 || C > MAX_C || cap < 1)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(cam_out) & 15) ||
+      (reinterpret_cast<uintptr_t>(f_out) & 15) ||
+      (reinterpret_cast<uintptr_t>(counters) & 7))
+    return cudaErrorMisalignedAddress;
+  const int grid = M == 0 ? 1 : (M + EPI_ROWS - 1) / EPI_ROWS;
+  track_epilogue_kernel<<<grid, EPI_THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(best), static_cast<const float*>(second),
       static_cast<const int*>(idx), static_cast<const int*>(col_idx),
@@ -494,13 +645,14 @@ extern "C" int mc_track_epilogue(
       static_cast<float*>(f_out), static_cast<float*>(obs),
       static_cast<bool*>(with_out), static_cast<bool*>(mask3d_out),
       static_cast<float*>(with_f), static_cast<float*>(mask3d_f),
-      static_cast<float*>(packed), static_cast<int*>(counters));
+      static_cast<float*>(packed),
+      static_cast<unsigned long long*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
 
 // uv, anchor, im_valid, cand_ids, cand_valid, map_pos, map_desc,
-// map_normal, cam_T_ref, fxycxy, T_wr, lm_desc, ahat, bhat, M, L, C, cap,
-// width, height, min_cos, stream
+// map_normal, cam_T_ref, fxycxy, T_wr, lm_desc (16-byte aligned), ahat,
+// bhat, M, L, C, cap, width, height, min_cos, stream
 extern "C" int mc_localmap_gate(const void* uv, const void* anchor,
                                 const void* im_valid, const void* cand_ids,
                                 const void* cand_valid, const void* map_pos,
@@ -512,9 +664,13 @@ extern "C" int mc_localmap_gate(const void* uv, const void* anchor,
                                 void* stream) {
   if (M < 0 || L < 0 || C < 1 || C > MAX_C || cap < 1)
     return cudaErrorInvalidValue;
-  const int rb = blocks(M), grid = rb + blocks(L);
+  if (reinterpret_cast<uintptr_t>(lm_desc) & 15)
+    return cudaErrorMisalignedAddress;
+  const int cols = LM_THREADS / LM_LANES;
+  const int cb = (L + cols - 1) / cols;
+  const int grid = cb + (M + LM_THREADS - 1) / LM_THREADS;
   if (grid == 0) return 0;
-  localmap_gate_kernel<<<grid, THREADS, 0,
+  localmap_gate_kernel<<<grid, LM_THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(uv), static_cast<const int*>(anchor),
       static_cast<const bool*>(im_valid), static_cast<const int*>(cand_ids),
@@ -522,7 +678,7 @@ extern "C" int mc_localmap_gate(const void* uv, const void* anchor,
       static_cast<const float*>(map_pos), static_cast<const int*>(map_desc),
       static_cast<const float*>(map_normal), static_cast<const float*>(cam),
       static_cast<const float*>(fxy), static_cast<const float*>(T_wr), M, L,
-      C, cap, width, height, min_cos, rb, static_cast<int*>(lm_desc),
+      C, cap, width, height, min_cos, cb, static_cast<int*>(lm_desc),
       static_cast<float*>(ahat), static_cast<float*>(bhat));
   return static_cast<int>(cudaGetLastError());
 }

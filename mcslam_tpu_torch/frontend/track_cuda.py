@@ -26,6 +26,8 @@ bit-equal (-fmad=false, IEEE divisions and roots).
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -40,6 +42,10 @@ PB = match_cuda.PASS_BIAS
 MAX_CAMERAS = (match_cuda.DG_MAX - 2) // 3  # csrc/track_glue.cu's MAX_C
 OBS_ROWS = 22  # pose_lm's observation rows (pose_opt_cuda._pack_obs)
 HEAD = 21  # the packed vector's pose and counts before the match's rows
+# track_epilogue's counter: the two counts in 22-bit fields of one 64-bit
+# word (csrc/track_glue.cu), so M < 2^22
+MAX_ROWS = (1 << 22) - 1
+ALIGN = 512  # bytes: where each carved output view starts
 
 
 class TrackObs(NamedTuple):
@@ -52,6 +58,61 @@ class TrackObs(NamedTuple):
     mask3d: torch.Tensor  # (M,) bool: with_lm and a triangulated point
     with_f: torch.Tensor  # (M,) float32 with_lm
     mask3d_f: torch.Tensor  # (M,) float32 mask3d
+
+
+def _layout(shapes, dtypes):
+    """((shape, stride, offset, dtype), ...) of contiguous views of one
+    float32 buffer, each starting at a multiple of ALIGN bytes (where an
+    allocation of its own would start; the offset in elements of its
+    dtype), and the buffer's length."""
+    views, off = [], 0
+    for shape, dt in zip(shapes, dtypes):
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        views.append((shape, stride, off // dt.itemsize, dt))
+        off += -(-math.prod(shape) * dt.itemsize // ALIGN) * ALIGN
+    return tuple(views), max(off // 4, 1)
+
+
+def _carve(layout, dev) -> list:
+    """The views of a _layout, carved from one buffer allocated on dev."""
+    views, n = layout
+    buf = torch.empty(n, dtype=torch.float32, device=dev)
+    s0 = buf.storage_offset()  # in floats: 0 but for a view handed out
+    bases = {torch.float32: buf}
+    out = []
+    for shape, stride, off, dt in views:
+        b = bases.get(dt)
+        if b is None:
+            b = bases[dt] = buf.view(dt)
+        out.append(b.as_strided(shape, stride, s0 * 4 // dt.itemsize + off))
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _epilogue_layout(M: int):
+    f32, b8 = torch.float32, torch.bool
+    return _layout(((M, 3), (M, 4, 4), (M, 4), (OBS_ROWS, M), (M,), (M,),
+                    (M,), (M,)), (f32, f32, f32, f32, b8, b8, f32, f32))
+
+
+@functools.lru_cache(maxsize=16)
+def _localmap_gate_layout(M: int, L: int, C: int):
+    DG = 3 * C + 2
+    return _layout(((L, 8), (M, DG), (DG, L)),
+                   (torch.int32, torch.float32, torch.float32))
+
+
+def epilogue_outputs(M: int, dev) -> TrackObs:
+    """track_epilogue's eight outputs on dev, carved from one buffer: each
+    contiguous, of TrackObs' shape and dtype, at an ALIGN-byte boundary."""
+    return TrackObs(*_carve(_epilogue_layout(M), dev))
+
+
+def localmap_gate_outputs(M: int, L: int, C: int, dev):
+    """localmap_gate's outputs (lm_desc (L, 8) int32, ahat (M, 3C + 2),
+    bhat (3C + 2, L) float32) on dev, carved from one buffer as
+    epilogue_outputs."""
+    return tuple(_carve(_localmap_gate_layout(M, L, C), dev))
 
 
 def _cameras(name, C):
@@ -219,9 +280,10 @@ def track_epilogue(best, second, idx, col_idx, cur_valid, has_depth, uv,
     bool and map_pos (cap, 3); the rig's cam_T_ref (C, 4, 4) and fxycxy (C,
     4); packed a contiguous float32 vector of >= 21 + 3 M -> TrackObs, and
     packed's slots written: see track_epilogue_reference. CUDA tensors
-    launch track_epilogue (one launch; its last block writes the counts
-    through three counters, graphs.counters, zero between launches); CPU
-    tensors take the plain version."""
+    launch track_epilogue (one launch; the last of its blocks to arrive
+    writes the counts through one 64-bit counter, graphs.counters' two
+    int32, zero between launches; M <= MAX_ROWS), its outputs carved from
+    one buffer (epilogue_outputs); CPU tensors take the plain version."""
     if _build.device_type(best, "track_epilogue") == "cpu":
         return track_epilogue_reference(
             best, second, idx, col_idx, cur_valid, has_depth, uv, anchor,
@@ -246,23 +308,19 @@ def track_epilogue(best, second, idx, col_idx, cur_valid, has_depth, uv,
                          f"float32 vector of >= {HEAD + 3 * M} on {dev}, got "
                          f"{packed.dtype} {tuple(packed.shape)} on "
                          f"{packed.device}")
-    if N < 1 or C < 1 or cap < 1:
-        raise ValueError(f"track_epilogue: N={N}, C={C} and the map's {cap} "
-                         f"rows must each be >= 1")
-    out = TrackObs(
-        torch.empty(M, 3, dtype=f32, device=dev),
-        torch.empty(M, 4, 4, dtype=f32, device=dev),
-        torch.empty(M, 4, dtype=f32, device=dev),
-        torch.empty(OBS_ROWS, M, dtype=f32, device=dev),
-        torch.empty(M, dtype=b8, device=dev),
-        torch.empty(M, dtype=b8, device=dev),
-        torch.empty(M, dtype=f32, device=dev),
-        torch.empty(M, dtype=f32, device=dev))
+    if N < 1 or cap < 1:
+        raise ValueError(f"track_epilogue: N={N} and the map's {cap} rows "
+                         f"must each be >= 1")
+    _cameras("track_epilogue", C)
+    if M > MAX_ROWS:
+        raise ValueError(f"track_epilogue: the kernel counts at most "
+                         f"{MAX_ROWS} rows, got {M}")
+    out = epilogue_outputs(M, dev)
     lib = _build.library()
     _build.count("track_epilogue")
     _build.check(lib.mc_track_epilogue(
         *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out),
-        packed.data_ptr(), graphs.counters("track_epilogue", 3,
+        packed.data_ptr(), graphs.counters("track_epilogue", 2,
                                            dev).data_ptr(),
         M, N, C, cap, float(max_dist), float(ratio), _build.stream_ptr(dev)),
         "mc_track_epilogue")
@@ -311,9 +369,9 @@ def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
     im_valid (M,) bool, the rig's cam_T_ref (C, 4, 4) and fxycxy (C, 4),
     image_wh (W, H) -> (lm_desc (L, 8), ahat (M, 3C + 2), bhat (3C + 2,
     L)): see localmap_gate_reference. CUDA tensors launch localmap_gate
-    (one launch: the row blocks write ahat, the column blocks the
-    candidates' descriptors and bhat); CPU tensors take the plain
-    version."""
+    (one launch: the column blocks write the candidates' descriptors and
+    bhat, the row blocks ahat; the outputs carved from one buffer,
+    localmap_gate_outputs); CPU tensors take the plain version."""
     if _build.device_type(uv, "localmap_gate") == "cpu":
         return localmap_gate_reference(
             T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal, uv,
@@ -333,10 +391,7 @@ def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
         T_wr=(T_wr, f32, (4, 4)))
     if cap < 1:
         raise ValueError("localmap_gate: an empty map mirror")
-    DG = 3 * C + 2
-    lm_desc = torch.empty(L, 8, dtype=i32, device=dev)
-    ahat = torch.empty(M, DG, dtype=f32, device=dev)
-    bhat = torch.empty(DG, L, dtype=f32, device=dev)
+    lm_desc, ahat, bhat = localmap_gate_outputs(M, L, C, dev)
     w, h = image_wh
     lib = _build.library()
     _build.count("localmap_gate")

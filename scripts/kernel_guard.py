@@ -31,17 +31,20 @@ portfolio forced (the score at K = 1, 512, 256 and 3, also through a
 captured CUDA graph) and at random problems (K = 257, M = 37; the score
 at K = 1 and 512, M = 2048, and at K = 3, 33 and 513, M = 2049, which end
 one past a tile); the tracking glue's four kernels at the calls of bench
-frame 1's fast-path step (not --quick; track_epilogue also through a
-captured CUDA graph) and at random problems (C = 4, M = N = 2048, L =
-4096, through graph replays with --quick; C = 3, M = 2049, N = 2047, L =
-4097; C = 1, M = 37, N = 33, L = 45), track_epilogue's packed vector a
-buffer of its own. Every buffer a wrapper allocates (its outputs and its
+frame 1's fast-path step (not --quick; track_epilogue and localmap_gate
+also through a captured CUDA graph) and at random problems (C = 4, M = N =
+2048, L = 4096, through graph replays with --quick; C = 3, M = 2049, N =
+2047, L = 4097; C = 1, M = 37, N = 33, L = 45), track_epilogue and
+localmap_gate also at C = 2, M = 33, N = 40, L = 65, at C = 4, M = 161, N
+= 200, L = 191 with every row a match with a landmark and at C = 3, M =
+N = 2048, L = 4096 with none with a landmark, each eagerly and through
+graph replays, track_epilogue's packed vector a buffer of its own. Every buffer a wrapper allocates (its outputs and its
 scratch, ransac_score's bit rows too) is placed inside a slab of canary
 bytes, PAD bytes on each side, the canary alternating from launch to
 launch (fixed in a graph, whose capture holds the slabs' filling), and
 so are intra_pairs', orb_select's, ransac_score's and track_epilogue's
 per-device buffers of arrival counters (ransac_score's K count
-accumulators and track_epilogue's two counts with them).
+accumulators and track_epilogue's 64-bit counter of its two counts).
 After every launch it checks that no canary byte changed (a write out
 of bounds), that the counters are back at zero, that no input changed
 (a write into an input), and that the outputs equal the first launch's
@@ -127,7 +130,7 @@ def guarded_counters(fn, dev, canary: int, found: list, args=()):
                                          orb_cuda.SELECT_CAMERAS),
                    ransac_cuda.score: ("ransac_score",
                                        args[0].shape[0] + 1 if args else 1),
-                   track_epilogue: ("track_epilogue", 3)
+                   track_epilogue: ("track_epilogue", 2)
                    }.get(fn, (None, 0))
     if name is None:
         yield
@@ -523,9 +526,10 @@ def track_cases(quick: bool, dev, rng):
         for n in cs.TRACK_KERNELS:
             a, kw = seen[n]
             out.append((f"{n} (bench frame 1)", *kernel(n), a, kw, False))
-        a, kw = seen["track_epilogue"]
-        out.append(("track_epilogue (bench frame 1, graph replays)",
-                    *kernel("track_epilogue"), a, kw, True))
+        for n in ("track_epilogue", "localmap_gate"):
+            a, kw = seen[n]
+            out.append((f"{n} (bench frame 1, graph replays)", *kernel(n),
+                        a, kw, True))
     for C, M, N, L in ((4, 2048, 2048, 4096), (3, 2049, 2047, 4097),
                        (1, 37, 33, 45)):
         calls = cs.track_calls(cs.track_problem(rng, C, M, N, L, 4096, dev))
@@ -536,6 +540,20 @@ def track_cases(quick: bool, dev, rng):
             if quick and M == 2048:
                 out.append((f"{n} C={C} M={M} N={N} L={L} (random, graph "
                             f"replays)", *kernel(n), a, kw, True))
+    # the redesigned two (32-row and 32-column blocks) at shapes no
+    # multiple of their blocks and at the counts' extremes (M and M, M and
+    # 0), eagerly and through graph replays
+    for C, M, N, L, case in ((2, 33, 40, 65, "random"),
+                             (4, 161, 200, 191, "all_ok"),
+                             (3, 2048, 2048, 4096, "none_with")):
+        calls = cs.track_calls(cs.track_problem(rng, C, M, N, L, 4096, dev,
+                                                case))
+        for n in ("track_epilogue", "localmap_gate"):
+            a, kw = calls[n]
+            for graphed in (False, True):
+                out.append((f"{n} C={C} M={M} N={N} L={L} ({case}"
+                            f"{', graph replays' if graphed else ''})",
+                            *kernel(n), a, kw, graphed))
     return [(name, fn, a, kw, plain, graphed)
             for name, fn, plain, a, kw, graphed in out]
 

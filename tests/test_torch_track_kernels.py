@@ -31,11 +31,22 @@ rows, zero normals, no valid rows and odd M / N / L. The frame step
 writes every slot of its packed vector (its buffers come from
 torch.empty).
 
+On the CPU too: the wrappers' outputs carved from one buffer
+(track_cuda.epilogue_outputs, localmap_gate_outputs) keep the plain
+versions' shapes, strides and dtypes, start at 512-byte boundaries and do
+not overlap, also in a buffer that starts at an offset of its storage.
+
 `gpu` cases (they skip without a card) hold each kernel bit-equal to its
 plain version on the card at those shapes and at the production ones (C =
 4, M = N = 2048, L = 4096, and odd M = 2049, N = 2047, L = 4097), twice
 alike, one launch counted a call; track_epilogue also through CUDA graph
-replays with its counters back at zero:
+replays with its counters back at zero. The redesigned track_epilogue
+(32-row blocks) and localmap_gate (32-column blocks) also at shapes that
+are no multiple of those blocks, at C = 1-4, at M = 0 and L = 0, at
+counts of 0 and of M (every row a match with a landmark; every row a
+match, none with a landmark; no valid row), and track_epilogue through
+repeated graph replays on inputs that change between replays, its two
+counts right on every one:
     python -m pytest --noconftest tests/test_torch_track_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparisons)."""
 
@@ -105,6 +116,64 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     want = _all(T, plain=True)
     assert len(got) == len(want) == 2 + 8 + 2 + 3 + 3
     assert all(_same(a, b) for a, b in zip(got, want))
+
+
+LAYOUT_SHAPES = [(2048, 4096, 4), (2049, 4097, 3), (37, 45, 1), (0, 0, 2)]
+
+
+def _carved_ok(views, base, nbytes):
+    """The views' byte ranges lie in [base, base + nbytes), each starting
+    at a 512-byte boundary from base, none overlapping another (empty
+    views hold no bytes)."""
+    spans = sorted((v.data_ptr(), v.data_ptr() + v.numel() * v.element_size())
+                   for v in views if v.numel())
+    if not spans:
+        return
+    assert all((a - base) % tc.ALIGN == 0 for a, _ in spans)
+    assert all(b0 <= a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
+    assert spans[0][0] >= base and spans[-1][1] <= base + nbytes
+
+
+@pytest.mark.parametrize("M,L,C", LAYOUT_SHAPES)
+def test_carved_outputs_keep_their_layout(M, L, C, monkeypatch):
+    """epilogue_outputs and localmap_gate_outputs: the plain versions'
+    shapes, strides and dtypes (at M = 37, L = 45, C = 1 taken from the
+    plain versions' own outputs), contiguous, aligned, disjoint; and so in
+    a buffer that torch.empty hands out at an offset of its storage."""
+    want = {"track_epilogue": [((M, 3), torch.float32), ((M, 4, 4), torch.float32),
+                               ((M, 4), torch.float32), ((22, M), torch.float32),
+                               ((M,), torch.bool), ((M,), torch.bool),
+                               ((M,), torch.float32), ((M,), torch.float32)],
+            "localmap_gate": [((L, 8), torch.int32), ((M, 3 * C + 2), torch.float32),
+                              ((3 * C + 2, L), torch.float32)]}
+    if (M, L, C) == (37, 45, 1):
+        T = _problem(10, C, M, 33, L, 60)
+        calls = cs.track_calls(T)
+        for n in want:
+            a, kw = calls[n]
+            plain = getattr(tc, f"{n}_reference")(*a, **kw)
+            assert [(tuple(x.shape), x.dtype) for x in plain] == want[n]
+            assert all(x.is_contiguous() for x in plain)
+    real = torch.empty
+    for offset in (0, 300):
+        held = []
+
+        def empty(*size, **kw):
+            n = size[0]
+            slab = real(n + 2 * offset, **kw)
+            held.append(slab)
+            return slab[offset:offset + n]
+
+        monkeypatch.setattr(torch, "empty", empty)
+        outs = {"track_epilogue": tc.epilogue_outputs(M, "cpu"),
+                "localmap_gate": tc.localmap_gate_outputs(M, L, C, "cpu")}
+        monkeypatch.setattr(torch, "empty", real)
+        for (n, views), slab in zip(outs.items(), held):
+            assert [(tuple(x.shape), x.dtype) for x in views] == want[n]
+            assert all(x.is_contiguous() for x in views)
+            buf = slab[offset:]
+            _carved_ok(views, buf.data_ptr(), (slab.numel() - 2 * offset) * 4)
+        assert isinstance(outs["track_epilogue"], tc.TrackObs)
 
 
 # ---- CPU: the plain versions against the JAX package ----------------------
@@ -427,7 +496,99 @@ def test_track_epilogue_in_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(_same(x, y) for x, y in zip(out, want))
-        assert int(graphs.counters("track_epilogue", 3, cuda).abs().sum()) == 0
+        assert int(graphs.counters("track_epilogue", 2, cuda).abs().sum()) == 0
+
+
+# shapes no multiple of the redesigned kernels' 32-row and 32-column
+# blocks, C = 1-4, M = 0 and L = 0; then the counts' extremes
+ODD_SHAPES = [(1, 31, 7, 63, 50, "random"), (2, 33, 40, 65, 100, "random"),
+              (3, 95, 96, 129, 300, "random"), (4, 161, 200, 191, 700, "random"),
+              (2, 1, 1, 1, 20, "random"), (4, 0, 5, 3, 20, "random"),
+              (3, 70, 9, 0, 20, "random")]
+COUNT_SHAPES = [(4, 2048, 2048, 4096, 65536, "all_ok"),
+                (4, 2048, 2048, 4096, 65536, "none_with"),
+                (3, 777, 800, 100, 1000, "all_ok"),
+                (4, 2049, 2047, 4097, 65536, "no_valid")]
+REDESIGNED = ("track_epilogue", "localmap_gate")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,M,N,L,cap,case", ODD_SHAPES + COUNT_SHAPES)
+def test_redesigned_kernels_match_plain_on_card(cuda, C, M, N, L, cap, case):
+    """track_epilogue and localmap_gate twice alike, one launch a call,
+    bit-equal to the plain versions on the card and on the CPU; the
+    epilogue's counts (packed slots 17, 18) those the case makes."""
+    T = _problem(11, C, M, N, L, cap, case)
+    Tc = {k: v.to(cuda) for k, v in T.items()}
+    calls, calls_cpu = cs.track_calls(Tc), cs.track_calls(T)
+    for n in REDESIGNED:
+        fn, plain = getattr(tc, n), getattr(tc, f"{n}_reference")
+        a, kw = calls[n]
+        before = _build.LAUNCHES[n]
+        got = cs.track_outputs(n, fn, a, kw)
+        again = cs.track_outputs(n, fn, a, kw)
+        assert _build.LAUNCHES[n] - before == 2
+        torch.cuda.synchronize()
+        assert all(_same(x, y) for x, y in zip(got, again)), n
+        for want in (cs.track_outputs(n, plain, a, kw),
+                     cs.track_outputs(n, plain, *calls_cpu[n])):
+            differ = [k for k, (x, y) in enumerate(zip(got, want))
+                      if not _same(x.cpu(), y.cpu())]
+            assert not differ, (n, differ)
+        if n == "track_epilogue":
+            n_ok, n_with = got[-2].tolist()
+            expect = {"all_ok": (M, M), "none_with": (M, 0),
+                      "no_valid": (0, 0)}.get(case)
+            if expect is not None:
+                assert (n_ok, n_with) == expect
+            if M == 0:
+                assert (n_ok, n_with) == (0, 0)
+
+
+@pytest.mark.gpu
+def test_track_epilogue_counts_through_graph_replays(cuda):
+    """track_epilogue captured once, replayed 12 times on inputs copied in
+    between from three problems of one shape (counts random, M and M, M
+    and 0): every replay's outputs, packed slots 17 and 18 among them,
+    the plain version's on those inputs; the counter at zero after each."""
+    from mcslam_tpu_torch.utils import graphs
+
+    shape = (4, 2048, 2048, 4096, 65536)
+    probs = [cs.track_calls(_problem(12 + k, *shape, case=case, dev=cuda))[
+        "track_epilogue"][0] for k, case in enumerate(
+            ("random", "all_ok", "none_with"))]
+    ins = [x.clone() for x in probs[0][:14]]
+    a = (*ins, *probs[0][14:])
+
+    def call():
+        return cs.track_outputs("track_epilogue", tc.track_epilogue, a, {})
+
+    call()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    seen = set()
+    for k in range(12):
+        src = probs[(k * 2) % 3]
+        for dst, x in zip(ins, src[:14]):
+            dst.copy_(x)
+        for o in out:
+            o.fill_(-1)
+        graph.replay()
+        want = cs.track_outputs("track_epilogue",
+                                tc.track_epilogue_reference, src, {})
+        torch.cuda.synchronize()
+        differ = [j for j, (x, y) in enumerate(zip(out, want))
+                  if not _same(x, y)]
+        assert not differ, (k, differ)
+        seen.add(tuple(out[-2].tolist()))
+        assert int(graphs.counters("track_epilogue", 2, cuda).abs().sum()) == 0
+    assert len(seen) == 3 and (2048.0, 2048.0) in seen and (2048.0, 0.0) in seen
 
 
 @pytest.mark.gpu
