@@ -1635,6 +1635,36 @@ def intra_glue_problem(rng, C, N, M, dev) -> dict:
                            np.float32)))}
 
 
+def tri_gather_problem(rng, C, N, M, dev) -> tuple:
+    """tri_gather's inputs (ray_idx, valid, xy, sigma2) with the groups'
+    rows cycling through five patterns: no ray, every ray, one ray at
+    camera (m // 5) mod C, one ray at the last camera, random holes."""
+    import torch
+
+    full = rng.randint(0, N, (M, C))
+    holes = np.where(rng.rand(M, C) < 0.5, -1, full)
+    m = np.arange(M)
+    one = np.full((M, C), -1)
+    one[m, (m // 5) % C] = full[m, (m // 5) % C]
+    last = np.full((M, C), -1)
+    last[:, C - 1] = full[:, C - 1]
+    k = (m % 5)[:, None]
+    ray_idx = np.where(k == 0, -1, np.where(k == 1, full, np.where(
+        k == 2, one, np.where(k == 3, last, holes))))
+    arrays = (ray_idx.astype(np.int32), rng.rand(M) < 0.8,
+              rng.uniform(0, 640, (C, N, 2)).astype(np.float32),
+              (1.2 ** rng.randint(0, 8, (C, N))).astype(np.float32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
+
+
+# tri_gather's lane-per-ray design at the groups (C, M) that phase 2 also
+# holds it to: counts no multiple of a block's or a warp's groups, C that
+# does not divide 32 and C above 32
+TRI_EDGES = tuple((C, M) for M in (1, 31, 33, 2049) for C in (1, 2, 3, 4)) \
+    + ((5, 100), (33, 40))
+
+
 def intra_glue_bytes_ops(name, args) -> tuple:
     """(bytes each input read once and each output written once, float32
     operations) of one call of an intra glue kernel."""
@@ -1697,6 +1727,21 @@ def intra_glue_kernels(seen, rng, dev, kernels):
             shapes = ", ".join(f"{tuple(x.shape)}" for x in k1)
             print(f"# kernel {n} ({what}): {len(k1)} outputs ({shapes}) "
                   f"bitwise equal to the plain version's and across two runs")
+        if n == "tri_gather":
+            for C, M in TRI_EDGES:
+                a = tri_gather_problem(np.random.RandomState(C * 10000 + M),
+                                       C, 97, M, dev)
+                k1, k2, pl = fn(*a), fn(*a), plain(*a)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(k1, k2))
+                      and all(x.dtype == y.dtype and torch.equal(x, y)
+                              for x, y in zip(k1, pl)),
+                      f"tri_gather (C={C} M={M}): differs from the plain "
+                      f"version or across two runs")
+            print(f"# kernel tri_gather at {len(TRI_EDGES)} edge shapes (C, "
+                  f"M: {TRI_EDGES}; N = 97, groups of no, one and every "
+                  f"ray): bitwise equal to the plain version's and across "
+                  f"two runs")
         a, kw = bench[n]
         nbytes, ops = intra_glue_bytes_ops(n, a)
         kernels[n] = dict(
@@ -1896,7 +1941,12 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
     mutually matched within the distance and the ratio to a previous one
     with a landmark, every map row valid (the epilogue counts M and M);
     "none_with": as "all_ok" but no previous feature with a landmark (M
-    and 0)."""
+    and 0); "no_lm": as "random" but no previous feature with a landmark
+    (every prev_lm_id -1); "behind": as "random" but every map row at,
+    behind or just in front of camera 0's plane (its depth uniform in [-3,
+    0.05], the first nine rows at 0.05 and just above it, 1e-6 and just
+    below it, 0, -0, -1e-7, 1e-7 and 0.04), so that the depth clamp at
+    1e-6 and the penalty at 0.05 decide most columns."""
     import torch
 
     def pose(rot, trans):
@@ -1920,6 +1970,16 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
     map_pos = rng.uniform(-8, 8, (cap, 3)) + [0, 0, 6]
     map_pos[:6] = [[0, 0, 0.01], [0, 0, -3], [1, 1, 0.05], [0, 0, 1e-7],
                    [3, 0, 0.0], [0.5, -0.5, 0.03]]
+    if case == "behind":
+        z = rng.uniform(-3, 0.05, cap)
+        z[:9] = [0.05, np.nextafter(np.float32(0.05), np.float32(1)), 1e-6,
+                 np.nextafter(np.float32(1e-6), np.float32(0)), 0.0, -0.0,
+                 -1e-7, 1e-7, 0.04][:min(cap, 9)]
+        p_c0 = np.stack([rng.uniform(-2, 2, cap), rng.uniform(-2, 2, cap), z,
+                         np.ones(cap)], 1)
+        # camera 0's frame -> the world: (cam[0] se3_inverse(pred))^-1
+        map_pos = (np.linalg.inv(cam[0] @ np.linalg.inv(pred))
+                   @ p_c0.T).T[:, :3]
     nrm = rng.normal(0, 1, (cap, 3))
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     nrm[rng.rand(cap) < 0.2] = 0
@@ -1935,6 +1995,8 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
     cand[:min(L, 12)] = np.arange(min(L, 12))
     if case == "no_valid":
         cur_valid[:] = False
+        prev_lm[:] = -1
+    if case == "no_lm":
         prev_lm[:] = -1
     best = rng.randint(0, 100, M).astype(f32)
     best[rng.rand(M) < 0.1] = float(1 << 20)
@@ -2044,13 +2106,16 @@ def track_bytes_ops(name, args) -> tuple:
     return M * (13 + 4 + 12 + 76) + M * (88 + 4 + 4), M * 5
 
 
-# the tracking glue's redesigned kernels (track_epilogue's 32-row blocks,
-# localmap_gate's four lanes a column, 32 columns a block), which phase 2
-# holds also at these problems (C, M, N, L, track_problem's case): shapes
-# no multiple of their blocks, C = 1-4, the counts' extremes
-TRACK_REDESIGNED = ("track_epilogue", "localmap_gate")
+# the tracking glue's redesigned kernels (track_gate's and localmap_gate's
+# four lanes a column, 32 columns a block; track_epilogue's 32-row
+# blocks), which phase 2 holds also at these problems (C, M, N, L,
+# track_problem's case): shapes no multiple of their blocks, C = 1-4, the
+# counts' extremes, no previous feature with a landmark, map rows behind
+# the cameras
+TRACK_REDESIGNED = ("track_gate", "track_epilogue", "localmap_gate")
 TRACK_EDGES = ((1, 31, 7, 63, "random"), (2, 33, 40, 65, "random"),
-               (4, 161, 200, 191, "all_ok"), (4, 2048, 2048, 4096, "none_with"))
+               (4, 161, 200, 191, "all_ok"), (4, 2048, 2048, 4096, "none_with"),
+               (4, 2048, 2048, 4096, "no_lm"), (3, 97, 130, 50, "behind"))
 
 
 def track_kernels(scene, dev, kernels):
@@ -2058,7 +2123,7 @@ def track_kernels(scene, dev, kernels):
     calls that bench frame 1's eager fast-path step makes against frame
     0's map (C = 4, M = N = 2048, L = 4096) and at a random problem of odd
     shape (C = 3, M = 2049, N = 2047, L = 4097): each kernel twice and its
-    plain version on the card, all bitwise equal; the redesigned two also
+    plain version on the card, all bitwise equal; the redesigned three also
     at TRACK_EDGES and, at bench frame 1's calls, through three replays of
     one CUDA graph."""
     import torch
@@ -2129,7 +2194,7 @@ def track_kernels(scene, dev, kernels):
             plain=lambda n=n, p=plain, a=a, kw=kw: track_outputs(n, p, a, kw),
             symbols=(f"{n}_kernel",), device_ops=1, nbytes=nbytes,
             ops_s=f32_ops_s(ops))
-    # the redesigned two at bench frame 1's calls in one CUDA graph: three
+    # the redesigned three at bench frame 1's calls in one CUDA graph: three
     # replays bitwise equal to the plain versions, the epilogue's counter
     # back at zero after each
     from mcslam_tpu_torch.utils import graphs

@@ -82,7 +82,17 @@
 //    each warp a 1/32 of the others: the count of keys before a key is its
 //    slot, with the ties by index) and writes the slots below k; slots k ..
 //    max_out - 1 are padded by all blocks, strided;
-//  - tri_gather: a thread per group, 128 a block.
+//  - tri_gather: a lane per ray (group m, camera c), 128 threads a block:
+//    a warp holds G = 32 / min(C, 32) whole groups of min(C, 32) lanes
+//    (64 blocks at C = 4, M = 2048), lane q of a group the cameras q, q +
+//    32, ... (one for C <= 32), so its loads of ray_idx and its stores of
+//    uv (8 bytes a lane), sigma and mask are contiguous runs across the
+//    warp. The group's ray count is the popcount of a ballot masked to its
+//    lanes, its anchor the ballot's first lane; the anchor's pixel and
+//    sigma^2 come by a shuffle from that lane, the values of its own
+//    gather (the same loads the plain version's second gather reads), so
+//    no second gather round; the group's outputs go out from its first
+//    lane, a warp's in one run each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +111,8 @@ constexpr int GROUP_SLICE = 32;  // keys a groups block ranks: a lane each
 constexpr int MAX_KEYS = 16384;  // C N of intra_groups (intra_cuda)
 constexpr int MAX_CAMERAS = 32;  // C of intra_groups: a bitmask per root
 constexpr int GATHER_THREADS = 128;
+constexpr int GATHER_WARPS = GATHER_THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -347,6 +359,9 @@ __global__ void __launch_bounds__(GROUP_THREADS, 1)
   // end of the groups block
 }
 
+// a lane per ray: warp w holds the groups [w G, (w + 1) G), G = 32 / CL
+// groups of CL = min(C, 32) lanes, lane q of group g the cameras q, q +
+// CL, ... (rounds = ceil(C / 32); lanes 32 / CL * CL .. 31 idle)
 __global__ void __launch_bounds__(GATHER_THREADS)
     tri_gather_kernel(const int* __restrict__ ray_idx,
                       const bool* __restrict__ gvalid,
@@ -358,33 +373,67 @@ __global__ void __launch_bounds__(GATHER_THREADS)
                       float* __restrict__ anchor_sigma2,
                       int* __restrict__ n_rays,
                       bool* __restrict__ multi_valid) {
-  const int m = blockIdx.x * GATHER_THREADS + threadIdx.x;
-  if (m >= M) return;
-  const int* row = ray_idx + m * C;
-  int n = 0, anchor = -1;
-  for (int c = 0; c < C; ++c) {
-    if (row[c] >= 0) {
-      ++n;
-      if (anchor < 0) anchor = c;
+  // the gather block starts
+  const int lane = threadIdx.x & 31;
+  const int CL = C < 32 ? C : 32, G = 32 / CL, rounds = (C + 31) / 32;
+  const int g = lane / CL, q = lane - g * CL, base = g * CL;
+  const unsigned gmask = CL == 32 ? FULL : ((1u << CL) - 1u) << base;
+  const int m = (blockIdx.x * GATHER_WARPS + (threadIdx.x >> 5)) * G + g;
+  const bool live = g < G && m < M;
+  const long long r0 = static_cast<long long>(m) * C;
+  bool gv = false;
+  if (live && q == 0) gv = gvalid[m];
+  // the rays: the count and the first camera by ballots over the group's
+  // lanes
+  int idx0 = -1, n = 0, a = -1;
+  for (int r = 0; r < rounds; ++r) {
+    const int c = q + r * CL;
+    const int idx = live && c < C ? ray_idx[r0 + c] : -1;
+    if (r == 0) idx0 = idx;
+    const unsigned b = __ballot_sync(FULL, idx >= 0) & gmask;
+    if (a < 0 && b) a = r * CL + (__ffs(b) - 1 - base);
+    n += __popc(b);
+  }
+  // the group's rays counted
+  const bool multi = n >= 2;
+  const int anc = a < 0 ? 0 : a;
+  float ax = 0.0f, ay = 0.0f, as2 = 0.0f;
+  for (int r = 0; r < rounds; ++r) {
+    const int c = q + r * CL;
+    float x = 0.0f, y = 0.0f, s2 = 0.0f;
+    if (live && c < C) {
+      const int idx = r == 0 ? idx0 : ray_idx[r0 + c];
+      const long long kp = static_cast<long long>(c) * N +
+                           clampi(idx, 0, N - 1);
+      x = xy[2 * kp];
+      y = xy[2 * kp + 1];
+      s2 = sigma2[kp];
+      const long long t = r0 + c;
+      reinterpret_cast<float2*>(uv)[t] = make_float2(x, y);
+      sigma[t] = __fsqrt_rn(s2);
+      mask[t] = idx >= 0 && multi;
+    }
+    // the anchor's pixel and sigma^2 from its own lane's gather
+    const int k = anc - r * CL;
+    const int src = base + (k < 0 ? 0 : (k >= CL ? CL - 1 : k));
+    const float sx = __shfl_sync(FULL, x, src & 31);
+    const float sy = __shfl_sync(FULL, y, src & 31);
+    const float ss = __shfl_sync(FULL, s2, src & 31);
+    if (k >= 0 && k < CL) {
+      ax = sx;
+      ay = sy;
+      as2 = ss;
     }
   }
-  const bool multi = n >= 2;
-  for (int c = 0; c < C; ++c) {
-    const int idx = row[c];
-    const int kp = c * N + clampi(idx, 0, N - 1);
-    uv[2 * (m * C + c)] = xy[2 * kp];
-    uv[2 * (m * C + c) + 1] = xy[2 * kp + 1];
-    sigma[m * C + c] = __fsqrt_rn(sigma2[kp]);
-    mask[m * C + c] = idx >= 0 && multi;
+  // the rays' stores issued
+  if (live && q == 0) {
+    anchor_cam[m] = anc;
+    reinterpret_cast<float2*>(uv_ref)[m] = make_float2(ax, ay);
+    anchor_sigma2[m] = as2;
+    n_rays[m] = n;
+    multi_valid[m] = multi && gv;
   }
-  const int a = anchor < 0 ? 0 : anchor;
-  const int kp = a * N + clampi(row[a], 0, N - 1);
-  anchor_cam[m] = a;
-  uv_ref[2 * m] = xy[2 * kp];
-  uv_ref[2 * m + 1] = xy[2 * kp + 1];
-  anchor_sigma2[m] = sigma2[kp];
-  n_rays[m] = n;
-  multi_valid[m] = multi && gvalid[m];
+  // the gather block ends
 }
 
 }  // namespace
@@ -437,7 +486,8 @@ extern "C" int mc_intra_groups(const void* parent, const void* valid,
 
 // ray_idx (M, C) int32, valid (M,) bool, xy (C, N, 2), sigma2 (C, N), uv
 // (M, C, 2), sigma (M, C), mask (M, C), anchor_cam (M,), uv_ref (M, 2),
-// anchor_sigma2 (M,), n_rays (M,), multi & valid (M,), M, C, N, stream
+// anchor_sigma2 (M,), n_rays (M,), multi & valid (M,), M, C, N, stream;
+// uv and uv_ref 8-byte aligned
 extern "C" int mc_tri_gather(const void* ray_idx, const void* gvalid,
                              const void* xy, const void* sigma2, void* uv,
                              void* sigma, void* mask, void* anchor_cam,
@@ -445,8 +495,13 @@ extern "C" int mc_tri_gather(const void* ray_idx, const void* gvalid,
                              void* multi_valid, int M, int C, int N,
                              void* stream) {
   if (M < 0 || C < 1 || N < 1) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(uv) & 7) ||
+      (reinterpret_cast<uintptr_t>(uv_ref) & 7))
+    return cudaErrorMisalignedAddress;
   if (M == 0) return 0;
-  tri_gather_kernel<<<(M + GATHER_THREADS - 1) / GATHER_THREADS,
+  // groups a block: GATHER_WARPS warps of 32 / min(C, 32) groups
+  const long long per_block = GATHER_WARPS * (32 / (C < 32 ? C : 32));
+  tri_gather_kernel<<<static_cast<unsigned>((M + per_block - 1) / per_block),
                       GATHER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ray_idx), static_cast<const bool*>(gvalid),
       static_cast<const float*>(xy), static_cast<const float*>(sigma2), M, C,

@@ -16,11 +16,11 @@
 // Computes what the plain versions compute, in their order of operations:
 //  - track_gate: camera c's world pose cam_T_w = cam_T_ref[c] se3_inverse(
 //    pred) (R^T, -(R^T t), then R_c R^T and R_c t' + t_c, each entry a
-//    sum of three products added left to right), once per block; for
-//    each previous feature n its landmark prev_lm_id[n] (-1: none) looked
-//    up in the map mirror, p = R_cw X + t_cw, u = clamp(p_x / max(p_z,
-//    1e-6) fx + cx, +-1e5) (v likewise), pen = p_z <= 0.05; the gate
-//    factors of ops/match_cuda.hamming_argmin2 (DG = 3 C + 2):
+//    sum of three products added left to right), by the lane of camera c;
+//    for each previous feature n its landmark prev_lm_id[n] (-1: none)
+//    looked up in the map mirror, p = R_cw X + t_cw, u = clamp(p_x /
+//    max(p_z, 1e-6) fx + cx, +-1e5) (v likewise), pen = p_z <= 0.05; the
+//    gate factors of ops/match_cuda.hamming_argmin2 (DG = 3 C + 2):
 //      ahat (M, DG): -2 oh_c u, -2 oh_c v (c-major), oh_c, u^2 + v^2 +
 //        4 PB row_invalid, 1;
 //      bhat (DG, N): u_c, v_c, u_c^2 + v_c^2 + 1e12 pen_c, 1,
@@ -65,11 +65,18 @@
 // 3.35 TB/s; their float32 operations (~30 a column and camera) take
 // below 0.01 us at 67 TFLOP/s; each kernel takes 2-5 us on an H100, so
 // what counts is the chain of dependent loads a thread waits on and how
-// many SMs share the stores. track_gate and localmap_epilogue are a
-// thread per row or column, 128 a block (track_gate's row blocks and
-// column blocks in one grid, the cameras' world poses per block in shared
-// memory, ahat staged in shared memory so that a block's rows go out as
-// one contiguous run). track_epilogue spreads its rows over 32-row blocks
+// many SMs share the stores. localmap_epilogue is a thread per row, 128 a
+// block. track_gate gives a previous-feature column four lanes, lane c
+// projecting into camera c (two IEEE divisions a lane, the camera index
+// as data on one code path), in 128-thread blocks (64 column blocks and
+// 16 ahat row blocks at the frame's shape, one grid): a column loads its
+// landmark id with the pose's inputs (pred, cam_T_ref[c], the intrinsics)
+// in flight beside it, then its map row, and each lane composes its own
+// camera's cam_T_w in registers, in the order above, while the map row is
+// in flight, with no block barrier; ahat's rows are
+// staged in shared memory so that a block's rows go out as one contiguous
+// run (write_ahat, shared with localmap_gate). track_epilogue spreads its
+// rows over 32-row blocks
 // (64 at M = 2048): a chain warp per block walks idx -> col_idx,
 // prev_lm_id -> the map row while three other warps write the rows'
 // match-independent outputs (cam_out, f_out, rows 3-21, about 40 of a
@@ -105,6 +112,10 @@ static_assert(EPI_ROWS <= 32 && EPI_OTHER % 32 == 0,
 // candidate column (1, 2 or 4)
 constexpr int LM_THREADS = 128;
 constexpr int LM_LANES = 4;
+// track_gate: threads a block (a row each in the row blocks), lanes a
+// previous-feature column, one a camera
+constexpr int TG_THREADS = 128;
+constexpr int TG_LANES = MAX_C;
 
 // a barrier of track_epilogue's other warps alone (its chain warp never
 // waits on it)
@@ -173,88 +184,85 @@ __device__ void write_ahat(const float* __restrict__ uv,
   for (int k = tid; k < n; k += ROWS) out[k] = s_a[k];
 }
 
-// one column's gate factors: rows 2c, 2c + 1 the projection, 2C + c its
-// squared norm with the penalty, 3C a one, 3C + 1 the column's bias
-__device__ __forceinline__ void write_bhat_col(float* __restrict__ bhat,
-                                               int N, int C, int n,
-                                               const float* pu,
-                                               const float* pv,
-                                               const float* pen,
-                                               float bias) {
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    if (c < C) {
-      bhat[static_cast<long long>(2 * c) * N + n] = pu[c];
-      bhat[static_cast<long long>(2 * c + 1) * N + n] = pv[c];
-      bhat[static_cast<long long>(2 * C + c) * N + n] =
-          (pu[c] * pu[c] + pv[c] * pv[c]) + GATE_BIG * pen[c];
-    }
-  }
-  bhat[static_cast<long long>(3 * C) * N + n] = 1.0f;
-  bhat[static_cast<long long>(3 * C + 1) * N + n] = bias;
-}
-
-// blocks [0, row_blocks) write ahat's rows, the rest bhat's columns
-__global__ void __launch_bounds__(THREADS) track_gate_kernel(
+// TG_LANES lanes per previous-feature column (lane c projects into camera
+// c; lanes c >= C return at once), TG_THREADS a block; the column blocks
+// first in the grid, then the row blocks of ahat (TG_THREADS rows each).
+// A column's lanes load its landmark id, then the pose's inputs, then its
+// map row, and compose their cameras' poses while the map row is in
+// flight: no block barrier waits on pred, which the frame step has just
+// written
+__global__ void __launch_bounds__(TG_THREADS) track_gate_kernel(
     const float* __restrict__ uv, const int* __restrict__ anchor,
     const bool* __restrict__ cur_valid, const int* __restrict__ prev_lm_id,
     const bool* __restrict__ prev_valid, const float* __restrict__ map_pos,
     const bool* __restrict__ map_valid, const float* __restrict__ cam,
     const float* __restrict__ fxy, const float* __restrict__ pred, int M,
-    int N, int C, int cap, int row_blocks, float* __restrict__ ahat,
+    int N, int C, int cap, int col_blocks, float* __restrict__ ahat,
     float* __restrict__ bhat) {
-  __shared__ float s_a[THREADS * MAX_DG];
-  __shared__ float s_cw[MAX_C][12];
-  __shared__ float s_f[MAX_C][4];
-  const int tid = threadIdx.x;
-  if (static_cast<int>(blockIdx.x) < row_blocks) {
-    write_ahat<THREADS>(uv, anchor, cur_valid, M, C, blockIdx.x * THREADS,
-                        ahat, s_a);
+  constexpr int COLS = TG_THREADS / TG_LANES;  // columns a block
+  __shared__ float s_a[TG_THREADS * MAX_DG];
+  // the track gate block starts
+  const int tid = threadIdx.x, c = tid % TG_LANES;
+  if (static_cast<int>(blockIdx.x) >= col_blocks) {
+    write_ahat<TG_THREADS>(uv, anchor, cur_valid, M, C,
+                           (blockIdx.x - col_blocks) * TG_THREADS, ahat,
+                           s_a);
+    // the track gate's ahat rows stored
     return;
   }
-  if (tid < C) {
-    // cam_T_w = cam_T_ref[c] @ se3_inverse(pred), rows 0-2
-    float inv[12];
-    se3_inverse12(pred, inv);
-    const float* T = cam + 16 * tid;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        s_cw[tid][3 * i + j] = dot3(T[4 * i], T[4 * i + 1], T[4 * i + 2],
-                                    inv[j], inv[3 + j], inv[6 + j]);
-      s_cw[tid][9 + i] = dot3(T[4 * i], T[4 * i + 1], T[4 * i + 2], inv[9],
-                              inv[10], inv[11]) + T[4 * i + 3];
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s_f[tid][k] = fxy[4 * tid + k];
-  }
-  __syncthreads();
-  const int n = (static_cast<int>(blockIdx.x) - row_blocks) * THREADS + tid;
-  if (n >= N) return;
+  const int n = blockIdx.x * COLS + tid / TG_LANES;
+  if (n >= N || c >= C) return;
   const int id = prev_lm_id[n];
+  const bool pvalid = prev_valid[n];
+  // the pose's inputs in flight beside the id: pred's and the camera's
+  // rows 0-2, its intrinsics
+  float P[12], T[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    P[k] = pred[k];
+    T[k] = cam[16 * c + k];
+  }
+  const float4 f = make_float4(fxy[4 * c], fxy[4 * c + 1], fxy[4 * c + 2],
+                               fxy[4 * c + 3]);
   const int safe = clampi(id, 0, cap - 1);
   const bool has = id >= 0 && map_valid[safe];
   const float X0 = map_pos[3 * safe], X1 = map_pos[3 * safe + 1],
               X2 = map_pos[3 * safe + 2];
-  float pu[MAX_C], pv[MAX_C], pen[MAX_C];
+  // the column's map row in
+  // camera c's world pose cam_T_w = cam_T_ref[c] @ se3_inverse(pred), rows
+  // 0-2 (w[3 i + j] the rotation, w[9 + i] the translation)
+  float inv[12], w[12];
+  se3_inverse12(P, inv);
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    if (c < C) {
-      const float* w = s_cw[c];
-      const float p0 = dot3(w[0], w[1], w[2], X0, X1, X2) + w[9];
-      const float p1 = dot3(w[3], w[4], w[5], X0, X1, X2) + w[10];
-      const float p2 = dot3(w[6], w[7], w[8], X0, X1, X2) + w[11];
-      const float zc = p2 < 1e-6f ? 1e-6f : p2;
-      pu[c] = clampf(p0 / zc * s_f[c][0] + s_f[c][2], -1e5f, 1e5f);
-      pv[c] = clampf(p1 / zc * s_f[c][1] + s_f[c][3], -1e5f, 1e5f);
-      pen[c] = p2 <= 0.05f ? 1.0f : 0.0f;
-    }
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      w[3 * i + j] = dot3(T[4 * i], T[4 * i + 1], T[4 * i + 2], inv[j],
+                          inv[3 + j], inv[6 + j]);
+    w[9 + i] = dot3(T[4 * i], T[4 * i + 1], T[4 * i + 2], inv[9], inv[10],
+                    inv[11]) + T[4 * i + 3];
   }
-  const float ci = prev_valid[n] ? 0.0f : 1.0f;
-  const float cp = has ? 0.0f : 1.0f;
-  write_bhat_col(bhat, N, C, n, pu, pv, pen,
-                 2e13f * ci - PASS_BIAS * cp);
+  // the camera's pose made
+  const float p0 = dot3(w[0], w[1], w[2], X0, X1, X2) + w[9];
+  const float p1 = dot3(w[3], w[4], w[5], X0, X1, X2) + w[10];
+  const float p2 = dot3(w[6], w[7], w[8], X0, X1, X2) + w[11];
+  const float zc = p2 < 1e-6f ? 1e-6f : p2;
+  const float pu = clampf(p0 / zc * f.x + f.z, -1e5f, 1e5f);
+  const float pv = clampf(p1 / zc * f.y + f.w, -1e5f, 1e5f);
+  const float pen = p2 <= 0.05f ? 1.0f : 0.0f;
+  // the column's projection made
+  bhat[static_cast<long long>(2 * c) * N + n] = pu;
+  bhat[static_cast<long long>(2 * c + 1) * N + n] = pv;
+  bhat[static_cast<long long>(2 * C + c) * N + n] =
+      (pu * pu + pv * pv) + GATE_BIG * pen;
+  if (c == 0) {
+    const float ci = pvalid ? 0.0f : 1.0f;
+    const float cp = has ? 0.0f : 1.0f;
+    bhat[static_cast<long long>(3 * C) * N + n] = 1.0f;
+    bhat[static_cast<long long>(3 * C + 1) * N + n] =
+        2e13f * ci - PASS_BIAS * cp;
+  }
+  // the track gate block ends
 }
 
 // LM_LANES lanes per candidate column (lane q projects into the cameras
@@ -592,16 +600,19 @@ extern "C" int mc_track_gate(const void* uv, const void* anchor,
                              void* stream) {
   if (M < 0 || N < 0 || C < 1 || C > MAX_C || cap < 1)
     return cudaErrorInvalidValue;
-  const int rb = blocks(M), grid = rb + blocks(N);
+  const int cols = TG_THREADS / TG_LANES;
+  const int cb = (N + cols - 1) / cols;
+  const int grid = cb + (M + TG_THREADS - 1) / TG_THREADS;
   if (grid == 0) return 0;
-  track_gate_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  track_gate_kernel<<<grid, TG_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(uv), static_cast<const int*>(anchor),
       static_cast<const bool*>(cur_valid),
       static_cast<const int*>(prev_lm_id),
       static_cast<const bool*>(prev_valid),
       static_cast<const float*>(map_pos), static_cast<const bool*>(map_valid),
       static_cast<const float*>(cam), static_cast<const float*>(fxy),
-      static_cast<const float*>(pred), M, N, C, cap, rb,
+      static_cast<const float*>(pred), M, N, C, cap, cb,
       static_cast<float*>(ahat), static_cast<float*>(bhat));
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,12 +27,14 @@ on the card each kernel equals its plain version bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.ops import hamming, match
 from mcslam_tpu_torch.ops.topk_grid import topk_stable
-from mcslam_tpu_torch.utils import graphs
+from mcslam_tpu_torch.utils import graphs, outputs
 
 TILE = 128  # rows and columns of a block's tile in csrc/intra_match.cu
 COUNTERS = 128  # arrival counters of a device's buffer (P + C <= COUNTERS)
@@ -358,6 +360,20 @@ def tri_gather_reference(ray_idx: torch.Tensor, valid: torch.Tensor,
             multi & valid)
 
 
+@functools.lru_cache(maxsize=16)
+def _tri_gather_layout(M: int, C: int):
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    return outputs.layout(((M, C, 2), (M, C), (M, C), (M,), (M, 2), (M,),
+                           (M,), (M,)), (f32, f32, b8, i32, f32, f32, i32, b8))
+
+
+def tri_gather_outputs(M: int, C: int, dev):
+    """tri_gather's eight outputs on dev, carved from one buffer: each
+    contiguous, of tri_gather_reference's shape and dtype, at an
+    outputs.ALIGN-byte boundary."""
+    return tuple(outputs.carve(_tri_gather_layout(M, C), dev))
+
+
 def tri_gather(ray_idx: torch.Tensor, valid: torch.Tensor,
                xy_ud: torch.Tensor, kp_sigma2: torch.Tensor):
     """The triangulation's inputs from the groups: ray_idx (M, C) int32
@@ -367,7 +383,8 @@ def tri_gather(ray_idx: torch.Tensor, valid: torch.Tensor,
     rays or more, anchor_cam (M,) int32 the first camera with a ray (0
     without one), uv_ref (M, 2) and anchor_sigma2 (M,) its pixel and
     sigma2, n_rays (M,) int32, multi & valid (M,) bool). CUDA tensors
-    launch the kernel; CPU tensors take tri_gather_reference."""
+    launch the kernel (its outputs carved from one buffer,
+    tri_gather_outputs); CPU tensors take tri_gather_reference."""
     if ray_idx.dim() != 2 or xy_ud.dim() != 3:
         raise ValueError(f"tri_gather: ray_idx must be (M, C) and xy_ud "
                          f"(C, N, 2), got {tuple(ray_idx.shape)} and "
@@ -384,14 +401,7 @@ def tri_gather(ray_idx: torch.Tensor, valid: torch.Tensor,
         kp_sigma2=(kp_sigma2, f32, (C, N)))
     if N < 1:
         raise ValueError("tri_gather: the kernel needs N >= 1 features")
-    outs = (torch.empty(M, C, 2, dtype=f32, device=dev),
-            torch.empty(M, C, dtype=f32, device=dev),
-            torch.empty(M, C, dtype=torch.bool, device=dev),
-            torch.empty(M, dtype=torch.int32, device=dev),
-            torch.empty(M, 2, dtype=f32, device=dev),
-            torch.empty(M, dtype=f32, device=dev),
-            torch.empty(M, dtype=torch.int32, device=dev),
-            torch.empty(M, dtype=torch.bool, device=dev))
+    outs = tri_gather_outputs(M, C, dev)
     lib = _build.library()
     _build.count("tri_gather")
     _build.check(lib.mc_tri_gather(

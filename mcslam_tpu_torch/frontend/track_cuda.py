@@ -27,7 +27,6 @@ bit-equal (-fmad=false, IEEE divisions and roots).
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -35,7 +34,7 @@ import torch
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.frontend import pose_opt_cuda
 from mcslam_tpu_torch.ops import match_cuda
-from mcslam_tpu_torch.utils import graphs
+from mcslam_tpu_torch.utils import graphs, outputs
 
 GATE_BIG = 1e12  # the gate's frustum penalty (tracking_kernels._GATE_BIG)
 PB = match_cuda.PASS_BIAS
@@ -45,7 +44,6 @@ HEAD = 21  # the packed vector's pose and counts before the match's rows
 # track_epilogue's counter: the two counts in 22-bit fields of one 64-bit
 # word (csrc/track_glue.cu), so M < 2^22
 MAX_ROWS = (1 << 22) - 1
-ALIGN = 512  # bytes: where each carved output view starts
 
 
 class TrackObs(NamedTuple):
@@ -60,59 +58,33 @@ class TrackObs(NamedTuple):
     mask3d_f: torch.Tensor  # (M,) float32 mask3d
 
 
-def _layout(shapes, dtypes):
-    """((shape, stride, offset, dtype), ...) of contiguous views of one
-    float32 buffer, each starting at a multiple of ALIGN bytes (where an
-    allocation of its own would start; the offset in elements of its
-    dtype), and the buffer's length."""
-    views, off = [], 0
-    for shape, dt in zip(shapes, dtypes):
-        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-        views.append((shape, stride, off // dt.itemsize, dt))
-        off += -(-math.prod(shape) * dt.itemsize // ALIGN) * ALIGN
-    return tuple(views), max(off // 4, 1)
-
-
-def _carve(layout, dev) -> list:
-    """The views of a _layout, carved from one buffer allocated on dev."""
-    views, n = layout
-    buf = torch.empty(n, dtype=torch.float32, device=dev)
-    s0 = buf.storage_offset()  # in floats: 0 but for a view handed out
-    bases = {torch.float32: buf}
-    out = []
-    for shape, stride, off, dt in views:
-        b = bases.get(dt)
-        if b is None:
-            b = bases[dt] = buf.view(dt)
-        out.append(b.as_strided(shape, stride, s0 * 4 // dt.itemsize + off))
-    return out
-
-
 @functools.lru_cache(maxsize=16)
 def _epilogue_layout(M: int):
     f32, b8 = torch.float32, torch.bool
-    return _layout(((M, 3), (M, 4, 4), (M, 4), (OBS_ROWS, M), (M,), (M,),
-                    (M,), (M,)), (f32, f32, f32, f32, b8, b8, f32, f32))
+    return outputs.layout(((M, 3), (M, 4, 4), (M, 4), (OBS_ROWS, M), (M,),
+                           (M,), (M,), (M,)),
+                          (f32, f32, f32, f32, b8, b8, f32, f32))
 
 
 @functools.lru_cache(maxsize=16)
 def _localmap_gate_layout(M: int, L: int, C: int):
     DG = 3 * C + 2
-    return _layout(((L, 8), (M, DG), (DG, L)),
-                   (torch.int32, torch.float32, torch.float32))
+    return outputs.layout(((L, 8), (M, DG), (DG, L)),
+                          (torch.int32, torch.float32, torch.float32))
 
 
 def epilogue_outputs(M: int, dev) -> TrackObs:
     """track_epilogue's eight outputs on dev, carved from one buffer: each
-    contiguous, of TrackObs' shape and dtype, at an ALIGN-byte boundary."""
-    return TrackObs(*_carve(_epilogue_layout(M), dev))
+    contiguous, of TrackObs' shape and dtype, at an outputs.ALIGN-byte
+    boundary."""
+    return TrackObs(*outputs.carve(_epilogue_layout(M), dev))
 
 
 def localmap_gate_outputs(M: int, L: int, C: int, dev):
     """localmap_gate's outputs (lm_desc (L, 8) int32, ahat (M, 3C + 2),
     bhat (3C + 2, L) float32) on dev, carved from one buffer as
     epilogue_outputs."""
-    return tuple(_carve(_localmap_gate_layout(M, L, C), dev))
+    return tuple(outputs.carve(_localmap_gate_layout(M, L, C), dev))
 
 
 def _cameras(name, C):

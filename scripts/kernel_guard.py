@@ -18,9 +18,11 @@ problems (C = 2, N = 333, M = 500; C = 3, N = 129, M = 2048; C = 5, N =
 1000, M = 2048; with --quick also C = 4, N = 768 through graph replays;
 the designs' edges at C = 3, N = 200: the gate on NaN pixels with the
 threshold on a cell's quotient, the groups with every feature a root and
-with most features of two cameras on one root); the three ORB kernels at
-bench frame 0's inputs
-(orb_pyramid and orb_select also through a captured CUDA graph) and at
+with most features of two cameras on one root; tri_gather at M = 31, 33,
+2049, 100 and 40 groups of C = 1, 3, 4, 5 and 33 cameras with groups of
+no, one and every ray, eagerly and through graph replays); the three ORB
+kernels at bench frame 0's inputs (orb_pyramid and orb_select also
+through a captured CUDA graph) and at
 random ones (the pyramid at 1 x 97 x 133 with 8 levels, 5 x 120 x 160
 with 4 and 2 x 240 x 320 with 10 in two launches, the selection on
 plateau-tied candidates with and without padding, the descriptors of 777
@@ -31,16 +33,20 @@ portfolio forced (the score at K = 1, 512, 256 and 3, also through a
 captured CUDA graph) and at random problems (K = 257, M = 37; the score
 at K = 1 and 512, M = 2048, and at K = 3, 33 and 513, M = 2049, which end
 one past a tile); the tracking glue's four kernels at the calls of bench
-frame 1's fast-path step (not --quick; track_epilogue and localmap_gate
-also through a captured CUDA graph) and at random problems (C = 4, M = N =
-2048, L = 4096, through graph replays with --quick; C = 3, M = 2049, N =
-2047, L = 4097; C = 1, M = 37, N = 33, L = 45), track_epilogue and
-localmap_gate also at C = 2, M = 33, N = 40, L = 65, at C = 4, M = 161, N
-= 200, L = 191 with every row a match with a landmark and at C = 3, M =
-N = 2048, L = 4096 with none with a landmark, each eagerly and through
-graph replays, track_epilogue's packed vector a buffer of its own. Every buffer a wrapper allocates (its outputs and its
-scratch, ransac_score's bit rows too) is placed inside a slab of canary
-bytes, PAD bytes on each side, the canary alternating from launch to
+frame 1's fast-path step (not --quick; track_gate, track_epilogue and
+localmap_gate also through a captured CUDA graph) and at random problems
+(C = 4, M = N = 2048, L = 4096, through graph replays with --quick; C =
+3, M = 2049, N = 2047, L = 4097; C = 1, M = 37, N = 33, L = 45),
+track_gate,
+track_epilogue and localmap_gate also at C = 2, M = 33, N = 40, L = 65,
+at C = 4, M = 161, N = 200, L = 191 with every row a match with a
+landmark, at C = 3, M = N = 2048, L = 4096 with none with a landmark, at
+C = 4, M = N = 2048, L = 4096 with no previous feature with a landmark
+and at C = 3, M = 97, N = 130, L = 50 with the map rows behind the
+cameras, each eagerly and through graph replays, track_epilogue's
+packed vector a buffer of its own. Every buffer a wrapper allocates (its
+outputs and its scratch, ransac_score's bit rows too) is placed inside
+a slab of canary bytes, PAD bytes on each side, the canary alternating from launch to
 launch (fixed in a graph, whose capture holds the slabs' filling), and
 so are intra_pairs', orb_select's, ransac_score's and track_epilogue's
 per-device buffers of arrival counters (ransac_score's K count
@@ -439,6 +445,15 @@ def intra_glue_cases(quick: bool, dev, rng):
     for name, n, a in intra_glue_edges(cs.intra_glue_problem(rng, 3, 200, 700,
                                                              dev)):
         out.append((f"{n} C=3 N=200 ({name})", *kernel(n), a, {}, False))
+    # the lane-per-ray tri_gather at group counts no multiple of a block's
+    # or a warp's groups, C not dividing 32 and above 32
+    for C, N, M in ((1, 50, 31), (3, 129, 33), (4, 97, 2049), (5, 60, 100),
+                    (33, 20, 40)):
+        a = cs.tri_gather_problem(rng, C, N, M, dev)
+        for graphed in (False, True):
+            out.append((f"tri_gather C={C} N={N} M={M} (random"
+                        f"{', graph replays' if graphed else ''})",
+                        *kernel("tri_gather"), a, {}, graphed))
     return [(name, fn, a, kw, plain, graphed)
             for name, fn, plain, a, kw, graphed in out]
 
@@ -526,7 +541,7 @@ def track_cases(quick: bool, dev, rng):
         for n in cs.TRACK_KERNELS:
             a, kw = seen[n]
             out.append((f"{n} (bench frame 1)", *kernel(n), a, kw, False))
-        for n in ("track_epilogue", "localmap_gate"):
+        for n in cs.TRACK_REDESIGNED:
             a, kw = seen[n]
             out.append((f"{n} (bench frame 1, graph replays)", *kernel(n),
                         a, kw, True))
@@ -540,15 +555,18 @@ def track_cases(quick: bool, dev, rng):
             if quick and M == 2048:
                 out.append((f"{n} C={C} M={M} N={N} L={L} (random, graph "
                             f"replays)", *kernel(n), a, kw, True))
-    # the redesigned two (32-row and 32-column blocks) at shapes no
-    # multiple of their blocks and at the counts' extremes (M and M, M and
-    # 0), eagerly and through graph replays
+    # the redesigned three (32-row and 32-column blocks) at shapes no
+    # multiple of their blocks, at the counts' extremes (M and M, M and 0),
+    # with no previous landmark and with the map behind the cameras,
+    # eagerly and through graph replays
     for C, M, N, L, case in ((2, 33, 40, 65, "random"),
                              (4, 161, 200, 191, "all_ok"),
-                             (3, 2048, 2048, 4096, "none_with")):
+                             (3, 2048, 2048, 4096, "none_with"),
+                             (4, 2048, 2048, 4096, "no_lm"),
+                             (3, 97, 130, 50, "behind")):
         calls = cs.track_calls(cs.track_problem(rng, C, M, N, L, 4096, dev,
                                                 case))
-        for n in ("track_epilogue", "localmap_gate"):
+        for n in cs.TRACK_REDESIGNED:
             a, kw = calls[n]
             for graphed in (False, True):
                 out.append((f"{n} C={C} M={M} N={N} L={L} ({case}"

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Split the time of the tracking glue's kernels track_epilogue and
-localmap_gate (csrc/track_glue.cu) on one CUDA card by %globaltimer
-stamps and by variants of the source, and time an earlier design of the
-source against the current one in turns.
+"""Split the time of the tracking glue's kernels track_gate,
+track_epilogue and localmap_gate (csrc/track_glue.cu) on one CUDA card
+by %globaltimer stamps and by variants of the source, and time an
+earlier design of the source against the current one in turns.
 
     git show <commit>:mcslam_tpu_torch/csrc/track_glue.cu \\
         > mcslam_tpu_torch/_build/earlier_track_glue.cu
     python3 scripts/track_glue_variants.py \\
         [--earlier mcslam_tpu_torch/_build/earlier_track_glue.cu]
-        [--rounds 5] [--only DESIGN:VARIANT ...]
+        [--rounds 5] [--only SOURCE:VARIANT ...] [--kernels NAME ...]
 
 Run from the repository's root (--earlier also takes a git revision where
 the checkout has its history). Builds the source as it stands and the
 earlier one, each as it is and with the edits of each variant below (one
 nvcc per variant, all started together, into mcslam_tpu_torch/_build/
-variants/), prints each build's registers, shared memory and spills,
-and at bench frame 1's recorded calls of the two kernels (chip_smoke.
+variants/; only the variants of the kernels named by --kernels, all
+three by default), prints each build's registers, shared memory and
+spills, and at bench frame 1's recorded calls of the kernels (chip_smoke.
 capture_calls on the eager fast-path step against frame 0's map: C = 4
-cameras, M = N = 2048 features, L = 4096 candidates) checks each design's
-full variant against the plain version bit for bit, then prints:
+cameras, M = N = 2048 features, L = 4096 candidates) checks each
+source's full variant against the plain version bit for bit, then
+prints:
 - each design's stamps variant's phases per call (the earliest start and
   the latest end of each phase over the blocks, stamped by thread 0 or by
   lane 0 of each warp once the values of the phase are in registers;
@@ -33,12 +35,13 @@ full variant against the plain version bit for bit, then prints:
   (track_cuda.epilogue_outputs, localmap_gate_outputs), the host time of
   that against one torch.empty per output (eight and three), in turns:
   200 calls by the host clock, median over the rounds.
-The edits are keyed by the design the source holds (its marker line);
-both designs bind the same C entries. The variants' outputs are not the
-function's, except full's. An edit whose anchor is not found as often as
-listed fails the run. Needs one CUDA card.
+The edits are keyed by the design the source holds (its markers, the
+newest design whose markers it holds); every design binds the same C
+entries. The variants' outputs are not the function's, except full's.
+An edit whose anchor is not found as often as listed fails the run.
+Needs one CUDA card.
 
-The earlier design (a thread per row or column, 128 a block, the counts'
+PR 21's design (a thread per row or column, 128 a block, the counts'
 last block by an acq_rel arrival; markers "add_acq_rel(counters + 2)",
 "se3_inverse12(T_wr, s_inv);"):
   full     the source as it stands;
@@ -54,18 +57,31 @@ last block by an acq_rel arrival; markers "add_acq_rel(counters + 2)",
            decide (cam_out, f_out, the rows 3-21);
   nodiv    localmap_gate multiplies where it divides;
   nodesc   localmap_gate without the descriptors' copy.
-The current design (markers "EPI_ROWS", "LM_LANES"):
+PR 24's design (markers "EPI_ROWS", "LM_LANES"; its track_gate is PR
+21's: a thread per row or column, the cameras' world poses per block in
+shared memory behind a barrier):
   full, stamps, nocount, noindep, nodiv, nodesc as above (stamps:
            track_epilogue: start, the chain's loads in, its stores
            issued, the match-independent stores issued, the end;
            localmap_gate: start, the candidates' map rows in, the pose in,
            the projections made, the column stores issued, the row
-           blocks' ahat stored);
+           blocks' ahat stored; track_gate: start, the pose barrier
+           passed, prev_lm_id in, the map row in, the projections made,
+           the column stores issued, the row blocks' ahat stored);
   rows16   track_epilogue with 16 rows a block;
   lanes1   localmap_gate with one lane a column (all its cameras and
            divisions in one thread), 64 threads a block;
   lanes2   localmap_gate with two lanes a column (cameras 0, 2 and 1, 3);
-  threads64  localmap_gate with 64 threads a block (not 128).
+  threads64  localmap_gate with 64 threads a block (not 128);
+  tg_nodiv track_gate multiplies where it divides;
+  tg_norows  track_gate without its ahat row blocks' work (they launch
+           and return).
+PR 25's design (markers "TG_LANES", "EPI_ROWS", "LM_LANES": track_gate
+with four lanes a column, one camera each, the landmark id and map row
+loaded before the pose, no barrier):
+  the variants of PR 24's design, track_gate's stamps now: start, the map
+           row in, the lane's camera pose made, the projections made, the
+           column stores issued, the row blocks' ahat stored.
 """
 
 from __future__ import annotations
@@ -85,7 +101,7 @@ CSRC = ROOT / "mcslam_tpu_torch" / "csrc"
 OUT = ROOT / "mcslam_tpu_torch" / "_build" / "variants"
 SOURCE = "mcslam_tpu_torch/csrc/track_glue.cu"
 NSTAMPS = 16
-KERNELS = ("track_epilogue", "localmap_gate")
+KERNELS = ("track_gate", "track_epilogue", "localmap_gate")
 
 STAMP_DEFS = """
 __device__ unsigned long long g_stamps[16];
@@ -128,7 +144,7 @@ def w0(k, *regs):
 STAMP_COMMON = [(NS_TOP, NS_TOP + STAMP_DEFS, 1),
                 (ENTRY, STAMP_GETTER + ENTRY, 1)]
 
-# -- the earlier design -------------------------------------------------------
+# -- PR 21's design ------------------------------------------------------------
 E_EPI_START = ("  __shared__ int s_ok[WARPS], s_with[WARPS];\n"
                "  const int tid = threadIdx.x;\n")
 E_EPI_IDX = "    const int j = clampi(j_raw, 0, N - 1);\n"
@@ -211,7 +227,7 @@ EARLIER_PHASES = {
                       ("start -> end", 8, 12)),
 }
 
-# -- the current design --------------------------------------------------------
+# -- PR 24's design ------------------------------------------------------------
 C_EPI_START = "  // the epilogue block starts\n"
 C_EPI_CHAIN = "    // the chain's values in\n"
 C_EPI_CHAIN_STORED = "    // the chain's stores issued\n"
@@ -228,9 +244,40 @@ C_DIV_UV = ("      const float u = p0 / zs * f.x + f.z;\n"
             "      const float v = p1 / zs * f.y + f.w;\n")
 C_DIV_VIEW = "    vd[k] = (comp == 0 ? w0 : (comp == 1 ? w1 : w2)) / vn;\n"
 C_DESC = "  // the descriptors' copy\n"
-CURRENT = {
-    "full": [],
-    "stamps": STAMP_COMMON + [
+# track_gate as PR 21 wrote it (a thread per column behind the block's
+# pose barrier)
+B_TG_START = ("  const int tid = threadIdx.x;\n  if (static_cast<int>(blockIdx.x) "
+              "< row_blocks) {\n")
+B_TG_ROWS = ("    write_ahat<THREADS>(uv, anchor, cur_valid, M, C, blockIdx.x * "
+             "THREADS,\n                        ahat, s_a);\n")
+B_TG_POSE = ("  __syncthreads();\n  const int n = (static_cast<int>(blockIdx.x) - "
+             "row_blocks) * THREADS + tid;\n")
+B_TG_ID = "  const int id = prev_lm_id[n];\n"
+B_TG_MAP = ("              X2 = map_pos[3 * safe + 2];\n"
+            "  float pu[MAX_C], pv[MAX_C], pen[MAX_C];\n")
+B_TG_PROJ = "  const float ci = prev_valid[n] ? 0.0f : 1.0f;\n"
+B_TG_BHAT = "                 2e13f * ci - PASS_BIAS * cp);\n"
+B_TG_DIV = ("      pu[c] = clampf(p0 / zc * s_f[c][0] + s_f[c][2], -1e5f, 1e5f);\n"
+            "      pv[c] = clampf(p1 / zc * s_f[c][1] + s_f[c][3], -1e5f, 1e5f);\n")
+B_TG_STAMPS = [
+    (B_TG_START, B_TG_START.replace("  if (", t0(0) + "  if ("), 1),
+    (B_TG_ROWS, B_TG_ROWS + w0(6), 1),
+    (B_TG_POSE, B_TG_POSE.replace("  const int n", t0(1) + "  const int n"),
+     1),
+    (B_TG_ID, B_TG_ID + w0(2, ("r", "id")), 1),
+    (B_TG_MAP, B_TG_MAP.replace("  float pu", w0(3, ("f", "X0"), ("f", "X2"),
+                                                ("r", "(int)has"))
+                                + "  float pu"), 1),
+    (B_TG_PROJ, w0(4, *PROJ_REGS) + B_TG_PROJ, 1),
+    (B_TG_BHAT, B_TG_BHAT + w0(5), 1)]
+TG_PHASES = (("start -> the pose barrier passed (latest block)", 0, 1),
+             ("-> prev_lm_id in (latest warp)", 1, 2),
+             ("-> the map row in", 2, 3),
+             ("-> the projections made", 3, 4),
+             ("-> the column stores issued", 4, 5),
+             ("start -> the row blocks' ahat stored", 0, 6),
+             ("start -> the latest column stores", 0, 5))
+EPI_LM_STAMPS = STAMP_COMMON + [
         (C_EPI_START, C_EPI_START + t0(0), 1),
         (C_EPI_CHAIN, C_EPI_CHAIN + w0(1, ("f", "X0"), ("f", "X2"),
                                        ("r", "(int)with")), 1),
@@ -245,7 +292,10 @@ CURRENT = {
          1),
         (C_LM_PROJ, C_LM_PROJ + w0(11, ("f", "pu[0]"), ("f", "pv[0]"),
                                    ("f", "pen[0]")), 1),
-        (C_LM_END, C_LM_END + w0(12), 1)],
+        (C_LM_END, C_LM_END + w0(12), 1)]
+CURRENT = {
+    "full": [],
+    "stamps": EPI_LM_STAMPS + B_TG_STAMPS,
     "nocount": [(C_EPI_COUNT, "      if (M < 0)\n", 1)],
     "noindep": [(C_EPI_INDEP.replace("issued", "begin"),
                  "    if (M < 0)\n", 1)],
@@ -261,6 +311,8 @@ CURRENT = {
                 1)],
     "threads64": [("constexpr int LM_THREADS = 128;",
                    "constexpr int LM_THREADS = 64;", 1)],
+    "tg_nodiv": [(B_TG_DIV, B_TG_DIV.replace(" / zc", " * zc"), 1)],
+    "tg_norows": [(B_TG_ROWS, "    if (M < 0)\n" + B_TG_ROWS, 1)],
 }
 CURRENT_PHASES = {
     "track_epilogue": (("start -> the chain's values in (latest warp)", 0,
@@ -274,18 +326,55 @@ CURRENT_PHASES = {
                       ("-> the column stores issued", 11, 12),
                       ("start -> the row blocks' ahat stored", 8, 14),
                       ("start -> end", 8, 12)),
+    "track_gate": TG_PHASES,
 }
-# (markers, edits, stamp phases, tag)
-DESIGNS = [(("add_acq_rel(counters + 2)", "se3_inverse12(T_wr, s_inv);"),
-            EARLIER, EARLIER_PHASES, "earlier"),
-           (("EPI_ROWS", "LM_LANES"), CURRENT, CURRENT_PHASES, "current")]
+
+# -- PR 25's design: track_gate with four lanes a column ----------------------
+N_TG_START = "  // the track gate block starts\n"
+N_TG_ROWS = "    // the track gate's ahat rows stored\n"
+N_TG_MAP = "  // the column's map row in\n"
+N_TG_POSE = "  // the camera's pose made\n"
+N_TG_PROJ = "  // the column's projection made\n"
+N_TG_END = "  // the track gate block ends\n"
+N_TG_DIV = ("  const float pu = clampf(p0 / zc * f.x + f.z, -1e5f, 1e5f);\n"
+            "  const float pv = clampf(p1 / zc * f.y + f.w, -1e5f, 1e5f);\n")
+N_TG_AHAT = "    write_ahat<TG_THREADS>(uv, anchor, cur_valid, M, C,\n"
+NEWEST = {k: v for k, v in CURRENT.items() if not k.startswith("tg_")}
+NEWEST.update({
+    "stamps": EPI_LM_STAMPS + [
+        (N_TG_START, N_TG_START + t0(0), 1),
+        (N_TG_ROWS, N_TG_ROWS + w0(6), 1),
+        (N_TG_MAP, N_TG_MAP + w0(1, ("f", "X0"), ("f", "X2"),
+                                 ("r", "(int)has")), 1),
+        (N_TG_POSE, N_TG_POSE + w0(2, ("f", "w[0]"), ("f", "w[11]")), 1),
+        (N_TG_PROJ, N_TG_PROJ + w0(3, ("f", "pu"), ("f", "pv"),
+                                   ("f", "pen")), 1),
+        (N_TG_END, N_TG_END + w0(4), 1)],
+    "tg_nodiv": [(N_TG_DIV, N_TG_DIV.replace(" / zc", " * zc"), 1)],
+    "tg_norows": [(N_TG_AHAT, "    if (M < 0)\n" + N_TG_AHAT, 1)]})
+NEWEST_PHASES = dict(CURRENT_PHASES, track_gate=(
+    ("start -> the map row in (latest warp)", 0, 1),
+    ("-> the camera's pose made", 1, 2),
+    ("-> the projections made", 2, 3),
+    ("-> the column stores issued", 3, 4),
+    ("start -> the row blocks' ahat stored", 0, 6),
+    ("start -> the latest column stores", 0, 4)))
+# (markers, edits, stamp phases, name), the newest design first: a source
+# holds the first design whose markers it holds all
+DESIGNS = [(("TG_LANES", "EPI_ROWS", "LM_LANES"), NEWEST, NEWEST_PHASES,
+            "PR 25's"),
+           (("EPI_ROWS", "LM_LANES"), CURRENT, CURRENT_PHASES, "PR 24's"),
+           (("add_acq_rel(counters + 2)", "se3_inverse12(T_wr, s_inv);"),
+            EARLIER, EARLIER_PHASES, "PR 21's")]
 # variants that concern one kernel only
 ONLY = {"nocount": "track_epilogue", "nocam": "track_epilogue",
         "noindep": "track_epilogue", "rows16": "track_epilogue", "nodiv": "localmap_gate",
         "nodesc": "localmap_gate", "lanes1": "localmap_gate",
-        "lanes2": "localmap_gate", "threads64": "localmap_gate"}
+        "lanes2": "localmap_gate", "threads64": "localmap_gate",
+        "tg_nodiv": "track_gate", "tg_norows": "track_gate"}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-ENTRY_TYPES = {"mc_track_epilogue": [P] * 24 + [I] * 4 + [F, F, P],
+ENTRY_TYPES = {"mc_track_gate": [P] * 12 + [I] * 4 + [P],
+               "mc_track_epilogue": [P] * 24 + [I] * 4 + [F, F, P],
                "mc_localmap_gate": [P] * 14 + [I] * 4 + [F] * 3 + [P]}
 
 
@@ -341,7 +430,7 @@ def build_all(sources: dict, jobs) -> dict:
                                 r"(\d+ bytes stack frame, \d+ bytes spill "
                                 r"stores).*?Used (\d+) registers([^\n]*)",
                                 log, re.S):
-            if "track_epilogue" in entry[0] or "localmap_gate" in entry[0]:
+            if any(k in entry[0] for k in KERNELS):
                 print(f"# build {tag} {name}: {entry[0][:40]}: {entry[2]} "
                       f"registers{entry[3]}, {entry[1]}", flush=True)
         lib = ctypes.CDLL(str(OUT / f"{stem}.so"))
@@ -361,6 +450,20 @@ def caller(lib, kernel, a, kw):
     from mcslam_tpu_torch.frontend import track_cuda
 
     f32, b8 = torch.float32, torch.bool
+    if kernel == "track_gate":
+        dev = a[0].device
+        M, N, cap, C = a[0].shape[0], a[3].shape[0], a[5].shape[0], \
+            a[7].shape[0]
+        DG = 3 * C + 2
+        outs = (torch.empty(M, DG, dtype=f32, device=dev),
+                torch.empty(DG, N, dtype=f32, device=dev))
+
+        def call():
+            _build.check(lib.mc_track_gate(
+                *(x.data_ptr() for x in a), *(o.data_ptr() for o in outs),
+                M, N, C, cap, _build.stream_ptr(dev)), "mc_track_gate")
+            return list(outs)
+        return call
     if kernel == "track_epilogue":
         ins, (max_dist, ratio, _) = a[:14], a[14:]
         dev = ins[0].device
@@ -508,6 +611,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--only", nargs="*", default=None,
                     help="source:variant pairs (sources earlier, current)")
+    ap.add_argument("--kernels", nargs="*", default=list(KERNELS),
+                    choices=KERNELS, help="the kernels to split and time")
     opt = ap.parse_args()
 
     import numpy as np
@@ -530,7 +635,8 @@ def main() -> int:
         d = design(src)
         print(f"# {tag} source: the {d[3]} design ({d[0]})", flush=True)
         jobs += [(tag, v) for v in d[1]
-                 if opt.only is None or f"{tag}:{v}" in opt.only]
+                 if (opt.only is None or f"{tag}:{v}" in opt.only)
+                 and ONLY.get(v, opt.kernels[0]) in opt.kernels]
     libs = build_all(sources, jobs)
     scene = cs.Scene(dev, frames=2)
     ff0 = frame.build_frame(scene.imgs[0], scene.rig, **scene.frame_kwargs())
@@ -541,12 +647,15 @@ def main() -> int:
         torch.eye(4, device=dev), **scene.step_kwargs(cs.FASTPATH_FRAC)),
         {n: (track_cuda, n) for n in KERNELS})
     bad = 0
-    for kernel in KERNELS:
+    for kernel in opt.kernels:
         a, kw = seen[kernel]
         ref = reference(kernel, a, kw)
         calls = {(t, v): caller(libs[(t, v)], kernel, a, kw)
                  for t, v in jobs if ONLY.get(v, kernel) == kernel}
-        if kernel == "track_epilogue":
+        if kernel == "track_gate":
+            label = (f"{kernel} C={a[7].shape[0]} M={a[0].shape[0]} "
+                     f"N={a[3].shape[0]}")
+        elif kernel == "track_epilogue":
             label = (f"{kernel} C={a[12].shape[0]} M={a[0].shape[0]} "
                      f"N={a[3].shape[0]}")
         else:
@@ -585,7 +694,8 @@ def main() -> int:
               f"{float(np.median(wms)):.4f} ms per call by CUDA events "
               f"(median of {opt.rounds} rounds of 20: "
               f"{', '.join(f'{x:.4f}' for x in wms)}) ({smi})", flush=True)
-    if hasattr(track_cuda, "epilogue_outputs"):
+    if hasattr(track_cuda, "epilogue_outputs") and (
+            {"track_epilogue", "localmap_gate"} & set(opt.kernels)):
         allocation_split(dev, opt.rounds, smi)
     print(f"# track_glue_variants: "
           f"{'every full variant equals the plain version' if not bad else f'{bad} full variants differ'}",

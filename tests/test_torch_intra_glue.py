@@ -23,6 +23,11 @@ The gate's division-free cells (csrc/intra_glue.cu decides RN(a / b) <
 thr^2 by two products with margins and divides only the cells within
 them) are held to the float32 division on the CPU, modelled op for op,
 over 10^5 seeded (a, b) pairs around the threshold and the edge values.
+The identity tri_gather's lane-per-ray kernel rests on is held on the
+plain version: the anchor's pixel and sigma^2 are the values its own
+camera's gather reads, bit for bit, groups without a ray included; and
+tri_gather's outputs carved from one buffer (intra_cuda.
+tri_gather_outputs) keep the plain version's shapes, strides and dtypes.
 
 `gpu` cases (they skip without a card) hold each kernel to its plain
 version on the card with torch.equal at the frame's shape (C = 4, N =
@@ -31,7 +36,9 @@ designs' edges (gate cells on the threshold, an exact rounding tie, the
 1e-12 clamp, t^2 overflowing, NaN pixels, thresholds outside the
 margins' range; groups with no valid feature, every feature a root,
 features of one camera sharing a root, equal priorities across the
-blocks' slices) and through two replays of a captured CUDA graph:
+blocks' slices; tri_gather at M = 1, 31, 33, 2049 x C = 1-4 and at C = 5
+and 33, with groups of no ray, one ray and every ray) and through
+repeated replays of a captured CUDA graph:
     python -m pytest --noconftest tests/test_torch_intra_glue.py -m gpu -q
 (this file imports JAX only inside its CPU comparisons)."""
 
@@ -39,12 +46,14 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.data import synthetic
 from mcslam_tpu_torch.frontend import frame, intra, intra_cuda
 from mcslam_tpu_torch.geometry import lie
 from mcslam_tpu_torch.ops import hamming
 from test_torch_intra_kernel import _rig, _scene
+from test_torch_track_kernels import _carved_ok
 
 GATE_ULPS = 64
 N96 = 96
@@ -393,6 +402,55 @@ def test_wrappers_refuse_what_they_cannot_take():
         intra_cuda.tri_gather(v.int()[0], v[0], xy_t, xy_t[..., 0])
 
 
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5])
+def test_tri_gather_anchor_is_the_cameras_own_gather(C):
+    """On the plain version: uv_ref is uv[m, anchor_cam[m]] and
+    anchor_sigma2 is kp_sigma2[c, max(ray_idx[m, c], 0)] at c =
+    anchor_cam[m], the values camera c's own gather reads, bit for bit;
+    so also for groups without a ray (camera 0, feature 0)."""
+    ray_idx, valid, xy, sigma2 = cs.tri_gather_problem(
+        np.random.RandomState(70 + C), C, 50, 203, "cpu")
+    (uv, _, _, anchor_cam, uv_ref, anchor_sigma2, n_rays,
+     _) = intra_cuda.tri_gather_reference(ray_idx, valid, xy, sigma2)
+    m = torch.arange(ray_idx.shape[0])
+    a = anchor_cam.long()
+    assert torch.equal(uv_ref.view(torch.int32), uv[m, a].view(torch.int32))
+    own = sigma2[a, torch.clamp(ray_idx[m, a], min=0).long()]
+    assert torch.equal(anchor_sigma2.view(torch.int32), own.view(torch.int32))
+    none = n_rays == 0
+    assert none.any() and (n_rays == 1).any() and (n_rays == C).any()
+    assert (a[none] == 0).all()
+    assert torch.equal(uv_ref[none], xy[0, 0].expand(int(none.sum()), 2))
+
+
+@pytest.mark.parametrize("M,C", [(2048, 4), (2049, 3), (1, 1), (0, 2)])
+def test_tri_gather_outputs_keep_their_layout(M, C, monkeypatch):
+    """tri_gather_outputs: the plain version's shapes, strides and dtypes,
+    contiguous, aligned, disjoint; and so in a buffer that torch.empty
+    hands out at an offset of its storage."""
+    want = [(tuple(x.shape), x.dtype, x.stride())
+            for x in intra_cuda.tri_gather_reference(*cs.tri_gather_problem(
+                np.random.RandomState(80), C, 9, M, "cpu"))]
+    real = torch.empty
+    for offset in (0, 300):
+        held = []
+
+        def empty(*size, **kw):
+            n = size[0]
+            slab = real(n + 2 * offset, **kw)
+            held.append(slab)
+            return slab[offset:offset + n]
+
+        monkeypatch.setattr(torch, "empty", empty)
+        views = intra_cuda.tri_gather_outputs(M, C, "cpu")
+        monkeypatch.setattr(torch, "empty", real)
+        (slab,) = held
+        assert [(tuple(x.shape), x.dtype, x.stride()) for x in views] == want
+        assert all(x.is_contiguous() for x in views)
+        _carved_ok(views, slab[offset:].data_ptr(),
+                   (slab.numel() - 2 * offset) * 4)
+
+
 # ---- on the card: each kernel against its plain version ----
 
 def _gate_inputs(seed, C, N, dev):
@@ -595,6 +653,17 @@ def test_tri_gather_matches_plain(cuda, C, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C,M", cs.TRI_EDGES + ((4, 2048),))
+def test_tri_gather_odd_shapes_match_plain(cuda, C, M):
+    """The lane-per-ray kernel at group counts that are no multiple of a
+    block's or a warp's groups, at C that does not divide 32 (groups of a
+    warp ending short of its last lanes) and above 32 (a group per warp,
+    two rounds of lanes), with groups of no ray, one ray and every ray."""
+    _kernel_vs_plain("tri_gather", cs.tri_gather_problem(
+        np.random.RandomState(M * 100 + C), C, 97, M, cuda))
+
+
+@pytest.mark.gpu
 def test_intra_match_on_the_card_matches_the_cpu(cuda):
     """The three launches of intra_match and the stage after it on the
     card against the CPU's plain versions on the bench-shaped scene."""
@@ -618,9 +687,9 @@ def test_intra_match_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.gpu
 def test_kernels_in_a_graph_match_plain(cuda):
-    """The three launches captured in one CUDA graph: each of two replays
+    """The three launches captured in one CUDA graph: each of four replays
     equals the plain versions, also on new inputs copied into the captured
-    ones."""
+    ones (and back)."""
     C, N = 4, 768
 
     def inputs(seed):
@@ -654,7 +723,7 @@ def test_kernels_in_a_graph_match_plain(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = step(*static)
-    for seed in (60, 61):
+    for seed in (60, 61, 62, 60):
         new = inputs(seed)
         for x, y in zip(static, new):
             x.copy_(y)

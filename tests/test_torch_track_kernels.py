@@ -40,13 +40,15 @@ not overlap, also in a buffer that starts at an offset of its storage.
 plain version on the card at those shapes and at the production ones (C =
 4, M = N = 2048, L = 4096, and odd M = 2049, N = 2047, L = 4097), twice
 alike, one launch counted a call; track_epilogue also through CUDA graph
-replays with its counters back at zero. The redesigned track_epilogue
-(32-row blocks) and localmap_gate (32-column blocks) also at shapes that
-are no multiple of those blocks, at C = 1-4, at M = 0 and L = 0, at
-counts of 0 and of M (every row a match with a landmark; every row a
-match, none with a landmark; no valid row), and track_epilogue through
-repeated graph replays on inputs that change between replays, its two
-counts right on every one:
+replays with its counters back at zero. The redesigned track_gate and
+localmap_gate (32-column blocks) and track_epilogue (32-row blocks) also
+at shapes that are no multiple of those blocks, at C = 1-4, at M = 0 and
+L = 0, at counts of 0 and of M (every row a match with a landmark; every
+row a match, none with a landmark; no valid row), with no previous
+feature with a landmark and with the map rows at or behind the cameras
+(depths <= 0.05 and < 1e-6), and track_epilogue through repeated graph
+replays on inputs that change between replays, its two counts right on
+every one:
     python -m pytest --noconftest tests/test_torch_track_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparisons)."""
 
@@ -57,6 +59,7 @@ import torch
 import chip_smoke as cs
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.frontend import pose_opt_cuda, track_cuda as tc
+from mcslam_tpu_torch.utils import outputs
 
 MAX_DIST, RATIO = cs.STEP["max_dist"], cs.STEP["ratio"]
 LM_MAX_DIST = cs.STEP["lm_max_dist"]
@@ -129,7 +132,7 @@ def _carved_ok(views, base, nbytes):
                    for v in views if v.numel())
     if not spans:
         return
-    assert all((a - base) % tc.ALIGN == 0 for a, _ in spans)
+    assert all((a - base) % outputs.ALIGN == 0 for a, _ in spans)
     assert all(b0 <= a1 for (_, b0), (a1, _) in zip(spans, spans[1:]))
     assert spans[0][0] >= base and spans[-1][1] <= base + nbytes
 
@@ -500,7 +503,8 @@ def test_track_epilogue_in_a_cuda_graph(cuda):
 
 
 # shapes no multiple of the redesigned kernels' 32-row and 32-column
-# blocks, C = 1-4, M = 0 and L = 0; then the counts' extremes
+# blocks, C = 1-4, M = 0 and L = 0; then the counts' extremes; then no
+# previous feature with a landmark and the map rows behind the cameras
 ODD_SHAPES = [(1, 31, 7, 63, 50, "random"), (2, 33, 40, 65, 100, "random"),
               (3, 95, 96, 129, 300, "random"), (4, 161, 200, 191, 700, "random"),
               (2, 1, 1, 1, 20, "random"), (4, 0, 5, 3, 20, "random"),
@@ -509,15 +513,19 @@ COUNT_SHAPES = [(4, 2048, 2048, 4096, 65536, "all_ok"),
                 (4, 2048, 2048, 4096, 65536, "none_with"),
                 (3, 777, 800, 100, 1000, "all_ok"),
                 (4, 2049, 2047, 4097, 65536, "no_valid")]
-REDESIGNED = ("track_epilogue", "localmap_gate")
+GATE_SHAPES = [(4, 2048, 2048, 4096, 65536, "no_lm"),
+               (3, 97, 130, 50, 300, "behind")]
+REDESIGNED = ("track_gate", "track_epilogue", "localmap_gate")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,M,N,L,cap,case", ODD_SHAPES + COUNT_SHAPES)
+@pytest.mark.parametrize("C,M,N,L,cap,case",
+                         ODD_SHAPES + COUNT_SHAPES + GATE_SHAPES)
 def test_redesigned_kernels_match_plain_on_card(cuda, C, M, N, L, cap, case):
-    """track_epilogue and localmap_gate twice alike, one launch a call,
-    bit-equal to the plain versions on the card and on the CPU; the
-    epilogue's counts (packed slots 17, 18) those the case makes."""
+    """track_gate, track_epilogue and localmap_gate twice alike, one
+    launch a call, bit-equal to the plain versions on the card and on the
+    CPU; the epilogue's counts (packed slots 17, 18) those the case
+    makes."""
     T = _problem(11, C, M, N, L, cap, case)
     Tc = {k: v.to(cuda) for k, v in T.items()}
     calls, calls_cpu = cs.track_calls(Tc), cs.track_calls(T)
