@@ -568,6 +568,19 @@ RANSAC_ONE_SIDED = 0.02
 # N (N + 1) R, the factor N^3 / 3, each solve 2 N^2 and its norm 2 N)
 SCORE_OPS = 38
 KABSCH_OPS = 50 + 3 * 112 + 12 * 16 + 16 * 14 + 60
+NEWTON_OPS = 16  # of KABSCH_OPS, a Newton step's
+
+
+def kabsch_ops(idx, X_rig, X_world) -> float:
+    """Operations of kabsch_hyp on these samples: KABSCH_OPS a hypothesis
+    but for the Newton steps, of which each counts those it needs to its
+    first bitwise fixed point (alignment.newton_fixed_steps: the plain
+    arithmetic; the kernel's warp runs them to its slowest quad's)."""
+    from mcslam_tpu_torch.geometry import alignment
+
+    K_ = alignment.davenport(X_rig[idx], X_world[idx])[0]
+    steps = int(alignment.newton_fixed_steps(K_).sum())
+    return idx.shape[0] * (KABSCH_OPS - 12 * NEWTON_OPS) + steps * NEWTON_OPS
 
 
 def pnp_ops(K: int, S: int, noncentral: bool) -> float:
@@ -1909,7 +1922,7 @@ def ransac_kernels(scene, dev, kernels):
         S = idx.shape[1]
         if name == "kabsch_hyp":
             nbytes = K * 3 * (8 + 2 * 12) + K * 64
-            ops_s = f32_ops_s(K * KABSCH_OPS)
+            ops_s = f32_ops_s(kabsch_ops(*args))
         else:
             lever = bool((args[3][:, :3, 3].norm(dim=-1) > 1e-6).any())
             # samples' indices and rows, the translations' lever scan, the
@@ -2031,7 +2044,8 @@ def track_problem(rng, C, M, N, L, cap, dev, case="random") -> dict:
 def track_calls(P, image_wh=(W, H)) -> dict:
     """{kernel: (args, kwargs)} of the four tracking glue wrappers on a
     track_problem's inputs (the local-map epilogue on rows made by the
-    plain inter-frame epilogue)."""
+    plain inter-frame epilogue and on the candidates' positions as the
+    gate writes them)."""
     import torch
 
     from mcslam_tpu_torch.frontend import track_cuda
@@ -2057,8 +2071,11 @@ def track_calls(P, image_wh=(W, H)) -> dict:
                            P["anchor"], P["cur_valid"], P["cam"], P["f"],
                            image_wh), {}),
         "localmap_epilogue": ((P["best"], P["second"], P["lidx"],
-                               P["cur_valid"], P["cand"], P["map_pos"],
-                               obs.rows, STEP["lm_max_dist"]), {})}
+                               P["cur_valid"], P["cand"],
+                               track_cuda.candidate_positions(
+                                   P["cand"], P["map_pos"]),
+                               P["map_pos"], obs.rows, STEP["lm_max_dist"]),
+                              {})}
 
 
 def track_outputs(name, fn, args, kw):
@@ -2086,8 +2103,8 @@ def track_bytes_ops(name, args) -> tuple:
         DG = 3 * C + 2
         # rows: uv, anchor, valid; columns: id, valid, the map row (track:
         # position, validity; local: position, descriptor, normal); the
-        # rig; ahat, bhat (and the candidates' descriptors)
-        per_col = 4 + 1 + (13 if name == "track_gate" else 56 + 32)
+        # rig; ahat, bhat (and the candidates' descriptors and positions)
+        per_col = 4 + 1 + (13 if name == "track_gate" else 56 + 32 + 12)
         nbytes = M * 13 + cols * per_col + C * 80 + 64 + 4 * DG * (M + cols)
         # a column's camera transform (15) or two (30) and per camera the
         # projection, clamps and P2 (~12); the cone (~25); a row's 3 C + 4
@@ -2101,18 +2118,18 @@ def track_bytes_ops(name, args) -> tuple:
         nbytes = M * (4 * 5 + 2 + 8 + 4 + 4 + 13) + M * (12 + 64 + 16 + 88
                                                           + 2 + 8 + 12) + 8
         return nbytes, M * 10
-    # best, second, idx, valid, cand_ids and map rows gathered, the
-    # inter-frame rows 3-21; the rows, mask, lm
+    # best, second, idx, valid, cand_ids and the gate's positions
+    # gathered, the inter-frame rows 3-21; the rows, mask, lm
     return M * (13 + 4 + 12 + 76) + M * (88 + 4 + 4), M * 5
 
 
 # the tracking glue's redesigned kernels (track_gate's and localmap_gate's
-# four lanes a column, 32 columns a block; track_epilogue's 32-row
-# blocks), which phase 2 holds also at these problems (C, M, N, L,
-# track_problem's case): shapes no multiple of their blocks, C = 1-4, the
-# counts' extremes, no previous feature with a landmark, map rows behind
-# the cameras
-TRACK_REDESIGNED = ("track_gate", "track_epilogue", "localmap_gate")
+# four lanes a column, 32 columns a block; track_epilogue's and
+# localmap_epilogue's 32-row blocks), which phase 2 holds also at these
+# problems (C, M, N, L, track_problem's case): shapes no multiple of their
+# blocks, C = 1-4, the counts' extremes, no previous feature with a
+# landmark, map rows behind the cameras
+TRACK_REDESIGNED = TRACK_KERNELS
 TRACK_EDGES = ((1, 31, 7, 63, "random"), (2, 33, 40, 65, "random"),
                (4, 161, 200, 191, "all_ok"), (4, 2048, 2048, 4096, "none_with"),
                (4, 2048, 2048, 4096, "no_lm"), (3, 97, 130, 50, "behind"))
@@ -2123,9 +2140,9 @@ def track_kernels(scene, dev, kernels):
     calls that bench frame 1's eager fast-path step makes against frame
     0's map (C = 4, M = N = 2048, L = 4096) and at a random problem of odd
     shape (C = 3, M = 2049, N = 2047, L = 4097): each kernel twice and its
-    plain version on the card, all bitwise equal; the redesigned three also
-    at TRACK_EDGES and, at bench frame 1's calls, through three replays of
-    one CUDA graph."""
+    plain version on the card, all bitwise equal; all four (each
+    redesigned) also at TRACK_EDGES and, at bench frame 1's calls, through
+    three replays of one CUDA graph."""
     import torch
 
     from mcslam_tpu_torch import tracking_kernels as tk
@@ -2194,7 +2211,7 @@ def track_kernels(scene, dev, kernels):
             plain=lambda n=n, p=plain, a=a, kw=kw: track_outputs(n, p, a, kw),
             symbols=(f"{n}_kernel",), device_ops=1, nbytes=nbytes,
             ops_s=f32_ops_s(ops))
-    # the redesigned three at bench frame 1's calls in one CUDA graph: three
+    # the redesigned four at bench frame 1's calls in one CUDA graph: three
     # replays bitwise equal to the plain versions, the epilogue's counter
     # back at zero after each
     from mcslam_tpu_torch.utils import graphs

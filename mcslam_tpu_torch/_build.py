@@ -130,12 +130,12 @@ SIGNATURES = {
     # counters (3 ints, zero), M, N, C, cap, max_dist, ratio, stream
     "mc_track_epilogue": [P] * 24 + [I] * 4 + [F, F, P],
     # uv, anchor, im_valid, cand_ids, cand_valid, map_pos, map_desc,
-    # map_normal, cam_T_ref, fxycxy, T_wr, lm_desc, ahat, bhat, M, L, C,
-    # cap, width, height, min_cos, stream
-    "mc_localmap_gate": [P] * 14 + [I] * 4 + [F] * 3 + [P],
-    # best, second, idx, im_valid, cand_ids, map_pos, inter-frame obs rows,
-    # obs rows, mask, lm, M, L, cap, max_dist, stream
-    "mc_localmap_epilogue": [P] * 10 + [I] * 3 + [F, P],
+    # map_normal, cam_T_ref, fxycxy, T_wr, lm_desc, ahat, bhat, lm_pos, M,
+    # L, C, cap, width, height, min_cos, stream
+    "mc_localmap_gate": [P] * 15 + [I] * 4 + [F] * 3 + [P],
+    # best, second, idx, im_valid, cand_ids, lm_pos, map_pos, inter-frame
+    # obs rows, obs rows, mask, lm, M, L, max_dist, stream
+    "mc_localmap_epilogue": [P] * 11 + [I] * 2 + [F, P],
     # xy, fxycxy, E, thr^2 (one float), gate, C, N, stream
     "mc_intra_gate": [P] * 5 + [I, I, P],
     # parent, valid, response, desc, ray_idx, desc out, valid out, C, N,

@@ -1,5 +1,5 @@
 // 3-point absolute-orientation hypotheses of the Kabsch RANSAC (Horn's
-// quaternion method), one thread per hypothesis, in one launch.
+// quaternion method), a quad of lanes per hypothesis, in one launch.
 //
 // Replaces: the TPU-shaped hypothesis stage of the JAX package's Kabsch
 // RANSAC, mcslam_tpu/frontend/ransac.py ransac_kabsch (:176) through
@@ -38,11 +38,34 @@
 // Bound on the card: latency. At K = 512 the samples read 3 x 2 x 12 B
 // and the poses written 64 B a hypothesis, 0.07 MB (0.02 us at 3.35
 // TB/s); ~1200 float32 operations a hypothesis (the three 4x4 products,
-// 12 Newton steps, 16 3x3 determinants) are 0.6 M, 0.01 us at 67
-// TFLOP/s. Each hypothesis is a chain of ~300 dependent operations. One
-// thread per hypothesis, 64 threads a block (8 blocks at K = 512, on 8
-// SMs); the 4x4 matrices and the cofactors live in registers, indexed by
-// constants after unrolling (no local memory).
+// up to 12 Newton steps, 16 3x3 determinants) are 0.6 M, 0.01 us at 67
+// TFLOP/s. What counts is a hypothesis's chain of dependent operations,
+// which this design shortens, every value keeping its own operations
+// (the same bits as a thread per hypothesis):
+//  - a quad of lanes per hypothesis (KH_LANES), KH_THREADS a block (32
+//    blocks at K = 512; 32 or 128 were no faster): lane j < 3 loads
+//    sample j's index and rows, shuffles give every lane the three
+//    points (every lane loading all three was 0.7 us slower:
+//    scripts/ransac_variants.py, variant allloads); every lane makes B
+//    and K;
+//  - lane j makes column j of each product K (M_i + a I) (K is symmetric,
+//    so its column j is its row j), four independent 4-term sums; the
+//    traces are the four lanes' diagonal entries, shuffled and summed in
+//    trace4's order;
+//  - Newton runs its 12 steps in every lane. Stopping at lambda's first
+//    bitwise fixed point would be exact (a step depends on lambda and the
+//    coefficients alone; alignment.newton_fixed_steps), but a warp can
+//    leave only with its slowest quad, and at the portfolio's samples
+//    one hypothesis in three takes all 12: a warp's 8 run 11.9 on
+//    average, and the vote each step cost more than it saved (variant
+//    vote);
+//  - lane r makes cofactor row r (the adjugate's column r) and its norm;
+//    the four norms go to every lane and the first maximum (a NaN
+//    winning) is taken in column order; the winning row is shuffled out;
+//  - lane i < 3 makes row i of R and t_i, lane 3 the row (0, 0, 0, 1);
+//    each stores its row as one float4, a quad's 64 bytes one run.
+// The 4x4 matrices, the cofactors and every selection by lane live in
+// registers, indexed by constants after unrolling (no local memory).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,7 +73,11 @@
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int KH_THREADS = 64;
+constexpr int KH_LANES = 4;  // a quad of lanes per hypothesis
+constexpr int NEWTON_STEPS = 12;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(KH_THREADS % 32 == 0, "whole warps: the shuffles");
 
 __device__ __forceinline__ float det3(float a, float b, float c, float d,
                                       float e, float f, float g, float h,
@@ -59,56 +86,77 @@ __device__ __forceinline__ float det3(float a, float b, float c, float d,
   return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g);
 }
 
-// Y = K X for symmetric 4x4 K, X (row-major, sums in index order)
-__device__ __forceinline__ void mul4(const float (&K)[4][4],
-                                     const float (&X)[4][4],
-                                     float (&Y)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float s = K[i][0] * X[0][j];
-#pragma unroll
-      for (int k = 1; k < 4; ++k) s = s + K[i][k] * X[k][j];
-      Y[i][j] = s;
-    }
-  }
-}
-
 __device__ __forceinline__ float trace4(const float (&X)[4][4]) {
   return ((X[0][0] + X[1][1]) + X[2][2]) + X[3][3];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// v[j] for a lane index j in [0, 4), by selects (no local memory)
+__device__ __forceinline__ float pick4(const float (&v)[4], int j) {
+  return j == 0 ? v[0] : (j == 1 ? v[1] : (j == 2 ? v[2] : v[3]));
+}
+
+// Column j of M_next = K (X + a I), X's column j in col (lane j of the
+// quad), each entry's sum in index order k = 0..3; then -trace(M_next) /
+// div from the quad's four diagonal entries in trace4's order
+__device__ __forceinline__ float fl_step(const float (&K)[4][4], float (&col)[4],
+                                         float a, int j, int base,
+                                         float div) {
+  float x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = col[i] + (i == j ? a : 0.0f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float s = K[i][0] * x[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) s = s + K[i][k] * x[k];
+    col[i] = s;
+  }
+  const float dj = pick4(col, j);
+  const float d0 = __shfl_sync(FULL, dj, base);
+  const float d1 = __shfl_sync(FULL, dj, base + 1);
+  const float d2 = __shfl_sync(FULL, dj, base + 2);
+  const float d3 = __shfl_sync(FULL, dj, base + 3);
+  return -(((d0 + d1) + d2) + d3) / div;
+}
+
+__global__ void __launch_bounds__(KH_THREADS)
     kabsch_hyp_kernel(const long long* __restrict__ idx,
                       const float* __restrict__ X_rig,
                       const float* __restrict__ X_world, int K, int M,
                       float* __restrict__ out) {
-  const int k = blockIdx.x * THREADS + threadIdx.x;
-  if (k >= K) return;
+  // the hypothesis block starts
+  const int t = blockIdx.x * KH_THREADS + threadIdx.x;
+  // a warp past the last hypothesis leaves whole; in the last warp, the
+  // lanes of hypotheses past K run along (on row 0) for the shuffles and
+  // store nothing
+  if ((t & ~31) / KH_LANES >= K) return;
+  const int k = t / KH_LANES, j = t % KH_LANES;
+  const int lane = threadIdx.x & 31, base = lane & ~(KH_LANES - 1);
+  const bool live = k < K;
+  // lane j < 3 loads sample j's index and rows, shuffles give the quad
+  // the three points
+  long long i = 0;
+  if (live && j < 3) i = idx[3 * k + j];
+  const bool fits = i >= 0 && i < M;
+  const long long r = fits ? i : 0;
+  float sr[3], dr[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    sr[c] = X_rig[3 * r + c];
+    dr[c] = X_world[3 * r + c];
+  }
+  const unsigned quad = (0xfu << base);
+  const bool in_range = (__ballot_sync(FULL, fits) & quad) == quad;
   float s[3][3], d[3][3];
-  bool in_range = true;
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    const long long i = idx[3 * k + p];
-    in_range = in_range && i >= 0 && i < M;
-    const long long r = (i >= 0 && i < M) ? i : 0;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      s[p][c] = X_rig[3 * r + c];
-      d[p][c] = X_world[3 * r + c];
+      s[p][c] = __shfl_sync(FULL, sr[c], base + p);
+      d[p][c] = __shfl_sync(FULL, dr[c], base + p);
     }
   }
-  float* T = out + 16 * k;
-  if (!in_range) {
-#pragma unroll
-    for (int e = 0; e < 12; ++e) T[e] = __int_as_float(0x7fc00000);
-    T[12] = 0.0f;
-    T[13] = 0.0f;
-    T[14] = 0.0f;
-    T[15] = 1.0f;
-    return;
-  }
+  // the samples in
 
   // 1. centroids (weights 1, wsum 3) and the cross-covariance
   float mu_s[3], mu_d[3];
@@ -128,116 +176,115 @@ __global__ void __launch_bounds__(THREADS)
   }
   float B[3][3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
+  for (int a = 0; a < 3; ++a) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      B[i][j] = (xs[0][i] * xd[0][j] + xs[1][i] * xd[1][j]) +
-                xs[2][i] * xd[2][j];
+    for (int b = 0; b < 3; ++b)
+      B[a][b] = (xs[0][a] * xd[0][b] + xs[1][a] * xd[1][b]) +
+                xs[2][a] * xd[2][b];
   }
 
-  // 2. the Davenport matrix
+  // 2. the Davenport matrix (symmetric bit for bit: B + B^T's entries are
+  // the same sums in either order)
   const float tr = (B[0][0] + B[1][1]) + B[2][2];
   const float z[3] = {B[1][2] - B[2][1], B[2][0] - B[0][2],
                       B[0][1] - B[1][0]};
   float Kd[4][4];
   Kd[0][0] = tr;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    Kd[0][i + 1] = z[i];
-    Kd[i + 1][0] = z[i];
+  for (int a = 0; a < 3; ++a) {
+    Kd[0][a + 1] = z[a];
+    Kd[a + 1][0] = z[a];
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      Kd[i + 1][j + 1] = (B[i][j] + B[j][i]) - (i == j ? tr : 0.0f);
+    for (int b = 0; b < 3; ++b)
+      Kd[a + 1][b + 1] = (B[a][b] + B[b][a]) - (a == b ? tr : 0.0f);
   }
+  // B and the Davenport matrix made
 
-  // 3. Faddeev-LeVerrier
-  float Mi[4][4], Y[4][4];
+  // 3. Faddeev-LeVerrier, lane j column j of each M_i (K's column j is
+  // its row j)
+  float col[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    col[a] = j == 0 ? Kd[0][a] : (j == 1 ? Kd[1][a]
+                                         : (j == 2 ? Kd[2][a] : Kd[3][a]));
   const float a3 = -trace4(Kd);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Y[i][j] = Kd[i][j] + (i == j ? a3 : 0.0f);
-  }
-  mul4(Kd, Y, Mi);
-  const float a2 = -trace4(Mi) / 2.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Y[i][j] = Mi[i][j] + (i == j ? a2 : 0.0f);
-  }
-  mul4(Kd, Y, Mi);
-  const float a1 = -trace4(Mi) / 3.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Y[i][j] = Mi[i][j] + (i == j ? a1 : 0.0f);
-  }
-  mul4(Kd, Y, Mi);
-  const float a0 = -trace4(Mi) / 4.0f;
+  const float a2 = fl_step(Kd, col, a3, j, base, 2.0f);
+  const float a1 = fl_step(Kd, col, a2, j, base, 3.0f);
+  const float a0 = fl_step(Kd, col, a1, j, base, 4.0f);
+  // a3..a0 made
 
-  // 4. the largest eigenvalue by Newton from the Frobenius bound
+  // 4. the largest eigenvalue by Newton from the Frobenius bound, to its
+  // first bitwise fixed point
   float fro = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) fro = fro + Kd[i][j] * Kd[i][j];
+    for (int b = 0; b < 4; ++b) fro = fro + Kd[a][b] * Kd[a][b];
   }
   float lam = sqrtf(fro) + 1e-9f;
 #pragma unroll 1
-  for (int it = 0; it < 12; ++it) {
+  for (int it = 0; it < NEWTON_STEPS; ++it) {
     const float p = (((lam + a3) * lam + a2) * lam + a1) * lam + a0;
     float dp = ((4.0f * lam + 3.0f * a3) * lam + 2.0f * a2) * lam + a1;
     dp = fabsf(dp) < 1e-12f ? 1e-12f : dp;
     lam = lam - p / dp;
   }
+  // Newton done
 
-  // 5. the adjugate of K - lambda I: cof[r][c] = (-1)^(r + c) det(minor);
-  // the adjugate's column c is cof's row c
+  // 5. the adjugate of K - lambda I: lane j makes cofactor row j, cof[c] =
+  // (-1)^(j + c) det(the minor without row j and column c), which is the
+  // adjugate's column j
   float A[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int a = 0; a < 4; ++a) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) A[i][j] = Kd[i][j] - (i == j ? lam : 0.0f);
+    for (int b = 0; b < 4; ++b) A[a][b] = Kd[a][b] - (a == b ? lam : 0.0f);
   }
-  float cof[4][4];
+  // the minor's rows: A's rows but j
+  float R0[4], R1[4], R2[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      // the minor's rows and columns: those of A but r and c
-      const int i0 = r == 0 ? 1 : 0, i1 = r <= 1 ? 2 : 1, i2 = r <= 2 ? 3 : 2;
-      const int j0 = c == 0 ? 1 : 0, j1 = c <= 1 ? 2 : 1, j2 = c <= 2 ? 3 : 2;
-      const float det = det3(A[i0][j0], A[i0][j1], A[i0][j2], A[i1][j0],
-                             A[i1][j1], A[i1][j2], A[i2][j0], A[i2][j1],
-                             A[i2][j2]);
-      cof[r][c] = ((r + c) & 1) ? -det : det;
-    }
+  for (int b = 0; b < 4; ++b) {
+    R0[b] = j == 0 ? A[1][b] : A[0][b];
+    R1[b] = j <= 1 ? A[2][b] : A[1][b];
+    R2[b] = j <= 2 ? A[3][b] : A[2][b];
   }
-  float best_norm = 0.0f;
-  float q[4];
+  float cof[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float n2 = ((cof[c][0] * cof[c][0] + cof[c][1] * cof[c][1]) +
-                      cof[c][2] * cof[c][2]) +
-                     cof[c][3] * cof[c][3];
+    const int j0 = c == 0 ? 1 : 0, j1 = c <= 1 ? 2 : 1, j2 = c <= 2 ? 3 : 2;
+    const float det = det3(R0[j0], R0[j1], R0[j2], R1[j0], R1[j1], R1[j2],
+                           R2[j0], R2[j1], R2[j2]);
+    cof[c] = ((j + c) & 1) ? -det : det;
+  }
+  // the cofactors made
+  const float n2 = ((cof[0] * cof[0] + cof[1] * cof[1]) + cof[2] * cof[2]) +
+                   cof[3] * cof[3];
+  int win = 0;
+  float best_norm = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float nc = __shfl_sync(FULL, n2, base + c);
     // torch.argmax: the first maximum, a NaN above every number
     const bool take = c == 0 || (!isnan(best_norm) &&
-                                 (n2 > best_norm || isnan(n2)));
+                                 (nc > best_norm || isnan(nc)));
     if (take) {
-      best_norm = n2;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q[i] = cof[c][i];
+      best_norm = nc;
+      win = c;
     }
   }
+  float q[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) q[c] = __shfl_sync(FULL, cof[c], base + win);
   {
     const float qn = sqrtf(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) +
                            q[3] * q[3]);
     const float den = isnan(qn) ? qn : fmaxf(qn, 1e-12f);  // torch.clamp
 #pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = q[i] / den;
+    for (int c = 0; c < 4; ++c) q[c] = q[c] / den;
   }
 
-  // 6. R from (x, y, z, w) = (q1, q2, q3, q0), normalized again
+  // 6. R from (x, y, z, w) = (q1, q2, q3, q0), normalized again; lane j < 3
+  // row j of R and t_j, lane 3 the row (0, 0, 0, 1)
   const float qn = sqrtf(((q[1] * q[1] + q[2] * q[2]) + q[3] * q[3]) +
                          q[0] * q[0]);
   const float x = q[1] / qn, y = q[2] / qn, zq = q[3] / qn, w = q[0] / qn;
@@ -254,30 +301,33 @@ __global__ void __launch_bounds__(THREADS)
   R[2][0] = 2.0f * (xz - wy);
   R[2][1] = 2.0f * (yz + wx);
   R[2][2] = 1.0f - 2.0f * (xx + yy);
+  float row[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float Rm = (R[i][0] * mu_s[0] + R[i][1] * mu_s[1]) +
-                     R[i][2] * mu_s[2];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) T[4 * i + j] = R[i][j];
-    T[4 * i + 3] = mu_d[i] - Rm;
-  }
-  T[12] = 0.0f;
-  T[13] = 0.0f;
-  T[14] = 0.0f;
-  T[15] = 1.0f;
+  for (int b = 0; b < 3; ++b)
+    row[b] = j == 0 ? R[0][b] : (j == 1 ? R[1][b] : R[2][b]);
+  const float md = j == 0 ? mu_d[0] : (j == 1 ? mu_d[1] : mu_d[2]);
+  const float Rm = (row[0] * mu_s[0] + row[1] * mu_s[1]) + row[2] * mu_s[2];
+  const float nan = __int_as_float(0x7fc00000);
+  float4 v;
+  if (j == 3) v = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+  else if (!in_range) v = make_float4(nan, nan, nan, nan);
+  else v = make_float4(row[0], row[1], row[2], md - Rm);
+  if (live) reinterpret_cast<float4*>(out)[static_cast<long long>(4) * k + j] = v;
+  // the hypothesis block ends
 }
 
 }  // namespace
 
 // idx (K, 3) int64, X_rig (M, 3), X_world (M, 3) float32, contiguous ->
-// out (K, 4, 4) float32 world_T_ref hypotheses.
+// out (K, 4, 4) float32 world_T_ref hypotheses (16-byte aligned).
 extern "C" int mc_kabsch_hyp(const void* idx, const void* X_rig,
                              const void* X_world, void* out, int K, int M,
                              void* stream) {
-  if (K < 0 || M < 1) return cudaErrorInvalidValue;
+  if (K < 0 || M < 1 || K > (1 << 28)) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) & 15) return cudaErrorMisalignedAddress;
   if (K == 0) return 0;
-  kabsch_hyp_kernel<<<(K + THREADS - 1) / THREADS, THREADS, 0,
+  const long long threads = static_cast<long long>(K) * KH_LANES;
+  kabsch_hyp_kernel<<<(threads + KH_THREADS - 1) / KH_THREADS, KH_THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(idx), static_cast<const float*>(X_rig),
       static_cast<const float*>(X_world), K, M, static_cast<float*>(out));

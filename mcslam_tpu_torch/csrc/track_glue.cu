@@ -42,11 +42,18 @@
 //    the viewing cone holds (view = (X - t_wr) / max(|X - t_wr|, 1e-9),
 //    cos = view . n > min_cos, or |n| <= 1e-6); the gate factors as
 //    above with pen = not visible, the projections clamped to +-1e5 and
-//    no pass row;
+//    no pass row; and the candidates' positions lm_pos = map_pos[clamp(
+//    cand_ids, 0, cap - 1)], which it holds anyway, for the epilogue;
 //  - localmap_epilogue: ok = best <= max_dist & best <= second & valid,
 //    lm = ok ? cand_ids[idx] : -1, X_world = map_pos[max(lm, 0)], pose_lm's
 //    rows (X, then rows 3-21 of the inter-frame rows: the same features,
-//    anchors and sigmas) and its mask lm >= 0.
+//    anchors and sigmas) and its mask lm >= 0. X_world is read as ok ?
+//    lm_pos[idx] : map_pos[0], the same value bit for bit: where ok,
+//    lm_pos[idx] = map_pos[clamp(cand_ids[idx], 0, cap - 1)], which is
+//    map_pos[max(lm, 0)] for every id in [-1, cap) (an id of -1 gives row
+//    0 on both sides); where not ok, lm = -1 and both give row 0. So the
+//    map row is one load round nearer: idx, then cand_ids and lm_pos side
+//    by side.
 //
 // Bit for bit: built with -fmad=false (_build.SOURCE_FLAGS), so every
 // product and sum rounds on its own, as torch's elementwise kernels round
@@ -65,8 +72,13 @@
 // 3.35 TB/s; their float32 operations (~30 a column and camera) take
 // below 0.01 us at 67 TFLOP/s; each kernel takes 2-5 us on an H100, so
 // what counts is the chain of dependent loads a thread waits on and how
-// many SMs share the stores. localmap_epilogue is a thread per row, 128 a
-// block. track_gate gives a previous-feature column four lanes, lane c
+// many SMs share the stores. localmap_epilogue spreads its rows over
+// 32-row blocks (64 at M = 2048) as track_epilogue does: a chain warp, a
+// lane per row, loads idx (and map_pos[0], one broadcast), then cand_ids
+// and lm_pos side by side, and writes rows 0-2, the mask and lm, while
+// three other warps copy rows 3-21 (19 of a row's 24 stores), which wait
+// on no match, as 16-byte runs where M % 4 == 0 and both row arrays are
+// 16-byte aligned. track_gate gives a previous-feature column four lanes, lane c
 // projecting into camera c (two IEEE divisions a lane, the camera index
 // as data on one code path), in 128-thread blocks (64 column blocks and
 // 16 ahat row blocks at the frame's shape, one grid): a column loads its
@@ -94,7 +106,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int MAX_C = 4;               // (match_cuda.DG_MAX - 2) / 3
 constexpr int MAX_DG = 3 * MAX_C + 2;  // gate factors at MAX_C cameras
 constexpr int OBS_ROWS = 22;           // pose_lm's observation rows
@@ -116,6 +127,13 @@ constexpr int LM_LANES = 4;
 // previous-feature column, one a camera
 constexpr int TG_THREADS = 128;
 constexpr int TG_LANES = MAX_C;
+// localmap_epilogue: rows a block, its threads: a chain warp (warp 0) and
+// LE_OTHER threads copying rows 3-21, each warp over the block's rows
+constexpr int LE_ROWS = 32;
+constexpr int LE_THREADS = 128;
+constexpr int LE_OTHER = LE_THREADS - 32;
+static_assert(LE_ROWS == 32 && LE_OTHER % 32 == 0,
+              "a lane per row in the chain warp of localmap_epilogue");
 
 // a barrier of track_epilogue's other warps alone (its chain warp never
 // waits on it)
@@ -272,7 +290,9 @@ __global__ void __launch_bounds__(TG_THREADS) track_gate_kernel(
 // the row blocks of ahat (LM_THREADS rows each). A column issues its loads
 // (the candidate, then its map row and descriptor) ahead of the pose,
 // which each thread inverts itself: no block barrier waits on T_wr, which
-// the tracking half has just written
+// the tracking half has just written. Lane q of a column writes the
+// components k = q mod LM_LANES of its position to lm_pos (at four lanes,
+// a warp's 24 floats one run)
 __global__ void __launch_bounds__(LM_THREADS) localmap_gate_kernel(
     const float* __restrict__ uv, const int* __restrict__ anchor,
     const bool* __restrict__ im_valid, const int* __restrict__ cand_ids,
@@ -282,8 +302,9 @@ __global__ void __launch_bounds__(LM_THREADS) localmap_gate_kernel(
     const float* __restrict__ T_wr, int M, int L, int C, int cap,
     float width, float height, float min_cos, int col_blocks,
     int* __restrict__ lm_desc, float* __restrict__ ahat,
-    float* __restrict__ bhat) {
+    float* __restrict__ bhat, float* __restrict__ lm_pos) {
   constexpr int COLS = LM_THREADS / LM_LANES;  // columns a block
+  constexpr int VK = (3 + LM_LANES - 1) / LM_LANES;  // components a lane
   constexpr int WCOLS = 32 / LM_LANES;         // columns a warp
   __shared__ float s_a[LM_THREADS * MAX_DG];
   // the gate block starts
@@ -329,6 +350,11 @@ __global__ void __launch_bounds__(LM_THREADS) localmap_gate_kernel(
   }
   // the candidate's map row in
   if (!live) return;  // a column's lanes return together
+#pragma unroll
+  for (int k = 0; k < VK; ++k) {
+    const int comp = q + LM_LANES * k;
+    if (comp < 3) lm_pos[3 * l + comp] = comp == 0 ? X0 : (comp == 1 ? X1 : X2);
+  }
   // rTw = se3_inverse(T_wr), by each thread
   float rTw[12];
   se3_inverse12(T_wr, rTw);
@@ -338,7 +364,6 @@ __global__ void __launch_bounds__(LM_THREADS) localmap_gate_kernel(
   const float w0 = X0 - T_wr[3], w1 = X1 - T_wr[7], w2 = X2 - T_wr[11];
   float vn = __fsqrt_rn(dot3(w0, w1, w2, w0, w1, w2));
   vn = vn < 1e-9f ? 1e-9f : vn;
-  constexpr int VK = (3 + LM_LANES - 1) / LM_LANES;  // components a lane
   float vd[VK];
 #pragma unroll
   for (int k = 0; k < VK; ++k) {
@@ -562,30 +587,82 @@ __global__ void __launch_bounds__(EPI_THREADS) track_epilogue_kernel(
   // the epilogue block ends
 }
 
-__global__ void __launch_bounds__(THREADS) localmap_epilogue_kernel(
+// LE_ROWS rows a block of LE_THREADS threads. The chain warp (a lane per
+// row) loads best, second, im_valid, idx and map_pos[0] (round 1), then
+// cand_ids[idx] and lm_pos[idx] side by side (round 2), and writes rows
+// 0-2, the mask and lm; the other warps meanwhile copy rows 3-21 of the
+// block's rows, which no match decides, as 16-byte runs where they can
+__global__ void __launch_bounds__(LE_THREADS) localmap_epilogue_kernel(
     const float* __restrict__ best, const float* __restrict__ second,
     const int* __restrict__ idx, const bool* __restrict__ im_valid,
-    const int* __restrict__ cand_ids, const float* __restrict__ map_pos,
-    const float* __restrict__ obs_in, int M, int L, int cap, float max_dist,
-    float* __restrict__ obs, float* __restrict__ mask_f,
-    int* __restrict__ lm_out) {
-  const int m = blockIdx.x * THREADS + threadIdx.x;
-  if (m >= M) return;
-  const float b = best[m];
-  const bool ok = b <= max_dist && b <= second[m] && im_valid[m];
-  const int lm = ok ? cand_ids[clampi(idx[m], 0, L - 1)] : -1;
-  const int safe = clampi(lm, 0, cap - 1);
+    const int* __restrict__ cand_ids, const float* __restrict__ lm_pos,
+    const float* __restrict__ map_pos, const float* __restrict__ obs_in,
+    int M, int L, float max_dist, float* __restrict__ obs,
+    float* __restrict__ mask_f, int* __restrict__ lm_out) {
+  // the local epilogue block starts
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int m0 = blockIdx.x * LE_ROWS;
+  const int nr = min(LE_ROWS, M - m0);
   const long long Ml = M;
-  obs[m] = map_pos[3 * safe];
-  obs[Ml + m] = map_pos[3 * safe + 1];
-  obs[2 * Ml + m] = map_pos[3 * safe + 2];
+  if (tid < 32) {
+    if (lane >= nr) return;
+    const int m = m0 + lane;
+    const float b = best[m], s = second[m];
+    const bool valid = im_valid[m];
+    const int j = clampi(idx[m], 0, L - 1);
+    const float Z0 = map_pos[0], Z1 = map_pos[1], Z2 = map_pos[2];
+    // round 1 in
+    const int id = cand_ids[j];
+    const float P0 = lm_pos[3 * j], P1 = lm_pos[3 * j + 1],
+                P2 = lm_pos[3 * j + 2];
+    // round 2 in
+    const bool ok = b <= max_dist && b <= s && valid;
+    const int lm = ok ? id : -1;
+    obs[m] = ok ? P0 : Z0;
+    obs[Ml + m] = ok ? P1 : Z1;
+    obs[2 * Ml + m] = ok ? P2 : Z2;
+    mask_f[m] = lm >= 0 ? 1.0f : 0.0f;
+    lm_out[m] = lm;
+    // the local chain's stores issued
+  } else {
+    // the copy of rows 3-21
+    {
+      const int t = tid - 32;
+      const bool vec = (M & 3) == 0 &&
+                       ((reinterpret_cast<uintptr_t>(obs) |
+                         reinterpret_cast<uintptr_t>(obs_in)) & 15) == 0;
+      if (vec) {
+        // float4 e: row 3 + e / (LE_ROWS / 4), its quarter-run e % (LE_ROWS
+        // / 4) of the block's rows (nr a multiple of 4 here)
+        constexpr int Q = LE_ROWS / 4;
+        constexpr int N4 = (OBS_ROWS - 3) * Q;
 #pragma unroll
-  for (int r = 3; r < OBS_ROWS; ++r) obs[r * Ml + m] = obs_in[r * Ml + m];
-  mask_f[m] = lm >= 0 ? 1.0f : 0.0f;
-  lm_out[m] = lm;
+        for (int k = 0; k < (N4 + LE_OTHER - 1) / LE_OTHER; ++k) {
+          const int e = t + LE_OTHER * k;
+          const int row = 3 + e / Q, i = 4 * (e % Q);
+          if (e < N4 && i < nr) {
+            const long long at = row * Ml + m0 + i;
+            *reinterpret_cast<float4*>(obs + at) =
+                *reinterpret_cast<const float4*>(obs_in + at);
+          }
+        }
+      } else {
+        constexpr int N1 = (OBS_ROWS - 3) * LE_ROWS;
+#pragma unroll
+        for (int k = 0; k < (N1 + LE_OTHER - 1) / LE_OTHER; ++k) {
+          const int e = t + LE_OTHER * k;
+          const int row = 3 + e / LE_ROWS, i = e % LE_ROWS;
+          if (e < N1 && i < nr) {
+            const long long at = row * Ml + m0 + i;
+            obs[at] = obs_in[at];
+          }
+        }
+      }
+    }
+    // the copy issued
+  }
+  // the local epilogue block ends
 }
-
-inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
 
@@ -663,16 +740,16 @@ extern "C" int mc_track_epilogue(
 
 // uv, anchor, im_valid, cand_ids, cand_valid, map_pos, map_desc,
 // map_normal, cam_T_ref, fxycxy, T_wr, lm_desc (16-byte aligned), ahat,
-// bhat, M, L, C, cap, width, height, min_cos, stream
+// bhat, lm_pos, M, L, C, cap, width, height, min_cos, stream
 extern "C" int mc_localmap_gate(const void* uv, const void* anchor,
                                 const void* im_valid, const void* cand_ids,
                                 const void* cand_valid, const void* map_pos,
                                 const void* map_desc, const void* map_normal,
                                 const void* cam, const void* fxy,
                                 const void* T_wr, void* lm_desc, void* ahat,
-                                void* bhat, int M, int L, int C, int cap,
-                                float width, float height, float min_cos,
-                                void* stream) {
+                                void* bhat, void* lm_pos, int M, int L, int C,
+                                int cap, float width, float height,
+                                float min_cos, void* stream) {
   if (M < 0 || L < 0 || C < 1 || C > MAX_C || cap < 1)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(lm_desc) & 15)
@@ -690,27 +767,29 @@ extern "C" int mc_localmap_gate(const void* uv, const void* anchor,
       static_cast<const float*>(map_normal), static_cast<const float*>(cam),
       static_cast<const float*>(fxy), static_cast<const float*>(T_wr), M, L,
       C, cap, width, height, min_cos, cb, static_cast<int*>(lm_desc),
-      static_cast<float*>(ahat), static_cast<float*>(bhat));
+      static_cast<float*>(ahat), static_cast<float*>(bhat),
+      static_cast<float*>(lm_pos));
   return static_cast<int>(cudaGetLastError());
 }
 
-// best, second, idx, im_valid, cand_ids, map_pos, inter-frame obs rows,
-// obs rows, mask, lm, M, L, cap, max_dist, stream
+// best, second, idx, im_valid, cand_ids, lm_pos (localmap_gate's), map_pos,
+// inter-frame obs rows, obs rows, mask, lm, M, L, max_dist, stream
 extern "C" int mc_localmap_epilogue(const void* best, const void* second,
                                     const void* idx, const void* im_valid,
-                                    const void* cand_ids, const void* map_pos,
-                                    const void* obs_in, void* obs,
-                                    void* mask_f, void* lm_out, int M, int L,
-                                    int cap, float max_dist, void* stream) {
-  if (M < 0 || L < 1 || cap < 1) return cudaErrorInvalidValue;
+                                    const void* cand_ids, const void* lm_pos,
+                                    const void* map_pos, const void* obs_in,
+                                    void* obs, void* mask_f, void* lm_out,
+                                    int M, int L, float max_dist,
+                                    void* stream) {
+  if (M < 0 || L < 1) return cudaErrorInvalidValue;
   if (M == 0) return 0;
-  localmap_epilogue_kernel<<<blocks(M), THREADS, 0,
+  localmap_epilogue_kernel<<<(M + LE_ROWS - 1) / LE_ROWS, LE_THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(best), static_cast<const float*>(second),
       static_cast<const int*>(idx), static_cast<const bool*>(im_valid),
-      static_cast<const int*>(cand_ids), static_cast<const float*>(map_pos),
-      static_cast<const float*>(obs_in), M, L, cap, max_dist,
-      static_cast<float*>(obs), static_cast<float*>(mask_f),
+      static_cast<const int*>(cand_ids), static_cast<const float*>(lm_pos),
+      static_cast<const float*>(map_pos), static_cast<const float*>(obs_in),
+      M, L, max_dist, static_cast<float*>(obs), static_cast<float*>(mask_f),
       static_cast<int*>(lm_out));
   return static_cast<int>(cudaGetLastError());
 }

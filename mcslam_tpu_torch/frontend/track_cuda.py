@@ -14,9 +14,9 @@ _project_and_match_local :479-516); no Pallas kernel corresponds to them.
   observation rows, and the match's counts and rows of the packed vector;
 - `localmap_gate`: the local-map match's prologue: the candidates' map
   rows, their projections with the frustum and viewing-cone gates, the
-  gate factors;
+  gate factors, and the candidates' positions for the epilogue;
 - `localmap_epilogue`: its epilogue: the one-way test, the landmark ids
-  and pose_lm's rows.
+  and pose_lm's rows (the matched positions read from the gate's).
 
 CUDA tensors launch the kernel (or raise); CPU tensors run the plain
 version, `<name>_reference`, which writes each 3-term rotation, 4x4
@@ -69,8 +69,15 @@ def _epilogue_layout(M: int):
 @functools.lru_cache(maxsize=16)
 def _localmap_gate_layout(M: int, L: int, C: int):
     DG = 3 * C + 2
-    return outputs.layout(((L, 8), (M, DG), (DG, L)),
-                          (torch.int32, torch.float32, torch.float32))
+    return outputs.layout(((L, 8), (M, DG), (DG, L), (L, 3)),
+                          (torch.int32, torch.float32, torch.float32,
+                           torch.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _localmap_epilogue_layout(M: int):
+    return outputs.layout(((OBS_ROWS, M), (M,), (M,)),
+                          (torch.float32, torch.float32, torch.int32))
 
 
 def epilogue_outputs(M: int, dev) -> TrackObs:
@@ -82,9 +89,15 @@ def epilogue_outputs(M: int, dev) -> TrackObs:
 
 def localmap_gate_outputs(M: int, L: int, C: int, dev):
     """localmap_gate's outputs (lm_desc (L, 8) int32, ahat (M, 3C + 2),
-    bhat (3C + 2, L) float32) on dev, carved from one buffer as
-    epilogue_outputs."""
+    bhat (3C + 2, L), lm_pos (L, 3) float32) on dev, carved from one
+    buffer as epilogue_outputs."""
     return tuple(outputs.carve(_localmap_gate_layout(M, L, C), dev))
+
+
+def localmap_epilogue_outputs(M: int, dev):
+    """localmap_epilogue's outputs (rows (22, M), mask (M,) float32, lm
+    (M,) int32) on dev, carved from one buffer as epilogue_outputs."""
+    return tuple(outputs.carve(_localmap_epilogue_layout(M), dev))
 
 
 def _cameras(name, C):
@@ -299,18 +312,26 @@ def track_epilogue(best, second, idx, col_idx, cur_valid, has_depth, uv,
     return out
 
 
+def candidate_positions(cand_ids, map_pos):
+    """map_pos[clamp(cand_ids, 0, cap - 1)] (L, 3): the candidates'
+    positions as localmap_gate writes them (an id of -1 gives row 0)."""
+    return map_pos[torch.clamp(cand_ids.long(), 0, map_pos.shape[0] - 1)]
+
+
 def localmap_gate_reference(T_wr, cand_ids, cand_valid, map_pos, map_desc,
                             map_normal, uv, anchor, im_valid, cam_T_ref,
                             fxycxy, image_wh, min_view_cos: float = 0.5):
     """Plain PyTorch version of localmap_gate: the candidates' map rows
-    (cand_ids (L,)), projected by se3_inverse(T_wr) then each cam_T_ref[c]
-    (z below 0.05 divided as 1), visible where z > 0.05, the pixel lies in
-    [0, W) x [0, H) and the viewing ray from T_wr's centre agrees with the
-    landmark's normal (cos > min_view_cos, or a normal of norm <= 1e-6)
-    -> (their descriptor words lm_desc (L, 8), gate_rows for the current
-    features (uv, anchor, im_valid) against them: the pixels clamped to
-    +-1e5, penalized where not visible, invalid candidates failing)."""
-    ids = cand_ids.long()
+    (cand_ids (L,), clamped into the map), projected by se3_inverse(T_wr)
+    then each cam_T_ref[c] (z below 0.05 divided as 1), visible where z >
+    0.05, the pixel lies in [0, W) x [0, H) and the viewing ray from T_wr's
+    centre agrees with the landmark's normal (cos > min_view_cos, or a
+    normal of norm <= 1e-6) -> (their descriptor words lm_desc (L, 8),
+    gate_rows for the current features (uv, anchor, im_valid) against
+    them: the pixels clamped to +-1e5, penalized where not visible,
+    invalid candidates failing; their positions lm_pos (L, 3),
+    candidate_positions)."""
+    ids = torch.clamp(cand_ids.long(), 0, map_pos.shape[0] - 1)
     X, nrm = map_pos[ids], map_normal[ids]
     Rinv, tinv = _inverse(T_wr)
     q = _apply(Rinv, tinv, X)  # (L, 3) in the reference frame
@@ -329,7 +350,7 @@ def localmap_gate_reference(T_wr, cand_ids, cand_valid, map_pos, map_desc,
            & cone[None])
     ahat, bhat = gate_rows(uv, anchor, ~im_valid, torch.clamp(u, -1e5, 1e5),
                            torch.clamp(v, -1e5, 1e5), ~vis, ~cand_valid)
-    return map_desc[ids], ahat, bhat
+    return map_desc[ids], ahat, bhat, X
 
 
 def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
@@ -340,10 +361,11 @@ def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
     (cap, 3), the current features' uv (M, 2), anchor (M,) int32 and
     im_valid (M,) bool, the rig's cam_T_ref (C, 4, 4) and fxycxy (C, 4),
     image_wh (W, H) -> (lm_desc (L, 8), ahat (M, 3C + 2), bhat (3C + 2,
-    L)): see localmap_gate_reference. CUDA tensors launch localmap_gate
-    (one launch: the column blocks write the candidates' descriptors and
-    bhat, the row blocks ahat; the outputs carved from one buffer,
-    localmap_gate_outputs); CPU tensors take the plain version."""
+    L), lm_pos (L, 3)): see localmap_gate_reference. CUDA tensors launch
+    localmap_gate (one launch: the column blocks write the candidates'
+    descriptors, positions and bhat, the row blocks ahat; the outputs
+    carved from one buffer, localmap_gate_outputs); CPU tensors take the
+    plain version."""
     if _build.device_type(uv, "localmap_gate") == "cpu":
         return localmap_gate_reference(
             T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal, uv,
@@ -363,24 +385,26 @@ def localmap_gate(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
         T_wr=(T_wr, f32, (4, 4)))
     if cap < 1:
         raise ValueError("localmap_gate: an empty map mirror")
-    lm_desc, ahat, bhat = localmap_gate_outputs(M, L, C, dev)
+    out = localmap_gate_outputs(M, L, C, dev)
     w, h = image_wh
     lib = _build.library()
     _build.count("localmap_gate")
     _build.check(lib.mc_localmap_gate(
-        *(x.data_ptr() for x in ins), lm_desc.data_ptr(), ahat.data_ptr(),
-        bhat.data_ptr(), M, L, C, cap, float(w), float(h),
-        float(min_view_cos), _build.stream_ptr(dev)), "mc_localmap_gate")
-    return lm_desc, ahat, bhat
+        *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out), M, L, C,
+        cap, float(w), float(h), float(min_view_cos),
+        _build.stream_ptr(dev)), "mc_localmap_gate")
+    return out
 
 
 def localmap_epilogue_reference(best, second, idx, im_valid, cand_ids,
-                                map_pos, obs, max_dist: int):
+                                lm_pos, map_pos, obs, max_dist: int):
     """Plain PyTorch version of localmap_epilogue: ok = best <= max_dist &
     best <= second & im_valid, the landmark lm = cand_ids[idx] where ok
     (else -1) -> (pose_lm's rows (22, M): map_pos[max(lm, 0)], then rows
     3-21 of the inter-frame rows obs; the mask lm >= 0 as float32 (M,);
-    lm (M,) int32)."""
+    lm (M,) int32). lm_pos, localmap_gate's candidate positions, is what
+    the kernel reads the matched rows from (ok ? lm_pos[idx] : map_pos[0],
+    the same values); the plain version gathers map_pos itself."""
     ok = (best <= max_dist) & (best <= second) & im_valid
     lm = torch.where(ok, cand_ids[idx.long()], -1).to(torch.int32)
     X = map_pos[torch.clamp(lm, min=0).long()]
@@ -388,17 +412,21 @@ def localmap_epilogue_reference(best, second, idx, im_valid, cand_ids,
     return rows, (lm >= 0).to(torch.float32), lm
 
 
-def localmap_epilogue(best, second, idx, im_valid, cand_ids, map_pos, obs,
-                      max_dist: int):
+def localmap_epilogue(best, second, idx, im_valid, cand_ids, lm_pos, map_pos,
+                      obs, max_dist: int):
     """The local-map match's best, second (M,) float32 and idx (M,) int32,
-    the current features' im_valid (M,) bool, cand_ids (L,) int32, map_pos
-    (cap, 3) float32, the inter-frame match's pose_lm rows obs (22, M) ->
-    (rows (22, M), mask (M,) float32, lm (M,) int32): see
+    the current features' im_valid (M,) bool, cand_ids (L,) int32,
+    localmap_gate's lm_pos (L, 3) of those candidates, map_pos (cap, 3)
+    float32, the inter-frame match's pose_lm rows obs (22, M) -> (rows
+    (22, M), mask (M,) float32, lm (M,) int32): see
     localmap_epilogue_reference. CUDA tensors launch localmap_epilogue
-    (one launch); CPU tensors take the plain version."""
+    (one launch, two dependent load rounds: idx, then cand_ids and lm_pos;
+    the outputs carved from one buffer, localmap_epilogue_outputs); CPU
+    tensors take the plain version."""
     if _build.device_type(best, "localmap_epilogue") == "cpu":
         return localmap_epilogue_reference(best, second, idx, im_valid,
-                                           cand_ids, map_pos, obs, max_dist)
+                                           cand_ids, lm_pos, map_pos, obs,
+                                           max_dist)
     dev = best.device
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     M, L, cap = best.shape[0], cand_ids.shape[0], map_pos.shape[0]
@@ -406,17 +434,15 @@ def localmap_epilogue(best, second, idx, im_valid, cand_ids, map_pos, obs,
         "localmap_epilogue", dev, best=(best, f32, (M,)),
         second=(second, f32, (M,)), idx=(idx, i32, (M,)),
         im_valid=(im_valid, b8, (M,)), cand_ids=(cand_ids, i32, (L,)),
-        map_pos=(map_pos, f32, (cap, 3)), obs=(obs, f32, (OBS_ROWS, M)))
+        lm_pos=(lm_pos, f32, (L, 3)), map_pos=(map_pos, f32, (cap, 3)),
+        obs=(obs, f32, (OBS_ROWS, M)))
     if L < 1 or cap < 1:
         raise ValueError(f"localmap_epilogue: {L} candidates and the map's "
                          f"{cap} rows must each be >= 1")
-    rows = torch.empty(OBS_ROWS, M, dtype=f32, device=dev)
-    mask = torch.empty(M, dtype=f32, device=dev)
-    lm = torch.empty(M, dtype=i32, device=dev)
+    out = localmap_epilogue_outputs(M, dev)
     lib = _build.library()
     _build.count("localmap_epilogue")
     _build.check(lib.mc_localmap_epilogue(
-        *(x.data_ptr() for x in ins), rows.data_ptr(), mask.data_ptr(),
-        lm.data_ptr(), M, L, cap, float(max_dist), _build.stream_ptr(dev)),
-        "mc_localmap_epilogue")
-    return rows, mask, lm
+        *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out), M, L,
+        float(max_dist), _build.stream_ptr(dev)), "mc_localmap_epilogue")
+    return out

@@ -48,12 +48,11 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor, weights=None):
     return kabsch(src, dst, weights, estimate_scale=True)
 
 
-def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
-                weights: torch.Tensor | None = None):
-    """Horn's quaternion absolute orientation, batched: the optimal
-    rotation is the dominant eigenvector of the 4x4 Davenport matrix.
-    src, dst (..., M, 3) -> (R (..., 3, 3), t (..., 3)) with
-    dst ~ R src + t."""
+def davenport(src: torch.Tensor, dst: torch.Tensor,
+              weights: torch.Tensor | None = None):
+    """Davenport's 4x4 matrix of the weighted cross-covariance of src, dst
+    (..., M, 3), whose dominant eigenvector is Horn's optimal quaternion
+    (w, x, y, z) -> (K (..., 4, 4), mu_s, mu_d (..., 3))."""
     if weights is None:
         weights = torch.ones(src.shape[:-1], dtype=src.dtype,
                              device=src.device)
@@ -76,6 +75,16 @@ def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
     K[..., 0, 1:] = z
     K[..., 1:, 0] = z
     K[..., 1:, 1:] = S - tr[..., None, None] * eye
+    return K, mu_s, mu_d
+
+
+def kabsch_quat(src: torch.Tensor, dst: torch.Tensor,
+                weights: torch.Tensor | None = None):
+    """Horn's quaternion absolute orientation, batched: the optimal
+    rotation is the dominant eigenvector of the 4x4 Davenport matrix.
+    src, dst (..., M, 3) -> (R (..., 3, 3), t (..., 3)) with
+    dst ~ R src + t."""
+    K, mu_s, mu_d = davenport(src, dst, weights)
     q = _dominant_eigvec4(K)  # (w, x, y, z)
     R = lie.rot_from_quat(
         torch.stack([q[..., 1], q[..., 2], q[..., 3], q[..., 0]], dim=-1)
@@ -115,11 +124,13 @@ def gravity_align_rotation(acc_mean: torch.Tensor,
     return torch.where((c < -1.0 + 1e-6)[..., None, None], flip, generic)
 
 
-def _dominant_eigvec4(K: torch.Tensor) -> torch.Tensor:
-    """Dominant eigenvector of a symmetric 4x4 (batched): characteristic
-    polynomial by Faddeev-LeVerrier, lambda_max by 12 Newton steps from
-    the Frobenius bound, eigenvector = the adjugate column of largest
-    norm of (K - lambda I)."""
+NEWTON_STEPS = 12  # the Newton steps of _dominant_eigvec4
+
+
+def charpoly4(K: torch.Tensor):
+    """The characteristic polynomial lambda^4 + a3 lambda^3 + a2 lambda^2 +
+    a1 lambda + a0 of a 4x4 (batched) by Faddeev-LeVerrier, and Newton's
+    start from the Frobenius bound -> (a3, a2, a1, a0, lambda_0)."""
     eye = torch.eye(4, dtype=K.dtype, device=K.device)
 
     def tr(M):
@@ -133,14 +144,47 @@ def _dominant_eigvec4(K: torch.Tensor) -> torch.Tensor:
     a1 = -tr(M3) / 3.0
     M4 = K @ (M3 + a1[..., None, None] * eye)
     a0 = -tr(M4) / 4.0
-
     lam = torch.sqrt(torch.sum(K * K, dim=(-1, -2))) + 1e-9
-    for _ in range(12):
-        p = (((lam + a3) * lam + a2) * lam + a1) * lam + a0
-        dp = ((4.0 * lam + 3.0 * a3) * lam + 2.0 * a2) * lam + a1
-        dp = torch.where(torch.abs(dp) < 1e-12, torch.full_like(dp, 1e-12),
-                         dp)
-        lam = lam - p / dp
+    return a3, a2, a1, a0, lam
+
+
+def newton_step(lam, a3, a2, a1, a0):
+    """One Newton step on the characteristic polynomial (a derivative
+    under 1e-12 in magnitude taken as 1e-12). It depends on lam and the
+    coefficients alone, so a lam it leaves unchanged bit for bit stays so
+    through every later step: csrc/kabsch_hyp.cu stops there."""
+    p = (((lam + a3) * lam + a2) * lam + a1) * lam + a0
+    dp = ((4.0 * lam + 3.0 * a3) * lam + 2.0 * a2) * lam + a1
+    dp = torch.where(torch.abs(dp) < 1e-12, torch.full_like(dp, 1e-12), dp)
+    return lam - p / dp
+
+
+def newton_fixed_steps(K: torch.Tensor) -> torch.Tensor:
+    """The steps (..., int64) that Newton runs on each 4x4 of K until a
+    step leaves lambda unchanged bit for bit, that step included, at most
+    NEWTON_STEPS: what csrc/kabsch_hyp.cu's early exit runs of them."""
+    a3, a2, a1, a0, lam = charpoly4(K)
+    steps = torch.full(lam.shape, NEWTON_STEPS, dtype=torch.int64,
+                       device=lam.device)
+    ibits = {torch.float32: torch.int32, torch.float64: torch.int64}[lam.dtype]
+    for it in range(NEWTON_STEPS):
+        nxt = newton_step(lam, a3, a2, a1, a0)
+        fixed = torch.eq(nxt.view(ibits), lam.view(ibits))
+        steps = torch.where(fixed & (steps == NEWTON_STEPS),
+                            torch.full_like(steps, it + 1), steps)
+        lam = nxt
+    return steps
+
+
+def _dominant_eigvec4(K: torch.Tensor) -> torch.Tensor:
+    """Dominant eigenvector of a symmetric 4x4 (batched): characteristic
+    polynomial by Faddeev-LeVerrier, lambda_max by 12 Newton steps from
+    the Frobenius bound, eigenvector = the adjugate column of largest
+    norm of (K - lambda I)."""
+    eye = torch.eye(4, dtype=K.dtype, device=K.device)
+    a3, a2, a1, a0, lam = charpoly4(K)
+    for _ in range(NEWTON_STEPS):
+        lam = newton_step(lam, a3, a2, a1, a0)
 
     A = K - lam[..., None, None] * eye
     keep = [graphs.values(tuple(i for i in range(4) if i != r), torch.int64,

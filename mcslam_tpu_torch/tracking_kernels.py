@@ -185,7 +185,7 @@ def _project_and_match_local(T_wr, lm_pos, lm_desc, lm_valid, im_desc, im_uv,
     L = lm_pos.shape[0]
     ids = torch.arange(L, dtype=torch.int32, device=lm_pos.device)
     normal = torch.zeros_like(lm_pos) if lm_normal is None else lm_normal
-    _, ahat, bhat = track_cuda.localmap_gate(
+    _, ahat, bhat, _ = track_cuda.localmap_gate(
         T_wr, ids, lm_valid, lm_pos, lm_desc, normal, im_uv, im_anchor,
         im_valid, cam_T_ref, fxycxy, image_wh, min_view_cos)
     best, second, idx, _ = match_cuda.hamming_argmin2(
@@ -200,17 +200,18 @@ def _localmap_core(T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal,
     """Local-map tracking: the candidates gathered from the map mirror,
     projected and gated (localmap_gate), matched, then the epilogue
     (localmap_epilogue: the landmark ids and pose_lm's rows, reusing rows
-    3-21 of the inter-frame match's obs_rows: the same features) and the
-    pose refine -> packed [pose (16), lm id (M), inliers (M)], written into
-    `out`."""
+    3-21 of the inter-frame match's obs_rows: the same features, and the
+    gate's candidate positions) and the pose refine -> packed [pose (16),
+    lm id (M), inliers (M)], written into `out`."""
     M = im_desc.shape[0]
-    lm_desc, ahat, bhat = track_cuda.localmap_gate(
+    lm_desc, ahat, bhat, lm_pos = track_cuda.localmap_gate(
         T_wr, cand_ids, cand_valid, map_pos, map_desc, map_normal, im_uv,
         im_anchor, im_valid, cam_T_ref, fxycxy, image_wh)
     best, second, idx, _ = match_cuda.hamming_argmin2(
         im_desc, lm_desc, ahat, bhat, radius * radius, want_cols=False)
     rows, mask, lm = track_cuda.localmap_epilogue(
-        best, second, idx, im_valid, cand_ids, map_pos, obs_rows, max_dist)
+        best, second, idx, im_valid, cand_ids, lm_pos, map_pos, obs_rows,
+        max_dist)
     T, chi2 = pose_opt.refine_packed(T_wr, rows, mask, LM_SCHED)
     inl = (chi2[0] < pose_opt.CHI2_2DOF) & (lm >= 0)
     out[:16] = T.reshape(16)

@@ -33,12 +33,11 @@ portfolio forced (the score at K = 1, 512, 256 and 3, also through a
 captured CUDA graph) and at random problems (K = 257, M = 37; the score
 at K = 1 and 512, M = 2048, and at K = 3, 33 and 513, M = 2049, which end
 one past a tile); the tracking glue's four kernels at the calls of bench
-frame 1's fast-path step (not --quick; track_gate, track_epilogue and
-localmap_gate also through a captured CUDA graph) and at random problems
-(C = 4, M = N = 2048, L = 4096, through graph replays with --quick; C =
-3, M = 2049, N = 2047, L = 4097; C = 1, M = 37, N = 33, L = 45),
-track_gate,
-track_epilogue and localmap_gate also at C = 2, M = 33, N = 40, L = 65,
+frame 1's fast-path step (not --quick; each also through a captured
+CUDA graph) and at random problems (C = 4, M = N = 2048, L = 4096,
+through graph replays with --quick; C = 3, M = 2049, N = 2047, L =
+4097; C = 1, M = 37, N = 33, L = 45), each also at C = 2, M = 33, N =
+40, L = 65,
 at C = 4, M = 161, N = 200, L = 191 with every row a match with a
 landmark, at C = 3, M = N = 2048, L = 4096 with none with a landmark, at
 C = 4, M = N = 2048, L = 4096 with no previous feature with a landmark
@@ -555,7 +554,7 @@ def track_cases(quick: bool, dev, rng):
             if quick and M == 2048:
                 out.append((f"{n} C={C} M={M} N={N} L={L} (random, graph "
                             f"replays)", *kernel(n), a, kw, True))
-    # the redesigned three (32-row and 32-column blocks) at shapes no
+    # the redesigned four (32-row and 32-column blocks) at shapes no
     # multiple of their blocks, at the counts' extremes (M and M, M and 0),
     # with no previous landmark and with the map behind the cameras,
     # eagerly and through graph replays

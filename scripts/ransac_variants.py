@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
-"""Split the time of the RANSAC kernels ransac_score and pnp_hyp
-(csrc/ransac_score.cu, csrc/pnp_hyp.cu) on one CUDA card by %globaltimer
-stamps and by variants of their sources.
+"""Split the time of the RANSAC kernels ransac_score, pnp_hyp and
+kabsch_hyp (csrc/ransac_score.cu, csrc/pnp_hyp.cu, csrc/kabsch_hyp.cu)
+on one CUDA card by %globaltimer stamps and by variants of their
+sources, and time an earlier design of the sources against the current
+one in turns.
 
+    git archive <commit> mcslam_tpu_torch/csrc | tar -x -C mcslam_tpu_torch/_build/earlier
     python3 scripts/ransac_variants.py [--rounds 3] [--only KERNEL:VARIANT ...]
-        [--csrc DIR]
+        [--kernels NAME ...] [--csrc DIR]
+        [--earlier mcslam_tpu_torch/_build/earlier/mcslam_tpu_torch/csrc]
 
 Run from the repository's root. Builds each source as it stands (or as it
-stands in DIR, e.g. the csrc/ of a `git archive` of an earlier commit)
-and with the edits of each variant below (one nvcc per variant, all
-started together, into mcslam_tpu_torch/_build/variants/), prints each
-build's registers, shared memory and spills, and at the calls that bench
-frame 1's step with its portfolio forced makes (chip_smoke.portfolio_calls:
-the score at K = 1, 512, 256 and 3 over M = 2048 correspondences,
-pnp_hyp at K = 256) checks each source as it stands against its plain
-version under chip_smoke's criteria (check_score, check_hypotheses),
-then prints:
+stands in DIR, e.g. the csrc/ of a `git archive` of an earlier commit),
+and with --earlier also the sources of that directory, each with the
+edits of each variant below (one nvcc per variant, all started together,
+into mcslam_tpu_torch/_build/variants/; only the kernels named by
+--kernels, all three by default), prints each build's registers, shared
+memory and spills, and at the calls that bench frame 1's step with its
+portfolio forced makes (chip_smoke.portfolio_calls: the score at K = 1,
+512, 256 and 3 over M = 2048 correspondences, pnp_hyp at K = 256,
+kabsch_hyp at K = 512) checks each source's full variant against its
+plain version under chip_smoke's criteria (check_score,
+check_hypotheses) and, with --earlier, the current kabsch_hyp against
+the earlier one bit for bit, then prints:
 - the stamps variant's phases per call (the earliest start and the
-  latest end of each phase over the blocks, or the warps of pnp_hyp,
-  stamped right after a barrier; mean over 20 calls);
-- each variant's device time per call (the variants of a kernel taking
-  turns within each round, reversed every other round; 20 calls a
-  round, median over the rounds).
+  latest end of each phase over the blocks, or the warps of pnp_hyp and
+  kabsch_hyp, stamped right after a barrier or once the phase's values
+  are in registers; mean over 20 calls);
+- each variant's device time per call (the variants of a kernel, of both
+  sources, taking turns within each round, reversed every other round;
+  20 calls a round, median over the rounds);
+- for kabsch_hyp, the Newton steps each hypothesis takes to its first
+  bitwise fixed point (geometry/alignment's arithmetic on the CPU).
 The edits are keyed by the design the source holds (its marker line),
 so the probe splits the design before a redesign and the one after it;
 each design binds its own C entry. The variants' outputs are not the
@@ -59,6 +69,20 @@ pnp_hyp, the design of registers and reciprocal pivots (marker
 "solve_recip"):
   full, stamps (the same phases, the lever flag from the samples first),
   nolever, nosolve as above.
+kabsch_hyp, the design of a thread per hypothesis (marker "mul4("):
+  full     the source as it stands;
+  stamps   per warp: start, the samples in, B and the Davenport matrix,
+           a3..a0, the 12 Newton steps, the 16 cofactors, the stores;
+  newton0  no Newton steps;
+  newton_exit  each thread stops at lambda's first bitwise fixed point.
+kabsch_hyp, the design of a quad of lanes per hypothesis (marker
+"KH_LANES"):
+  full, stamps (the same phases) as above;
+  vote     Newton stops once every hypothesis of the warp is at its
+           fixed point (a vote each step);
+  allloads every lane of a quad loads the three samples (no shuffles;
+           not lane j < 3 loading sample j);
+  threads32, threads128  32 or 128 threads a block (not 64).
 """
 
 from __future__ import annotations
@@ -77,7 +101,7 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "mcslam_tpu_torch" / "csrc"
 OUT = ROOT / "mcslam_tpu_torch" / "_build" / "variants"
 NSTAMPS = 16
-KERNELS = ("ransac_score", "pnp_hyp")
+KERNELS = ("ransac_score", "pnp_hyp", "kabsch_hyp")
 
 STAMP_DEFS = """
 __device__ unsigned long long g_stamps[16];
@@ -107,9 +131,12 @@ def t0(k):
     return f"  if (threadIdx.x == 0) stamp({k});\n"
 
 
-def w0(k, indent="  "):
-    """A stamp by lane 0 of each warp."""
-    return f"{indent}if ((threadIdx.x & 31) == 0) stamp({k});\n"
+def w0(k, indent="  ", regs=()):
+    """A stamp by lane 0 of each warp, once the registers `regs` ("f" or
+    "r" constraint, expression) hold their values."""
+    need = ", ".join(f'"{c}"({x})' for c, x in regs)
+    wait = f'{indent}asm volatile("" :: {need});\n' if regs else ""
+    return wait + f"{indent}if ((threadIdx.x & 31) == 0) stamp({k});\n"
 
 
 # -- ransac_score, 4 hypotheses a block (the first design) -------------------
@@ -259,11 +286,126 @@ PNP_RECIP = {
                  1)],
 }
 
+# -- kabsch_hyp, a thread per hypothesis (the first design) -----------------
+KT_START = "  if (k >= K) return;\n  float s[3][3], d[3][3];\n"
+KT_SAMPLES = "  float* T = out + 16 * k;\n"
+KT_FL = "  // 3. Faddeev-LeVerrier\n"
+KT_NEWTON = "  // 4. the largest eigenvalue by Newton from the Frobenius bound\n"
+KT_ADJ = "  // 5. the adjugate of K - lambda I: cof[r][c] = (-1)^(r + c) det(minor);\n"
+KT_COF = "  float best_norm = 0.0f;\n"
+KT_END = "  T[15] = 1.0f;\n}\n\n}  // namespace\n"
+KT_LOOP = "  for (int it = 0; it < 12; ++it) {\n"
+KT_STEP = "    lam = lam - p / dp;\n  }\n"
+ENTRY_KABSCH = 'extern "C" int mc_kabsch_hyp('
+KABSCH_THREAD = {
+    "full": [],
+    "stamps": [
+        (NS_TOP, NS_TOP + STAMP_DEFS, 1),
+        (KT_START, KT_START.replace("  float s", w0(0) + "  float s"), 1),
+        (KT_SAMPLES, w0(1, regs=(("f", "s[0][0]"), ("f", "d[2][2]"),
+                                 ("r", "(int)in_range"))) + KT_SAMPLES, 1),
+        (KT_FL, w0(2, regs=(("f", "Kd[0][0]"), ("f", "Kd[3][3]"))) + KT_FL,
+         1),
+        (KT_NEWTON, w0(3, regs=(("f", "a0"),)) + KT_NEWTON, 1),
+        (KT_ADJ, w0(4, regs=(("f", "lam"),)) + KT_ADJ, 1),
+        (KT_COF, w0(5, regs=(("f", "cof[0][0]"), ("f", "cof[3][3]")))
+         + KT_COF, 1),
+        (KT_END, "  T[15] = 1.0f;\n" + w0(6) + "}\n\n}  // namespace\n", 1),
+        (ENTRY_KABSCH, STAMP_GETTER + ENTRY_KABSCH, 1)],
+    "newton0": [(KT_LOOP, KT_LOOP.replace("it < 12", "it < 0"), 1)],
+    "newton_exit": [(KT_STEP, "    const float next = lam - p / dp;\n"
+                     "    if (__float_as_uint(next) == __float_as_uint(lam)) "
+                     "break;\n    lam = next;\n  }\n", 1)],
+}
+KABSCH_PHASES = (("start -> samples in (latest warp)", 0, 1),
+                 ("-> B and the Davenport matrix", 1, 2),
+                 ("-> a3..a0 (Faddeev-LeVerrier)", 2, 3),
+                 ("-> Newton", 3, 4),
+                 ("-> the 16 cofactors", 4, 5),
+                 ("-> the quaternion, the pose, the stores", 5, 6),
+                 ("start -> end", 0, 6))
+
+# -- kabsch_hyp, a quad of lanes per hypothesis ------------------------------
+KQ_START = "  // the hypothesis block starts\n"
+KQ_SAMPLES = "  // the samples in\n"
+KQ_DAV = "  // B and the Davenport matrix made\n"
+KQ_FL = "  // a3..a0 made\n"
+KQ_NEWTON = "  // Newton done\n"
+KQ_COF = "  // the cofactors made\n"
+KQ_END = "  // the hypothesis block ends\n"
+KQ_STEP = "    lam = lam - p / dp;\n  }\n  // Newton done\n"
+KQ_LOADS = """  // lane j < 3 loads sample j's index and rows, shuffles give the quad
+  // the three points
+  long long i = 0;
+  if (live && j < 3) i = idx[3 * k + j];
+  const bool fits = i >= 0 && i < M;
+  const long long r = fits ? i : 0;
+  float sr[3], dr[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    sr[c] = X_rig[3 * r + c];
+    dr[c] = X_world[3 * r + c];
+  }
+  const unsigned quad = (0xfu << base);
+  const bool in_range = (__ballot_sync(FULL, fits) & quad) == quad;
+  float s[3][3], d[3][3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s[p][c] = __shfl_sync(FULL, sr[c], base + p);
+      d[p][c] = __shfl_sync(FULL, dr[c], base + p);
+    }
+  }
+"""
+KQ_ALLLOADS = """  // every lane of the quad loads the three samples (the same addresses)
+  const int kk = live ? k : 0;
+  float s[3][3], d[3][3];
+  bool in_range = true;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const long long i = idx[3 * kk + p];
+    in_range = in_range && i >= 0 && i < M;
+    const long long r = (i >= 0 && i < M) ? i : 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s[p][c] = X_rig[3 * r + c];
+      d[p][c] = X_world[3 * r + c];
+    }
+  }
+"""
+KQ_THREADS = "constexpr int KH_THREADS = 64;"
+KABSCH_QUAD = {
+    "full": [],
+    "stamps": [
+        (NS_TOP, NS_TOP + STAMP_DEFS, 1),
+        (KQ_START, KQ_START + w0(0), 1),
+        (KQ_SAMPLES, KQ_SAMPLES + w0(1, regs=(("f", "s[0][0]"),
+                                               ("f", "d[2][2]"))), 1),
+        (KQ_DAV, KQ_DAV + w0(2, regs=(("f", "Kd[0][0]"), ("f", "Kd[3][3]"))),
+         1),
+        (KQ_FL, KQ_FL + w0(3, regs=(("f", "a0"),)), 1),
+        (KQ_NEWTON, KQ_NEWTON + w0(4, regs=(("f", "lam"),)), 1),
+        (KQ_COF, KQ_COF + w0(5, regs=(("f", "cof[0]"), ("f", "cof[3]"))), 1),
+        (KQ_END, KQ_END + w0(6), 1),
+        (ENTRY_KABSCH, STAMP_GETTER + ENTRY_KABSCH, 1)],
+    "vote": [(KQ_STEP, "    const float next = lam - p / dp;\n"
+              "    const bool done = __float_as_uint(next) == "
+              "__float_as_uint(lam) || !in_range || !live;\n"
+              "    lam = next;\n    if (__all_sync(FULL, done)) break;\n"
+              "  }\n  // Newton done\n", 1)],
+    "allloads": [(KQ_LOADS, KQ_ALLLOADS, 1)],
+    "threads32": [(KQ_THREADS, KQ_THREADS.replace("64", "32"), 1)],
+    "threads128": [(KQ_THREADS, KQ_THREADS.replace("64", "128"), 1)],
+}
+
 DESIGNS = {
     "ransac_score": [("HB = 4;", SCORE_HB4, SCORE_HB4_PHASES, "hb4"),
                      ("HT_MAX", SCORE_TILES, SCORE_TILES_PHASES, "tiles")],
     "pnp_hyp": [("chol_solve", PNP_DIV, PNP_PHASES, "div"),
                 ("solve_recip", PNP_RECIP, PNP_PHASES, "recip")],
+    "kabsch_hyp": [("mul4(", KABSCH_THREAD, KABSCH_PHASES, "thread"),
+                   ("KH_LANES", KABSCH_QUAD, KABSCH_PHASES, "quad")],
 }
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entries' argument types by design
@@ -272,6 +414,8 @@ ENTRY_TYPES = {
     ("ransac_score", "tiles"): [P] * 13 + [I, I, F, P],
     ("pnp_hyp", "div"): [P] * 7 + [I, I, I, P],
     ("pnp_hyp", "recip"): [P] * 7 + [I, I, I, P],
+    ("kabsch_hyp", "thread"): [P] * 4 + [I, I, P],
+    ("kabsch_hyp", "quad"): [P] * 4 + [I, I, P],
 }
 
 
@@ -297,39 +441,41 @@ def variant_source(csrc: pathlib.Path, kernel: str, name: str) -> str:
     return s
 
 
-def build_all(csrc, jobs) -> dict:
-    """{(kernel, variant): ctypes library}, one nvcc per variant, started
-    together; the ptxas report of each printed."""
+def build_all(sources, jobs) -> dict:
+    """{(source, kernel, variant): ctypes library}, one nvcc per variant,
+    started together; the ptxas report of each printed. sources: {source
+    tag: csrc directory}."""
     from mcslam_tpu_torch import _build
 
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for kernel, name in jobs:
-        stem = f"{kernel}_{design(csrc, kernel)[3]}_{name}"
+    for tag, kernel, name in jobs:
+        csrc = sources[tag]
+        stem = f"{kernel}_{tag}_{design(csrc, kernel)[3]}_{name}"
         cu = OUT / f"{stem}.cu"
         cu.write_text(variant_source(csrc, kernel, name))
         cmd = [nvcc, *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
                *_build.SOURCE_FLAGS.get(kernel, []), "-Xptxas", "-v", "-I",
                str(csrc), "-shared", "-o", str(OUT / f"{stem}.so"), str(cu)]
-        procs[(kernel, name)] = (stem, subprocess.Popen(
+        procs[(tag, kernel, name)] = (stem, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for (kernel, name), (stem, proc) in procs.items():
+    for (tag, kernel, name), (stem, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {kernel} {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {tag} {kernel} {name}:\n{log}")
         for entry in re.findall(r"Compiling entry function '([^']+)'.*?"
                                 r"(\d+ bytes stack frame, \d+ bytes spill "
                                 r"stores).*?Used (\d+) registers([^\n]*)",
                                 log, re.S):
-            print(f"# build {kernel} {name}: {entry[0][:60]}: {entry[2]} "
-                  f"registers{entry[3]}, {entry[1]}", flush=True)
+            print(f"# build {tag} {kernel} {name}: {entry[0][:60]}: "
+                  f"{entry[2]} registers{entry[3]}, {entry[1]}", flush=True)
         lib = ctypes.CDLL(str(OUT / f"{stem}.so"))
         fn = getattr(lib, f"mc_{kernel}")
-        fn.argtypes = ENTRY_TYPES[(kernel, design(csrc, kernel)[3])]
+        fn.argtypes = ENTRY_TYPES[(kernel, design(sources[tag], kernel)[3])]
         fn.restype = ctypes.c_int
-        libs[(kernel, name)] = lib
+        libs[(tag, kernel, name)] = lib
     return libs
 
 
@@ -383,6 +529,44 @@ def pnp_caller(lib, args):
     return call
 
 
+def kabsch_caller(lib, args):
+    import torch
+
+    from mcslam_tpu_torch import _build
+
+    idx, X_rig, X_world = args
+    K, M, dev = idx.shape[0], X_rig.shape[0], idx.device
+
+    def call():
+        out = torch.empty(K, 4, 4, dtype=torch.float32, device=dev)
+        _build.check(lib.mc_kabsch_hyp(
+            idx.data_ptr(), X_rig.data_ptr(), X_world.data_ptr(),
+            out.data_ptr(), K, M, _build.stream_ptr(dev)), "mc_kabsch_hyp")
+        return out
+    return call
+
+
+def newton_steps(idx, X_rig, X_world) -> str:
+    """The Newton steps each hypothesis takes to lambda's first bitwise
+    fixed point (and the one step that finds it), by geometry/alignment's
+    arithmetic on the CPU, and the steps each warp of 8 quads runs."""
+    import numpy as np
+
+    from mcslam_tpu_torch.geometry import alignment
+
+    if not hasattr(alignment, "newton_fixed_steps"):
+        return "not measured (no alignment.newton_fixed_steps in this tree)"
+    i = idx.cpu()
+    K_, _, _ = alignment.davenport(X_rig.cpu()[i], X_world.cpu()[i])
+    steps = alignment.newton_fixed_steps(K_).numpy()
+    pad = -len(steps) % 8
+    warps = np.concatenate([steps, np.zeros(pad, steps.dtype)]).reshape(
+        -1, 8).max(axis=1)
+    return (f"mean {steps.mean():.2f}, max {steps.max()}, "
+            f"{np.bincount(steps, minlength=13).tolist()} hypotheses by "
+            f"steps 0-12; a warp's (8 hypotheses) mean {warps.mean():.2f}")
+
+
 def stamp_split(label, lib, call, phases, smi, reps=20) -> None:
     import numpy as np
     import torch
@@ -410,9 +594,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--only", nargs="*", default=None,
-                    help="kernel:variant pairs (default: all)")
+                    help="kernel:variant pairs (default: all), or "
+                    "earlier:kernel:variant for the earlier sources")
+    ap.add_argument("--kernels", nargs="*", default=list(KERNELS),
+                    choices=KERNELS, help="the kernels to split and time")
     ap.add_argument("--csrc", default=str(CSRC),
                     help="the directory of the sources to split")
+    ap.add_argument("--earlier", default=None,
+                    help="the csrc directory of an earlier tree, timed "
+                    "against --csrc in turns")
     opt = ap.parse_args()
 
     import numpy as np
@@ -424,71 +614,119 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ransac_variants: no CUDA card", file=sys.stderr)
         return 2
-    csrc = pathlib.Path(opt.csrc).resolve()
+    sources = {"current": pathlib.Path(opt.csrc).resolve()}
+    if opt.earlier:
+        sources["earlier"] = pathlib.Path(opt.earlier).resolve()
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi_line()
     jobs = []
-    for kernel in KERNELS:
-        d = design(csrc, kernel)
-        print(f"# {kernel}: the design of {d[0]!r} ({d[3]}) in {csrc}",
-              flush=True)
-        jobs += [(kernel, v) for v in d[1]
-                 if opt.only is None or f"{kernel}:{v}" in opt.only]
-    libs = build_all(csrc, jobs)
+    for tag, csrc in sources.items():
+        for kernel in opt.kernels:
+            d = design(csrc, kernel)
+            print(f"# {tag} {kernel}: the design of {d[0]!r} ({d[3]}) in "
+                  f"{csrc}", flush=True)
+            pre = "" if tag == "current" else f"{tag}:"
+            jobs += [(tag, kernel, v) for v in d[1]
+                     if opt.only is None or f"{pre}{kernel}:{v}" in opt.only]
+    libs = build_all(sources, jobs)
     seen = cs.portfolio_calls(cs.Scene(dev, frames=2), dev)
-    cases = []  # (label, kernel, {variant: call}, check)
-    for a, kw in seen["score"]:
-        K = a[0].shape[0]
-        tag = design(csrc, "ransac_score")[3]
-        calls = {v: score_caller(libs[(k, v)], tag, a) for k, v in jobs
-                 if k == "ransac_score"}
+    cases = []  # (label, kernel, {(tag, variant): call}, check)
+    bad = 0
 
-        def check(call, a=a, K=K):
-            k = call()
-            counts, flags = ransac._score_reprojection(*a)
-            st = cs.check_score(f"ransac_score K={K}", k, counts, flags,
-                                cs.score_edges(*a[:5], a[6]))
-            return (f"{st['counts_differ']} counts and {st['flags_differ']} "
-                    f"winner flags differ, winner {st['winner']} (plain "
-                    f"{st['plain_winner']})")
-        cases.append((f"ransac_score K={K} M={a[1].shape[0]}", "ransac_score",
-                      calls, check))
-    a, kw = seen["pnp_hyp"][0]
-    calls = {v: pnp_caller(libs[(k, v)], a) for k, v in jobs if k == "pnp_hyp"}
+    def calls_of(kernel, make):
+        return {(t, v): make(libs[(t, k, v)], design(sources[t], k)[3])
+                for t, k, v in jobs if k == kernel}
 
-    def check_pnp(call, a=a):
-        hk = call()
-        hp = ransac.pnp_hypotheses(*a)
-        h64 = ransac.pnp_hypotheses(a[0], *(x.double() for x in a[1:]))
-        obs = seen["score"][2][0][1:]
-        st = cs.check_hypotheses(
-            "pnp_hyp", hk, hp, h64, ransac._score_reprojection(hk, *obs)[0],
-            ransac._score_reprojection(hp, *obs)[0])
-        return (f"{st['good']} good hypotheses, {st['rounding']} at a float32 "
-                f"solve's rounding, the rest within {st['max_abs_err']:.3g}; "
-                f"best {st['best']} (plain {st['plain_best']})")
-    cases.append((f"pnp_hyp K={a[0].shape[0]} S={a[0].shape[1]}", "pnp_hyp",
-                  calls, check_pnp))
+    if "ransac_score" in opt.kernels:
+        for a, kw in seen["score"]:
+            K = a[0].shape[0]
+
+            def check(call, a=a, K=K):
+                k = call()
+                counts, flags = ransac._score_reprojection(*a)
+                st = cs.check_score(f"ransac_score K={K}", k, counts, flags,
+                                    cs.score_edges(*a[:5], a[6]))
+                return (f"{st['counts_differ']} counts and "
+                        f"{st['flags_differ']} winner flags differ, winner "
+                        f"{st['winner']} (plain {st['plain_winner']})")
+            cases.append((f"ransac_score K={K} M={a[1].shape[0]}",
+                          "ransac_score", calls_of(
+                              "ransac_score", lambda lib, tag, a=a:
+                              score_caller(lib, tag, a)), check))
+    obs = seen["score"][2][0][1:]
+    if "pnp_hyp" in opt.kernels:
+        a, kw = seen["pnp_hyp"][0]
+
+        def check_pnp(call, a=a):
+            hk = call()
+            hp = ransac.pnp_hypotheses(*a)
+            h64 = ransac.pnp_hypotheses(a[0], *(x.double() for x in a[1:]))
+            st = cs.check_hypotheses(
+                "pnp_hyp", hk, hp, h64,
+                ransac._score_reprojection(hk, *obs)[0],
+                ransac._score_reprojection(hp, *obs)[0])
+            return (f"{st['good']} good hypotheses, {st['rounding']} at a "
+                    f"float32 solve's rounding, the rest within "
+                    f"{st['max_abs_err']:.3g}; best {st['best']} (plain "
+                    f"{st['plain_best']})")
+        cases.append((f"pnp_hyp K={a[0].shape[0]} S={a[0].shape[1]}",
+                      "pnp_hyp", calls_of("pnp_hyp", lambda lib, tag, a=a:
+                                          pnp_caller(lib, a)), check_pnp))
+    if "kabsch_hyp" in opt.kernels:
+        a, kw = seen["kabsch_hyp"][0]
+        obs_k = seen["score"][1][0][1:]
+
+        def check_kabsch(call, a=a):
+            hk = call()
+            hp = ransac.kabsch_hypotheses(*a)
+            h64 = ransac.kabsch_hypotheses(a[0], *(x.double() for x in a[1:]))
+            st = cs.check_hypotheses(
+                "kabsch_hyp", hk, hp, h64,
+                ransac._score_reprojection(hk, *obs_k)[0],
+                ransac._score_reprojection(hp, *obs_k)[0])
+            return (f"{st['good']} good hypotheses, {st['rounding']} at a "
+                    f"float32 solve's rounding, the rest within "
+                    f"{st['max_abs_err']:.3g}; best {st['best']} (plain "
+                    f"{st['plain_best']}); {st['nan']} NaN")
+        label = f"kabsch_hyp K={a[0].shape[0]} M={a[1].shape[0]}"
+        cases.append((label, "kabsch_hyp", calls_of(
+            "kabsch_hyp", lambda lib, tag, a=a: kabsch_caller(lib, a)),
+            check_kabsch))
+        print(f"# {label}: Newton steps to the fixed point: "
+              f"{newton_steps(*a)}", flush=True)
 
     for label, kernel, calls, check in cases:
-        if "full" in calls:
-            print(f"# {label} full: {check(calls['full'])}", flush=True)
-        if "stamps" in calls:
-            stamp_split(label, libs[(kernel, "stamps")], calls["stamps"],
-                        design(csrc, kernel)[2], smi)
-        names = [v for v in calls if v != "stamps"]
-        times = {v: [] for v in names}
+        for tag in sources:
+            if (tag, "full") in calls:
+                print(f"# {label} {tag} full: {check(calls[(tag, 'full')])}",
+                      flush=True)
+        if kernel == "kabsch_hyp" and {("current", "full"),
+                                       ("earlier", "full")} <= set(calls):
+            same = cs.same_bits(calls[("current", "full")](),
+                                calls[("earlier", "full")]())
+            bad += not same
+            print(f"# {label}: the current design "
+                  f"{'equals' if same else 'DIFFERS from'} the earlier one "
+                  f"bit for bit", flush=True)
+        for tag in sources:
+            if (tag, "stamps") in calls:
+                stamp_split(f"{label} {tag}", libs[(tag, kernel, "stamps")],
+                            calls[(tag, "stamps")],
+                            design(sources[tag], kernel)[2], smi)
+        names = [tv for tv in calls if tv[1] != "stamps"]
+        times = {tv: [] for tv in names}
         for r in range(opt.rounds):
-            for v in (names if r % 2 == 0 else names[::-1]):
-                ms, ops, _ = cs.device_profile(calls[v], reps=20)
-                times[v].append((ms, ops))
-        for v in names:
-            ms = [t for t, _ in times[v]]
-            print(f"# {label} variant {v}: {float(np.median(ms)):.4f} ms "
-                  f"device time per call, {times[v][0][1]:.0f} device ops "
-                  f"(median of {opt.rounds} rounds: "
-                  f"{', '.join(f'{t:.4f}' for t in ms)}) ({smi})", flush=True)
-    return 0
+            for tv in (names if r % 2 == 0 else names[::-1]):
+                ms, ops, _ = cs.device_profile(calls[tv], reps=20)
+                times[tv].append((ms, ops))
+        for tv in names:
+            ms = [t for t, _ in times[tv]]
+            print(f"# {label} {tv[0]} variant {tv[1]}: "
+                  f"{float(np.median(ms)):.5f} ms device time per call, "
+                  f"{times[tv][0][1]:.0f} device ops (median of {opt.rounds} "
+                  f"rounds: {', '.join(f'{t:.5f}' for t in ms)}) ({smi})",
+                  flush=True)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -16,6 +16,11 @@ six copies of one point, whose Cholesky fails: a NaN pose, no inlier);
 K = 1 and K = 3 (with a tie) give the winner, pose, count and mask of the
 argmax.
 
+On the CPU too: the Newton iteration of kabsch_hyp's plain version
+(geometry/alignment.charpoly4, newton_step) stopped at lambda's first
+bitwise fixed point gives the 12 steps' lambda bit for bit (the kernel's
+early exit), on random, RANSAC-like and degenerate samples, NaN too.
+
 `gpu` cases (they skip without a card) hold each kernel to its plain
 version on the card at the portfolio's shapes (K = 512 Kabsch and 256 PnP
 hypotheses, M = 2048) and at odd ones (K = 1, 3, 257; M = 37), on a rig
@@ -34,8 +39,11 @@ most 2 % of the hypotheses; one launch counted per call, equal across
 two runs, and the score through CUDA graph replays, its count
 accumulators and arrival counter back at zero after each; the score
 also at shapes that cross its tiles (M one past a tile, K one past a
-hypothesis tile, M < 32, tied counts) and pnp_hyp at K one past a block,
-M < 32 and with every sample from the camera without a lever arm:
+hypothesis tile, M < 32, tied counts), pnp_hyp at K one past a block,
+M < 32 and with every sample from the camera without a lever arm, and
+kabsch_hyp at K = 1, 2, 3, 5, 257, 511, 512 and 513 (no multiple of a
+warp's 8 quads), with a repeated-index and a collinear sample and an
+out-of-range one (its NaN pose, the others unchanged bit for bit):
     python -m pytest --noconftest tests/test_torch_ransac_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparisons)."""
 
@@ -596,18 +604,96 @@ def test_score_kernel_matches_plain(cuda, K, M, tie):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,M,lever", [(512, 2048, True), (257, 37, True),
-                                       (3, 2048, False), (1, 400, True)])
+@pytest.mark.parametrize("K,M,lever", [
+    (512, 2048, True), (257, 37, True), (3, 2048, False), (1, 400, True),
+    # K no multiple of a block's or a warp's quads (8 hypotheses a warp)
+    (2, 2048, True), (5, 2048, False), (511, 2048, True),
+    (513, 2048, True)])
 def test_kabsch_kernel_matches_plain(cuda, K, M, lever):
+    """kabsch_hyp against its plain version (check_hypotheses), twice
+    alike, one launch a call; with K >= 5 also a sample with a repeated
+    index and one of three collinear points (planted), and a sample
+    out of range (index M, then -1): NaN rows 0-2 and (0, 0, 0, 1) in its
+    hypothesis, every other hypothesis bit for bit as without it."""
     P = _scene(20 + K, M, lever=lever)
+    if K >= 5:  # point 10 on the segment between 11 and 12, both frames
+        for key in ("X", "X_rig"):
+            P[key][10] = 0.5 * (P[key][11] + P[key][12])
     obs = _obs(P, cuda)
-    idx = _t(_samples(P, K, 3), cuda)
+    idx_np = _samples(P, K, 3)
+    if K >= 5:
+        idx_np[1] = [5, 5, 9]
+        idx_np[3] = [10, 11, 12]
+    idx = _t(idx_np, cuda)
     X_rig = _t(P["X_rig"], cuda)
     h = _counted("kabsch_hyp",
                  lambda: ransac_cuda.kabsch_hyp(idx, X_rig, obs[0]))
-    assert torch.equal(h, ransac_cuda.kabsch_hyp(idx, X_rig, obs[0]))
+    assert cs.same_bits(h, ransac_cuda.kabsch_hyp(idx, X_rig, obs[0]))
     _check_hyp(h, lambda dt: ransac.kabsch_hypotheses(
         idx, X_rig.to(dt), obs[0].to(dt)), obs)
+    if K >= 5:
+        assert torch.isfinite(h[[1, 3]]).all()
+        for bad in (M, -1):
+            out = idx.clone()
+            out[K - 2, 1] = bad
+            ho = ransac_cuda.kabsch_hyp(out, X_rig, obs[0])
+            torch.cuda.synchronize()
+            assert torch.isnan(ho[K - 2, :3]).all()
+            assert torch.equal(ho[K - 2, 3], torch.tensor(
+                [0.0, 0.0, 0.0, 1.0], device=cuda))
+            keep = torch.arange(K, device=cuda) != K - 2
+            assert cs.same_bits(ho[keep], h[keep])
+
+
+def _lam_both_ways(K_):
+    """lambda after _dominant_eigvec4's 12 Newton steps, and lambda when
+    each matrix stops at its first bitwise fixed point (its later steps
+    skipped), in alignment's arithmetic; and the steps to that point."""
+    from mcslam_tpu_torch.geometry import alignment
+
+    a3, a2, a1, a0, lam = alignment.charpoly4(K_)
+    full, early = lam, lam.clone()
+    going = torch.ones(lam.shape, dtype=torch.bool)
+    for _ in range(alignment.NEWTON_STEPS):
+        full = alignment.newton_step(full, a3, a2, a1, a0)
+        nxt = alignment.newton_step(early, a3, a2, a1, a0)
+        fixed = torch.eq(nxt.view(torch.int32), early.view(torch.int32))
+        early = torch.where(going, nxt, early)
+        going = going & ~fixed
+    return full, early, alignment.newton_fixed_steps(K_)
+
+
+def test_newton_stops_exactly_at_its_fixed_point():
+    """csrc/kabsch_hyp.cu's early Newton exit on the CPU, in float32: on
+    Davenport matrices of random and RANSAC-like samples and of degenerate
+    ones (three copies of a point: K = 0; collinear points; a NaN and an
+    infinite coordinate), lambda stopped at its first bitwise fixed point
+    equals lambda after the 12 steps bit for bit, NaN rows included; the
+    steps counted to that point, those after it change nothing."""
+    from mcslam_tpu_torch.geometry import alignment
+
+    P = _scene(40, 2048)
+    idx = _samples(P, 512, 3)
+    rng = np.random.RandomState(41)
+    src = np.concatenate([P["X_rig"][idx],
+                          rng.normal(0, 3, (256, 3, 3)).astype(np.float32)])
+    dst = np.concatenate([P["X"][idx],
+                          rng.normal(0, 3, (256, 3, 3)).astype(np.float32)])
+    src[0] = src[0, :1]
+    dst[0] = dst[0, :1]  # three copies of one point
+    src[1, 2] = 0.5 * (src[1, 0] + src[1, 1])
+    dst[1, 2] = 0.5 * (dst[1, 0] + dst[1, 1])  # collinear
+    src[2, 1, 0] = np.nan
+    dst[3, 2, 2] = np.inf
+    K_ = alignment.davenport(_t(src), _t(dst))[0]
+    full, early, steps = _lam_both_ways(K_)
+    assert torch.equal(full.view(torch.int32), early.view(torch.int32))
+    assert torch.isnan(full[2]) and torch.isnan(full[3])
+    assert torch.isfinite(full[[0, 1]]).all()
+    # how often a hypothesis stops early at the portfolio's samples
+    st = steps[:512]
+    assert bool((st >= 1).all() and (st <= 12).all())
+    assert int((st < 12).sum()) > 256 and int((st == 12).sum()) > 0
 
 
 @pytest.mark.gpu

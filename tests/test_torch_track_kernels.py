@@ -18,21 +18,28 @@ package's code it replaces on the same numpy inputs:
   a z near 0) to rtol 1e-3, exactly at the +-1e5 clamp; the P2 rows (the
   1e12 penalty included) to rtol 1e-5 and the penalty equal;
 - localmap_gate against :479-505 with _gate_factors (:508): the
-  candidates' descriptors exactly, the factors as above, visibility equal
+  candidates' descriptors and positions exactly, the factors as above,
+  visibility equal
   but where a projection lies within 1e-4 px of a frustum edge or the
   viewing cone's cosine within 1e-6 of 0.5 (a stated tie, counted); on
   identity poses, whose products are exact, also at projections exactly on
   the edges and a cone exactly at 0.5, visibility equal throughout;
 - track_epilogue against :196-219 and localmap_epilogue against :516 and
   :349-353 exactly (ints, masks and gathers), pose_lm's rows exactly as
-  pose_opt_cuda._pack_obs of the JAX-side gathers.
+  pose_opt_cuda._pack_obs of the JAX-side gathers, the local epilogue fed
+  the candidates' positions as JAX gathers them;
+- the local epilogue's identity, on the plain versions: where(ok,
+  lm_pos[idx], map_pos[0]) with localmap_gate's lm_pos is map_pos[max(lm,
+  0)] bit for bit, with candidate ids of -1 too (what the kernel reads in
+  place of a third load round).
 The cases include points behind a camera, prev_lm_id = -1, invalid map
 rows, zero normals, no valid rows and odd M / N / L. The frame step
 writes every slot of its packed vector (its buffers come from
 torch.empty).
 
 On the CPU too: the wrappers' outputs carved from one buffer
-(track_cuda.epilogue_outputs, localmap_gate_outputs) keep the plain
+(track_cuda.epilogue_outputs, localmap_gate_outputs,
+localmap_epilogue_outputs) keep the plain
 versions' shapes, strides and dtypes, start at 512-byte boundaries and do
 not overlap, also in a buffer that starts at an offset of its storage.
 
@@ -41,14 +48,19 @@ plain version on the card at those shapes and at the production ones (C =
 4, M = N = 2048, L = 4096, and odd M = 2049, N = 2047, L = 4097), twice
 alike, one launch counted a call; track_epilogue also through CUDA graph
 replays with its counters back at zero. The redesigned track_gate and
-localmap_gate (32-column blocks) and track_epilogue (32-row blocks) also
-at shapes that are no multiple of those blocks, at C = 1-4, at M = 0 and
-L = 0, at counts of 0 and of M (every row a match with a landmark; every
+localmap_gate (32-column blocks), track_epilogue and localmap_epilogue
+(32-row blocks) also at shapes that are no multiple of those blocks (M
+no multiple of 4 either: the local epilogue's copy by scalars), at C =
+1-4, at M = 0 and L = 0 (but the local epilogue, which takes L >= 1), at
+counts of 0 and of M (every row a match with a landmark; every
 row a match, none with a landmark; no valid row), with no previous
 feature with a landmark and with the map rows at or behind the cameras
 (depths <= 0.05 and < 1e-6), and track_epilogue through repeated graph
 replays on inputs that change between replays, its two counts right on
-every one:
+every one; localmap_epilogue with no row a match, with candidate ids of
+-1 that rows match, with idx past L and below 0 (clamped, held to the
+plain version on the clamped idx), with rows at a 4-byte offset (its
+copy by scalars):
     python -m pytest --noconftest tests/test_torch_track_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparisons)."""
 
@@ -117,7 +129,7 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     got = _all(T)
     assert dict(_build.LAUNCHES) == before
     want = _all(T, plain=True)
-    assert len(got) == len(want) == 2 + 8 + 2 + 3 + 3
+    assert len(got) == len(want) == 2 + 8 + 2 + 4 + 3
     assert all(_same(a, b) for a, b in zip(got, want))
 
 
@@ -139,16 +151,20 @@ def _carved_ok(views, base, nbytes):
 
 @pytest.mark.parametrize("M,L,C", LAYOUT_SHAPES)
 def test_carved_outputs_keep_their_layout(M, L, C, monkeypatch):
-    """epilogue_outputs and localmap_gate_outputs: the plain versions'
-    shapes, strides and dtypes (at M = 37, L = 45, C = 1 taken from the
-    plain versions' own outputs), contiguous, aligned, disjoint; and so in
-    a buffer that torch.empty hands out at an offset of its storage."""
+    """epilogue_outputs, localmap_gate_outputs and
+    localmap_epilogue_outputs: the plain versions' shapes, strides and
+    dtypes (at M = 37, L = 45, C = 1 taken from the plain versions' own
+    outputs), contiguous, aligned, disjoint; and so in a buffer that
+    torch.empty hands out at an offset of its storage."""
     want = {"track_epilogue": [((M, 3), torch.float32), ((M, 4, 4), torch.float32),
                                ((M, 4), torch.float32), ((22, M), torch.float32),
                                ((M,), torch.bool), ((M,), torch.bool),
                                ((M,), torch.float32), ((M,), torch.float32)],
             "localmap_gate": [((L, 8), torch.int32), ((M, 3 * C + 2), torch.float32),
-                              ((3 * C + 2, L), torch.float32)]}
+                              ((3 * C + 2, L), torch.float32),
+                              ((L, 3), torch.float32)],
+            "localmap_epilogue": [((22, M), torch.float32),
+                                  ((M,), torch.float32), ((M,), torch.int32)]}
     if (M, L, C) == (37, 45, 1):
         T = _problem(10, C, M, 33, L, 60)
         calls = cs.track_calls(T)
@@ -169,7 +185,8 @@ def test_carved_outputs_keep_their_layout(M, L, C, monkeypatch):
 
         monkeypatch.setattr(torch, "empty", empty)
         outs = {"track_epilogue": tc.epilogue_outputs(M, "cpu"),
-                "localmap_gate": tc.localmap_gate_outputs(M, L, C, "cpu")}
+                "localmap_gate": tc.localmap_gate_outputs(M, L, C, "cpu"),
+                "localmap_epilogue": tc.localmap_epilogue_outputs(M, "cpu")}
         monkeypatch.setattr(torch, "empty", real)
         for (n, views), slab in zip(outs.items(), held):
             assert [(tuple(x.shape), x.dtype) for x in views] == want[n]
@@ -222,7 +239,7 @@ def _jax_track_gate(P):
 def _jax_localmap_gate(P):
     """mcslam_tpu/tracking_kernels.py:341-343 and :479-508 -> (lm_desc,
     ahat, bhat, vis (C, L), the projections (C, L, 2) unclamped, the
-    cone's cosine (L,))."""
+    cone's cosine (L,), lm_pos (L, 3))."""
     import jax.numpy as jnp
 
     from mcslam_tpu.geometry import lie as jlie
@@ -252,7 +269,7 @@ def _jax_localmap_gate(P):
     ahat, bhat = _jax_gate_factors(P, proj_c, pen, ~P["cand_valid"])
     return (np.asarray(jnp.asarray(P["map_desc"])[ids]), ahat, bhat,
             ~np.asarray(pen), np.asarray(proj.transpose(1, 0, 2)),
-            np.asarray(cosv))
+            np.asarray(cosv), np.asarray(lm_pos))
 
 
 def _hold_ahat(a, a_ref, C):
@@ -308,9 +325,11 @@ def test_localmap_gate_matches_jax(shape, case):
     T = _problem(2, *SHAPES[shape], case=case)
     P = _np(T)
     a, kw = cs.track_calls(T)["localmap_gate"]
-    lm_desc, ahat, bhat = (x.numpy() for x in tc.localmap_gate(*a, **kw))
-    d_ref, a_ref, b_ref, vis_ref, proj, cosv = _jax_localmap_gate(P)
+    lm_desc, ahat, bhat, lm_pos = (x.numpy()
+                                   for x in tc.localmap_gate(*a, **kw))
+    d_ref, a_ref, b_ref, vis_ref, proj, cosv, pos_ref = _jax_localmap_gate(P)
     np.testing.assert_array_equal(lm_desc, d_ref)
+    np.testing.assert_array_equal(lm_pos, pos_ref)
     _hold_ahat(ahat, a_ref, C)
     vis = bhat[2 * C:3 * C] < 1e12
     # a stated tie: a projection within 1e-4 px of a frustum edge, or the
@@ -401,7 +420,10 @@ def test_localmap_epilogue_matches_jax(shape, case):
     T = _problem(4, *SHAPES[shape], case=case)
     P = _np(T)
     a, kw = cs.track_calls(T)["localmap_epilogue"]
-    rows, mask, lm = tc.localmap_epilogue(*a, **kw)
+    # the candidates' positions as the JAX package gathers them (:341)
+    lm_pos = torch.from_numpy(np.array(
+        jnp.asarray(P["map_pos"])[jnp.asarray(P["cand"])]))
+    rows, mask, lm = tc.localmap_epilogue(*a[:5], lm_pos, *a[6:], **kw)
     # mcslam_tpu/tracking_kernels.py:516 and :349-353
     best, second = jnp.asarray(P["best"]), jnp.asarray(P["second"])
     ok = (best <= LM_MAX_DIST) & (best <= second) & jnp.asarray(
@@ -415,6 +437,29 @@ def test_localmap_epilogue_matches_jax(shape, case):
         rows.numpy(), _rows_of(X, P["cam"][P["anchor"]], P["f"][P["anchor"]],
                                P))
     assert (lm_ref >= 0).any() == (case != "no_valid")
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_localmap_epilogue_reads_the_gates_positions(shape):
+    """On the plain versions: where(ok, lm_pos[idx], map_pos[0]), lm_pos
+    localmap_gate's output, equals localmap_epilogue's map_pos[max(lm,
+    0)] bit for bit, also where a matched candidate's id is -1 (row 0 on
+    both sides): the kernel's X rows, one load round nearer."""
+    T = _problem(13, *SHAPES[shape])
+    cand = T["cand"].clone()
+    cand[::3] = -1  # a third of the candidates without a landmark
+    T["cand"] = cand
+    calls = cs.track_calls(T)
+    a, kw = calls["localmap_gate"]
+    lm_pos = tc.localmap_gate_reference(*a, **kw)[3]
+    a, kw = calls["localmap_epilogue"]
+    assert _same(lm_pos, a[5])
+    rows, _, lm = tc.localmap_epilogue_reference(*a, **kw)
+    best, second, idx, valid = a[:4]
+    ok = (best <= LM_MAX_DIST) & (best <= second) & valid
+    X = torch.where(ok[:, None], lm_pos[idx.long()], T["map_pos"][0][None])
+    assert _same(X.T.contiguous(), rows[:3])
+    assert (ok & (lm == -1)).any() and (lm >= 0).any() and (~ok).any()
 
 
 def test_track_and_map_step_writes_every_slot(monkeypatch):
@@ -515,21 +560,25 @@ COUNT_SHAPES = [(4, 2048, 2048, 4096, 65536, "all_ok"),
                 (4, 2049, 2047, 4097, 65536, "no_valid")]
 GATE_SHAPES = [(4, 2048, 2048, 4096, 65536, "no_lm"),
                (3, 97, 130, 50, 300, "behind")]
-REDESIGNED = ("track_gate", "track_epilogue", "localmap_gate")
+REDESIGNED = ("track_gate", "track_epilogue", "localmap_gate",
+              "localmap_epilogue")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,M,N,L,cap,case",
                          ODD_SHAPES + COUNT_SHAPES + GATE_SHAPES)
 def test_redesigned_kernels_match_plain_on_card(cuda, C, M, N, L, cap, case):
-    """track_gate, track_epilogue and localmap_gate twice alike, one
-    launch a call, bit-equal to the plain versions on the card and on the
-    CPU; the epilogue's counts (packed slots 17, 18) those the case
-    makes."""
+    """track_gate, track_epilogue, localmap_gate and localmap_epilogue
+    twice alike, one launch a call, bit-equal to the plain versions on the
+    card and on the CPU; the epilogue's counts (packed slots 17, 18) those
+    the case makes. The local epilogue takes no L = 0 (nothing to look
+    up; its wrapper refuses it)."""
     T = _problem(11, C, M, N, L, cap, case)
     Tc = {k: v.to(cuda) for k, v in T.items()}
     calls, calls_cpu = cs.track_calls(Tc), cs.track_calls(T)
     for n in REDESIGNED:
+        if n == "localmap_epilogue" and L == 0:
+            continue
         fn, plain = getattr(tc, n), getattr(tc, f"{n}_reference")
         a, kw = calls[n]
         before = _build.LAUNCHES[n]
@@ -597,6 +646,62 @@ def test_track_epilogue_counts_through_graph_replays(cuda):
         seen.add(tuple(out[-2].tolist()))
         assert int(graphs.counters("track_epilogue", 2, cuda).abs().sum()) == 0
     assert len(seen) == 3 and (2048.0, 2048.0) in seen and (2048.0, 0.0) in seen
+
+
+LE_EDGES = ["none_ok", "cand_minus_one", "idx_out", "offset_rows"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LE_EDGES)
+@pytest.mark.parametrize("M", [2048, 2047, 33])
+def test_localmap_epilogue_edges_on_card(cuda, case, M):
+    """localmap_epilogue bit-equal to its plain version on the card and
+    the CPU, twice alike: with no row a match; with matched candidates of
+    id -1 (lm -1, X from row 0); with idx past L and below 0 (the kernel
+    clamps it: held to the plain version on the clamped idx); with the
+    inter-frame rows and the candidates' positions at a 4-byte offset
+    (the copy by scalars)."""
+    T = _problem(14, 4, M, 64, 300, 4000)
+    if case == "none_ok":
+        T["best"] = torch.full_like(T["best"], float(LM_MAX_DIST + 1))
+    if case == "cand_minus_one":
+        T["cand"][T["lidx"][: M // 2].long()] = -1
+        T["cur_valid"][:] = True
+        T["best"] = torch.zeros_like(T["best"])
+    a, kw = cs.track_calls(T)["localmap_epilogue"]
+    a = list(a)
+    want_idx = a[2]
+    if case == "idx_out":
+        bad = a[2].clone()
+        bad[::5] = 300 + torch.arange(len(bad[::5]), dtype=torch.int32)
+        bad[1::7] = -1 - torch.arange(len(bad[1::7]), dtype=torch.int32)
+        a[2], want_idx = bad, torch.clamp(bad, 0, 299)
+    want = tc.localmap_epilogue_reference(*a[:2], want_idx, *a[3:], **kw)
+    ac = [x.to(cuda) if torch.is_tensor(x) else x for x in a]
+    if case == "offset_rows":
+        for k in (5, 7):
+            slab = torch.empty(ac[k].numel() + 1, device=cuda)
+            ac[k] = slab[1:].view(ac[k].shape).copy_(ac[k])
+            assert ac[k].data_ptr() % 16 == 4
+    before = _build.LAUNCHES["localmap_epilogue"]
+    got = tc.localmap_epilogue(*ac, **kw)
+    again = tc.localmap_epilogue(*ac, **kw)
+    assert _build.LAUNCHES["localmap_epilogue"] - before == 2
+    torch.cuda.synchronize()
+    assert all(_same(x, y) for x, y in zip(got, again))
+    plain = tc.localmap_epilogue_reference(
+        *ac[:2], want_idx.to(cuda), *ac[3:], **kw)
+    for w in (plain, want):
+        differ = [k for k, (x, y) in enumerate(zip(got, w))
+                  if not _same(x.cpu(), y.cpu())]
+        assert not differ, differ
+    lm = got[2].cpu()
+    if case == "none_ok":
+        assert (lm == -1).all()
+    if case == "cand_minus_one":
+        assert (lm[: M // 2] == -1).all() and (lm >= 0).any()
+        assert _same(got[0][:3, : M // 2].cpu(), T["map_pos"][0][:, None]
+                     .expand(3, M // 2).contiguous())
 
 
 @pytest.mark.gpu
