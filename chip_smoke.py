@@ -403,6 +403,42 @@ VIO_IMU = dict(accel_noise=2e-3, gyro_noise=2e-4)
 VIO_BIAS = dict(accel_bias=(0.02, -0.01, 0.015),
                 gyro_bias=(0.001, -0.0005, 0.002))
 LLA0 = (42.36, -71.06, 10.0)
+# the VIO factor kernel (phase 2, vio_factor_kernels): case -> (K, GPS
+# factors, IMU slots or None for K - 1, a between table): the stage D
+# problem of phase 7 (a) without GPS, with VIO_GPS GPS factors, and with
+# them and a between table (a random constraint, one at so3_log's small
+# branch, one joining a keyframe to itself, one invalid); at K = 12 with
+# 11 IMU and 12 GPS factors (N = 186: the last block's accumulators do
+# not fit in its shared memory and live in the scratch); and with 60 IMU
+# slots, 55 of them padding (the records do not fit beside the
+# accumulators and are read from L2). check_vio_factors holds each to the
+# plain version: J and r of every factor equal or 1 float32 ulp apart, or
+# within VIO_J_FLOOR of the table's largest |J| (a float64 rounding
+# residue cast to float32); every entry of the factors' records and of
+# H, g and the cost within vio_sum_bounds' bound of its own terms, and
+# the largest error of H, g and the cost within VIO_FACTOR_TOL of the
+# largest entry of their factor parts
+VIO_FACTOR_CASES = {
+    "imu": (6, 0, None, False),
+    "imu+gps": (6, VIO_GPS, None, False),
+    "imu+gps+between": (6, VIO_GPS, None, True),
+    "K=12 imu+gps": (12, 12, None, False),
+    "60 IMU slots+gps": (6, VIO_GPS, 60, False),
+}
+VIO_KERNELS = ("vio_factors",)  # on the VIO path only (phase 7)
+VIO_FACTOR_TOL, VIO_J_FLOOR = 1e-6, 2.0 ** -40
+# float32 roundings of one term of a record's or H's sum besides the
+# sum's own: fl(w J_a), its product with J_b (or r), the merge of a
+# keyframe's own columns into J_a and J_b, and w (GPS: 1 / sigma^2)
+VIO_TERM_ROUNDINGS = 5
+# float64 operations (+ - * / sqrt sin cos atan2, one each) of one lane,
+# one tangent direction, of csrc/vio_dual.cuh's residuals at generic
+# states (tests/test_torch_vio_kernels.py counts them with its host build);
+# a factor takes one lane per tangent column (30 IMU, 12 GPS / between)
+VIO_DUAL_OPS = dict(imu=3067, gps=1746, between=2549)
+# float64 at 34 TFLOP/s without the tensor cores (NVIDIA's H100 SXM data
+# sheet), each operation counted as one
+F64_OPS_PER_S = 34e12
 # the loop-closure phase: (a) the global solve (10 x 2 LM steps, the
 # driver's global_ba_iters) at tests/test_global_ba.py's shape (64
 # keyframes, global_ba_lm_capacity 2048, global_ba_obs_per_kf 256) and at
@@ -2247,6 +2283,315 @@ def track_kernels(scene, dev, kernels):
     del graph
 
 
+def vio_factors_problem(dev, case):
+    """phase 2's VIO factor problem `case` (VIO_FACTOR_CASES: K, GPS
+    factors, IMU slots, between) on dev: synthetic.random_vio_problem's
+    window (K - 1 IMU factors; GPS factors on keyframes 0, 1, ..., every
+    third invalid); IMU slots past K - 1 are copies of the first factor
+    made invalid; the between table is (0, 5) a random constraint, (2, 3)
+    the poses' own (so3_log's small branch), (4, 4) a keyframe to itself
+    (the columns added) and (1, 3) invalid."""
+    import torch
+
+    from mcslam_tpu_torch.backend import ba_vio
+    from mcslam_tpu_torch.data import synthetic
+    from mcslam_tpu_torch.geometry import lie
+
+    K, num_gps, slots, between = VIO_FACTOR_CASES[case]
+    rig = synthetic.make_synthetic_rig(
+        synthetic.SyntheticRigSpec(num_cams=C, image_size=(W, H)),
+        device=dev)
+    f = synthetic.random_vio_problem(rig, num_kfs=K, num_gps=num_gps)
+    p = ba_vio.problem_from_numpy(**dict(f, device=dev))
+    if slots is not None:
+        imu, pad = p.imu, slots - (K - 1)
+        fields = {n: torch.cat([v, v[:1].expand(pad, *v.shape[1:])])
+                  for n, v in imu._asdict().items()}
+        fields["valid"] = torch.cat([imu.valid, torch.zeros_like(
+            imu.valid[:1]).expand(pad)])
+        p = p._replace(imu=type(imu)(**fields))
+    if not between:
+        return p
+    T = p.poses.double().cpu()
+    rng = np.random.RandomState(3)
+    pairs = ((0, 5), (2, 3), (4, 4), (1, 3))
+    rel = torch.stack([torch.linalg.inv(T[i]) @ T[j] for i, j in pairs])
+    noise = lie.se3_exp(torch.from_numpy(rng.randn(4, 6) * 0.02))
+    rel[[0, 2, 3]] = rel[[0, 2, 3]] @ noise[[0, 2, 3]]
+    return p._replace(between=ba_vio.factor_table(
+        ba_vio.BetweenFactors, dev, i=np.array([i for i, _ in pairs]),
+        j=np.array([j for _, j in pairs]), rel=rel.float().numpy(),
+        sigma_rot=np.full(4, 0.01), sigma_trans=np.full(4, 0.05),
+        valid=np.array([True, True, True, False])))
+
+
+def f32_ulps(a, b):
+    """|a - b| in float32 units in the last place (the distance between
+    their ordered bit patterns), elementwise, as int64."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def vio_products(J, r, w, sel, per_factor=False):
+    """float64 w J^T J, w J^T r and w |r|^2 of a table's factors (J (F, R,
+    n), r (F, R), w (F,)) with J's columns mapped by sel (F, n, M): summed
+    over the factors (sel placing each at the system's columns, M = N) or
+    per factor (M = n)."""
+    import torch
+
+    J = J.double() @ sel.double()
+    r, w, f = r.double(), w.double(), "f" if per_factor else ""
+    return (torch.einsum(f"f,fri,frj->{f}ij", w, J, J),
+            torch.einsum(f"f,fri,fr->{f}i", w, J, r),
+            torch.einsum(f"f,fr,fr->{f}", w, r, r))
+
+
+def vio_sum_bounds(pairs, per_factor=False, base=None):
+    """The bound on |kernel - plain| of each entry of the sums w J^T J,
+    w J^T r and w |r|^2 that the two make of the same factors, pairs =
+    [((J, r) kernel, (J, r) plain, w, sel)] (vio_products), plus base =
+    [terms of H, of g, of the cost] added as they are (the vision block's
+    and the prior's entries). Each side adds the entry's m nonzero terms
+    in its own order, each term rounded at most VIO_TERM_ROUNDINGS times
+    besides, so each lies within (m - 1 + VIO_TERM_ROUNDINGS) eps / 2 S
+    of the exact sum of its own J and r, S the sum of the terms'
+    magnitudes: the two differ by at most (m + VIO_TERM_ROUNDINGS) eps S
+    plus the exact difference that their J and r make (float32 eps)."""
+    import torch
+
+    # [kernel, plain, magnitude, count] x [w J^T J, w J^T r, w |r|^2]
+    acc = [[0.0] * 3 for _ in range(4)]
+    for (Jk, rk), (Jp, rp), w, sel in pairs:
+        Ja = torch.maximum(Jk.abs(), Jp.abs())
+        ra = torch.maximum(rk.abs(), rp.abs())
+        for j, part in enumerate((
+                vio_products(Jk, rk, w, sel, per_factor),
+                vio_products(Jp, rp, w, sel, per_factor),
+                vio_products(Ja, ra, w.abs(), sel, per_factor),
+                vio_products(Ja != 0, ra != 0, w != 0, sel != 0,
+                             per_factor))):
+            acc[j] = [x + y for x, y in zip(acc[j], part)]
+    for i, terms in enumerate(base or ()):
+        for t in terms:
+            acc[2][i] = acc[2][i] + t.double().abs()
+            acc[3][i] = acc[3][i] + (t != 0).double()
+    eps = torch.finfo(torch.float32).eps
+    return [(m + VIO_TERM_ROUNDINGS) * eps * S + (k - q).abs()
+            for k, q, S, m in zip(*acc)]
+
+
+def vio_within(lab, got, want, bound) -> float:
+    """Checks got (the kernel's) against want (the plain version's): the
+    same shape, finite, every entry within its bound -> the largest
+    share of its bound an entry takes."""
+    import torch
+
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"vio_factors {lab}: shape {tuple(got.shape)} or non-finite")
+    err = (got.double() - want.double()).abs()
+    bad = err > bound
+    if bool(bad.any()):
+        i = int(torch.where(bad, err, -1.0).argmax())
+        check(False, f"vio_factors {lab}: {int(bad.sum())} entries beyond "
+              f"their bound; entry {i}: {float(err.flatten()[i]):.3g} "
+              f"against {float(bound.flatten()[i]):.3g}")
+    share = torch.where(bound > 0, err / bound.clamp(min=1e-300), 0.0)
+    return float(share.max())
+
+
+def own_columns(sel):
+    """(F, n, n) 0/1: the record's columns of each factor, its tangent
+    columns as they are, or where both halves reach the same state
+    columns (a keyframe joined to itself) column c + n/2 added to column
+    c and columns n/2.. zero (as the kernel forms its products)."""
+    import torch
+
+    F, n, _ = sel.shape
+    h = n // 2
+    own = (sel[:, :h] == sel[:, h:]).flatten(1).all(1)
+    M = torch.eye(n, device=sel.device).repeat(F, 1, 1)
+    M[own, h:, :h] = torch.eye(h, device=sel.device)
+    M[own, h:, h:] = 0.0
+    return M
+
+
+def check_vio_factors(p, repeats=2, graph_replays=0) -> dict:
+    """vio_factors (one prepared VioFactors, `repeats` launches) on the
+    problem's vision block (ba_linearize's kf-blocked system) against
+    vio_factors_reference on the same inputs: the launches bit-equal,
+    records included; every J and r entry equal or 1 ulp apart or within
+    VIO_J_FLOOR of its table's largest |J|; every entry of each factor's
+    record ((w J)^T J, (w J)^T r, w |r|^2) against the plain version's
+    float32 products of its J and r, and every entry of H, g and the cost
+    against the plain version's, within vio_sum_bounds' bound of that
+    entry's own terms; the arrival counter at 0 after each launch, and
+    `graph_replays` replays of a CUDA graph of the call bit-equal to the
+    launches -> a report (errors, shares of the bounds, counts, and fn /
+    plain / nbytes / ops_s for phase 8)."""
+    import torch
+
+    from mcslam_tpu_torch import _build
+    from mcslam_tpu_torch.backend import ba, ba_vio, vio_cuda
+    from mcslam_tpu_torch.utils import graphs
+
+    dev = p.poses.device
+    K = p.poses.shape[0]
+    sys_ = ba._blocked_system(ba_vio._vision_problem(p), 2.5)
+    (Hpp, gp, *_), vcost, _ = sys_((p.poses, p.landmarks), p.obs.valid)
+    state = (p.poses, p.vels, p.biases, p.E_T_V)
+    args = (*state, Hpp, gp, vcost)
+    prep = vio_cuda.VioFactors(p)
+    counter = graphs.counters("vio_factors", 1, dev)
+    before = _build.LAUNCHES.get("vio_factors", 0)
+    outs = []
+    for _ in range(repeats):
+        out = prep(*args)
+        outs.append((*out, vio_cuda.record_views(prep.scratch, prep.counts)))
+        torch.cuda.synchronize()
+        check(int(counter[0]) == 0, "vio_factors: the arrival counter is "
+              "not back at 0 after a launch")
+    launches = _build.LAUNCHES.get("vio_factors", 0) - before
+
+    def flat(o):
+        return [*o[:3], *(t for rec in o[3].values() for t in rec)]
+
+    k = outs[0]
+    for o in outs[1:]:
+        check(all(same_bits(a, b) for a, b in zip(flat(k), flat(o))),
+              "vio_factors: two launches differ")
+    ref = vio_cuda.vio_factors_reference(p, *args)
+    plain = vio_cuda.factors_reference(p, *state)
+    rep = dict(launches=launches, tables={}, used={})
+    check(list(plain) == list(k[3]), f"vio_factors: tables {list(k[3])}, "
+          f"the plain version's {list(plain)}")
+    pairs = []
+    for name, (J, r, w, sel) in plain.items():
+        Jk, rk, *rec = k[3][name]
+        scale = float(J.abs().max())
+        row = {}
+        for lab, a, b in (("J", Jk, J), ("r", rk, r)):
+            u = f32_ulps(a, b)
+            diff = (a.double() - b.double()).abs()
+            bad = (u > 1) & (diff > VIO_J_FLOOR * scale)
+            row[lab] = dict(n=u.numel(), equal=int((u == 0).sum()),
+                            one_ulp=int((u == 1).sum()),
+                            floor=int(((u > 1) & ~bad).sum()),
+                            max_abs=float(diff.max()))
+            check(not bool(bad.any()), f"vio_factors {name} {lab}: "
+                  f"{int(bad.sum())} entries more than 1 ulp and "
+                  f"{VIO_J_FLOOR} x {scale:.3g} from the plain version's")
+        # the records against the plain version's float32 products of
+        # its own J and r in the record's columns
+        M = own_columns(sel)
+        Jm = J @ M
+        Jw = Jm * w[:, None, None]
+        want = (torch.einsum("fri,frj->fij", Jw, Jm),
+                torch.einsum("fri,fr->fi", Jw, r),
+                w * torch.sum(r * r, dim=-1))
+        bounds = vio_sum_bounds([((Jk, rk), (J, r), w, M)], per_factor=True)
+        row["records"] = {
+            lab: vio_within(f"{name} {lab}", a, b, t)
+            for lab, a, b, t in zip(("(wJ)^T J", "(wJ)^T r", "w |r|^2"),
+                                    rec, want, bounds)}
+        rep["tables"][name] = row
+        pairs.append(((Jk, rk), (J, r), w, sel))
+    E = vio_cuda.embedding(K, dev)
+    base = [(E @ Hpp @ E.T, p.prior_H), (E @ gp, p.prior_b), (vcost,)]
+    bounds = vio_sum_bounds(pairs, base=base)
+    rep["max_abs_err"], rep["rel"] = 0.0, {}
+    for lab, a, b, b0, t in zip(("H", "g", "cost"), k[:3], ref, base,
+                                bounds):
+        rep["used"][lab] = vio_within(lab, a, b, t)
+        # and the whole within VIO_FACTOR_TOL of the factor part
+        scale = float((b - sum(b0)).abs().max())
+        err = float((a.double() - b.double()).abs().max())
+        rep["rel"][lab] = err / max(scale, 1e-30)
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        check(err <= VIO_FACTOR_TOL * scale, f"vio_factors {lab}: max abs "
+              f"err {err:.3g} > {VIO_FACTOR_TOL} x {scale:.3g}")
+    if graph_replays:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            prep(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out = prep(*args)
+        g_out += (vio_cuda.record_views(prep.scratch, prep.counts),)
+        for _ in range(graph_replays):
+            graph.replay()
+            torch.cuda.synchronize()
+            check(all(same_bits(a, b) for a, b in zip(flat(g_out), flat(k))),
+                  "vio_factors: a graph replay differs from the launch")
+            check(int(counter[0]) == 0, "vio_factors: the arrival counter "
+                  "is not back at 0 after a graph replay")
+        rep["graph_replays"] = graph_replays
+    tables = [t for t in (p.imu, p.gps, p.between) if t is not None]
+    n_f64 = n_f32 = 0
+    for name in plain:
+        n, R = vio_cuda.SHAPES[name]
+        F = getattr(p, name).valid.shape[0]
+        # a lane per tangent column; per factor fl(w J), the product-sums
+        # of (w J)^T J and (w J)^T r, and w |r|^2
+        n_f64 += F * n * VIO_DUAL_OPS[name]
+        n_f32 += F * (3 * R * n * n + 3 * R * n + 2 * R + 1)
+    # every entry of H and g placed: two adds a term at most
+    N = K * vio_cuda.D + 6
+    n_f32 += 2 * (N * N + N)
+    rep.update(
+        fn=lambda: prep(*args),
+        plain=lambda: vio_cuda.vio_factors_reference(p, *args),
+        symbols=("vio_factors_kernel",), device_ops=1,
+        nbytes=sum(t.nbytes for t in (*args, p.prior_H, p.prior_b))
+        + sum(f.nbytes for t in tables for f in t) + sum(
+            t.nbytes for t in k[:3]),
+        ops_s=n_f64 / F64_OPS_PER_S + f32_ops_s(n_f32),
+        f64_ops=n_f64, f32_ops=n_f32)
+    return rep
+
+
+def vio_factor_kernels(dev, kernels):
+    """Phase 2, the VIO factor kernel: check_vio_factors on each of
+    VIO_FACTOR_CASES, with graph replays (the stage D problem with GPS
+    the table's entry, the others beside it)."""
+    recs = {}
+    for case in VIO_FACTOR_CASES:
+        rep = check_vio_factors(vio_factors_problem(dev, case),
+                                graph_replays=5)
+        tabs = "; ".join(
+            f"{name}: " + ", ".join(
+                f"{lab} {v['equal']}/{v['n']} equal, {v['one_ulp']} 1 ulp "
+                f"apart, {v['floor']} under the floor"
+                for lab, v in row.items() if lab in ("J", "r"))
+            + ", records " + ", ".join(
+                f"{lab} {v:.3g}" for lab, v in row["records"].items())
+            for name, row in rep["tables"].items())
+        print(f"# kernel vio_factors {case}: bitwise equal across two "
+              f"launches and {rep['graph_replays']} graph replays, records "
+              f"included, counter back at 0; vs the plain version {tabs}; "
+              f"H, g, cost "
+              + ", ".join(f"{lab} {v:.3g}" for lab, v in rep["used"].items())
+              + f" (records and H, g, cost: the largest share of an "
+              f"entry's bound); max abs err / largest factor-part entry "
+              + ", ".join(f"{lab} {v:.3g}" for lab, v in rep["rel"].items())
+              + "; "
+              f"float64 ops {rep['f64_ops']:.0f}, float32 ops "
+              f"{rep['f32_ops']:.0f}")
+        recs[case] = {key: rep[key] for key in (
+            "max_abs_err", "fn", "plain", "symbols", "device_ops", "nbytes",
+            "ops_s")}
+    main = recs.pop("imu+gps")
+    kernels["vio_factors"] = dict(
+        route="cuda", source="mcslam_tpu_torch/csrc/vio_factors.cu",
+        replaces="mcslam_tpu/backend/ba_vio.py:257-258,298-299,339-340",
+        at=recs, **main)
+
 def plateau_candidates(rng, C, L, G, ncx, dev):
     """fast_select-shaped candidates with few distinct values (ties
     everywhere, values with and without the rank bonus, zeros and -0.0),
@@ -2550,6 +2895,7 @@ def main() -> int:
     orb_kernels(scene, rng, dev, kernels)
     ransac_kernels(scene, dev, kernels)
     track_kernels(scene, dev, kernels)
+    vio_factor_kernels(dev, kernels)
     solve_problem = _window_solves(scene, dev)
     err_small = _small_scene_cpu_vs_cuda(dev)
     print(f"# reference check, 2-camera 192x144 frame on the kernels (CUDA) "
@@ -2680,7 +3026,9 @@ def main() -> int:
           "session: trajectory malformed or non-finite")
     check(ate <= MAX_ATE, f"session: ATE {ate:.4f} m > {MAX_ATE}")
     for n in PATH:
-        if n in PORTFOLIO:  # its launches: phase 3's forced-portfolio drive
+        # their launches: phase 3's forced-portfolio drive, phase 7's VIO
+        # session
+        if n in PORTFOLIO or n in VIO_KERNELS:
             continue
         check(launches[n] > 0 and wrapper.get(n, 0) > 0,
               f"kernel {n} was not launched on the main path")
@@ -2712,7 +3060,8 @@ def main() -> int:
     bootstrap_phase(scene, dev, kernels)
 
     # ---- phase 7: the visual-inertial and GPS path, launches counted ----
-    vio_problems, vio_eager = vio_phase(scene, dev, log_path=log_paths[1])
+    vio_problems, vio_eager = vio_phase(scene, dev, kernels,
+                                         log_path=log_paths[1])
 
     # ---- phase 9: loop closure and relocalization, launches counted ----
     loop_state = loop_phase(dev)
@@ -2997,20 +3346,26 @@ def _lla(p):
     return lat, lon, LLA0[2] + p[2]
 
 
+def _no_transform(*a, **kw):
+    raise AssertionError("a torch.func transform on the card's VIO path")
+
+
 def _imu_span(ts, t_prev, t):
     return (ts > t_prev) & (ts <= t)
 
 
-def vio_phase(scene, dev, log_path=None):
+def vio_phase(scene, dev, kernels, log_path=None):
     """Phase 7: (a) the stage D solve on the card under sync-debug
     "error" against the CPU, with and without GPS, warm and cold, with
-    ba_linearize launched inside it; (b) the VIO + GPS session through
+    ba_linearize and vio_factors launched once per linearization inside
+    it and no torch.func transform; (b) the VIO + GPS session through
     process_image (its graph log written to log_path if given); (c) the
     low-rate GPS dummy-keyframe drive. Each with the launch counters reset
     right before it and read right after; (b) runs eagerly first, and its
     graphed run's launches are counted in a device trace too. Returns the
     stage D problems on the card by GPS factor count and the eager
-    session's frame records."""
+    session's frame records, and sets the kernels' VIO_KERNELS launches
+    to (b)'s, counted in its device trace."""
     import torch
 
     from mcslam_tpu_torch import _build
@@ -3053,17 +3408,26 @@ def vio_phase(scene, dev, log_path=None):
             torch.cuda.synchronize()
             _build.LAUNCHES.clear()
             torch.cuda.set_sync_debug_mode("error")
+            # on the card the factors take no torch.func transform
+            transforms = (torch.func.vmap, torch.func.jacfwd)
+            torch.func.vmap = torch.func.jacfwd = _no_transform
             try:
                 t0 = time.perf_counter()
                 res = ba_vio.vio_solve(p_dev, iters=iters, kf_blocked=True)
                 enqueue_ms = (time.perf_counter() - t0) * 1e3
             finally:
                 torch.cuda.set_sync_debug_mode(0)
+                torch.func.vmap, torch.func.jacfwd = transforms
             t0 = time.perf_counter()
             torch.cuda.synchronize()
             wait_ms = (time.perf_counter() - t0) * 1e3
             n_lin = _build.LAUNCHES.get("ba_linearize", 0)
-            check(n_lin > 0, f"vio_solve {name}: ba_linearize not launched")
+            n_vf = _build.LAUNCHES.get("vio_factors", 0)
+            # ba.lm_schedule: one linearization, then one per step
+            check(n_lin == n_vf == 1 + 2 * iters,
+                  f"vio_solve {name}: ba_linearize launched {n_lin} and "
+                  f"vio_factors {n_vf} times, not once per linearization "
+                  f"({1 + 2 * iters})")
             err = {k: float((getattr(res, k).cpu() - getattr(ref, k)).abs()
                             .max()) for k in VIO_TOL}
             moved = float((ref.poses - p_cpu.poses).abs().max())
@@ -3072,7 +3436,8 @@ def vio_phase(scene, dev, log_path=None):
             print(f"# vio_solve {name} ({iters} x 2) K=6 Ok=1365 L=2048 C=4, "
                   f"{num_gps} GPS factors: queued with no host sync in "
                   f"{enqueue_ms:.2f} ms, then {wait_ms:.2f} ms to finish; "
-                  f"ba_linearize launched {n_lin} times; card vs CPU max abs "
+                  f"ba_linearize and vio_factors launched {n_lin} times "
+                  f"each; card vs CPU max abs "
                   f"err {err} (the solve moved the poses {moved:.3g}); cost "
                   f"{float(res.cost):.6g} card, {float(ref.cost):.6g} CPU")
             for k, tol in VIO_TOL.items():
@@ -3124,6 +3489,8 @@ def vio_phase(scene, dev, log_path=None):
     for n in PATH:
         check(n in PORTFOLIO or (traced[n] > 0 and launches.get(n, 0) > 0),
               f"kernel {n} was not launched in the VIO session")
+    for n in VIO_KERNELS:
+        kernels[n]["launches"] = traced[n]
     progs = vio_programs(slam)
     n_solves = slam.stats["window_ba_vio"]
     n_cold = n_solves - len(patterns)
@@ -3835,11 +4202,19 @@ def vio_timing(scene, problems, smi, graphed, eager_times):
                     ("graphed", lambda p=p, iters=iters:
                      graphed._replay_vio_solve(p, iters))):
                 ms = cuda_ms(solve, reps=5, warmup=1)
-                dev_ms, n_ops, _ = device_profile(solve)
+                dev_ms, n_ops, vf_ms = device_profile(
+                    solve, names=("vio_factors_kernel",))
+                # one ba_linearize and one vio_factors a linearization
+                n_lin = 1 + 2 * iters
+                _, got = traced_launches(solve, lambda _, n_lin=n_lin: {
+                    n: n_lin if n in ("ba_linearize", "vio_factors") else 0
+                    for n in PATH})
                 print(f"# time vio_solve {name} ({iters} x 2), {num_gps} GPS "
                       f"factors, {how}: {ms:.3f} ms by CUDA events; "
                       f"profiler: {dev_ms:.3f} ms device time in {n_ops:.0f} "
-                      f"device ops ({smi})")
+                      f"device ops, vio_factors {got['vio_factors']} launches "
+                      f"in the trace ({vf_ms:.4f} ms of device time), "
+                      f"ba_linearize {got['ba_linearize']} ({smi})")
     check(len(vio_programs(graphed)) == n_progs,
           "phase 8's stage D problems captured new VIO programs")
     _, _, times, init_at = vio_session(scene)
@@ -5475,7 +5850,8 @@ TRACE_NAMES = {"fast_select": "fast_select_kernel",
                "kabsch_hyp": "kabsch_hyp_kernel",
                "pnp_hyp": "pnp_hyp_kernel",
                **{n: f"{n}_kernel" for n in TRACK_KERNELS},
-               **{n: f"{n}_kernel" for n in INTRA_GLUE}}
+               **{n: f"{n}_kernel" for n in INTRA_GLUE},
+               **{n: f"{n}_kernel" for n in VIO_KERNELS}}
 PATH = tuple(TRACE_NAMES)
 # degrees of yaw tried, in order, for a prediction off the fast path (on
 # an NVIDIA H100 the first that takes frame 2 off it is 18)

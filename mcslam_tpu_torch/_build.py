@@ -50,12 +50,14 @@ SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
                 "kabsch_hyp": ["-fmad=false"],
                 "pnp_hyp": ["-fmad=false"],
                 "track_glue": ["-fmad=false"],
-                "intra_glue": ["-fmad=false"]}
+                "intra_glue": ["-fmad=false"],
+                "vio_factors": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
+D = ctypes.c_double
 
 # C signature of every exported launcher: (argtypes); restype is int.
 SIGNATURES = {
@@ -144,6 +146,10 @@ SIGNATURES = {
     # ray_idx, valid, xy, sigma2, uv, sigma, mask, anchor_cam, uv_ref,
     # anchor_sigma2, n_rays, multi & valid, M, C, N, stream
     "mc_tri_gather": [P] * 12 + [I] * 3 + [P],
+    # a host table of 39 device pointers (the state, the vision block, the
+    # prior, the three factor tables' fields, the outputs, the scratch and
+    # the counter: csrc/vio_factors.cu Args), K, F, G, B, g_norm, stream
+    "mc_vio_factors": [P, I, I, I, I, D, P],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

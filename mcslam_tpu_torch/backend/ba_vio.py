@@ -14,18 +14,19 @@ last column block of the dense pose-side system, N = K * D + 6.
   blocks into the N layout exactly: no scatter, no atomics.
 - IMU factors couple two keyframes' 15-dof states, GPS factors one pose
   and E_T_V, between factors two poses. Their residuals are whitened
-  functions of the states; the Jacobians on the factors' tangents come
-  from torch.func.jacfwd under vmap, in float64 (float32 jacfwd gives
-  float64 tangents for ops with a Python scalar, e.g. so3_exp's
-  t2 / 6.0, and a float32 matmul with them fails), cast back to float32.
-- A factor's Jacobian is placed into the N columns by a constant 0/1
-  selection matrix built once per solve, by one scatter, from the index
-  columns (`ImuFactors.i/j`, `GpsFactors.kf`, `BetweenFactors.i/j`:
-  int32 tensors on the problem's device, uploaded with the tables'
-  other fields), and the factors' states are gathered by index_select.
-  So the index columns are inputs like any other tensor: one captured
-  program (driver_window._replay_vio_solve) serves every index pattern
-  of its shapes. Padded factors carry weight 0.
+  functions of the states. backend/vio_cuda.VioFactors (made once per
+  solve) adds their w J^T J, w J^T r and w |r|^2 to the vision block and
+  the prior: on CUDA tensors one vio_factors launch per linearization
+  (the Jacobians by forward-mode duals in float64, each factor placed at
+  its states' columns); on CPU tensors the plain version
+  (vio_cuda.vio_factors_reference, the residuals and their
+  torch.func.jacfwd Jacobians there too).
+- Both read the index columns (`ImuFactors.i/j`, `GpsFactors.kf`,
+  `BetweenFactors.i/j`: int32 tensors on the problem's device, uploaded
+  with the tables' other fields) from device memory, so they are inputs
+  like any other tensor: one captured program
+  (driver_window._replay_vio_solve) serves every index pattern of its
+  shapes. Padded factors carry weight 0.
 - The damped Schur step and the final marginal reuse backend/ba's
   landmark elimination and solve, in float64 (the JAX package solves in
   float32; the priors reach 1e8 against 1e-2 information entries).
@@ -46,6 +47,7 @@ import torch
 
 from mcslam_tpu_torch.backend import ba
 from mcslam_tpu_torch.backend import imu as imu_mod
+from mcslam_tpu_torch.backend import vio_cuda
 from mcslam_tpu_torch.geometry import lie
 
 D = 15  # per-keyframe state dims
@@ -205,94 +207,6 @@ def _unflatten(flat, present, g_norm: float) -> VioProblem:
     return VioProblem(**fields)
 
 
-# -- factor residuals ---------------------------------------------------------
-# Each takes the stacked tangent x of the states it touches and the
-# factor's tensors, with any leading batch dims (a single factor under
-# vmap, or all factors at once), and returns the whitened residual.
-
-
-def _retract_state(pose, vel, bias, xi):
-    return (lie.se3_retract(pose, xi[..., :6]), vel + xi[..., 6:9],
-            bias + xi[..., 9:15])
-
-
-def _imu_residual(x, Ti, vi, bi, Tj, vj, bj, dR, dv, dp, dt, dR_dbg, dv_dbg,
-                  dv_dba, dp_dbg, dp_dba, bias_hat, sqrt_info, g_norm):
-    """15-dim whitened residual of an IMU factor at the states retracted
-    by x = [xi_i (15), xi_j (15)]."""
-    pre = imu_mod.Preintegrated(
-        dR=dR, dv=dv, dp=dp, dt=dt, dR_dbg=dR_dbg, dv_dbg=dv_dbg,
-        dv_dba=dv_dba, dp_dbg=dp_dbg, dp_dba=dp_dba, cov=None,
-        bias_hat=bias_hat, n_samples=None)
-    si = imu_mod.ImuState(*_retract_state(Ti, vi, bi, x[..., :D]))
-    sj = imu_mod.ImuState(*_retract_state(Tj, vj, bj, x[..., D:]))
-    r = imu_mod.residual(si, sj, pre, imu_mod.ImuParams(g_norm=g_norm))
-    return lie._apply_mat(sqrt_info, r)
-
-
-def _gps_residual(x, pose, E_T_V, enu, t_bg):
-    """3-dim residual E_T_V (pose t_bg) - enu at x = [xi_pose, xi_E]."""
-    p_world = lie.se3_apply(lie.se3_retract(pose, x[..., :6]), t_bg)
-    return lie.se3_apply(lie.se3_retract(E_T_V, x[..., 6:]), p_world) - enu
-
-
-def _between_residual(x, Ti, Tj, rel, sigma_rot, sigma_trans):
-    """6-dim whitened log(rel^-1 T_i^-1 T_j) at x = [xi_i, xi_j]."""
-    Pi = lie.se3_retract(Ti, x[..., :6])
-    Pj = lie.se3_retract(Tj, x[..., 6:])
-    r6 = lie.se3_log(lie.se3_inverse(rel) @ (lie.se3_inverse(Pi) @ Pj))
-    w = torch.cat([
-        (1.0 / torch.clamp(sigma_rot, min=1e-6))[..., None].expand(
-            *sigma_rot.shape, 3),
-        (1.0 / torch.clamp(sigma_trans, min=1e-6))[..., None].expand(
-            *sigma_trans.shape, 3)], dim=-1)
-    return r6 * w
-
-
-class _Factor:
-    """One factor table prepared for a solve: its residual function, its
-    weights and the selection matrix (F, n, N) that places each factor's
-    n tangent columns at its states' columns of the dense system.
-    `starts` lists, in the order of the tangent's columns, (first column,
-    size) blocks; a first column is an int (every factor's) or a tensor
-    of one per factor."""
-
-    def __init__(self, fn, weight, starts, N):
-        self.fn, self.weight = fn, weight
-        F, dev = weight.shape[0], weight.device
-        n = sum(size for _, size in starts)
-        cols = torch.cat([
-            (c0.long()[:, None] if isinstance(c0, torch.Tensor)
-             else torch.full((F, 1), c0, dtype=torch.long, device=dev))
-            + torch.arange(size, device=dev) for c0, size in starts],
-            dim=1)  # (F, n): each tangent column's state column
-        self.sel = torch.zeros(F, n, N, dtype=torch.float32,
-                               device=dev).scatter_(2, cols[:, :, None], 1.0)
-
-    def linearize(self, *args):
-        """(weighted cost, H (N, N), g (N,)) of the table at the states in
-        args (the tangent is 0): Jacobians by jacfwd in float64."""
-        def f(x, *a):
-            r = self.fn(x, *a)
-            return r, r
-
-        a64 = [a.double() for a in args]
-        z = torch.zeros(a64[0].shape[0], self.sel.shape[1],
-                        dtype=torch.float64, device=a64[0].device)
-        J, r = torch.func.vmap(torch.func.jacfwd(f, has_aux=True))(z, *a64)
-        J, r = J.float() @ self.sel, r.float()
-        Jw = J * self.weight[:, None, None]
-        return (torch.sum(self.weight * torch.sum(r * r, dim=-1)),
-                torch.einsum("fri,frj->ij", Jw, J),
-                torch.einsum("fri,fr->i", Jw, r))
-
-    def cost(self, *args):
-        r = self.fn(torch.zeros(args[0].shape[0], self.sel.shape[1],
-                                dtype=args[0].dtype, device=args[0].device),
-                    *args)
-        return torch.sum(self.weight * torch.sum(r * r, dim=-1))
-
-
 def _vision_problem(problem: VioProblem) -> ba.BAProblem:
     """The vision block as a BAProblem with zero priors."""
     K = problem.poses.shape[0]
@@ -305,42 +219,6 @@ def _vision_problem(problem: VioProblem) -> ba.BAProblem:
         kf_valid=problem.kf_valid)
 
 
-def _factors(p: VioProblem, N: int) -> list:
-    """[(factor, args)] of the problem's factor tables: args(poses, vels,
-    biases, E_T_V) gives the factor residual's tensor arguments at a
-    state."""
-    K = p.poses.shape[0]
-    out = []
-    if p.imu is not None:
-        fi = p.imu
-        out.append((_Factor(
-            lambda x, *a: _imu_residual(x, *a, p.g_norm), fi.valid.float(),
-            [(fi.i * D, D), (fi.j * D, D)], N),
-            lambda P, V, B, E: (
-                *(t.index_select(0, fi.i) for t in (P, V, B)),
-                *(t.index_select(0, fi.j) for t in (P, V, B)), fi.dR, fi.dv,
-                fi.dp, fi.dt, fi.dR_dbg, fi.dv_dbg, fi.dv_dba, fi.dp_dbg,
-                fi.dp_dba, fi.bias_hat, fi.sqrt_info)))
-    if p.gps is not None:
-        gf = p.gps
-        G = gf.kf.shape[0]
-        out.append((_Factor(
-            _gps_residual,
-            gf.valid.float() / torch.clamp(gf.sigma, min=1e-3) ** 2,
-            [(gf.kf * D, 6), (K * D, 6)], N),
-            lambda P, V, B, E: (P.index_select(0, gf.kf), E.expand(G, 4, 4),
-                                gf.enu, gf.t_bg.expand(G, 3))))
-    if p.between is not None:
-        fb = p.between
-        out.append((_Factor(
-            _between_residual, fb.valid.float(),
-            [(fb.i * D, 6), (fb.j * D, 6)], N),
-            lambda P, V, B, E: (P.index_select(0, fb.i),
-                                P.index_select(0, fb.j), fb.rel,
-                                fb.sigma_rot, fb.sigma_trans)))
-    return out
-
-
 class _System:
     """Everything of a VIO problem that is constant over a solve, and its
     linearization at a state."""
@@ -351,16 +229,13 @@ class _System:
         dev = p.poses.device
         K = p.poses.shape[0]
         self.K, self.N = K, K * D + 6
-        self.problem = p
         # the vision block: ba's system of either layout on the zero-prior
         # BAProblem view; its state is (poses, landmarks)
         self.vision = (ba._blocked_system if kf_blocked
                        else ba._generic_system)(_vision_problem(p), huber_px)
         # E (N, K*6): pose block k of the vision system -> rows k*D..k*D+5
-        self.E = torch.zeros(self.N, K * 6, dtype=torch.float32, device=dev)
-        for k in range(K):
-            self.E[k * D:k * D + 6, k * 6:k * 6 + 6].diagonal().fill_(1.0)
-        self.factors = _factors(p, self.N)
+        self.E = vio_cuda.embedding(K, dev)
+        self.factors = vio_cuda.VioFactors(p, self.E)
 
     def __call__(self, state, obs_valid):
         """-> ((H (N, N), g (N,), Hll (L, 3, 3), gl (L, 3), Wc (K, 6, L,
@@ -368,11 +243,7 @@ class _System:
         poses, vels, biases, lms, ETV = state
         (Hpp, gp, Hll, gl, Wc), cost, r = self.vision((poses, lms),
                                                       obs_valid)
-        H = self.E @ Hpp @ self.E.T + self.problem.prior_H
-        g = self.E @ gp + self.problem.prior_b
-        for fac, args in self.factors:
-            c_f, H_f, g_f = fac.linearize(*args(poses, vels, biases, ETV))
-            cost, H, g = cost + c_f, H + H_f, g + g_f
+        H, g, cost = self.factors(poses, vels, biases, ETV, Hpp, gp, cost)
         return (H, g, Hll, gl, Wc), cost, r
 
     def rows(self, Wc):
@@ -404,7 +275,7 @@ def _vio_cost(problem: VioProblem, huber_px: float) -> torch.Tensor:
     residuals by the plain path)."""
     p = problem
     cost = ba._total_cost(_vision_problem(p), huber_px)
-    for fac, args in _factors(p, p.poses.shape[0] * D + 6):
+    for fac, args in vio_cuda.factors(p, p.poses.shape[0] * D + 6):
         cost = cost + fac.cost(*args(p.poses, p.vels, p.biases, p.E_T_V))
     return cost
 

@@ -43,22 +43,28 @@ landmark, at C = 3, M = N = 2048, L = 4096 with none with a landmark, at
 C = 4, M = N = 2048, L = 4096 with no previous feature with a landmark
 and at C = 3, M = 97, N = 130, L = 50 with the map rows behind the
 cameras, each eagerly and through graph replays, track_epilogue's
-packed vector a buffer of its own. Every buffer a wrapper allocates (its
+packed vector a buffer of its own; vio_factors (csrc/vio_factors.cu) at
+chip_smoke.py phase 2's problems (three at stage D, one at K = 12 with
+the last block's accumulators in the scratch, one with 60 IMU slots and
+its records read from L2), with GPS factors only and with no factor
+table, each eagerly and through graph replays, its records and its
+arrival counter guarded too. Every buffer a wrapper allocates (its
 outputs and its scratch, ransac_score's bit rows too) is placed inside
 a slab of canary bytes, PAD bytes on each side, the canary alternating from launch to
 launch (fixed in a graph, whose capture holds the slabs' filling), and
-so are intra_pairs', orb_select's, ransac_score's and track_epilogue's
-per-device buffers of arrival counters (ransac_score's K count
+so are intra_pairs', orb_select's, ransac_score's, track_epilogue's and
+vio_factors' per-device buffers of arrival counters (ransac_score's K count
 accumulators and track_epilogue's 64-bit counter of its two counts).
 After every launch it checks that no canary byte changed (a write out
 of bounds), that the counters are back at zero, that no input changed
 (a write into an input), and that the outputs equal the first launch's
-and, but for pose_lm's and the RANSAC kernels', which round in another
+and, but for pose_lm's, the RANSAC kernels' and vio_factors', which round in another
 order, the plain version's bit for bit (a race or an unwritten output
 shows as a difference). Run from the repository's
 root on a machine with a card and nvcc:
 
     python3 scripts/kernel_guard.py [--reps 50] [--quick] [--sanitize]
+        [--groups frame intra_glue orb pose ransac track vio]
 
 --quick leaves out the bench scene (random problems only, R = 4 with an
 expanded pose table too, and the graph replays of intra_pairs at a
@@ -135,7 +141,8 @@ def guarded_counters(fn, dev, canary: int, found: list, args=()):
                                          orb_cuda.SELECT_CAMERAS),
                    ransac_cuda.score: ("ransac_score",
                                        args[0].shape[0] + 1 if args else 1),
-                   track_epilogue: ("track_epilogue", 2)
+                   track_epilogue: ("track_epilogue", 2),
+                   vio_factors_call: ("vio_factors", 1)
                    }.get(fn, (None, 0))
     if name is None:
         yield
@@ -352,10 +359,36 @@ def orb_cases(quick: bool, dev, rng, seen):
     return out
 
 
-def cases(quick: bool, dev):
+GROUPS = ("frame", "intra_glue", "orb", "pose", "ransac", "track", "vio")
+
+
+def cases(quick: bool, dev, groups=GROUPS):
     """(name, kernel, args, kwargs, plain, through a graph) at phase 2's
-    shapes."""
+    shapes, of the kernel groups named."""
     import numpy as np
+
+    rng = np.random.RandomState(0)
+    out = frame_cases(quick, dev, rng, "orb" in groups) \
+        if "frame" in groups or "orb" in groups else ([], None)
+    out, orb_seen = out
+    if "frame" not in groups:
+        out = []
+    for name, make in (("intra_glue", lambda: intra_glue_cases(quick, dev,
+                                                                rng)),
+                       ("orb", lambda: orb_cases(quick, dev, rng, orb_seen)),
+                       ("pose", lambda: pose_cases(dev, rng)),
+                       ("ransac", lambda: ransac_cases(quick, dev, rng)),
+                       ("track", lambda: track_cases(quick, dev, rng)),
+                       ("vio", lambda: vio_cases(dev))):
+        if name in groups:
+            out += make()
+    return out
+
+
+def frame_cases(quick: bool, dev, rng, orb: bool):
+    """tri_refine's and intra_pairs' cases, and bench frame 0's recorded
+    ORB calls (not --quick, where `orb`) -> (cases, the ORB calls)."""
+    import chip_smoke as cs
 
     import chip_smoke as cs
     from mcslam_tpu_torch.frontend import frame, intra_cuda
@@ -367,7 +400,6 @@ def cases(quick: bool, dev):
     intra = intra_cuda.intra_pairs
     intra_plain = intra_cuda.intra_pairs_reference
     ik = dict(max_dist=cs.STEP["max_dist"], ratio=cs.STEP["ratio"])
-    rng = np.random.RandomState(0)
     out, orb_seen = [], None
     if quick:
         a, s = cs.tri_problem(rng, 2048, cs.C, dev)
@@ -378,9 +410,10 @@ def cases(quick: bool, dev):
         scene = cs.Scene(dev, frames=1)
         seen = cs.capture_calls(lambda: frame.build_frame(
             scene.imgs[0], scene.rig, **scene.frame_kwargs()))
-        orb_seen = cs.capture_calls(lambda: frame.build_frame(
-            scene.imgs[0], scene.rig, **scene.frame_kwargs()), {
-                n: (orb_cuda, n) for n in cs.ORB_KERNELS})
+        if orb:
+            orb_seen = cs.capture_calls(lambda: frame.build_frame(
+                scene.imgs[0], scene.rig, **scene.frame_kwargs()), {
+                    n: (orb_cuda, n) for n in cs.ORB_KERNELS})
         a, kw = seen["tri_refine"]
         cs.check(a[0].stride(0) == 0, "the frame's pose table is not expanded")
         out.append(("tri_refine M=2048 R=4 (bench frame 0, expanded poses)",
@@ -406,9 +439,7 @@ def cases(quick: bool, dev):
     if quick:
         out.append(("intra_pairs C=4 N=768 (random, graph replays)", intra,
                     out[-4][2], ik, intra_plain, True))
-    return (out + intra_glue_cases(quick, dev, rng)
-            + orb_cases(quick, dev, rng, orb_seen) + pose_cases(dev, rng)
-            + ransac_cases(quick, dev, rng) + track_cases(quick, dev, rng))
+    return out, orb_seen
 
 
 def intra_glue_cases(quick: bool, dev, rng):
@@ -636,6 +667,44 @@ def ransac_cases(quick: bool, dev, rng):
     return out
 
 
+def vio_factors_call(poses, vels, biases, E_T_V, Hpp, gp, cost, problem):
+    """vio_factors on a VioFactors prepared in the call (so that it takes
+    the guarded counter) -> (H, g, cost, the factors' records)."""
+    from mcslam_tpu_torch.backend import vio_cuda
+
+    prep = vio_cuda.VioFactors(problem)
+    out = prep(poses, vels, biases, E_T_V, Hpp, gp, cost)
+    return (*out, vio_cuda.record_views(prep.scratch, prep.counts))
+
+
+def vio_cases(dev):
+    """vio_factors at phase 2's problems (chip_smoke.VIO_FACTOR_CASES:
+    the stage D windows, K = 12 with the last block's accumulators in
+    the scratch, 60 IMU slots with the records read from L2), with only
+    GPS factors, and with no factor table (the vision block and the prior
+    placed alone); each eagerly and through graph replays. No plain
+    version to hold it to bit for bit (chip_smoke.py phase 2 holds it to
+    its criteria): the launches must equal the first."""
+    import chip_smoke as cs
+    from mcslam_tpu_torch.backend import ba, ba_vio
+
+    probs = [(case, cs.vio_factors_problem(dev, case))
+             for case in cs.VIO_FACTOR_CASES]
+    stage_d = dict(probs)
+    probs += [("gps only", stage_d["imu+gps"]._replace(imu=None)),
+              ("no tables", stage_d["imu"]._replace(imu=None))]
+    out = []
+    for case, p in probs:
+        sys_ = ba._blocked_system(ba_vio._vision_problem(p), 2.5)
+        (Hpp, gp, *_), cost, _ = sys_((p.poses, p.landmarks), p.obs.valid)
+        a = (p.poses, p.vels, p.biases, p.E_T_V, Hpp, gp, cost)
+        for graphed in (False, True):
+            out.append((f"vio_factors {case}"
+                        f"{' (graph replays)' if graphed else ''}",
+                        vio_factors_call, a, dict(problem=p), None, graphed))
+    return out
+
+
 def pose_cases(dev, rng):
     """pose_lm at phase 2's B = 1 and 2 candidates of M = 2048
     observations and at B = 3, M = 333 (a short last slice). No plain
@@ -697,6 +766,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--sanitize", action="store_true")
+    ap.add_argument("--groups", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="the kernel groups to guard (default: all)")
     opt = ap.parse_args()
 
     import torch
@@ -709,7 +780,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.library()
     fails = []
-    for name, fn, args, kw, plain, graphed in cases(opt.quick, dev):
+    for name, fn, args, kw, plain, graphed in cases(opt.quick, dev,
+                                                    opt.groups):
         if graphed:
             fails += guard_graph(name, fn, args, kw, plain, opt.reps)
         else:

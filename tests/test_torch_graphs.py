@@ -310,9 +310,9 @@ def test_trace_counts_each_wrapper_once():
     """chip_smoke counts a replay's launches in the device trace: one
     event per wrapper call (hamming_argmin2 by its merge kernel,
     intra_pairs, orb_pyramid (at the main path's shapes), orb_select, the
-    three RANSAC kernels, the four tracking glue kernels and the three
-    intra glue kernels by their one kernel; other kernels, copies and the
-    trace's sentinels count nothing)."""
+    three RANSAC kernels, the four tracking glue kernels, the three
+    intra glue kernels and vio_factors by their one kernel; other
+    kernels, copies and the trace's sentinels count nothing)."""
     import types
 
     import chip_smoke
@@ -337,6 +337,7 @@ def test_trace_counts_each_wrapper_once():
         "(anonymous namespace)::intra_gate_kernel(float const*)",
         "(anonymous namespace)::intra_groups_kernel(int const*)",
         "(anonymous namespace)::tri_gather_kernel(int const*)",
+        "(anonymous namespace)::vio_factors_kernel(Args)",
         "mc_set_cond_kernel", "Memcpy HtoD (Pinned -> Device)",
         "at::cuda::(anonymous namespace)::spin_kernel(long)")]
     assert chip_smoke.trace_counts(events) == dict(
@@ -344,7 +345,7 @@ def test_trace_counts_each_wrapper_once():
         orb_describe=1, hamming_argmin2=1, pose_lm=1, ba_linearize=1,
         tri_refine=1, intra_pairs=1, ransac_score=1, kabsch_hyp=1,
         pnp_hyp=1, track_gate=1, track_epilogue=1, localmap_gate=1,
-        localmap_epilogue=1, intra_gate=1, intra_groups=1, tri_gather=1)
+        localmap_epilogue=1, intra_gate=1, intra_groups=1, tri_gather=1, vio_factors=1)
     assert chip_smoke.PATH == tuple(chip_smoke.TRACE_NAMES)
 
 
