@@ -408,10 +408,13 @@ LLA0 = (42.36, -71.06, 10.0)
 # problem of phase 7 (a) without GPS, with VIO_GPS GPS factors, and with
 # them and a between table (a random constraint, one at so3_log's small
 # branch, one joining a keyframe to itself, one invalid); at K = 12 with
-# 11 IMU and 12 GPS factors (N = 186: the last block's accumulators do
-# not fit in its shared memory and live in the scratch); and with 60 IMU
-# slots, 55 of them padding (the records do not fit beside the
-# accumulators and are read from L2). check_vio_factors holds each to the
+# 11 IMU and 12 GPS factors (N = 186: three factors a block of the
+# cluster, 24 rows a band); and with 60 IMU slots, 55 of them padding
+# (nine factors a block, so a warp takes two; the copies of every
+# factor's blocks would exceed a block's shared memory, so they are read
+# from the scratch, L2, and each entry's start is loaded when it is
+# placed, as in a window too large for shared memory). check_vio_factors
+# holds each to the
 # plain version: J and r of every factor equal or 1 float32 ulp apart, or
 # within VIO_J_FLOOR of the table's largest |J| (a float64 rounding
 # residue cast to float32); every entry of the factors' records and of
@@ -431,11 +434,15 @@ VIO_FACTOR_TOL, VIO_J_FLOOR = 1e-6, 2.0 ** -40
 # sum's own: fl(w J_a), its product with J_b (or r), the merge of a
 # keyframe's own columns into J_a and J_b, and w (GPS: 1 / sigma^2)
 VIO_TERM_ROUNDINGS = 5
-# float64 operations (+ - * / sqrt sin cos atan2, one each) of one lane,
-# one tangent direction, of csrc/vio_dual.cuh's residuals at generic
+# float64 operations (+ - * / sqrt sin cos atan2 sincos, one each) of one
+# lane, one tangent direction, of csrc/vio_dual.cuh's residuals at generic
 # states (tests/test_torch_vio_kernels.py counts them with its host build);
 # a factor takes one lane per tangent column (30 IMU, 12 GPS / between)
-VIO_DUAL_OPS = dict(imu=3067, gps=1746, between=2549)
+VIO_DUAL_OPS = dict(imu=1555, gps=234, between=1036)
+# and the lane's critical path: (the depth of its deepest output, each
+# result one deeper than its deepest input; the long-latency operations
+# / sqrt sin cos atan2 sincos on that chain), counted by the same build
+VIO_DUAL_DEPTH = dict(imu=(50, 4), gps=(14, 0), between=(45, 3))
 # float64 at 34 TFLOP/s without the tensor cores (NVIDIA's H100 SXM data
 # sheet), each operation counted as one
 F64_OPS_PER_S = 34e12
@@ -742,7 +749,8 @@ REDESIGNED = {"pose_lm_cluster_kernel": "pose_lm_cluster_kernel",
               "kabsch_hyp_kernel": "kabsch_hyp_kernel",
               "pnp_hyp_kernel": "pnp_hyp_kernel",
               **{f"{n}_kernel": f"{n}_kernel" for n in TRACK_KERNELS},
-              **{f"{n}_kernel": f"{n}_kernel" for n in INTRA_GLUE}}
+              **{f"{n}_kernel": f"{n}_kernel" for n in INTRA_GLUE},
+              "vio_factors_kernel": "vio_factors_kernel"}
 # of those, the ones that must use no local memory and spill nothing
 NO_LOCAL = ("pose_lm_cluster_kernel", "fast_select_kernel",
             "fast_corners_kernel<true>", "fast_corners_kernel<false>",
@@ -2429,15 +2437,14 @@ def check_vio_factors(p, repeats=2, graph_replays=0) -> dict:
     record ((w J)^T J, (w J)^T r, w |r|^2) against the plain version's
     float32 products of its J and r, and every entry of H, g and the cost
     against the plain version's, within vio_sum_bounds' bound of that
-    entry's own terms; the arrival counter at 0 after each launch, and
-    `graph_replays` replays of a CUDA graph of the call bit-equal to the
-    launches -> a report (errors, shares of the bounds, counts, and fn /
-    plain / nbytes / ops_s for phase 8)."""
+    entry's own terms; and `graph_replays` replays of a CUDA graph of the
+    call bit-equal to the launches -> a report (errors, shares of the
+    bounds, counts, the launches' outputs `out` (H, g, cost, records),
+    and fn / plain / nbytes / ops_s for phase 8)."""
     import torch
 
     from mcslam_tpu_torch import _build
     from mcslam_tpu_torch.backend import ba, ba_vio, vio_cuda
-    from mcslam_tpu_torch.utils import graphs
 
     dev = p.poses.device
     K = p.poses.shape[0]
@@ -2446,15 +2453,12 @@ def check_vio_factors(p, repeats=2, graph_replays=0) -> dict:
     state = (p.poses, p.vels, p.biases, p.E_T_V)
     args = (*state, Hpp, gp, vcost)
     prep = vio_cuda.VioFactors(p)
-    counter = graphs.counters("vio_factors", 1, dev)
     before = _build.LAUNCHES.get("vio_factors", 0)
     outs = []
     for _ in range(repeats):
         out = prep(*args)
         outs.append((*out, vio_cuda.record_views(prep.scratch, prep.counts)))
         torch.cuda.synchronize()
-        check(int(counter[0]) == 0, "vio_factors: the arrival counter is "
-              "not back at 0 after a launch")
     launches = _build.LAUNCHES.get("vio_factors", 0) - before
 
     def flat(o):
@@ -2529,8 +2533,6 @@ def check_vio_factors(p, repeats=2, graph_replays=0) -> dict:
             torch.cuda.synchronize()
             check(all(same_bits(a, b) for a, b in zip(flat(g_out), flat(k))),
                   "vio_factors: a graph replay differs from the launch")
-            check(int(counter[0]) == 0, "vio_factors: the arrival counter "
-                  "is not back at 0 after a graph replay")
         rep["graph_replays"] = graph_replays
     tables = [t for t in (p.imu, p.gps, p.between) if t is not None]
     n_f64 = n_f32 = 0
@@ -2545,7 +2547,7 @@ def check_vio_factors(p, repeats=2, graph_replays=0) -> dict:
     N = K * vio_cuda.D + 6
     n_f32 += 2 * (N * N + N)
     rep.update(
-        fn=lambda: prep(*args),
+        out=k, fn=lambda: prep(*args),
         plain=lambda: vio_cuda.vio_factors_reference(p, *args),
         symbols=("vio_factors_kernel",), device_ops=1,
         nbytes=sum(t.nbytes for t in (*args, p.prior_H, p.prior_b))
@@ -2574,7 +2576,7 @@ def vio_factor_kernels(dev, kernels):
             for name, row in rep["tables"].items())
         print(f"# kernel vio_factors {case}: bitwise equal across two "
               f"launches and {rep['graph_replays']} graph replays, records "
-              f"included, counter back at 0; vs the plain version {tabs}; "
+              f"included; vs the plain version {tabs}; "
               f"H, g, cost "
               + ", ".join(f"{lab} {v:.3g}" for lab, v in rep["used"].items())
               + f" (records and H, g, cost: the largest share of an "
@@ -2879,6 +2881,9 @@ def main() -> int:
     check(cluster > 1, f"ba_linearize runs {cluster} block(s) per keyframe")
     print(f"# ba_linearize: one launch, a cluster of {cluster} CTAs per "
           f"keyframe (grid = K x {cluster})")
+    cluster = _build.library().mc_vio_factors_cluster()
+    check(cluster > 1, f"vio_factors runs {cluster} block(s)")
+    print(f"# vio_factors: one launch, one cluster of {cluster} CTAs")
 
     from mcslam_tpu_torch.slam import INITIALIZED
     from mcslam_tpu_torch.utils import metrics

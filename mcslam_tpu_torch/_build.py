@@ -42,6 +42,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # orb_describe keeps the default
 # flags, under which torch builds the atan2 its plain version calls; its
 # own products and sums are __fmul_rn / __fadd_rn, never contracted.
+# vio_factors keeps them too: its float64 residual contracts multiply-adds
+# into FMAs, while its float32 products and sums are __fmul_rn /
+# __fadd_rn.
 SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
                 "tri_refine": ["-fmad=false"],
                 "orb_pyramid": ["-fmad=false"],
@@ -50,8 +53,7 @@ SOURCE_FLAGS = {"ba_linearize": ["-fmad=false"],
                 "kabsch_hyp": ["-fmad=false"],
                 "pnp_hyp": ["-fmad=false"],
                 "track_glue": ["-fmad=false"],
-                "intra_glue": ["-fmad=false"],
-                "vio_factors": ["-fmad=false"]}
+                "intra_glue": ["-fmad=false"]}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -146,10 +148,12 @@ SIGNATURES = {
     # ray_idx, valid, xy, sigma2, uv, sigma, mask, anchor_cam, uv_ref,
     # anchor_sigma2, n_rays, multi & valid, M, C, N, stream
     "mc_tri_gather": [P] * 12 + [I] * 3 + [P],
-    # a host table of 39 device pointers (the state, the vision block, the
-    # prior, the three factor tables' fields, the outputs, the scratch and
-    # the counter: csrc/vio_factors.cu Args), K, F, G, B, g_norm, stream
+    # a host table of 38 device pointers (the state, the vision block, the
+    # prior, the three factor tables' fields, the outputs and the scratch:
+    # csrc/vio_factors.cu Args), K, F, G, B, g_norm, stream
     "mc_vio_factors": [P, I, I, I, I, D, P],
+    # -> the blocks of vio_factors' one cluster
+    "mc_vio_factors_cluster": [],
 }
 
 # Kernel launches by kernel name since the last reset: each wrapper adds

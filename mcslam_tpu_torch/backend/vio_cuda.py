@@ -24,7 +24,11 @@ version, `vio_factors_reference`: per table torch.func.vmap(
 torch.func.jacfwd) in float64 of the residuals below, a product with a
 0/1 selection matrix and two einsums (_Factor.linearize). The kernel
 reads the tables' index columns from device memory, so a captured solve
-keeps them as inputs (driver_window._replay_vio_solve).
+keeps them as inputs (driver_window._replay_vio_solve). It is one
+thread-block cluster: the factors spread over its blocks, each block
+starting a band of rows of H and g under the residuals and placing it
+after one cluster barrier; no arrival counter, no float atomics, so
+launches and graph replays are bit-equal.
 
 The two agree to rounding (chip_smoke.py phase 2 holds them on the card):
 J_f and r_f after the float32 cast equal or 1 ulp apart where the float64
@@ -47,7 +51,7 @@ import torch
 from mcslam_tpu_torch import _build
 from mcslam_tpu_torch.backend import imu as imu_mod
 from mcslam_tpu_torch.geometry import lie
-from mcslam_tpu_torch.utils import graphs, outputs
+from mcslam_tpu_torch.utils import outputs
 
 D = 15  # per-keyframe state dims (backend/ba_vio.D)
 # (tangent columns n, residual rows R) of a factor of each table
@@ -74,8 +78,8 @@ FIELDS = {
 # 0-6: poses, vels, biases, E_T_V, Hpp, gp, the vision cost
 _PRIOR_SLOT = 7  # prior_H, prior_b
 _TABLE_SLOT = 9  # the tables' fields, in FIELDS' order
-_OUT_SLOT = 34  # H, g, cost, scratch, counter
-_N_PTRS = 39
+_OUT_SLOT = 34  # H, g, cost, scratch
+_N_PTRS = 38
 
 
 def rec_floats(table: str) -> int:
@@ -85,14 +89,11 @@ def rec_floats(table: str) -> int:
     return R * n + R + n * n + n + 1
 
 
-def scratch_floats(F: int, G: int, B: int, N: int) -> int:
+def scratch_floats(F: int, G: int, B: int) -> int:
     """Floats of the scratch a launch with F IMU, G GPS and B between
-    factors needs at N = 15 K + 6: the records, then room for the last
-    block's accumulators of H and g (two floats and a flag byte an
-    entry), used where they do not fit in its shared memory."""
-    NN = N * N + N
+    factors needs: the factors' records."""
     return (F * rec_floats("imu") + G * rec_floats("gps")
-            + B * rec_floats("between") + 2 * NN + (NN + 3) // 4)
+            + B * rec_floats("between"))
 
 
 @functools.lru_cache(maxsize=16)
@@ -338,9 +339,7 @@ class VioFactors:
                 ptrs[slot:slot + len(got)] = [t.data_ptr() for t in got]
             slot += len(fields)
         self.keep, self.counts = keep, tuple(counts)
-        self.S = scratch_floats(*counts, N)
-        ptrs[_OUT_SLOT + 4] = graphs.counters("vio_factors", 1,
-                                              dev).data_ptr()
+        self.S = scratch_floats(*counts)
         self.ptrs = (ctypes.c_void_p * _N_PTRS)(*ptrs)
         self.g_norm = float(problem.g_norm)
 

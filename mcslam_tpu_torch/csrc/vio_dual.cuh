@@ -18,10 +18,12 @@
 //    the taken branch's (the other branch's NaN never leaks): _theta_terms'
 //    small = t2 < 1e-8 and sqrt(where(small, 1, t2)), so3_log's small =
 //    s2 < 1e-10, its near_pi branch and sign selections, the safe sine of
-//    so3_left_jacobian_inv;
-//  - torch's jvp rules: a * b -> b' a + a' b; a / b -> (a' - b' q) / b;
-//    sqrt -> a' / (2 sqrt a); sin, cos; atan2(y, x) -> (-y x' + x y') /
-//    (y^2 + x^2); clamp passes the derivative inside [lo, hi], bounds
+//    so3_left_jacobian_inv; the retraction at the zero tangent, on the
+//    Taylor branch, is written out (retract);
+//  - torch's jvp rules: a * b -> b' a + a' b; a / b -> (a' - b' q) / b,
+//    here with one reciprocal of b for q and the derivative; sqrt -> a' /
+//    (2 sqrt a); sin, cos (one sincos for both); atan2(y, x) -> (-y x' +
+//    x y') / (y^2 + x^2); clamp passes the derivative inside [lo, hi], bounds
 //    included, and gives 0 outside; 1.0 / t is reciprocal(t) * 1.0, whose
 //    derivative is -t' r^2;
 //  - Python constants are doubles (t2 / 6.0, 1.0 / 6.0, 0.5 * g * t * t
@@ -31,8 +33,9 @@
 //    [0 0 0 1] is the 3x3 block product plus T's translation column.
 // The operation orders of torch's float64 matrix products are not
 // repeatable, so this agrees with the plain version to float64 rounding,
-// not bit for bit; after the cast to float32 most values are equal and
-// the others 1 ulp apart.
+// not bit for bit (the kernel's build also contracts multiply-adds into
+// FMAs); after the cast to float32 most values are equal and the others
+// 1 ulp apart.
 
 #pragma once
 
@@ -82,8 +85,9 @@ VIO_HD Dual<S> operator*(Dual<S> a, Dual<S> b) {
 }
 template <class S>
 VIO_HD Dual<S> operator/(Dual<S> a, Dual<S> b) {
-  const S q = a.v / b.v;
-  return {q, (a.d - b.d * q) / b.v};
+  const S rb = S(1) / b.v;
+  const S q = a.v * rb;
+  return {q, (a.d - b.d * q) * rb};
 }
 // with a constant (a Python float or an input without derivative)
 template <class S>
@@ -121,17 +125,18 @@ VIO_HD Dual<S> dsqrt(Dual<S> a) {
   return {r, a.d / (S(2) * r)};
 }
 template <class S>
-VIO_HD Dual<S> dsin(Dual<S> a) {
-  return {sin(a.v), a.d * cos(a.v)};
-}
-template <class S>
-VIO_HD Dual<S> dcos(Dual<S> a) {
-  return {cos(a.v), a.d * -sin(a.v)};
-}
-template <class S>
 VIO_HD Dual<S> datan2(Dual<S> y, Dual<S> x) {
   return {atan2(y.v, x.v),
           (-y.v * x.d + x.v * y.d) / (y.v * y.v + x.v * x.v)};
+}
+// sin and cos of one angle by one sincos call: {sin a, a' cos a} and
+// {cos a, a' (-sin a)}
+template <class S>
+VIO_HD void dsincos(Dual<S> a, Dual<S>* s, Dual<S>* c) {
+  S sv, cv;
+  sincos(a.v, &sv, &cv);
+  *s = {sv, a.d * cv};
+  *c = {cv, a.d * -sv};
 }
 // 1.0 / a as torch evaluates it: reciprocal(a) * 1.0
 template <class S>
@@ -258,25 +263,18 @@ template <class S>
 VIO_HD M3<S> so3_exp(const V3<S>& w) {
   const Theta<S> t = theta_terms(w);
   const Dual<S> t2 = t.t2, th = t.theta;
-  const Dual<S> a =
-      t.small ? (S(1) - t2 / S(6)) + (t2 * t2) / S(120) : dsin(th) / th;
-  const Dual<S> b = t.small ? (S(0.5) - t2 / S(24)) + (t2 * t2) / S(720)
-                            : (S(1) - dcos(th)) / (th * th);
+  Dual<S> a, b;
+  if (t.small) {
+    a = (S(1) - t2 / S(6)) + (t2 * t2) / S(120);
+    b = (S(0.5) - t2 / S(24)) + (t2 * t2) / S(720);
+  } else {
+    Dual<S> sn, cs;
+    dsincos(th, &sn, &cs);
+    a = sn / th;
+    b = (S(1) - cs) / (th * th);
+  }
   const M3<S> W = hat(w);
   return eye_plus(a, W, b, mm(W, W));
-}
-
-// lie.so3_left_jacobian
-template <class S>
-VIO_HD M3<S> so3_left_jacobian(const V3<S>& w) {
-  const Theta<S> t = theta_terms(w);
-  const Dual<S> t2 = t.t2, th = t.theta;
-  const Dual<S> b =
-      t.small ? S(0.5) - t2 / S(24) : (S(1) - dcos(th)) / (th * th);
-  const Dual<S> c = t.small ? S(1.0 / 6.0) - t2 / S(120)
-                            : (th - dsin(th)) / ((th * th) * th);
-  const M3<S> W = hat(w);
-  return eye_plus(b, W, c, mm(W, W));
 }
 
 // lie.so3_left_jacobian_inv: I - W / 2 + coeff W2
@@ -288,9 +286,10 @@ VIO_HD M3<S> so3_left_jacobian_inv(const V3<S>& w) {
   if (t.small) {
     coeff = S(1.0 / 12.0) + t2 / S(720);
   } else {
-    const Dual<S> s = dsin(th);
+    Dual<S> s, cs;
+    dsincos(th, &s, &cs);
     const Dual<S> safe = fabs(s.v) < S(1e-12) ? cst<S>(S(1)) : s;
-    coeff = drecip(th * th) * S(1) - (S(1) + dcos(th)) / ((S(2) * th) * safe);
+    coeff = drecip(th * th) * S(1) - (S(1) + cs) / ((S(2) * th) * safe);
   }
   const M3<S> W = hat(w);
   return eye_plus(cst<S>(S(-0.5)), W, coeff, mm(W, W));
@@ -344,17 +343,28 @@ VIO_HD Pose<S> pose_of(const float* T) {
   return {rot_of<S>(T), trans_of<S>(T)};
 }
 
-// lie.se3_retract(T, xi) = T @ se3_exp(xi), xi = e_dir's components
-// off .. off + 5 (omega, v)
+// lie.se3_retract(T, xi) = T @ se3_exp(xi) at the tangent xi whose
+// primal is 0 and whose derivative is e_dir's components off .. off + 5
+// (omega, v), written out: se3_exp's Taylor branch at theta^2 = 0 gives
+// R = T.R with derivative T.R hat(e_w), and t = T.t with derivative
+// T.R e_v. Every term the generic evaluation adds besides these is an
+// exact zero, so each value and derivative is that evaluation's, up to
+// the sign of an exact zero
 template <class S>
 VIO_HD Pose<S> retract(const Pose<S>& T, int off, int dir) {
-  const V3<S> w = {{basis<S>(off, dir), basis<S>(off + 1, dir),
-                    basis<S>(off + 2, dir)}};
-  const V3<S> v = {{basis<S>(off + 3, dir), basis<S>(off + 4, dir),
-                    basis<S>(off + 5, dir)}};
-  const M3<S> R = so3_exp(w);
-  const V3<S> t = mv(so3_left_jacobian(w), v);
-  return {mm(T.R, R), vadd(mv(T.R, t), T.t)};
+  S e[6];
+  for (int k = 0; k < 6; ++k) e[k] = S(dir == off + k ? 1 : 0);
+  const S h[9] = {S(0), -e[2], e[1], e[2], S(0), -e[0], -e[1], e[0], S(0)};
+  Pose<S> P;
+  for (int i = 0; i < 3; ++i) {
+    const S a0 = T.R.m[3 * i].v, a1 = T.R.m[3 * i + 1].v,
+            a2 = T.R.m[3 * i + 2].v;
+    for (int j = 0; j < 3; ++j)
+      P.R.m[3 * i + j] = {T.R.m[3 * i + j].v,
+                          (a0 * h[j] + a1 * h[3 + j]) + a2 * h[6 + j]};
+    P.t.x[i] = {T.t.x[i].v, (a0 * e[3] + a1 * e[4]) + a2 * e[5]};
+  }
+  return P;
 }
 
 // lie.se3_inverse

@@ -44,16 +44,16 @@ C = 4, M = N = 2048, L = 4096 with no previous feature with a landmark
 and at C = 3, M = 97, N = 130, L = 50 with the map rows behind the
 cameras, each eagerly and through graph replays, track_epilogue's
 packed vector a buffer of its own; vio_factors (csrc/vio_factors.cu) at
-chip_smoke.py phase 2's problems (three at stage D, one at K = 12 with
-the last block's accumulators in the scratch, one with 60 IMU slots and
-its records read from L2), with GPS factors only and with no factor
-table, each eagerly and through graph replays, its records and its
-arrival counter guarded too. Every buffer a wrapper allocates (its
+chip_smoke.py phase 2's problems (three at stage D, one at K = 12, one
+with 60 IMU slots, which reads the factors' blocks from the scratch and
+loads each entry's start when it places it), with GPS factors only and
+with no factor table,
+each eagerly and through graph replays, its records guarded too. Every buffer a wrapper allocates (its
 outputs and its scratch, ransac_score's bit rows too) is placed inside
 a slab of canary bytes, PAD bytes on each side, the canary alternating from launch to
 launch (fixed in a graph, whose capture holds the slabs' filling), and
-so are intra_pairs', orb_select's, ransac_score's, track_epilogue's and
-vio_factors' per-device buffers of arrival counters (ransac_score's K count
+so are intra_pairs', orb_select's, ransac_score's and track_epilogue's
+per-device buffers of arrival counters (ransac_score's K count
 accumulators and track_epilogue's 64-bit counter of its two counts).
 After every launch it checks that no canary byte changed (a write out
 of bounds), that the counters are back at zero, that no input changed
@@ -142,7 +142,6 @@ def guarded_counters(fn, dev, canary: int, found: list, args=()):
                    ransac_cuda.score: ("ransac_score",
                                        args[0].shape[0] + 1 if args else 1),
                    track_epilogue: ("track_epilogue", 2),
-                   vio_factors_call: ("vio_factors", 1)
                    }.get(fn, (None, 0))
     if name is None:
         yield
@@ -668,8 +667,9 @@ def ransac_cases(quick: bool, dev, rng):
 
 
 def vio_factors_call(poses, vels, biases, E_T_V, Hpp, gp, cost, problem):
-    """vio_factors on a VioFactors prepared in the call (so that it takes
-    the guarded counter) -> (H, g, cost, the factors' records)."""
+    """vio_factors on a VioFactors prepared in the call (so that its
+    scratch is a guarded allocation) -> (H, g, cost, the factors'
+    records)."""
     from mcslam_tpu_torch.backend import vio_cuda
 
     prep = vio_cuda.VioFactors(problem)
@@ -679,10 +679,10 @@ def vio_factors_call(poses, vels, biases, E_T_V, Hpp, gp, cost, problem):
 
 def vio_cases(dev):
     """vio_factors at phase 2's problems (chip_smoke.VIO_FACTOR_CASES:
-    the stage D windows, K = 12 with the last block's accumulators in
-    the scratch, 60 IMU slots with the records read from L2), with only
-    GPS factors, and with no factor table (the vision block and the prior
-    placed alone); each eagerly and through graph replays. No plain
+    the stage D windows, K = 12, 60 IMU slots with the factors' blocks
+    read from the scratch), with only GPS factors, and with no factor
+    table (the vision block and the prior placed alone); each eagerly
+    and through graph replays. No plain
     version to hold it to bit for bit (chip_smoke.py phase 2 holds it to
     its criteria): the launches must equal the first."""
     import chip_smoke as cs

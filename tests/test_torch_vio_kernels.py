@@ -19,10 +19,13 @@ On the CPU:
   must take as torch.where does (so3_log's small branch at the truth, its
   near-pi branch, both at once at pi): r and J within 1e-12 of the
   largest magnitude of J (the residual at the truth is a difference of
-  terms of the Jacobian's magnitude); and its float64 operation counts,
-  which chip_smoke.VIO_DUAL_OPS holds for the kernel's bound.
+  terms of the Jacobian's magnitude); its float64 operation counts,
+  which chip_smoke.VIO_DUAL_OPS holds for the kernel's bound, and its
+  critical path (depth, long-latency operations), chip_smoke.VIO_DUAL_DEPTH.
 `gpu` cases (they skip without a card) hold the kernel to the plain
-version on the card under chip_smoke.check_vio_factors' criteria:
+version on the card under chip_smoke.check_vio_factors' criteria, also
+with a factor joining a keyframe to itself and with indices outside the
+window:
     python -m pytest --noconftest tests/test_torch_vio_kernels.py -m gpu -q
 (this file imports JAX only inside the JAX comparison).
 """
@@ -253,38 +256,55 @@ def test_padded_factors_add_zero_and_absent_tables_equal_invalid_ones():
 # ---- (d) csrc/vio_dual.cuh as host C++ against torch.func.jacfwd ----------
 
 HOST_SHIM = r"""
+#include <algorithm>
 #include <cmath>
 #include "vio_dual.cuh"
 
 namespace cnt {
-long long ops = 0;  // float64 operations: + - * / sqrt sin cos atan2
+long long ops = 0;  // float64 operations: + - * / sqrt sin cos atan2 sincos
+// a float64 value, the longest chain of operations that made it (each
+// result one deeper than its deepest input; a constant or an input at 0)
+// and the long-latency operations (/ sqrt sin cos atan2 sincos) on that
+// chain
 struct C {
   double x;
+  int dep = 0, lng = 0;
   C() = default;
   C(double v) : x(v) {}
 };
-inline C operator+(C a, C b) { ++ops; return C(a.x + b.x); }
-inline C operator-(C a, C b) { ++ops; return C(a.x - b.x); }
-inline C operator*(C a, C b) { ++ops; return C(a.x * b.x); }
-inline C operator/(C a, C b) { ++ops; return C(a.x / b.x); }
-inline C operator-(C a) { return C(-a.x); }
+inline C deeper(double x, C a, C b, bool slow) {
+  ++ops;
+  const C& m = a.dep > b.dep || (a.dep == b.dep && a.lng >= b.lng) ? a : b;
+  C r(x);
+  r.dep = m.dep + 1;
+  r.lng = m.lng + slow;
+  return r;
+}
+inline C operator+(C a, C b) { return deeper(a.x + b.x, a, b, false); }
+inline C operator-(C a, C b) { return deeper(a.x - b.x, a, b, false); }
+inline C operator*(C a, C b) { return deeper(a.x * b.x, a, b, false); }
+inline C operator/(C a, C b) { return deeper(a.x / b.x, a, b, true); }
+inline C operator-(C a) { a.x = -a.x; return a; }  // a sign: no operation
 inline bool operator<(C a, C b) { return a.x < b.x; }
 inline bool operator>(C a, C b) { return a.x > b.x; }
 inline bool operator<=(C a, C b) { return a.x <= b.x; }
 inline bool operator>=(C a, C b) { return a.x >= b.x; }
-inline C sqrt(C a) { ++ops; return C(std::sqrt(a.x)); }
-inline C sin(C a) { ++ops; return C(std::sin(a.x)); }
-inline C cos(C a) { ++ops; return C(std::cos(a.x)); }
-inline C atan2(C a, C b) { ++ops; return C(std::atan2(a.x, b.x)); }
-inline C fabs(C a) { return C(std::fabs(a.x)); }
-inline double val(C a) { return a.x; }
+inline C sqrt(C a) { return deeper(std::sqrt(a.x), a, a, true); }
+inline C sin(C a) { return deeper(std::sin(a.x), a, a, true); }
+inline C cos(C a) { return deeper(std::cos(a.x), a, a, true); }
+inline C atan2(C a, C b) { return deeper(std::atan2(a.x, b.x), a, b, true); }
+inline void sincos(C a, C* s, C* c) {
+  *s = deeper(std::sin(a.x), a, a, true);
+  *c = *s;
+  c->x = std::cos(a.x);
+}
+inline C fabs(C a) { a.x = std::fabs(a.x); return a; }
 }  // namespace cnt
-inline double val(double a) { return a; }
-using cnt::val;
 
-// one factor's float32 inputs packed in its Inputs struct's order
+// one factor's float32 inputs packed in its Inputs struct's order; out:
+// the residual (R) and its derivative along e_dir (R)
 template <class S>
-void imu(const float* p, double g, int dir, double* out) {
+void imu(const float* p, double g, int dir, S* out) {
   vio::ImuInputs in;
   const float** f[] = {&in.Ti, &in.vi, &in.bi, &in.Tj, &in.vj, &in.bj,
                        &in.dR, &in.dv, &in.dp, &in.dt, &in.dR_dbg,
@@ -294,35 +314,42 @@ void imu(const float* p, double g, int dir, double* out) {
   for (int k = 0; k < 17; ++k) { *f[k] = p; p += size[k]; }
   vio::Dual<S> r[15];
   vio::imu_residual<S>(in, S(g), dir, r);
-  for (int k = 0; k < 15; ++k) { out[k] = val(r[k].v); out[15 + k] = val(r[k].d); }
+  for (int k = 0; k < 15; ++k) { out[k] = r[k].v; out[15 + k] = r[k].d; }
 }
 
 template <class S>
-void gps(const float* p, double, int dir, double* out) {
+void gps(const float* p, double, int dir, S* out) {
   vio::GpsInputs in{p, p + 16, p + 32, p + 35};
   vio::Dual<S> r[3];
   vio::gps_residual<S>(in, dir, r);
-  for (int k = 0; k < 3; ++k) { out[k] = val(r[k].v); out[3 + k] = val(r[k].d); }
+  for (int k = 0; k < 3; ++k) { out[k] = r[k].v; out[3 + k] = r[k].d; }
 }
 
 template <class S>
-void between(const float* p, double, int dir, double* out) {
+void between(const float* p, double, int dir, S* out) {
   vio::BetweenInputs in{p, p + 16, p + 32, p + 48, p + 49};
   vio::Dual<S> r[6];
   vio::between_residual<S>(in, dir, r);
-  for (int k = 0; k < 6; ++k) { out[k] = val(r[k].v); out[6 + k] = val(r[k].d); }
+  for (int k = 0; k < 6; ++k) { out[k] = r[k].v; out[6 + k] = r[k].d; }
 }
 
-// out: the residual (R) and its derivative along e_dir (R); the count
-// entries return the float64 operations of one direction's evaluation
+// the count entries return the float64 operations of one direction's
+// evaluation and put the deepest output's chain (depth, long-latency
+// operations on it) into chain
 #define ENTRY(name)                                                        \
   extern "C" void vio_##name(const float* p, double g, int dir,           \
                              double* out) { name<double>(p, g, dir, out); } \
   extern "C" long long vio_##name##_ops(const float* p, double g,         \
-                                        int dir) {                        \
-    double out[30];                                                       \
+                                        int dir, int* chain) {            \
+    cnt::C out[30];                                                       \
     cnt::ops = 0;                                                         \
     name<cnt::C>(p, g, dir, out);                                         \
+    chain[0] = chain[1] = 0;                                              \
+    for (const cnt::C& o : out)                                           \
+      if (o.dep > chain[0] || (o.dep == chain[0] && o.lng > chain[1])) {  \
+        chain[0] = o.dep;                                                 \
+        chain[1] = o.lng;                                                 \
+      }                                                                   \
     return cnt::ops;                                                      \
   }
 ENTRY(imu)
@@ -348,26 +375,29 @@ def host_dual(tmp_path_factory):
     P, Dd, I = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
     for name in vio_cuda.SHAPES:
         getattr(so, f"vio_{name}").argtypes = [P, Dd, I, P]
-        getattr(so, f"vio_{name}_ops").argtypes = [P, Dd, I]
+        getattr(so, f"vio_{name}_ops").argtypes = [P, Dd, I, P]
         getattr(so, f"vio_{name}_ops").restype = ctypes.c_longlong
     return so
 
 
 def _host(so, name, packed, g_norm=9.81):
     """(r (R,), J (R, n)) float64 of the host build, one call per
-    tangent direction; and the operations per direction."""
+    tangent direction; the operations per direction; and the deepest
+    chain per direction, (depth, long-latency operations on it)."""
     n, R = vio_cuda.SHAPES[name]
     buf = np.ascontiguousarray(packed, np.float32)
     out = np.zeros(2 * R, np.float64)
+    chain = np.zeros(2, np.int32)
     J = np.zeros((R, n))
-    ops = []
+    ops, chains = [], []
     for t in range(n):
         getattr(so, f"vio_{name}")(buf.ctypes.data, g_norm, t,
                                    out.ctypes.data)
         J[:, t] = out[R:]
         ops.append(getattr(so, f"vio_{name}_ops")(buf.ctypes.data, g_norm,
-                                                  t))
-    return out[:R].copy(), J, ops
+                                                  t, chain.ctypes.data))
+        chains.append(tuple(int(c) for c in chain))
+    return out[:R].copy(), J, ops, chains
 
 
 def _jacfwd(fn, n, args):
@@ -455,7 +485,7 @@ def _log_branch(R):
 
 
 def _check_dual(host, ref):
-    (r, J, _), (r_t, J_t) = host, ref
+    (r, J, _, _), (r_t, J_t) = host, ref
     scale = max(np.abs(J_t).max(), np.abs(r_t).max())
     assert np.abs(J - J_t).max() <= DUAL_REL * scale, np.abs(J - J_t).max()
     assert np.abs(r - r_t).max() <= DUAL_REL * scale, np.abs(r - r_t).max()
@@ -504,18 +534,34 @@ def test_host_dual_gps_matches_jacfwd(host_dual):
         _check_dual(_host(host_dual, "gps", packed), ref)
 
 
+def _random_cases(so):
+    rng = np.random.RandomState(41)
+    return {"imu": _host(so, "imu", _imu_case(rng, False)[0]),
+            "gps": _host(so, "gps", _gps_case(rng)[0]),
+            "between": _host(so, "between", _between_case(rng, "random")[0])}
+
+
 def test_host_dual_operation_counts(host_dual):
     """The float64 operations of one lane (one tangent direction) on the
     random cases, which chip_smoke.VIO_DUAL_OPS states: the same for
     every direction (the branches follow the primal)."""
-    rng = np.random.RandomState(41)
-    got = {"imu": _host(host_dual, "imu", _imu_case(rng, False)[0])[2],
-           "gps": _host(host_dual, "gps", _gps_case(rng)[0])[2],
-           "between": _host(host_dual, "between",
-                            _between_case(rng, "random")[0])[2]}
-    for name, ops in got.items():
+    for name, (_, _, ops, _) in _random_cases(host_dual).items():
         assert len(set(ops)) == 1, (name, ops)
         assert ops[0] == cs.VIO_DUAL_OPS[name], (name, ops[0])
+
+
+def test_host_dual_chain_depths(host_dual):
+    """The float64 critical path of one lane on the random cases: the
+    depth of the deepest output (each result one deeper than its deepest
+    input) and the long-latency operations on that chain (/ sqrt sin cos
+    atan2 sincos), which chip_smoke.VIO_DUAL_DEPTH states; the same for
+    every direction. The source's operations, as written: the kernel's
+    build may contract a multiply and an add into one FMA."""
+    for name, (_, _, ops, chains) in _random_cases(host_dual).items():
+        assert len(set(chains)) == 1, (name, chains)
+        assert chains[0] == cs.VIO_DUAL_DEPTH[name], (name, chains[0])
+        depth, slow = chains[0]
+        assert 0 <= slow < depth < ops[0], (name, chains[0], ops[0])
 
 
 # ---- gpu: the kernel against its plain version on the card ----------------
@@ -530,6 +576,65 @@ def test_kernel_matches_plain_on_cuda(cuda, case):
 
 
 @pytest.mark.gpu
-def test_kernel_graph_replays_are_bit_equal(cuda):
-    p = cs.vio_factors_problem(cuda, "imu+gps+between")
+@pytest.mark.parametrize("case", ["imu+gps+between", "K=12 imu+gps",
+                                  "60 IMU slots+gps"])
+def test_kernel_graph_replays_are_bit_equal(cuda, case):
+    """Also at K = 12 (three factors a block) and with 60 IMU slots (the
+    factors' blocks read from the scratch)."""
+    p = cs.vio_factors_problem(cuda, case)
     cs.check_vio_factors(p, repeats=1, graph_replays=5)
+
+
+@pytest.mark.gpu
+def test_kernel_merges_a_keyframe_joined_to_itself_on_cuda(cuda):
+    """A valid IMU factor from a keyframe to itself: its two halves'
+    columns added, as the plain version's selection matrix adds them."""
+    p = cs.vio_factors_problem(cuda, "imu+gps")
+    j = p.imu.j.clone()
+    j[2] = p.imu.i[2]
+    p = p._replace(imu=p.imu._replace(j=j))
+    assert bool(p.imu.valid[2])
+    cs.check_vio_factors(p, repeats=2, graph_replays=2)
+
+
+@pytest.mark.gpu
+def test_kernel_clamps_indices_outside_the_window_on_cuda(cuda):
+    """Invalid factors whose indices lie outside [0, K) (an IMU factor at
+    (-3, K + 2), a GPS factor at K + 4, a between factor at (-1, K)) read
+    keyframes 0 or K - 1 and add nothing: the launch equals, bit for bit,
+    records included, the launch on the problem with those indices
+    clamped, which check_vio_factors holds to the plain version (whose
+    index_select faults on an index outside the window)."""
+    import torch
+
+    from mcslam_tpu_torch.backend import vio_cuda
+
+    p = cs.vio_factors_problem(cuda, "imu+gps+between")
+    K = p.poses.shape[0]
+
+    def put(table, **cols):
+        out = {}
+        for name, (k, v) in cols.items():
+            col = getattr(table, name).clone()
+            col[k] = v
+            out[name] = col
+        valid = table.valid.clone()
+        valid[next(iter(cols.values()))[0]] = False
+        return table._replace(valid=valid, **out)
+
+    bad = p._replace(imu=put(p.imu, i=(1, -3), j=(1, K + 2)),
+                     gps=put(p.gps, kf=(0, K + 4)),
+                     between=put(p.between, i=(3, -1), j=(3, K)))
+    ok = p._replace(imu=put(p.imu, i=(1, 0), j=(1, K - 1)),
+                    gps=put(p.gps, kf=(0, K - 1)),
+                    between=put(p.between, i=(3, 0), j=(3, K - 1)))
+    rep = cs.check_vio_factors(ok, repeats=1)
+    vis = _vision(bad)
+    prep = vio_cuda.VioFactors(bad)
+    out = prep(*_state(bad), *vis)
+    recs = vio_cuda.record_views(prep.scratch, prep.counts)
+    torch.cuda.synchronize()
+    want = rep["out"]
+    assert all(cs.same_bits(a, b) for a, b in zip(out, want[:3]))
+    for name, rec in recs.items():
+        assert all(cs.same_bits(a, b) for a, b in zip(rec, want[3][name]))
